@@ -1,0 +1,110 @@
+"""Boundaries of the port package (marlin_tpu_torch) and of chip_smoke.py.
+
+* Neither imports JAX or the JAX package (``marlin_tpu``): the port keeps
+  its own copy of what it needs. Proved statically (an AST scan of every
+  import) and dynamically (importing the port in a fresh interpreter
+  leaves ``jax`` out of ``sys.modules``).
+* With CUDA absent, an entry point called without ``device="cpu"``
+  raises instead of quietly running on the CPU.
+"""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from marlin_tpu_torch.models import convert
+from marlin_tpu_torch.models import transformer as pt
+from marlin_tpu_torch.ops import build
+from marlin_tpu_torch.serving import ServingEngine
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "marlin_tpu_torch").rglob("*.py")) \
+    + [ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "marlin_tpu")
+
+
+def _imported_modules(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+        elif isinstance(node, ast.Call) and getattr(
+                node.func, "attr", getattr(node.func, "id", "")) in (
+                    "import_module", "__import__"):
+            for arg in node.args[:1]:
+                if isinstance(arg, ast.Constant) and isinstance(arg.value,
+                                                                str):
+                    yield arg.value
+
+
+def test_no_port_file_imports_jax_or_the_jax_package():
+    assert len(PORT_FILES) > 10
+    offenders = []
+    for path in PORT_FILES:
+        for mod in _imported_modules(path):
+            if mod.split(".")[0] in FORBIDDEN:
+                offenders.append(f"{path.relative_to(ROOT)}: {mod}")
+    assert not offenders, offenders
+
+
+def test_importing_the_port_pulls_in_no_jax():
+    code = ("import sys\n"
+            "import marlin_tpu_torch.serving, marlin_tpu_torch.models\n"
+            "import marlin_tpu_torch.ops.flash_attention\n"
+            "bad = sorted(m for m in sys.modules\n"
+            "             if m.split('.')[0] in ('jax', 'jaxlib',\n"
+            "                                    'marlin_tpu'))\n"
+            "assert not bad, bad\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
+def test_kernels_are_built_for_hopper_at_first_use_only():
+    # Importing the package builds nothing; the build targets sm_90a
+    # (wgmma and setmaxnreg exist only for the "a" target).
+    assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
+    for name, src in build.SOURCES.items():
+        assert src.is_file() and src.suffix == ".cu"
+        assert build.library_path(name).parent == build.BUILD_DIR
+
+
+class TestNoSilentCpuFallback:
+    @pytest.fixture(autouse=True)
+    def _no_cuda(self):
+        if torch.cuda.is_available():
+            pytest.skip("CUDA is present: the default device is valid here")
+
+    def test_entry_points_default_to_cuda_and_raise(self):
+        cfg = pt.TransformerConfig(vocab=32, d_model=16, n_heads=2,
+                                   n_layers=1, d_ff=32, max_len=32)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            pt.init_params(cfg)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            pt.init_kv_cache(cfg, 2)
+        tree = _to_numpy(pt.init_params(cfg, device="cpu"))
+        with pytest.raises(RuntimeError, match="CUDA"):
+            convert.params_from_jax(tree, cfg)
+        params = pt.init_params(cfg, device="cpu")
+        with pytest.raises(RuntimeError, match="CUDA"):
+            ServingEngine(params, cfg)
+        # Asked for explicitly, the CPU works.
+        eng = ServingEngine(params, cfg, device="cpu")
+        eng.submit(np.arange(3), 2)
+        assert eng.run()[0].tokens.shape == (2,)
+
+
+def _to_numpy(tree):
+    if isinstance(tree, dict):
+        return {k: _to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_numpy(v) for v in tree]
+    return tree.numpy()
