@@ -1,30 +1,54 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (marlin_tpu_torch) on one NVIDIA GPU and check it.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                    # every phase below
+    python3 chip_smoke.py --planted-faults   # the backward check's teeth
 
 Phases, each of which exits non-zero on failure:
 
 1. Device: require CUDA; print the card's name and power limit.
 2. Build: compile every CUDA kernel of the port from csrc/ (one nvcc per
    source, started together) and print the build time and ptxas report.
-3. Kernel vs plain: hold the flash-attention kernel against its plain
-   PyTorch version on the card at the serving path's shapes and the edge
-   cases (ragged, MHA, MQA, cross lengths with Dv != D, window, D=64,
-   f32); time the kernel, the plain version, torch's
-   scaled_dot_product_attention (a yardstick the port never calls) and
-   the roofline bound.
-4. Slice: serve the flagship transformer (vocab 32768, d_model 1024, 8
-   heads, 2 KV heads, 8 layers, d_ff 4096, max_len 2048, RoPE, bf16;
-   random weights from a seed) with ServingEngine(batch=8,
-   round_steps=8): 16 requests with prompts of 64-1536 tokens and 32
-   steps each, in two waves. Check every request against the port's own
-   B=1 generate, and that the flash kernel ran exactly once per layer per
-   admission (its launch counter is zeroed just before the run and read
-   just after).
+3. Forward kernel vs plain: hold the flash-attention forward kernel
+   against its plain PyTorch version on the card at every shape the main
+   path gives it (the served prefill, the training step's B=8 S=2048,
+   the remat step's S=8192 MHA) and the edge cases (ragged, MHA, MQA,
+   cross lengths with Dv != D, window, D=64, f32); time the kernel, the
+   plain version, torch's scaled_dot_product_attention (a yardstick the
+   port never calls) and the roofline bound.
+4. Backward kernels vs plain: the dQ and dK/dV kernels against the plain
+   backward at the training step's and the remat step's shapes and the
+   same edge cases, per 64-position tile (tile_rel_err), after holding
+   the forward's O and lse that they read against the plain forward;
+   times, bounds and the backward of scaled_dot_product_attention as the
+   yardstick; dK/dV bitwise equal over two runs; and one backward at
+   S=8192 that allocates no more than its inputs, outputs, lse/Delta and
+   a stated slack (no (S, S) buffer).
+5. Serve: the flagship transformer (vocab 32768, d_model 1024, 8 heads, 2
+   KV heads, 8 layers, d_ff 4096, max_len 2048, RoPE, bf16; random
+   weights from a seed) with ServingEngine(batch=8, round_steps=8): 16
+   requests with prompts of 64-1536 tokens and 32 steps each, in two
+   waves. Check every request against the port's own B=1 generate, and
+   that the flash kernel ran exactly once per layer per admission (its
+   launch counter is zeroed just before the run and read just after).
+6. Train: the same flagship, bf16 compute on f32 master params, B=8,
+   S=2048, SGD at lr 0.1: one warm-up train_step, then 5 timed steps on
+   one fixed batch. Every loss finite, the last below the first, and the
+   forward, dQ and dK/dV kernels each launched exactly layers x steps
+   (counters zeroed just before, read just after). Then one remat step
+   at the long-context shape (S=8192, B=1, vocab 16384), whose forward
+   runs twice per layer, and a profiled flagship step.
+7. Card against CPU: full width, 2 layers, B=1, S=512, f32: loss_fn and
+   every gradient leaf on the card (the f32 kernels) against the same
+   call on the CPU (the plain versions), TF32 off.
 
 The last three lines of output are the card line from nvidia-smi, one
 {"kernels": [...]} JSON object, and {"ok": true, "device": {...}}.
+
+With ``--planted-faults`` it runs phase 1, then builds the backward source
+with each fault of PLANTED_FAULTS into a temporary directory and prints,
+at every bf16 backward shape, the sound kernels' and each fault's reading
+of the backward check; it fails unless the check's limit separates them.
 """
 
 from __future__ import annotations
@@ -51,9 +75,14 @@ FLAGSHIP = dict(vocab=32768, d_model=1024, n_heads=8, n_kv_heads=2,
                 dtype="bfloat16")
 
 # Kernel-vs-plain shapes: (name, B, Sq, Skv, H, Hk, D, Dv, dtype, causal,
-# window). "flagship" is the model's full-length prefill.
+# window). The main path's shapes: "flagship" is the served model's
+# full-length prefill, "train" the flagship training step's attention
+# (B=8, S=2048) and "remat" the long-context remat step's (B=1, S=8192,
+# MHA); the rest are edge cases.
 SHAPES = [
     ("flagship", 1, 2048, 2048, 8, 2, 128, 128, "bfloat16", True, 0),
+    ("train", 8, 2048, 2048, 8, 2, 128, 128, "bfloat16", True, 0),
+    ("remat", 1, 8192, 8192, 8, 8, 128, 128, "bfloat16", True, 0),
     ("ragged", 1, 1000, 1000, 8, 2, 128, 128, "bfloat16", True, 0),
     ("mha", 1, 1024, 1024, 8, 8, 128, 128, "bfloat16", True, 0),
     ("mqa", 1, 1024, 1024, 8, 1, 128, 128, "bfloat16", True, 0),
@@ -62,6 +91,61 @@ SHAPES = [
     ("d64", 2, 1024, 1024, 8, 2, 64, 64, "bfloat16", True, 0),
     ("f32", 1, 1000, 1000, 8, 2, 128, 128, "float32", True, 0),
 ]
+
+# Backward shapes: the training paths' two and the same edge cases.
+BWD_SHAPES = [s for s in SHAPES if s[0] != "flagship"]
+
+# Backward tolerance by dtype, on the worst 64-position tile's relative
+# Frobenius error ||kernel - plain||_F / ||plain||_F (tile_rel_err), for
+# each of dQ, dK and dV. A global max |kernel - plain| / max |plain| is
+# blind to the small gradients: under causal attention dK and dV of the
+# last keys are ~1e-3 of those of the first, so a dropped tile there moves
+# the global ratio by less than bf16 noise. Per tile, a dropped key or
+# query tile costs its tiles a whole share of their norm. bf16: the
+# kernels round P and dS to bf16 before their products (the plain
+# backward keeps them f32; 2^-9 relative per term) and both sides round
+# the gradients to bf16 (2^-9 relative per value). The limit sits between
+# the sound kernels' reading and the readings of planted faults
+# (``--planted-faults``; both in PERF.md). f32: FMA in full f32 (no TF32)
+# against the plain version's f32 einsums, so only summation order
+# differs.
+BWD_TOLERANCE = {"bfloat16": 2e-2, "float32": 1e-5}
+TILE = 64  # positions per tile of tile_rel_err: the kernels' own tile
+
+# Planted faults of the backward (``python3 chip_smoke.py
+# --planted-faults``): each is one edit of csrc/flash_attention_bwd.cu
+# (the first occurrence of the text, in the bf16 kernels), built into a
+# temporary directory outside the checkout. The backward check must pass
+# the sound kernels and fail every fault at every bf16 backward shape.
+PLANTED_FAULTS = {
+    # The dQ kernel's key sweep skips the sequence's last key tile.
+    "dq_drops_last_key_tile": (
+        "    __syncthreads();  // the previous K/V tile is fully consumed\n",
+        "    if (n0 + kBN >= Skv) break;\n"
+        "    __syncthreads();  // the previous K/V tile is fully consumed\n"),
+    # The dK/dV kernel's query sweep stops before the last query tile.
+    "dkv_drops_last_query_tile": (
+        "  int last = n_q;  // exclusive, in tiles\n",
+        "  int last = n_q - 1;  // exclusive, in tiles\n"),
+    # The dK/dV kernel's last key tile accumulates nothing.
+    "dkv_drops_last_key_tile": (
+        "  for (int gi = 0; gi < group; ++gi) {\n",
+        "  for (int gi = 0; gi < (n0 + kBN >= Skv ? 0 : group); ++gi) {\n"),
+}
+
+# Card against CPU, the model's gradients at f32: the worst leaf's
+# max |card - cpu| / max |cpu|. Both sides run f32 arithmetic (TF32 off)
+# in different orders (cuBLAS and the FMA kernels against CPU GEMMs and
+# the plain einsums) through 2 layers and a 32768-wide readout; 1e-4 is
+# ~1000 f32 ulps of the largest gradient of each leaf.
+GRAD_TOLERANCE = 1e-4
+
+# Training configuration: the flagship at the train bench's precision
+# (benchlib/configs_ml.py config_transformer) and the long-context bench's
+# remat step (config_longseq: S=8192, B=1, vocab 16384, RoPE, MHA).
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 2048, 5
+LONG = dict(vocab=16384, d_model=1024, n_heads=8, n_layers=8, d_ff=4096,
+            max_len=8192, rope=True, remat=True, dtype="bfloat16")
 
 # Tolerances of kernel vs plain version, by dtype: (O abs, lse abs).
 # bf16: the kernel rounds P to bf16 before the P.V product (the plain
@@ -91,15 +175,67 @@ def cuda_ms(fn, warmup: int = 3, iters: int = 10) -> float:
     return start.elapsed_time(end) / iters
 
 
-def attention_flops(b, sq, skv, h, d, dv, causal, window) -> float:
-    """FLOPs of Q K^T and P V over the (q, k) pairs these inputs need:
-    the causal triangle and the window band only."""
+def live_pairs(sq, skv, causal, window) -> int:
+    """The (q, k) pairs these inputs need: the causal triangle and the
+    window band only."""
     pairs = 0
     for qp in range(sq):
         hi = min(qp + 1, skv) if causal else skv
         lo = max(0, qp - window + 1) if window else 0
         pairs += max(0, hi - lo)
-    return 2.0 * b * h * pairs * (d + dv)
+    return pairs
+
+
+def attention_flops(b, sq, skv, h, d, dv, causal, window) -> float:
+    """FLOPs of Q K^T and P V over the live (q, k) pairs."""
+    return 2.0 * b * h * live_pairs(sq, skv, causal, window) * (d + dv)
+
+
+def bound(flops, nbytes, dtype):
+    """(bound ms, "operations" or "bytes"): the larger of FLOPs over the
+    dtype's peak and bytes over the HBM rate."""
+    t_ops = flops / PEAK_FLOPS[str(dtype)] * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes")
+
+
+def nbytes(*tensors) -> int:
+    return sum(x.numel() * x.element_size() for x in tensors)
+
+
+def tile_rel_err(got, ref) -> float:
+    """The worst tile's ||got - ref||_F / ||ref||_F over (B, S, H, D)
+    tensors, a tile being TILE consecutive positions of one head of one
+    batch row (the last tile of a ragged S is shorter)."""
+    import torch.nn.functional as F
+
+    b, s, h, d = ref.shape
+    pad = (-s) % TILE
+
+    def tiles(x):  # (B, T, H): squared norm of each tile
+        x = F.pad(x, (0, 0, 0, 0, 0, pad)).reshape(b, -1, TILE, h, d)
+        return x.square().sum(dim=(2, 4))
+
+    num = tiles(got.float() - ref.float())
+    den = tiles(ref.float())
+    if bool((den == 0).any()):
+        raise ValueError("tile_rel_err: a tile of the reference is all zero")
+    return (num / den).max().sqrt().item()
+
+
+def check_forward(label, o_k, lse_k, o_r, lse_r, dt):
+    """Hold the forward kernel's (O, lse) against the plain version's at
+    TOLERANCE[dt]; returns (max |O err|, max |lse err|)."""
+    err_o = (o_k.float() - o_r.float()).abs().max().item()
+    err_lse = (lse_k - lse_r).abs().max().item()
+    if not (math.isfinite(err_o) and math.isfinite(err_lse)):
+        fail(f"{label}: non-finite output")
+    tol_o, tol_lse = TOLERANCE[dt]
+    if err_o > tol_o or err_lse > tol_lse:
+        fail(f"{label}: |O - plain| = {err_o:.3e} (tol {tol_o}), "
+             f"|lse - plain| = {err_lse:.3e} (tol {tol_lse})")
+    return err_o, err_lse
 
 
 def phase_device():
@@ -135,7 +271,7 @@ def phase_build():
 
 
 def phase_kernels():
-    """Kernel vs plain at every shape; returns the flagship row."""
+    """Kernel vs plain at every shape; returns the rows by shape name."""
     import torch
     import torch.nn.functional as F
 
@@ -154,41 +290,34 @@ def phase_kernels():
         v = torch.randn((b, skv, hk, dv), generator=gen, device="cuda",
                         dtype=torch.float32).to(dtype)
 
+        # Checked through the public wrapper; timed, like the plain
+        # version, on the prescaled q_hat (the wrapper's prescale is an
+        # elementwise pass over Q, not the kernel).
+        q_hat, kk, vv = fa._prepare(q, k, v, causal, None, window)
+
         def kernel():
-            return fa.flash_attention_fwd(q, k, v, causal, None, window)
+            return fa._launch(q_hat, kk, vv, causal, window)
 
         def plain():
-            q_hat, kk, vv, _ = fa._prepare(q, k, v, causal, None, window)
             return fa.flash_attention_reference(q_hat, kk, vv, causal,
                                                 window)
 
-        o_k, lse_k = kernel()
+        o_k, lse_k = fa.flash_attention_fwd(q, k, v, causal, None, window)
         torch.cuda.synchronize()
-        o_r, lse_r = plain()
-        err_o = (o_k.float() - o_r.float()).abs().max().item()
-        err_lse = (lse_k - lse_r).abs().max().item()
-        if not (math.isfinite(err_o) and math.isfinite(err_lse)):
-            fail(f"kernel {name}: non-finite output")
-        tol_o, tol_lse = TOLERANCE[dt]
-        if err_o > tol_o or err_lse > tol_lse:
-            fail(f"kernel {name}: |O - plain| = {err_o:.3e} (tol {tol_o}), "
-                 f"|lse - plain| = {err_lse:.3e} (tol {tol_lse})")
+        err_o, err_lse = check_forward(f"kernel {name}", o_k, lse_k,
+                                       *plain(), dt)
         ms = cuda_ms(kernel, iters=20)
         plain_ms = cuda_ms(plain, warmup=1, iters=3)
         lib_ms = library_ms(F, q, k, v, causal, window)
         # Bound: max(FLOPs / peak, bytes / HBM rate), reading Q, K, V once
         # and writing O and lse once.
         flops = attention_flops(b, sq, skv, h, d, dv, causal, window)
-        nbytes = sum(x.numel() * x.element_size() for x in (q, k, v, o_k)) \
-            + lse_k.numel() * 4
-        t_ops = flops / PEAK_FLOPS[str(dtype)] * 1e3
-        t_bytes = nbytes / PEAK_BYTES * 1e3
+        bound_ms, bound_by = bound(flops, nbytes(q, k, v, o_k, lse_k), dtype)
         row = dict(shape=name, B=b, Sq=sq, Skv=skv, H=h, Hk=hk, D=d, Dv=dv,
                    dtype=dt, causal=causal, window=window,
                    max_abs_err=err_o, lse_max_abs_err=err_lse, ms=ms,
                    plain_ms=plain_ms, library_ms=lib_ms,
-                   bound_ms=max(t_ops, t_bytes),
-                   bound_by="operations" if t_ops >= t_bytes else "bytes",
+                   bound_ms=bound_ms, bound_by=bound_by,
                    tflops=flops / (ms * 1e-3) / 1e12)
         rows[name] = row
         print("kernel: " + json.dumps(row), flush=True)
@@ -197,8 +326,24 @@ def phase_kernels():
 
 def library_ms(F, q, k, v, causal, window):
     """torch's scaled_dot_product_attention on the same inputs (the
-    yardstick; heads-first layout, GQA through enable_gqa). None where it
-    does not take the case."""
+    yardstick). None where it does not take the case."""
+    args = _sdpa_args(q, k, v, causal, window)
+    if args is None:
+        return None
+    qt, kt, vt, kw = args
+    try:
+        return cuda_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, **kw), iters=20)
+    except (RuntimeError, TypeError) as e:  # the yardstick only
+        print(f"  library: scaled_dot_product_attention unavailable for "
+              f"this case: {e}")
+        return None
+
+
+def _sdpa_args(q, k, v, causal, window):
+    """torch's scaled_dot_product_attention arguments for the same
+    function (heads-first layout, GQA through enable_gqa, the window as a
+    mask); None where it does not take the case (causal cross lengths)."""
     import torch
 
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
@@ -212,13 +357,456 @@ def library_ms(F, q, k, v, causal, window):
         if sq != skv:
             return None
         kw["is_causal"] = True
-    try:
-        return cuda_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, **kw), iters=20)
-    except (RuntimeError, TypeError) as e:  # the yardstick only
-        print(f"  library: scaled_dot_product_attention unavailable for "
-              f"this case: {e}")
+    return qt, kt, vt, kw
+
+
+def library_bwd_ms(F, q, k, v, do, causal, window):
+    """The backward of torch's scaled_dot_product_attention on the same
+    inputs (dQ, dK and dV in one call; the yardstick, never called by the
+    port). None where it does not take the case."""
+    import torch
+
+    args = _sdpa_args(q, k, v, causal, window)
+    if args is None:
         return None
+    qt, kt, vt, kw = args
+    leaves = [x.detach().contiguous().requires_grad_(True)
+              for x in (qt, kt, vt)]
+    try:
+        out = F.scaled_dot_product_attention(*leaves, **kw)
+        dot = do.transpose(1, 2).contiguous()
+        return cuda_ms(lambda: torch.autograd.grad(
+            out, leaves, dot, retain_graph=True), iters=10)
+    except (RuntimeError, TypeError) as e:  # the yardstick only
+        print(f"  library: scaled_dot_product_attention backward "
+              f"unavailable for this case: {e}")
+        return None
+
+
+class BwdCase:
+    """One backward shape's inputs on the card: random q, k, v and dO
+    from ``gen``, the prescaled q_hat, the forward kernel's O and lse
+    (held against the plain forward first, so a forward fault at this
+    shape shows as one and not as a backward disagreement) and Delta;
+    with the two kernels' and the plain backward's calls."""
+
+    def __init__(self, gen, shape):
+        import torch
+
+        from marlin_tpu_torch.ops import flash_attention as fa
+
+        (self.name, b, sq, skv, h, hk, d, dv, self.dt, self.causal,
+         self.window) = shape
+        self.fa = fa
+        dtype = getattr(torch, self.dt)
+
+        def randn(*dims):
+            return torch.randn(dims, generator=gen, device="cuda",
+                               dtype=torch.float32).to(dtype)
+
+        self.q, k, v = randn(b, sq, h, d), randn(b, skv, hk, d), randn(
+            b, skv, hk, dv)
+        self.do = randn(b, sq, h, dv)
+        self.scale = 1.0 / math.sqrt(d)
+        self.q_hat, self.k, self.v = fa._prepare(self.q, k, v, self.causal,
+                                                 self.scale, self.window)
+        self.o, self.lse = self.fwd()
+        torch.cuda.synchronize()
+        check_forward(f"backward {self.name}: forward", self.o, self.lse,
+                      *fa.flash_attention_reference(
+                          self.q_hat, self.k, self.v, self.causal,
+                          self.window), self.dt)
+        self.delta = fa._delta(self.do, self.o)
+
+    def fwd(self):
+        return self.fa._launch(self.q_hat, self.k, self.v, self.causal,
+                               self.window)
+
+    def dq(self):
+        return self.fa._launch_bwd_dq(self.q_hat, self.k, self.v, self.do,
+                                      self.lse, self.delta, self.causal,
+                                      self.window, self.scale)
+
+    def dkv(self):
+        return self.fa._launch_bwd_dkv(self.q_hat, self.k, self.v, self.do,
+                                       self.lse, self.delta, self.causal,
+                                       self.window)
+
+    def plain(self):
+        return self.fa.flash_attention_bwd_reference(
+            self.q_hat, self.k, self.v, self.o, self.lse, self.do,
+            self.causal, self.window, self.scale)
+
+
+def bwd_errors(got, ref):
+    """For each of dQ, dK, dV: max |kernel - plain| ("max_abs"), that over
+    max |plain| ("global_rel") and tile_rel_err ("tile_rel", the one the
+    check holds to BWD_TOLERANCE)."""
+    out = {}
+    for label, a, r in zip(("dq", "dk", "dv"), got, ref):
+        diff = (a.float() - r.float()).abs().max().item()
+        out[label] = dict(max_abs=diff,
+                          global_rel=diff / r.float().abs().max().item(),
+                          tile_rel=tile_rel_err(a, r))
+    return out
+
+
+def phase_backward():
+    """The dQ and dK/dV kernels against the plain backward at every
+    backward shape; returns the rows by shape name."""
+    import torch
+    import torch.nn.functional as F
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    rows = {}
+    for shape in BWD_SHAPES:
+        c = BwdCase(gen, shape)
+        name, dt = c.name, c.dt
+        b, sq, h, d = c.q_hat.shape
+        skv, hk, dv = c.k.shape[1], c.k.shape[2], c.v.shape[3]
+        got = (c.dq(), *c.dkv())
+        torch.cuda.synchronize()
+        errs = bwd_errors(got, c.plain())
+        for label, e in errs.items():
+            rel = e["tile_rel"]
+            if not math.isfinite(rel) or rel > BWD_TOLERANCE[dt]:
+                fail(f"backward {name}: {label}'s worst tile "
+                     f"||kernel - plain|| / ||plain|| = {rel:.3e} "
+                     f"(tol {BWD_TOLERANCE[dt]})")
+        if name == "train":  # no atomics: two runs agree bit for bit
+            dk2, dv2 = c.dkv()
+            if not (torch.equal(got[1], dk2) and torch.equal(got[2], dv2)):
+                fail("backward train: dK/dV differ between two runs")
+        ms_dq = cuda_ms(c.dq, iters=10)
+        ms_dkv = cuda_ms(c.dkv, iters=10)
+        plain_ms = cuda_ms(c.plain, warmup=1, iters=2)
+        lib_ms = library_bwd_ms(F, c.q, c.k, c.v, c.do, c.causal, c.window)
+        pairs = b * h * live_pairs(sq, skv, c.causal, c.window)
+        # dQ: S, dP, dQ per live pair; dK/dV: S, dP, dV, dK. Bytes: every
+        # input read once (q_hat, k, v, dO, lse, Delta), every output
+        # written once.
+        inputs = nbytes(c.q_hat, c.k, c.v, c.do, c.lse, c.delta)
+        b_dq = bound(2.0 * pairs * (2 * d + dv), inputs + nbytes(got[0]),
+                     c.q_hat.dtype)
+        b_dkv = bound(2.0 * pairs * (2 * d + 2 * dv),
+                      inputs + nbytes(got[1], got[2]), c.q_hat.dtype)
+        row = dict(shape=name, B=b, Sq=sq, Skv=skv, H=h, Hk=hk, D=d, Dv=dv,
+                   dtype=dt, causal=c.causal, window=c.window,
+                   **{f"{k}_{m}_err": e[m] for k, e in errs.items()
+                      for m in ("max_abs", "global_rel", "tile_rel")},
+                   dq_ms=ms_dq, dkv_ms=ms_dkv,
+                   plain_ms=plain_ms, library_ms=lib_ms,
+                   dq_bound_ms=b_dq[0], dq_bound_by=b_dq[1],
+                   dkv_bound_ms=b_dkv[0], dkv_bound_by=b_dkv[1],
+                   dq_tflops=2.0 * pairs * (2 * d + dv) / ms_dq / 1e9,
+                   dkv_tflops=2.0 * pairs * (2 * d + 2 * dv) / ms_dkv / 1e9)
+        rows[name] = row
+        print("backward: " + json.dumps(row), flush=True)
+        del c, got
+    return rows
+
+
+def phase_planted_faults(card: str):
+    """The backward check against planted faults: build each fault of
+    PLANTED_FAULTS into a temporary directory, and at every bf16 backward
+    shape print the sound kernels' and each fault's reading of dQ, dK and
+    dV (tile_rel_err, and the global max |err| / max |plain| beside it).
+    Fails unless every sound reading is within BWD_TOLERANCE and every
+    fault's worst reading exceeds it."""
+    import ctypes
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    from marlin_tpu_torch.ops import build
+
+    source = build.SOURCES["flash_attention_bwd"].read_text()
+    build.build()
+    sound = build.load("flash_attention_bwd")
+    libs = {"sound": sound}
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = {}
+        for fault, (old, new) in PLANTED_FAULTS.items():
+            if old not in source:
+                fail(f"planted fault {fault}: its text is not in the source")
+            src = Path(tmp) / f"{fault}.cu"
+            src.write_text(source.replace(old, new, 1))
+            lib = Path(tmp) / f"lib{fault}.so"
+            procs[fault] = (lib, subprocess.Popen(
+                [build.find_nvcc(), *build.NVCC_FLAGS, "-o", str(lib),
+                 str(src)], stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True))
+        for fault, (lib, proc) in procs.items():
+            log, _ = proc.communicate()
+            if proc.returncode != 0:
+                fail(f"planted fault {fault}: nvcc failed:\n{log}")
+            libs[fault] = ctypes.CDLL(str(lib))
+
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        tol = BWD_TOLERANCE["bfloat16"]
+        worst_sound, caught = 0.0, True
+        try:
+            for shape in BWD_SHAPES:
+                if shape[8] != "bfloat16":
+                    continue
+                c = BwdCase(gen, shape)
+                ref = c.plain()
+                readings = {}
+                for variant, lib in libs.items():
+                    build._loaded["flash_attention_bwd"] = lib
+                    readings[variant] = bwd_errors((c.dq(), *c.dkv()), ref)
+                build._loaded["flash_attention_bwd"] = sound
+                sound_max = max(r["tile_rel"]
+                                for r in readings["sound"].values())
+                fault_min = min(max(r["tile_rel"] for r in v.values())
+                                for f, v in readings.items()
+                                if f != "sound")
+                worst_sound = max(worst_sound, sound_max)
+                caught = caught and sound_max <= tol < fault_min
+                print("planted_faults: " + json.dumps(dict(
+                    shape=c.name, tolerance=tol, sound_max=sound_max,
+                    least_fault_max=fault_min, readings=readings)),
+                    flush=True)
+                del c, ref
+        finally:
+            build._loaded["flash_attention_bwd"] = sound
+    print(card)
+    print(json.dumps(dict(planted_faults=list(PLANTED_FAULTS),
+                          tolerance=tol, worst_sound=worst_sound,
+                          separates=caught)), flush=True)
+    if not caught:
+        fail("the backward check does not separate the sound kernels "
+             "from every planted fault")
+
+
+def phase_backward_memory():
+    """One backward through the autograd Function at S=8192, B=1, H=8,
+    D=128 (bf16, causal): the peak allocation may not exceed its inputs
+    (q, k, v, dO), what the forward saves (q_hat, O, lse), Delta and the
+    gradients, plus a slack of one f32 copy of dO (Delta's product) and
+    16 MiB. One (H, S, S) bf16 buffer would be 1.07 GB."""
+    import torch
+
+    from marlin_tpu_torch.ops import flash_attention as fa
+
+    b, s, h, d = 1, 8192, 8, 128
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    q, k, v, do = (torch.randn((b, s, h, d), generator=gen, device="cuda",
+                               dtype=torch.bfloat16) for _ in range(4))
+    for x in (q, k, v):
+        x.requires_grad_(True)
+    out = fa.flash_attention(q, k, v, causal=True)
+    out.backward(do)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    n = b * s * h * d * 2  # one (B, S, H, D) bf16 tensor
+    rows = b * h * s * 4  # one (B, H, S) f32 tensor
+    expected = 4 * n + 3 * n + 2 * rows + 3 * n  # in, saved, lse+Delta, grads
+    slack = 2 * n + (16 << 20)
+    out_line = dict(S=s, B=b, H=h, D=d, peak_bytes=peak,
+                    expected_bytes=expected, slack_bytes=slack,
+                    s_squared_bytes=h * s * s * 2)
+    print("backward_memory: " + json.dumps(out_line), flush=True)
+    if peak > expected + slack:
+        fail(f"backward at S={s} allocated {peak / 1e6:.1f} MB, more than "
+             f"inputs + outputs + lse/Delta ({expected / 1e6:.1f} MB) + "
+             f"slack ({slack / 1e6:.1f} MB)")
+
+
+def _zero_counters(fa):
+    fa.launches = fa.bwd_dq_launches = fa.bwd_dkv_launches = 0
+
+
+def _counters(fa):
+    return dict(fwd=fa.launches, dq=fa.bwd_dq_launches,
+                dkv=fa.bwd_dkv_launches)
+
+
+def phase_train(card: str, seed: int = 0):
+    """The slice: train the flagship, then one remat step at S=8192.
+    Returns the launch counts of the two runs, {"train": ..., "remat":
+    ...}."""
+    import torch
+
+    from marlin_tpu_torch.models import TransformerConfig, train_step
+    from marlin_tpu_torch.models import transformer as tr
+    from marlin_tpu_torch.ops import flash_attention as fa
+    from marlin_tpu_torch.utils import cost_model as cm
+
+    cfg = TransformerConfig(**FLAGSHIP)
+    params = tr.init_params(cfg, seed=seed, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    tokens = torch.randint(0, cfg.vocab, (TRAIN_BATCH, TRAIN_SEQ),
+                           generator=gen, device="cuda")
+    targets = torch.roll(tokens, -1, dims=1)
+    loss, params = train_step(params, tokens, targets, cfg)  # warm-up
+    torch.cuda.synchronize()
+    warm_loss = loss.item()
+
+    _zero_counters(fa)
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_s = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        loss, params = train_step(params, tokens, targets, cfg)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(loss.item())
+    launches = _counters(fa)
+    peak = torch.cuda.max_memory_allocated()
+
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"train: non-finite loss {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"train: the loss did not fall: {losses}")
+    want = cfg.n_layers * TRAIN_STEPS
+    if any(n != want for n in launches.values()):
+        fail(f"train: launches {launches}, expected {want} of each "
+             f"(layers x steps)")
+    if any(p.dtype != torch.float32 for p in tr._leaves(params)):
+        fail("train: master params left f32")
+    step = sorted(step_s)[len(step_s) // 2]
+    tokens_per_step = TRAIN_BATCH * TRAIN_SEQ
+    flops = cm.transformer_step_flops(
+        cm.transformer_param_count(cfg), TRAIN_BATCH, TRAIN_SEQ,
+        cfg.n_layers, cfg.n_heads, cfg.d_model // cfg.n_heads,
+        window=cfg.window)
+    summary = dict(card=card, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                   steps=TRAIN_STEPS, warmup_loss=warm_loss, losses=losses,
+                   step_ms=[x * 1e3 for x in step_s],
+                   step_ms_median=step * 1e3,
+                   tokens_per_s=tokens_per_step / step,
+                   model_tflops_per_step=flops / 1e12,
+                   model_tflops_per_s=flops / step / 1e12,
+                   peak_mem_gb=peak / 1e9, launches=launches)
+    print("train: " + json.dumps(summary), flush=True)
+    phase_train_profile(params, tokens, targets, cfg)
+    del params
+
+    lcfg = TransformerConfig(**LONG)
+    lparams = tr.init_params(lcfg, seed=seed, device="cuda")
+    ltok = torch.randint(0, lcfg.vocab, (1, lcfg.max_len), generator=gen,
+                         device="cuda")
+    torch.cuda.synchronize()
+    _zero_counters(fa)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loss, lparams = train_step(lparams, ltok, torch.roll(ltok, -1, dims=1),
+                               lcfg)
+    lloss = loss.item()
+    long_s = time.perf_counter() - t0
+    long_launches = _counters(fa)
+    long_peak = torch.cuda.max_memory_allocated()
+    print("train_remat: " + json.dumps(dict(
+        seq=lcfg.max_len, batch=1, vocab=lcfg.vocab, loss=lloss,
+        first_step_ms=long_s * 1e3, peak_mem_gb=long_peak / 1e9,
+        launches=long_launches)), flush=True)
+    if not math.isfinite(lloss):
+        fail(f"train_remat: non-finite loss {lloss}")
+    if long_launches != dict(fwd=2 * lcfg.n_layers, dq=lcfg.n_layers,
+                             dkv=lcfg.n_layers):
+        fail(f"train_remat: launches {long_launches}, expected the forward "
+             f"twice per layer and each backward kernel once")
+    return {"train": launches, "remat": long_launches}
+
+
+def phase_train_profile(params, tokens, targets, cfg):
+    """Where a flagship train step's time goes: one step under
+    torch.profiler, device-busy time against host wall-clock, the top
+    kernels by device time and the three flash kernels' share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from marlin_tpu_torch.models import train_step
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        train_step(params, tokens, targets, cfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    flash_us = {name: sum(e.self_device_time_total for e in kernels
+                          if name in e.key)
+                for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    print("train_profile: " + json.dumps(dict(
+        wall_ms=wall * 1e3, device_busy_ms=busy_us / 1e3,
+        device_idle_share=1.0 - busy_us / 1e6 / wall,
+        kernel_launches=sum(e.count for e in kernels),
+        flash_ms={k: v / 1e3 for k, v in flash_us.items()},
+        top_kernels=[dict(name=e.key[:60],
+                          ms=e.self_device_time_total / 1e3,
+                          calls=e.count) for e in top])), flush=True)
+
+
+def phase_grad_check(seed: int = 0):
+    """The model's loss and gradients on the card (kernels) against the
+    CPU (plain versions) at f32, full width, 2 layers, B=1, S=512."""
+    import numpy as np
+    import torch
+
+    from marlin_tpu_torch.models import TransformerConfig, loss_fn
+    from marlin_tpu_torch.models import transformer as tr
+    from marlin_tpu_torch.ops import flash_attention as fa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = TransformerConfig(**{**FLAGSHIP, "n_layers": 2,
+                               "dtype": "float32"})
+    cpu = tr.init_params(cfg, seed=seed, device="cpu")
+    toks = np.random.default_rng(seed).integers(0, cfg.vocab, (1, 512))
+    tgts = np.roll(toks, -1, axis=1)
+
+    def value_and_grad(params):
+        leaves = [p.detach().requires_grad_(True)
+                  for p in tr._leaves(params)]
+        loss = loss_fn(tr._unflatten(params, iter(leaves)), toks, tgts, cfg)
+        return loss, torch.autograd.grad(loss, leaves)
+
+    _zero_counters(fa)
+    card = tr._tree_map(lambda p: p.to("cuda"), cpu)
+    loss_g, grads_g = value_and_grad(card)
+    torch.cuda.synchronize()
+    launches = _counters(fa)
+    loss_c, grads_c = value_and_grad(cpu)
+    if launches != dict(fwd=2, dq=2, dkv=2):
+        fail(f"grad_check: the card's launches {launches}, expected one "
+             f"per layer of each kernel")
+    worst = {}
+    paths = _leaf_paths(cpu)
+    for path, g, c in zip(paths, grads_g, grads_c):
+        top = c.abs().max().item()
+        diff = (g.cpu() - c).abs().max().item()
+        worst[path] = diff / top if top > 0 else diff
+    loss_err = abs(loss_g.item() - loss_c.item()) / abs(loss_c.item())
+    name, err = max(worst.items(), key=lambda kv: kv[1])
+    print("grad_check: " + json.dumps(dict(
+        loss_card=loss_g.item(), loss_cpu=loss_c.item(),
+        loss_rel_err=loss_err, worst_leaf=name, worst_rel_err=err,
+        tolerance=GRAD_TOLERANCE, per_leaf=worst)), flush=True)
+    if not (err <= GRAD_TOLERANCE and loss_err <= GRAD_TOLERANCE):
+        fail(f"grad_check: worst leaf {name} at {err:.3e}, loss at "
+             f"{loss_err:.3e} (tol {GRAD_TOLERANCE})")
+
+
+def _leaf_paths(tree, prefix=""):
+    if isinstance(tree, dict):
+        return [p for k, v in tree.items()
+                for p in _leaf_paths(v, f"{prefix}.{k}" if prefix else k)]
+    if isinstance(tree, (list, tuple)):
+        return [p for i, v in enumerate(tree)
+                for p in _leaf_paths(v, f"{prefix}[{i}]")]
+    return [prefix]
 
 
 def _workload(cfg, seed: int):
@@ -399,7 +987,63 @@ def phase_profile(params, cfg, workload):
     print("profile: " + json.dumps(out), flush=True)
 
 
-def main() -> int:
+def kernels_line(rows, bwd, launches):
+    """The {"kernels": [...]} object. Each kernel's top-level numbers are
+    those of its first path's shape ("serve" for the forward, "train" for
+    the backward); ``paths`` gives each path the kernel runs on its own
+    launches and its shape's error, times and bound. ``launches`` is
+    {path: {"fwd": n, "dq": n, "dkv": n}}."""
+    bwd_src = "marlin_tpu_torch/csrc/flash_attention_bwd.cu"
+    fwd_paths = {p: (launches[p]["fwd"], rows[s]) for p, s in
+                 (("serve", "flagship"), ("train", "train"),
+                  ("remat", "remat"))}
+
+    def fwd_entry(n, r):
+        return dict(shape=r["shape"], launches=n,
+                    max_abs_err=r["max_abs_err"], ms=r["ms"],
+                    plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                    bound_by=r["bound_by"], library_ms=r["library_ms"])
+
+    def bwd_kernel(kernel, replaces, labels):
+        paths = {p: (launches[p][kernel], bwd[p]) for p in ("train", "remat")}
+
+        def entry(n, r):
+            return dict(
+                shape=r["shape"], launches=n,
+                max_abs_err=max(r[f"{x}_max_abs_err"] for x in labels),
+                max_global_rel_err=max(r[f"{x}_global_rel_err"]
+                                       for x in labels),
+                max_tile_rel_err=max(r[f"{x}_tile_rel_err"] for x in labels),
+                ms=r[f"{kernel}_ms"], plain_ms=r["plain_ms"],
+                bound_ms=r[f"{kernel}_bound_ms"],
+                bound_by=r[f"{kernel}_bound_by"],
+                library_ms=r["library_ms"])
+
+        top = entry(*paths["train"])
+        return {"name": f"flash_attention_bwd_{kernel}", "route": "cuda",
+                "source": bwd_src, "replaces": replaces,
+                **top, "launches": sum(n for n, _ in paths.values()),
+                "plain_ms_covers": "the whole plain backward: dQ, dK, dV",
+                "library_ms_covers": "scaled_dot_product_attention's "
+                                     "backward: dQ, dK and dV in one call",
+                "paths": {p: entry(*v) for p, v in paths.items()}}
+
+    fwd_top = fwd_entry(*fwd_paths["serve"])
+    return {"kernels": [
+        {"name": "flash_attention_fwd", "route": "cuda",
+         "source": "marlin_tpu_torch/csrc/flash_attention_fwd.cu",
+         "replaces": "marlin_tpu/ops/flash_attention.py:134",
+         **fwd_top, "launches": sum(n for n, _ in fwd_paths.values()),
+         "library_ms_covers": "scaled_dot_product_attention's forward",
+         "paths": {p: fwd_entry(*v) for p, v in fwd_paths.items()}},
+        bwd_kernel("dq", "marlin_tpu/ops/flash_attention.py:335", ("dq",)),
+        bwd_kernel("dkv", "marlin_tpu/ops/flash_attention.py:373",
+                   ("dk", "dv")),
+    ]}
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
     try:
         import torch
     except ImportError:
@@ -411,23 +1055,20 @@ def main() -> int:
     except ImportError:
         fail("marlin_tpu_torch is not importable: run from the repo root")
     card = phase_device()
+    if argv == ["--planted-faults"]:
+        phase_planted_faults(card)
+        return 0
+    if argv:
+        fail(f"unknown arguments {argv}: none, or --planted-faults")
     phase_build()
     rows = phase_kernels()
-    launches = phase_slice(card)
-    flag = rows["flagship"]
-    kernels = {"kernels": [{
-        "name": "flash_attention_fwd",
-        "route": "cuda",
-        "source": "marlin_tpu_torch/csrc/flash_attention_fwd.cu",
-        "replaces": "marlin_tpu/ops/flash_attention.py:134",
-        "launches": launches,
-        "max_abs_err": flag["max_abs_err"],
-        "ms": flag["ms"],
-        "plain_ms": flag["plain_ms"],
-        "bound_ms": flag["bound_ms"],
-        "bound_by": flag["bound_by"],
-        "library_ms": flag["library_ms"],
-    }]}
+    bwd = phase_backward()
+    phase_backward_memory()
+    serve_launches = phase_slice(card)
+    launches = phase_train(card)
+    launches["serve"] = dict(fwd=serve_launches)
+    phase_grad_check()
+    kernels = kernels_line(rows, bwd, launches)
     print(card)
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {

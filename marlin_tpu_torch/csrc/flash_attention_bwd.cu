@@ -1,0 +1,812 @@
+// Flash-attention backward for Hopper (sm_90a), hand-written CUDA C++.
+//
+// Replaces two Pallas TPU kernels launched by _flash_bwd_pallas through
+// pl.pallas_call:
+//
+//   marlin_tpu/ops/flash_attention.py::_bwd_dq_kernel   (dQ)
+//   marlin_tpu/ops/flash_attention.py::_bwd_dkv_kernel  (dK, dV)
+//
+// Both recompute the probability tiles from the forward's saved lse
+// (_bwd_p_ds) instead of reading an (Sq, Skv) matrix, which exists in
+// neither direction:
+//
+//   s  = q_hat k^T                    (q_hat: Q prescaled by scale*log2(e)
+//                                      and rounded to Q's dtype, exactly the
+//                                      tensor the forward kernel saw)
+//   p  = exp2(s - lse)                (0 where masked)
+//   dS = p * (dO v^T - Delta)         (Delta = rowsum(dO * O), computed by
+//                                      the caller, as XLA did for the TPU)
+//   dQ = scale * dS K
+//   dK = ln2 * dS^T q_hat             (the base-2 softmax Jacobian)
+//   dV = p^T dO
+//
+// GQA/MQA by index: query head h reads K/V head h / (H / Hk); the dK/dV
+// kernel sums each KV head's gradient over the query heads of its group
+// inside one CTA, so no atomics are used and the result is deterministic.
+//
+// Masks and ragged edges, as in the forward (csrc/flash_attention_fwd.cu):
+// keys at or past Skv, causal k <= q, a window k > q - window; query rows
+// at or past Sq contribute nothing. Out-of-range rows of every tile are
+// zero-filled on load (cp.async with a zero source size), so 0 * NaN never
+// enters a product, and p is set to exactly 0 for a dead (q, k) pair. Tiles
+// wholly outside the causal or window band are never visited: the dQ
+// kernel's key sweep is the forward's; the dK/dV kernel's query sweep
+// starts at the key tile's first causal row and ends at
+// min(band end, number of query tiles) (the TPU kernel's i < q_blocks
+// kill: a clamped duplicate of the last query tile would re-accumulate).
+//
+// Layout: Q_hat and dQ (B, Sq, H, D), dO (B, Sq, H, DV), K and dK
+// (B, Skv, Hk, D), V and dV (B, Skv, Hk, DV), all contiguous; lse and Delta
+// (B, H, Sq) f32.
+//
+// Bound on the H100. At the flagship training shape (B = 8, S = 2048,
+// H = 8, Hk = 2, D = 128, bf16, causal) the dQ kernel runs 3 products per
+// live (q, k) pair (S, dP, dQ) and the dK/dV kernel 4 (S, dP, dV, dK):
+// ~103 and ~138 GFLOP against ~119 and ~102 MB of traffic, 870 and 1350
+// FLOP per byte, far above the card's ~295 FLOP/byte ridge, so both are
+// bound by the tensor-core rate (0.104 and 0.139 ms at 989 TFLOP/s). This
+// first version takes the simple route: mma.sync m16n8k16 (bf16 in, f32
+// accumulate) for every product, each warp owning 16 rows of the CTA's
+// 64-row tile; the S and dP tiles stay in registers, and P and dS are
+// rounded to bf16 and re-used register for register as the A fragment of
+// the next product (the forward's P-register trick). It does not use
+// wgmma, TMA, warp specialisation or double buffering; those are what
+// close the gap to the bound and are left to a later change.
+//
+// The f32 path is a plain FMA kernel per direction (4 threads per row,
+// f32 products in f32, no TF32), so it matches a full-f32 reference to
+// summation order.
+
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr float kLn2 = 0.693147180559945309f;  // 1 / log2(e)
+
+__device__ __forceinline__ bool key_live(int q_pos, int k_pos, int skv,
+                                         int causal, int window) {
+  if (k_pos >= skv) return false;
+  if (causal && k_pos > q_pos) return false;
+  if (window && k_pos <= q_pos - window) return false;
+  return true;
+}
+
+// Key rows [lo, hi) a query tile [m0, m0 + bm) has to visit (the forward's
+// sweep): causal stops after the tile's last row, a window starts at the
+// band's first key tile.
+__device__ __forceinline__ void key_range(int m0, int bm, int bn, int skv,
+                                          int causal, int window, int* lo,
+                                          int* hi) {
+  int h = skv;
+  if (causal && m0 + bm < h) h = m0 + bm;
+  int l = 0;
+  if (window) {
+    l = m0 - window + 1;
+    l = l < 0 ? 0 : (l / bn) * bn;
+  }
+  *lo = l;
+  *hi = h;
+}
+
+// Query rows [lo, hi) a key tile [n0, n0 + bn) has to visit: causal starts
+// at the query tile holding row n0; a window ends at the tile holding the
+// last row that still sees a key of this tile, never past the last query
+// tile.
+__device__ __forceinline__ void query_range(int n0, int bn, int bm, int sq,
+                                            int causal, int window, int* lo,
+                                            int* hi) {
+  int n_q = (sq + bm - 1) / bm;
+  int first = causal ? n0 / bm : 0;
+  int last = n_q;  // exclusive, in tiles
+  if (window) {
+    int band_end = (n0 + bn - 1 + window - 1) / bm + 1;
+    if (band_end < last) last = band_end;
+  }
+  *lo = first * bm;
+  *hi = last * bm;
+}
+
+// ---------------------------------------------------------------------
+// bf16: tensor-core path
+// ---------------------------------------------------------------------
+
+constexpr int kBM = 64;       // query rows per tile (4 warps x 16)
+constexpr int kBN = 64;       // key rows per tile (4 warps x 16)
+constexpr int kThreads = 128;
+constexpr int kPad = 8;       // bf16 elements of row padding (16 bytes)
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           bool valid) {
+  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  int n = valid ? 16 : 0;  // 0 source bytes: the 16 destination bytes are zero-filled
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(n));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\n" ::);
+  asm volatile("cp.async.wait_group 0;\n" ::);
+}
+
+__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo,
+                                              __nv_bfloat16 hi) {
+  __nv_bfloat162 v;
+  v.x = lo;
+  v.y = hi;
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Copy `rows` rows of `width` bf16 (global row stride `gstride`) into a
+// shared tile with row stride width + kPad; rows at or past `valid` are
+// zero-filled.
+template <int WIDTH>
+__device__ __forceinline__ void load_tile(__nv_bfloat16* smem,
+                                          const __nv_bfloat16* g,
+                                          long long gstride, int rows,
+                                          int valid) {
+  constexpr int kChunks = WIDTH / 8;  // 16-byte chunks per row
+  for (int c = threadIdx.x; c < rows * kChunks; c += kThreads) {
+    int r = c / kChunks;
+    int col = (c % kChunks) * 8;
+    bool ok = r < valid;
+    const __nv_bfloat16* src = ok ? g + r * gstride + col : g;
+    cp_async16(smem + r * (WIDTH + kPad) + col, src, ok);
+  }
+}
+
+// The m16n8k16 A fragment of rows [r0, r0 + 16) x columns [c, c + 16) of a
+// padded shared tile with row stride `ld` (the fragment's row g is r0 + g).
+__device__ __forceinline__ void load_a(uint32_t a[4],
+                                       const __nv_bfloat16* row_g, int ld,
+                                       int c, int t) {
+  const __nv_bfloat16* row_g8 = row_g + 8 * ld;
+  a[0] = ld32(row_g + c + 2 * t);
+  a[1] = ld32(row_g8 + c + 2 * t);
+  a[2] = ld32(row_g + c + 2 * t + 8);
+  a[3] = ld32(row_g8 + c + 2 * t + 8);
+}
+
+// acc[nt] (16 x 8, n-tile nt) += A (this warp's 16 rows of `a_rows`, all
+// WIDTH columns) times B^T, B being the 64 rows of the shared tile `b_rows`
+// (both with row stride WIDTH + kPad): the "x y^T" product whose B
+// fragment is two contiguous bf16 pairs of one row of y.
+template <int WIDTH, int NT>
+__device__ __forceinline__ void mma_abt(float acc[NT][4],
+                                        const __nv_bfloat16* a_row_g,
+                                        const __nv_bfloat16* b_rows, int g,
+                                        int t) {
+  constexpr int ld = WIDTH + kPad;
+#pragma unroll
+  for (int kc = 0; kc < WIDTH / 16; ++kc) {
+    uint32_t a[4];
+    load_a(a, a_row_g, ld, kc * 16, t);
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const __nv_bfloat16* br = b_rows + (nt * 8 + g) * ld + kc * 16 + 2 * t;
+      mma_bf16(acc[nt], a, ld32(br), ld32(br + 8));
+    }
+  }
+}
+
+// acc[n] (16 x 8, output n-tile n of WIDTH columns) += X (16 x 64, held in
+// the C layout of 8 n-tiles, rounded to bf16 here) times the shared tile
+// `b_rows` (64 rows x WIDTH, row stride WIDTH + kPad): the S accumulator
+// of n-tiles (2kc, 2kc + 1) is exactly the A fragment of k16 chunk kc.
+template <int WIDTH>
+__device__ __forceinline__ void mma_xb(float acc[WIDTH / 8][4],
+                                       const float x[8][4],
+                                       const __nv_bfloat16* b_rows, int g,
+                                       int t) {
+  constexpr int ld = WIDTH + kPad;
+#pragma unroll
+  for (int kc = 0; kc < 4; ++kc) {
+    uint32_t a[4] = {pack_bf16(x[2 * kc][0], x[2 * kc][1]),
+                     pack_bf16(x[2 * kc][2], x[2 * kc][3]),
+                     pack_bf16(x[2 * kc + 1][0], x[2 * kc + 1][1]),
+                     pack_bf16(x[2 * kc + 1][2], x[2 * kc + 1][3])};
+    const __nv_bfloat16* b0p = b_rows + (kc * 16 + 2 * t) * ld + g;
+    const __nv_bfloat16* b8p = b0p + 8 * ld;
+#pragma unroll
+    for (int n = 0; n < WIDTH / 8; ++n) {
+      uint32_t b0 = pack_bf16(b0p[n * 8], b0p[n * 8 + ld]);
+      uint32_t b1 = pack_bf16(b8p[n * 8], b8p[n * 8 + ld]);
+      mma_bf16(acc[n], a, b0, b1);
+    }
+  }
+}
+
+static_assert(kBM == 64 && kBN == 64, "mma_xb sweeps 64-wide tiles");
+
+// B4: one CTA per (b, h, 64-row query tile), looping over the key tiles.
+template <int D, int DV>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dq_bf16(const __nv_bfloat16* __restrict__ q,
+                  const __nv_bfloat16* __restrict__ k,
+                  const __nv_bfloat16* __restrict__ v,
+                  const __nv_bfloat16* __restrict__ dout,
+                  const float* __restrict__ lse,
+                  const float* __restrict__ delta,
+                  __nv_bfloat16* __restrict__ dq, int H, int Hk, int Sq,
+                  int Skv, int causal, int window, float scale) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* sdO = sQ + kBM * (D + kPad);
+  __nv_bfloat16* sK = sdO + kBM * (DV + kPad);
+  __nv_bfloat16* sV = sK + kBN * (D + kPad);
+
+  const int m0 = blockIdx.x * kBM;
+  const int bh = blockIdx.y;
+  const int b = bh / H;
+  const int h = bh % H;
+  const int hk = h / (H / Hk);
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;  // mma groupID: the fragment row
+  const int t = lane % 4;  // thread in group: the fragment column pair
+
+  const long long q_row = (long long)H * D;
+  const long long o_row = (long long)H * DV;
+  const long long k_row = (long long)Hk * D;
+  const long long v_row = (long long)Hk * DV;
+  const __nv_bfloat16* kg = k + (long long)b * Skv * k_row + hk * D;
+  const __nv_bfloat16* vg = v + (long long)b * Skv * v_row + hk * DV;
+
+  load_tile<D>(sQ, q + ((long long)b * Sq + m0) * q_row + h * D, q_row, kBM,
+               Sq - m0);
+  load_tile<DV>(sdO, dout + ((long long)b * Sq + m0) * o_row + h * DV, o_row,
+                kBM, Sq - m0);
+  cp_async_wait_all();
+  __syncthreads();
+
+  const int qp0 = m0 + warp * 16 + g;  // the thread's two rows
+  const int qp1 = qp0 + 8;
+  const float* lg = lse + (long long)bh * Sq;
+  const float* dg = delta + (long long)bh * Sq;
+  const float lrow[2] = {qp0 < Sq ? lg[qp0] : 0.f, qp1 < Sq ? lg[qp1] : 0.f};
+  const float drow[2] = {qp0 < Sq ? dg[qp0] : 0.f, qp1 < Sq ? dg[qp1] : 0.f};
+  const __nv_bfloat16* q_g = sQ + (warp * 16 + g) * (D + kPad);
+  const __nv_bfloat16* do_g = sdO + (warp * 16 + g) * (DV + kPad);
+
+  float acc[D / 8][4];
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i)
+    acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+
+  int lo, hi;
+  key_range(m0, kBM, kBN, Skv, causal, window, &lo, &hi);
+  for (int n0 = lo; n0 < hi; n0 += kBN) {
+    __syncthreads();  // the previous K/V tile is fully consumed
+    load_tile<D>(sK, kg + (long long)n0 * k_row, k_row, kBN, Skv - n0);
+    load_tile<DV>(sV, vg + (long long)n0 * v_row, v_row, kBN, Skv - n0);
+    cp_async_wait_all();
+    __syncthreads();
+
+    float s[kBN / 8][4], dp[kBN / 8][4];
+#pragma unroll
+    for (int nt = 0; nt < kBN / 8; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[nt][i] = dp[nt][i] = 0.f;
+    mma_abt<D, kBN / 8>(s, q_g, sK, g, t);     // S  = q_hat K^T
+    mma_abt<DV, kBN / 8>(dp, do_g, sV, g, t);  // dP = dO V^T
+
+    // dS = P * (dP - Delta), in place of S.
+#pragma unroll
+    for (int nt = 0; nt < kBN / 8; ++nt) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        int r = i / 2;
+        int qp = r ? qp1 : qp0;
+        int kp = n0 + nt * 8 + 2 * t + (i & 1);
+        bool live = qp < Sq && key_live(qp, kp, Skv, causal, window);
+        float p = live ? exp2f(s[nt][i] - lrow[r]) : 0.f;
+        s[nt][i] = p * (dp[nt][i] - drow[r]);
+      }
+    }
+    mma_xb<D>(acc, s, sK, g, t);  // dQ += dS K
+  }
+
+  __nv_bfloat16* dqg = dq + (long long)b * Sq * q_row + h * D;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    int qp = r ? qp1 : qp0;
+    if (qp >= Sq) continue;
+    __nv_bfloat16* row = dqg + qp * q_row + 2 * t;
+#pragma unroll
+    for (int nd = 0; nd < D / 8; ++nd)
+      *reinterpret_cast<__nv_bfloat162*>(row + nd * 8) = __floats2bfloat162_rn(
+          acc[nd][2 * r] * scale, acc[nd][2 * r + 1] * scale);
+  }
+}
+
+// B5: one CTA per (b, kv head, 64-key tile), looping over the group's
+// query heads and their live query tiles (the TPU's (kv_head, k_block,
+// group, q_block) grid). The transposed tiles S^T = K q_hat^T and
+// dP^T = V dO^T put P^T and dS^T in the accumulator layout, ready to be
+// the A fragments of P^T dO and dS^T q_hat.
+template <int D, int DV>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dkv_bf16(const __nv_bfloat16* __restrict__ q,
+                   const __nv_bfloat16* __restrict__ k,
+                   const __nv_bfloat16* __restrict__ v,
+                   const __nv_bfloat16* __restrict__ dout,
+                   const float* __restrict__ lse,
+                   const float* __restrict__ delta,
+                   __nv_bfloat16* __restrict__ dk,
+                   __nv_bfloat16* __restrict__ dv, int H, int Hk, int Sq,
+                   int Skv, int causal, int window) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* sV = sK + kBN * (D + kPad);
+  __nv_bfloat16* sQ = sV + kBN * (DV + kPad);
+  __nv_bfloat16* sdO = sQ + kBM * (D + kPad);
+  float* sL = reinterpret_cast<float*>(sdO + kBM * (DV + kPad));
+  float* sD = sL + kBM;
+
+  const int n0 = blockIdx.x * kBN;
+  const int bhk = blockIdx.y;
+  const int b = bhk / Hk;
+  const int hk = bhk % Hk;
+  const int group = H / Hk;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+
+  const long long q_row = (long long)H * D;
+  const long long o_row = (long long)H * DV;
+  const long long k_row = (long long)Hk * D;
+  const long long v_row = (long long)Hk * DV;
+
+  load_tile<D>(sK, k + ((long long)b * Skv + n0) * k_row + hk * D, k_row,
+               kBN, Skv - n0);
+  load_tile<DV>(sV, v + ((long long)b * Skv + n0) * v_row + hk * DV, v_row,
+                kBN, Skv - n0);
+  cp_async_wait_all();  // read after the first query tile's barrier
+
+  const int kp0 = n0 + warp * 16 + g;  // the thread's two key rows
+  const int kp1 = kp0 + 8;
+  const __nv_bfloat16* k_g = sK + (warp * 16 + g) * (D + kPad);
+  const __nv_bfloat16* v_g = sV + (warp * 16 + g) * (DV + kPad);
+
+  float dka[D / 8][4], dva[DV / 8][4];
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i)
+    dka[i][0] = dka[i][1] = dka[i][2] = dka[i][3] = 0.f;
+#pragma unroll
+  for (int i = 0; i < DV / 8; ++i)
+    dva[i][0] = dva[i][1] = dva[i][2] = dva[i][3] = 0.f;
+
+  int lo, hi;
+  query_range(n0, kBN, kBM, Sq, causal, window, &lo, &hi);
+  for (int gi = 0; gi < group; ++gi) {
+    const int h = hk * group + gi;
+    const __nv_bfloat16* qg = q + (long long)b * Sq * q_row + h * D;
+    const __nv_bfloat16* dog = dout + (long long)b * Sq * o_row + h * DV;
+    const float* lg = lse + ((long long)b * H + h) * Sq;
+    const float* dg = delta + ((long long)b * H + h) * Sq;
+    for (int m0 = lo; m0 < hi; m0 += kBM) {
+      __syncthreads();  // the previous query tile is fully consumed
+      load_tile<D>(sQ, qg + (long long)m0 * q_row, q_row, kBM, Sq - m0);
+      load_tile<DV>(sdO, dog + (long long)m0 * o_row, o_row, kBM, Sq - m0);
+      for (int i = threadIdx.x; i < kBM; i += kThreads) {
+        bool ok = m0 + i < Sq;
+        sL[i] = ok ? lg[m0 + i] : 0.f;
+        sD[i] = ok ? dg[m0 + i] : 0.f;
+      }
+      cp_async_wait_all();
+      __syncthreads();
+
+      float st[kBM / 8][4], dpt[kBM / 8][4];
+#pragma unroll
+      for (int nt = 0; nt < kBM / 8; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) st[nt][i] = dpt[nt][i] = 0.f;
+      mma_abt<D, kBM / 8>(st, k_g, sQ, g, t);     // S^T  = K q_hat^T
+      mma_abt<DV, kBM / 8>(dpt, v_g, sdO, g, t);  // dP^T = V dO^T
+
+      // P^T in place of S^T, dS^T = P^T * (dP^T - Delta) in place of dP^T.
+#pragma unroll
+      for (int nt = 0; nt < kBM / 8; ++nt) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          int qc = nt * 8 + 2 * t + (i & 1);
+          int qp = m0 + qc;
+          int kp = (i / 2) ? kp1 : kp0;
+          bool live = qp < Sq && key_live(qp, kp, Skv, causal, window);
+          float p = live ? exp2f(st[nt][i] - sL[qc]) : 0.f;
+          dpt[nt][i] = p * (dpt[nt][i] - sD[qc]);
+          st[nt][i] = p;
+        }
+      }
+      mma_xb<DV>(dva, st, sdO, g, t);  // dV += P^T dO
+      mma_xb<D>(dka, dpt, sQ, g, t);   // dK += dS^T q_hat
+    }
+  }
+
+  __nv_bfloat16* dkg = dk + (long long)b * Skv * k_row + hk * D;
+  __nv_bfloat16* dvg = dv + (long long)b * Skv * v_row + hk * DV;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    int kp = r ? kp1 : kp0;
+    if (kp >= Skv) continue;
+    __nv_bfloat16* krow = dkg + kp * k_row + 2 * t;
+    __nv_bfloat16* vrow = dvg + kp * v_row + 2 * t;
+#pragma unroll
+    for (int nd = 0; nd < D / 8; ++nd)
+      *reinterpret_cast<__nv_bfloat162*>(krow + nd * 8) =
+          __floats2bfloat162_rn(dka[nd][2 * r] * kLn2,
+                                dka[nd][2 * r + 1] * kLn2);
+#pragma unroll
+    for (int nv = 0; nv < DV / 8; ++nv)
+      *reinterpret_cast<__nv_bfloat162*>(vrow + nv * 8) =
+          __floats2bfloat162_rn(dva[nv][2 * r], dva[nv][2 * r + 1]);
+  }
+}
+
+// ---------------------------------------------------------------------
+// f32: FMA path
+// ---------------------------------------------------------------------
+
+constexpr int kFM = 32;  // query rows per tile
+constexpr int kFN = 32;  // key rows per tile
+
+// Rows [r0, r0 + rows) of a (.., stride) f32 matrix into a shared tile with
+// row stride WIDTH + 1; rows at or past `valid` are zero-filled.
+template <int WIDTH>
+__device__ __forceinline__ void load_tile_f32(float* smem, const float* g,
+                                              long long gstride, int rows,
+                                              int valid) {
+  for (int i = threadIdx.x; i < rows * WIDTH; i += kThreads) {
+    int r = i / WIDTH, c = i % WIDTH;
+    smem[r * (WIDTH + 1) + c] = r < valid ? g[r * gstride + c] : 0.f;
+  }
+}
+
+// B4, f32: 4 threads per query row; each computes dS for a quarter of the
+// tile's keys, then accumulates a quarter of dQ's columns.
+template <int D, int DV>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, const float* __restrict__ dout,
+                 const float* __restrict__ lse,
+                 const float* __restrict__ delta, float* __restrict__ dq,
+                 int H, int Hk, int Sq, int Skv, int causal, int window,
+                 float scale) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* sQ = reinterpret_cast<float*>(smem_raw);  // [kFM][D + 1]
+  float* sdO = sQ + kFM * (D + 1);                 // [kFM][DV + 1]
+  float* sK = sdO + kFM * (DV + 1);                // [kFN][D + 1]
+  float* sV = sK + kFN * (D + 1);                  // [kFN][DV + 1]
+  float* sS = sV + kFN * (DV + 1);                 // [kFM][kFN + 1]
+
+  const int m0 = blockIdx.x * kFM;
+  const int bh = blockIdx.y;
+  const int b = bh / H;
+  const int h = bh % H;
+  const int hk = h / (H / Hk);
+  const int r = threadIdx.x / 4;
+  const int t = threadIdx.x % 4;
+  const int qp = m0 + r;
+
+  const long long q_row = (long long)H * D;
+  const long long o_row = (long long)H * DV;
+  const long long k_row = (long long)Hk * D;
+  const long long v_row = (long long)Hk * DV;
+  const float* kg = k + (long long)b * Skv * k_row + hk * D;
+  const float* vg = v + (long long)b * Skv * v_row + hk * DV;
+
+  load_tile_f32<D>(sQ, q + ((long long)b * Sq + m0) * q_row + h * D, q_row,
+                   kFM, Sq - m0);
+  load_tile_f32<DV>(sdO, dout + ((long long)b * Sq + m0) * o_row + h * DV,
+                    o_row, kFM, Sq - m0);
+  const float lrow = qp < Sq ? lse[(long long)bh * Sq + qp] : 0.f;
+  const float drow = qp < Sq ? delta[(long long)bh * Sq + qp] : 0.f;
+
+  float acc[D / 4];
+#pragma unroll
+  for (int i = 0; i < D / 4; ++i) acc[i] = 0.f;
+
+  int lo, hi;
+  key_range(m0, kFM, kFN, Skv, causal, window, &lo, &hi);
+  for (int n0 = lo; n0 < hi; n0 += kFN) {
+    __syncthreads();
+    load_tile_f32<D>(sK, kg + (long long)n0 * k_row, k_row, kFN, Skv - n0);
+    load_tile_f32<DV>(sV, vg + (long long)n0 * v_row, v_row, kFN, Skv - n0);
+    __syncthreads();
+
+    const float* qr = sQ + r * (D + 1);
+    const float* dr = sdO + r * (DV + 1);
+#pragma unroll
+    for (int jj = 0; jj < kFN / 4; ++jj) {
+      int j = t + 4 * jj;
+      const float* kr = sK + j * (D + 1);
+      const float* vr = sV + j * (DV + 1);
+      float s = 0.f, dp = 0.f;
+#pragma unroll 8
+      for (int d = 0; d < D; ++d) s = fmaf(qr[d], kr[d], s);
+#pragma unroll 8
+      for (int d = 0; d < DV; ++d) dp = fmaf(dr[d], vr[d], dp);
+      bool live = qp < Sq && key_live(qp, n0 + j, Skv, causal, window);
+      float p = live ? exp2f(s - lrow) : 0.f;
+      sS[r * (kFN + 1) + j] = p * (dp - drow);
+    }
+    __syncwarp();  // a row's four threads share one warp
+    for (int j = 0; j < kFN; ++j) {
+      float ds = sS[r * (kFN + 1) + j];
+      const float* kr = sK + j * (D + 1) + t;
+#pragma unroll
+      for (int cc = 0; cc < D / 4; ++cc)
+        acc[cc] = fmaf(ds, kr[4 * cc], acc[cc]);
+    }
+  }
+
+  if (qp < Sq) {
+    float* row = dq + ((long long)b * Sq + qp) * q_row + h * D + t;
+#pragma unroll
+    for (int cc = 0; cc < D / 4; ++cc) row[4 * cc] = acc[cc] * scale;
+  }
+}
+
+// B5, f32: 4 threads per key row; each computes P^T and dS^T for a quarter
+// of the query tile's rows, then accumulates a quarter of dK's and dV's
+// columns.
+template <int D, int DV>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, const float* __restrict__ dout,
+                  const float* __restrict__ lse,
+                  const float* __restrict__ delta, float* __restrict__ dk,
+                  float* __restrict__ dv, int H, int Hk, int Sq, int Skv,
+                  int causal, int window) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* sK = reinterpret_cast<float*>(smem_raw);  // [kFN][D + 1]
+  float* sV = sK + kFN * (D + 1);                  // [kFN][DV + 1]
+  float* sQ = sV + kFN * (DV + 1);                 // [kFM][D + 1]
+  float* sdO = sQ + kFM * (D + 1);                 // [kFM][DV + 1]
+  float* sP = sdO + kFM * (DV + 1);                // [kFN][kFM + 1]
+  float* sS = sP + kFN * (kFM + 1);                // [kFN][kFM + 1]
+  float* sL = sS + kFN * (kFM + 1);                // [kFM]
+  float* sD = sL + kFM;                            // [kFM]
+
+  const int n0 = blockIdx.x * kFN;
+  const int bhk = blockIdx.y;
+  const int b = bhk / Hk;
+  const int hk = bhk % Hk;
+  const int group = H / Hk;
+  const int r = threadIdx.x / 4;
+  const int t = threadIdx.x % 4;
+  const int kp = n0 + r;
+
+  const long long q_row = (long long)H * D;
+  const long long o_row = (long long)H * DV;
+  const long long k_row = (long long)Hk * D;
+  const long long v_row = (long long)Hk * DV;
+
+  load_tile_f32<D>(sK, k + ((long long)b * Skv + n0) * k_row + hk * D, k_row,
+                   kFN, Skv - n0);
+  load_tile_f32<DV>(sV, v + ((long long)b * Skv + n0) * v_row + hk * DV,
+                    v_row, kFN, Skv - n0);
+
+  float dka[D / 4], dva[DV / 4];
+#pragma unroll
+  for (int i = 0; i < D / 4; ++i) dka[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < DV / 4; ++i) dva[i] = 0.f;
+
+  int lo, hi;
+  query_range(n0, kFN, kFM, Sq, causal, window, &lo, &hi);
+  for (int gi = 0; gi < group; ++gi) {
+    const int h = hk * group + gi;
+    const float* qg = q + (long long)b * Sq * q_row + h * D;
+    const float* dog = dout + (long long)b * Sq * o_row + h * DV;
+    const float* lg = lse + ((long long)b * H + h) * Sq;
+    const float* dg = delta + ((long long)b * H + h) * Sq;
+    for (int m0 = lo; m0 < hi; m0 += kFM) {
+      __syncthreads();
+      load_tile_f32<D>(sQ, qg + (long long)m0 * q_row, q_row, kFM, Sq - m0);
+      load_tile_f32<DV>(sdO, dog + (long long)m0 * o_row, o_row, kFM,
+                        Sq - m0);
+      for (int i = threadIdx.x; i < kFM; i += kThreads) {
+        bool ok = m0 + i < Sq;
+        sL[i] = ok ? lg[m0 + i] : 0.f;
+        sD[i] = ok ? dg[m0 + i] : 0.f;
+      }
+      __syncthreads();
+
+      const float* kr = sK + r * (D + 1);
+      const float* vr = sV + r * (DV + 1);
+#pragma unroll
+      for (int ii = 0; ii < kFM / 4; ++ii) {
+        int i = t + 4 * ii;
+        int qp = m0 + i;
+        const float* qr = sQ + i * (D + 1);
+        const float* dr = sdO + i * (DV + 1);
+        float s = 0.f, dp = 0.f;
+#pragma unroll 8
+        for (int d = 0; d < D; ++d) s = fmaf(kr[d], qr[d], s);
+#pragma unroll 8
+        for (int d = 0; d < DV; ++d) dp = fmaf(vr[d], dr[d], dp);
+        bool live = qp < Sq && key_live(qp, kp, Skv, causal, window);
+        float p = live ? exp2f(s - sL[i]) : 0.f;
+        sP[r * (kFM + 1) + i] = p;
+        sS[r * (kFM + 1) + i] = p * (dp - sD[i]);
+      }
+      __syncwarp();
+      for (int i = 0; i < kFM; ++i) {
+        float p = sP[r * (kFM + 1) + i];
+        float ds = sS[r * (kFM + 1) + i];
+        const float* dr = sdO + i * (DV + 1) + t;
+        const float* qr = sQ + i * (D + 1) + t;
+#pragma unroll
+        for (int cc = 0; cc < DV / 4; ++cc)
+          dva[cc] = fmaf(p, dr[4 * cc], dva[cc]);
+#pragma unroll
+        for (int cc = 0; cc < D / 4; ++cc)
+          dka[cc] = fmaf(ds, qr[4 * cc], dka[cc]);
+      }
+    }
+  }
+
+  if (kp < Skv) {
+    float* krow = dk + ((long long)b * Skv + kp) * k_row + hk * D + t;
+    float* vrow = dv + ((long long)b * Skv + kp) * v_row + hk * DV + t;
+#pragma unroll
+    for (int cc = 0; cc < D / 4; ++cc) krow[4 * cc] = dka[cc] * kLn2;
+#pragma unroll
+    for (int cc = 0; cc < DV / 4; ++cc) vrow[4 * cc] = dva[cc];
+  }
+}
+
+// ---------------------------------------------------------------------
+// Launchers
+// ---------------------------------------------------------------------
+
+template <typename Kernel>
+cudaError_t set_smem(Kernel kernel, size_t smem) {
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+template <int D, int DV>
+cudaError_t run_dq(int dtype, const void* q, const void* k, const void* v,
+                   const void* dout, const float* lse, const float* delta,
+                   void* dq, int B, int H, int Hk, int Sq, int Skv,
+                   int causal, int window, float scale, cudaStream_t st) {
+  cudaError_t err;
+  if (dtype == 0) {
+    size_t smem = sizeof(__nv_bfloat16) *
+                  ((size_t)(kBM + kBN) * (D + kPad) +
+                   (size_t)(kBM + kBN) * (DV + kPad));
+    auto kernel = flash_bwd_dq_bf16<D, DV>;
+    if ((err = set_smem(kernel, smem)) != cudaSuccess) return err;
+    dim3 grid((Sq + kBM - 1) / kBM, B * H);
+    kernel<<<grid, kThreads, smem, st>>>(
+        static_cast<const __nv_bfloat16*>(q),
+        static_cast<const __nv_bfloat16*>(k),
+        static_cast<const __nv_bfloat16*>(v),
+        static_cast<const __nv_bfloat16*>(dout), lse, delta,
+        static_cast<__nv_bfloat16*>(dq), H, Hk, Sq, Skv, causal, window,
+        scale);
+  } else {
+    size_t smem = sizeof(float) *
+                  ((size_t)(kFM + kFN) * (D + 1) +
+                   (size_t)(kFM + kFN) * (DV + 1) + (size_t)kFM * (kFN + 1));
+    auto kernel = flash_bwd_dq_f32<D, DV>;
+    if ((err = set_smem(kernel, smem)) != cudaSuccess) return err;
+    dim3 grid((Sq + kFM - 1) / kFM, B * H);
+    kernel<<<grid, kThreads, smem, st>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<const float*>(dout), lse,
+        delta, static_cast<float*>(dq), H, Hk, Sq, Skv, causal, window,
+        scale);
+  }
+  return cudaGetLastError();
+}
+
+template <int D, int DV>
+cudaError_t run_dkv(int dtype, const void* q, const void* k, const void* v,
+                    const void* dout, const float* lse, const float* delta,
+                    void* dk, void* dv, int B, int H, int Hk, int Sq,
+                    int Skv, int causal, int window, cudaStream_t st) {
+  cudaError_t err;
+  if (dtype == 0) {
+    size_t smem = sizeof(__nv_bfloat16) *
+                      ((size_t)(kBM + kBN) * (D + kPad) +
+                       (size_t)(kBM + kBN) * (DV + kPad)) +
+                  sizeof(float) * 2 * kBM;
+    auto kernel = flash_bwd_dkv_bf16<D, DV>;
+    if ((err = set_smem(kernel, smem)) != cudaSuccess) return err;
+    dim3 grid((Skv + kBN - 1) / kBN, B * Hk);
+    kernel<<<grid, kThreads, smem, st>>>(
+        static_cast<const __nv_bfloat16*>(q),
+        static_cast<const __nv_bfloat16*>(k),
+        static_cast<const __nv_bfloat16*>(v),
+        static_cast<const __nv_bfloat16*>(dout), lse, delta,
+        static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), H,
+        Hk, Sq, Skv, causal, window);
+  } else {
+    size_t smem = sizeof(float) *
+                  ((size_t)(kFM + kFN) * (D + 1) +
+                   (size_t)(kFM + kFN) * (DV + 1) +
+                   2 * (size_t)kFN * (kFM + 1) + 2 * (size_t)kFM);
+    auto kernel = flash_bwd_dkv_f32<D, DV>;
+    if ((err = set_smem(kernel, smem)) != cudaSuccess) return err;
+    dim3 grid((Skv + kFN - 1) / kFN, B * Hk);
+    kernel<<<grid, kThreads, smem, st>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<const float*>(dout), lse,
+        delta, static_cast<float*>(dk), static_cast<float*>(dv), H, Hk, Sq,
+        Skv, causal, window);
+  }
+  return cudaGetLastError();
+}
+
+bool valid_shape(int dtype, int B, int H, int Hk, int Sq, int Skv) {
+  return (dtype == 0 || dtype == 1) && B >= 1 && H >= 1 && Hk >= 1 &&
+         H % Hk == 0 && Sq >= 1 && Skv >= 1;
+}
+
+}  // namespace
+
+#define MARLIN_DISPATCH_DIMS(RUN, ...)                     \
+  if (D == 64 && DV == 64) return (int)RUN<64, 64>(__VA_ARGS__);    \
+  if (D == 64 && DV == 128) return (int)RUN<64, 128>(__VA_ARGS__);  \
+  if (D == 128 && DV == 64) return (int)RUN<128, 64>(__VA_ARGS__);  \
+  if (D == 128 && DV == 128) return (int)RUN<128, 128>(__VA_ARGS__);
+
+// C entry points, bound with ctypes (marlin_tpu_torch/ops/flash_attention.py).
+// dtype: 0 = bf16, 1 = f32. Each returns the cudaError_t of its launch
+// (0 = ok); an unsupported (dtype, D, DV) returns cudaErrorInvalidValue.
+// `q` is the prescaled q_hat the forward saw; `scale` is the softmax scale
+// (dQ = scale * dS K).
+extern "C" int marlin_flash_attention_bwd_dq(
+    int dtype, const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, void* dq, int B, int H, int Hk,
+    int Sq, int Skv, int D, int DV, int causal, int window, float scale,
+    void* stream) {
+  if (!valid_shape(dtype, B, H, Hk, Sq, Skv))
+    return (int)cudaErrorInvalidValue;
+  const float* l = static_cast<const float*>(lse);
+  const float* dl = static_cast<const float*>(delta);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  MARLIN_DISPATCH_DIMS(run_dq, dtype, q, k, v, dout, l, dl, dq, B, H, Hk, Sq,
+                       Skv, causal, window, scale, st)
+  return (int)cudaErrorInvalidValue;
+}
+
+extern "C" int marlin_flash_attention_bwd_dkv(
+    int dtype, const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, void* dk, void* dv, int B, int H,
+    int Hk, int Sq, int Skv, int D, int DV, int causal, int window,
+    void* stream) {
+  if (!valid_shape(dtype, B, H, Hk, Sq, Skv))
+    return (int)cudaErrorInvalidValue;
+  const float* l = static_cast<const float*>(lse);
+  const float* dl = static_cast<const float*>(delta);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  MARLIN_DISPATCH_DIMS(run_dkv, dtype, q, k, v, dout, l, dl, dk, dv, B, H, Hk,
+                       Sq, Skv, causal, window, st)
+  return (int)cudaErrorInvalidValue;
+}
+
+#undef MARLIN_DISPATCH_DIMS

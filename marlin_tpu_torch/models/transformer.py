@@ -1,4 +1,4 @@
-"""Causal transformer LM, inference subset — port of
+"""Causal transformer LM, training and inference — port of
 ``marlin_tpu/models/transformer.py``.
 
 Same configuration, same params layout (a nested dict of tensors with the
@@ -7,9 +7,13 @@ PyTorch idiom: eager code with the batch dimension written out where JAX
 used ``vmap``, Python loops where JAX used ``scan``/``while_loop``, and
 in-place KV-cache writes where JAX donated the cache. Prompt attention
 (``_attend_local``) is the flash-attention kernel of
-:mod:`marlin_tpu_torch.ops.flash_attention`; the projections, the MLP,
-layer norm, RoPE, the cached decode attention and sampling stay plain
-torch, as the JAX package left them to XLA.
+:mod:`marlin_tpu_torch.ops.flash_attention`, differentiable through its
+backward kernels; the projections, the MLP, layer norm, RoPE, the
+chunked cross-entropy, the cached decode attention and sampling stay
+plain torch, as the JAX package left them to XLA. Training is autograd
+over the same functions: :func:`loss_fn`, :func:`train_step` (SGD, f32
+master params) and :func:`make_train_step` (a ``torch.optim``
+optimizer); ``cfg.remat`` checkpoints each block.
 
 Model options outside this slice (int8 KV, MoE, sequence parallelism,
 tensor parallelism) raise ``NotImplementedError`` naming the ROADMAP item
@@ -23,6 +27,7 @@ from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..obs.trace import tracer as _tracer
 from ..ops.flash_attention import flash_attention
@@ -44,7 +49,7 @@ class TransformerConfig(NamedTuple):
     n_kv_heads: int = 0  # 0 = n_heads; fewer = GQA/MQA (must divide n_heads)
     rope: bool = False  # rotary position embeddings instead of learned ones
     window: int = 0  # >0: sliding-window (causal) attention span
-    remat: bool = False  # training-only; no effect on inference
+    remat: bool = False  # checkpoint each block under autograd (training)
     dtype: str = "float32"  # compute dtype of params, activations, KV cache
     kv_quant: str = ""
     tp: int = 1
@@ -243,12 +248,20 @@ def _embed_prefix(params, tokens, cfg: TransformerConfig):
 
 
 def hidden_states(params, tokens, cfg: TransformerConfig):
-    """tokens (B, S) -> final-LN hidden states (B, S, D)."""
+    """tokens (B, S) -> final-LN hidden states (B, S, D). With
+    ``cfg.remat`` under autograd each block runs under
+    ``torch.utils.checkpoint``: it saves only its input and the backward
+    re-runs its forward (one more flash forward launch per block; the
+    flash backward's recompute is tile-local either way)."""
     _validate(cfg)
     params = _cast_params(params, cfg)
     x = _embed_prefix(params, tokens, cfg)
+    remat = cfg.remat and torch.is_grad_enabled()
     for bp in params["blocks"]:
-        x = _block(bp, x, cfg)
+        if remat:
+            x = checkpoint(_block, bp, x, cfg, use_reentrant=False)
+        else:
+            x = _block(bp, x, cfg)
     return _layer_norm(params["ln_f"], x)
 
 
@@ -260,8 +273,118 @@ def forward(params, tokens, cfg: TransformerConfig):
 
 
 # ---------------------------------------------------------------------------
+# Training: chunked cross-entropy, SGD and optimizer steps
+# ---------------------------------------------------------------------------
+
+# Positions per readout chunk in loss_fn (the JAX package's default; tests
+# monkeypatch it).
+_CE_CHUNK = 2048
+
+
+def _nll(h, embed, targets):
+    """Summed next-token negative log-likelihood of hidden states ``h``
+    (..., D) against ``targets`` (...): readout, f32 log-softmax, gather."""
+    logp = torch.log_softmax((h @ embed.T).to(torch.float32), dim=-1)
+    return -logp.gather(-1, targets[..., None])[..., 0]
+
+
+def _chunk_nll(hx, embed, tx, valid):
+    return torch.where(valid, _nll(hx, embed, tx), 0.0).sum()
+
+
+def loss_fn(params, tokens, targets, cfg: TransformerConfig):
+    """Mean next-token cross-entropy; tokens and targets (B, S) integers.
+
+    The readout and cross-entropy run chunked over the FLAT B*S position
+    axis, ``_CE_CHUNK`` positions at a time, each chunk under
+    ``torch.utils.checkpoint`` so neither the forward nor the saved state
+    ever holds the (B*S, vocab) logits; a tail chunk is zero-padded and
+    masked. With B*S <= ``_CE_CHUNK`` the readout runs in one piece."""
+    _validate(cfg)
+    params = _cast_params(params, cfg)
+    dev = params["embed"].device
+    tokens = torch.as_tensor(tokens, dtype=torch.long, device=dev)
+    targets = torch.as_tensor(targets, dtype=torch.long, device=dev)
+    h = hidden_states(params, tokens, cfg)
+    b, s, d = h.shape
+    total = b * s
+    if total <= _CE_CHUNK:
+        return _nll(h, params["embed"], targets).mean()
+    pad = (-total) % _CE_CHUNK
+    hf = F.pad(h.reshape(total, d), (0, 0, 0, pad))
+    tf = F.pad(targets.reshape(total), (0, pad))
+    valid = torch.arange(total + pad, device=dev) < total
+    nll = h.new_zeros((), dtype=torch.float32)
+    for c0 in range(0, total + pad, _CE_CHUNK):
+        sl = slice(c0, c0 + _CE_CHUNK)
+        nll = nll + checkpoint(_chunk_nll, hf[sl], params["embed"], tf[sl],
+                               valid[sl], use_reentrant=False)
+    return nll / total
+
+
+def _leaves(tree):
+    out = []
+    _tree_map(out.append, tree)
+    return out
+
+
+def _unflatten(tree, it):
+    """``tree``'s layout with its leaves taken, in order, from ``it``."""
+    return _tree_map(lambda _: next(it), tree)
+
+
+def train_step(params, tokens, targets, cfg: TransformerConfig,
+               lr: float = 0.1):
+    """One SGD step: ``(loss, new_params)``. Gradients flow back through
+    the compute-dtype casts, so master params (f32 from
+    :func:`init_params`) stay in their own dtype; ``params`` is not
+    modified (the JAX package's functional step)."""
+    leaves = [p.detach().requires_grad_(True) for p in _leaves(params)]
+    with torch.enable_grad():
+        loss = loss_fn(_unflatten(params, iter(leaves)), tokens, targets,
+                       cfg)
+        grads = torch.autograd.grad(loss, leaves)
+    with torch.no_grad():
+        new = [p - lr * g for p, g in zip(leaves, grads)]
+    return loss.detach(), _unflatten(params, iter(new))
+
+
+def make_train_step(cfg: TransformerConfig, optimizer, **optimizer_kwargs):
+    """Bind a ``torch.optim`` optimizer class to the model, the
+    counterpart of the JAX package's optax binding: returns
+    ``(step_fn, init_opt_state)``. ``init_opt_state(params)`` marks every
+    leaf as requiring grad and returns ``optimizer(leaves,
+    **optimizer_kwargs)``; ``step_fn(params, opt_state, tokens, targets)
+    -> (loss, params, opt_state)`` updates the params IN PLACE (the torch
+    optimizer's way) and returns the same dict. The same params can then
+    be served: the inference entry points run under ``torch.no_grad``,
+    so no autograd graph reaches the KV cache."""
+
+    def init_opt_state(params):
+        leaves = _leaves(params)
+        for p in leaves:
+            p.requires_grad_(True)
+        return optimizer(leaves, **optimizer_kwargs)
+
+    def step(params, opt_state, tokens, targets):
+        opt_state.zero_grad(set_to_none=True)
+        with torch.enable_grad():
+            loss = loss_fn(params, tokens, targets, cfg)
+            loss.backward()
+        opt_state.step()
+        return loss.detach(), params, opt_state
+
+    return step, init_opt_state
+
+
+# ---------------------------------------------------------------------------
 # Inference: KV cache, prefill, decode
 # ---------------------------------------------------------------------------
+
+# The inference entry points (prefill, decode_step, decode_chunk, generate)
+# run under torch.no_grad, as the JAX package's are pure functions: params
+# that require grad (after make_train_step) build no autograd graph, and
+# the in-place cache writes chain none from one decode step to the next.
 
 
 def _cache_len(cfg: TransformerConfig) -> int:
@@ -337,6 +460,7 @@ def _chunk_states(params, cache, tokens, pos, cfg: TransformerConfig):
     return x
 
 
+@torch.no_grad()
 def decode_step(params, cache, tokens, pos: int, cfg: TransformerConfig):
     """One decode step: tokens (B,) at position ``pos`` -> (logits (B,
     vocab), cache). The cache is updated in place (slot ``pos``, or
@@ -351,6 +475,7 @@ def decode_step(params, cache, tokens, pos: int, cfg: TransformerConfig):
     return _readout(params, _layer_norm(params["ln_f"], x[:, 0])), cache
 
 
+@torch.no_grad()
 def decode_chunk(params, cache, tokens, pos, cfg: TransformerConfig):
     """Multi-position decode: tokens (B, C) at positions pos..pos+C-1
     (``pos`` a scalar or a per-row (B,) tensor) -> (logits (B, C, vocab),
@@ -371,6 +496,7 @@ def decode_chunk(params, cache, tokens, pos, cfg: TransformerConfig):
     return _readout(params, _layer_norm(params["ln_f"], x)), cache
 
 
+@torch.no_grad()
 def prefill(params, tokens, cfg: TransformerConfig):
     """Run the prompt (B, S) through the model once, filling a fresh cache
     for positions [0, S): returns (last-position logits (B, vocab),
@@ -463,6 +589,7 @@ def _decode_scan(params, cache, first, pos0: int, cfg: TransformerConfig,
     return out
 
 
+@torch.no_grad()
 def generate(params, prompt, steps: int, cfg: TransformerConfig,
              temperature: float = 0.0, seed: int = 0, top_k: int = 0,
              top_p: float = 0.0, eos_id: Optional[int] = None):

@@ -1,18 +1,26 @@
-"""Flash-attention forward: the hand-written Hopper kernel and its plain
-PyTorch version.
+"""Flash attention: the hand-written Hopper kernels and their plain
+PyTorch versions, forward and backward.
 
-Port of ``marlin_tpu/ops/flash_attention.py`` (forward only). The Pallas
-TPU kernel ``_kernel`` becomes the CUDA C++ kernel in
-``csrc/flash_attention_fwd.cu`` (mma.sync bf16 tensor-core tiles for
-bf16, an FMA kernel for f32); the TPU's block constants and VMEM clamps
-(``DEFAULT_BLOCK_Q/K``, ``effective_blocks``, ``window_block_clamp``) do
-not carry over, since the CUDA kernel picks its own tiles and masks the
-ragged edges itself.
+Port of ``marlin_tpu/ops/flash_attention.py``. The Pallas TPU kernels
+become CUDA C++ kernels: ``_kernel`` (the forward) is
+``csrc/flash_attention_fwd.cu``; ``_bwd_dq_kernel`` and
+``_bwd_dkv_kernel`` (the backward) are ``csrc/flash_attention_bwd.cu``
+(mma.sync bf16 tensor-core tiles for bf16, FMA kernels for f32). The
+TPU's block constants and VMEM clamps (``DEFAULT_BLOCK_Q/K``,
+``effective_blocks``, ``window_block_clamp``, the backward's 512-row
+clamp, the lane-replicated lse) do not carry over: the CUDA kernels use
+their own 64 x 64 tiles and mask the ragged edges themselves.
 
-Dispatch: :func:`flash_attention_fwd` runs the plain version,
-:func:`flash_attention_reference`, for CPU tensors and the kernel for CUDA
-tensors. There is no fallback: on the card, a kernel that cannot be
-built or launched raises.
+Dispatch: CPU tensors take the plain versions,
+:func:`flash_attention_reference` and
+:func:`flash_attention_bwd_reference`; CUDA tensors take the kernels.
+There is no fallback: on the card, a kernel that cannot be built or
+launched raises, forward or backward. When grad is enabled and an input
+requires grad, the call goes through :class:`FlashAttentionFunction`, the
+counterpart of the JAX package's ``_flash_hsd`` custom_vjp: it saves
+only ``(q_hat, k, v, o, lse)`` and its backward recomputes the
+probability tiles from lse, so no (Sq, Skv) tensor is kept between the
+two passes.
 
 Public layout is the JAX package's ``(S, H, D)``, plus an optional
 leading batch dimension that stands in for ``jax.vmap``.
@@ -36,23 +44,28 @@ _LOG2E = math.log2(math.e)
 KERNEL_HEAD_DIMS = (64, 128)
 _KERNEL_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 
-# Kernel launches since the last reset (chip_smoke.py zeroes and reads it
-# to prove the serving path ran through the kernel).
+# Tile sizes of the bf16 kernels (kBM x kBN in csrc/flash_attention_fwd.cu
+# and csrc/flash_attention_bwd.cu); the cost model counts tiles with them.
+KERNEL_BLOCK_Q = 64
+KERNEL_BLOCK_K = 64
+
+# Kernel launches since the last reset, one counter per kernel
+# (chip_smoke.py zeroes and reads them to prove that a path ran through
+# the kernels): the forward, the dQ backward and the dK/dV backward.
 launches = 0
+bwd_dq_launches = 0
+bwd_dkv_launches = 0
 
 
 def _prepare(q, k, v, causal: bool, scale: Optional[float], window: int):
-    """Validate shapes and options, add the batch dimension, and fold
+    """Validate batched (B, S, H, D) shapes and the options, and fold
     ``scale * log2(e)`` into Q in >= f32 and round it back to Q's dtype —
     the TPU kernel's prescale (``_flash_hsd_impl``), whose rounding at
-    bf16 is part of the result."""
-    if q.dim() not in (3, 4) or k.dim() != q.dim() or v.dim() != q.dim():
+    bf16 is part of the result. Returns ``(q_hat, k, v)``."""
+    if not q.dim() == k.dim() == v.dim() == 4:
         raise ValueError(
             f"expected (S, H, D) or (B, S, H, D) tensors, got q "
             f"{tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
-    batched = q.dim() == 4
-    if not batched:
-        q, k, v = q[None], k[None], v[None]
     b, sq, h, d = q.shape
     if k.shape[0] != b or v.shape[0] != b:
         raise ValueError(f"batch mismatch: {q.shape}, {k.shape}, {v.shape}")
@@ -76,7 +89,7 @@ def _prepare(q, k, v, causal: bool, scale: Optional[float], window: int):
         scale = 1.0 / math.sqrt(d)
     pdt = torch.promote_types(q.dtype, torch.float32)
     q_hat = (q.to(pdt) * (scale * _LOG2E)).to(q.dtype)
-    return q_hat, k, v, batched
+    return q_hat, k, v
 
 
 def flash_attention_reference(q_hat, k, v, causal: bool = False,
@@ -107,6 +120,46 @@ def flash_attention_reference(q_hat, k, v, causal: bool = False,
     return o.reshape(b, sq, h, dv).to(q_hat.dtype), lse.float()
 
 
+def flash_attention_bwd_reference(q_hat, k, v, o, lse, do,
+                                  causal: bool = False, window: int = 0,
+                                  scale: Optional[float] = None):
+    """The plain backward, on the prescaled ``q_hat`` the forward saw and
+    batched (B, S, H, D) tensors: the JAX package's ``_flash_bwd_pallas``
+    and ``_bwd_p_ds`` written out. Delta = rowsum(dO * O) in f32;
+    p = exp2(q_hat k^T - lse) under the same -1e30 masks;
+    dS = p * (dO v^T - Delta); dQ = scale * dS K; dK = ln2 * dS^T q_hat;
+    dV = p^T dO; GQA by a (Hk, group) reshape, summed over the group.
+    Returns ``(dQ, dK, dV)`` in the dtypes of q, k and v. It materialises
+    the (Sq, Skv) tiles: it exists for tests and as the kernels' yardstick
+    of correctness."""
+    b, sq, h, d = q_hat.shape
+    skv, hk, dv = k.shape[1], k.shape[2], v.shape[3]
+    group = h // hk
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    cdt = torch.promote_types(q_hat.dtype, torch.float32)
+    delta = (do.float() * o.float()).sum(-1).to(cdt)  # (B, Sq, H)
+    qg = q_hat.to(cdt).reshape(b, sq, hk, group, d)
+    dog = do.to(cdt).reshape(b, sq, hk, group, dv)
+    kf, vf = k.to(cdt), v.to(cdt)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg, kf)
+    if causal:
+        qp = torch.arange(sq, device=q_hat.device)[:, None]
+        kp = torch.arange(skv, device=q_hat.device)[None, :]
+        mask = kp <= qp
+        if window:
+            mask = mask & (kp > qp - window)
+        s = s.masked_fill(~mask, _NEG_INF)
+    p = torch.exp2(s - lse.to(cdt).reshape(b, hk, group, sq, 1))
+    dp = torch.einsum("bqkgd,bskd->bkgqs", dog, vf)
+    ds = p * (dp - delta.permute(0, 2, 1).reshape(b, hk, group, sq, 1))
+    dq = torch.einsum("bkgqs,bskd->bqkgd", ds, kf) * scale
+    dk = torch.einsum("bkgqs,bqkgd->bskd", ds, qg) * (1.0 / _LOG2E)
+    dvv = torch.einsum("bkgqs,bqkgd->bskd", p, dog)
+    return (dq.reshape(b, sq, h, d).to(q_hat.dtype), dk.to(k.dtype),
+            dvv.to(v.dtype))
+
+
 def _kernel_lib() -> ctypes.CDLL:
     lib = build.load("flash_attention_fwd")
     fn = lib.marlin_flash_attention_fwd
@@ -117,31 +170,68 @@ def _kernel_lib() -> ctypes.CDLL:
     return lib
 
 
-def _launch(q_hat, k, v, causal: bool, window: int):
-    """Run the CUDA kernel on batched (B, S, H, D) tensors. Checks what
-    the kernel takes and raises on anything else."""
-    global launches
-    lib = _kernel_lib()
-    if q_hat.dtype not in _KERNEL_DTYPES:
-        raise ValueError(
-            f"the kernel takes bf16 or f32, got {q_hat.dtype}")
-    b, sq, h, d = q_hat.shape
-    skv, hk, dv = k.shape[1], k.shape[2], v.shape[3]
+def _bwd_lib() -> ctypes.CDLL:
+    lib = build.load("flash_attention_bwd")
+    dq, dkv = (lib.marlin_flash_attention_bwd_dq,
+               lib.marlin_flash_attention_bwd_dkv)
+    if dq.argtypes is None:
+        dq.restype = dkv.restype = ctypes.c_int
+        dq.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 7
+                       + [ctypes.c_int] * 9
+                       + [ctypes.c_float, ctypes.c_void_p])
+        dkv.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 8
+                        + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+    return lib
+
+
+def _check_launch(tensors: dict, d: int, dv: int,
+                  stats: Optional[dict] = None) -> None:
+    """Raise on anything the kernels do not take: ``tensors`` of a dtype
+    other than bf16 or f32 or of several dtypes, ``stats`` (lse, Delta)
+    not f32, a head dim outside :data:`KERNEL_HEAD_DIMS`, a tensor that is
+    not CUDA or not contiguous, several devices, a card that is not
+    Hopper."""
+    stats = stats or {}
+    first = next(iter(tensors.values()))
+    if first.dtype not in _KERNEL_DTYPES:
+        raise ValueError(f"the kernel takes bf16 or f32, got {first.dtype}")
     if d not in KERNEL_HEAD_DIMS or dv not in KERNEL_HEAD_DIMS:
         raise ValueError(
             f"the kernel is built for head dims {KERNEL_HEAD_DIMS}, got "
             f"D={d}, Dv={dv}")
-    for name, x in (("q", q_hat), ("k", k), ("v", v)):
+    every = {**tensors, **stats}
+    for name, x in every.items():
+        want = torch.float32 if name in stats else first.dtype
+        if x.dtype != want:
+            raise ValueError(f"{name} is {x.dtype}, the kernel takes {want}")
+    for name, x in every.items():
         if x.device.type != "cuda":
             raise ValueError(f"{name} must be a CUDA tensor, got {x.device}")
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if not (q_hat.device == k.device == v.device):
-        raise ValueError("q, k and v must be on one device")
-    if not is_sm90(q_hat.device):
+        if x.device != first.device:
+            raise ValueError("the kernel's tensors must be on one device")
+    if not is_sm90(first.device):
         raise RuntimeError(
             f"the kernel is built for sm_90a (Hopper); "
-            f"{torch.cuda.get_device_name(q_hat.device)} is not one")
+            f"{torch.cuda.get_device_name(first.device)} is not one")
+
+
+def _check_err(err: int, what: str, b, sq, skv, h, hk, d, dv) -> None:
+    if err != 0:
+        raise RuntimeError(
+            f"{what} launch failed: cudaError_t {err} (B={b}, Sq={sq}, "
+            f"Skv={skv}, H={h}, Hk={hk}, D={d}, Dv={dv})")
+
+
+def _launch(q_hat, k, v, causal: bool, window: int):
+    """Run the forward kernel on batched (B, S, H, D) tensors. Checks what
+    the kernel takes and raises on anything else."""
+    global launches
+    lib = _kernel_lib()
+    b, sq, h, d = q_hat.shape
+    skv, hk, dv = k.shape[1], k.shape[2], v.shape[3]
+    _check_launch({"q": q_hat, "k": k, "v": v}, d, dv)
     o = torch.empty((b, sq, h, dv), dtype=q_hat.dtype, device=q_hat.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q_hat.device)
     with torch.cuda.device(q_hat.device):
@@ -150,12 +240,130 @@ def _launch(q_hat, k, v, causal: bool, window: int):
             _KERNEL_DTYPES[q_hat.dtype], q_hat.data_ptr(), k.data_ptr(),
             v.data_ptr(), o.data_ptr(), lse.data_ptr(), b, h, hk, sq, skv,
             d, dv, int(causal), int(window), stream)
-    if err != 0:
-        raise RuntimeError(
-            f"flash_attention_fwd launch failed: cudaError_t {err} "
-            f"(B={b}, Sq={sq}, Skv={skv}, H={h}, Hk={hk}, D={d}, Dv={dv})")
+    _check_err(err, "flash_attention_fwd", b, sq, skv, h, hk, d, dv)
     launches += 1
     return o, lse
+
+
+def _bwd_setup(q_hat, k, v, do, lse, delta):
+    """The backward library and the dims (B, Sq, H, D, Skv, Hk, Dv) of
+    batched inputs, after checking every shape, dtype and device the
+    kernels read."""
+    lib = _bwd_lib()
+    b, sq, h, d = q_hat.shape
+    skv, hk, dv = k.shape[1], k.shape[2], v.shape[3]
+    shapes = {"k": (k.shape, (b, skv, hk, d)),
+              "v": (v.shape, (b, skv, hk, dv)),
+              "do": (do.shape, (b, sq, h, dv)),
+              "lse": (lse.shape, (b, h, sq)),
+              "delta": (delta.shape, (b, h, sq))}
+    for name, (got, want) in shapes.items():
+        if tuple(got) != want:
+            raise ValueError(f"{name} has shape {tuple(got)}, expected "
+                             f"{want} for q_hat {tuple(q_hat.shape)}")
+    if h % hk:
+        raise ValueError(f"GQA needs kv_heads ({hk}) to divide heads ({h})")
+    _check_launch({"q_hat": q_hat, "k": k, "v": v, "do": do}, d, dv,
+                  {"lse": lse, "delta": delta})
+    return lib, (b, sq, h, d, skv, hk, dv)
+
+
+def _launch_bwd_dq(q_hat, k, v, do, lse, delta, causal: bool, window: int,
+                   scale: float):
+    """Run the dQ kernel (B4): dQ in q's dtype, (B, Sq, H, D)."""
+    global bwd_dq_launches
+    lib, (b, sq, h, d, skv, hk, dv) = _bwd_setup(q_hat, k, v, do, lse,
+                                                 delta)
+    dq = torch.empty_like(q_hat)
+    with torch.cuda.device(q_hat.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.marlin_flash_attention_bwd_dq(
+            _KERNEL_DTYPES[q_hat.dtype], q_hat.data_ptr(), k.data_ptr(),
+            v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            dq.data_ptr(), b, h, hk, sq, skv, d, dv, int(causal),
+            int(window), float(scale), stream)
+    _check_err(err, "flash_attention_bwd_dq", b, sq, skv, h, hk, d, dv)
+    bwd_dq_launches += 1
+    return dq
+
+
+def _launch_bwd_dkv(q_hat, k, v, do, lse, delta, causal: bool,
+                    window: int):
+    """Run the dK/dV kernel (B5): (dK, dV) in k's dtype, summed over each
+    KV head's group of query heads."""
+    global bwd_dkv_launches
+    lib, (b, sq, h, d, skv, hk, dv) = _bwd_setup(q_hat, k, v, do, lse,
+                                                 delta)
+    dk = torch.empty_like(k)
+    dvv = torch.empty_like(v)
+    with torch.cuda.device(q_hat.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.marlin_flash_attention_bwd_dkv(
+            _KERNEL_DTYPES[q_hat.dtype], q_hat.data_ptr(), k.data_ptr(),
+            v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            dk.data_ptr(), dvv.data_ptr(), b, h, hk, sq, skv, d, dv,
+            int(causal), int(window), stream)
+    _check_err(err, "flash_attention_bwd_dkv", b, sq, skv, h, hk, d, dv)
+    bwd_dkv_launches += 1
+    return dk, dvv
+
+
+def _delta(do, o):
+    """Delta = rowsum(dO * O) in f32, (B, H, Sq): one f32 copy of dO
+    multiplied by O in place, then summed (the JAX package leaves this to
+    XLA, outside any kernel)."""
+    return (do.to(torch.float32, copy=True).mul_(o).sum(-1)
+            .transpose(1, 2).contiguous())
+
+
+def _launch_bwd(q_hat, k, v, do, lse, delta, causal: bool, window: int,
+                scale: float):
+    """Both backward kernels: ``(dQ, dK, dV)``."""
+    dq = _launch_bwd_dq(q_hat, k, v, do, lse, delta, causal, window, scale)
+    dk, dvv = _launch_bwd_dkv(q_hat, k, v, do, lse, delta, causal, window)
+    return dq, dk, dvv
+
+
+def _forward(q_hat, k, v, causal: bool, window: int):
+    """``(O, lse)`` on batched tensors: the plain version for CPU tensors,
+    the kernel (or an error) for any other."""
+    if q_hat.device.type == "cpu":
+        return flash_attention_reference(q_hat, k, v, causal, window)
+    return _launch(q_hat.contiguous(), k.contiguous(), v.contiguous(),
+                   causal, window)
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """Differentiable flash attention on batched (B, S, H, D) tensors: the
+    counterpart of the JAX package's ``_flash_hsd`` custom_vjp. The
+    forward runs the forward kernel (the plain version on the CPU) and
+    saves only ``(q_hat, k, v, o, lse)``; the backward computes Delta with
+    one torch op and runs the dQ and dK/dV kernels (the plain backward on
+    the CPU). Returns ``(O, lse)``; lse is not differentiable."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale, window):
+        q_hat, k, v = (x.contiguous() for x in
+                       _prepare(q, k, v, causal, scale, window))
+        o, lse = _forward(q_hat, k, v, causal, window)
+        ctx.save_for_backward(q_hat, k, v, o, lse)
+        ctx.causal, ctx.window = bool(causal), int(window)
+        ctx.scale = (1.0 / math.sqrt(q.shape[-1]) if scale is None
+                     else float(scale))
+        ctx.mark_non_differentiable(lse)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do, _dlse):
+        q_hat, k, v, o, lse = ctx.saved_tensors
+        do = do.contiguous()  # autograd may hand over a strided gradient
+        if q_hat.device.type == "cpu":
+            dq, dk, dv = flash_attention_bwd_reference(
+                q_hat, k, v, o, lse, do, ctx.causal, ctx.window, ctx.scale)
+        else:
+            dq, dk, dv = _launch_bwd(q_hat, k, v, do, lse, _delta(do, o),
+                                     ctx.causal, ctx.window, ctx.scale)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention_fwd(q, k, v, causal: bool = False,
@@ -163,22 +371,27 @@ def flash_attention_fwd(q, k, v, causal: bool = False,
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(O, lse)``: O = softmax(Q K^T * scale) V in q's dtype and the
     per-row log2-sum-exp (B, H, Sq) f32 (without a batch dimension: O
-    (Sq, H, Dv), lse (H, Sq)). CPU tensors take the plain version; CUDA
-    tensors take the kernel or raise."""
-    q_hat, k, v, batched = _prepare(q, k, v, causal, scale, window)
-    if q_hat.device.type == "cpu":
-        o, lse = flash_attention_reference(q_hat, k, v, causal, window)
-    else:
-        o, lse = _launch(q_hat.contiguous(), k.contiguous(),
-                         v.contiguous(), causal, window)
-    return (o, lse) if batched else (o[0], lse[0])
+    (Sq, H, Dv), lse (H, Sq)). CPU tensors take the plain versions; CUDA
+    tensors take the kernels or raise. Differentiable in q, k and v
+    through :class:`FlashAttentionFunction` when grad is enabled and one
+    of them requires grad; otherwise a direct call (one forward launch,
+    nothing saved)."""
+    if q.dim() == 3 and k.dim() == 3 and v.dim() == 3:
+        o, lse = flash_attention_fwd(q[None], k[None], v[None], causal,
+                                     scale, window)
+        return o[0], lse[0]
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        return FlashAttentionFunction.apply(q, k, v, causal, scale, window)
+    q_hat, k, v = _prepare(q, k, v, causal, scale, window)
+    return _forward(q_hat, k, v, causal, window)
 
 
 def flash_attention(q, k, v, causal: bool = False,
                     scale: Optional[float] = None, window: int = 0
                     ) -> torch.Tensor:
     """softmax(Q K^T * scale) V, flash-tiled: the counterpart of
-    ``marlin_tpu.ops.flash_attention.flash_attention`` (forward).
+    ``marlin_tpu.ops.flash_attention.flash_attention``, forward and
+    backward.
 
     Shapes: (S, H, D) or (B, S, H, D); K/V lengths may differ from Q's
     (cross attention), K/V may carry fewer heads (GQA/MQA: Hk divides H,

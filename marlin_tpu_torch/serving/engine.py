@@ -117,8 +117,11 @@ class ServingEngine:
         self.eos_id = eos_id
         self._seed = int(seed)
         # Cast once: every later _cast_params on the serving path is a
-        # no-op (the JAX entry points re-cast inside each compile).
-        self._run_params = tr._cast_params(params, cfg)
+        # no-op (the JAX entry points re-cast inside each compile). No
+        # grad, here and in step(): params may require grad (after
+        # make_train_step), and serving must build no graph from them.
+        with torch.no_grad():
+            self._run_params = tr._cast_params(params, cfg)
         self.queue = AdmissionQueue(max_pending=max_pending)
         self.slots = SlotManager(batch)
         self.tracer = tracer if tracer is not None else obs_trace.tracer
@@ -357,6 +360,7 @@ class ServingEngine:
             finished.append(req)
         return finished
 
+    @torch.no_grad()
     def step(self) -> List[Request]:
         """One scheduling round: admit into free rows, decode one bounded
         round, retire finished rows. Returns the requests that finished

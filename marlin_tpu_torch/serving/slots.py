@@ -43,6 +43,7 @@ def _write_row_tokens(buf, row: int, prompt, prompt_len: int, first):
     buf[row, prompt_len] = first
 
 
+@torch.no_grad()
 def prefill_into_row(params, cache, buf, row: int, prompt, cfg,
                      temperature: float = 0.0,
                      generator: Optional[torch.Generator] = None):

@@ -1,11 +1,15 @@
-"""Analytic costs the serving engine reads (the part of
-``marlin_tpu/utils/cost_model.py`` on the serving path): the decode-step
-and admission rooflines and the measured-vs-predicted drift ledger."""
+"""Analytic costs (the part of ``marlin_tpu/utils/cost_model.py`` on the
+ported paths): the decode-step and admission rooflines and the
+measured-vs-predicted drift ledger the serving engine reads, and the
+flash-attention tile accounting and training-step FLOPs that
+chip_smoke.py reads."""
 
 from __future__ import annotations
 
 import threading
-from typing import Tuple
+from typing import Optional, Tuple
+
+from ..ops.flash_attention import KERNEL_BLOCK_K, KERNEL_BLOCK_Q
 
 
 def transformer_param_count(cfg) -> int:
@@ -126,3 +130,87 @@ class CostCalibration:
                 }
                 for op, st in self._ops.items()
             }
+
+
+# -- flash attention tile accounting ----------------------------------------
+#
+# The CUDA kernels' own plan (csrc/flash_attention_fwd.cu and _bwd.cu):
+# 64 x 64 tiles (KERNEL_BLOCK_Q/K, not the TPU's 1024-row VMEM blocks),
+# and each query tile visits only the key tiles of its causal or window
+# band, so every visited tile pair is live.
+
+
+def _block_live(i: int, j: int, *, causal: bool, block_q: int,
+                block_k: int, window: int) -> bool:
+    """The JAX kernels' tile-liveness predicate: causal drops tiles
+    strictly above the diagonal, a window those strictly below its band."""
+    run = (i * block_q + block_q - 1 >= j * block_k) if causal else True
+    if window:
+        run = run and (j * block_k + block_k - 1 > i * block_q - window)
+    return bool(run)
+
+
+def attention_block_counts(s: int, block_q: Optional[int] = None,
+                           block_k: Optional[int] = None, window: int = 0,
+                           causal: bool = True,
+                           kv_len: Optional[int] = None) -> dict:
+    """Tile accounting of the port's flash kernels at (S queries, kv_len
+    keys): ``visited`` = tile pairs the kernel loads (each query tile's
+    key sweep: causal stops after the tile's last row, a window starts at
+    the band's first key tile), ``live`` = pairs passing the liveness
+    predicate. Tiles default to the kernels' 64 x 64."""
+    block_q = block_q or KERNEL_BLOCK_Q
+    block_k = block_k or KERNEL_BLOCK_K
+    kv_len = kv_len if kv_len is not None else s
+    n_q = -(-s // block_q)
+    n_k = -(-kv_len // block_k)
+    visited = 0
+    live = 0
+    for i in range(n_q):
+        hi = n_k
+        if causal:
+            hi = min(n_k, -(-min(kv_len, (i + 1) * block_q) // block_k))
+        lo = 0
+        if window:
+            lo = max(0, i * block_q - window + 1) // block_k
+        for j in range(lo, hi):
+            visited += 1
+            live += _block_live(i, j, causal=causal, block_q=block_q,
+                                block_k=block_k, window=window)
+    return {"n_q": n_q, "n_k": n_k, "visited": visited, "live": live}
+
+
+def flash_attention_cost(s: int, h: int, d: int,
+                         block_q: Optional[int] = None,
+                         block_k: Optional[int] = None, window: int = 0,
+                         causal: bool = True,
+                         itemsize: int = 2) -> Tuple[float, float]:
+    """(flops, bytes) of the flash forward at (S, H, D): 4*bq*bk*D FLOPs
+    (Q K^T + P V) per live tile pair per head; bytes stream one K and one
+    V tile per visited pair plus one Q read and one output write per
+    query tile."""
+    block_q = block_q or KERNEL_BLOCK_Q
+    block_k = block_k or KERNEL_BLOCK_K
+    c = attention_block_counts(s, block_q, block_k, window=window,
+                               causal=causal)
+    flops = 4.0 * h * c["live"] * block_q * block_k * d
+    byts = itemsize * h * (
+        2 * c["visited"] * block_k * d      # K + V tiles per visited pair
+        + c["n_q"] * block_q * d            # Q read once per query tile
+        + c["n_q"] * block_q * d            # output write
+    )
+    return flops, float(byts)
+
+
+def transformer_step_flops(n_params: int, batch: int, s: int,
+                           n_layers: int, n_heads: int, d_head: int,
+                           window: int = 0, block_q: Optional[int] = None,
+                           block_k: Optional[int] = None) -> float:
+    """Model FLOPs of one training step: ``6 * N * T`` for the matmuls
+    plus the attention term it leaves out: per layer and sequence, the
+    causal flash forward's live-tile FLOPs times 3.5 for forward and
+    backward (2 forward products, 5 backward: the recomputed logits, dP,
+    dV, dQ, dK), at the kernels' own 64 x 64 tiles."""
+    attn_fwd, _ = flash_attention_cost(s, n_heads, d_head, block_q,
+                                       block_k, window=window, causal=True)
+    return 6.0 * n_params * batch * s + 3.5 * batch * n_layers * attn_fwd

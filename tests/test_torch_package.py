@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from marlin_tpu_torch.examples import transformer_lm
 from marlin_tpu_torch.models import convert
 from marlin_tpu_torch.models import transformer as pt
 from marlin_tpu_torch.ops import build
@@ -59,6 +60,8 @@ def test_importing_the_port_pulls_in_no_jax():
     code = ("import sys\n"
             "import marlin_tpu_torch.serving, marlin_tpu_torch.models\n"
             "import marlin_tpu_torch.ops.flash_attention\n"
+            "import marlin_tpu_torch.utils.cost_model\n"
+            "import marlin_tpu_torch.examples.transformer_lm\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax', 'jaxlib',\n"
             "                                    'marlin_tpu'))\n"
@@ -75,6 +78,12 @@ def test_kernels_are_built_for_hopper_at_first_use_only():
     for name, src in build.SOURCES.items():
         assert src.is_file() and src.suffix == ".cu"
         assert build.library_path(name).parent == build.BUILD_DIR
+    # Every CUDA source of the port is built: the forward and the backward.
+    assert set(build.SOURCES) == {p.stem for p in
+                                  (ROOT / "marlin_tpu_torch" / "csrc")
+                                  .glob("*.cu")}
+    assert {"flash_attention_fwd", "flash_attention_bwd"} <= set(
+        build.SOURCES)
 
 
 class TestNoSilentCpuFallback:
@@ -96,6 +105,8 @@ class TestNoSilentCpuFallback:
         params = pt.init_params(cfg, device="cpu")
         with pytest.raises(RuntimeError, match="CUDA"):
             ServingEngine(params, cfg)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            transformer_lm.main(["1", "2", "8", "64"])
         # Asked for explicitly, the CPU works.
         eng = ServingEngine(params, cfg, device="cpu")
         eng.submit(np.arange(3), 2)
