@@ -2,7 +2,7 @@
 """Drive the PyTorch port (marlin_tpu_torch) on one NVIDIA GPU and check it.
 
     python3 chip_smoke.py                    # every phase below
-    python3 chip_smoke.py --planted-faults   # the backward check's teeth
+    python3 chip_smoke.py --planted-faults   # the kernel checks' teeth
 
 Phases, each of which exits non-zero on failure:
 
@@ -41,14 +41,35 @@ Phases, each of which exits non-zero on failure:
 7. Card against CPU: full width, 2 layers, B=1, S=512, f32: loss_fn and
    every gradient leaf on the card (the f32 kernels) against the same
    call on the CPU (the plain versions), TF32 off.
+8. SpMM kernels vs plain (run after phase 4): the gather and the
+   masked-grid block-sparse GEMM kernels against the plain version, per
+   64 x 64 output tile (tile_rel_err_2d), at the main path's two shapes
+   (n = 8192 at block sizes 512 and 128, 12% of the blocks live), the
+   sparse bench's oracle shape and the edge cases (ragged M, K != N,
+   block size 64, an all-zero mask, an empty block column held bitwise 0,
+   a full mask, one full column among empty ones, f32), on a backing
+   array that is not zeroed under dead blocks; the two kernels bitwise
+   equal; times, the bound and one dense torch.matmul as the yardstick.
+9. Block-sparse GEMM path at the sparse bench configuration's size
+   (n = 8192, bf16, nothing cut): BlockSparse(data, mask, 512), and COO
+   triples -> SparseVecMatrix.from_coo -> to_block_sparse() at block size
+   128 with the drawn mask recovered; 8 products each through
+   block_sparse_matmul, the result held against the plain version, the
+   gather kernel launched exactly once per product (counters zeroed just
+   before, read just after). Then the masked-grid path: one CUDA graph of
+   the product with the mask on the card, replayed, and replayed after
+   the mask and data were overwritten. Then gradients in A and B against
+   the plain version's autograd (dB exactly 0 outside the mask) and a
+   small f32 card-against-CPU check.
 
 The last three lines of output are the card line from nvidia-smi, one
 {"kernels": [...]} JSON object, and {"ok": true, "device": {...}}.
 
 With ``--planted-faults`` it runs phase 1, then builds the backward source
-with each fault of PLANTED_FAULTS into a temporary directory and prints,
-at every bf16 backward shape, the sound kernels' and each fault's reading
-of the backward check; it fails unless the check's limit separates them.
+with each fault of PLANTED_FAULTS and the SpMM source with each fault of
+SPMM_PLANTED_FAULTS into a temporary directory and prints, at every bf16
+shape of the backward and SpMM checks, the sound kernels' and each fault's
+reading of the check; it fails unless the check's limit separates them.
 """
 
 from __future__ import annotations
@@ -508,78 +529,169 @@ def phase_backward():
     return rows
 
 
-def phase_planted_faults(card: str):
-    """The backward check against planted faults: build each fault of
-    PLANTED_FAULTS into a temporary directory, and at every bf16 backward
-    shape print the sound kernels' and each fault's reading of dQ, dK and
-    dV (tile_rel_err, and the global max |err| / max |plain| beside it).
-    Fails unless every sound reading is within BWD_TOLERANCE and every
-    fault's worst reading exceeds it."""
-    import ctypes
-    import tempfile
-    from pathlib import Path
+# Planted faults of the SpMM kernels: each is one edit of
+# csrc/block_sparse.cu. The SpMM check must pass the sound kernels and
+# fail each fault at every bf16 SpMM shape where the fault can show: the
+# first wherever some block is live, the second wherever some block is
+# dead (the check's backing array is not zeroed under dead blocks).
+SPMM_PLANTED_FAULTS = {
+    # The gather kernel's loop stops one short of its column's list.
+    "gather_drops_last_listed_block": (
+        "      count = kcnt[j];\n",
+        "      count = kcnt[j] - 1;\n"),
+    # The masked-grid kernel multiplies every block, live or dead.
+    "masked_ignores_the_mask": (
+        "      while (pos < count && list[(size_t)pos * stride] == 0) "
+        "++pos;\n",
+        "      while (false) ++pos;\n"),
+}
 
-    import torch
+
+def _build_planted(sets, tmp):
+    """Build every fault of ``sets`` ({source name: {fault: (old text, new
+    text)}}) into ``tmp``, one nvcc per fault, all started together.
+    Returns {source name: {"sound": lib, fault: lib, ...}}."""
+    import ctypes
+    from pathlib import Path
 
     from marlin_tpu_torch.ops import build
 
-    source = build.SOURCES["flash_attention_bwd"].read_text()
     build.build()
-    sound = build.load("flash_attention_bwd")
-    libs = {"sound": sound}
-    with tempfile.TemporaryDirectory() as tmp:
-        procs = {}
-        for fault, (old, new) in PLANTED_FAULTS.items():
+    procs = {}
+    for name, faults in sets.items():
+        source = build.SOURCES[name].read_text()
+        for fault, (old, new) in faults.items():
             if old not in source:
                 fail(f"planted fault {fault}: its text is not in the source")
             src = Path(tmp) / f"{fault}.cu"
             src.write_text(source.replace(old, new, 1))
             lib = Path(tmp) / f"lib{fault}.so"
-            procs[fault] = (lib, subprocess.Popen(
+            procs[name, fault] = (lib, subprocess.Popen(
                 [build.find_nvcc(), *build.NVCC_FLAGS, "-o", str(lib),
                  str(src)], stdout=subprocess.PIPE,
                 stderr=subprocess.STDOUT, text=True))
-        for fault, (lib, proc) in procs.items():
-            log, _ = proc.communicate()
-            if proc.returncode != 0:
-                fail(f"planted fault {fault}: nvcc failed:\n{log}")
-            libs[fault] = ctypes.CDLL(str(lib))
+    libs = {name: {"sound": build.load(name)} for name in sets}
+    for (name, fault), (lib, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            fail(f"planted fault {fault}: nvcc failed:\n{log}")
+        libs[name][fault] = ctypes.CDLL(str(lib))
+    return libs
 
-        gen = torch.Generator(device="cuda").manual_seed(1)
-        tol = BWD_TOLERANCE["bfloat16"]
-        worst_sound, caught = 0.0, True
-        try:
-            for shape in BWD_SHAPES:
-                if shape[8] != "bfloat16":
-                    continue
-                c = BwdCase(gen, shape)
-                ref = c.plain()
-                readings = {}
-                for variant, lib in libs.items():
-                    build._loaded["flash_attention_bwd"] = lib
-                    readings[variant] = bwd_errors((c.dq(), *c.dkv()), ref)
-                build._loaded["flash_attention_bwd"] = sound
-                sound_max = max(r["tile_rel"]
-                                for r in readings["sound"].values())
-                fault_min = min(max(r["tile_rel"] for r in v.values())
-                                for f, v in readings.items()
-                                if f != "sound")
-                worst_sound = max(worst_sound, sound_max)
-                caught = caught and sound_max <= tol < fault_min
-                print("planted_faults: " + json.dumps(dict(
-                    shape=c.name, tolerance=tol, sound_max=sound_max,
-                    least_fault_max=fault_min, readings=readings)),
-                    flush=True)
-                del c, ref
-        finally:
-            build._loaded["flash_attention_bwd"] = sound
+
+def _planted_backward(libs):
+    """The backward check's reading of the sound kernels and of each
+    fault at every bf16 backward shape: (worst sound reading, whether the
+    limit separated them at every shape)."""
+    import torch
+
+    from marlin_tpu_torch.ops import build
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    tol = BWD_TOLERANCE["bfloat16"]
+    worst_sound, caught = 0.0, True
+    try:
+        for shape in BWD_SHAPES:
+            if shape[8] != "bfloat16":
+                continue
+            c = BwdCase(gen, shape)
+            ref = c.plain()
+            readings = {}
+            for variant, lib in libs.items():
+                build._loaded["flash_attention_bwd"] = lib
+                readings[variant] = bwd_errors((c.dq(), *c.dkv()), ref)
+            sound_max = max(r["tile_rel"]
+                            for r in readings["sound"].values())
+            fault_min = min(max(r["tile_rel"] for r in v.values())
+                            for f, v in readings.items() if f != "sound")
+            worst_sound = max(worst_sound, sound_max)
+            caught = caught and sound_max <= tol < fault_min
+            print("planted_faults: " + json.dumps(dict(
+                shape=c.name, tolerance=tol, sound_max=sound_max,
+                least_fault_max=fault_min, readings=readings)), flush=True)
+            del c, ref
+    finally:
+        build._loaded["flash_attention_bwd"] = libs["sound"]
+    return worst_sound, caught
+
+
+def _planted_spmm(libs):
+    """The SpMM check's reading of the sound kernels and of each fault
+    at every bf16 SpMM shape: (worst sound reading, whether the limit
+    separated them wherever the fault can show and the kernel a fault
+    does not touch stayed sound)."""
+    import torch
+
+    from marlin_tpu_torch.ops import build
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    tol = SPMM_TOLERANCE["bfloat16"]
+    worst_sound, caught = 0.0, True
+    try:
+        for shape in SPMM_SHAPES:
+            if shape[6] != "bfloat16":
+                continue
+            c = SpmmCase(gen, shape)
+            ref = c.plain()
+            readings = {}
+            for variant, lib in libs.items():
+                build._loaded["block_sparse"] = lib
+                readings[variant] = dict(
+                    gather=tile_rel_err_2d(c.gather(), ref),
+                    masked=tile_rel_err_2d(c.masked(), ref))
+            # What each variant must read: within the limit, except the
+            # kernel a fault breaks, wherever that fault can show.
+            broken = {"gather_drops_last_listed_block":
+                      ("gather", c.nnz > 0),
+                      "masked_ignores_the_mask":
+                      ("masked", c.nnz < c.mask.numel())}
+            for variant, r in readings.items():
+                kernel, shows = broken.get(variant, (None, False))
+                for k, v in r.items():
+                    if k == kernel and shows:
+                        caught = caught and v > tol
+                    else:
+                        caught = caught and v <= tol
+            worst_sound = max(worst_sound, *readings["sound"].values())
+            print("planted_faults: " + json.dumps(dict(
+                shape=c.name, tolerance=tol, live_blocks=c.nnz,
+                blocks=int(c.mask.numel()), readings=readings)), flush=True)
+            del c, ref
+    finally:
+        build._loaded["block_sparse"] = libs["sound"]
+    return worst_sound, caught
+
+
+def phase_planted_faults(card: str):
+    """The kernel checks against planted faults: build each fault of
+    PLANTED_FAULTS and SPMM_PLANTED_FAULTS into a temporary directory, and
+    at every bf16 shape of the check print the sound kernels' and each
+    fault's reading (tile_rel_err for the backward, with the global max
+    |err| / max |plain| beside it; tile_rel_err_2d for SpMM). Fails unless
+    every sound reading is within the check's limit and every fault's
+    reading exceeds it wherever the fault can show."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        libs = _build_planted({"flash_attention_bwd": PLANTED_FAULTS,
+                               "block_sparse": SPMM_PLANTED_FAULTS}, tmp)
+        bwd_sound, bwd_caught = _planted_backward(
+            libs["flash_attention_bwd"])
+        spmm_sound, spmm_caught = _planted_spmm(libs["block_sparse"])
     print(card)
-    print(json.dumps(dict(planted_faults=list(PLANTED_FAULTS),
-                          tolerance=tol, worst_sound=worst_sound,
-                          separates=caught)), flush=True)
-    if not caught:
+    print(json.dumps(dict(
+        planted_faults=list(PLANTED_FAULTS) + list(SPMM_PLANTED_FAULTS),
+        backward=dict(tolerance=BWD_TOLERANCE["bfloat16"],
+                      worst_sound=bwd_sound, separates=bwd_caught),
+        spmm=dict(tolerance=SPMM_TOLERANCE["bfloat16"],
+                  worst_sound=spmm_sound, separates=spmm_caught),
+        separates=bwd_caught and spmm_caught)), flush=True)
+    if not bwd_caught:
         fail("the backward check does not separate the sound kernels "
              "from every planted fault")
+    if not spmm_caught:
+        fail("the SpMM check does not separate the sound kernels from "
+             "every planted fault")
 
 
 def phase_backward_memory():
@@ -987,12 +1099,484 @@ def phase_profile(params, cfg, workload):
     print("profile: " + json.dumps(out), flush=True)
 
 
-def kernels_line(rows, bwd, launches):
+# SpMM kernel-vs-plain shapes: (name, M, K, N, block size, mask, dtype). The
+# main path's two shapes come first: "bench512" is the sparse bench
+# configuration (n = 8192, bs = 512, 12% of the blocks live), "coo128" the
+# same matrix size at the default block size that to_block_sparse gives;
+# "oracle" is that bench's own oracle shape; the rest are edge cases. mask:
+# a density in (0, 1) draws it at random; "zero" is all zero, "full" all
+# one, "empty_column" half dense with block column 2 emptied,
+# "one_full_column" block column 3 full among empty ones.
+SPMM_SHAPES = [
+    ("bench512", 8192, 8192, 8192, 512, 0.12, "bfloat16"),
+    ("coo128", 8192, 8192, 8192, 128, 0.12, "bfloat16"),
+    ("oracle", 1024, 1024, 1024, 256, 0.3, "bfloat16"),
+    ("ragged_m", 1000, 1024, 1024, 128, 0.3, "bfloat16"),
+    ("k_ne_n", 1024, 4096, 2048, 128, 0.2, "bfloat16"),
+    ("bs64", 512, 512, 512, 64, 0.3, "bfloat16"),
+    ("all_zero", 512, 512, 512, 128, "zero", "bfloat16"),
+    ("empty_column", 1024, 1024, 1024, 128, "empty_column", "bfloat16"),
+    ("full", 1024, 1024, 1024, 128, "full", "bfloat16"),
+    ("one_full_column", 1024, 1024, 1024, 128, "one_full_column",
+     "bfloat16"),
+    ("f32", 1000, 1024, 1024, 128, 0.3, "float32"),
+]
+
+# SpMM tolerance by dtype, on the worst 64 x 64 output tile's relative
+# Frobenius error ||kernel - plain||_F / ||plain||_F (tile_rel_err_2d); a
+# tile whose plain value is all zero (under an empty block column) must be
+# all zero in the kernel's output too. bf16: both sides multiply the same
+# bf16 values exactly and sum them in f32 in different orders, then round
+# once to bf16 (2^-9 relative per value where the two f32 sums straddle a
+# rounding boundary); the limit sits ~10x above that and ~10x below what
+# one dropped or one extra block costs a tile (--planted-faults). f32: FMA
+# in full f32 against f32 matmuls, only the order of sums differs. The
+# gradients (phase_spmm_grad) are held to the same limits: dA and dB of the
+# kernel path are f32 products rounded once, the plain version's autograd
+# rounds each block's contribution to the working type before it sums them.
+SPMM_TOLERANCE = {"bfloat16": 2e-2, "float32": 1e-5}
+SPMM_PRODUCTS = 8  # products per main-path run
+
+
+def tile_rel_err_2d(got, ref) -> float:
+    """The worst 64 x 64 tile's ||got - ref||_F / ||ref||_F over (M, N)
+    matrices (tiles at a ragged edge are smaller). A tile whose reference
+    is all zero must be all zero in ``got``: if it is not, it reads as
+    1e6, past any limit."""
+    import torch
+    import torch.nn.functional as F
+
+    m, n = ref.shape
+    pad = (0, (-n) % TILE, 0, (-m) % TILE)
+
+    def tiles(x):  # squared norm of each tile
+        x = F.pad(x, pad)
+        return x.reshape(x.shape[0] // TILE, TILE, x.shape[1] // TILE,
+                         TILE).square().sum(dim=(1, 3))
+
+    num = tiles(got.float() - ref.float())
+    den = tiles(ref.float())
+    zero = den == 0
+    if bool((zero & (num != 0)).any()):
+        return 1e6
+    ratio = torch.where(zero, torch.zeros_like(num), num / den)
+    return ratio.max().sqrt().item()
+
+
+def draw_block_mask(kind, rows, cols, gen):
+    """A (rows, cols) int32 block mask on the card: of a density drawn
+    from ``gen``, or one of SPMM_SHAPES' named patterns."""
+    import torch
+
+    if kind == "zero":
+        return torch.zeros((rows, cols), dtype=torch.int32, device="cuda")
+    if kind == "full":
+        return torch.ones((rows, cols), dtype=torch.int32, device="cuda")
+    if kind == "one_full_column":
+        mask = torch.zeros((rows, cols), dtype=torch.int32, device="cuda")
+        mask[:, 3] = 1
+        return mask
+    density = 0.5 if kind == "empty_column" else kind
+    mask = (torch.rand((rows, cols), generator=gen, device="cuda")
+            < density).to(torch.int32)
+    if kind == "empty_column":
+        mask[:, 2] = 0
+    return mask
+
+
+class SpmmCase:
+    """One SpMM shape's inputs on the card: random A, a random backing
+    array that is NOT zeroed outside the mask (so a kernel that multiplied
+    a dead block instead of skipping it would disagree), the mask and its
+    gather lists; with the two kernels' and the plain version's calls."""
+
+    def __init__(self, gen, shape):
+        import torch
+
+        from marlin_tpu_torch.ops import block_sparse as bsp
+
+        self.name, m, k, n, self.bs, kind, self.dt = shape
+        self.bsp = bsp
+        dtype = getattr(torch, self.dt)
+        self.a = torch.randn((m, k), generator=gen, device="cuda").to(dtype)
+        self.data = torch.randn((k, n), generator=gen,
+                                device="cuda").to(dtype)
+        self.mask = draw_block_mask(kind, k // self.bs, n // self.bs, gen)
+        self.kidx, self.kcnt, self.max_nnz = bsp._column_block_lists(
+            self.mask.cpu().numpy())
+        self.kidx_d = torch.from_numpy(self.kidx).cuda()
+        self.kcnt_d = torch.from_numpy(self.kcnt).cuda()
+        self.nnz = int(self.kcnt.sum())
+
+    def gather(self):
+        return self.bsp._launch_gather(self.a, self.data, self.kidx_d,
+                                       self.kcnt_d, self.max_nnz, self.bs)
+
+    def masked(self):
+        return self.bsp._launch_masked(self.a, self.data, self.mask, self.bs)
+
+    def plain(self):
+        return self.bsp.spmm_gather_reference(self.a, self.data, self.kidx,
+                                              self.kcnt, self.bs)
+
+    def empty_columns_zero(self, out) -> bool:
+        """Every element of ``out`` under a block column with no live
+        block is bitwise +0."""
+        import torch
+
+        cols = torch.from_numpy(self.kcnt == 0).cuda().repeat_interleave(
+            self.bs)
+        return not bool(out[:, cols].view(torch.int16 if self.dt ==
+                                          "bfloat16" else torch.int32).any())
+
+    def bound(self, out):
+        """The least time for this case's work: 2 M bs^2 operations per
+        live block; A read once, B's live blocks read once, C written
+        once."""
+        es = self.a.element_size()
+        flops = 2.0 * self.a.shape[0] * self.bs * self.bs * self.nnz
+        moved = nbytes(self.a, out) + self.nnz * self.bs * self.bs * es
+        return flops, bound(flops, moved, self.a.dtype)
+
+
+def phase_spmm():
+    """The gather and the masked-grid SpMM kernels against the plain
+    version at every SpMM shape; returns the rows by shape name."""
+    import torch
+
+    from marlin_tpu_torch.ops.block_sparse import BlockSparse
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # plain version in f32
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    rows = {}
+    for shape in SPMM_SHAPES:
+        c = SpmmCase(gen, shape)
+        got_g, got_m = c.gather(), c.masked()
+        torch.cuda.synchronize()
+        ref = c.plain()
+        err_g, err_m = tile_rel_err_2d(got_g, ref), tile_rel_err_2d(got_m,
+                                                                    ref)
+        tol = SPMM_TOLERANCE[c.dt]
+        for label, err in (("gather", err_g), ("masked", err_m)):
+            if not math.isfinite(err) or err > tol:
+                fail(f"spmm {c.name}: the {label} kernel's worst tile "
+                     f"||kernel - plain|| / ||plain|| = {err:.3e} "
+                     f"(tol {tol})")
+        if not torch.equal(got_g, got_m):
+            fail(f"spmm {c.name}: the two kernels differ bitwise")
+        if not (c.empty_columns_zero(got_g) and c.empty_columns_zero(got_m)):
+            fail(f"spmm {c.name}: an empty block column is not exactly 0")
+        # The library yardstick: one dense product on the zero-filled
+        # backing, which does 1 / density times the work. The port's
+        # forward never calls it.
+        zeroed = BlockSparse(c.data, c.mask, c.bs).data
+        flops, (bound_ms, bound_by) = c.bound(got_g)
+        ms_g = cuda_ms(c.gather, iters=20)
+        ms_m = cuda_ms(c.masked, iters=20)
+        row = dict(shape=c.name, M=c.a.shape[0], K=c.a.shape[1],
+                   N=c.data.shape[1], block_size=c.bs, dtype=c.dt,
+                   live_blocks=c.nnz, blocks=int(c.mask.numel()),
+                   column_blocks_min=int(c.kcnt.min()),
+                   column_blocks_mean=float(c.kcnt.mean()),
+                   column_blocks_max=int(c.kcnt.max()),
+                   gather_tile_rel_err=err_g, masked_tile_rel_err=err_m,
+                   max_abs_err=(got_g.float() - ref.float()).abs().max()
+                   .item(),
+                   gather_ms=ms_g, masked_ms=ms_m,
+                   plain_ms=cuda_ms(c.plain, warmup=1, iters=2),
+                   library_ms=cuda_ms(lambda: torch.matmul(c.a, zeroed),
+                                      iters=20),
+                   bound_ms=bound_ms, bound_by=bound_by,
+                   gather_tflops=flops / ms_g / 1e9,
+                   masked_tflops=flops / ms_m / 1e9)
+        rows[c.name] = row
+        print("spmm: " + json.dumps(row), flush=True)
+        del c, got_g, got_m, ref, zeroed
+    return rows
+
+
+def _spmm_products(a, b, plain_lists, label, card, extra):
+    """SPMM_PRODUCTS products through the public entry point with the
+    launch counters zeroed just before and read just after; the last
+    result held against the plain version. Returns the counts."""
+    import torch
+
+    from marlin_tpu_torch.ops import block_sparse as bsp
+
+    n = a.shape[0]
+    out = bsp.block_sparse_matmul(a, b)  # warm-up: lists built, lib loaded
+    torch.cuda.synchronize()
+    bsp.gather_launches = bsp.masked_launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(SPMM_PRODUCTS):
+        out = bsp.block_sparse_matmul(a, b)
+    end.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(gather=bsp.gather_launches, masked=bsp.masked_launches)
+    peak = torch.cuda.max_memory_allocated()
+    ms = start.elapsed_time(end) / SPMM_PRODUCTS
+    if counts != dict(gather=SPMM_PRODUCTS, masked=0):
+        fail(f"{label}: launches {counts}, expected {SPMM_PRODUCTS} of the "
+             f"gather kernel and none of the masked one")
+    if out.shape != (n, b.shape[1]) or out.dtype != b.data.dtype:
+        fail(f"{label}: result {tuple(out.shape)} {out.dtype}")
+    if not bool(torch.isfinite(out).all()):
+        fail(f"{label}: non-finite result")
+    kidx, kcnt = plain_lists
+    ref = bsp.spmm_gather_reference(a, b.data, kidx, kcnt, b.block_size)
+    err = tile_rel_err_2d(out, ref)
+    tol = SPMM_TOLERANCE["bfloat16"]
+    if not err <= tol:
+        fail(f"{label}: worst tile ||result - plain|| / ||plain|| = "
+             f"{err:.3e} (tol {tol})")
+    print(f"{label}: " + json.dumps(dict(
+        card=card, n=n, block_size=b.block_size, dtype=str(out.dtype),
+        block_density=b.block_density, products=SPMM_PRODUCTS,
+        launches=counts, product_ms=ms, wall_ms_per_product=wall * 1e3
+        / SPMM_PRODUCTS,
+        effective_tflops=2.0 * n ** 3 * b.block_density / ms / 1e9,
+        tile_rel_err=err, peak_mem_gb=peak / 1e9,
+        column_blocks_min=int(kcnt.min()),
+        column_blocks_mean=float(kcnt.mean()),
+        column_blocks_max=int(kcnt.max()), **extra)), flush=True)
+    return counts
+
+
+def phase_spmm_path(card: str, seed: int = 0):
+    """The block-sparse GEMM path at the sparse bench configuration's
+    size (n = 8192, bf16, 12% of the blocks live, nothing cut), through
+    the entry points a user calls: (a) BlockSparse(data, mask, 512) as the
+    bench builds it; (b) the same size as COO triples ->
+    SparseVecMatrix.from_coo -> to_block_sparse() at the default block
+    size of 128. Returns {path: {"gather": n, "masked": n}}."""
+    import numpy as np
+    import torch
+
+    from marlin_tpu_torch.matrix import SparseVecMatrix
+    from marlin_tpu_torch.ops import BlockSparse
+    from marlin_tpu_torch.ops import block_sparse as bsp
+
+    n, density = 8192, 0.12
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    a = torch.randn((n, n), generator=gen, device="cuda").to(torch.bfloat16)
+    launches = {}
+
+    mask = rng.random((n // 512, n // 512)) < density
+    data = torch.randn((n, n), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    b = BlockSparse(data, torch.from_numpy(mask).cuda(), 512)
+    launches["bench512"] = _spmm_products(
+        a, b, bsp._column_block_lists(mask)[:2], "spmm_path bench512", card,
+        {})
+    del b, data
+
+    mask = rng.random((n // 128, n // 128)) < density
+    mask_d = torch.from_numpy(mask).cuda()
+    dense = torch.where(bsp._expand(mask_d, 128),
+                        torch.randn((n, n), generator=gen, device="cuda"),
+                        torch.zeros((), device="cuda")).to(torch.bfloat16)
+    t0 = time.perf_counter()
+    idx = dense.nonzero()
+    sp = SparseVecMatrix.from_coo(idx[:, 0], idx[:, 1],
+                                  dense[idx[:, 0], idx[:, 1]], (n, n))
+    b = sp.to_block_sparse()
+    torch.cuda.synchronize()
+    convert_s = time.perf_counter() - t0
+    if b.block_size != 128 or not torch.equal(b.mask != 0, mask_d):
+        fail("spmm_path coo128: to_block_sparse did not recover the block "
+             "mask that was drawn")
+    if not torch.equal(b.data, dense):
+        fail("spmm_path coo128: to_block_sparse did not recover the matrix")
+    launches["coo128"] = _spmm_products(
+        a, b, bsp._column_block_lists(mask)[:2], "spmm_path coo128", card,
+        dict(coo_entries=sp.nnz, coo_to_block_sparse_s=convert_s))
+    return launches
+
+
+def phase_spmm_graph(seed: int = 0):
+    """The masked-grid path: one CUDA graph of
+    block_sparse_matmul(a, BlockSparse(data, mask, 512)) at the bench
+    shape, captured with the mask on the card (so it has no host value),
+    replayed, then replayed again after the static mask and data tensors
+    were overwritten with a second draw. Returns the launch counts of the
+    capture."""
+    import torch
+
+    from marlin_tpu_torch.ops import BlockSparse, block_sparse_matmul
+    from marlin_tpu_torch.ops import block_sparse as bsp
+
+    n, bs, density = 8192, 512, 0.12
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+
+    def draw():
+        return (torch.randn((n, n), generator=gen, device="cuda").to(
+            torch.bfloat16), draw_block_mask(density, n // bs, n // bs, gen))
+
+    a = torch.randn((n, n), generator=gen, device="cuda").to(torch.bfloat16)
+    draws = [draw(), draw()]
+    if torch.equal(draws[0][1], draws[1][1]):
+        fail("spmm_graph: the two draws gave the same mask")
+    data, mask = (x.clone() for x in draws[0])
+    bsp._kernel_lib()  # built and loaded before the capture
+    torch.cuda.synchronize()
+    bsp.gather_launches = bsp.masked_launches = 0
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = block_sparse_matmul(a, BlockSparse(data, mask, bs))
+    counts = dict(gather=bsp.gather_launches, masked=bsp.masked_launches)
+    errs = []
+    for d, m in draws:
+        data.copy_(d)
+        mask.copy_(m)
+        graph.replay()
+        torch.cuda.synchronize()
+        ref = bsp.spmm_masked_reference(a, BlockSparse(d, m, bs).data, m, bs)
+        errs.append(tile_rel_err_2d(out, ref))
+    replay_ms = cuda_ms(graph.replay, iters=10)
+    print("spmm_graph: " + json.dumps(dict(
+        n=n, block_size=bs, captures=1, replays=len(draws), launches=counts,
+        tile_rel_err=errs, live_blocks=[int(m.sum()) for _, m in draws],
+        replay_ms=replay_ms,
+        replay_covers="the zeroing of dead blocks and the product")),
+        flush=True)
+    if counts != dict(gather=0, masked=1):
+        fail(f"spmm_graph: launches {counts}, expected the masked kernel "
+             f"once (the capture) and the gather kernel never")
+    tol = SPMM_TOLERANCE["bfloat16"]
+    if not all(e <= tol for e in errs):
+        fail(f"spmm_graph: replays read {errs} against the plain version "
+             f"of their own mask (tol {tol})")
+    return counts
+
+
+def phase_spmm_grad(seed: int = 0):
+    """Gradients of loss = sum(block_sparse_matmul(a, b)^2) in A and in
+    B's backing tensor: at the bench shape (bf16) on the card against the
+    plain version's autograd, dB exactly 0 outside the mask; and at a
+    small f32 shape, the card (kernel forward) against the CPU (plain
+    version)."""
+    import torch
+
+    from marlin_tpu_torch.ops import BlockSparse, block_sparse_matmul
+    from marlin_tpu_torch.ops import block_sparse as bsp
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(seed + 2)
+
+    def grads(a, data, mask, bs, forward):
+        a = a.detach().clone().requires_grad_(True)
+        data = data.detach().clone().requires_grad_(True)
+        b = BlockSparse(data, mask, bs)
+        loss = forward(a, b).square().sum()
+        loss.backward()
+        return loss.detach(), a.grad, data.grad
+
+    def plain_forward(a, b):
+        kidx, kcnt, _ = bsp._column_block_lists(b._host_mask)
+        return bsp.spmm_gather_reference(a, b.data, kidx, kcnt,
+                                         b.block_size)
+
+    n, bs = 8192, 512
+    a = torch.randn((n, n), generator=gen, device="cuda").to(torch.bfloat16)
+    data = torch.randn((n, n), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    mask = draw_block_mask(0.12, n // bs, n // bs, gen)
+    bsp.gather_launches = bsp.masked_launches = 0
+    loss_k, da_k, db_k = grads(a, data, mask, bs, block_sparse_matmul)
+    torch.cuda.synchronize()
+    counts = dict(gather=bsp.gather_launches, masked=bsp.masked_launches)
+    loss_p, da_p, db_p = grads(a, data, mask, bs, plain_forward)
+    outside = ~bsp._expand(mask, bs)
+    big = dict(n=n, block_size=bs, launches=counts,
+               loss_rel_err=abs(loss_k.item() - loss_p.item())
+               / abs(loss_p.item()),
+               da_tile_rel_err=tile_rel_err_2d(da_k, da_p),
+               db_tile_rel_err=tile_rel_err_2d(db_k, db_p),
+               db_outside_mask_max=db_k[outside].float().abs().max().item())
+    del a, data, da_k, db_k, da_p, db_p, outside
+
+    # Card against CPU at f32: the FMA kernel's forward and the f32
+    # gradient products on the card against the plain version on the CPU.
+    n, bs = 512, 64
+    a = torch.randn((n, n), generator=gen, device="cuda")
+    data = torch.randn((n, n), generator=gen, device="cuda")
+    mask = draw_block_mask(0.4, n // bs, n // bs, gen)
+    on_card = grads(a, data, mask, bs, block_sparse_matmul)
+    on_cpu = grads(a.cpu(), data.cpu(), mask.cpu(), bs, block_sparse_matmul)
+    small = {}
+    for label, g, c in zip(("loss", "da", "db"), on_card, on_cpu):
+        small[f"{label}_rel_err"] = ((g.cpu() - c).abs().max()
+                                     / c.abs().max()).item()
+    print("spmm_grad: " + json.dumps(dict(
+        bf16=big, f32_card_vs_cpu=dict(n=n, block_size=bs, **small),
+        tolerance=dict(tile=SPMM_TOLERANCE["bfloat16"],
+                       card_vs_cpu=GRAD_TOLERANCE))), flush=True)
+    tol = SPMM_TOLERANCE["bfloat16"]
+    if counts != dict(gather=1, masked=0):
+        fail(f"spmm_grad: launches {counts}, expected one gather launch")
+    if not (big["da_tile_rel_err"] <= tol and big["db_tile_rel_err"] <= tol
+            and big["loss_rel_err"] <= tol):
+        fail(f"spmm_grad: bf16 gradients off the plain version's: {big}")
+    if big["db_outside_mask_max"] != 0:
+        fail("spmm_grad: dB is not exactly 0 outside the block mask")
+    if not all(v <= GRAD_TOLERANCE for v in small.values()):
+        fail(f"spmm_grad: card against CPU at f32: {small} "
+             f"(tol {GRAD_TOLERANCE})")
+
+
+def spmm_kernel_entries(spmm, launches):
+    """The two SpMM kernels' entries of the {"kernels": [...]} object.
+    ``spmm`` is phase_spmm's rows; ``launches`` is {path: {"gather": n,
+    "masked": n}} for the paths "bench512", "coo128" (the gather kernel's)
+    and "graph512" (the masked kernel's, at the bench512 shape: launches
+    there are graph captures)."""
+    covers = ("one torch.matmul on the zero-filled backing array: the "
+              "dense product, 1 / density times the work")
+
+    def entry(kernel, path, shape):
+        r = spmm[shape]
+        return dict(shape=shape, M=r["M"], K=r["K"], N=r["N"],
+                    block_size=r["block_size"], dtype=r["dtype"],
+                    live_blocks=r["live_blocks"], blocks=r["blocks"],
+                    column_blocks_min=r["column_blocks_min"],
+                    column_blocks_mean=r["column_blocks_mean"],
+                    column_blocks_max=r["column_blocks_max"],
+                    launches=launches[path][kernel],
+                    max_abs_err=r["max_abs_err"],
+                    max_tile_rel_err=r[f"{kernel}_tile_rel_err"],
+                    ms=r[f"{kernel}_ms"], plain_ms=r["plain_ms"],
+                    bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                    library_ms=r["library_ms"])
+
+    def kernel_entry(kernel, replaces, paths):
+        per_path = {p: entry(kernel, p, shape) for p, shape in paths}
+        return {"name": f"block_sparse_spmm_{kernel}", "route": "cuda",
+                "source": "marlin_tpu_torch/csrc/block_sparse.cu",
+                "replaces": replaces, **next(iter(per_path.values())),
+                "launches": sum(e["launches"] for e in per_path.values()),
+                "library_ms_covers": covers, "paths": per_path}
+
+    return [
+        kernel_entry("gather", "marlin_tpu/ops/block_sparse.py:136",
+                     (("bench512", "bench512"), ("coo128", "coo128"))),
+        kernel_entry("masked", "marlin_tpu/ops/block_sparse.py:114",
+                     (("graph512", "bench512"),)),
+    ]
+
+
+def kernels_line(rows, bwd, launches, spmm, spmm_launches):
     """The {"kernels": [...]} object. Each kernel's top-level numbers are
     those of its first path's shape ("serve" for the forward, "train" for
-    the backward); ``paths`` gives each path the kernel runs on its own
-    launches and its shape's error, times and bound. ``launches`` is
-    {path: {"fwd": n, "dq": n, "dkv": n}}."""
+    the backward, "bench512" for SpMM); ``paths`` gives each path the
+    kernel runs on its own launches and its shape's error, times and
+    bound. ``launches`` is {path: {"fwd": n, "dq": n, "dkv": n}};
+    ``spmm`` and ``spmm_launches`` are spmm_kernel_entries' arguments."""
     bwd_src = "marlin_tpu_torch/csrc/flash_attention_bwd.cu"
     fwd_paths = {p: (launches[p]["fwd"], rows[s]) for p, s in
                  (("serve", "flagship"), ("train", "train"),
@@ -1039,6 +1623,7 @@ def kernels_line(rows, bwd, launches):
         bwd_kernel("dq", "marlin_tpu/ops/flash_attention.py:335", ("dq",)),
         bwd_kernel("dkv", "marlin_tpu/ops/flash_attention.py:373",
                    ("dk", "dv")),
+        *spmm_kernel_entries(spmm, spmm_launches),
     ]}
 
 
@@ -1064,11 +1649,15 @@ def main(argv=None) -> int:
     rows = phase_kernels()
     bwd = phase_backward()
     phase_backward_memory()
+    spmm = phase_spmm()
     serve_launches = phase_slice(card)
     launches = phase_train(card)
     launches["serve"] = dict(fwd=serve_launches)
     phase_grad_check()
-    kernels = kernels_line(rows, bwd, launches)
+    spmm_launches = phase_spmm_path(card)
+    spmm_launches["graph512"] = phase_spmm_graph()
+    phase_spmm_grad()
+    kernels = kernels_line(rows, bwd, launches, spmm, spmm_launches)
     print(card)
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {

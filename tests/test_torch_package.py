@@ -20,7 +20,8 @@ import torch
 from marlin_tpu_torch.examples import transformer_lm
 from marlin_tpu_torch.models import convert
 from marlin_tpu_torch.models import transformer as pt
-from marlin_tpu_torch.ops import build
+from marlin_tpu_torch.matrix import SparseVecMatrix
+from marlin_tpu_torch.ops import BlockSparse, build
 from marlin_tpu_torch.serving import ServingEngine
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -60,6 +61,9 @@ def test_importing_the_port_pulls_in_no_jax():
     code = ("import sys\n"
             "import marlin_tpu_torch.serving, marlin_tpu_torch.models\n"
             "import marlin_tpu_torch.ops.flash_attention\n"
+            "import marlin_tpu_torch.ops.block_sparse\n"
+            "import marlin_tpu_torch.config, marlin_tpu_torch.matrix\n"
+            "import marlin_tpu_torch.matrix.sparse\n"
             "import marlin_tpu_torch.utils.cost_model\n"
             "import marlin_tpu_torch.examples.transformer_lm\n"
             "bad = sorted(m for m in sys.modules\n"
@@ -78,12 +82,25 @@ def test_kernels_are_built_for_hopper_at_first_use_only():
     for name, src in build.SOURCES.items():
         assert src.is_file() and src.suffix == ".cu"
         assert build.library_path(name).parent == build.BUILD_DIR
-    # Every CUDA source of the port is built: the forward and the backward.
+    # Every CUDA source of the port is built: the flash forward and
+    # backward and the block-sparse GEMM.
     assert set(build.SOURCES) == {p.stem for p in
                                   (ROOT / "marlin_tpu_torch" / "csrc")
                                   .glob("*.cu")}
-    assert {"flash_attention_fwd", "flash_attention_bwd"} <= set(
-        build.SOURCES)
+    assert {"flash_attention_fwd", "flash_attention_bwd",
+            "block_sparse"} <= set(build.SOURCES)
+
+
+def test_ops_exports_and_keeps_flash_attention_a_module():
+    import types
+
+    from marlin_tpu_torch import ops
+
+    assert set(ops.__all__) == {"BlockSparse", "block_sparse_matmul"}
+    # Callers import the module and read its launch counters; the JAX
+    # package's ops/__init__ rebinds the name to the function instead.
+    assert isinstance(ops.flash_attention, types.ModuleType)
+    assert ops.flash_attention.launches >= 0
 
 
 class TestNoSilentCpuFallback:
@@ -107,6 +124,10 @@ class TestNoSilentCpuFallback:
             ServingEngine(params, cfg)
         with pytest.raises(RuntimeError, match="CUDA"):
             transformer_lm.main(["1", "2", "8", "64"])
+        with pytest.raises(RuntimeError, match="CUDA"):
+            BlockSparse.from_dense(np.ones((8, 8), np.float32), 8)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            SparseVecMatrix.from_dense_array(np.eye(4))
         # Asked for explicitly, the CPU works.
         eng = ServingEngine(params, cfg, device="cpu")
         eng.submit(np.arange(3), 2)
