@@ -13,15 +13,17 @@ Phases, each of which exits non-zero on failure:
    against its plain PyTorch version on the card at every shape the main
    path gives it (the served prefill, the training step's B=8 S=2048,
    the remat step's S=8192 MHA) and the edge cases (ragged, MHA, MQA,
-   cross lengths with Dv != D, window, D=64, f32); time the kernel, the
+   cross lengths with Dv != D, window, D=64, f32), by max |err| of O and
+   lse and by O's worst 64-row tile (tile_rel_err); time the kernel, the
    plain version, torch's scaled_dot_product_attention (a yardstick the
-   port never calls) and the roofline bound.
+   port never calls; median of 5 repeats) and the roofline bound.
 4. Backward kernels vs plain: the dQ and dK/dV kernels against the plain
    backward at the training step's and the remat step's shapes and the
    same edge cases, per 64-position tile (tile_rel_err), after holding
    the forward's O and lse that they read against the plain forward;
    times, bounds and the backward of scaled_dot_product_attention as the
-   yardstick; dK/dV bitwise equal over two runs; and one backward at
+   yardstick (median of 5 repeats of 10 calls, spread printed); dK/dV
+   bitwise equal over two runs; and one backward at
    S=8192 that allocates no more than its inputs, outputs, lse/Delta and
    a stated slack (no (S, S) buffer).
 5. Serve: the flagship transformer (vocab 32768, d_model 1024, 8 heads, 2
@@ -65,17 +67,20 @@ Phases, each of which exits non-zero on failure:
 The last three lines of output are the card line from nvidia-smi, one
 {"kernels": [...]} JSON object, and {"ok": true, "device": {...}}.
 
-With ``--planted-faults`` it runs phase 1, then builds the backward source
-with each fault of PLANTED_FAULTS and the SpMM source with each fault of
+With ``--planted-faults`` it runs phase 1, then builds the forward source
+with each fault of FWD_PLANTED_FAULTS, the backward source with each fault
+of PLANTED_FAULTS and the SpMM source with each fault of
 SPMM_PLANTED_FAULTS into a temporary directory and prints, at every bf16
-shape of the backward and SpMM checks, the sound kernels' and each fault's
-reading of the check; it fails unless the check's limit separates them.
+shape of the forward, backward and SpMM checks, the sound kernels' and
+each fault's reading of the check; it fails unless the check's limit
+separates them.
 """
 
 from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -131,7 +136,29 @@ BWD_SHAPES = [s for s in SHAPES if s[0] != "flagship"]
 # against the plain version's f32 einsums, so only summation order
 # differs.
 BWD_TOLERANCE = {"bfloat16": 2e-2, "float32": 1e-5}
-TILE = 64  # positions per tile of tile_rel_err: the kernels' own tile
+TILE = 64  # positions per tile of tile_rel_err (the backward kernels' tile)
+
+# The forward's O held per 64-row tile by the same measure and limits
+# (besides TOLERANCE's max |err|): under causal attention a wrong key tile
+# moves O of a few rows only, and a dropped one leaves the first query
+# tile with no key at all. bf16: P rounded to bf16 before P V and O
+# rounded to bf16, as for the max |err| limit; f32: summation order only.
+FWD_TILE_TOLERANCE = {"bfloat16": 2e-2, "float32": 1e-5}
+
+# Planted faults of the forward: edits of csrc/flash_attention_fwd.cu (the
+# first occurrence of the text, in the bf16 kernel), built like
+# PLANTED_FAULTS below. The forward check must pass the sound kernel and
+# fail every fault at every bf16 forward shape.
+FWD_PLANTED_FAULTS = {
+    # Every query tile's key sweep stops one key tile short.
+    "fwd_drops_last_key_tile": (
+        "  const int n_tiles = hi > lo ? (hi - lo + kBN - 1) / kBN : 0;\n",
+        "  const int n_tiles = hi > lo ? (hi - lo + kBN - 1) / kBN - 1 : 0;\n"),
+    # O is not rescaled when a row's running max grows.
+    "fwd_skips_o_rescale": (
+        "    for (int i = 0; i < DV / 2; ++i) acc[i] *= corr[(i >> 1) & 1];\n",
+        "    for (int i = 0; i < 0; ++i) acc[i] *= corr[(i >> 1) & 1];\n"),
+}
 
 # Planted faults of the backward (``python3 chip_smoke.py
 # --planted-faults``): each is one edit of csrc/flash_attention_bwd.cu
@@ -144,14 +171,17 @@ PLANTED_FAULTS = {
         "    __syncthreads();  // the previous K/V tile is fully consumed\n",
         "    if (n0 + kBN >= Skv) break;\n"
         "    __syncthreads();  // the previous K/V tile is fully consumed\n"),
-    # The dK/dV kernel's query sweep stops before the last query tile.
+    # The dK/dV kernel's sweep of each query head stops one query tile
+    # short.
     "dkv_drops_last_query_tile": (
-        "  int last = n_q;  // exclusive, in tiles\n",
-        "  int last = n_q - 1;  // exclusive, in tiles\n"),
+        "  const int n_qt = hi > lo ? (hi - lo) / kDkvBM : 0;  "
+        "// per query head\n",
+        "  const int n_qt = hi > lo ? (hi - lo) / kDkvBM - 1 : 0;  "
+        "// per query head\n"),
     # The dK/dV kernel's last key tile accumulates nothing.
     "dkv_drops_last_key_tile": (
-        "  for (int gi = 0; gi < group; ++gi) {\n",
-        "  for (int gi = 0; gi < (n0 + kBN >= Skv ? 0 : group); ++gi) {\n"),
+        "  const int n_stages = group * n_qt;\n",
+        "  const int n_stages = n0 + kDkvBN >= Skv ? 0 : group * n_qt;\n"),
 }
 
 # Card against CPU, the model's gradients at f32: the worst leaf's
@@ -176,6 +206,14 @@ LONG = dict(vocab=16384, d_model=1024, n_heads=8, n_layers=8, d_ff=4096,
 # FMA in full f32 (no TF32) against cuBLAS f32, so only summation order
 # differs (~1e-6 observed scale).
 TOLERANCE = {"bfloat16": (2e-2, 1e-3), "float32": (1e-4, 1e-4)}
+
+
+def cuda_ms_spread(fn, repeats: int = 5, iters: int = 10):
+    """(median, min, max) over ``repeats`` of cuda_ms(fn, iters), after
+    one warm-up: for a yardstick whose single reading wanders."""
+    times = sorted(cuda_ms(fn, warmup=3 if i == 0 else 0, iters=iters)
+                   for i in range(repeats))
+    return times[len(times) // 2], times[0], times[-1]
 
 
 def cuda_ms(fn, warmup: int = 3, iters: int = 10) -> float:
@@ -247,16 +285,20 @@ def tile_rel_err(got, ref) -> float:
 
 def check_forward(label, o_k, lse_k, o_r, lse_r, dt):
     """Hold the forward kernel's (O, lse) against the plain version's at
-    TOLERANCE[dt]; returns (max |O err|, max |lse err|)."""
+    TOLERANCE[dt] and O's worst 64-row tile at FWD_TILE_TOLERANCE[dt];
+    returns (max |O err|, max |lse err|, O's tile_rel_err)."""
     err_o = (o_k.float() - o_r.float()).abs().max().item()
     err_lse = (lse_k - lse_r).abs().max().item()
-    if not (math.isfinite(err_o) and math.isfinite(err_lse)):
+    tile_o = tile_rel_err(o_k, o_r)
+    if not all(math.isfinite(x) for x in (err_o, err_lse, tile_o)):
         fail(f"{label}: non-finite output")
     tol_o, tol_lse = TOLERANCE[dt]
-    if err_o > tol_o or err_lse > tol_lse:
+    if (err_o > tol_o or err_lse > tol_lse
+            or tile_o > FWD_TILE_TOLERANCE[dt]):
         fail(f"{label}: |O - plain| = {err_o:.3e} (tol {tol_o}), "
-             f"|lse - plain| = {err_lse:.3e} (tol {tol_lse})")
-    return err_o, err_lse
+             f"|lse - plain| = {err_lse:.3e} (tol {tol_lse}), O's worst "
+             f"tile {tile_o:.3e} (tol {FWD_TILE_TOLERANCE[dt]})")
+    return err_o, err_lse, tile_o
 
 
 def phase_device():
@@ -275,6 +317,28 @@ def phase_device():
     return card
 
 
+def _kernel_label(mangled: str) -> str:
+    """``name<args>`` of a mangled kernel name: the last of its nested
+    length-prefixed names (the kernel, after its namespace) and its
+    integer template arguments; the mangled name where it has no such
+    form."""
+    pos = 3 if mangled.startswith("_ZN") else 2
+    name = None
+    while True:
+        m = re.match(r"\d+", mangled[pos:])
+        if not m:
+            break
+        pos += m.end()
+        name = mangled[pos:pos + int(m.group())]
+        pos += len(name)
+    if not name:
+        return mangled
+    args = re.match(r"I((?:L[ib]\d+E)+)E", mangled[pos:])
+    if not args:
+        return name
+    return f"{name}<{','.join(re.findall(r'(\d+)', args.group(1)))}>"
+
+
 def phase_build():
     from marlin_tpu_torch.ops import build
 
@@ -284,8 +348,17 @@ def phase_build():
     for name, info in res.items():
         print(f"build: {name} nvcc {info['seconds']:.1f} s -> "
               f"{info['path']}", flush=True)
+        kernel, spill = "?", ""
         for line in info["log"].splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                kernel = _kernel_label(m.group(1))
+            elif "spill" in line:
+                spill = line.strip()
+            elif "registers" in line:
+                print(f"  ptxas: {kernel}: {line.split(':', 1)[-1].strip()}"
+                      f"; {spill}")
+            elif "error" in line or "arning" in line:
                 print(f"  ptxas: {line.strip()}")
     print(f"build: total {secs:.1f} s", flush=True)
     return secs
@@ -325,20 +398,22 @@ def phase_kernels():
 
         o_k, lse_k = fa.flash_attention_fwd(q, k, v, causal, None, window)
         torch.cuda.synchronize()
-        err_o, err_lse = check_forward(f"kernel {name}", o_k, lse_k,
-                                       *plain(), dt)
+        err_o, err_lse, tile_o = check_forward(f"kernel {name}", o_k, lse_k,
+                                               *plain(), dt)
         ms = cuda_ms(kernel, iters=20)
         plain_ms = cuda_ms(plain, warmup=1, iters=3)
-        lib_ms = library_ms(F, q, k, v, causal, window)
+        lib_ms, lib_lo, lib_hi = library_ms(F, q, k, v, causal, window)
         # Bound: max(FLOPs / peak, bytes / HBM rate), reading Q, K, V once
         # and writing O and lse once.
         flops = attention_flops(b, sq, skv, h, d, dv, causal, window)
         bound_ms, bound_by = bound(flops, nbytes(q, k, v, o_k, lse_k), dtype)
         row = dict(shape=name, B=b, Sq=sq, Skv=skv, H=h, Hk=hk, D=d, Dv=dv,
                    dtype=dt, causal=causal, window=window,
-                   max_abs_err=err_o, lse_max_abs_err=err_lse, ms=ms,
-                   plain_ms=plain_ms, library_ms=lib_ms,
+                   max_abs_err=err_o, lse_max_abs_err=err_lse,
+                   o_tile_rel_err=tile_o, ms=ms, plain_ms=plain_ms,
+                   library_ms=lib_ms, library_ms_spread=[lib_lo, lib_hi],
                    bound_ms=bound_ms, bound_by=bound_by,
+                   bound_share=bound_ms / ms,
                    tflops=flops / (ms * 1e-3) / 1e12)
         rows[name] = row
         print("kernel: " + json.dumps(row), flush=True)
@@ -347,18 +422,19 @@ def phase_kernels():
 
 def library_ms(F, q, k, v, causal, window):
     """torch's scaled_dot_product_attention on the same inputs (the
-    yardstick). None where it does not take the case."""
+    yardstick): (median, min, max) ms over 5 repeats of 20 calls; Nones
+    where it does not take the case."""
     args = _sdpa_args(q, k, v, causal, window)
     if args is None:
-        return None
+        return None, None, None
     qt, kt, vt, kw = args
     try:
-        return cuda_ms(lambda: F.scaled_dot_product_attention(
+        return cuda_ms_spread(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, **kw), iters=20)
     except (RuntimeError, TypeError) as e:  # the yardstick only
         print(f"  library: scaled_dot_product_attention unavailable for "
               f"this case: {e}")
-        return None
+        return None, None, None
 
 
 def _sdpa_args(q, k, v, causal, window):
@@ -384,24 +460,26 @@ def _sdpa_args(q, k, v, causal, window):
 def library_bwd_ms(F, q, k, v, do, causal, window):
     """The backward of torch's scaled_dot_product_attention on the same
     inputs (dQ, dK and dV in one call; the yardstick, never called by the
-    port). None where it does not take the case."""
+    port): (median, min, max) ms over 5 repeats of 10 calls after a
+    warm-up, since a single reading of it wanders between runs; Nones
+    where it does not take the case."""
     import torch
 
     args = _sdpa_args(q, k, v, causal, window)
     if args is None:
-        return None
+        return None, None, None
     qt, kt, vt, kw = args
     leaves = [x.detach().contiguous().requires_grad_(True)
               for x in (qt, kt, vt)]
     try:
         out = F.scaled_dot_product_attention(*leaves, **kw)
         dot = do.transpose(1, 2).contiguous()
-        return cuda_ms(lambda: torch.autograd.grad(
+        return cuda_ms_spread(lambda: torch.autograd.grad(
             out, leaves, dot, retain_graph=True), iters=10)
     except (RuntimeError, TypeError) as e:  # the yardstick only
         print(f"  library: scaled_dot_product_attention backward "
               f"unavailable for this case: {e}")
-        return None
+        return None, None, None
 
 
 class BwdCase:
@@ -503,7 +581,8 @@ def phase_backward():
         ms_dq = cuda_ms(c.dq, iters=10)
         ms_dkv = cuda_ms(c.dkv, iters=10)
         plain_ms = cuda_ms(c.plain, warmup=1, iters=2)
-        lib_ms = library_bwd_ms(F, c.q, c.k, c.v, c.do, c.causal, c.window)
+        lib_ms, lib_lo, lib_hi = library_bwd_ms(F, c.q, c.k, c.v, c.do,
+                                                c.causal, c.window)
         pairs = b * h * live_pairs(sq, skv, c.causal, c.window)
         # dQ: S, dP, dQ per live pair; dK/dV: S, dP, dV, dK. Bytes: every
         # input read once (q_hat, k, v, dO, lse, Delta), every output
@@ -519,6 +598,7 @@ def phase_backward():
                       for m in ("max_abs", "global_rel", "tile_rel")},
                    dq_ms=ms_dq, dkv_ms=ms_dkv,
                    plain_ms=plain_ms, library_ms=lib_ms,
+                   library_ms_spread=[lib_lo, lib_hi],
                    dq_bound_ms=b_dq[0], dq_bound_by=b_dq[1],
                    dkv_bound_ms=b_dkv[0], dkv_bound_by=b_dkv[1],
                    dq_tflops=2.0 * pairs * (2 * d + dv) / ms_dq / 1e9,
@@ -567,8 +647,7 @@ def _build_planted(sets, tmp):
             src.write_text(source.replace(old, new, 1))
             lib = Path(tmp) / f"lib{fault}.so"
             procs[name, fault] = (lib, subprocess.Popen(
-                [build.find_nvcc(), *build.NVCC_FLAGS, "-o", str(lib),
-                 str(src)], stdout=subprocess.PIPE,
+                build.nvcc_command(src, lib), stdout=subprocess.PIPE,
                 stderr=subprocess.STDOUT, text=True))
     libs = {name: {"sound": build.load(name)} for name in sets}
     for (name, fault), (lib, proc) in procs.items():
@@ -577,6 +656,55 @@ def _build_planted(sets, tmp):
             fail(f"planted fault {fault}: nvcc failed:\n{log}")
         libs[name][fault] = ctypes.CDLL(str(lib))
     return libs
+
+
+def _planted_forward(libs):
+    """The forward check's reading of the sound kernel and of each fault
+    at every bf16 forward shape (O's worst 64-row tile, with max |O err|
+    beside it): (worst sound reading, whether the limit separated them at
+    every shape)."""
+    import torch
+
+    from marlin_tpu_torch.ops import build
+    from marlin_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    tol = FWD_TILE_TOLERANCE["bfloat16"]
+    worst_sound, caught = 0.0, True
+    try:
+        for (name, b, sq, skv, h, hk, d, dv, dt, causal,
+             window) in SHAPES:
+            if dt != "bfloat16":
+                continue
+
+            def randn(*dims):
+                return torch.randn(dims, generator=gen, device="cuda",
+                                   dtype=torch.float32).to(torch.bfloat16)
+
+            q_hat, k, v = fa._prepare(randn(b, sq, h, d), randn(b, skv, hk, d),
+                                      randn(b, skv, hk, dv), causal, None,
+                                      window)
+            o_r, _ = fa.flash_attention_reference(q_hat, k, v, causal,
+                                                  window)
+            readings = {}
+            for variant, lib in libs.items():
+                build._loaded["flash_attention_fwd"] = lib
+                o, _ = fa._launch(q_hat, k, v, causal, window)
+                readings[variant] = dict(
+                    tile_rel=tile_rel_err(o, o_r),
+                    max_abs=(o.float() - o_r.float()).abs().max().item())
+            sound = readings["sound"]["tile_rel"]
+            fault_min = min(r["tile_rel"] for f, r in readings.items()
+                            if f != "sound")
+            worst_sound = max(worst_sound, sound)
+            caught = caught and sound <= tol < fault_min
+            print("planted_faults: " + json.dumps(dict(
+                kernel="forward", shape=name, tolerance=tol,
+                sound_max=sound, least_fault_max=fault_min,
+                readings=readings)), flush=True)
+    finally:
+        build._loaded["flash_attention_fwd"] = libs["sound"]
+    return worst_sound, caught
 
 
 def _planted_backward(libs):
@@ -664,28 +792,38 @@ def _planted_spmm(libs):
 
 def phase_planted_faults(card: str):
     """The kernel checks against planted faults: build each fault of
-    PLANTED_FAULTS and SPMM_PLANTED_FAULTS into a temporary directory, and
-    at every bf16 shape of the check print the sound kernels' and each
-    fault's reading (tile_rel_err for the backward, with the global max
-    |err| / max |plain| beside it; tile_rel_err_2d for SpMM). Fails unless
-    every sound reading is within the check's limit and every fault's
-    reading exceeds it wherever the fault can show."""
+    FWD_PLANTED_FAULTS, PLANTED_FAULTS and SPMM_PLANTED_FAULTS into a
+    temporary directory, and at every bf16 shape of the check print the
+    sound kernels' and each fault's reading (tile_rel_err of O for the
+    forward and of dQ, dK, dV for the backward, with max |err| beside it;
+    tile_rel_err_2d for SpMM). Fails unless every sound reading is within
+    the check's limit and every fault's reading exceeds it wherever the
+    fault can show."""
     import tempfile
 
     with tempfile.TemporaryDirectory() as tmp:
-        libs = _build_planted({"flash_attention_bwd": PLANTED_FAULTS,
+        libs = _build_planted({"flash_attention_fwd": FWD_PLANTED_FAULTS,
+                               "flash_attention_bwd": PLANTED_FAULTS,
                                "block_sparse": SPMM_PLANTED_FAULTS}, tmp)
+        fwd_sound, fwd_caught = _planted_forward(
+            libs["flash_attention_fwd"])
         bwd_sound, bwd_caught = _planted_backward(
             libs["flash_attention_bwd"])
         spmm_sound, spmm_caught = _planted_spmm(libs["block_sparse"])
     print(card)
     print(json.dumps(dict(
-        planted_faults=list(PLANTED_FAULTS) + list(SPMM_PLANTED_FAULTS),
+        planted_faults=(list(FWD_PLANTED_FAULTS) + list(PLANTED_FAULTS)
+                        + list(SPMM_PLANTED_FAULTS)),
+        forward=dict(tolerance=FWD_TILE_TOLERANCE["bfloat16"],
+                     worst_sound=fwd_sound, separates=fwd_caught),
         backward=dict(tolerance=BWD_TOLERANCE["bfloat16"],
                       worst_sound=bwd_sound, separates=bwd_caught),
         spmm=dict(tolerance=SPMM_TOLERANCE["bfloat16"],
                   worst_sound=spmm_sound, separates=spmm_caught),
-        separates=bwd_caught and spmm_caught)), flush=True)
+        separates=fwd_caught and bwd_caught and spmm_caught)), flush=True)
+    if not fwd_caught:
+        fail("the forward check does not separate the sound kernel from "
+             "every planted fault")
     if not bwd_caught:
         fail("the backward check does not separate the sound kernels "
              "from every planted fault")
@@ -1584,9 +1722,11 @@ def kernels_line(rows, bwd, launches, spmm, spmm_launches):
 
     def fwd_entry(n, r):
         return dict(shape=r["shape"], launches=n,
-                    max_abs_err=r["max_abs_err"], ms=r["ms"],
+                    max_abs_err=r["max_abs_err"],
+                    max_tile_rel_err=r["o_tile_rel_err"], ms=r["ms"],
                     plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-                    bound_by=r["bound_by"], library_ms=r["library_ms"])
+                    bound_by=r["bound_by"], library_ms=r["library_ms"],
+                    tflops=r["tflops"], bound_share=r["bound_share"])
 
     def bwd_kernel(kernel, replaces, labels):
         paths = {p: (launches[p][kernel], bwd[p]) for p in ("train", "remat")}
@@ -1601,7 +1741,8 @@ def kernels_line(rows, bwd, launches, spmm, spmm_launches):
                 ms=r[f"{kernel}_ms"], plain_ms=r["plain_ms"],
                 bound_ms=r[f"{kernel}_bound_ms"],
                 bound_by=r[f"{kernel}_bound_by"],
-                library_ms=r["library_ms"])
+                library_ms=r["library_ms"], tflops=r[f"{kernel}_tflops"],
+                bound_share=r[f"{kernel}_bound_ms"] / r[f"{kernel}_ms"])
 
         top = entry(*paths["train"])
         return {"name": f"flash_attention_bwd_{kernel}", "route": "cuda",

@@ -27,8 +27,9 @@
 // Masks and ragged edges, as in the forward (csrc/flash_attention_fwd.cu):
 // keys at or past Skv, causal k <= q, a window k > q - window; query rows
 // at or past Sq contribute nothing. Out-of-range rows of every tile are
-// zero-filled on load (cp.async with a zero source size), so 0 * NaN never
-// enters a product, and p is set to exactly 0 for a dead (q, k) pair. Tiles
+// zero-filled on load (cp.async with a zero source size in the dQ kernel,
+// TMA's out-of-bounds fill in the dK/dV kernel), so 0 * NaN never enters a
+// product, and p is set to exactly 0 for a dead (q, k) pair. Tiles
 // wholly outside the causal or window band are never visited: the dQ
 // kernel's key sweep is the forward's; the dK/dV kernel's query sweep
 // starts at the key tile's first causal row and ends at
@@ -44,14 +45,23 @@
 // live (q, k) pair (S, dP, dQ) and the dK/dV kernel 4 (S, dP, dV, dK):
 // ~103 and ~138 GFLOP against ~119 and ~102 MB of traffic, 870 and 1350
 // FLOP per byte, far above the card's ~295 FLOP/byte ridge, so both are
-// bound by the tensor-core rate (0.104 and 0.139 ms at 989 TFLOP/s). This
-// first version takes the simple route: mma.sync m16n8k16 (bf16 in, f32
+// bound by the tensor-core rate (0.104 and 0.139 ms at 989 TFLOP/s).
+//
+// The dQ kernel takes the simple route: mma.sync m16n8k16 (bf16 in, f32
 // accumulate) for every product, each warp owning 16 rows of the CTA's
-// 64-row tile; the S and dP tiles stay in registers, and P and dS are
-// rounded to bf16 and re-used register for register as the A fragment of
-// the next product (the forward's P-register trick). It does not use
-// wgmma, TMA, warp specialisation or double buffering; those are what
-// close the gap to the bound and are left to a later change.
+// 64-row tile, single-stage cp.async loads; the S and dP tiles stay in
+// registers, and dS is rounded to bf16 and re-used register for register
+// as the A fragment of dS K. wgmma and TMA for it are a later change.
+//
+// The dK/dV kernel is built for wgmma (shared pieces in sm90.cuh): K and V
+// of its 64 keys stay in shared memory, the q_hat and dO tiles of its
+// sweep come through a 2-stage TMA ring with full/empty mbarriers, S^T and
+// dP^T are SS wgmma, and P^T and dS^T, rounded to bf16 from their
+// accumulators, are the register A operands of the RS wgmma that add
+// P^T dO and dS^T q_hat into dV and dK (dO and q_hat as MN-major B: no
+// gather of B fragments). One consumer warpgroup a CTA: 64 + 64 f32
+// accumulator registers for dK and dV beside 32 + 32 for S^T and dP^T, so
+// two CTAs share an SM and overlap each other's loads and softmax.
 //
 // The f32 path is a plain FMA kernel per direction (4 threads per row,
 // f32 products in f32, no TF32), so it matches a full-f32 reference to
@@ -60,6 +70,8 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include "sm90.cuh"
 
 namespace {
 
@@ -143,10 +155,7 @@ __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
+using sm90::pack_bf16;  // two floats rounded to a bf16 pair
 
 __device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo,
                                               __nv_bfloat16 hi) {
@@ -338,128 +347,252 @@ flash_bwd_dq_bf16(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-// B5: one CTA per (b, kv head, 64-key tile), looping over the group's
-// query heads and their live query tiles (the TPU's (kv_head, k_block,
-// group, q_block) grid). The transposed tiles S^T = K q_hat^T and
-// dP^T = V dO^T put P^T and dS^T in the accumulator layout, ready to be
-// the A fragments of P^T dO and dS^T q_hat.
+// B5, bf16: wgmma fed by TMA through an mbarrier ring.
+constexpr int kDkvBN = 64;      // keys per CTA (one consumer warpgroup)
+constexpr int kDkvBM = 64;      // query rows per stage
+constexpr int kDkvStages = 2;   // q_hat / dO tiles in the ring
+constexpr int kDkvThreads = 128;
+constexpr int kDkvBox = 64 * 128;  // bytes of one TMA box: 64 rows x 64 bf16
+
+// Byte offsets into the (1024-aligned) dynamic shared memory.
 template <int D, int DV>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_bf16(const __nv_bfloat16* __restrict__ q,
-                   const __nv_bfloat16* __restrict__ k,
-                   const __nv_bfloat16* __restrict__ v,
-                   const __nv_bfloat16* __restrict__ dout,
+struct DkvSmem {
+  static constexpr int kK = (D / 64) * kDkvBox;  // the CTA's K tile
+  static constexpr int kV = (DV / 64) * kDkvBox;  // and its V tile
+  static constexpr int kQ = (D / 64) * kDkvBox;  // one stage's q_hat
+  static constexpr int kStage = kQ + (DV / 64) * kDkvBox;  // q_hat then dO
+  static constexpr int kStats = kK + kV + kDkvStages * kStage;  // lse, Delta
+  static constexpr int kBars = kStats + kDkvStages * 2 * kDkvBM * 4;
+  static constexpr int kBytes = kBars + 8 * (2 * kDkvStages + 1) + 1024;
+};
+
+// P^T = exp2(S^T - lse) and dS^T = P^T (dP^T - Delta) in place of S^T and
+// dP^T, for the thread's key rows kp0, kp0 + 8 and query columns of the
+// tile starting at m0. MASK: a dead pair (query past Sq, key past Skv,
+// causal or window) gets P^T = dS^T = 0 exactly; a tile with no dead pair
+// takes MASK = false and no mask arithmetic.
+template <bool MASK>
+__device__ __forceinline__ void dkv_p_ds(float (&st)[32], float (&dpt)[32],
+                                         const float* sL, const float* sD,
+                                         int m0, int kp0, int t, int Sq,
+                                         int Skv, int causal, int window) {
+#pragma unroll
+  for (int nt = 0; nt < kDkvBM / 8; ++nt) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int qc = nt * 8 + 2 * t + (i & 1);
+      const int e = nt * 4 + i;
+      float p = exp2f(st[e] - sL[qc]);
+      if (MASK) {
+        const int qp = m0 + qc;
+        const int kp = kp0 + 8 * (i >> 1);
+        if (!(qp < Sq && key_live(qp, kp, Skv, causal, window))) p = 0.f;
+      }
+      dpt[e] = p * (dpt[e] - sD[qc]);
+      st[e] = p;
+    }
+  }
+}
+
+// One CTA per (b, kv head, 64-key tile), the key tiles on grid y so that
+// key tile 0 of every head (the most query tiles under causal) launches
+// first. K and V come in once by TMA and stay; the CTA sweeps its group's
+// query heads and each head's live 64-row query tiles as one flat sequence
+// of stages, each a q_hat and a dO tile by TMA plus the tile's lse and
+// Delta (plain loads into shared memory, one ahead). Per stage:
+//   S^T = K q_hat^T, dP^T = V dO^T     SS wgmma, K-major B
+//   P^T, dS^T in registers             under the same masks as the forward
+//   dV += P^T dO, dK += dS^T q_hat     RS wgmma, MN-major B
+// The group's sum stays in the CTA's registers: no atomics, and two runs
+// agree bit for bit.
+template <int D, int DV>
+__global__ void __launch_bounds__(kDkvThreads)
+flash_bwd_dkv_bf16(const __grid_constant__ CUtensorMap tq,
+                   const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv,
+                   const __grid_constant__ CUtensorMap tdo,
                    const float* __restrict__ lse,
                    const float* __restrict__ delta,
                    __nv_bfloat16* __restrict__ dk,
                    __nv_bfloat16* __restrict__ dv, int H, int Hk, int Sq,
                    int Skv, int causal, int window) {
+  using L = DkvSmem<D, DV>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sV = sK + kBN * (D + kPad);
-  __nv_bfloat16* sQ = sV + kBN * (DV + kPad);
-  __nv_bfloat16* sdO = sQ + kBM * (D + kPad);
-  float* sL = reinterpret_cast<float*>(sdO + kBM * (DV + kPad));
-  float* sD = sL + kBM;
+  unsigned char* smem = sm90::align1024(smem_raw);
+  float* stats = reinterpret_cast<float*>(smem + L::kStats);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::kBars);
+  uint64_t* empty = full + kDkvStages;
+  uint64_t* kvbar = empty + kDkvStages;
 
-  const int n0 = blockIdx.x * kBN;
-  const int bhk = blockIdx.y;
+  const int n0 = blockIdx.y * kDkvBN;
+  const int bhk = blockIdx.x;
   const int b = bhk / Hk;
   const int hk = bhk % Hk;
   const int group = H / Hk;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
   const int g = lane / 4;
   const int t = lane % 4;
 
-  const long long q_row = (long long)H * D;
-  const long long o_row = (long long)H * DV;
-  const long long k_row = (long long)Hk * D;
-  const long long v_row = (long long)Hk * DV;
-
-  load_tile<D>(sK, k + ((long long)b * Skv + n0) * k_row + hk * D, k_row,
-               kBN, Skv - n0);
-  load_tile<DV>(sV, v + ((long long)b * Skv + n0) * v_row + hk * DV, v_row,
-                kBN, Skv - n0);
-  cp_async_wait_all();  // read after the first query tile's barrier
-
-  const int kp0 = n0 + warp * 16 + g;  // the thread's two key rows
-  const int kp1 = kp0 + 8;
-  const __nv_bfloat16* k_g = sK + (warp * 16 + g) * (D + kPad);
-  const __nv_bfloat16* v_g = sV + (warp * 16 + g) * (DV + kPad);
-
-  float dka[D / 8][4], dva[DV / 8][4];
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i)
-    dka[i][0] = dka[i][1] = dka[i][2] = dka[i][3] = 0.f;
-#pragma unroll
-  for (int i = 0; i < DV / 8; ++i)
-    dva[i][0] = dva[i][1] = dva[i][2] = dva[i][3] = 0.f;
-
   int lo, hi;
-  query_range(n0, kBN, kBM, Sq, causal, window, &lo, &hi);
-  for (int gi = 0; gi < group; ++gi) {
-    const int h = hk * group + gi;
-    const __nv_bfloat16* qg = q + (long long)b * Sq * q_row + h * D;
-    const __nv_bfloat16* dog = dout + (long long)b * Sq * o_row + h * DV;
-    const float* lg = lse + ((long long)b * H + h) * Sq;
-    const float* dg = delta + ((long long)b * H + h) * Sq;
-    for (int m0 = lo; m0 < hi; m0 += kBM) {
-      __syncthreads();  // the previous query tile is fully consumed
-      load_tile<D>(sQ, qg + (long long)m0 * q_row, q_row, kBM, Sq - m0);
-      load_tile<DV>(sdO, dog + (long long)m0 * o_row, o_row, kBM, Sq - m0);
-      for (int i = threadIdx.x; i < kBM; i += kThreads) {
-        bool ok = m0 + i < Sq;
-        sL[i] = ok ? lg[m0 + i] : 0.f;
-        sD[i] = ok ? dg[m0 + i] : 0.f;
-      }
-      cp_async_wait_all();
-      __syncthreads();
+  query_range(n0, kDkvBN, kDkvBM, Sq, causal, window, &lo, &hi);
+  const int n_qt = hi > lo ? (hi - lo) / kDkvBM : 0;  // per query head
+  const int n_stages = group * n_qt;
 
-      float st[kBM / 8][4], dpt[kBM / 8][4];
-#pragma unroll
-      for (int nt = 0; nt < kBM / 8; ++nt)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) st[nt][i] = dpt[nt][i] = 0.f;
-      mma_abt<D, kBM / 8>(st, k_g, sQ, g, t);     // S^T  = K q_hat^T
-      mma_abt<DV, kBM / 8>(dpt, v_g, sdO, g, t);  // dP^T = V dO^T
-
-      // P^T in place of S^T, dS^T = P^T * (dP^T - Delta) in place of dP^T.
-#pragma unroll
-      for (int nt = 0; nt < kBM / 8; ++nt) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          int qc = nt * 8 + 2 * t + (i & 1);
-          int qp = m0 + qc;
-          int kp = (i / 2) ? kp1 : kp0;
-          bool live = qp < Sq && key_live(qp, kp, Skv, causal, window);
-          float p = live ? exp2f(st[nt][i] - sL[qc]) : 0.f;
-          dpt[nt][i] = p * (dpt[nt][i] - sD[qc]);
-          st[nt][i] = p;
-        }
-      }
-      mma_xb<DV>(dva, st, sdO, g, t);  // dV += P^T dO
-      mma_xb<D>(dka, dpt, sQ, g, t);   // dK += dS^T q_hat
+  if (tid == 0) {
+    for (int s = 0; s < kDkvStages; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], kDkvThreads);
     }
+    sm90::mbar_init(kvbar, 1);
+    sm90::fence_mbar_init();
+  }
+  __syncthreads();
+
+  // Stage i: query head hk * group + i / n_qt, rows lo + (i % n_qt) * 64.
+  auto stage_head = [&](int i) { return hk * group + i / n_qt; };
+  auto stage_m0 = [&](int i) { return lo + (i % n_qt) * kDkvBM; };
+  auto load_stage = [&](int i) {  // thread 0 only
+    const int s = i % kDkvStages;
+    unsigned char* dst = smem + L::kK + L::kV + s * L::kStage;
+    sm90::mbar_arrive_expect_tx(&full[s], L::kStage);
+    for (int c = 0; c < D / 64; ++c)
+      sm90::tma_load_4d(dst + c * kDkvBox, &tq, &full[s], c * 64,
+                        stage_head(i), stage_m0(i), b);
+    for (int c = 0; c < DV / 64; ++c)
+      sm90::tma_load_4d(dst + L::kQ + c * kDkvBox, &tdo, &full[s], c * 64,
+                        stage_head(i), stage_m0(i), b);
+  };
+  // Thread tid's value of stage i's stats: lse for tid < 64, else Delta.
+  auto load_stat = [&](int i) {
+    const int qp = stage_m0(i) + tid % kDkvBM;
+    const float* src = tid < kDkvBM ? lse : delta;
+    return qp < Sq ? src[((long long)b * H + stage_head(i)) * Sq + qp] : 0.f;
+  };
+  if (tid == 0) {
+    sm90::mbar_arrive_expect_tx(kvbar, L::kK + L::kV);
+    for (int c = 0; c < D / 64; ++c)
+      sm90::tma_load_4d(smem + c * kDkvBox, &tk, kvbar, c * 64, hk, n0, b);
+    for (int c = 0; c < DV / 64; ++c)
+      sm90::tma_load_4d(smem + L::kK + c * kDkvBox, &tv, kvbar, c * 64, hk,
+                        n0, b);
+    for (int i = 0; i < kDkvStages && i < n_stages; ++i) load_stage(i);
+  }
+  __syncwarp();
+  if (n_stages > 0) stats[tid] = load_stat(0);
+  __syncthreads();
+
+  const int kp0 = n0 + warp * 16 + g;  // the thread's key rows kp0, kp0 + 8
+  const int kp1 = kp0 + 8;
+  const uint32_t k_base = sm90::smem_u32(smem);
+  const uint32_t v_base = k_base + L::kK;
+  float dka[D / 2], dva[DV / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dka[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < DV / 2; ++i) dva[i] = 0.f;
+
+  sm90::mbar_wait(kvbar, 0);
+  for (int i = 0; i < n_stages; ++i) {
+    const int s = i % kDkvStages;
+    const int next = i + kDkvStages - 1;  // the stage loaded now
+    if (tid == 0 && next >= kDkvStages && next < n_stages) {
+      sm90::mbar_wait(&empty[next % kDkvStages],
+                      (next / kDkvStages - 1) & 1);
+      load_stage(next);
+    }
+    const bool more = i + 1 < n_stages;
+    const float stat_next = more ? load_stat(i + 1) : 0.f;
+    const int m0 = stage_m0(i);
+    sm90::mbar_wait(&full[s], (i / kDkvStages) & 1);
+    __syncwarp();
+    const uint32_t q_base =
+        sm90::smem_u32(smem + L::kK + L::kV + s * L::kStage);
+    const uint32_t o_base = q_base + L::kQ;
+
+    // S^T = K q_hat^T and dP^T = V dO^T: 64 keys x 64 queries each.
+    float st[32], dpt[32];
+#pragma unroll
+    for (int e = 0; e < 32; ++e) st[e] = dpt[e] = 0.f;
+    sm90::fence_regs(st);
+    sm90::fence_regs(dpt);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < D / 16; ++kc) {
+      const uint32_t off = (kc / 4) * kDkvBox + (kc % 4) * 32;
+      sm90::wgmma_ss<0>(st, sm90::desc_sw128(k_base + off, 16, 1024),
+                        sm90::desc_sw128(q_base + off, 16, 1024), kc > 0);
+    }
+#pragma unroll
+    for (int kc = 0; kc < DV / 16; ++kc) {
+      const uint32_t off = (kc / 4) * kDkvBox + (kc % 4) * 32;
+      sm90::wgmma_ss<0>(dpt, sm90::desc_sw128(v_base + off, 16, 1024),
+                        sm90::desc_sw128(o_base + off, 16, 1024), kc > 0);
+    }
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(st);
+    sm90::fence_regs(dpt);
+
+    const float* sL = stats + s * 2 * kDkvBM;
+    const float* sD = sL + kDkvBM;
+    const bool edge = m0 + kDkvBM > Sq || n0 + kDkvBN > Skv ||
+                      (causal && n0 + kDkvBN - 1 > m0) ||
+                      (window && n0 <= m0 + kDkvBM - 1 - window);
+    if (edge)
+      dkv_p_ds<true>(st, dpt, sL, sD, m0, kp0, t, Sq, Skv, causal, window);
+    else
+      dkv_p_ds<false>(st, dpt, sL, sD, m0, kp0, t, Sq, Skv, causal, window);
+
+    // dV += P^T dO and dK += dS^T q_hat: 64 / 16 k16 steps over the queries.
+    uint32_t pa[kDkvBM / 16][4], da[kDkvBM / 16][4];
+#pragma unroll
+    for (int kc = 0; kc < kDkvBM / 16; ++kc) {
+      sm90::acc_to_a(st, kc, pa[kc]);
+      sm90::acc_to_a(dpt, kc, da[kc]);
+    }
+    sm90::fence_regs(dva);
+    sm90::fence_regs(dka);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < kDkvBM / 16; ++kc)
+      sm90::wgmma_rs<1>(dva, pa[kc],
+                        sm90::desc_sw128(o_base + kc * 16 * 128, kDkvBox,
+                                         1024),
+                        1);
+#pragma unroll
+    for (int kc = 0; kc < kDkvBM / 16; ++kc)
+      sm90::wgmma_rs<1>(dka, da[kc],
+                        sm90::desc_sw128(q_base + kc * 16 * 128, kDkvBox,
+                                         1024),
+                        1);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(dva);
+    sm90::fence_regs(dka);
+    sm90::mbar_arrive(&empty[s]);
+    if (more) stats[((i + 1) % kDkvStages) * 2 * kDkvBM + tid] = stat_next;
+    __syncthreads();  // the next stage's stats are in; this stage's read
   }
 
-  __nv_bfloat16* dkg = dk + (long long)b * Skv * k_row + hk * D;
-  __nv_bfloat16* dvg = dv + (long long)b * Skv * v_row + hk * DV;
+  __nv_bfloat16* dkg = dk + (long long)b * Skv * Hk * D + hk * D;
+  __nv_bfloat16* dvg = dv + (long long)b * Skv * Hk * DV + hk * DV;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    int kp = r ? kp1 : kp0;
+    const int kp = r ? kp1 : kp0;
     if (kp >= Skv) continue;
-    __nv_bfloat16* krow = dkg + kp * k_row + 2 * t;
-    __nv_bfloat16* vrow = dvg + kp * v_row + 2 * t;
+    __nv_bfloat16* krow = dkg + (long long)kp * Hk * D + 2 * t;
+    __nv_bfloat16* vrow = dvg + (long long)kp * Hk * DV + 2 * t;
 #pragma unroll
     for (int nd = 0; nd < D / 8; ++nd)
       *reinterpret_cast<__nv_bfloat162*>(krow + nd * 8) =
-          __floats2bfloat162_rn(dka[nd][2 * r] * kLn2,
-                                dka[nd][2 * r + 1] * kLn2);
+          __floats2bfloat162_rn(dka[nd * 4 + 2 * r] * kLn2,
+                                dka[nd * 4 + 2 * r + 1] * kLn2);
 #pragma unroll
     for (int nv = 0; nv < DV / 8; ++nv)
       *reinterpret_cast<__nv_bfloat162*>(vrow + nv * 8) =
-          __floats2bfloat162_rn(dva[nv][2 * r], dva[nv][2 * r + 1]);
+          __floats2bfloat162_rn(dva[nv * 4 + 2 * r], dva[nv * 4 + 2 * r + 1]);
   }
 }
 
@@ -730,20 +863,22 @@ cudaError_t run_dkv(int dtype, const void* q, const void* k, const void* v,
                     int Skv, int causal, int window, cudaStream_t st) {
   cudaError_t err;
   if (dtype == 0) {
-    size_t smem = sizeof(__nv_bfloat16) *
-                      ((size_t)(kBM + kBN) * (D + kPad) +
-                       (size_t)(kBM + kBN) * (DV + kPad)) +
-                  sizeof(float) * 2 * kBM;
+    CUtensorMap tq, tk, tv, tdo;
+    if ((err = sm90::tmap_bshd(&tq, q, B, Sq, H, D, kDkvBM)) != cudaSuccess ||
+        (err = sm90::tmap_bshd(&tk, k, B, Skv, Hk, D, kDkvBN)) !=
+            cudaSuccess ||
+        (err = sm90::tmap_bshd(&tv, v, B, Skv, Hk, DV, kDkvBN)) !=
+            cudaSuccess ||
+        (err = sm90::tmap_bshd(&tdo, dout, B, Sq, H, DV, kDkvBM)) !=
+            cudaSuccess)
+      return err;
+    const size_t smem = DkvSmem<D, DV>::kBytes;
     auto kernel = flash_bwd_dkv_bf16<D, DV>;
     if ((err = set_smem(kernel, smem)) != cudaSuccess) return err;
-    dim3 grid((Skv + kBN - 1) / kBN, B * Hk);
-    kernel<<<grid, kThreads, smem, st>>>(
-        static_cast<const __nv_bfloat16*>(q),
-        static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v),
-        static_cast<const __nv_bfloat16*>(dout), lse, delta,
-        static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), H,
-        Hk, Sq, Skv, causal, window);
+    dim3 grid(B * Hk, (Skv + kDkvBN - 1) / kDkvBN);
+    kernel<<<grid, kDkvThreads, smem, st>>>(
+        tq, tk, tv, tdo, lse, delta, static_cast<__nv_bfloat16*>(dk),
+        static_cast<__nv_bfloat16*>(dv), H, Hk, Sq, Skv, causal, window);
   } else {
     size_t smem = sizeof(float) *
                   ((size_t)(kFM + kFN) * (D + 1) +

@@ -29,14 +29,24 @@
 // Bound on the H100. At the flagship prefill (S = 2048, H = 8, D = 128,
 // bf16, causal) the work is ~8.6 GFLOP against ~10.5 MB of traffic, about
 // 800 FLOP per byte, above the card's ~295 FLOP/byte ridge: the bound is
-// the tensor-core rate (989 TFLOP/s bf16 dense). This first version takes
-// the simple route to it: mma.sync m16n8k16 (bf16 in, f32 accumulate) for
-// both Q K^T and P V, with the S tile, the online-softmax state and the
-// output accumulator all in registers (no logits in shared or device
-// memory), and K/V tiles brought into padded (bank-conflict-free) shared
-// memory with cp.async. It does not use wgmma, TMA or warp specialisation,
-// and it does not double-buffer the K/V tiles; those are what close the
-// gap to the bound and are left to a later change.
+// the tensor-core rate (989 TFLOP/s bf16 dense), which only wgmma reaches.
+// The bf16 kernel is built for it (shared pieces in sm90.cuh):
+//   * one CTA per (b, h, 128 query rows): two consumer warpgroups of 64
+//     rows each, causal query tiles launched heaviest first;
+//   * Q comes in once by TMA; K and V in 128-key tiles through a 2-stage
+//     ring of TMA loads, a "full" mbarrier per stage (transaction bytes) and
+//     an "empty" one that every consumer thread arrives on once its
+//     warpgroup's wgmma reads of the stage have retired; thread 0 refills
+//     a stage with the tile after next before the current tile's math;
+//   * S = q_hat K^T is an SS wgmma (K-major B: a row of K holds D); the
+//     S accumulator is the base-2 online softmax's input in registers, and
+//     P, rounded to bf16, is already the register A operand of the RS
+//     wgmma O += P V (V as the MN-major B: no transpose pass);
+//   * masks are applied per element only in tiles that straddle the
+//     diagonal, the window's edge or Skv; fully live tiles take none. TMA
+//     zero-fills rows past S, so a masked key never brings a NaN into P V.
+// It does not use a producer warp, setmaxnreg or two tiles in flight per
+// warpgroup (FA3's ping-pong); those are the next steps toward the bound.
 //
 // The f32 path (not on the serving path) is a plain FMA kernel: 4 threads
 // per query row, f32 products in f32, so it matches a full-f32 reference
@@ -45,6 +55,8 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include "sm90.cuh"
 
 namespace {
 
@@ -76,159 +88,150 @@ __device__ __forceinline__ void key_range(int m0, int bm, int bn, int skv,
 }
 
 // ---------------------------------------------------------------------
-// bf16: tensor-core path
+// bf16: wgmma path
 // ---------------------------------------------------------------------
 
-constexpr int kBM = 64;       // query rows per CTA (4 warps x 16)
-constexpr int kBN = 64;       // keys per shared-memory tile
-constexpr int kThreads = 128;
-constexpr int kPad = 8;       // bf16 elements of row padding (16 bytes)
+constexpr int kBM = 128;       // query rows per CTA (2 warpgroups x 64)
+constexpr int kBN = 128;       // keys per K/V tile
+constexpr int kStages = 2;     // K/V tiles in the ring
+constexpr int kConsumers = 2;  // warpgroups
+constexpr int kWgThreads = 128 * kConsumers;
+constexpr int kBox = 128 * 128;  // bytes of one TMA box: 128 rows x 64 bf16
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool valid) {
-  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  int n = valid ? 16 : 0;  // 0 source bytes: the 16 destination bytes are zero-filled
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\n" ::);
-  asm volatile("cp.async.wait_group 0;\n" ::);
-}
-
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo,
-                                              __nv_bfloat16 hi) {
-  __nv_bfloat162 v;
-  v.x = lo;
-  v.y = hi;
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Copy `rows` rows of `width` bf16 (global row stride `gstride`) into a
-// shared tile with row stride width + kPad; rows at or past `valid` are
-// zero-filled (finite: a masked key must never bring a NaN into P V).
-template <int WIDTH>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* smem,
-                                          const __nv_bfloat16* g,
-                                          long long gstride, int rows,
-                                          int valid) {
-  constexpr int kChunks = WIDTH / 8;  // 16-byte chunks per row
-  for (int c = threadIdx.x; c < rows * kChunks; c += kThreads) {
-    int r = c / kChunks;
-    int col = (c % kChunks) * 8;
-    bool ok = r < valid;
-    const __nv_bfloat16* src = ok ? g + r * gstride + col : g;
-    cp_async16(smem + r * (WIDTH + kPad) + col, src, ok);
-  }
-}
+// Byte offsets into the (1024-aligned) dynamic shared memory.
+template <int D, int DV>
+struct FwdSmem {
+  static constexpr int kQ = (D / 64) * kBox;      // the CTA's Q tile
+  static constexpr int kK = (D / 64) * kBox;      // one K tile
+  static constexpr int kStage = kK + (DV / 64) * kBox;  // K then V
+  static constexpr int kBars = kQ + kStages * kStage;   // full, empty, q
+  static constexpr int kBytes = kBars + 8 * (2 * kStages + 1) + 1024;
+};
 
 template <int D, int DV>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,
-               const __nv_bfloat16* __restrict__ k,
-               const __nv_bfloat16* __restrict__ v,
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_fwd_bf16(const __grid_constant__ CUtensorMap tq,
+               const __grid_constant__ CUtensorMap tk,
+               const __grid_constant__ CUtensorMap tv,
                __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
                int H, int Hk, int Sq, int Skv, int causal, int window) {
+  using L = FwdSmem<D, DV>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sK = sQ + kBM * (D + kPad);
-  __nv_bfloat16* sV = sK + kBN * (D + kPad);
+  unsigned char* smem = sm90::align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::kBars);
+  uint64_t* empty = full + kStages;
+  uint64_t* qbar = empty + kStages;
 
-  const int m0 = blockIdx.x * kBM;
-  const int bh = blockIdx.y;
+  // Causal: the last query tiles see the most keys; launch them first.
+  const int mt = causal ? (int)(gridDim.y - 1 - blockIdx.y) : (int)blockIdx.y;
+  const int m0 = mt * kBM;
+  const int bh = blockIdx.x;
   const int b = bh / H;
   const int h = bh % H;
   const int hk = h / (H / Hk);
-  const int warp = threadIdx.x / 32;
+  const int wg = threadIdx.x / 128;
+  const int warp = (threadIdx.x % 128) / 32;  // within the warpgroup
   const int lane = threadIdx.x % 32;
-  const int g = lane / 4;  // mma groupID: the fragment row
-  const int t = lane % 4;  // thread in group: the fragment column pair
-
-  const long long q_row = (long long)H * D;
-  const long long k_row = (long long)Hk * D;
-  const long long v_row = (long long)Hk * DV;
-  const __nv_bfloat16* qg = q + ((long long)b * Sq + m0) * q_row + h * D;
-  const __nv_bfloat16* kg = k + (long long)b * Skv * k_row + hk * D;
-  const __nv_bfloat16* vg = v + (long long)b * Skv * v_row + hk * DV;
-
-  load_tile<D>(sQ, qg, q_row, kBM, Sq - m0);
-  cp_async_wait_all();
-  __syncthreads();
-
-  // This warp's 16 query rows as mma A fragments, one per 16-wide d chunk.
-  uint32_t qf[D / 16][4];
-  {
-    const __nv_bfloat16* r0 = sQ + (warp * 16 + g) * (D + kPad);
-    const __nv_bfloat16* r1 = r0 + 8 * (D + kPad);
-#pragma unroll
-    for (int kc = 0; kc < D / 16; ++kc) {
-      qf[kc][0] = ld32(r0 + kc * 16 + 2 * t);
-      qf[kc][1] = ld32(r1 + kc * 16 + 2 * t);
-      qf[kc][2] = ld32(r0 + kc * 16 + 2 * t + 8);
-      qf[kc][3] = ld32(r1 + kc * 16 + 2 * t + 8);
-    }
-  }
-
-  // Online-softmax state for the thread's two rows (g and g + 8).
-  const int qp0 = m0 + warp * 16 + g;
-  const int qp1 = qp0 + 8;
-  float mrow[2] = {kNegInf, kNegInf};
-  float lrow[2] = {0.f, 0.f};  // this thread's partial row sums
-  float acc[DV / 8][4];
-#pragma unroll
-  for (int i = 0; i < DV / 8; ++i)
-    acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+  const int g = lane / 4;  // accumulator row in the warp's 16 (and + 8)
+  const int t = lane % 4;  // accumulator column pair
 
   int lo, hi;
   key_range(m0, kBM, kBN, Skv, causal, window, &lo, &hi);
-  for (int n0 = lo; n0 < hi; n0 += kBN) {
-    __syncthreads();  // the previous tile is fully consumed
-    load_tile<D>(sK, kg + (long long)n0 * k_row, k_row, kBN, Skv - n0);
-    load_tile<DV>(sV, vg + (long long)n0 * v_row, v_row, kBN, Skv - n0);
-    cp_async_wait_all();
-    __syncthreads();
+  const int n_tiles = hi > lo ? (hi - lo + kBN - 1) / kBN : 0;
 
-    // S = Q K^T for 16 rows x 64 keys: 8 n-tiles of the m16n8 C layout.
-    float s[kBN / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < kBN / 8; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-      const __nv_bfloat16* kr = sK + (nt * 8 + g) * (D + kPad) + 2 * t;
-#pragma unroll
-      for (int kc = 0; kc < D / 16; ++kc)
-        mma_bf16(s[nt], qf[kc], ld32(kr + kc * 16), ld32(kr + kc * 16 + 8));
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], kWgThreads);
     }
+    sm90::mbar_init(qbar, 1);
+    sm90::fence_mbar_init();
+  }
+  __syncthreads();
 
-    float mx[2] = {mrow[0], mrow[1]};
+  // K/V tile j into stage j % kStages (thread 0 only).
+  auto load_kv = [&](int j) {
+    const int s = j % kStages;
+    unsigned char* dst = smem + L::kQ + s * L::kStage;
+    sm90::mbar_arrive_expect_tx(&full[s], L::kStage);
+    for (int c = 0; c < D / 64; ++c)
+      sm90::tma_load_4d(dst + c * kBox, &tk, &full[s], c * 64, hk,
+                        lo + j * kBN, b);
+    for (int c = 0; c < DV / 64; ++c)
+      sm90::tma_load_4d(dst + L::kK + c * kBox, &tv, &full[s], c * 64, hk,
+                        lo + j * kBN, b);
+  };
+  if (threadIdx.x == 0) {
+    sm90::mbar_arrive_expect_tx(qbar, L::kQ);
+    for (int c = 0; c < D / 64; ++c)
+      sm90::tma_load_4d(smem + c * kBox, &tq, qbar, c * 64, h, m0, b);
+    for (int j = 0; j < kStages && j < n_tiles; ++j) load_kv(j);
+  }
+  __syncwarp();
+
+  const int row0 = m0 + wg * 64;  // this warpgroup's first query row
+  const int qp0 = row0 + warp * 16 + g;
+  const int qp1 = qp0 + 8;
+  // This warpgroup's 64 rows of each Q box.
+  const uint32_t q_base = sm90::smem_u32(smem) + wg * 64 * 128;
+
+  float mrow[2] = {kNegInf, kNegInf};
+  float lrow[2] = {0.f, 0.f};  // this thread's partial row sums
+  float acc[DV / 2];           // O, the 64 x DV accumulator
 #pragma unroll
-    for (int nt = 0; nt < kBN / 8; ++nt) {
+  for (int i = 0; i < DV / 2; ++i) acc[i] = 0.f;
+
+  sm90::mbar_wait(qbar, 0);
+  for (int j = 0; j < n_tiles; ++j) {
+    const int s = j % kStages;
+    const int next = j + kStages - 1;  // the tile that refills a stage now
+    if (threadIdx.x == 0 && next >= kStages && next < n_tiles) {
+      // Both warpgroups are done with tile next - kStages of that stage.
+      sm90::mbar_wait(&empty[next % kStages], (next / kStages - 1) & 1);
+      load_kv(next);
+    }
+    sm90::mbar_wait(&full[s], (j / kStages) & 1);
+    __syncwarp();
+    const uint32_t k_base = sm90::smem_u32(smem + L::kQ + s * L::kStage);
+    const uint32_t v_base = k_base + L::kK;
+
+    // S = q_hat K^T: 64 rows x 128 keys, D / 16 k16 steps.
+    float sc[kBN / 2];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        int kp = n0 + nt * 8 + 2 * t + (i & 1);
-        int qp = i < 2 ? qp0 : qp1;
-        if (!key_live(qp, kp, Skv, causal, window)) s[nt][i] = kNegInf;
-        mx[i / 2] = fmaxf(mx[i / 2], s[nt][i]);
+    for (int i = 0; i < kBN / 2; ++i) sc[i] = 0.f;
+    sm90::fence_regs(sc);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < D / 16; ++kc) {
+      const uint32_t off = (kc / 4) * kBox + (kc % 4) * 32;
+      sm90::wgmma_ss<0>(sc, sm90::desc_sw128(q_base + off, 16, 1024),
+                        sm90::desc_sw128(k_base + off, 16, 1024), kc > 0);
+    }
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(sc);
+
+    // Per-element masks only where the tile straddles an edge.
+    const int n0 = lo + j * kBN;
+    const bool edge = n0 + kBN > Skv || (causal && n0 + kBN - 1 > row0) ||
+                      (window && n0 <= row0 + 63 - window);
+    if (edge) {
+#pragma unroll
+      for (int nt = 0; nt < kBN / 8; ++nt) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int kp = n0 + nt * 8 + 2 * t + (i & 1);
+          if (!key_live(i < 2 ? qp0 : qp1, kp, Skv, causal, window))
+            sc[nt * 4 + i] = kNegInf;
+        }
       }
     }
+
+    // Online softmax in base 2 for the thread's rows g and g + 8.
+    float mx[2] = {mrow[0], mrow[1]};
+#pragma unroll
+    for (int i = 0; i < kBN / 2; ++i)
+      mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffff, mx[r], 1));
@@ -242,38 +245,28 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,
       lrow[r] *= corr[r];
     }
 #pragma unroll
-    for (int nt = 0; nt < kBN / 8; ++nt) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        s[nt][i] = exp2f(s[nt][i] - mrow[i / 2]);
-        lrow[i / 2] += s[nt][i];
-      }
+    for (int i = 0; i < kBN / 2; ++i) {
+      sc[i] = exp2f(sc[i] - mrow[(i >> 1) & 1]);
+      lrow[(i >> 1) & 1] += sc[i];
     }
 #pragma unroll
-    for (int i = 0; i < DV / 8; ++i) {
-      acc[i][0] *= corr[0];
-      acc[i][1] *= corr[0];
-      acc[i][2] *= corr[1];
-      acc[i][3] *= corr[1];
-    }
+    for (int i = 0; i < DV / 2; ++i) acc[i] *= corr[(i >> 1) & 1];
 
-    // O += P V: the S accumulator of n-tiles (2kc, 2kc + 1) is exactly the
-    // m16n8k16 A fragment of P's 16-key chunk kc.
+    // O += P V: P from registers, V the MN-major B, 128 / 16 k16 steps.
+    uint32_t pa[kBN / 16][4];
 #pragma unroll
-    for (int kc = 0; kc < kBN / 16; ++kc) {
-      uint32_t pa[4] = {pack_bf16(s[2 * kc][0], s[2 * kc][1]),
-                        pack_bf16(s[2 * kc][2], s[2 * kc][3]),
-                        pack_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]),
-                        pack_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3])};
-      const __nv_bfloat16* v0 = sV + (kc * 16 + 2 * t) * (DV + kPad) + g;
-      const __nv_bfloat16* v8 = v0 + 8 * (DV + kPad);
+    for (int kc = 0; kc < kBN / 16; ++kc) sm90::acc_to_a(sc, kc, pa[kc]);
+    sm90::fence_regs(acc);
+    sm90::wgmma_fence();
 #pragma unroll
-      for (int nv = 0; nv < DV / 8; ++nv) {
-        uint32_t b0 = pack_bf16(v0[nv * 8], v0[nv * 8 + DV + kPad]);
-        uint32_t b1 = pack_bf16(v8[nv * 8], v8[nv * 8 + DV + kPad]);
-        mma_bf16(acc[nv], pa, b0, b1);
-      }
-    }
+    for (int kc = 0; kc < kBN / 16; ++kc)
+      sm90::wgmma_rs<1>(acc, pa[kc],
+                        sm90::desc_sw128(v_base + kc * 16 * 128, kBox, 1024),
+                        1);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(acc);
+    sm90::mbar_arrive(&empty[s]);
   }
 
 #pragma unroll
@@ -287,16 +280,15 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,
   float* lg = lse + (long long)bh * Sq;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    int qp = r ? qp1 : qp0;
+    const int qp = r ? qp1 : qp0;
     if (qp >= Sq) continue;
-    float inv = 1.f / lrow[r];
+    const float inv = 1.f / lrow[r];
     __nv_bfloat16* orow = og + qp * o_row + 2 * t;
 #pragma unroll
-    for (int nv = 0; nv < DV / 8; ++nv) {
-      __nv_bfloat162 val = __floats2bfloat162_rn(acc[nv][2 * r] * inv,
-                                                 acc[nv][2 * r + 1] * inv);
-      *reinterpret_cast<__nv_bfloat162*>(orow + nv * 8) = val;
-    }
+    for (int nv = 0; nv < DV / 8; ++nv)
+      *reinterpret_cast<__nv_bfloat162*>(orow + nv * 8) =
+          __floats2bfloat162_rn(acc[nv * 4 + 2 * r] * inv,
+                                acc[nv * 4 + 2 * r + 1] * inv);
     if (t == 0) lg[qp] = mrow[r] + log2f(lrow[r]);
   }
 }
@@ -305,6 +297,7 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,
 // f32: FMA path
 // ---------------------------------------------------------------------
 
+constexpr int kThreads = 128;
 constexpr int kFM = 32;  // query rows per CTA, 4 threads each
 constexpr int kFN = 32;  // keys per shared-memory tile
 
@@ -415,17 +408,21 @@ template <int D, int DV>
 cudaError_t run_bf16(const void* q, const void* k, const void* v, void* o,
                      float* lse, int B, int H, int Hk, int Sq, int Skv,
                      int causal, int window, cudaStream_t stream) {
-  size_t smem = sizeof(__nv_bfloat16) *
-                ((size_t)(kBM + kBN) * (D + kPad) + (size_t)kBN * (DV + kPad));
+  CUtensorMap tq, tk, tv;
+  cudaError_t err;
+  if ((err = sm90::tmap_bshd(&tq, q, B, Sq, H, D, kBM)) != cudaSuccess ||
+      (err = sm90::tmap_bshd(&tk, k, B, Skv, Hk, D, kBN)) != cudaSuccess ||
+      (err = sm90::tmap_bshd(&tv, v, B, Skv, Hk, DV, kBN)) != cudaSuccess)
+    return err;
+  const int smem = FwdSmem<D, DV>::kBytes;
   auto kernel = flash_fwd_bf16<D, DV>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((Sq + kBM - 1) / kBM, B * H);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      lse, H, Hk, Sq, Skv, causal, window);
+  dim3 grid(B * H, (Sq + kBM - 1) / kBM);
+  kernel<<<grid, kWgThreads, smem, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, H, Hk, Sq, Skv,
+      causal, window);
   return cudaGetLastError();
 }
 

@@ -7,9 +7,11 @@ Building happens at first use, never at import: the CPU tests import
 every module of the package on a machine with no ``nvcc``.
 
 Libraries land in ``marlin_tpu_torch/_build/`` (git-ignored), named by a
-hash of their source and flags, so an edited source is rebuilt and an
-unchanged one is loaded as is. :func:`build` starts one ``nvcc`` per
-missing source, all at once, and waits for them together.
+hash of their source, every shared header (``csrc/*.cuh``, which the
+sources include through ``-I csrc``) and the flags, so an edited source
+or header is rebuilt and an unchanged one is loaded as is. :func:`build`
+starts one ``nvcc`` per missing source, all at once, and waits for them
+together.
 """
 
 from __future__ import annotations
@@ -60,9 +62,19 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = SOURCES[name]
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(SOURCES[name].read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def nvcc_command(source, out, ptxas_verbose: bool = False) -> list:
+    """The nvcc command line that builds ``source`` into the shared
+    library ``out``, with ``csrc/`` on the include path."""
+    return [find_nvcc(), *NVCC_FLAGS, "-I", str(CSRC_DIR),
+            *(["-Xptxas=-v"] if ptxas_verbose else []), "-o", str(out),
+            str(source)]
 
 
 def build(names: Optional[Iterable[str]] = None,
@@ -83,12 +95,10 @@ def build(names: Optional[Iterable[str]] = None,
             continue
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCES[name])]
-        if ptxas_verbose:
-            cmd.insert(-3, "-Xptxas=-v")
         procs[name] = (subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True), tmp, path, time.perf_counter())
+            nvcc_command(SOURCES[name], tmp, ptxas_verbose),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
+            tmp, path, time.perf_counter())
     failures = []
     for name, (proc, tmp, path, t0) in procs.items():
         log, _ = proc.communicate()

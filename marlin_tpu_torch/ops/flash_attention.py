@@ -4,12 +4,13 @@ PyTorch versions, forward and backward.
 Port of ``marlin_tpu/ops/flash_attention.py``. The Pallas TPU kernels
 become CUDA C++ kernels: ``_kernel`` (the forward) is
 ``csrc/flash_attention_fwd.cu``; ``_bwd_dq_kernel`` and
-``_bwd_dkv_kernel`` (the backward) are ``csrc/flash_attention_bwd.cu``
-(mma.sync bf16 tensor-core tiles for bf16, FMA kernels for f32). The
-TPU's block constants and VMEM clamps (``DEFAULT_BLOCK_Q/K``,
+``_bwd_dkv_kernel`` (the backward) are ``csrc/flash_attention_bwd.cu``.
+For bf16 the forward and dK/dV kernels run wgmma fed by TMA through an
+mbarrier ring, the dQ kernel mma.sync; for f32 all three are FMA
+kernels. The TPU's block constants and VMEM clamps (``DEFAULT_BLOCK_Q/K``,
 ``effective_blocks``, ``window_block_clamp``, the backward's 512-row
-clamp, the lane-replicated lse) do not carry over: the CUDA kernels use
-their own 64 x 64 tiles and mask the ragged edges themselves.
+clamp, the lane-replicated lse) do not carry over: each CUDA kernel uses
+its own tiles (:data:`KERNEL_TILES`) and masks the ragged edges itself.
 
 Dispatch: CPU tensors take the plain versions,
 :func:`flash_attention_reference` and
@@ -44,10 +45,11 @@ _LOG2E = math.log2(math.e)
 KERNEL_HEAD_DIMS = (64, 128)
 _KERNEL_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 
-# Tile sizes of the bf16 kernels (kBM x kBN in csrc/flash_attention_fwd.cu
-# and csrc/flash_attention_bwd.cu); the cost model counts tiles with them.
-KERNEL_BLOCK_Q = 64
-KERNEL_BLOCK_K = 64
+# (query rows, keys) of each bf16 kernel's tile: the forward's kBM x kBN in
+# csrc/flash_attention_fwd.cu, the dQ kernel's kBM x kBN and the dK/dV
+# kernel's kDkvBM x kDkvBN in csrc/flash_attention_bwd.cu. The cost model
+# counts the forward's tiles with them.
+KERNEL_TILES = {"fwd": (128, 128), "dq": (64, 64), "dkv": (64, 64)}
 
 # Kernel launches since the last reset, one counter per kernel
 # (chip_smoke.py zeroes and reads them to prove that a path ran through
@@ -189,8 +191,8 @@ def _check_launch(tensors: dict, d: int, dv: int,
     """Raise on anything the kernels do not take: ``tensors`` of a dtype
     other than bf16 or f32 or of several dtypes, ``stats`` (lse, Delta)
     not f32, a head dim outside :data:`KERNEL_HEAD_DIMS`, a tensor that is
-    not CUDA or not contiguous, several devices, a card that is not
-    Hopper."""
+    not CUDA or not contiguous, a bf16 tensor whose base is not 16-byte
+    aligned (TMA reads it), several devices, a card that is not Hopper."""
     stats = stats or {}
     first = next(iter(tensors.values()))
     if first.dtype not in _KERNEL_DTYPES:
@@ -204,6 +206,11 @@ def _check_launch(tensors: dict, d: int, dv: int,
         want = torch.float32 if name in stats else first.dtype
         if x.dtype != want:
             raise ValueError(f"{name} is {x.dtype}, the kernel takes {want}")
+    for name, x in tensors.items():
+        if x.dtype == torch.bfloat16 and x.data_ptr() % 16:
+            raise ValueError(
+                f"{name}'s base address is not 16-byte aligned, which the "
+                f"kernels' TMA loads need (a view at an odd offset?)")
     for name, x in every.items():
         if x.device.type != "cuda":
             raise ValueError(f"{name} must be a CUDA tensor, got {x.device}")

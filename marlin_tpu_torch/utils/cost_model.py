@@ -9,7 +9,7 @@ from __future__ import annotations
 import threading
 from typing import Optional, Tuple
 
-from ..ops.flash_attention import KERNEL_BLOCK_K, KERNEL_BLOCK_Q
+from ..ops.flash_attention import KERNEL_TILES
 
 
 def transformer_param_count(cfg) -> int:
@@ -135,9 +135,10 @@ class CostCalibration:
 # -- flash attention tile accounting ----------------------------------------
 #
 # The CUDA kernels' own plan (csrc/flash_attention_fwd.cu and _bwd.cu):
-# 64 x 64 tiles (KERNEL_BLOCK_Q/K, not the TPU's 1024-row VMEM blocks),
-# and each query tile visits only the key tiles of its causal or window
-# band, so every visited tile pair is live.
+# their own tiles (KERNEL_TILES, not the TPU's 1024-row VMEM blocks; the
+# forward's 128 x 128 by default here, since these functions describe the
+# forward's loads), and each query tile visits only the key tiles of its
+# causal or window band, so every visited tile pair is live.
 
 
 def _block_live(i: int, j: int, *, causal: bool, block_q: int,
@@ -158,9 +159,9 @@ def attention_block_counts(s: int, block_q: Optional[int] = None,
     keys): ``visited`` = tile pairs the kernel loads (each query tile's
     key sweep: causal stops after the tile's last row, a window starts at
     the band's first key tile), ``live`` = pairs passing the liveness
-    predicate. Tiles default to the kernels' 64 x 64."""
-    block_q = block_q or KERNEL_BLOCK_Q
-    block_k = block_k or KERNEL_BLOCK_K
+    predicate. Tiles default to the forward kernel's."""
+    block_q = block_q or KERNEL_TILES["fwd"][0]
+    block_k = block_k or KERNEL_TILES["fwd"][1]
     kv_len = kv_len if kv_len is not None else s
     n_q = -(-s // block_q)
     n_k = -(-kv_len // block_k)
@@ -188,9 +189,9 @@ def flash_attention_cost(s: int, h: int, d: int,
     """(flops, bytes) of the flash forward at (S, H, D): 4*bq*bk*D FLOPs
     (Q K^T + P V) per live tile pair per head; bytes stream one K and one
     V tile per visited pair plus one Q read and one output write per
-    query tile."""
-    block_q = block_q or KERNEL_BLOCK_Q
-    block_k = block_k or KERNEL_BLOCK_K
+    query tile. Tiles default to the forward kernel's."""
+    block_q = block_q or KERNEL_TILES["fwd"][0]
+    block_k = block_k or KERNEL_TILES["fwd"][1]
     c = attention_block_counts(s, block_q, block_k, window=window,
                                causal=causal)
     flops = 4.0 * h * c["live"] * block_q * block_k * d
@@ -204,13 +205,14 @@ def flash_attention_cost(s: int, h: int, d: int,
 
 def transformer_step_flops(n_params: int, batch: int, s: int,
                            n_layers: int, n_heads: int, d_head: int,
-                           window: int = 0, block_q: Optional[int] = None,
-                           block_k: Optional[int] = None) -> float:
+                           window: int = 0, block_q: int = 64,
+                           block_k: int = 64) -> float:
     """Model FLOPs of one training step: ``6 * N * T`` for the matmuls
     plus the attention term it leaves out: per layer and sequence, the
     causal flash forward's live-tile FLOPs times 3.5 for forward and
     backward (2 forward products, 5 backward: the recomputed logits, dP,
-    dV, dQ, dK), at the kernels' own 64 x 64 tiles."""
+    dV, dQ, dK), counted at 64 x 64 tiles whatever tiles the kernels use,
+    so that model TFLOP/s stays comparable across kernel versions."""
     attn_fwd, _ = flash_attention_cost(s, n_heads, d_head, block_q,
                                        block_k, window=window, causal=True)
     return 6.0 * n_params * batch * s + 3.5 * batch * n_layers * attn_fwd

@@ -274,32 +274,138 @@ def test_delta_is_rowsum_of_do_times_o_in_f32():
     assert torch.equal(f32, do.float())  # dO itself is not modified
 
 
+def _tile_constants(src, names):
+    text = (ROOT / "marlin_tpu_torch" / "csrc" / src).read_text()
+    return tuple(int(re.search(rf"constexpr int {n} = (\d+);", text)
+                     .group(1)) for n in names)
+
+
 def test_cost_model_reads_the_kernels_own_tiles():
-    # KERNEL_BLOCK_Q/K mirror kBM/kBN in both CUDA sources, and the
-    # port's tile count keeps exactly the JAX model's live pairs at the
-    # same tile sizes (the CUDA kernels visit only live tiles).
+    # KERNEL_TILES mirror each bf16 kernel's own tile constants (the
+    # forward's kBM x kBN, the dQ kernel's kBM x kBN, the dK/dV kernel's
+    # kDkvBM x kDkvBN), and the port's tile count keeps exactly the JAX
+    # model's live pairs at each of those sizes (the CUDA kernels visit
+    # only live tiles).
     from marlin_tpu.utils import cost_model as jcm
 
-    for src in ("flash_attention_fwd.cu", "flash_attention_bwd.cu"):
-        text = (ROOT / "marlin_tpu_torch" / "csrc" / src).read_text()
-        assert int(re.search(r"constexpr int kBM = (\d+);", text)
-                   .group(1)) == pfa.KERNEL_BLOCK_Q
-        assert int(re.search(r"constexpr int kBN = (\d+);", text)
-                   .group(1)) == pfa.KERNEL_BLOCK_K
-    for s, bq, bk, w, causal in [(512, 128, 128, 0, True),
-                                 (512, 128, 128, 128, True),
-                                 (200, 64, 64, 48, True),
-                                 (300, 64, 32, 0, False),
-                                 (2048, 64, 64, 256, True)]:
-        got = pcm.attention_block_counts(s, bq, bk, window=w, causal=causal)
-        ref = jcm.attention_block_counts(s, bq, bk, window=w, causal=causal)
-        assert got["live"] == ref["live"] == got["visited"]
-        assert got["visited"] <= ref["visited"]
+    bwd = "flash_attention_bwd.cu"
+    assert _tile_constants("flash_attention_fwd.cu", ("kBM", "kBN")) \
+        == pfa.KERNEL_TILES["fwd"]
+    assert _tile_constants(bwd, ("kBM", "kBN")) == pfa.KERNEL_TILES["dq"]
+    assert _tile_constants(bwd, ("kDkvBM", "kDkvBN")) \
+        == pfa.KERNEL_TILES["dkv"]
+    for bq, bk in sorted(set(pfa.KERNEL_TILES.values())) + [(64, 32)]:
+        for s, w, causal in [(512, 0, True), (512, 128, True),
+                             (200, 48, True), (300, 0, False),
+                             (2048, 256, True)]:
+            got = pcm.attention_block_counts(s, bq, bk, window=w,
+                                             causal=causal)
+            ref = jcm.attention_block_counts(s, bq, bk, window=w,
+                                             causal=causal)
+            assert got["live"] == ref["live"] == got["visited"]
+            assert got["visited"] <= ref["visited"]
+    # The tile accounting describes the forward kernel's loads.
+    assert pcm.attention_block_counts(2048) == pcm.attention_block_counts(
+        2048, *pfa.KERNEL_TILES["fwd"])
+    assert pcm.flash_attention_cost(2048, 8, 128) == \
+        pcm.flash_attention_cost(2048, 8, 128, *pfa.KERNEL_TILES["fwd"])
     n = 1000
     flops = pcm.transformer_step_flops(n, 2, 128, 3, 4, 32)
     attn, _ = pcm.flash_attention_cost(128, 4, 32, 64, 64)
     assert flops == 6.0 * n * 2 * 128 + 3.5 * 2 * 3 * attn
     assert attn == 4.0 * 4 * 3 * 64 * 64 * 32  # 3 live tiles of 2 x 2
+
+
+def test_transformer_step_flops_counts_at_64_tiles_whatever_the_kernels():
+    # chip_smoke.py's train TFLOP/s is this count over the step time. It
+    # is taken at an explicit 64 x 64 tile, the count the earlier
+    # mma.sync kernels reported, so the figure stays comparable across
+    # kernel versions although the forward now runs 128 x 128 tiles.
+    from marlin_tpu_torch.models import TransformerConfig
+
+    cfg = TransformerConfig(vocab=32768, d_model=1024, n_heads=8,
+                            n_kv_heads=2, n_layers=8, d_ff=4096,
+                            max_len=2048, rope=True, dtype="bfloat16")
+    n = pcm.transformer_param_count(cfg)
+    assert n == 121_710_592
+    flops = pcm.transformer_step_flops(n, 8, 2048, 8, 8, 128)
+    assert flops == 13_948_912_926_720.0
+    assert flops == pcm.transformer_step_flops(n, 8, 2048, 8, 8, 128,
+                                               block_q=64, block_k=64)
+    assert flops != pcm.transformer_step_flops(n, 8, 2048, 8, 8, 128,
+                                               block_q=128, block_k=128)
+
+
+# Each planted fault of chip_smoke.py (an edit of the first occurrence of
+# its text) and the bf16 kernel whose body that occurrence must lie in.
+PLANTED_FAULT_KERNELS = {
+    "fwd_drops_last_key_tile": ("flash_attention_fwd.cu", "flash_fwd_bf16"),
+    "fwd_skips_o_rescale": ("flash_attention_fwd.cu", "flash_fwd_bf16"),
+    "dq_drops_last_key_tile": ("flash_attention_bwd.cu",
+                               "flash_bwd_dq_bf16"),
+    "dkv_drops_last_query_tile": ("flash_attention_bwd.cu",
+                                  "flash_bwd_dkv_bf16"),
+    "dkv_drops_last_key_tile": ("flash_attention_bwd.cu",
+                                "flash_bwd_dkv_bf16"),
+}
+
+
+@pytest.mark.parametrize("fault", sorted(PLANTED_FAULT_KERNELS))
+def test_every_planted_fault_is_anchored_in_its_kernel(fault):
+    import chip_smoke
+
+    faults = {**chip_smoke.FWD_PLANTED_FAULTS, **chip_smoke.PLANTED_FAULTS}
+    assert set(faults) == set(PLANTED_FAULT_KERNELS)
+    src_name, kernel = PLANTED_FAULT_KERNELS[fault]
+    src = (ROOT / "marlin_tpu_torch" / "csrc" / src_name).read_text()
+    old, new = faults[fault]
+    assert old in src and new != old
+    body = src.index(f"{kernel}(")
+    end = src.find("__global__", body)
+    assert body < src.index(old) < (end if end > 0 else len(src))
+
+
+@pytest.mark.parametrize("sq", [256, 250])
+def test_forward_card_check_sees_a_dropped_last_key_tile(sq):
+    # chip_smoke.py holds the forward kernel's O against the plain version
+    # per 64-row tile (tile_rel_err) beside max |err|. A forward whose key
+    # sweep drops its last tile (FWD_PLANTED_FAULTS) leaves each query
+    # tile of KERNEL_TILES["fwd"] rows without its last key tile: the
+    # first query tile with no key at all (O = 0, l clamped), the others
+    # without their most recent keys. Emulated here with the plain
+    # version, the per-tile check reads it at >= 0.3.
+    import chip_smoke
+
+    bq, bk = pfa.KERNEL_TILES["fwd"]
+    q, k, v, _ = (torch.from_numpy(x)[None]
+                  for x in _inputs(11, sq, sq, 4, 2, 32, 32))
+    q_hat, k, v = pfa._prepare(q, k, v, True, None, 0)
+    o_ref, _ = pfa.flash_attention_reference(q_hat, k, v, True, 0)
+    assert chip_smoke.tile_rel_err(o_ref, o_ref) == 0.0
+    o_bad = torch.zeros_like(o_ref)
+    for m0 in range(0, sq, bq):
+        hi = min(sq, m0 + bq)  # the causal sweep's end
+        keys = (-(-hi // bk) - 1) * bk  # all of them before row m0
+        if keys:
+            o_bad[:, m0:m0 + bq] = pfa.flash_attention_reference(
+                q_hat[:, m0:m0 + bq], k[:, :keys], v[:, :keys])[0]
+    assert chip_smoke.tile_rel_err(o_bad, o_ref) >= 0.3
+    assert chip_smoke.tile_rel_err(o_bad, o_ref) <= \
+        chip_smoke.tile_rel_err(torch.zeros_like(o_ref), o_ref)
+
+
+def test_check_launch_refuses_a_bf16_base_off_16_bytes():
+    # TMA needs a 16-byte-aligned base address: a contiguous bf16 view at
+    # an odd offset is refused before anything else is looked at, and an
+    # aligned one gets as far as the device check.
+    store = torch.zeros(1 + 2 * 8 * 64, dtype=torch.bfloat16)
+    bad = store[1:].view(1, 2, 8, 64)
+    assert bad.is_contiguous() and bad.data_ptr() % 16
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        pfa._check_launch({"q": bad}, 64, 64)
+    good = torch.zeros((1, 2, 8, 64), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        pfa._check_launch({"q": good}, 64, 64)
 
 
 @pytest.mark.parametrize("sq", [256, 250])

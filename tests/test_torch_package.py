@@ -91,6 +91,51 @@ def test_kernels_are_built_for_hopper_at_first_use_only():
             "block_sparse"} <= set(build.SOURCES)
 
 
+def test_library_path_follows_every_shared_header(tmp_path, monkeypatch):
+    # The kernel sources include csrc/*.cuh (nvcc -I csrc): an edited or
+    # an added header must rebuild every library, so it is part of each
+    # library's name; an unchanged tree maps to the same library.
+    src = tmp_path / "k.cu"
+    src.write_text('#include "h.cuh"\n')
+    header = tmp_path / "h.cuh"
+    header.write_text("// one\n")
+    monkeypatch.setattr(build, "CSRC_DIR", tmp_path)
+    monkeypatch.setattr(build, "SOURCES", {"k": src})
+    monkeypatch.setattr(build, "find_nvcc", lambda: "nvcc")
+    first = build.library_path("k")
+    assert build.library_path("k") == first
+    header.write_text("// two\n")
+    assert build.library_path("k") != first
+    header.write_text("// one\n")
+    assert build.library_path("k") == first
+    (tmp_path / "extra.cuh").write_text("")
+    assert build.library_path("k") != first
+    cmd = build.nvcc_command(src, tmp_path / "k.so", ptxas_verbose=True)
+    assert cmd[0] == "nvcc" and cmd[-1] == str(src)
+    assert cmd[cmd.index("-I") + 1] == str(tmp_path)
+    assert "-Xptxas=-v" in cmd and "arch=compute_90a,code=sm_90a" in cmd
+
+
+@pytest.mark.parametrize("mangled, label", [
+    ("_ZN55_GLOBAL__N__a0c445fd_22_flash_attention_fwd_cu_a8bdddc714"
+     "flash_fwd_bf16ILi128ELi64EEEv14CUtensorMap_stS1_S1_P13__nv_bfloat16"
+     "Pfiiiiii", "flash_fwd_bf16<128,64>"),
+    ("_ZN55_GLOBAL__N__3b5507eb_22_flash_attention_bwd_cu_3005e98e16"
+     "flash_bwd_dq_f32ILi64ELi128EEEvPKfS2_S2_S2_S2_S2_Pfiiiiiif",
+     "flash_bwd_dq_f32<64,128>"),
+    ("_Z3dbgILi128EEv14CUtensorMap_stS0_S0_PfS1_", "dbg<128>"),
+    ("_Z6kernelPf", "kernel"),
+    ("not_mangled", "not_mangled"),
+])
+def test_build_report_names_each_kernel(mangled, label):
+    # chip_smoke.py's build phase prints ptxas's registers and spills per
+    # kernel under a readable name (nvcc mangles the anonymous namespace
+    # with a per-file tag).
+    import chip_smoke
+
+    assert chip_smoke._kernel_label(mangled) == label
+
+
 def test_ops_exports_and_keeps_flash_attention_a_module():
     import types
 
