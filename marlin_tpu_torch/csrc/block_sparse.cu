@@ -29,29 +29,40 @@
 // 128 x BN output tile (BN = 128 when bs is a multiple of 128, else 64:
 // the tile is the kernel's choice, not bs, and lies inside one block
 // column), reads its own column's count and list (or scans its column of
-// the mask) and loops over exactly the live blocks, 32 deep at a time.
+// the mask) and loops over exactly the live blocks (64 deep a step in the
+// gather kernel, 32 in the masked one).
 // Nothing carries between CTAs and there is no padding: a CTA's work is
 // its column's own count, so columns of different density finish at
 // different times and the card's scheduler fills in behind them. The
 // ragged M edge is masked here (rows past M are zero-filled on load and
 // not stored); the caller pads and copies nothing.
 //
-// Both entry points run the same loop with two ways of finding the next
-// live block, in the same ascending-k order, so their results are bitwise
-// equal.
+// The two bf16 kernels run different main loops over the same walk, in
+// the same ascending-k order (below); their results agree per tile within
+// bf16 rounding of the f32 sums, not bitwise, until the masked kernel moves
+// onto the gather kernel's loop. The f32 kernels share one loop and are
+// bitwise equal.
 //
 // Bound on the H100. At the main shape (M = K = N = 8192, bf16, 12% of the
 // blocks live) the work is 2 M bs^2 nnz_blocks = 132 GFLOP against ~285 MB
 // of traffic (A once, B's live blocks, C once): ~460 FLOP per byte, above
 // the card's ~295 FLOP/byte ridge, so the bound is the tensor-core rate
-// (989 TFLOP/s bf16 dense). This first version takes the simple route to
-// it: mma.sync m16n8k16 (bf16 in, f32 accumulate) fed by ldmatrix from
-// padded, bank-conflict-free shared-memory tiles, which a four-stage
-// cp.async ring keeps filled across block boundaries (the ring does not
-// drain between two listed blocks). It does not use wgmma, TMA, clusters
-// or a persistent tile scheduler; a 128 x 128 tile moves 1 byte from L2
-// for every 64 FLOP, which is what will hold it below the bound until
-// those arrive.
+// (989 TFLOP/s bf16 dense), which only wgmma reaches.
+//
+// The gather kernel is built for it (shared pieces in sm90.cuh): a 128 x BN
+// output tile, two consumer warpgroups of m64nBNk16 SS wgmma, A and B's
+// blocks by 2-D TMA (128-byte swizzle; A K-major, B read as the MN-major
+// operand, so nothing is transposed or gathered by hand) into a 3-stage
+// mbarrier ring 64 deep a stage, which one producer thread keeps full
+// across block boundaries; block columns fastest on the grid, so the CTAs
+// in flight read the same rows of A and B's live blocks stay in L2. A
+// 128 x 128 tile still moves 1 byte from L2 for every 64 FLOP, and it
+// uses no clusters, multicast or persistent tile scheduler.
+//
+// The masked-grid kernel keeps the first design: mma.sync m16n8k16 (bf16
+// in, f32 accumulate) fed by ldmatrix from padded, bank-conflict-free
+// shared-memory tiles, which a four-stage cp.async ring keeps filled
+// across block boundaries.
 //
 // The f32 path is a plain FMA kernel (64 x 64 tile, 4 x 4 per thread):
 // full f32 products and sums, no TF32, so it matches an f32 reference to
@@ -60,6 +71,8 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include "sm90.cuh"
 
 namespace {
 
@@ -127,7 +140,7 @@ struct DepthSteps {
 };
 
 // ---------------------------------------------------------------------
-// bf16: tensor-core path
+// bf16 masked-grid kernel: mma.sync fed by cp.async
 // ---------------------------------------------------------------------
 
 constexpr int kBM = 128;      // output rows per CTA
@@ -329,6 +342,138 @@ spmm_bf16(const __nv_bfloat16* __restrict__ a,
 }
 
 // ---------------------------------------------------------------------
+// bf16 gather kernel: wgmma fed by TMA through an mbarrier ring
+// ---------------------------------------------------------------------
+
+constexpr int kGBM = 128;        // output rows per CTA (2 warpgroups x 64)
+constexpr int kGBK = 64;         // depth per stage: one TMA box, one block
+constexpr int kGStages = 3;      // stages in the ring
+constexpr int kGThreads = 256;   // two consumer warpgroups
+constexpr int kGBox = 64 * 128;  // bytes of one B box: 64 rows x 64 bf16
+
+// Byte offsets into the (1024-aligned) dynamic shared memory.
+template <int BN>
+struct GatherSmem {
+  static constexpr int kA = kGBM * 128;                  // 128 rows x 64 bf16
+  static constexpr int kStage = kA + (BN / 64) * kGBox;  // A, then 64 x BN of B
+  static constexpr int kBars = kGStages * kStage;        // full, empty
+  static constexpr int kBytes = kBars + 8 * 2 * kGStages + 1024;
+};
+
+// One CTA per 128 x BN output tile inside one block column, the block
+// columns fastest on the grid, so that the CTAs in flight share rows of A
+// (each column reads its live blocks' slices of the same A rows) and B's
+// live blocks stay in L2 across the rows. The column's list is walked as
+// before (DepthSteps<true>), 64 deep a stage; thread 0 keeps the ring full:
+// a stage is A[m0 .. m0 + 128, k .. k + 64) (one K-major box, rows past M
+// read as zeros) and B[k .. k + 64, n0 .. n0 + BN) (BN / 64 boxes, read as
+// the MN-major B), both by TMA onto the stage's full barrier. Each
+// warpgroup runs m64nBNk16 SS wgmma on its 64 rows of the stage and keeps
+// one step's products in flight: the stage before is handed back (its
+// empty barrier) once they retire. Nothing drains between two listed
+// blocks; an empty column runs no step and writes exact zeros.
+template <int BN>
+__global__ void __launch_bounds__(kGThreads, 2)
+spmm_gather_bf16(const __grid_constant__ CUtensorMap ta,
+                 const __grid_constant__ CUtensorMap tb,
+                 __nv_bfloat16* __restrict__ c, const int* __restrict__ kidx,
+                 const int* __restrict__ kcnt, int M, int K, int N, int bs,
+                 int max_nnz) {
+  using L = GatherSmem<BN>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* smem = sm90::align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::kBars);
+  uint64_t* empty = full + kGStages;
+
+  const int n0 = blockIdx.x * BN;
+  const int m0 = blockIdx.y * kGBM;
+  const int j = n0 / bs;  // this tile's block column
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;
+  const int warp = (tid % 128) / 32;  // within the warpgroup
+  const int lane = tid % 32;
+  const int g = lane / 4;  // accumulator row in the warp's 16 (and + 8)
+  const int t = lane % 4;  // accumulator column pair
+
+  // Every thread counts the column's steps; thread 0 walks them.
+  DepthSteps<true> steps;
+  steps.blocks.init(kidx, kcnt, nullptr, j, max_nnz, K / bs, N / bs);
+  steps.sub = 0;
+  steps.per_block = bs / kGBK;
+  steps.bs = bs;
+  steps.step = kGBK;
+  const int n_steps = steps.blocks.count * steps.per_block;
+
+  if (tid == 0) {
+    for (int s = 0; s < kGStages; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], kGThreads);
+    }
+    sm90::fence_mbar_init();
+  }
+  __syncthreads();
+
+  // The walk's next step into stage i % kGStages (thread 0 only).
+  auto load_step = [&](int i) {
+    const int s = i % kGStages;
+    unsigned char* dst = smem + s * L::kStage;
+    const int k = (int)steps.k();
+    sm90::mbar_arrive_expect_tx(&full[s], L::kStage);
+    sm90::tma_load_2d(dst, &ta, &full[s], k, m0);
+    for (int cc = 0; cc < BN / 64; ++cc)
+      sm90::tma_load_2d(dst + L::kA + cc * kGBox, &tb, &full[s],
+                        n0 + cc * 64, k);
+    steps.advance();
+  };
+  if (tid == 0)
+    for (int i = 0; i < kGStages && i < n_steps; ++i) load_step(i);
+  __syncwarp();
+
+  float acc[BN / 2];  // the warpgroup's 64 x BN f32 accumulator
+#pragma unroll
+  for (int e = 0; e < BN / 2; ++e) acc[e] = 0.f;
+  sm90::fence_regs(acc);
+  const uint32_t base = sm90::smem_u32(smem);
+  for (int i = 0; i < n_steps; ++i) {
+    const int s = i % kGStages;
+    sm90::mbar_wait(&full[s], (i / kGStages) & 1);
+    __syncwarp();
+    const uint32_t a_base = base + s * L::kStage + wg * 64 * 128;
+    const uint32_t b_base = base + s * L::kStage + L::kA;
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < kGBK / 16; ++kc)
+      sm90::wgmma_ss<1>(acc, sm90::desc_sw128(a_base + kc * 32, 16, 1024),
+                        sm90::desc_sw128(b_base + kc * 16 * 128, kGBox, 1024),
+                        1);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<1>();  // step i - 1's products have retired
+    if (i > 0) {
+      const int done = i - 1;
+      sm90::mbar_arrive(&empty[done % kGStages]);
+      if (tid == 0 && done + kGStages < n_steps) {
+        sm90::mbar_wait(&empty[done % kGStages], (done / kGStages) & 1);
+        load_step(done + kGStages);
+      }
+    }
+  }
+  sm90::wgmma_wait<0>();
+  sm90::fence_regs(acc);
+
+  // One write, cast once; rows past M are not stored.
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = m0 + wg * 64 + warp * 16 + g + 8 * r;
+    if (row >= M) continue;
+    __nv_bfloat16* crow = c + (size_t)row * N + n0 + 2 * t;
+#pragma unroll
+    for (int nt = 0; nt < BN / 8; ++nt)
+      *reinterpret_cast<__nv_bfloat162*>(crow + nt * 8) =
+          __floats2bfloat162_rn(acc[nt * 4 + 2 * r], acc[nt * 4 + 2 * r + 1]);
+  }
+}
+
+// ---------------------------------------------------------------------
 // f32: FMA path
 // ---------------------------------------------------------------------
 
@@ -430,6 +575,28 @@ cudaError_t run_bf16(const void* a, const void* b, void* c, const int* kidx,
   return cudaGetLastError();
 }
 
+template <int BN>
+cudaError_t run_gather_bf16(const void* a, const void* b, void* c,
+                            const int* kidx, const int* kcnt, int M, int K,
+                            int N, int bs, int max_nnz, cudaStream_t stream) {
+  if ((M + kGBM - 1) / kGBM > 65535) return cudaErrorInvalidValue;  // gridDim.y
+  CUtensorMap ta, tb;
+  cudaError_t err;
+  if ((err = sm90::tmap_2d(&ta, a, M, K, kGBM)) != cudaSuccess ||
+      (err = sm90::tmap_2d(&tb, b, K, N, kGBK)) != cudaSuccess)
+    return err;
+  auto kernel = spmm_gather_bf16<BN>;
+  const int smem = GatherSmem<BN>::kBytes;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid(N / BN, (M + kGBM - 1) / kGBM);
+  kernel<<<grid, kGThreads, smem, stream>>>(
+      ta, tb, static_cast<__nv_bfloat16*>(c), kidx, kcnt, M, K, N, bs,
+      max_nnz);
+  return cudaGetLastError();
+}
+
 template <bool GATHER>
 cudaError_t run_f32(const void* a, const void* b, void* c, const int* kidx,
                     const int* kcnt, const int* mask, int M, int K, int N,
@@ -449,11 +616,19 @@ cudaError_t run(int dtype, const void* a, const void* b, void* c,
     return cudaErrorInvalidValue;
   if (N / 64 > 65535) return cudaErrorInvalidValue;  // gridDim.y
   if (dtype == 0) {
-    if (bs % 128 == 0)
-      return run_bf16<128, GATHER>(a, b, c, kidx, kcnt, mask, M, K, N, bs,
-                                   max_nnz, stream);
-    return run_bf16<64, GATHER>(a, b, c, kidx, kcnt, mask, M, K, N, bs,
-                                max_nnz, stream);
+    if constexpr (GATHER) {
+      if (bs % 128 == 0)
+        return run_gather_bf16<128>(a, b, c, kidx, kcnt, M, K, N, bs, max_nnz,
+                                    stream);
+      return run_gather_bf16<64>(a, b, c, kidx, kcnt, M, K, N, bs, max_nnz,
+                                 stream);
+    } else {
+      if (bs % 128 == 0)
+        return run_bf16<128, false>(a, b, c, kidx, kcnt, mask, M, K, N, bs,
+                                    max_nnz, stream);
+      return run_bf16<64, false>(a, b, c, kidx, kcnt, mask, M, K, N, bs,
+                                 max_nnz, stream);
+    }
   }
   if (dtype == 1)
     return run_f32<GATHER>(a, b, c, kidx, kcnt, mask, M, K, N, bs, max_nnz,

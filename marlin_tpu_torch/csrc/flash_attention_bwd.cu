@@ -27,9 +27,8 @@
 // Masks and ragged edges, as in the forward (csrc/flash_attention_fwd.cu):
 // keys at or past Skv, causal k <= q, a window k > q - window; query rows
 // at or past Sq contribute nothing. Out-of-range rows of every tile are
-// zero-filled on load (cp.async with a zero source size in the dQ kernel,
-// TMA's out-of-bounds fill in the dK/dV kernel), so 0 * NaN never enters a
-// product, and p is set to exactly 0 for a dead (q, k) pair. Tiles
+// zero-filled on load (TMA's out-of-bounds fill), so 0 * NaN never enters
+// a product, and p is set to exactly 0 for a dead (q, k) pair. Tiles
 // wholly outside the causal or window band are never visited: the dQ
 // kernel's key sweep is the forward's; the dK/dV kernel's query sweep
 // starts at the key tile's first causal row and ends at
@@ -47,16 +46,25 @@
 // FLOP per byte, far above the card's ~295 FLOP/byte ridge, so both are
 // bound by the tensor-core rate (0.104 and 0.139 ms at 989 TFLOP/s).
 //
-// The dQ kernel takes the simple route: mma.sync m16n8k16 (bf16 in, f32
-// accumulate) for every product, each warp owning 16 rows of the CTA's
-// 64-row tile, single-stage cp.async loads; the S and dP tiles stay in
-// registers, and dS is rounded to bf16 and re-used register for register
-// as the A fragment of dS K. wgmma and TMA for it are a later change.
+// Both bf16 kernels are built for wgmma fed by TMA through an mbarrier
+// ring (shared pieces in sm90.cuh), with per-element masks only on tiles
+// that straddle the diagonal, the window's edge, Skv or Sq.
 //
-// The dK/dV kernel is built for wgmma (shared pieces in sm90.cuh): K and V
-// of its 64 keys stay in shared memory, the q_hat and dO tiles of its
-// sweep come through a 2-stage TMA ring with full/empty mbarriers, S^T and
-// dP^T are SS wgmma, and P^T and dS^T, rounded to bf16 from their
+// The dQ kernel mirrors dK/dV with the roles of queries and keys swapped:
+// q_hat and dO of its 64 query rows stay in shared memory, the K and V
+// tiles of its key sweep come through a 2-stage TMA ring, S and dP are SS
+// wgmma, and dS, rounded to bf16 from its accumulator, is the register A
+// operand of the RS wgmma that adds dS K into dQ, the K stage that S read
+// as the K-major B read again as the MN-major B. One consumer warpgroup a
+// CTA: 64 f32 accumulator registers for dQ (D = 128) beside 32 + 32 for S
+// and dP, so two CTAs share an SM. It stays a kernel of its own, with no
+// atomic accumulation of dQ inside the dK/dV kernel (FA2/FA3's way), so the
+// backward stays bitwise repeatable.
+//
+// The dK/dV kernel: K and V of its 64 keys stay in shared memory, the
+// q_hat and dO tiles of its sweep come through a 2-stage TMA ring with
+// full/empty mbarriers, S^T and dP^T are SS wgmma, and P^T and dS^T,
+// rounded to bf16 from their
 // accumulators, are the register A operands of the RS wgmma that add
 // P^T dO and dS^T q_hat into dV and dK (dO and q_hat as MN-major B: no
 // gather of B fragments). One consumer warpgroup a CTA: 64 + 64 f32
@@ -121,229 +129,228 @@ __device__ __forceinline__ void query_range(int n0, int bn, int bm, int sq,
 }
 
 // ---------------------------------------------------------------------
-// bf16: tensor-core path
+// bf16: wgmma fed by TMA through an mbarrier ring
 // ---------------------------------------------------------------------
 
-constexpr int kBM = 64;       // query rows per tile (4 warps x 16)
-constexpr int kBN = 64;       // key rows per tile (4 warps x 16)
-constexpr int kThreads = 128;
-constexpr int kPad = 8;       // bf16 elements of row padding (16 bytes)
+// B4, bf16.
+constexpr int kDqBM = 64;       // query rows per CTA (one consumer warpgroup)
+constexpr int kDqBN = 64;       // keys per K/V stage
+constexpr int kDqStages = 2;    // K/V tiles in the ring
+constexpr int kDqThreads = 128;
+constexpr int kDqBox = 64 * 128;  // bytes of one TMA box: 64 rows x 64 bf16
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool valid) {
-  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  int n = valid ? 16 : 0;  // 0 source bytes: the 16 destination bytes are zero-filled
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\n" ::);
-  asm volatile("cp.async.wait_group 0;\n" ::);
-}
-
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-using sm90::pack_bf16;  // two floats rounded to a bf16 pair
-
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo,
-                                              __nv_bfloat16 hi) {
-  __nv_bfloat162 v;
-  v.x = lo;
-  v.y = hi;
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Copy `rows` rows of `width` bf16 (global row stride `gstride`) into a
-// shared tile with row stride width + kPad; rows at or past `valid` are
-// zero-filled.
-template <int WIDTH>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* smem,
-                                          const __nv_bfloat16* g,
-                                          long long gstride, int rows,
-                                          int valid) {
-  constexpr int kChunks = WIDTH / 8;  // 16-byte chunks per row
-  for (int c = threadIdx.x; c < rows * kChunks; c += kThreads) {
-    int r = c / kChunks;
-    int col = (c % kChunks) * 8;
-    bool ok = r < valid;
-    const __nv_bfloat16* src = ok ? g + r * gstride + col : g;
-    cp_async16(smem + r * (WIDTH + kPad) + col, src, ok);
-  }
-}
-
-// The m16n8k16 A fragment of rows [r0, r0 + 16) x columns [c, c + 16) of a
-// padded shared tile with row stride `ld` (the fragment's row g is r0 + g).
-__device__ __forceinline__ void load_a(uint32_t a[4],
-                                       const __nv_bfloat16* row_g, int ld,
-                                       int c, int t) {
-  const __nv_bfloat16* row_g8 = row_g + 8 * ld;
-  a[0] = ld32(row_g + c + 2 * t);
-  a[1] = ld32(row_g8 + c + 2 * t);
-  a[2] = ld32(row_g + c + 2 * t + 8);
-  a[3] = ld32(row_g8 + c + 2 * t + 8);
-}
-
-// acc[nt] (16 x 8, n-tile nt) += A (this warp's 16 rows of `a_rows`, all
-// WIDTH columns) times B^T, B being the 64 rows of the shared tile `b_rows`
-// (both with row stride WIDTH + kPad): the "x y^T" product whose B
-// fragment is two contiguous bf16 pairs of one row of y.
-template <int WIDTH, int NT>
-__device__ __forceinline__ void mma_abt(float acc[NT][4],
-                                        const __nv_bfloat16* a_row_g,
-                                        const __nv_bfloat16* b_rows, int g,
-                                        int t) {
-  constexpr int ld = WIDTH + kPad;
-#pragma unroll
-  for (int kc = 0; kc < WIDTH / 16; ++kc) {
-    uint32_t a[4];
-    load_a(a, a_row_g, ld, kc * 16, t);
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      const __nv_bfloat16* br = b_rows + (nt * 8 + g) * ld + kc * 16 + 2 * t;
-      mma_bf16(acc[nt], a, ld32(br), ld32(br + 8));
-    }
-  }
-}
-
-// acc[n] (16 x 8, output n-tile n of WIDTH columns) += X (16 x 64, held in
-// the C layout of 8 n-tiles, rounded to bf16 here) times the shared tile
-// `b_rows` (64 rows x WIDTH, row stride WIDTH + kPad): the S accumulator
-// of n-tiles (2kc, 2kc + 1) is exactly the A fragment of k16 chunk kc.
-template <int WIDTH>
-__device__ __forceinline__ void mma_xb(float acc[WIDTH / 8][4],
-                                       const float x[8][4],
-                                       const __nv_bfloat16* b_rows, int g,
-                                       int t) {
-  constexpr int ld = WIDTH + kPad;
-#pragma unroll
-  for (int kc = 0; kc < 4; ++kc) {
-    uint32_t a[4] = {pack_bf16(x[2 * kc][0], x[2 * kc][1]),
-                     pack_bf16(x[2 * kc][2], x[2 * kc][3]),
-                     pack_bf16(x[2 * kc + 1][0], x[2 * kc + 1][1]),
-                     pack_bf16(x[2 * kc + 1][2], x[2 * kc + 1][3])};
-    const __nv_bfloat16* b0p = b_rows + (kc * 16 + 2 * t) * ld + g;
-    const __nv_bfloat16* b8p = b0p + 8 * ld;
-#pragma unroll
-    for (int n = 0; n < WIDTH / 8; ++n) {
-      uint32_t b0 = pack_bf16(b0p[n * 8], b0p[n * 8 + ld]);
-      uint32_t b1 = pack_bf16(b8p[n * 8], b8p[n * 8 + ld]);
-      mma_bf16(acc[n], a, b0, b1);
-    }
-  }
-}
-
-static_assert(kBM == 64 && kBN == 64, "mma_xb sweeps 64-wide tiles");
-
-// B4: one CTA per (b, h, 64-row query tile), looping over the key tiles.
+// Byte offsets into the (1024-aligned) dynamic shared memory.
 template <int D, int DV>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_bf16(const __nv_bfloat16* __restrict__ q,
-                  const __nv_bfloat16* __restrict__ k,
-                  const __nv_bfloat16* __restrict__ v,
-                  const __nv_bfloat16* __restrict__ dout,
+struct DqSmem {
+  static constexpr int kQ = (D / 64) * kDqBox;   // the CTA's q_hat tile
+  static constexpr int kO = (DV / 64) * kDqBox;  // and its dO tile
+  static constexpr int kK = (D / 64) * kDqBox;   // one stage's K
+  static constexpr int kStage = kK + (DV / 64) * kDqBox;  // K then V
+  static constexpr int kBars = kQ + kO + kDqStages * kStage;  // full, empty, q
+  static constexpr int kBytes = kBars + 8 * (2 * kDqStages + 1) + 1024;
+};
+
+// dS = P (dP - Delta), P = exp2(S - lse), in place of dP, for the thread's
+// query rows qp0, qp0 + 8 and the keys of the tile starting at n0. MASK: a
+// dead pair (query past Sq, key past Skv, causal or window) gets P = dS = 0
+// exactly; a tile with no dead pair takes MASK = false and no mask
+// arithmetic.
+template <bool MASK>
+__device__ __forceinline__ void dq_ds(const float (&s)[32], float (&dp)[32],
+                                      const float (&lrow)[2],
+                                      const float (&drow)[2], int n0,
+                                      int qp0, int t, int Sq, int Skv,
+                                      int causal, int window) {
+#pragma unroll
+  for (int nt = 0; nt < kDqBN / 8; ++nt) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int e = nt * 4 + i;
+      const int r = i >> 1;
+      float p = exp2f(s[e] - lrow[r]);
+      if (MASK) {
+        const int qp = qp0 + 8 * r;
+        const int kp = n0 + nt * 8 + 2 * t + (i & 1);
+        if (!(qp < Sq && key_live(qp, kp, Skv, causal, window))) p = 0.f;
+      }
+      dp[e] = p * (dp[e] - drow[r]);
+    }
+  }
+}
+
+// One CTA per (b, h, 64 query rows), the query tiles on grid y, causal
+// tiles launched heaviest first. q_hat and dO come in once by TMA and
+// stay; the tile's live 64-key tiles of K and V come through a 2-stage TMA
+// ring (full/empty mbarriers; thread 0 refills a stage before the current
+// tile's math); lse and Delta of the thread's two rows sit in registers.
+// Per key tile:
+//   S = q_hat K^T, dP = dO V^T     SS wgmma, K-major B
+//   dS in registers                under the same masks as the forward
+//   dQ += dS K                     RS wgmma, the same K stage read as the
+//                                  MN-major B
+// dQ is the CTA's own (no atomics), so two runs agree bit for bit.
+template <int D, int DV>
+__global__ void __launch_bounds__(kDqThreads)
+flash_bwd_dq_bf16(const __grid_constant__ CUtensorMap tq,
+                  const __grid_constant__ CUtensorMap tk,
+                  const __grid_constant__ CUtensorMap tv,
+                  const __grid_constant__ CUtensorMap tdo,
                   const float* __restrict__ lse,
                   const float* __restrict__ delta,
                   __nv_bfloat16* __restrict__ dq, int H, int Hk, int Sq,
                   int Skv, int causal, int window, float scale) {
+  using L = DqSmem<D, DV>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sdO = sQ + kBM * (D + kPad);
-  __nv_bfloat16* sK = sdO + kBM * (DV + kPad);
-  __nv_bfloat16* sV = sK + kBN * (D + kPad);
+  unsigned char* smem = sm90::align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::kBars);
+  uint64_t* empty = full + kDqStages;
+  uint64_t* qbar = empty + kDqStages;
 
-  const int m0 = blockIdx.x * kBM;
-  const int bh = blockIdx.y;
+  // Causal: the last query tiles see the most keys; launch them first.
+  const int mt = causal ? (int)(gridDim.y - 1 - blockIdx.y) : (int)blockIdx.y;
+  const int m0 = mt * kDqBM;
+  const int bh = blockIdx.x;
   const int b = bh / H;
   const int h = bh % H;
   const int hk = h / (H / Hk);
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4;  // mma groupID: the fragment row
-  const int t = lane % 4;  // thread in group: the fragment column pair
-
-  const long long q_row = (long long)H * D;
-  const long long o_row = (long long)H * DV;
-  const long long k_row = (long long)Hk * D;
-  const long long v_row = (long long)Hk * DV;
-  const __nv_bfloat16* kg = k + (long long)b * Skv * k_row + hk * D;
-  const __nv_bfloat16* vg = v + (long long)b * Skv * v_row + hk * DV;
-
-  load_tile<D>(sQ, q + ((long long)b * Sq + m0) * q_row + h * D, q_row, kBM,
-               Sq - m0);
-  load_tile<DV>(sdO, dout + ((long long)b * Sq + m0) * o_row + h * DV, o_row,
-                kBM, Sq - m0);
-  cp_async_wait_all();
-  __syncthreads();
-
-  const int qp0 = m0 + warp * 16 + g;  // the thread's two rows
-  const int qp1 = qp0 + 8;
-  const float* lg = lse + (long long)bh * Sq;
-  const float* dg = delta + (long long)bh * Sq;
-  const float lrow[2] = {qp0 < Sq ? lg[qp0] : 0.f, qp1 < Sq ? lg[qp1] : 0.f};
-  const float drow[2] = {qp0 < Sq ? dg[qp0] : 0.f, qp1 < Sq ? dg[qp1] : 0.f};
-  const __nv_bfloat16* q_g = sQ + (warp * 16 + g) * (D + kPad);
-  const __nv_bfloat16* do_g = sdO + (warp * 16 + g) * (DV + kPad);
-
-  float acc[D / 8][4];
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i)
-    acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int g = lane / 4;  // accumulator row in the warp's 16 (and + 8)
+  const int t = lane % 4;  // accumulator column pair
 
   int lo, hi;
-  key_range(m0, kBM, kBN, Skv, causal, window, &lo, &hi);
-  for (int n0 = lo; n0 < hi; n0 += kBN) {
-    __syncthreads();  // the previous K/V tile is fully consumed
-    load_tile<D>(sK, kg + (long long)n0 * k_row, k_row, kBN, Skv - n0);
-    load_tile<DV>(sV, vg + (long long)n0 * v_row, v_row, kBN, Skv - n0);
-    cp_async_wait_all();
-    __syncthreads();
+  key_range(m0, kDqBM, kDqBN, Skv, causal, window, &lo, &hi);
+  const int n_tiles = hi > lo ? (hi - lo + kDqBN - 1) / kDqBN : 0;
 
-    float s[kBN / 8][4], dp[kBN / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < kBN / 8; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) s[nt][i] = dp[nt][i] = 0.f;
-    mma_abt<D, kBN / 8>(s, q_g, sK, g, t);     // S  = q_hat K^T
-    mma_abt<DV, kBN / 8>(dp, do_g, sV, g, t);  // dP = dO V^T
-
-    // dS = P * (dP - Delta), in place of S.
-#pragma unroll
-    for (int nt = 0; nt < kBN / 8; ++nt) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        int r = i / 2;
-        int qp = r ? qp1 : qp0;
-        int kp = n0 + nt * 8 + 2 * t + (i & 1);
-        bool live = qp < Sq && key_live(qp, kp, Skv, causal, window);
-        float p = live ? exp2f(s[nt][i] - lrow[r]) : 0.f;
-        s[nt][i] = p * (dp[nt][i] - drow[r]);
-      }
+  if (tid == 0) {
+    for (int s = 0; s < kDqStages; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], kDqThreads);
     }
-    mma_xb<D>(acc, s, sK, g, t);  // dQ += dS K
+    sm90::mbar_init(qbar, 1);
+    sm90::fence_mbar_init();
   }
+  __syncthreads();
 
-  __nv_bfloat16* dqg = dq + (long long)b * Sq * q_row + h * D;
+  // K/V tile j into stage j % kDqStages (thread 0 only).
+  auto load_kv = [&](int j) {
+    const int s = j % kDqStages;
+    unsigned char* dst = smem + L::kQ + L::kO + s * L::kStage;
+    sm90::mbar_arrive_expect_tx(&full[s], L::kStage);
+    for (int c = 0; c < D / 64; ++c)
+      sm90::tma_load_4d(dst + c * kDqBox, &tk, &full[s], c * 64, hk,
+                        lo + j * kDqBN, b);
+    for (int c = 0; c < DV / 64; ++c)
+      sm90::tma_load_4d(dst + L::kK + c * kDqBox, &tv, &full[s], c * 64, hk,
+                        lo + j * kDqBN, b);
+  };
+  if (tid == 0) {
+    sm90::mbar_arrive_expect_tx(qbar, L::kQ + L::kO);
+    for (int c = 0; c < D / 64; ++c)
+      sm90::tma_load_4d(smem + c * kDqBox, &tq, qbar, c * 64, h, m0, b);
+    for (int c = 0; c < DV / 64; ++c)
+      sm90::tma_load_4d(smem + L::kQ + c * kDqBox, &tdo, qbar, c * 64, h, m0,
+                        b);
+    for (int j = 0; j < kDqStages && j < n_tiles; ++j) load_kv(j);
+  }
+  __syncwarp();
+
+  // lse and Delta of the thread's rows qp0 and qp0 + 8: plain loads (a row
+  // of a ragged Sq starts at any 4-byte offset), 0 past Sq.
+  const int qp0 = m0 + warp * 16 + g;
+  float lrow[2], drow[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    int qp = r ? qp1 : qp0;
+    const int qp = qp0 + 8 * r;
+    lrow[r] = qp < Sq ? lse[(long long)bh * Sq + qp] : 0.f;
+    drow[r] = qp < Sq ? delta[(long long)bh * Sq + qp] : 0.f;
+  }
+
+  const uint32_t q_base = sm90::smem_u32(smem);
+  const uint32_t o_base = q_base + L::kQ;
+  float dqa[D / 2];  // dQ, the 64 x D accumulator
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dqa[i] = 0.f;
+
+  sm90::mbar_wait(qbar, 0);  // even with no key tile: no TMA left in flight
+  for (int j = 0; j < n_tiles; ++j) {
+    const int s = j % kDqStages;
+    const int next = j + kDqStages - 1;  // the tile that refills a stage now
+    if (tid == 0 && next >= kDqStages && next < n_tiles) {
+      sm90::mbar_wait(&empty[next % kDqStages], (next / kDqStages - 1) & 1);
+      load_kv(next);
+    }
+    sm90::mbar_wait(&full[s], (j / kDqStages) & 1);
+    __syncwarp();
+    const uint32_t k_base =
+        sm90::smem_u32(smem + L::kQ + L::kO + s * L::kStage);
+    const uint32_t v_base = k_base + L::kK;
+
+    // S = q_hat K^T and dP = dO V^T: 64 queries x 64 keys each.
+    float sc[32], dp[32];
+#pragma unroll
+    for (int e = 0; e < 32; ++e) sc[e] = dp[e] = 0.f;
+    sm90::fence_regs(sc);
+    sm90::fence_regs(dp);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < D / 16; ++kc) {
+      const uint32_t off = (kc / 4) * kDqBox + (kc % 4) * 32;
+      sm90::wgmma_ss<0>(sc, sm90::desc_sw128(q_base + off, 16, 1024),
+                        sm90::desc_sw128(k_base + off, 16, 1024), kc > 0);
+    }
+#pragma unroll
+    for (int kc = 0; kc < DV / 16; ++kc) {
+      const uint32_t off = (kc / 4) * kDqBox + (kc % 4) * 32;
+      sm90::wgmma_ss<0>(dp, sm90::desc_sw128(o_base + off, 16, 1024),
+                        sm90::desc_sw128(v_base + off, 16, 1024), kc > 0);
+    }
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(sc);
+    sm90::fence_regs(dp);
+
+    // Per-element masks only where the tile straddles an edge.
+    const int n0 = lo + j * kDqBN;
+    const bool edge = m0 + kDqBM > Sq || n0 + kDqBN > Skv ||
+                      (causal && n0 + kDqBN - 1 > m0) ||
+                      (window && n0 <= m0 + kDqBM - 1 - window);
+    if (edge)
+      dq_ds<true>(sc, dp, lrow, drow, n0, qp0, t, Sq, Skv, causal, window);
+    else
+      dq_ds<false>(sc, dp, lrow, drow, n0, qp0, t, Sq, Skv, causal, window);
+
+    // dQ += dS K: dS from registers, K the MN-major B (k16 step = 16 keys
+    // = 2048 bytes in; LBO = the box stride, the next 64 columns of D).
+    uint32_t da[kDqBN / 16][4];
+#pragma unroll
+    for (int kc = 0; kc < kDqBN / 16; ++kc) sm90::acc_to_a(dp, kc, da[kc]);
+    sm90::fence_regs(dqa);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < kDqBN / 16; ++kc)
+      sm90::wgmma_rs<1>(dqa, da[kc],
+                        sm90::desc_sw128(k_base + kc * 16 * 128, kDqBox,
+                                         1024),
+                        1);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(dqa);
+    sm90::mbar_arrive(&empty[s]);
+  }
+
+  __nv_bfloat16* dqg = dq + (long long)b * Sq * H * D + h * D;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qp = qp0 + 8 * r;
     if (qp >= Sq) continue;
-    __nv_bfloat16* row = dqg + qp * q_row + 2 * t;
+    __nv_bfloat16* row = dqg + (long long)qp * H * D + 2 * t;
 #pragma unroll
     for (int nd = 0; nd < D / 8; ++nd)
-      *reinterpret_cast<__nv_bfloat162*>(row + nd * 8) = __floats2bfloat162_rn(
-          acc[nd][2 * r] * scale, acc[nd][2 * r + 1] * scale);
+      *reinterpret_cast<__nv_bfloat162*>(row + nd * 8) =
+          __floats2bfloat162_rn(dqa[nd * 4 + 2 * r] * scale,
+                                dqa[nd * 4 + 2 * r + 1] * scale);
   }
 }
 
@@ -600,6 +607,7 @@ flash_bwd_dkv_bf16(const __grid_constant__ CUtensorMap tq,
 // f32: FMA path
 // ---------------------------------------------------------------------
 
+constexpr int kThreads = 128;
 constexpr int kFM = 32;  // query rows per tile
 constexpr int kFN = 32;  // key rows per tile
 
@@ -827,19 +835,22 @@ cudaError_t run_dq(int dtype, const void* q, const void* k, const void* v,
                    int causal, int window, float scale, cudaStream_t st) {
   cudaError_t err;
   if (dtype == 0) {
-    size_t smem = sizeof(__nv_bfloat16) *
-                  ((size_t)(kBM + kBN) * (D + kPad) +
-                   (size_t)(kBM + kBN) * (DV + kPad));
+    CUtensorMap tq, tk, tv, tdo;
+    if ((err = sm90::tmap_bshd(&tq, q, B, Sq, H, D, kDqBM)) != cudaSuccess ||
+        (err = sm90::tmap_bshd(&tk, k, B, Skv, Hk, D, kDqBN)) !=
+            cudaSuccess ||
+        (err = sm90::tmap_bshd(&tv, v, B, Skv, Hk, DV, kDqBN)) !=
+            cudaSuccess ||
+        (err = sm90::tmap_bshd(&tdo, dout, B, Sq, H, DV, kDqBM)) !=
+            cudaSuccess)
+      return err;
+    const size_t smem = DqSmem<D, DV>::kBytes;
     auto kernel = flash_bwd_dq_bf16<D, DV>;
     if ((err = set_smem(kernel, smem)) != cudaSuccess) return err;
-    dim3 grid((Sq + kBM - 1) / kBM, B * H);
-    kernel<<<grid, kThreads, smem, st>>>(
-        static_cast<const __nv_bfloat16*>(q),
-        static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v),
-        static_cast<const __nv_bfloat16*>(dout), lse, delta,
-        static_cast<__nv_bfloat16*>(dq), H, Hk, Sq, Skv, causal, window,
-        scale);
+    dim3 grid(B * H, (Sq + kDqBM - 1) / kDqBM);
+    kernel<<<grid, kDqThreads, smem, st>>>(
+        tq, tk, tv, tdo, lse, delta, static_cast<__nv_bfloat16*>(dq), H, Hk,
+        Sq, Skv, causal, window, scale);
   } else {
     size_t smem = sizeof(float) *
                   ((size_t)(kFM + kFN) * (D + 1) +

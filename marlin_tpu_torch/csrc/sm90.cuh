@@ -1,6 +1,7 @@
-// Hopper (sm_90a) building blocks shared by the port's attention kernels:
-// TMA tensor maps and loads, mbarriers, and wgmma with shared-memory matrix
-// descriptors. Header-only; the kernel sources include it (nvcc -I csrc).
+// Hopper (sm_90a) building blocks shared by the port's bf16 kernels (flash
+// attention forward, dQ and dK/dV; the SpMM gather kernel): TMA tensor maps
+// and loads, mbarriers, and wgmma with shared-memory matrix descriptors.
+// Header-only; the kernel sources include it (nvcc -I csrc).
 //
 // Layout convention. Every tile lives in shared memory as TMA wrote it with
 // a 128-byte swizzle: boxes of `rows` x 64 bf16 columns (128 bytes a row),
@@ -80,6 +81,28 @@ inline cudaError_t tmap_bshd(CUtensorMap* map, const void* base, int B, int S,
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
+// A contiguous row-major (rows, cols) bf16 matrix as a 2-D tensor map whose
+// box is 64 columns x `box_rows` rows, 128-byte swizzled; a box that runs
+// past the last row reads zeros there. Needs a 16-byte-aligned base and
+// cols a multiple of 8 (a row stride of whole 16-byte units; the caller
+// checks both).
+inline cudaError_t tmap_2d(CUtensorMap* map, const void* base, long long rows,
+                           long long cols, int box_rows) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                      const_cast<void*>(base), dims, strides, box, elem,
+                      CU_TENSOR_MAP_INTERLEAVE_NONE,
+                      CU_TENSOR_MAP_SWIZZLE_128B,
+                      CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
 // ---------------------------------------------------------------------
 // Device: shared memory, mbarriers, TMA
 // ---------------------------------------------------------------------
@@ -148,6 +171,17 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// TMA: the box of the 2-D `map` at coordinates (c0, c1) (column, row).
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1)
       : "memory");
 }
 

@@ -272,15 +272,20 @@ def _check_launch(a, data, block_size: int, **ints) -> None:
     for name, x in ints.items():
         if x.dtype != torch.int32:
             raise ValueError(f"{name} is {x.dtype}, the kernels take int32")
-    for name, x in {"a": a, "b": data, **ints}.items():
+    every = {"a": a, "b": data, **ints}
+    # The bf16 gather kernel's TMA loads need 16-byte-aligned bases (a view
+    # at an odd offset is not); its row strides, K and N elements, are
+    # multiples of 64 and so already whole 16-byte units.
+    for name, x in every.items():
+        if x.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+    for name, x in every.items():
         if x.device.type != "cuda":
             raise ValueError(f"{name} must be a CUDA tensor, got {x.device}")
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
         if x.device != data.device:
             raise ValueError("the kernels' tensors must be on one device")
-        if x.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned")
     if not is_sm90(data.device):
         raise RuntimeError(
             f"the kernels are built for sm_90a (Hopper); "

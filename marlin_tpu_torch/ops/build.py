@@ -69,10 +69,12 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def nvcc_command(source, out, ptxas_verbose: bool = False) -> list:
+def nvcc_command(source, out, ptxas_verbose: bool = False,
+                 include=None) -> list:
     """The nvcc command line that builds ``source`` into the shared
-    library ``out``, with ``csrc/`` on the include path."""
-    return [find_nvcc(), *NVCC_FLAGS, "-I", str(CSRC_DIR),
+    library ``out``, with ``include`` (default ``csrc/``) on the include
+    path."""
+    return [find_nvcc(), *NVCC_FLAGS, "-I", str(include or CSRC_DIR),
             *(["-Xptxas=-v"] if ptxas_verbose else []), "-o", str(out),
             str(source)]
 

@@ -5,12 +5,11 @@ Port of ``marlin_tpu/ops/flash_attention.py``. The Pallas TPU kernels
 become CUDA C++ kernels: ``_kernel`` (the forward) is
 ``csrc/flash_attention_fwd.cu``; ``_bwd_dq_kernel`` and
 ``_bwd_dkv_kernel`` (the backward) are ``csrc/flash_attention_bwd.cu``.
-For bf16 the forward and dK/dV kernels run wgmma fed by TMA through an
-mbarrier ring, the dQ kernel mma.sync; for f32 all three are FMA
-kernels. The TPU's block constants and VMEM clamps (``DEFAULT_BLOCK_Q/K``,
-``effective_blocks``, ``window_block_clamp``, the backward's 512-row
-clamp, the lane-replicated lse) do not carry over: each CUDA kernel uses
-its own tiles (:data:`KERNEL_TILES`) and masks the ragged edges itself.
+For bf16 all three kernels run wgmma fed by TMA through an mbarrier
+ring; for f32 all three are FMA kernels. The TPU's block constants and
+VMEM clamps (``DEFAULT_BLOCK_Q/K``, ``effective_blocks``,
+``window_block_clamp``, the backward's 512-row clamp, the lane-replicated
+lse) do not carry over: each CUDA kernel uses its own tiles (:data:`KERNEL_TILES`) and masks the ragged edges itself.
 
 Dispatch: CPU tensors take the plain versions,
 :func:`flash_attention_reference` and

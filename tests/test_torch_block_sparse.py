@@ -435,6 +435,22 @@ class TestDispatch:
                               kidx=torch.empty((2, 2), **ints),
                               kcnt=torch.empty((3,), **ints))
 
+    @pytest.mark.parametrize("which", ["a", "b"])
+    def test_check_launch_refuses_a_bf16_base_off_16_bytes(self, which):
+        # The gather kernel's TMA loads need 16-byte-aligned bases: a
+        # contiguous bf16 view at an odd offset is refused before the
+        # device is looked at, and aligned operands get as far as the
+        # device check.
+        store = torch.zeros(1 + 128 * 128, dtype=torch.bfloat16)
+        bad = store[1:].view(128, 128)
+        assert bad.is_contiguous() and bad.data_ptr() % 16
+        good = torch.zeros((128, 128), dtype=torch.bfloat16)
+        a, b = (bad, good) if which == "a" else (good, bad)
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            pbs._check_launch(a, b, 64)
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            pbs._check_launch(good, good, 64)
+
     def test_mixed_devices_raise(self, rng):
         a, b = self._meta_operands(rng)
         with pytest.raises(ValueError, match="is on"):

@@ -282,16 +282,16 @@ def _tile_constants(src, names):
 
 def test_cost_model_reads_the_kernels_own_tiles():
     # KERNEL_TILES mirror each bf16 kernel's own tile constants (the
-    # forward's kBM x kBN, the dQ kernel's kBM x kBN, the dK/dV kernel's
-    # kDkvBM x kDkvBN), and the port's tile count keeps exactly the JAX
-    # model's live pairs at each of those sizes (the CUDA kernels visit
-    # only live tiles).
+    # forward's kBM x kBN, the dQ kernel's kDqBM x kDqBN, the dK/dV
+    # kernel's kDkvBM x kDkvBN), and the port's tile count keeps exactly
+    # the JAX model's live pairs at each of those sizes (the CUDA kernels
+    # visit only live tiles).
     from marlin_tpu.utils import cost_model as jcm
 
     bwd = "flash_attention_bwd.cu"
     assert _tile_constants("flash_attention_fwd.cu", ("kBM", "kBN")) \
         == pfa.KERNEL_TILES["fwd"]
-    assert _tile_constants(bwd, ("kBM", "kBN")) == pfa.KERNEL_TILES["dq"]
+    assert _tile_constants(bwd, ("kDqBM", "kDqBN")) == pfa.KERNEL_TILES["dq"]
     assert _tile_constants(bwd, ("kDkvBM", "kDkvBN")) \
         == pfa.KERNEL_TILES["dkv"]
     for bq, bk in sorted(set(pfa.KERNEL_TILES.values())) + [(64, 32)]:
@@ -337,16 +337,25 @@ def test_transformer_step_flops_counts_at_64_tiles_whatever_the_kernels():
 
 
 # Each planted fault of chip_smoke.py (an edit of the first occurrence of
-# its text) and the bf16 kernel whose body that occurrence must lie in.
+# its text) and the body that occurrence must lie in: the bf16 kernel it
+# breaks, or for the SpMM walk's faults the walk (struct LiveBlocks) that
+# only the kernel of its route takes.
 PLANTED_FAULT_KERNELS = {
-    "fwd_drops_last_key_tile": ("flash_attention_fwd.cu", "flash_fwd_bf16"),
-    "fwd_skips_o_rescale": ("flash_attention_fwd.cu", "flash_fwd_bf16"),
+    "fwd_drops_last_key_tile": ("flash_attention_fwd.cu", "flash_fwd_bf16("),
+    "fwd_skips_o_rescale": ("flash_attention_fwd.cu", "flash_fwd_bf16("),
     "dq_drops_last_key_tile": ("flash_attention_bwd.cu",
-                               "flash_bwd_dq_bf16"),
+                               "flash_bwd_dq_bf16("),
+    "dq_reads_k_as_k_major": ("flash_attention_bwd.cu",
+                              "flash_bwd_dq_bf16("),
     "dkv_drops_last_query_tile": ("flash_attention_bwd.cu",
-                                  "flash_bwd_dkv_bf16"),
+                                  "flash_bwd_dkv_bf16("),
     "dkv_drops_last_key_tile": ("flash_attention_bwd.cu",
-                                "flash_bwd_dkv_bf16"),
+                                "flash_bwd_dkv_bf16("),
+    "gather_drops_last_listed_block": ("block_sparse.cu",
+                                       "struct LiveBlocks"),
+    "gather_skips_last_k16_of_a_stage": ("block_sparse.cu",
+                                         "spmm_gather_bf16("),
+    "masked_ignores_the_mask": ("block_sparse.cu", "struct LiveBlocks"),
 }
 
 
@@ -354,15 +363,40 @@ PLANTED_FAULT_KERNELS = {
 def test_every_planted_fault_is_anchored_in_its_kernel(fault):
     import chip_smoke
 
-    faults = {**chip_smoke.FWD_PLANTED_FAULTS, **chip_smoke.PLANTED_FAULTS}
+    faults = {**chip_smoke.FWD_PLANTED_FAULTS, **chip_smoke.PLANTED_FAULTS,
+              **chip_smoke.SPMM_PLANTED_FAULTS}
     assert set(faults) == set(PLANTED_FAULT_KERNELS)
-    src_name, kernel = PLANTED_FAULT_KERNELS[fault]
+    assert set(chip_smoke.SPMM_FAULT_SHOWS) == set(
+        chip_smoke.SPMM_PLANTED_FAULTS)
+    src_name, start = PLANTED_FAULT_KERNELS[fault]
     src = (ROOT / "marlin_tpu_torch" / "csrc" / src_name).read_text()
     old, new = faults[fault]
     assert old in src and new != old
-    body = src.index(f"{kernel}(")
-    end = src.find("__global__", body)
-    assert body < src.index(old) < (end if end > 0 else len(src))
+    # The body runs to the next kernel or the end of a top-level struct.
+    body = src.index(start)
+    ends = [e for e in (src.find("__global__", body + len(start)),
+                        src.find("\n};\n", body)) if e > 0]
+    assert body < src.index(old) < min(ends, default=len(src))
+
+
+def test_the_spmm_walk_faults_reach_only_their_route():
+    # gather_drops_last_listed_block edits the list walk (LiveBlocks'
+    # GATHER branch) and masked_ignores_the_mask the mask scan (its other
+    # branch): the bf16 gather kernel walks the list, the masked-grid
+    # kernel, and only it, scans the mask.
+    import chip_smoke
+
+    src = (ROOT / "marlin_tpu_torch" / "csrc" / "block_sparse.cu").read_text()
+    walk = src[src.index("struct LiveBlocks"):]
+    walk = walk[:walk.index("\n};\n")]
+    gather_branch = walk[walk.index("if (GATHER) {"):walk.index("} else {")]
+    assert chip_smoke.SPMM_PLANTED_FAULTS[
+        "gather_drops_last_listed_block"][0] in gather_branch
+    assert chip_smoke.SPMM_PLANTED_FAULTS["masked_ignores_the_mask"][0] \
+        in walk[walk.index("if (!GATHER) {"):]
+    gather = src[src.index("spmm_gather_bf16("):]
+    assert "DepthSteps<true> steps;" in gather[:gather.index("__global__")]
+    assert "run_bf16<128, false>" in src and "run_bf16<128, true>" not in src
 
 
 @pytest.mark.parametrize("sq", [256, 250])
