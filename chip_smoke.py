@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py                    # every phase below
     python3 chip_smoke.py --planted-faults   # the kernel checks' teeth
-    python3 chip_smoke.py --compare-with DIR # dQ and gather against DIR's
+    python3 chip_smoke.py --compare-with DIR # dQ and SpMM against DIR's
 
 Phases, each of which exits non-zero on failure:
 
@@ -14,17 +14,20 @@ Phases, each of which exits non-zero on failure:
    against its plain PyTorch version on the card at every shape the main
    path gives it (the served prefill, the training step's B=8 S=2048,
    the remat step's S=8192 MHA) and the edge cases (ragged, MHA, MQA,
-   cross lengths with Dv != D, window, D=64, f32), by max |err| of O and
-   lse and by O's worst 64-row tile (tile_rel_err); time the kernel, the
-   plain version, torch's scaled_dot_product_attention (a yardstick the
-   port never calls; median of 5 repeats) and the roofline bound.
+   cross lengths with Dv != D, window, D=64, and head dims the wrapper
+   zero-pads to the kernel's: D=32 with Dv=16 and D=96, bf16 and f32;
+   f32), by max |err| of O and lse and by O's worst 64-row tile
+   (tile_rel_err); time the kernel warm and with a cold L2, the plain
+   version, torch's scaled_dot_product_attention (a yardstick the port
+   never calls; median of 5 repeats) and the roofline bound.
 4. Backward kernels vs plain: the dQ and dK/dV kernels against the plain
    backward at the training step's and the remat step's shapes and the
    same edge cases, per 64-position tile (tile_rel_err), after holding
    the forward's O and lse that they read against the plain forward;
    times, bounds and the backward of scaled_dot_product_attention as the
-   yardstick (median of 5 repeats of 10 calls, spread printed), dQ also
-   with a cold L2; dQ and dK/dV each bitwise equal over two runs; and one
+   yardstick (median of 5 repeats of 10 calls, spread printed), dQ and
+   dK/dV also with a cold L2; dQ and dK/dV each bitwise equal over two
+   runs; and one
    backward at S=8192 that allocates no more than its inputs, outputs,
    lse/Delta and a stated slack (no (S, S) buffer).
 5. Serve: the flagship transformer (vocab 32768, d_model 1024, 8 heads, 2
@@ -40,21 +43,25 @@ Phases, each of which exits non-zero on failure:
    forward, dQ and dK/dV kernels each launched exactly layers x steps
    (counters zeroed just before, read just after). Then one remat step
    at the long-context shape (S=8192, B=1, vocab 16384), whose forward
-   runs twice per layer, and a profiled flagship step.
+   runs twice per layer, and a profiled flagship step. Then the models
+   of small head dim, 5 steps each at f32 and bf16: the CPU tests'
+   training model (d_model 64, 4 heads: D=16) and the example's default
+   model at the reference's head count (d_model 64, 2 heads: D=32), each
+   loss finite and falling and each flash kernel launched layers x steps.
 7. Card against CPU: full width, 2 layers, B=1, S=512, f32: loss_fn and
    every gradient leaf on the card (the f32 kernels) against the same
    call on the CPU (the plain versions), TF32 off.
 8. SpMM kernels vs plain (run after phase 4): the gather and the
-   masked-grid block-sparse GEMM kernels against the plain version, per
-   64 x 64 output tile (tile_rel_err_2d), at the main path's two shapes
-   (n = 8192 at block sizes 512 and 128, 12% of the blocks live), the
-   sparse bench's oracle shape and the edge cases (ragged M, K != N,
-   block size 64, an all-zero mask, an empty block column held bitwise 0,
-   a full mask, one full column among empty ones, f32), on a backing
-   array that is not zeroed under dead blocks; the two kernels held to
-   each other per tile (bitwise at f32); times (the gather kernel's also
-   with a cold L2), the bound and one dense torch.matmul as the
-   yardstick.
+   masked-grid routes' block-sparse GEMM kernels against the plain
+   version, per 64 x 64 output tile (tile_rel_err_2d), at the main path's
+   two shapes (n = 8192 at block sizes 512 and 128, 12% of the blocks
+   live), the sparse bench's oracle shape and the edge cases (ragged M,
+   K != N, block size 64, an all-zero mask, an empty block column held
+   bitwise 0, a full mask, one full column among empty ones, f32, and
+   grids past 65535 tiles in M and in N, bf16 and f32, with their peak
+   memory), on a backing array that is not zeroed under dead blocks; the
+   two routes bitwise equal to each other; times warm and with a cold L2,
+   the bound and one dense torch.matmul as the yardstick.
 9. Block-sparse GEMM path at the sparse bench configuration's size
    (n = 8192, bf16, nothing cut): BlockSparse(data, mask, 512), and COO
    triples -> SparseVecMatrix.from_coo -> to_block_sparse() at block size
@@ -81,7 +88,7 @@ separates them.
 With ``--compare-with DIR`` it runs phase 1, then builds DIR's backward and
 SpMM sources (another checkout, e.g. the parent commit unpacked by ``git
 archive``) and this tree's KERNEL_VARIANTS, holds each against the plain
-version and times dQ at the train and remat shapes and the gather kernel
+version and times dQ at the train and remat shapes and both SpMM routes
 at bench512 and coo128, warm and cold, in two rounds in opposite orders.
 """
 
@@ -113,7 +120,8 @@ FLAGSHIP = dict(vocab=32768, d_model=1024, n_heads=8, n_kv_heads=2,
 # window). The main path's shapes: "flagship" is the served model's
 # full-length prefill, "train" the flagship training step's attention
 # (B=8, S=2048) and "remat" the long-context remat step's (B=1, S=8192,
-# MHA); the rest are edge cases.
+# MHA); the rest are edge cases ("d32_dv16" and "d96" take the wrapper's
+# zero-padding to the kernel head dims, 64 and 128).
 SHAPES = [
     ("flagship", 1, 2048, 2048, 8, 2, 128, 128, "bfloat16", True, 0),
     ("train", 8, 2048, 2048, 8, 2, 128, 128, "bfloat16", True, 0),
@@ -124,7 +132,11 @@ SHAPES = [
     ("cross_dv64", 1, 384, 1000, 8, 2, 128, 64, "bfloat16", False, 0),
     ("window256", 1, 2048, 2048, 8, 2, 128, 128, "bfloat16", True, 256),
     ("d64", 2, 1024, 1024, 8, 2, 64, 64, "bfloat16", True, 0),
+    ("d32_dv16", 2, 1024, 1024, 8, 2, 32, 16, "bfloat16", True, 0),
+    ("d96", 2, 1024, 1024, 8, 2, 96, 96, "bfloat16", True, 0),
     ("f32", 1, 1000, 1000, 8, 2, 128, 128, "float32", True, 0),
+    ("d32_dv16_f32", 1, 1000, 1000, 8, 2, 32, 16, "float32", True, 0),
+    ("d96_f32", 1, 1000, 1000, 8, 2, 96, 96, "float32", True, 0),
 ]
 
 # Backward shapes: the training paths' two and the same edge cases.
@@ -433,11 +445,12 @@ def phase_kernels():
 
         # Checked through the public wrapper; timed, like the plain
         # version, on the prescaled q_hat (the wrapper's prescale is an
-        # elementwise pass over Q, not the kernel).
+        # elementwise pass over Q, not the kernel), with the zero-padding
+        # of a head dim the kernel is not built for.
         q_hat, kk, vv = fa._prepare(q, k, v, causal, None, window)
 
         def kernel():
-            return fa._launch(q_hat, kk, vv, causal, window)
+            return fa._forward(q_hat, kk, vv, causal, window)
 
         def plain():
             return fa.flash_attention_reference(q_hat, kk, vv, causal,
@@ -448,6 +461,7 @@ def phase_kernels():
         err_o, err_lse, tile_o = check_forward(f"kernel {name}", o_k, lse_k,
                                                *plain(), dt)
         ms = cuda_ms(kernel, iters=20)
+        cold_ms = cuda_ms_cold(kernel, iters=10)
         plain_ms = cuda_ms(plain, warmup=1, iters=3)
         lib_ms, lib_lo, lib_hi = library_ms(F, q, k, v, causal, window)
         # Bound: max(FLOPs / peak, bytes / HBM rate), reading Q, K, V once
@@ -457,7 +471,8 @@ def phase_kernels():
         row = dict(shape=name, B=b, Sq=sq, Skv=skv, H=h, Hk=hk, D=d, Dv=dv,
                    dtype=dt, causal=causal, window=window,
                    max_abs_err=err_o, lse_max_abs_err=err_lse,
-                   o_tile_rel_err=tile_o, ms=ms, plain_ms=plain_ms,
+                   o_tile_rel_err=tile_o, ms=ms, cold_ms=cold_ms,
+                   plain_ms=plain_ms,
                    library_ms=lib_ms, library_ms_spread=[lib_lo, lib_hi],
                    bound_ms=bound_ms, bound_by=bound_by,
                    bound_share=bound_ms / ms,
@@ -534,7 +549,9 @@ class BwdCase:
     from ``gen``, the prescaled q_hat, the forward kernel's O and lse
     (held against the plain forward first, so a forward fault at this
     shape shows as one and not as a backward disagreement) and Delta;
-    with the two kernels' and the plain backward's calls."""
+    with the backward's call through the wrapper's padding (``kernels``),
+    each kernel's call on inputs padded once ahead (``dq``, ``dkv``: the
+    kernel's time alone) and the plain backward's call."""
 
     def __init__(self, gen, shape):
         import torch
@@ -556,27 +573,33 @@ class BwdCase:
         self.scale = 1.0 / math.sqrt(d)
         self.q_hat, self.k, self.v = fa._prepare(self.q, k, v, self.causal,
                                                  self.scale, self.window)
-        self.o, self.lse = self.fwd()
+        self.o, self.lse = fa._forward(self.q_hat, self.k, self.v,
+                                       self.causal, self.window)
         torch.cuda.synchronize()
         check_forward(f"backward {self.name}: forward", self.o, self.lse,
                       *fa.flash_attention_reference(
                           self.q_hat, self.k, self.v, self.causal,
                           self.window), self.dt)
         self.delta = fa._delta(self.do, self.o)
+        self.d, self.dv = d, dv
+        dp, dvp = fa._kernel_head_dim(d, "D"), fa._kernel_head_dim(dv, "Dv")
+        self.padded = (fa._pad_to(self.q_hat, dp), fa._pad_to(self.k, dp),
+                       fa._pad_to(self.v, dvp), fa._pad_to(self.do, dvp))
 
-    def fwd(self):
-        return self.fa._launch(self.q_hat, self.k, self.v, self.causal,
-                               self.window)
+    def kernels(self):
+        return self.fa._padded_bwd(self.fa._launch_bwd, self.q_hat, self.k,
+                                   self.v, self.do, self.lse, self.delta,
+                                   self.causal, self.window, self.scale)
 
     def dq(self):
-        return self.fa._launch_bwd_dq(self.q_hat, self.k, self.v, self.do,
-                                      self.lse, self.delta, self.causal,
-                                      self.window, self.scale)
+        return self.fa._launch_bwd_dq(*self.padded, self.lse, self.delta,
+                                      self.causal, self.window,
+                                      self.scale)[..., :self.d]
 
     def dkv(self):
-        return self.fa._launch_bwd_dkv(self.q_hat, self.k, self.v, self.do,
-                                       self.lse, self.delta, self.causal,
-                                       self.window)
+        dk, dv = self.fa._launch_bwd_dkv(*self.padded, self.lse, self.delta,
+                                         self.causal, self.window)
+        return dk[..., :self.d], dv[..., :self.dv]
 
     def plain(self):
         return self.fa.flash_attention_bwd_reference(
@@ -612,7 +635,7 @@ def phase_backward():
         name, dt = c.name, c.dt
         b, sq, h, d = c.q_hat.shape
         skv, hk, dv = c.k.shape[1], c.k.shape[2], c.v.shape[3]
-        got = (c.dq(), *c.dkv())
+        got = c.kernels()
         torch.cuda.synchronize()
         errs = bwd_errors(got, c.plain())
         for label, e in errs.items():
@@ -630,6 +653,7 @@ def phase_backward():
         ms_dq = cuda_ms(c.dq, iters=10)
         ms_dq_cold = cuda_ms_cold(c.dq, iters=10)
         ms_dkv = cuda_ms(c.dkv, iters=10)
+        ms_dkv_cold = cuda_ms_cold(c.dkv, iters=10)
         plain_ms = cuda_ms(c.plain, warmup=1, iters=2)
         lib_ms, lib_lo, lib_hi = library_bwd_ms(F, c.q, c.k, c.v, c.do,
                                                 c.causal, c.window)
@@ -647,6 +671,7 @@ def phase_backward():
                    **{f"{k}_{m}_err": e[m] for k, e in errs.items()
                       for m in ("max_abs", "global_rel", "tile_rel")},
                    dq_ms=ms_dq, dq_cold_ms=ms_dq_cold, dkv_ms=ms_dkv,
+                   dkv_cold_ms=ms_dkv_cold,
                    plain_ms=plain_ms, library_ms=lib_ms,
                    library_ms_spread=[lib_lo, lib_hi],
                    dq_bound_ms=b_dq[0], dq_bound_by=b_dq[1],
@@ -664,31 +689,40 @@ def phase_backward():
 # fail each fault at every bf16 SpMM shape where the fault can show
 # (SPMM_FAULT_SHOWS).
 SPMM_PLANTED_FAULTS = {
-    # The gather kernel's walk stops one short of its column's list.
+    # The gather route's walk stops one short of its column's list.
     "gather_drops_last_listed_block": (
         "      count = kcnt[j];\n",
         "      count = kcnt[j] - 1;\n"),
-    # The gather kernel's new loop multiplies only the first 48 of each
+    # The ring kernel (both routes) multiplies only the first 48 of each
     # stage's 64 depth rows.
-    "gather_skips_last_k16_of_a_stage": (
+    "ring_skips_last_k16_of_a_stage": (
         "    for (int kc = 0; kc < kGBK / 16; ++kc)\n",
         "    for (int kc = 0; kc < kGBK / 16 - 1; ++kc)\n"),
-    # The masked-grid kernel multiplies every block, live or dead.
+    # The masked route takes every block for live, in its count and its
+    # walk alike: it multiplies every block, live or dead.
     "masked_ignores_the_mask": (
-        "      while (pos < count && list[(size_t)pos * stride] == 0) "
-        "++pos;\n",
-        "      while (false) ++pos;\n"),
+        "    return list[(size_t)k * stride] != 0;\n",
+        "    return true;\n"),
+    # The masked route's count of its column's live blocks comes out one
+    # short; the producer and the consumers agree on it, so the last live
+    # block goes unmultiplied and no load is left in flight.
+    "masked_count_stops_one_block_short": (
+        "    return live;\n",
+        "    return live - 1;\n"),
 }
 
-# The kernel each SpMM fault breaks and whether a case can show it: the
-# gather faults wherever some block is live, the masked one wherever some
-# block is dead (the check's backing array is not zeroed under dead
-# blocks).
+# The kernels each SpMM fault breaks and whether a case can show it: the
+# faults of the list walk, the ring and the count wherever some block is
+# live, the mask test wherever some block is dead (the check's backing
+# array is not zeroed under dead blocks).
 SPMM_FAULT_SHOWS = {
-    "gather_drops_last_listed_block": ("gather", lambda c: c.nnz > 0),
-    "gather_skips_last_k16_of_a_stage": ("gather", lambda c: c.nnz > 0),
-    "masked_ignores_the_mask": ("masked",
+    "gather_drops_last_listed_block": (("gather",), lambda c: c.nnz > 0),
+    "ring_skips_last_k16_of_a_stage": (("gather", "masked"),
+                                       lambda c: c.nnz > 0),
+    "masked_ignores_the_mask": (("masked",),
                                 lambda c: c.nnz < c.mask.numel()),
+    "masked_count_stops_one_block_short": (("masked",),
+                                           lambda c: c.nnz > 0),
 }
 
 
@@ -767,7 +801,7 @@ def _planted_forward(libs):
             readings = {}
             for variant, lib in libs.items():
                 build._loaded["flash_attention_fwd"] = lib
-                o, _ = fa._launch(q_hat, k, v, causal, window)
+                o, _ = fa._forward(q_hat, k, v, causal, window)
                 readings[variant] = dict(
                     tile_rel=tile_rel_err(o, o_r),
                     max_abs=(o.float() - o_r.float()).abs().max().item())
@@ -805,7 +839,7 @@ def _planted_backward(libs):
             readings = {}
             for variant, lib in libs.items():
                 build._loaded["flash_attention_bwd"] = lib
-                readings[variant] = bwd_errors((c.dq(), *c.dkv()), ref)
+                readings[variant] = bwd_errors(c.kernels(), ref)
             sound_max = max(r["tile_rel"]
                             for r in readings["sound"].values())
             fault_min = min(max(r["tile_rel"] for r in v.values())
@@ -824,7 +858,7 @@ def _planted_backward(libs):
 def _planted_spmm(libs):
     """The SpMM check's reading of the sound kernels and of each fault
     at every bf16 SpMM shape: (worst sound reading, whether the limit
-    separated them wherever the fault can show and the kernel a fault
+    separated them wherever the fault can show and the kernels a fault
     does not touch stayed sound)."""
     import torch
 
@@ -846,13 +880,13 @@ def _planted_spmm(libs):
                     gather=tile_rel_err_2d(c.gather(), ref),
                     masked=tile_rel_err_2d(c.masked(), ref))
             # What each variant must read: within the limit, except the
-            # kernel a fault breaks, wherever that fault can show.
+            # kernels a fault breaks, wherever that fault can show.
             for variant, r in readings.items():
-                kernel, can_show = SPMM_FAULT_SHOWS.get(
-                    variant, (None, lambda _: False))
+                kernels, can_show = SPMM_FAULT_SHOWS.get(
+                    variant, ((), lambda _: False))
                 shows = can_show(c)
                 for k, v in r.items():
-                    if k == kernel and shows:
+                    if k in kernels and shows:
                         caught = caught and v > tol
                     else:
                         caught = caught and v <= tol
@@ -908,10 +942,10 @@ def phase_planted_faults(card: str):
              "every planted fault")
 
 
-# Alternatives to the two kernels this tree rebuilt (dQ and the SpMM
-# gather kernel), timed beside them and beside the parent tree's kernels by
-# ``--compare-with``: each a list of edits of this tree's source, applied
-# as the planted faults are.
+# Alternatives to dQ and the SpMM ring kernel, timed beside them and beside
+# the parent tree's kernels by ``--compare-with``: each a list of edits of
+# this tree's source, applied as the planted faults are; a variant of the
+# ring kernel changes both SpMM routes.
 KERNEL_VARIANTS = {
     "flash_attention_bwd": {
         # Three K/V stages (128 KB of shared memory: one CTA an SM).
@@ -921,35 +955,39 @@ KERNEL_VARIANTS = {
     "block_sparse": {
         # Row tiles fastest on the grid, as the first gather kernel ran:
         # the CTAs in flight share a block column instead of rows of A.
-        "gather_rows_fastest": [
-            ("  const int n0 = blockIdx.x * BN;\n"
-             "  const int m0 = blockIdx.y * kGBM;\n",
-             "  const int n0 = blockIdx.y * BN;\n"
-             "  const int m0 = blockIdx.x * kGBM;\n"),
-            ("  dim3 grid(N / BN, (M + kGBM - 1) / kGBM);\n",
-             "  dim3 grid((M + kGBM - 1) / kGBM, N / BN);\n")],
+        "ring_rows_fastest": [
+            ("  const int n0 = (int)(blockIdx.x % n_cols) * BN;\n"
+             "  const int m0 = (int)(blockIdx.x / n_cols) * kGBM;\n",
+             "  const unsigned n_rows = (M - 1) / kGBM + 1;\n"
+             "  const int n0 = (int)(blockIdx.x / n_rows) * BN;\n"
+             "  const int m0 = (int)(blockIdx.x % n_rows) * kGBM;\n")],
+        # The mask walk's first design: thread 0 reads the mask column one
+        # entry at a time, a load's latency for every dead block.
+        "masked_serial_walk": [("constexpr int kGAhead = 32;",
+                                "constexpr int kGAhead = 1;")],
         # Four stages (128 KB at BN = 128: one CTA an SM).
-        "gather_4_stages": [("constexpr int kGStages = 3;",
-                             "constexpr int kGStages = 4;")],
+        "ring_4_stages": [("constexpr int kGStages = 3;",
+                           "constexpr int kGStages = 4;")],
         # 256-row tiles, four consumer warpgroups (one CTA an SM): a stage
         # brings 48 KB for 4.2 MFLOP, 87 FLOP per byte from L2 against 64.
-        "gather_256_rows": [
+        "ring_256_rows": [
             ("constexpr int kGBM = 128;", "constexpr int kGBM = 256;"),
             ("constexpr int kGThreads = 256;",
              "constexpr int kGThreads = 512;"),
-            ("__launch_bounds__(kGThreads, 2)\nspmm_gather_bf16(",
-             "__launch_bounds__(kGThreads, 1)\nspmm_gather_bf16(")],
+            ("__launch_bounds__(kGThreads, 2)\nspmm_ring_bf16(",
+             "__launch_bounds__(kGThreads, 1)\nspmm_ring_bf16(")],
     },
 }
 
 # The shapes --compare-with times: the main path's, by kernel.
-COMPARE_SHAPES = {"dq": ("train", "remat"), "gather": ("bench512", "coo128")}
+COMPARE_SHAPES = {"dq": ("train", "remat"), "gather": ("bench512", "coo128"),
+                  "masked": ("bench512", "coo128")}
 
 
 def phase_compare(card: str, parent: str):
-    """This tree's dQ and SpMM gather kernels against the parent tree's
-    (the checkout at ``parent``, built from its own csrc/) and against
-    KERNEL_VARIANTS, on one card: at each COMPARE_SHAPES shape every
+    """This tree's dQ and SpMM kernels (both routes) against the parent
+    tree's (the checkout at ``parent``, built from its own csrc/) and
+    against KERNEL_VARIANTS, on one card: at each COMPARE_SHAPES shape every
     version is first held to the plain version (worst tile, the phase
     checks' limit), then timed warm (cuda_ms) and cold (cuda_ms_cold), in
     two rounds, parent, this tree, the variants, then the reverse. Prints
@@ -975,13 +1013,15 @@ def phase_compare(card: str, parent: str):
                                          out, ref), BWD_TOLERANCE[shape[8]])
     gen = torch.Generator(device="cuda").manual_seed(3)
     for shape in SPMM_SHAPES:
-        if shape[0] in COMPARE_SHAPES["gather"]:
+        if shape[0] in COMPARE_SHAPES["gather"] + COMPARE_SHAPES["masked"]:
             c = SpmmCase(gen, shape)
             ref = c.plain()
-            cases["gather", shape[0]] = ("block_sparse", c.gather,
-                                         lambda out, ref=ref: tile_rel_err_2d(
-                                             out, ref),
-                                         SPMM_TOLERANCE[shape[6]])
+            for route, fn in (("gather", c.gather), ("masked", c.masked)):
+                if shape[0] in COMPARE_SHAPES[route]:
+                    cases[route, shape[0]] = (
+                        "block_sparse", fn,
+                        lambda out, ref=ref: tile_rel_err_2d(out, ref),
+                        SPMM_TOLERANCE[shape[6]])
     readings = {}
     with tempfile.TemporaryDirectory() as tmp:
         libs = _build_planted(KERNEL_VARIANTS, tmp, parent=csrc)
@@ -1154,6 +1194,89 @@ def phase_train(card: str, seed: int = 0):
         fail(f"train_remat: launches {long_launches}, expected the forward "
              f"twice per layer and each backward kernel once")
     return {"train": launches, "remat": long_launches}
+
+
+# Models of small head dim, trained on the card through the wrapper's
+# zero-padding: the CPU tests' training model (tests/test_torch_train.py:
+# d_model 64, 4 heads, D=16) and the example's default model at the
+# reference's head count (d_model 64, 2 heads, D=32), with (B, S) of
+# their own runs.
+SMALL_STEPS = 5
+
+
+def small_models():
+    """{name: (config, batch, seq)} of the small-head-dim models."""
+    from marlin_tpu_torch.examples import transformer_lm
+    from marlin_tpu_torch.models import TransformerConfig
+
+    return {
+        "test_train_d16": (TransformerConfig(vocab=64, d_model=64, n_heads=4,
+                                             n_layers=2, d_ff=128,
+                                             max_len=32), 2, 32),
+        "example_d32": (transformer_lm.model_config(64, 64, "float32"), 8,
+                        64),
+    }
+
+
+def phase_small_models(card: str, seed: int = 0):
+    """Each small model at f32 and bf16: SMALL_STEPS train steps on one
+    fixed batch from weights drawn on the CPU, every loss finite, the last
+    below the first, and the forward, dQ and dK/dV kernels each launched
+    layers x steps (counters zeroed just before, read just after); at f32
+    each loss also held to the same steps on the CPU (the plain versions,
+    unpadded) within GRAD_TOLERANCE. Returns {run: launches}."""
+    import numpy as np
+    import torch
+
+    from marlin_tpu_torch.models import train_step
+    from marlin_tpu_torch.models import transformer as tr
+    from marlin_tpu_torch.ops import flash_attention as fa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    for name, (base, batch, seq) in small_models().items():
+        for dtype in ("float32", "bfloat16"):
+            cfg = base._replace(dtype=dtype)
+            cpu = tr.init_params(cfg, seed=seed, device="cpu")
+            toks = torch.as_tensor(np.random.default_rng(seed).integers(
+                0, cfg.vocab, (batch, seq)))
+            tgts = torch.roll(toks, -1, dims=1)
+            params = tr._tree_map(lambda p: p.to("cuda"), cpu)
+            toks_d, tgts_d = toks.cuda(), tgts.cuda()
+            torch.cuda.synchronize()
+            _zero_counters(fa)
+            losses = []
+            for _ in range(SMALL_STEPS):
+                loss, params = train_step(params, toks_d, tgts_d, cfg)
+                losses.append(loss.item())
+            launches = _counters(fa)
+            cpu_losses = []
+            if dtype == "float32":
+                for _ in range(SMALL_STEPS):
+                    loss, cpu = train_step(cpu, toks, tgts, cfg)
+                    cpu_losses.append(loss.item())
+            run = f"{name}_{dtype}"
+            out[run] = launches
+            print("small_model: " + json.dumps(dict(
+                card=card, run=run, d_model=cfg.d_model,
+                n_heads=cfg.n_heads, head_dim=cfg.d_model // cfg.n_heads,
+                n_layers=cfg.n_layers, batch=batch, seq=seq, dtype=dtype,
+                losses=losses, cpu_losses=cpu_losses,
+                launches=launches)), flush=True)
+            if not all(math.isfinite(x) for x in losses):
+                fail(f"small_model {run}: non-finite loss {losses}")
+            if any(abs(a - b) > GRAD_TOLERANCE * abs(b)
+                   for a, b in zip(losses, cpu_losses)):
+                fail(f"small_model {run}: card losses {losses} against "
+                     f"the CPU's {cpu_losses} (tol {GRAD_TOLERANCE})")
+            if not losses[-1] < losses[0]:
+                fail(f"small_model {run}: the loss did not fall: {losses}")
+            want = cfg.n_layers * SMALL_STEPS
+            if any(n != want for n in launches.values()):
+                fail(f"small_model {run}: launches {launches}, expected "
+                     f"{want} of each (layers x steps)")
+    return out
 
 
 def phase_train_profile(params, tokens, targets, cfg):
@@ -1430,10 +1553,13 @@ def phase_profile(params, cfg, workload):
 # main path's two shapes come first: "bench512" is the sparse bench
 # configuration (n = 8192, bs = 512, 12% of the blocks live), "coo128" the
 # same matrix size at the default block size that to_block_sparse gives;
-# "oracle" is that bench's own oracle shape; the rest are edge cases. mask:
-# a density in (0, 1) draws it at random; "zero" is all zero, "full" all
+# "oracle" is that bench's own oracle shape; the rest are edge cases,
+# "tall_m" and "wide_n" past the 65535 tiles a grid dimension other than x
+# holds (M > 8,388,480 rows of 128; N > 4,194,240 columns of 64). mask: a
+# density in (0, 1) draws it at random; "zero" is all zero, "full" all
 # one, "empty_column" half dense with block column 2 emptied,
-# "one_full_column" block column 3 full among empty ones.
+# "one_full_column" block column 3 full among empty ones, "diagonal" the
+# blocks k == j live.
 SPMM_SHAPES = [
     ("bench512", 8192, 8192, 8192, 512, 0.12, "bfloat16"),
     ("coo128", 8192, 8192, 8192, 128, 0.12, "bfloat16"),
@@ -1447,6 +1573,10 @@ SPMM_SHAPES = [
     ("one_full_column", 1024, 1024, 1024, 128, "one_full_column",
      "bfloat16"),
     ("f32", 1000, 1024, 1024, 128, 0.3, "float32"),
+    ("tall_m", 8388608, 128, 128, 64, "diagonal", "bfloat16"),
+    ("wide_n", 128, 64, 4194304, 64, 0.01, "bfloat16"),
+    ("tall_m_f32", 8388608, 128, 128, 64, "diagonal", "float32"),
+    ("wide_n_f32", 128, 64, 4194304, 64, 0.01, "float32"),
 ]
 
 # SpMM tolerance by dtype, on the worst 64 x 64 output tile's relative
@@ -1503,6 +1633,8 @@ def draw_block_mask(kind, rows, cols, gen):
         mask = torch.zeros((rows, cols), dtype=torch.int32, device="cuda")
         mask[:, 3] = 1
         return mask
+    if kind == "diagonal":
+        return torch.eye(rows, cols, dtype=torch.int32, device="cuda")
     density = 0.5 if kind == "empty_column" else kind
     mask = (torch.rand((rows, cols), generator=gen, device="cuda")
             < density).to(torch.int32)
@@ -1566,9 +1698,9 @@ class SpmmCase:
         return flops, bound(flops, moved, self.a.dtype)
 
 
-def phase_spmm():
-    """The gather and the masked-grid SpMM kernels against the plain
-    version at every SpMM shape; returns the rows by shape name."""
+def phase_spmm(card: str):
+    """The gather and the masked-grid routes' SpMM kernels against the
+    plain version at every SpMM shape; returns the rows by shape name."""
     import torch
 
     from marlin_tpu_torch.ops.block_sparse import BlockSparse
@@ -1577,6 +1709,9 @@ def phase_spmm():
     gen = torch.Generator(device="cuda").manual_seed(3)
     rows = {}
     for shape in SPMM_SHAPES:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
         c = SpmmCase(gen, shape)
         got_g, got_m = c.gather(), c.masked()
         torch.cuda.synchronize()
@@ -1589,23 +1724,11 @@ def phase_spmm():
                 fail(f"spmm {c.name}: the {label} kernel's worst tile "
                      f"||kernel - plain|| / ||plain|| = {err:.3e} "
                      f"(tol {tol})")
-        # The two kernels walk the same blocks in the same order. At f32
-        # they share one loop and agree bit for bit. At bf16 the gather
-        # kernel's wgmma loop and the masked kernel's mma.sync loop are two
-        # instruction families whose order of summation nothing promises
-        # to be the same, so they are held to each other per tile at the
-        # kernel-vs-plain limit, and whether they agree bit for bit is only
-        # reported (the bitwise check returns once the masked kernel moves
-        # onto the gather kernel's loop).
-        if c.dt == "float32":
-            if not torch.equal(got_g, got_m):
-                fail(f"spmm {c.name}: the two f32 kernels differ bitwise")
-            err_gm = 0.0
-        else:
-            err_gm = tile_rel_err_2d(got_g, got_m)
-            if not err_gm <= tol:
-                fail(f"spmm {c.name}: gather against masked, worst tile "
-                     f"{err_gm:.3e} (tol {tol})")
+        # The two routes run one loop per dtype over the same blocks in
+        # the same order: they agree bit for bit.
+        if not torch.equal(got_g, got_m):
+            fail(f"spmm {c.name}: the gather and the masked route differ "
+                 f"bitwise")
         if not (c.empty_columns_zero(got_g) and c.empty_columns_zero(got_m)):
             fail(f"spmm {c.name}: an empty block column is not exactly 0")
         # The library yardstick: one dense product on the zero-filled
@@ -1616,24 +1739,26 @@ def phase_spmm():
         ms_g = cuda_ms(c.gather, iters=20)
         ms_g_cold = cuda_ms_cold(c.gather, iters=10)
         ms_m = cuda_ms(c.masked, iters=20)
-        row = dict(shape=c.name, M=c.a.shape[0], K=c.a.shape[1],
+        ms_m_cold = cuda_ms_cold(c.masked, iters=10)
+        row = dict(shape=c.name, card=card, M=c.a.shape[0], K=c.a.shape[1],
                    N=c.data.shape[1], block_size=c.bs, dtype=c.dt,
                    live_blocks=c.nnz, blocks=int(c.mask.numel()),
                    column_blocks_min=int(c.kcnt.min()),
                    column_blocks_mean=float(c.kcnt.mean()),
                    column_blocks_max=int(c.kcnt.max()),
                    gather_tile_rel_err=err_g, masked_tile_rel_err=err_m,
-                   gather_vs_masked_tile_rel_err=err_gm,
-                   gather_equals_masked=torch.equal(got_g, got_m),
+                   gather_equals_masked=True,
                    max_abs_err=(got_g.float() - ref.float()).abs().max()
                    .item(),
                    gather_ms=ms_g, gather_cold_ms=ms_g_cold, masked_ms=ms_m,
+                   masked_cold_ms=ms_m_cold,
                    plain_ms=cuda_ms(c.plain, warmup=1, iters=2),
                    library_ms=cuda_ms(lambda: torch.matmul(c.a, zeroed),
                                       iters=20),
                    bound_ms=bound_ms, bound_by=bound_by,
                    gather_tflops=flops / ms_g / 1e9,
-                   masked_tflops=flops / ms_m / 1e9)
+                   masked_tflops=flops / ms_m / 1e9,
+                   peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
         rows[c.name] = row
         print("spmm: " + json.dumps(row), flush=True)
         del c, got_g, got_m, ref, zeroed
@@ -1898,8 +2023,7 @@ def spmm_kernel_entries(spmm, launches):
                     ms=r[f"{kernel}_ms"], plain_ms=r["plain_ms"],
                     bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                     library_ms=r["library_ms"],
-                    **({"cold_ms": r["gather_cold_ms"]}
-                       if kernel == "gather" else {}))
+                    cold_ms=r[f"{kernel}_cold_ms"])
 
     def kernel_entry(kernel, replaces, paths):
         per_path = {p: entry(kernel, p, shape) for p, shape in paths}
@@ -1917,13 +2041,15 @@ def spmm_kernel_entries(spmm, launches):
     ]
 
 
-def kernels_line(rows, bwd, launches, spmm, spmm_launches):
+def kernels_line(rows, bwd, launches, small, spmm, spmm_launches):
     """The {"kernels": [...]} object. Each kernel's top-level numbers are
     those of its first path's shape ("serve" for the forward, "train" for
     the backward, "bench512" for SpMM); ``paths`` gives each path the
     kernel runs on its own launches and its shape's error, times and
-    bound. ``launches`` is {path: {"fwd": n, "dq": n, "dkv": n}};
-    ``spmm`` and ``spmm_launches`` are spmm_kernel_entries' arguments."""
+    bound, and each small model's run (``small``, phase_small_models'
+    {run: {"fwd": n, "dq": n, "dkv": n}}) its launches. ``launches`` is
+    {path: {"fwd": n, "dq": n, "dkv": n}}; ``spmm`` and ``spmm_launches``
+    are spmm_kernel_entries' arguments."""
     bwd_src = "marlin_tpu_torch/csrc/flash_attention_bwd.cu"
     fwd_paths = {p: (launches[p]["fwd"], rows[s]) for p, s in
                  (("serve", "flagship"), ("train", "train"),
@@ -1933,9 +2059,14 @@ def kernels_line(rows, bwd, launches, spmm, spmm_launches):
         return dict(shape=r["shape"], launches=n,
                     max_abs_err=r["max_abs_err"],
                     max_tile_rel_err=r["o_tile_rel_err"], ms=r["ms"],
-                    plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-                    bound_by=r["bound_by"], library_ms=r["library_ms"],
+                    cold_ms=r["cold_ms"], plain_ms=r["plain_ms"],
+                    bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                    library_ms=r["library_ms"],
                     tflops=r["tflops"], bound_share=r["bound_share"])
+
+    def small_paths(kernel):
+        return {run: dict(shape=run, launches=n[kernel])
+                for run, n in small.items()}
 
     def bwd_kernel(kernel, replaces, labels):
         paths = {p: (launches[p][kernel], bwd[p]) for p in ("train", "remat")}
@@ -1952,25 +2083,30 @@ def kernels_line(rows, bwd, launches, spmm, spmm_launches):
                 bound_by=r[f"{kernel}_bound_by"],
                 library_ms=r["library_ms"], tflops=r[f"{kernel}_tflops"],
                 bound_share=r[f"{kernel}_bound_ms"] / r[f"{kernel}_ms"],
-                **({"cold_ms": r["dq_cold_ms"]} if kernel == "dq" else {}))
+                cold_ms=r[f"{kernel}_cold_ms"])
 
         top = entry(*paths["train"])
+        all_paths = {**{p: entry(*v) for p, v in paths.items()},
+                     **small_paths(kernel)}
         return {"name": f"flash_attention_bwd_{kernel}", "route": "cuda",
                 "source": bwd_src, "replaces": replaces,
-                **top, "launches": sum(n for n, _ in paths.values()),
+                **top, "launches": sum(e["launches"]
+                                       for e in all_paths.values()),
                 "plain_ms_covers": "the whole plain backward: dQ, dK, dV",
                 "library_ms_covers": "scaled_dot_product_attention's "
                                      "backward: dQ, dK and dV in one call",
-                "paths": {p: entry(*v) for p, v in paths.items()}}
+                "paths": all_paths}
 
     fwd_top = fwd_entry(*fwd_paths["serve"])
+    fwd_all = {**{p: fwd_entry(*v) for p, v in fwd_paths.items()},
+               **small_paths("fwd")}
     return {"kernels": [
         {"name": "flash_attention_fwd", "route": "cuda",
          "source": "marlin_tpu_torch/csrc/flash_attention_fwd.cu",
          "replaces": "marlin_tpu/ops/flash_attention.py:134",
-         **fwd_top, "launches": sum(n for n, _ in fwd_paths.values()),
+         **fwd_top, "launches": sum(e["launches"] for e in fwd_all.values()),
          "library_ms_covers": "scaled_dot_product_attention's forward",
-         "paths": {p: fwd_entry(*v) for p, v in fwd_paths.items()}},
+         "paths": fwd_all},
         bwd_kernel("dq", "marlin_tpu/ops/flash_attention.py:335", ("dq",)),
         bwd_kernel("dkv", "marlin_tpu/ops/flash_attention.py:373",
                    ("dk", "dv")),
@@ -2004,15 +2140,16 @@ def main(argv=None) -> int:
     rows = phase_kernels()
     bwd = phase_backward()
     phase_backward_memory()
-    spmm = phase_spmm()
+    spmm = phase_spmm(card)
     serve_launches = phase_slice(card)
     launches = phase_train(card)
     launches["serve"] = dict(fwd=serve_launches)
     phase_grad_check()
+    small = phase_small_models(card)
     spmm_launches = phase_spmm_path(card)
     spmm_launches["graph512"] = phase_spmm_graph()
     phase_spmm_grad()
-    kernels = kernels_line(rows, bwd, launches, spmm, spmm_launches)
+    kernels = kernels_line(rows, bwd, launches, small, spmm, spmm_launches)
     print(card)
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,5 @@
 // Hopper (sm_90a) building blocks shared by the port's bf16 kernels (flash
-// attention forward, dQ and dK/dV; the SpMM gather kernel): TMA tensor maps
+// attention forward, dQ and dK/dV; the SpMM ring kernel): TMA tensor maps
 // and loads, mbarriers, and wgmma with shared-memory matrix descriptors.
 // Header-only; the kernel sources include it (nvcc -I csrc).
 //

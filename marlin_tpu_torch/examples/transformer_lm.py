@@ -14,9 +14,6 @@ versions). The JAX example's data-parallel mesh waits for the dense
 path's mesh (ROADMAP Queue A2/A3), and its ``--int8`` and ``--spec``
 decoding modes for the int8 stack and speculative decoding (ROADMAP
 Queue A1).
-
-Heads are d_model // 64 (head dim 64, which the flash kernels are built
-for) where the JAX example takes d_model // 32.
 """
 
 from __future__ import annotations
@@ -32,6 +29,17 @@ import torch
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def model_config(d_model: int, seq: int, dtype: str):
+    """The example's model: the JAX example's configuration for the same
+    width, sequence length and dtype."""
+    from marlin_tpu_torch.models import TransformerConfig
+
+    return TransformerConfig(
+        vocab=128, d_model=d_model, n_heads=max(2, d_model // 32),
+        n_layers=2, d_ff=4 * d_model, max_len=seq, dtype=dtype,
+    )
 
 
 def main(argv=None) -> int:
@@ -53,13 +61,9 @@ def main(argv=None) -> int:
     d_model = int(argv[3]) if len(argv) > 3 else 64
     dtype = argv[4] if len(argv) > 4 else "float32"
 
-    from marlin_tpu_torch.models import (TransformerConfig, generate,
-                                         init_params, train_step)
+    from marlin_tpu_torch.models import generate, init_params, train_step
 
-    cfg = TransformerConfig(
-        vocab=128, d_model=d_model, n_heads=max(1, d_model // 64),
-        n_layers=2, d_ff=4 * d_model, max_len=seq, dtype=dtype,
-    )
+    cfg = model_config(d_model, seq, dtype)
     params = init_params(cfg, seed=0, device=device)
     dev = params["embed"].device
     tokens = torch.as_tensor(

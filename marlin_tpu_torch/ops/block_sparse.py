@@ -18,6 +18,10 @@ surviving FLOP on the tensor cores. This module provides:
   package a mask has no host value under an outer ``jit`` (it is a
   tracer); here it has none when it is a CUDA tensor and the current
   stream is capturing a CUDA graph, where a copy to the host is illegal.
+  At bf16 both routes run one kernel body (wgmma fed by TMA through an
+  mbarrier ring) and differ only in how a CTA finds its column's live
+  blocks: its list, or a scan of its mask column; so their results are
+  bitwise equal, as are the two f32 FMA kernels'.
 
 Dispatch: CPU tensors take the plain versions
 (:func:`spmm_gather_reference`, :func:`spmm_masked_reference`); CUDA
@@ -273,9 +277,9 @@ def _check_launch(a, data, block_size: int, **ints) -> None:
         if x.dtype != torch.int32:
             raise ValueError(f"{name} is {x.dtype}, the kernels take int32")
     every = {"a": a, "b": data, **ints}
-    # The bf16 gather kernel's TMA loads need 16-byte-aligned bases (a view
-    # at an odd offset is not); its row strides, K and N elements, are
-    # multiples of 64 and so already whole 16-byte units.
+    # The bf16 kernel's TMA loads (both routes) need 16-byte-aligned bases
+    # (a view at an odd offset is not); its row strides, K and N elements,
+    # are multiples of 64 and so already whole 16-byte units.
     for name, x in every.items():
         if x.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
@@ -301,8 +305,9 @@ def _check_err(err: int, what: str, a, data, block_size: int) -> None:
 
 
 def _launch_gather(a, data, kidx, kcnt, max_nnz: int, block_size: int):
-    """Run the gather kernel (B1): C (M, N) in B's dtype. ``kidx``
-    (N/bs, max_nnz) and ``kcnt`` (N/bs) are int32 tensors on the card.
+    """Run the gather route's kernel (B1): C (M, N) in B's dtype.
+    ``kidx`` (N/bs, max_nnz) and ``kcnt`` (N/bs) are int32 tensors on the
+    card.
     Allocates with ``torch.empty`` only and launches on the current
     stream."""
     global gather_launches
@@ -322,10 +327,11 @@ def _launch_gather(a, data, kidx, kcnt, max_nnz: int, block_size: int):
 
 
 def _launch_masked(a, data, mask, block_size: int):
-    """Run the masked-grid kernel (B2): C (M, N) in B's dtype, the
-    (K/bs, N/bs) int32 ``mask`` read on the card. Touches nothing on the
-    host, allocates with ``torch.empty`` only and launches on the current
-    stream, so it can be captured into a CUDA graph."""
+    """Run the masked-grid route's kernel (B2): C (M, N) in B's dtype,
+    the (K/bs, N/bs) int32 ``mask`` read on the card (each CTA counts its
+    column's live blocks there before its first load). Touches nothing on
+    the host, allocates with ``torch.empty`` only and launches on the
+    current stream, so it can be captured into a CUDA graph."""
     global masked_launches
     lib = _kernel_lib()
     _check_launch(a, data, block_size, mask=mask)

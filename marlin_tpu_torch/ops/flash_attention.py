@@ -22,6 +22,14 @@ only ``(q_hat, k, v, o, lse)`` and its backward recomputes the
 probability tiles from lse, so no (Sq, Skv) tensor is kept between the
 two passes.
 
+Head dims. The kernels are built for D and Dv in :data:`KERNEL_HEAD_DIMS`;
+on the card the wrapper zero-pads q_hat and K (D) and V and dO (Dv) up to
+the smallest of them that holds the head dim and slices O, dQ, dK and dV
+back, as the JAX package pads to its 128-lane tile (zero columns add
+nothing to q_hat K^T, to P V or to Delta). A head dim above 128 raises:
+the reference pads it to 256, for which no kernel is built yet (ROADMAP
+Queue C, C3).
+
 Public layout is the JAX package's ``(S, H, D)``, plus an optional
 leading batch dimension that stands in for ``jax.vmap``.
 """
@@ -40,7 +48,8 @@ from . import build
 _NEG_INF = -1e30  # masked logits stay finite, as in the TPU kernel
 _LOG2E = math.log2(math.e)
 
-# Head dims the kernel is instantiated for (template arguments D and Dv).
+# Head dims the kernel is instantiated for (template arguments D and Dv),
+# ascending; smaller ones are zero-padded up to the next (_padded_fwd).
 KERNEL_HEAD_DIMS = (64, 128)
 _KERNEL_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 
@@ -133,13 +142,21 @@ def flash_attention_bwd_reference(q_hat, k, v, o, lse, do,
     Returns ``(dQ, dK, dV)`` in the dtypes of q, k and v. It materialises
     the (Sq, Skv) tiles: it exists for tests and as the kernels' yardstick
     of correctness."""
+    return _bwd_reference(q_hat, k, v, do, lse, _delta(do, o), causal,
+                          window, scale)
+
+
+def _bwd_reference(q_hat, k, v, do, lse, delta, causal: bool, window: int,
+                   scale: Optional[float]):
+    """:func:`flash_attention_bwd_reference` from Delta (B, H, Sq) f32
+    instead of O: the plain twin of :func:`_launch_bwd`, with its
+    arguments."""
     b, sq, h, d = q_hat.shape
     skv, hk, dv = k.shape[1], k.shape[2], v.shape[3]
     group = h // hk
     if scale is None:
         scale = 1.0 / math.sqrt(d)
     cdt = torch.promote_types(q_hat.dtype, torch.float32)
-    delta = (do.float() * o.float()).sum(-1).to(cdt)  # (B, Sq, H)
     qg = q_hat.to(cdt).reshape(b, sq, hk, group, d)
     dog = do.to(cdt).reshape(b, sq, hk, group, dv)
     kf, vf = k.to(cdt), v.to(cdt)
@@ -153,7 +170,7 @@ def flash_attention_bwd_reference(q_hat, k, v, o, lse, do,
         s = s.masked_fill(~mask, _NEG_INF)
     p = torch.exp2(s - lse.to(cdt).reshape(b, hk, group, sq, 1))
     dp = torch.einsum("bqkgd,bskd->bkgqs", dog, vf)
-    ds = p * (dp - delta.permute(0, 2, 1).reshape(b, hk, group, sq, 1))
+    ds = p * (dp - delta.to(cdt).reshape(b, hk, group, sq, 1))
     dq = torch.einsum("bkgqs,bskd->bqkgd", ds, kf) * scale
     dk = torch.einsum("bkgqs,bqkgd->bskd", ds, qg) * (1.0 / _LOG2E)
     dvv = torch.einsum("bkgqs,bqkgd->bskd", p, dog)
@@ -330,22 +347,70 @@ def _launch_bwd(q_hat, k, v, do, lse, delta, causal: bool, window: int,
     return dq, dk, dvv
 
 
+def _kernel_head_dim(width: int, name: str) -> int:
+    """The smallest entry of :data:`KERNEL_HEAD_DIMS` that holds a head
+    dim of ``width``; raises above the largest."""
+    for kernel_width in KERNEL_HEAD_DIMS:
+        if width <= kernel_width:
+            return kernel_width
+    raise ValueError(
+        f"{name}={width}: the kernels are built for head dims up to "
+        f"{KERNEL_HEAD_DIMS[-1]}; the reference pads {name} in (128, 256] "
+        f"to 256, which has no kernel yet (ROADMAP Queue C, C3)")
+
+
+def _pad_to(x, width: int):
+    """``x`` with its last dimension zero-padded to ``width`` (``x``
+    itself when it is that wide already)."""
+    if x.shape[-1] == width:
+        return x
+    return torch.nn.functional.pad(x, (0, width - x.shape[-1]))
+
+
+def _padded_fwd(fwd, q_hat, k, v, causal: bool, window: int):
+    """``fwd`` (the forward kernel's launch or the plain version) on
+    q_hat and K zero-padded to the kernel head dim of D and V to that of
+    Dv, and O sliced back to Dv. Zero columns add nothing to q_hat K^T or
+    P V, so ``(O, lse)`` is the unpadded function's."""
+    d, dv = q_hat.shape[-1], v.shape[-1]
+    dp, dvp = _kernel_head_dim(d, "D"), _kernel_head_dim(dv, "Dv")
+    o, lse = fwd(_pad_to(q_hat, dp), _pad_to(k, dp), _pad_to(v, dvp),
+                 causal, window)
+    return o[..., :dv].contiguous(), lse
+
+
+def _padded_bwd(bwd, q_hat, k, v, do, lse, delta, causal: bool,
+                window: int, scale: float):
+    """``bwd`` (:func:`_launch_bwd` or its plain twin
+    :func:`_bwd_reference`) on q_hat and K zero-padded as in
+    :func:`_padded_fwd`, V and dO to the kernel head dim of Dv, and dQ,
+    dK, dV sliced back. ``scale`` is the unpadded D's (the caller's);
+    Delta = rowsum(dO * O) is the same with or without zero columns."""
+    d, dv = q_hat.shape[-1], v.shape[-1]
+    dp, dvp = _kernel_head_dim(d, "D"), _kernel_head_dim(dv, "Dv")
+    dq, dk, dvv = bwd(_pad_to(q_hat, dp), _pad_to(k, dp), _pad_to(v, dvp),
+                      _pad_to(do, dvp), lse, delta, causal, window, scale)
+    return (dq[..., :d].contiguous(), dk[..., :d].contiguous(),
+            dvv[..., :dv].contiguous())
+
+
 def _forward(q_hat, k, v, causal: bool, window: int):
     """``(O, lse)`` on batched tensors: the plain version for CPU tensors,
-    the kernel (or an error) for any other."""
+    the kernel at its head dims (or an error) for any other."""
     if q_hat.device.type == "cpu":
         return flash_attention_reference(q_hat, k, v, causal, window)
-    return _launch(q_hat.contiguous(), k.contiguous(), v.contiguous(),
-                   causal, window)
+    return _padded_fwd(_launch, q_hat.contiguous(), k.contiguous(),
+                       v.contiguous(), causal, window)
 
 
 class FlashAttentionFunction(torch.autograd.Function):
     """Differentiable flash attention on batched (B, S, H, D) tensors: the
     counterpart of the JAX package's ``_flash_hsd`` custom_vjp. The
     forward runs the forward kernel (the plain version on the CPU) and
-    saves only ``(q_hat, k, v, o, lse)``; the backward computes Delta with
-    one torch op and runs the dQ and dK/dV kernels (the plain backward on
-    the CPU). Returns ``(O, lse)``; lse is not differentiable."""
+    saves only ``(q_hat, k, v, o, lse)``, unpadded; the backward computes
+    Delta with one torch op and runs the dQ and dK/dV kernels on inputs
+    padded again to the kernel head dims (the plain backward on the CPU).
+    Returns ``(O, lse)``; lse is not differentiable."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, scale, window):
@@ -367,8 +432,9 @@ class FlashAttentionFunction(torch.autograd.Function):
             dq, dk, dv = flash_attention_bwd_reference(
                 q_hat, k, v, o, lse, do, ctx.causal, ctx.window, ctx.scale)
         else:
-            dq, dk, dv = _launch_bwd(q_hat, k, v, do, lse, _delta(do, o),
-                                     ctx.causal, ctx.window, ctx.scale)
+            dq, dk, dv = _padded_bwd(_launch_bwd, q_hat, k, v, do, lse,
+                                     _delta(do, o), ctx.causal, ctx.window,
+                                     ctx.scale)
         return dq, dk, dv, None, None, None
 
 

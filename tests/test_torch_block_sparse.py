@@ -19,6 +19,9 @@ holds the JAX package. bf16 is held exactly on a case whose f32
 accumulation is exact.
 """
 
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -437,7 +440,7 @@ class TestDispatch:
 
     @pytest.mark.parametrize("which", ["a", "b"])
     def test_check_launch_refuses_a_bf16_base_off_16_bytes(self, which):
-        # The gather kernel's TMA loads need 16-byte-aligned bases: a
+        # The bf16 kernel's TMA loads need 16-byte-aligned bases: a
         # contiguous bf16 view at an odd offset is refused before the
         # device is looked at, and aligned operands get as far as the
         # device check.
@@ -478,3 +481,53 @@ class TestNoSilentCpuFallback:
                                       BS).data.device.type == "cpu"
         assert BlockSparse.from_numpy(arr, np.ones((2, 2)), BS,
                                       device="cpu").shape == (16, 16)
+
+
+class TestLaunchGrid:
+    """The kernels take every grid the Pallas grids (m // bm, n // bn, .)
+    take: each SpMM launch is one 1-D grid of row tiles x column tiles
+    (gridDim.x holds 2^31 - 1 CTAs, gridDim.y and .z 65535), decoded from
+    blockIdx.x in the kernel. Read from the source: the kernels build and
+    run only on the card, where chip_smoke.py drives M = 8,388,608 and
+    N = 4,194,304 on every route."""
+
+    SRC = (Path(__file__).resolve().parents[1] / "marlin_tpu_torch" /
+           "csrc" / "block_sparse.cu").read_text()
+
+    @classmethod
+    def _body(cls, start):
+        body = cls.SRC[cls.SRC.index(start):]
+        return body[:body.index("\n}\n")]
+
+    @pytest.mark.parametrize("kernel, decode", [
+        ("spmm_ring_bf16(", ("const unsigned n_cols = N / BN;",
+                             "(blockIdx.x % n_cols) * BN",
+                             "(blockIdx.x / n_cols) * kGBM")),
+        ("spmm_f32(", ("const unsigned n_rows = (M - 1) / kFM + 1;",
+                       "(blockIdx.x % n_rows) * kFM",
+                       "(blockIdx.x / n_rows) * kFN")),
+    ])
+    def test_each_kernel_decodes_its_tile_from_blockidx_x(self, kernel,
+                                                          decode):
+        # The ring keeps block columns fastest (the CTAs in flight share
+        # rows of A), the f32 kernel its row tiles fastest.
+        body = self._body(kernel)
+        for text in decode:
+            assert text in body, text
+        assert "blockIdx.y" not in body and "blockIdx.z" not in body
+
+    def test_no_launch_puts_a_tile_count_on_grid_y_or_z(self):
+        launches = re.findall(r"<<<([^,]+),", self.SRC)
+        assert len(launches) == 2 and set(launches) == {"grid"}
+        assert "dim3" not in self.SRC
+        assert "gridDim.y" not in self.SRC and "gridDim.z" not in self.SRC
+        for run in ("run_ring_bf16(", "run_f32("):
+            body = self._body(run)
+            assert "const unsigned grid = grid_1d(" in body
+            assert "if (grid == 0) return cudaErrorInvalidValue;" in body
+        assert "n > 0x7fffffffLL ? 0u" in self._body("inline unsigned "
+                                                     "grid_1d(")
+
+    def test_the_65535_checks_are_gone(self):
+        assert "65535" not in self.SRC
+        assert "N / 64 >" not in self.SRC

@@ -153,3 +153,82 @@ class TestDispatch:
         with pytest.raises(ValueError, match="head dims"):
             pfa._launch(*(x[None].to("meta") for x in _t(
                 *_inputs(6, 16, 16, 4, 2, 32, 32))), True, 0)
+
+
+# Head dims the kernels are not built for, which the wrapper zero-pads on
+# the card: (Sq, Skv, H, Hk, D, Dv, causal, window).
+PADDED = {
+    "d16": (40, 40, 4, 2, 16, 16, True, 0),
+    "d32": (40, 40, 4, 2, 32, 32, True, 0),
+    "d96": (33, 47, 4, 2, 96, 96, False, 0),
+    "d32_dv16": (24, 50, 4, 2, 32, 16, False, 0),
+    "d32_window": (48, 48, 4, 1, 32, 32, True, 8),
+}
+
+
+@pytest.mark.parametrize("name", list(PADDED))
+def test_padding_to_the_kernel_head_dims_changes_nothing(name):
+    # _padded_fwd on the plain version: q_hat and K zero-padded to the
+    # kernel head dim of D, V to that of Dv, O sliced back. Zero columns
+    # add nothing to q_hat K^T or P V: within 1e-6 of the unpadded plain
+    # version (f32), and within the module's TOL of the JAX package's
+    # flash_attention (its Pallas kernel in interpret mode, which pads to
+    # its own 128-lane tile).
+    sq, skv, h, hk, d, dv, causal, window = PADDED[name]
+    q, k, v = _inputs(20, sq, skv, h, hk, d, dv)
+    q_hat, kt, vt = pfa._prepare(*(x[None] for x in _t(q, k, v)), causal,
+                                 None, window)
+    widths = []
+
+    def plain(qp, kp, vp, c, w):
+        widths.append((qp.shape[-1], kp.shape[-1], vp.shape[-1]))
+        return pfa.flash_attention_reference(qp, kp, vp, c, w)
+
+    o, lse = pfa._padded_fwd(plain, q_hat, kt, vt, causal, window)
+    dp, dvp = (pfa._kernel_head_dim(x, "D") for x in (d, dv))
+    assert widths == [(dp, dp, dvp)] and dp in pfa.KERNEL_HEAD_DIMS
+    assert o.shape == (1, sq, h, dv) and o.is_contiguous()
+    o_ref, lse_ref = pfa.flash_attention_reference(q_hat, kt, vt, causal,
+                                                   window)
+    np.testing.assert_allclose(o.numpy(), o_ref.numpy(), atol=1e-6, rtol=0)
+    np.testing.assert_allclose(lse.numpy(), lse_ref.numpy(), atol=1e-6,
+                               rtol=0)
+    ref = np.asarray(jax_flash(jnp.asarray(q), jnp.asarray(k),
+                               jnp.asarray(v), causal=causal, window=window,
+                               interpret=True))
+    np.testing.assert_allclose(o[0].numpy(), ref, **TOL)
+
+
+@pytest.mark.parametrize("d, width", [(1, 64), (16, 64), (64, 64), (65, 128),
+                                      (96, 128), (128, 128)])
+def test_kernel_head_dim_is_the_smallest_that_holds(d, width):
+    assert pfa._kernel_head_dim(d, "D") == width
+
+
+@pytest.mark.parametrize("d", [129, 160, 256])
+def test_head_dims_above_128_raise_naming_c3(d):
+    # The reference pads D in (128, 256] to 256; no kernel is built for
+    # it yet (ROADMAP Queue C, C3), so the card's path raises.
+    with pytest.raises(ValueError, match="C3"):
+        pfa._kernel_head_dim(d, "D")
+    q = torch.zeros((1, 8, 2, d), device="meta")
+    with pytest.raises(ValueError, match="C3"):
+        pfa.flash_attention(q, q, q, causal=True)
+
+
+def test_the_card_path_pads_for_the_kernel_and_slices_back(monkeypatch):
+    # On a tensor that is not on the CPU the wrapper hands the kernel
+    # D = 32 padded to 64 and Dv = 16 padded to 64, and returns O at
+    # Dv = 16.
+    seen = []
+
+    def fake_launch(q_hat, k, v, causal, window):
+        seen.append((q_hat.shape[-1], k.shape[-1], v.shape[-1]))
+        b, sq, h, _ = q_hat.shape
+        return (torch.empty((b, sq, h, v.shape[-1]), device=q_hat.device),
+                torch.empty((b, h, sq), device=q_hat.device))
+
+    monkeypatch.setattr(pfa, "_launch", fake_launch)
+    q, k, v = (x.to("meta") for x in _t(*_inputs(21, 16, 16, 4, 2, 32, 16)))
+    out = pfa.flash_attention(q, k, v, causal=True)
+    assert seen == [(64, 64, 64)] and out.shape == (16, 4, 16)

@@ -127,6 +127,58 @@ def test_autograd_gradients_match_jax_vjp(name):
         assert _rel_err(a.numpy(), r) <= RTOL, label
 
 
+# Head dims the kernels are not built for, which the wrapper zero-pads on
+# the card: (Sq, Skv, H, Hk, D, Dv, causal, window).
+PADDED = {
+    "d16": (40, 40, 4, 2, 16, 16, True, 0),
+    "d32": (48, 48, 4, 2, 32, 32, True, 0),
+    "d96": (33, 47, 4, 2, 96, 96, False, 0),
+    "d32_dv16": (24, 50, 4, 2, 32, 16, False, 0),
+    "d32_window": (64, 64, 4, 1, 32, 32, True, 16),
+}
+
+
+@pytest.mark.parametrize("name", list(PADDED))
+def test_padding_to_the_kernel_head_dims_changes_no_gradient(name):
+    # _padded_bwd on the plain backward (_bwd_reference, the plain twin of
+    # _launch_bwd): q_hat and K zero-padded to the kernel head dim of D, V
+    # and dO to that of Dv, dQ, dK, dV sliced back, Delta and the scale
+    # those of the unpadded inputs. Within 1e-6 of the unpadded plain
+    # backward (f32), and within RTOL of jax.vjp of the JAX package's
+    # flash_attention (its Pallas kernels in interpret mode, which pad to
+    # their own 128-lane tile).
+    sq, skv, h, hk, d, dv, causal, window = PADDED[name]
+    q, k, v, g = _inputs(30, sq, skv, h, hk, d, dv)
+    scale = 1.0 / math.sqrt(d)
+    q_hat, kt, vt = pfa._prepare(*(torch.from_numpy(x)[None]
+                                   for x in (q, k, v)), causal, scale,
+                                 window)
+    do = torch.from_numpy(g)[None]
+    o, lse = pfa.flash_attention_reference(q_hat, kt, vt, causal, window)
+    delta = pfa._delta(do, o)
+    widths = []
+
+    def plain(*args):
+        widths.append(tuple(x.shape[-1] for x in args[:4]))
+        return pfa._bwd_reference(*args)
+
+    got = pfa._padded_bwd(plain, q_hat, kt, vt, do, lse, delta, causal,
+                          window, scale)
+    dp, dvp = (pfa._kernel_head_dim(x, "D") for x in (d, dv))
+    assert widths == [(dp, dp, dvp, dvp)]
+    ref = pfa.flash_attention_bwd_reference(q_hat, kt, vt, o, lse, do,
+                                            causal, window, scale)
+    for label, a, r in zip(("dq", "dk", "dv"), got, ref):
+        assert a.shape == r.shape and a.is_contiguous(), label
+        np.testing.assert_allclose(a.numpy(), r.numpy(), atol=1e-6, rtol=0,
+                                   err_msg=label)
+    _, vjp = jax.vjp(lambda a, b, c: jax_flash(
+        a, b, c, causal=causal, window=window, interpret=True),
+        *(jnp.asarray(x) for x in (q, k, v)))
+    for label, a, r in zip(("dq", "dk", "dv"), got, vjp(jnp.asarray(g))):
+        assert _rel_err(a[0].numpy(), r) <= RTOL, label
+
+
 def test_strided_incoming_gradient():
     # Autograd may hand the backward a non-contiguous gradient (here the
     # transpose of a contiguous one); the Function makes it contiguous.
@@ -214,6 +266,36 @@ class TestDispatch:
         out.backward(torch.empty_like(out))
         assert calls == [((1, 4, 16), True, 0, 1.0 / 8.0)]
         assert q.grad.shape == q.shape and k.grad.shape == k.shape
+
+    def test_the_card_backward_pads_for_the_kernels_and_slices_back(
+            self, monkeypatch):
+        # D = 32 and Dv = 16 on a tensor that is not on the CPU: the
+        # backward kernels get q_hat, K, V and dO padded to 64, the scale
+        # of D = 32 and Delta of the unpadded dO and O; the gradients come
+        # back at the inputs' own widths. The Function saves the unpadded
+        # tensors only.
+        calls = []
+
+        def fake_bwd(q_hat, k, v, do, lse, delta, causal, window, scale):
+            calls.append((q_hat.shape[-1], k.shape[-1], v.shape[-1],
+                          do.shape[-1], tuple(delta.shape), scale))
+            return (torch.zeros_like(q_hat), torch.zeros_like(k),
+                    torch.zeros_like(v))
+
+        monkeypatch.setattr(pfa, "_launch", self._fake_forward)
+        monkeypatch.setattr(pfa, "_launch_bwd", fake_bwd)
+        q, k, v = (torch.from_numpy(x).to("meta").requires_grad_(True)
+                   for x in _inputs(12, 16, 16, 4, 2, 32, 16)[:3])
+        saved = []
+        with torch.autograd.graph.saved_tensors_hooks(
+                lambda t: saved.append(tuple(t.shape)) or t, lambda t: t):
+            out = pfa.flash_attention(q, k, v, causal=True)
+        assert out.shape == (16, 4, 16)
+        assert saved and not any(64 in shape for shape in saved), saved
+        out.backward(torch.empty_like(out))
+        assert calls == [(64, 64, 64, 64, (1, 4, 16), 1.0 / math.sqrt(32))]
+        assert (q.grad.shape, k.grad.shape, v.grad.shape) == (
+            q.shape, k.shape, v.shape)
 
     def test_a_failing_bwd_kernel_raises(self, monkeypatch):
         def broken_loader(name):
@@ -338,8 +420,8 @@ def test_transformer_step_flops_counts_at_64_tiles_whatever_the_kernels():
 
 # Each planted fault of chip_smoke.py (an edit of the first occurrence of
 # its text) and the body that occurrence must lie in: the bf16 kernel it
-# breaks, or for the SpMM walk's faults the walk (struct LiveBlocks) that
-# only the kernel of its route takes.
+# breaks, or for the SpMM walk's faults the walk (struct LiveBlocks) whose
+# part it edits only the kernel of its route takes.
 PLANTED_FAULT_KERNELS = {
     "fwd_drops_last_key_tile": ("flash_attention_fwd.cu", "flash_fwd_bf16("),
     "fwd_skips_o_rescale": ("flash_attention_fwd.cu", "flash_fwd_bf16("),
@@ -353,9 +435,11 @@ PLANTED_FAULT_KERNELS = {
                                 "flash_bwd_dkv_bf16("),
     "gather_drops_last_listed_block": ("block_sparse.cu",
                                        "struct LiveBlocks"),
-    "gather_skips_last_k16_of_a_stage": ("block_sparse.cu",
-                                         "spmm_gather_bf16("),
+    "ring_skips_last_k16_of_a_stage": ("block_sparse.cu",
+                                       "spmm_ring_bf16("),
     "masked_ignores_the_mask": ("block_sparse.cu", "struct LiveBlocks"),
+    "masked_count_stops_one_block_short": ("block_sparse.cu",
+                                           "struct LiveBlocks"),
 }
 
 
@@ -380,23 +464,51 @@ def test_every_planted_fault_is_anchored_in_its_kernel(fault):
 
 
 def test_the_spmm_walk_faults_reach_only_their_route():
-    # gather_drops_last_listed_block edits the list walk (LiveBlocks'
-    # GATHER branch) and masked_ignores_the_mask the mask scan (its other
-    # branch): the bf16 gather kernel walks the list, the masked-grid
-    # kernel, and only it, scans the mask.
+    # Both routes run one bf16 kernel, spmm_ring_bf16<BN, GATHER>: run<>
+    # hands its GATHER on unchanged, so the gather entry point instantiates
+    # the ring with GATHER = true and the masked one with GATHER = false,
+    # which walks DepthSteps<false, kGAhead>. The routes differ only in
+    # LiveBlocks: the list walk (init's GATHER branch) is the gather
+    # route's; the mask test (is_live) and the mask count (n_live past its
+    # GATHER return) are the masked route's. Each walk fault edits its
+    # route's part, the ring fault the loop both run. The mma.sync path is
+    # gone.
     import chip_smoke
 
+    faults = chip_smoke.SPMM_PLANTED_FAULTS
     src = (ROOT / "marlin_tpu_torch" / "csrc" / "block_sparse.cu").read_text()
     walk = src[src.index("struct LiveBlocks"):]
     walk = walk[:walk.index("\n};\n")]
     gather_branch = walk[walk.index("if (GATHER) {"):walk.index("} else {")]
-    assert chip_smoke.SPMM_PLANTED_FAULTS[
-        "gather_drops_last_listed_block"][0] in gather_branch
-    assert chip_smoke.SPMM_PLANTED_FAULTS["masked_ignores_the_mask"][0] \
-        in walk[walk.index("if (!GATHER) {"):]
-    gather = src[src.index("spmm_gather_bf16("):]
-    assert "DepthSteps<true> steps;" in gather[:gather.index("__global__")]
-    assert "run_bf16<128, false>" in src and "run_bf16<128, true>" not in src
+    assert faults["gather_drops_last_listed_block"][0] in gather_branch
+    is_live = walk[walk.index("bool is_live("):walk.index("void skip_dead(")]
+    assert faults["masked_ignores_the_mask"][0] in is_live
+    # is_live is called from the mask walk's code only: the window the
+    # walk reads ahead (filled only in skip_dead's !GATHER branch) and the
+    # count.
+    assert walk.count("is_live(") == 3
+    assert "window |= 1u << i;" in walk[walk.index("void fill_window("):]
+    skip = walk[walk.index("void skip_dead("):walk.index("void init(")]
+    assert skip.index("if (!GATHER) {") < skip.index("fill_window(pos);")
+    assert walk.count("fill_window(") == 2
+    count = walk[walk.index("int n_live("):]
+    count = count[count.index("if (GATHER) return count;\n"):]
+    assert faults["masked_count_stops_one_block_short"][0] in count
+    assert "__syncthreads_count(k < count && is_live(k))" in count
+    for fault in faults:
+        assert src.count(faults[fault][0]) == 1, fault
+    ring = src[src.index("spmm_ring_bf16("):]
+    ring = ring[:ring.index("__global__")]
+    assert "DepthSteps<GATHER, kGAhead> steps;" in ring
+    assert "steps.blocks.n_live(kGThreads) * steps.per_block" in ring
+    assert faults["ring_skips_last_k16_of_a_stage"][0] in ring
+    assert "run_ring_bf16<128, GATHER>(" in src
+    assert "run_ring_bf16<64, GATHER>(" in src
+    assert "run<true>(" in src and "run<false>(" in src
+    assert "if constexpr" not in src
+    for gone in ("spmm_bf16", "spmm_gather_bf16", "mma.sync", "cp.async",
+                 "ldmatrix", "Bf16Tiles", "load_stage", "run_bf16"):
+        assert gone not in src, gone
 
 
 @pytest.mark.parametrize("sq", [256, 250])

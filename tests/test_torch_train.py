@@ -253,3 +253,31 @@ class TestExample:
         with pytest.raises(NotImplementedError, match="ROADMAP Queue A1"):
             transformer_lm.main(["1", "2", "16", "64", flag, "--device",
                                  "cpu"])
+
+
+@pytest.mark.parametrize("d_model, seq, dtype", [(64, 64, "float32"),
+                                                 (128, 32, "bfloat16"),
+                                                 (32, 16, "float32")])
+def test_example_model_is_the_jax_examples(monkeypatch, d_model, seq, dtype):
+    # The JAX example's main builds its TransformerConfig from the same
+    # arguments (the config is caught as it is built, before any step);
+    # the port's example trains the same model: n_heads max(2, d_model //
+    # 32), so a head dim of 32 at the default width, which the flash
+    # wrapper pads for the card's kernels.
+    import marlin_tpu.models
+    from marlin_tpu.examples import transformer_lm as jax_example
+    from marlin_tpu_torch.examples import transformer_lm as port_example
+
+    class Built(Exception):
+        pass
+
+    def catch(**kw):
+        raise Built(kw)
+
+    monkeypatch.setattr(marlin_tpu.models, "TransformerConfig", catch)
+    with pytest.raises(Built) as built:
+        jax_example.main(["1", "8", str(seq), str(d_model), dtype])
+    want = jt.TransformerConfig(**built.value.args[0])
+    got = port_example.model_config(d_model, seq, dtype)
+    assert got._asdict() == want._asdict()
+    assert got.n_heads == max(2, d_model // 32)
