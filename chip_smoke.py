@@ -73,6 +73,22 @@ Phases, each of which exits non-zero on failure:
    the mask and data were overwritten. Then gradients in A and B against
    the plain version's autograd (dB exactly 0 outside the mask) and a
    small f32 card-against-CPU check.
+10. Dense GEMM (the paper's main path; BASELINE.md's MatrixMultiply, the
+   JAX package's headline bench config): random_den_vec_matrix operands
+   at N = 32768, bf16, on a one-rank NCCL mesh made by create_mesh() with
+   no process group beforehand; DenseVecMatrix.multiply by auto-dispatch,
+   then forced broadcast, summa, cannon, gspmd and the (1, 1, 1) grid; for
+   each, a band of 256 rows of C against an f64 product of the same rows
+   on the card (GEMM_REL_TOLERANCE); then ms, TFLOP/s and the share of
+   the bf16 peak over 3 timed products a run, in two rounds of opposite
+   order, the SM clock and power after each; peak memory; no
+   hand-written kernel launched.
+
+Phases 3 and 4 also take head dims in (128, 256] (D = 160, the transformer
+bench at BENCH_TF_D=320, and D = 256; bf16 and f32), which the wrapper
+pads to the kernels' D = Dv = 256 instantiations, with dK/dV bitwise
+repeatable there too; phase 6's small models include a D = 160 and a
+D = 256 model, trained through those instantiations.
 
 The last three lines of output are the card line from nvidia-smi, one
 {"kernels": [...]} JSON object, and {"ok": true, "device": {...}}.
@@ -137,7 +153,17 @@ SHAPES = [
     ("f32", 1, 1000, 1000, 8, 2, 128, 128, "float32", True, 0),
     ("d32_dv16_f32", 1, 1000, 1000, 8, 2, 32, 16, "float32", True, 0),
     ("d96_f32", 1, 1000, 1000, 8, 2, 96, 96, "float32", True, 0),
+    # Head dims in (128, 256], which the wrapper zero-pads to the kernels'
+    # D = Dv = 256: the transformer bench at BENCH_TF_D=320 (2 heads of
+    # D=160, B=8, S=2048) and D=256 itself, bf16 and f32.
+    ("d160", 8, 2048, 2048, 2, 2, 160, 160, "bfloat16", True, 0),
+    ("d256", 2, 2048, 2048, 4, 2, 256, 256, "bfloat16", True, 0),
+    ("d160_f32", 1, 1000, 1000, 2, 1, 160, 160, "float32", True, 0),
+    ("d256_f32", 1, 1000, 1000, 4, 2, 256, 256, "float32", True, 0),
 ]
+
+# The shapes whose kernels are the D = Dv = 256 instantiations.
+WIDE_SHAPES = ("d160", "d256", "d160_f32", "d256_f32")
 
 # Backward shapes: the training paths' two and the same edge cases.
 BWD_SHAPES = [s for s in SHAPES if s[0] != "flagship"]
@@ -173,12 +199,17 @@ FWD_TILE_TOLERANCE = {"bfloat16": 2e-2, "float32": 1e-5}
 FWD_PLANTED_FAULTS = {
     # Every query tile's key sweep stops one key tile short.
     "fwd_drops_last_key_tile": (
-        "  const int n_tiles = hi > lo ? (hi - lo + kBN - 1) / kBN : 0;\n",
-        "  const int n_tiles = hi > lo ? (hi - lo + kBN - 1) / kBN - 1 : 0;\n"),
+        "  const int n_tiles = hi > lo ? (hi - lo + BN - 1) / BN : 0;\n",
+        "  const int n_tiles = hi > lo ? (hi - lo + BN - 1) / BN - 1 : 0;\n"),
     # O is not rescaled when a row's running max grows.
     "fwd_skips_o_rescale": (
         "    for (int i = 0; i < DV / 2; ++i) acc[i] *= corr[(i >> 1) & 1];\n",
         "    for (int i = 0; i < 0; ++i) acc[i] *= corr[(i >> 1) & 1];\n"),
+    # D = 256 only: O's columns 128..255 take P times V's first 128
+    # columns (the second n128 product reads the first half's boxes).
+    "fwd256_second_half_reads_first_v_half": (
+        "                           v_base + 2 * L::kKvBox + kc * 16 * 128,\n",
+        "                           v_base + kc * 16 * 128,\n"),
 }
 
 # Planted faults of the backward (``python3 chip_smoke.py
@@ -198,8 +229,14 @@ PLANTED_FAULTS = {
     # instead of the MN-major one: the new design's own risk, a wrong
     # descriptor that still reads inside the stage.
     "dq_reads_k_as_k_major": (
-        "      sm90::wgmma_rs<1>(dqa, da[kc],\n",
-        "      sm90::wgmma_rs<0>(dqa, da[kc],\n"),
+        "      sm90::wgmma_rs_mn<1>(dqa, da[kc], k_base + kc * 16 * 128,\n",
+        "      sm90::wgmma_rs_mn<0>(dqa, da[kc], k_base + kc * 16 * 128,\n"),
+    # D = 256 only: dQ's columns 128..255 take dS times K's first 128
+    # columns.
+    "dq256_second_half_reads_first_k_half": (
+        "                           k_base + 2 * kDqBox + kc * 16 * 128, "
+        "kDqBox);\n",
+        "                           k_base + kc * 16 * 128, kDqBox);\n"),
     # The dK/dV kernel's sweep of each query head stops one query tile
     # short.
     "dkv_drops_last_query_tile": (
@@ -211,7 +248,28 @@ PLANTED_FAULTS = {
     "dkv_drops_last_key_tile": (
         "  const int n_stages = group * n_qt;\n",
         "  const int n_stages = n0 + kDkvBN >= Skv ? 0 : group * n_qt;\n"),
+    # D = 256 only: the CTA of the second column share accumulates the
+    # first share's columns of q_hat and dO (into its own columns of dK
+    # and dV), as if the split had dropped the second half.
+    "dkv256_second_share_reads_first_columns": (
+        "  const uint32_t q_share = share * (DO / 64) * kDkvBox;\n"
+        "  const uint32_t o_share = share * (DVO / 64) * kDkvBox;\n",
+        "  const uint32_t q_share = 0;\n"
+        "  const uint32_t o_share = 0;\n"),
 }
+
+# The planted faults of the flash kernels that only the D = Dv = 256
+# instantiation runs: a shape of another width must read them as sound.
+WIDE_FAULTS = ("fwd256_second_half_reads_first_v_half",
+               "dq256_second_half_reads_first_k_half",
+               "dkv256_second_share_reads_first_columns")
+
+
+def flash_fault_shows(fault: str, shape: str) -> bool:
+    """Whether planted flash fault ``fault`` can show at ``shape``: a
+    fault of the D = 256 instantiation at the WIDE_SHAPES only, every
+    other one at every shape."""
+    return fault not in WIDE_FAULTS or shape in WIDE_SHAPES
 
 # Card against CPU, the model's gradients at f32: the worst leaf's
 # max |card - cpu| / max |cpu|. Both sides run f32 arithmetic (TF32 off)
@@ -582,7 +640,7 @@ class BwdCase:
                           self.window), self.dt)
         self.delta = fa._delta(self.do, self.o)
         self.d, self.dv = d, dv
-        dp, dvp = fa._kernel_head_dim(d, "D"), fa._kernel_head_dim(dv, "Dv")
+        dp, dvp = fa._kernel_head_dims(d, dv)
         self.padded = (fa._pad_to(self.q_hat, dp), fa._pad_to(self.k, dp),
                        fa._pad_to(self.v, dvp), fa._pad_to(self.do, dvp))
 
@@ -644,12 +702,13 @@ def phase_backward():
                 fail(f"backward {name}: {label}'s worst tile "
                      f"||kernel - plain|| / ||plain|| = {rel:.3e} "
                      f"(tol {BWD_TOLERANCE[dt]})")
-        if name == "train":  # no atomics: two runs agree bit for bit
+        if name in ("train", "d160", "d256"):
+            # No atomics: two runs agree bit for bit.
             dq2, (dk2, dv2) = c.dq(), c.dkv()
             if not torch.equal(got[0], dq2):
-                fail("backward train: dQ differs between two runs")
+                fail(f"backward {name}: dQ differs between two runs")
             if not (torch.equal(got[1], dk2) and torch.equal(got[2], dv2)):
-                fail("backward train: dK/dV differ between two runs")
+                fail(f"backward {name}: dK/dV differ between two runs")
         ms_dq = cuda_ms(c.dq, iters=10)
         ms_dq_cold = cuda_ms_cold(c.dq, iters=10)
         ms_dkv = cuda_ms(c.dkv, iters=10)
@@ -805,9 +864,10 @@ def _planted_forward(libs):
                 readings[variant] = dict(
                     tile_rel=tile_rel_err(o, o_r),
                     max_abs=(o.float() - o_r.float()).abs().max().item())
-            sound = readings["sound"]["tile_rel"]
+            sound = max(r["tile_rel"] for f, r in readings.items()
+                        if not flash_fault_shows(f, name) or f == "sound")
             fault_min = min(r["tile_rel"] for f, r in readings.items()
-                            if f != "sound")
+                            if f != "sound" and flash_fault_shows(f, name))
             worst_sound = max(worst_sound, sound)
             caught = caught and sound <= tol < fault_min
             print("planted_faults: " + json.dumps(dict(
@@ -840,10 +900,12 @@ def _planted_backward(libs):
             for variant, lib in libs.items():
                 build._loaded["flash_attention_bwd"] = lib
                 readings[variant] = bwd_errors(c.kernels(), ref)
-            sound_max = max(r["tile_rel"]
-                            for r in readings["sound"].values())
+            sound_max = max(r["tile_rel"] for f, v in readings.items()
+                            if f == "sound" or not flash_fault_shows(
+                                f, c.name) for r in v.values())
             fault_min = min(max(r["tile_rel"] for r in v.values())
-                            for f, v in readings.items() if f != "sound")
+                            for f, v in readings.items()
+                            if f != "sound" and flash_fault_shows(f, c.name))
             worst_sound = max(worst_sound, sound_max)
             caught = caught and sound_max <= tol < fault_min
             print("planted_faults: " + json.dumps(dict(
@@ -1203,6 +1265,12 @@ def phase_train(card: str, seed: int = 0):
 # their own runs.
 SMALL_STEPS = 5
 
+# The small model run whose launches stand beside each WIDE_SHAPES row of
+# the kernels line.
+WIDE_RUNS = {"d160": "bench_d160_bfloat16", "d256": "wide_d256_bfloat16",
+             "d160_f32": "bench_d160_float32",
+             "d256_f32": "wide_d256_float32"}
+
 
 def small_models():
     """{name: (config, batch, seq)} of the small-head-dim models."""
@@ -1215,6 +1283,16 @@ def small_models():
                                              max_len=32), 2, 32),
         "example_d32": (transformer_lm.model_config(64, 64, "float32"), 8,
                         64),
+        # Head dims the wrapper pads to the kernels' 256: the transformer
+        # bench's width at BENCH_TF_D=320 (2 heads of D=160, d_ff 4 x
+        # d_model), cut to 2 layers, vocab 1024 and (B, S) = (2, 512) so
+        # that the CPU's f32 run stays short; and D=256 itself.
+        "bench_d160": (TransformerConfig(vocab=1024, d_model=320,
+                                         n_heads=2, n_layers=2, d_ff=1280,
+                                         max_len=512), 2, 512),
+        "wide_d256": (TransformerConfig(vocab=1024, d_model=512, n_heads=2,
+                                        n_layers=2, d_ff=2048, max_len=512),
+                      2, 512),
     }
 
 
@@ -2000,6 +2078,132 @@ def phase_spmm_grad(seed: int = 0):
              f"(tol {GRAD_TOLERANCE})")
 
 
+# The dense GEMM: the port's counterpart of BASELINE.md's MatrixMultiply
+# and the JAX package's `headline` bench config (benchlib/configs_gemm.py:
+# 21): random_den_vec_matrix operands at N = 32768, bf16, multiplied
+# through DenseVecMatrix.multiply on a one-rank NCCL mesh (one card), by
+# auto-dispatch and by each forced engine.
+GEMM_N = 32768
+GEMM_BAND = (12288, 256)  # (first row, rows) of the result held to f64
+# The band against an f64 product of the same bf16 rows on the card, per
+# element |C - ref| / |ref| (every entry of the product of two U(0, 1)
+# matrices is ~N / 4 > 0). cuBLAS's bf16 GEMM accumulates in f32: over N
+# positive terms that is at most N * 2^-24 = 2.0e-3 relative; rounding C
+# to bf16 (8 significant bits) adds at most 2^-8 = 3.9e-3.
+GEMM_REL_TOLERANCE = 6e-3
+GEMM_ITERS = 3
+GEMM_RUNS = (("auto", {}), ("broadcast", {"mode": "broadcast"}),
+             ("summa", {"mode": "summa"}), ("cannon", {"mode": "cannon"}),
+             ("gspmd", {"mode": "gspmd"}), ("grid_1x1x1", {"mode": (1, 1, 1)}))
+
+
+def smi_clock_power():
+    """The card's SM clock (MHz) and power draw (W) now, from
+    nvidia-smi."""
+    res = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.splitlines()[0].split(",")
+    return float(res[0]), float(res[1])
+
+
+def phase_gemm(card: str):
+    """The dense GEMM at the headline size on a one-rank NCCL mesh: each
+    run of GEMM_RUNS multiplies once to warm up, its result's GEMM_BAND
+    rows are held to the f64 product of the same rows at
+    GEMM_REL_TOLERANCE; then GEMM_ITERS products of each run are timed
+    between CUDA events, in two rounds of opposite order (``ms`` is
+    their mean). No hand-written kernel launches (the flash and SpMM counters
+    stay 0). Prints one "gemm:" line per run and a summary line; returns
+    the summary."""
+    import torch
+    import torch.distributed as dist
+
+    from marlin_tpu_torch import mesh as pm
+    from marlin_tpu_torch.ops import block_sparse as bs
+    from marlin_tpu_torch.ops import flash_attention as fa
+    from marlin_tpu_torch.utils import random as mrand
+
+    n = GEMM_N
+    mesh = pm.create_mesh()
+    if dist.get_backend() != "nccl" or mesh.size != 1:
+        fail(f"gemm: expected a one-rank NCCL mesh, got "
+             f"{dist.get_backend()} over {mesh.size} ranks")
+    _zero_counters(fa)
+    spmm_before = (bs.gather_launches, bs.masked_launches)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    a = mrand.random_den_vec_matrix(n, n, seed=1, mesh=mesh,
+                                    dtype=torch.bfloat16)
+    b = mrand.random_den_vec_matrix(n, n, seed=2, mesh=mesh,
+                                    dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    r0, rows = GEMM_BAND
+    ref = (a.logical[r0:r0 + rows].double()
+           @ b.logical.double())
+    flops = 2.0 * n ** 3
+    bound_ms, bound_by = bound(flops, 3 * n * n * 2, torch.bfloat16)
+    out = {}
+    for label, kw in GEMM_RUNS:
+        c = a.multiply(b, **kw)
+        torch.cuda.synchronize()
+        band = c.logical[r0:r0 + rows].double()
+        if tuple(c.shape) != (n, n) or not bool(torch.isfinite(band).all()):
+            fail(f"gemm {label}: shape {c.shape} or non-finite values")
+        rel = ((band - ref).abs() / ref.abs()).max().item()
+        if not rel <= GEMM_REL_TOLERANCE:
+            fail(f"gemm {label}: band |C - f64| / |f64| = {rel:.3e} (tol "
+                 f"{GEMM_REL_TOLERANCE})")
+        out[label] = dict(run=label, result=type(c).__name__, n=n,
+                          dtype="bfloat16", band_max_rel_err=rel,
+                          bound_ms=bound_ms, bound_by=bound_by, card=card,
+                          ms_rounds=[], sm_clock_mhz=[], power_w=[])
+        del c, band
+    # Timed in two rounds, the runs in opposite orders, so a run's place
+    # in the sequence (the card's clocks under its power limit) is not
+    # read as its cost; the SM clock and power after each window beside.
+    for order in (GEMM_RUNS, GEMM_RUNS[::-1]):
+        for label, kw in order:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(GEMM_ITERS):
+                c = a.multiply(b, **kw)
+                del c
+            end.record()
+            torch.cuda.synchronize()
+            row = out[label]
+            row["ms_rounds"].append(start.elapsed_time(end) / GEMM_ITERS)
+            clock, power = smi_clock_power()
+            row["sm_clock_mhz"].append(clock)
+            row["power_w"].append(power)
+    for label, row in out.items():
+        ms = sum(row["ms_rounds"]) / len(row["ms_rounds"])
+        row.update(ms=ms, tflops=flops / ms / 1e9,
+                   peak_share=flops / ms / 1e-3
+                   / PEAK_FLOPS["torch.bfloat16"])
+        print("gemm: " + json.dumps(row), flush=True)
+    peak = torch.cuda.max_memory_allocated()
+    launched = dict(**_counters(fa), gather=bs.gather_launches
+                    - spmm_before[0], masked=bs.masked_launches
+                    - spmm_before[1])
+    if any(launched.values()):
+        fail(f"gemm: hand-written kernels launched: {launched}")
+    summary = dict(card=card, n=n, dtype="bfloat16", operands_gb=3 * n * n
+                   * 2 / 1e9, peak_mem_gb=peak / 1e9, generate_s=gen_s,
+                   band=list(GEMM_BAND), tolerance=GEMM_REL_TOLERANCE,
+                   auto_ms=out["auto"]["ms"],
+                   auto_tflops=out["auto"]["tflops"],
+                   auto_peak_share=out["auto"]["peak_share"],
+                   kernel_launches=launched)
+    print("gemm_summary: " + json.dumps(summary), flush=True)
+    del a, b, ref
+    dist.destroy_process_group()
+    pm.set_default_mesh(None)
+    return summary
+
+
 def spmm_kernel_entries(spmm, launches):
     """The two SpMM kernels' entries of the {"kernels": [...]} object.
     ``spmm`` is phase_spmm's rows; ``launches`` is {path: {"gather": n,
@@ -2068,6 +2272,14 @@ def kernels_line(rows, bwd, launches, small, spmm, spmm_launches):
         return {run: dict(shape=run, launches=n[kernel])
                 for run, n in small.items()}
 
+    def wide(kernel, make, table):
+        """The D = Dv = 256 instantiation's entries: each WIDE_SHAPES
+        row, with the launches of the small model run of that head dim
+        and dtype (counted once, under that run's path)."""
+        return {shape: {**make(small[run][kernel], table[shape]),
+                        "launches_of_run": run}
+                for shape, run in WIDE_RUNS.items()}
+
     def bwd_kernel(kernel, replaces, labels):
         paths = {p: (launches[p][kernel], bwd[p]) for p in ("train", "remat")}
 
@@ -2095,7 +2307,7 @@ def kernels_line(rows, bwd, launches, small, spmm, spmm_launches):
                 "plain_ms_covers": "the whole plain backward: dQ, dK, dV",
                 "library_ms_covers": "scaled_dot_product_attention's "
                                      "backward: dQ, dK and dV in one call",
-                "paths": all_paths}
+                "paths": all_paths, "head_dim_256": wide(kernel, entry, bwd)}
 
     fwd_top = fwd_entry(*fwd_paths["serve"])
     fwd_all = {**{p: fwd_entry(*v) for p, v in fwd_paths.items()},
@@ -2106,7 +2318,7 @@ def kernels_line(rows, bwd, launches, small, spmm, spmm_launches):
          "replaces": "marlin_tpu/ops/flash_attention.py:134",
          **fwd_top, "launches": sum(e["launches"] for e in fwd_all.values()),
          "library_ms_covers": "scaled_dot_product_attention's forward",
-         "paths": fwd_all},
+         "paths": fwd_all, "head_dim_256": wide("fwd", fwd_entry, rows)},
         bwd_kernel("dq", "marlin_tpu/ops/flash_attention.py:335", ("dq",)),
         bwd_kernel("dkv", "marlin_tpu/ops/flash_attention.py:373",
                    ("dk", "dv")),
@@ -2149,6 +2361,7 @@ def main(argv=None) -> int:
     spmm_launches = phase_spmm_path(card)
     spmm_launches["graph512"] = phase_spmm_graph()
     phase_spmm_grad()
+    phase_gemm(card)
     kernels = kernels_line(rows, bwd, launches, small, spmm, spmm_launches)
     print(card)
     print(json.dumps(kernels))

@@ -71,6 +71,15 @@
 // accumulator registers for dK and dV beside 32 + 32 for S^T and dP^T, so
 // two CTAs share an SM and overlap each other's loads and softmax.
 //
+// At D = Dv = 256 (head dims in (128, 256], which the wrapper zero-pads to
+// 256 as the reference pads to its 128-lane tile) both kernels keep their
+// 64 x 64 tiles and 2-stage rings (192 KB of shared memory: one CTA an
+// SM). dQ's 64 x 256 accumulator takes 128 registers a thread and its
+// dS K product is two n128 wgmma. dK and dV together would take 256, so
+// two CTAs share each key tile (grid z), each owning 128 of dK's and dV's
+// columns and recomputing the whole S^T and dP^T: twice those two
+// products, the same fixed order of sums, still no atomics.
+//
 // The f32 path is a plain FMA kernel per direction (4 threads per row,
 // f32 products in f32, no TF32), so it matches a full-f32 reference to
 // summation order.
@@ -322,7 +331,8 @@ flash_bwd_dq_bf16(const __grid_constant__ CUtensorMap tq,
       dq_ds<false>(sc, dp, lrow, drow, n0, qp0, t, Sq, Skv, causal, window);
 
     // dQ += dS K: dS from registers, K the MN-major B (k16 step = 16 keys
-    // = 2048 bytes in; LBO = the box stride, the next 64 columns of D).
+    // = 2048 bytes in; LBO = the box stride, the next 64 columns of D); at
+    // D = 256 two n128 products, the second on K's boxes 2 and 3.
     uint32_t da[kDqBN / 16][4];
 #pragma unroll
     for (int kc = 0; kc < kDqBN / 16; ++kc) sm90::acc_to_a(dp, kc, da[kc]);
@@ -330,10 +340,8 @@ flash_bwd_dq_bf16(const __grid_constant__ CUtensorMap tq,
     sm90::wgmma_fence();
 #pragma unroll
     for (int kc = 0; kc < kDqBN / 16; ++kc)
-      sm90::wgmma_rs<1>(dqa, da[kc],
-                        sm90::desc_sw128(k_base + kc * 16 * 128, kDqBox,
-                                         1024),
-                        1);
+      sm90::wgmma_rs_mn<1>(dqa, da[kc], k_base + kc * 16 * 128,
+                           k_base + 2 * kDqBox + kc * 16 * 128, kDqBox);
     sm90::wgmma_commit();
     sm90::wgmma_wait<0>();
     sm90::fence_regs(dqa);
@@ -360,6 +368,16 @@ constexpr int kDkvBM = 64;      // query rows per stage
 constexpr int kDkvStages = 2;   // q_hat / dO tiles in the ring
 constexpr int kDkvThreads = 128;
 constexpr int kDkvBox = 64 * 128;  // bytes of one TMA box: 64 rows x 64 bf16
+
+// CTAs that share a key tile, each owning D / n of dK's and Dv / n of dV's
+// columns: 1 up to D, Dv = 128; 2 at 256, where two 64 x 256 f32
+// accumulators (256 registers a thread) cannot fit one warpgroup. Each of
+// the two recomputes the whole S^T and dP^T (over all of D and Dv) and
+// adds P^T dO and dS^T q_hat into its 128 columns only.
+template <int D, int DV>
+__host__ __device__ constexpr int dkv_split() {
+  return D > 128 || DV > 128 ? 2 : 1;
+}
 
 // Byte offsets into the (1024-aligned) dynamic shared memory.
 template <int D, int DV>
@@ -401,9 +419,9 @@ __device__ __forceinline__ void dkv_p_ds(float (&st)[32], float (&dpt)[32],
   }
 }
 
-// One CTA per (b, kv head, 64-key tile), the key tiles on grid y so that
-// key tile 0 of every head (the most query tiles under causal) launches
-// first. K and V come in once by TMA and stay; the CTA sweeps its group's
+// One CTA per (b, kv head, 64-key tile, column share of dkv_split), the
+// key tiles on grid y so that key tile 0 of every head (the most query
+// tiles under causal) launches first. K and V come in once by TMA and stay; the CTA sweeps its group's
 // query heads and each head's live 64-row query tiles as one flat sequence
 // of stages, each a q_hat and a dO tile by TMA plus the tile's lse and
 // Delta (plain loads into shared memory, one ahead). Per stage:
@@ -424,6 +442,8 @@ flash_bwd_dkv_bf16(const __grid_constant__ CUtensorMap tq,
                    __nv_bfloat16* __restrict__ dv, int H, int Hk, int Sq,
                    int Skv, int causal, int window) {
   using L = DkvSmem<D, DV>;
+  constexpr int DO = D / dkv_split<D, DV>();   // dK columns this CTA owns
+  constexpr int DVO = DV / dkv_split<D, DV>();  // and dV columns
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* smem = sm90::align1024(smem_raw);
   float* stats = reinterpret_cast<float*>(smem + L::kStats);
@@ -432,6 +452,7 @@ flash_bwd_dkv_bf16(const __grid_constant__ CUtensorMap tq,
   uint64_t* kvbar = empty + kDkvStages;
 
   const int n0 = blockIdx.y * kDkvBN;
+  const int share = blockIdx.z;  // columns [share * DO, share * DO + DO)
   const int bhk = blockIdx.x;
   const int b = bhk / Hk;
   const int hk = bhk % Hk;
@@ -494,11 +515,14 @@ flash_bwd_dkv_bf16(const __grid_constant__ CUtensorMap tq,
   const int kp1 = kp0 + 8;
   const uint32_t k_base = sm90::smem_u32(smem);
   const uint32_t v_base = k_base + L::kK;
-  float dka[D / 2], dva[DV / 2];
+  // Offsets of this CTA's columns within a stage's q_hat and dO tiles.
+  const uint32_t q_share = share * (DO / 64) * kDkvBox;
+  const uint32_t o_share = share * (DVO / 64) * kDkvBox;
+  float dka[DO / 2], dva[DVO / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) dka[i] = 0.f;
+  for (int i = 0; i < DO / 2; ++i) dka[i] = 0.f;
 #pragma unroll
-  for (int i = 0; i < DV / 2; ++i) dva[i] = 0.f;
+  for (int i = 0; i < DVO / 2; ++i) dva[i] = 0.f;
 
   sm90::mbar_wait(kvbar, 0);
   for (int i = 0; i < n_stages; ++i) {
@@ -552,7 +576,8 @@ flash_bwd_dkv_bf16(const __grid_constant__ CUtensorMap tq,
     else
       dkv_p_ds<false>(st, dpt, sL, sD, m0, kp0, t, Sq, Skv, causal, window);
 
-    // dV += P^T dO and dK += dS^T q_hat: 64 / 16 k16 steps over the queries.
+    // dV += P^T dO and dK += dS^T q_hat over this CTA's columns: 64 / 16
+    // k16 steps over the queries.
     uint32_t pa[kDkvBM / 16][4], da[kDkvBM / 16][4];
 #pragma unroll
     for (int kc = 0; kc < kDkvBM / 16; ++kc) {
@@ -565,14 +590,14 @@ flash_bwd_dkv_bf16(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
     for (int kc = 0; kc < kDkvBM / 16; ++kc)
       sm90::wgmma_rs<1>(dva, pa[kc],
-                        sm90::desc_sw128(o_base + kc * 16 * 128, kDkvBox,
-                                         1024),
+                        sm90::desc_sw128(o_base + o_share + kc * 16 * 128,
+                                         kDkvBox, 1024),
                         1);
 #pragma unroll
     for (int kc = 0; kc < kDkvBM / 16; ++kc)
       sm90::wgmma_rs<1>(dka, da[kc],
-                        sm90::desc_sw128(q_base + kc * 16 * 128, kDkvBox,
-                                         1024),
+                        sm90::desc_sw128(q_base + q_share + kc * 16 * 128,
+                                         kDkvBox, 1024),
                         1);
     sm90::wgmma_commit();
     sm90::wgmma_wait<0>();
@@ -583,8 +608,10 @@ flash_bwd_dkv_bf16(const __grid_constant__ CUtensorMap tq,
     __syncthreads();  // the next stage's stats are in; this stage's read
   }
 
-  __nv_bfloat16* dkg = dk + (long long)b * Skv * Hk * D + hk * D;
-  __nv_bfloat16* dvg = dv + (long long)b * Skv * Hk * DV + hk * DV;
+  __nv_bfloat16* dkg =
+      dk + (long long)b * Skv * Hk * D + hk * D + share * DO;
+  __nv_bfloat16* dvg =
+      dv + (long long)b * Skv * Hk * DV + hk * DV + share * DVO;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int kp = r ? kp1 : kp0;
@@ -592,12 +619,12 @@ flash_bwd_dkv_bf16(const __grid_constant__ CUtensorMap tq,
     __nv_bfloat16* krow = dkg + (long long)kp * Hk * D + 2 * t;
     __nv_bfloat16* vrow = dvg + (long long)kp * Hk * DV + 2 * t;
 #pragma unroll
-    for (int nd = 0; nd < D / 8; ++nd)
+    for (int nd = 0; nd < DO / 8; ++nd)
       *reinterpret_cast<__nv_bfloat162*>(krow + nd * 8) =
           __floats2bfloat162_rn(dka[nd * 4 + 2 * r] * kLn2,
                                 dka[nd * 4 + 2 * r + 1] * kLn2);
 #pragma unroll
-    for (int nv = 0; nv < DV / 8; ++nv)
+    for (int nv = 0; nv < DVO / 8; ++nv)
       *reinterpret_cast<__nv_bfloat162*>(vrow + nv * 8) =
           __floats2bfloat162_rn(dva[nv * 4 + 2 * r], dva[nv * 4 + 2 * r + 1]);
   }
@@ -886,7 +913,7 @@ cudaError_t run_dkv(int dtype, const void* q, const void* k, const void* v,
     const size_t smem = DkvSmem<D, DV>::kBytes;
     auto kernel = flash_bwd_dkv_bf16<D, DV>;
     if ((err = set_smem(kernel, smem)) != cudaSuccess) return err;
-    dim3 grid(B * Hk, (Skv + kDkvBN - 1) / kDkvBN);
+    dim3 grid(B * Hk, (Skv + kDkvBN - 1) / kDkvBN, dkv_split<D, DV>());
     kernel<<<grid, kDkvThreads, smem, st>>>(
         tq, tk, tv, tdo, lse, delta, static_cast<__nv_bfloat16*>(dk),
         static_cast<__nv_bfloat16*>(dv), H, Hk, Sq, Skv, causal, window);
@@ -918,7 +945,8 @@ bool valid_shape(int dtype, int B, int H, int Hk, int Sq, int Skv) {
   if (D == 64 && DV == 64) return (int)RUN<64, 64>(__VA_ARGS__);    \
   if (D == 64 && DV == 128) return (int)RUN<64, 128>(__VA_ARGS__);  \
   if (D == 128 && DV == 64) return (int)RUN<128, 64>(__VA_ARGS__);  \
-  if (D == 128 && DV == 128) return (int)RUN<128, 128>(__VA_ARGS__);
+  if (D == 128 && DV == 128) return (int)RUN<128, 128>(__VA_ARGS__);  \
+  if (D == 256 && DV == 256) return (int)RUN<256, 256>(__VA_ARGS__);
 
 // C entry points, bound with ctypes (marlin_tpu_torch/ops/flash_attention.py).
 // dtype: 0 = bf16, 1 = f32. Each returns the cudaError_t of its launch

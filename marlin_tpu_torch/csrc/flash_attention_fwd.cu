@@ -45,6 +45,11 @@
 //   * masks are applied per element only in tiles that straddle the
 //     diagonal, the window's edge or Skv; fully live tiles take none. TMA
 //     zero-fills rows past S, so a masked key never brings a NaN into P V.
+// At D = Dv = 256 (head dims in (128, 256], zero-padded by the wrapper as
+// the reference pads to its 128-lane tile) O's 64 x 256 f32 accumulator
+// takes 128 registers a thread: the K/V tile shrinks to 64 keys (S: 32
+// registers), Q (64 KB) and two 64 KB stages fill 192 KB of shared memory,
+// and P V is two n128 wgmma, the second on V's columns 128..255.
 // It does not use a producer warp, setmaxnreg or two tiles in flight per
 // warpgroup (FA3's ping-pong); those are the next steps toward the bound.
 //
@@ -93,17 +98,27 @@ __device__ __forceinline__ void key_range(int m0, int bm, int bn, int skv,
 
 constexpr int kBM = 128;       // query rows per CTA (2 warpgroups x 64)
 constexpr int kBN = 128;       // keys per K/V tile
+constexpr int kBN256 = 64;     // keys per K/V tile at D = Dv = 256
 constexpr int kStages = 2;     // K/V tiles in the ring
 constexpr int kConsumers = 2;  // warpgroups
 constexpr int kWgThreads = 128 * kConsumers;
 constexpr int kBox = 128 * 128;  // bytes of one TMA box: 128 rows x 64 bf16
 
+// Keys per K/V tile: kBN up to D, Dv = 128; at 256 a 64 x 256 f32 O
+// accumulator takes 128 registers a thread, so S shrinks to 64 keys (32
+// registers) and the ring's stages to 64 keys (64 KB each, 192 KB with Q).
+template <int D, int DV>
+__host__ __device__ constexpr int fwd_bn() {
+  return D > 128 || DV > 128 ? kBN256 : kBN;
+}
+
 // Byte offsets into the (1024-aligned) dynamic shared memory.
 template <int D, int DV>
 struct FwdSmem {
+  static constexpr int kKvBox = fwd_bn<D, DV>() * 128;  // one K or V box
   static constexpr int kQ = (D / 64) * kBox;      // the CTA's Q tile
-  static constexpr int kK = (D / 64) * kBox;      // one K tile
-  static constexpr int kStage = kK + (DV / 64) * kBox;  // K then V
+  static constexpr int kK = (D / 64) * kKvBox;    // one K tile
+  static constexpr int kStage = kK + (DV / 64) * kKvBox;  // K then V
   static constexpr int kBars = kQ + kStages * kStage;   // full, empty, q
   static constexpr int kBytes = kBars + 8 * (2 * kStages + 1) + 1024;
 };
@@ -116,6 +131,7 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tq,
                __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
                int H, int Hk, int Sq, int Skv, int causal, int window) {
   using L = FwdSmem<D, DV>;
+  constexpr int BN = fwd_bn<D, DV>();
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* smem = sm90::align1024(smem_raw);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::kBars);
@@ -136,8 +152,8 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tq,
   const int t = lane % 4;  // accumulator column pair
 
   int lo, hi;
-  key_range(m0, kBM, kBN, Skv, causal, window, &lo, &hi);
-  const int n_tiles = hi > lo ? (hi - lo + kBN - 1) / kBN : 0;
+  key_range(m0, kBM, BN, Skv, causal, window, &lo, &hi);
+  const int n_tiles = hi > lo ? (hi - lo + BN - 1) / BN : 0;
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStages; ++s) {
@@ -155,11 +171,11 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tq,
     unsigned char* dst = smem + L::kQ + s * L::kStage;
     sm90::mbar_arrive_expect_tx(&full[s], L::kStage);
     for (int c = 0; c < D / 64; ++c)
-      sm90::tma_load_4d(dst + c * kBox, &tk, &full[s], c * 64, hk,
-                        lo + j * kBN, b);
+      sm90::tma_load_4d(dst + c * L::kKvBox, &tk, &full[s], c * 64, hk,
+                        lo + j * BN, b);
     for (int c = 0; c < DV / 64; ++c)
-      sm90::tma_load_4d(dst + L::kK + c * kBox, &tv, &full[s], c * 64, hk,
-                        lo + j * kBN, b);
+      sm90::tma_load_4d(dst + L::kK + c * L::kKvBox, &tv, &full[s], c * 64,
+                        hk, lo + j * BN, b);
   };
   if (threadIdx.x == 0) {
     sm90::mbar_arrive_expect_tx(qbar, L::kQ);
@@ -195,29 +211,31 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tq,
     const uint32_t k_base = sm90::smem_u32(smem + L::kQ + s * L::kStage);
     const uint32_t v_base = k_base + L::kK;
 
-    // S = q_hat K^T: 64 rows x 128 keys, D / 16 k16 steps.
-    float sc[kBN / 2];
+    // S = q_hat K^T: 64 rows x BN keys, D / 16 k16 steps.
+    float sc[BN / 2];
 #pragma unroll
-    for (int i = 0; i < kBN / 2; ++i) sc[i] = 0.f;
+    for (int i = 0; i < BN / 2; ++i) sc[i] = 0.f;
     sm90::fence_regs(sc);
     sm90::wgmma_fence();
 #pragma unroll
     for (int kc = 0; kc < D / 16; ++kc) {
-      const uint32_t off = (kc / 4) * kBox + (kc % 4) * 32;
-      sm90::wgmma_ss<0>(sc, sm90::desc_sw128(q_base + off, 16, 1024),
-                        sm90::desc_sw128(k_base + off, 16, 1024), kc > 0);
+      const uint32_t off = (kc % 4) * 32;
+      sm90::wgmma_ss<0>(
+          sc, sm90::desc_sw128(q_base + (kc / 4) * kBox + off, 16, 1024),
+          sm90::desc_sw128(k_base + (kc / 4) * L::kKvBox + off, 16, 1024),
+          kc > 0);
     }
     sm90::wgmma_commit();
     sm90::wgmma_wait<0>();
     sm90::fence_regs(sc);
 
     // Per-element masks only where the tile straddles an edge.
-    const int n0 = lo + j * kBN;
-    const bool edge = n0 + kBN > Skv || (causal && n0 + kBN - 1 > row0) ||
+    const int n0 = lo + j * BN;
+    const bool edge = n0 + BN > Skv || (causal && n0 + BN - 1 > row0) ||
                       (window && n0 <= row0 + 63 - window);
     if (edge) {
 #pragma unroll
-      for (int nt = 0; nt < kBN / 8; ++nt) {
+      for (int nt = 0; nt < BN / 8; ++nt) {
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const int kp = n0 + nt * 8 + 2 * t + (i & 1);
@@ -230,7 +248,7 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tq,
     // Online softmax in base 2 for the thread's rows g and g + 8.
     float mx[2] = {mrow[0], mrow[1]};
 #pragma unroll
-    for (int i = 0; i < kBN / 2; ++i)
+    for (int i = 0; i < BN / 2; ++i)
       mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -245,24 +263,25 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tq,
       lrow[r] *= corr[r];
     }
 #pragma unroll
-    for (int i = 0; i < kBN / 2; ++i) {
+    for (int i = 0; i < BN / 2; ++i) {
       sc[i] = exp2f(sc[i] - mrow[(i >> 1) & 1]);
       lrow[(i >> 1) & 1] += sc[i];
     }
 #pragma unroll
     for (int i = 0; i < DV / 2; ++i) acc[i] *= corr[(i >> 1) & 1];
 
-    // O += P V: P from registers, V the MN-major B, 128 / 16 k16 steps.
-    uint32_t pa[kBN / 16][4];
+    // O += P V: P from registers, V the MN-major B, BN / 16 k16 steps; at
+    // Dv = 256 two n128 products, the second on V's boxes 2 and 3.
+    uint32_t pa[BN / 16][4];
 #pragma unroll
-    for (int kc = 0; kc < kBN / 16; ++kc) sm90::acc_to_a(sc, kc, pa[kc]);
+    for (int kc = 0; kc < BN / 16; ++kc) sm90::acc_to_a(sc, kc, pa[kc]);
     sm90::fence_regs(acc);
     sm90::wgmma_fence();
 #pragma unroll
-    for (int kc = 0; kc < kBN / 16; ++kc)
-      sm90::wgmma_rs<1>(acc, pa[kc],
-                        sm90::desc_sw128(v_base + kc * 16 * 128, kBox, 1024),
-                        1);
+    for (int kc = 0; kc < BN / 16; ++kc)
+      sm90::wgmma_rs_mn<1>(acc, pa[kc], v_base + kc * 16 * 128,
+                           v_base + 2 * L::kKvBox + kc * 16 * 128,
+                           L::kKvBox);
     sm90::wgmma_commit();
     sm90::wgmma_wait<0>();
     sm90::fence_regs(acc);
@@ -410,9 +429,10 @@ cudaError_t run_bf16(const void* q, const void* k, const void* v, void* o,
                      int causal, int window, cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
   cudaError_t err;
+  constexpr int BN = fwd_bn<D, DV>();
   if ((err = sm90::tmap_bshd(&tq, q, B, Sq, H, D, kBM)) != cudaSuccess ||
-      (err = sm90::tmap_bshd(&tk, k, B, Skv, Hk, D, kBN)) != cudaSuccess ||
-      (err = sm90::tmap_bshd(&tv, v, B, Skv, Hk, DV, kBN)) != cudaSuccess)
+      (err = sm90::tmap_bshd(&tk, k, B, Skv, Hk, D, BN)) != cudaSuccess ||
+      (err = sm90::tmap_bshd(&tv, v, B, Skv, Hk, DV, BN)) != cudaSuccess)
     return err;
   const int smem = FwdSmem<D, DV>::kBytes;
   auto kernel = flash_fwd_bf16<D, DV>;
@@ -471,6 +491,9 @@ extern "C" int marlin_flash_attention_fwd(int dtype, const void* q,
                              window, st);                                     \
   if (D == 128 && DV == 128)                                                  \
     return (int)RUN<128, 128>(q, k, v, o, l, B, H, Hk, Sq, Skv, causal,       \
+                              window, st);                                    \
+  if (D == 256 && DV == 256)                                                  \
+    return (int)RUN<256, 256>(q, k, v, o, l, B, H, Hk, Sq, Skv, causal,       \
                               window, st);
   if (dtype == 0) {
     MARLIN_DISPATCH(run_bf16)

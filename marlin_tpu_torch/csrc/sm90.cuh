@@ -60,7 +60,7 @@ inline EncodeTiled encode_tiled() {
 // box is 64 columns x 1 head x `rows` rows x 1 batch row, 128-byte swizzled.
 // S is a dimension of its own, so a box that runs past S reads zeros there
 // and never the next batch row. Needs a 16-byte-aligned base (the caller
-// checks) and width in {64, 128}.
+// checks) and a width that is a multiple of 64 (64, 128 or 256).
 inline cudaError_t tmap_bshd(CUtensorMap* map, const void* base, int B, int S,
                              int heads, int width, int rows) {
   EncodeTiled encode = encode_tiled();
@@ -352,6 +352,26 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d),
         "n"(TB));
+}
+
+// D (64 x 2R, f32) += A (64 x 16, bf16, registers) B (16 x 2R, bf16,
+// shared, MN-major at `b`, LBO = the box stride `box`) for 2R in {64, 128,
+// 256}: one wgmma up to 128 columns; at 256 two m64n128k16 products, the
+// second writing d[64..127] from B's columns 128..255 at `b_hi` (two boxes
+// on from `b`). Up to 128 columns `b_hi` is not read.
+template <int TB, int R>
+__device__ __forceinline__ void wgmma_rs_mn(float (&d)[R],
+                                            const uint32_t (&a)[4], uint32_t b,
+                                            uint32_t b_hi, uint32_t box) {
+  static_assert(R == 32 || R == 64 || R == 128, "N is 64, 128 or 256");
+  if constexpr (R <= 64) {
+    wgmma_rs<TB>(d, a, desc_sw128(b, box, 1024), 1);
+  } else {
+    wgmma_rs<TB>(*reinterpret_cast<float(*)[64]>(&d[0]), a,
+                 desc_sw128(b, box, 1024), 1);
+    wgmma_rs<TB>(*reinterpret_cast<float(*)[64]>(&d[64]), a,
+                 desc_sw128(b_hi, box, 1024), 1);
+  }
 }
 
 }  // namespace sm90

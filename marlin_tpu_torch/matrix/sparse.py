@@ -8,12 +8,13 @@ or a dense array -> :class:`SparseVecMatrix` ->
 :meth:`SparseVecMatrix.to_block_sparse` -> the block-sparse GEMM kernels
 (``ops.block_sparse``).
 
-One device only: every constructor takes ``device`` (default the GPU,
-raising without one). What needs the device mesh, the dense distributed
-types or the distributed sparse ring raises ``NotImplementedError`` naming
-the ROADMAP item that ports it: a non-None ``mesh`` and every
-``DenseVecMatrix`` operand or result (A2); ``distribute``,
-``multiply_sparse``, ``to_dist_sparse`` and ``als`` (A4b).
+The sparse data lives whole on one device: every constructor takes
+``device`` (default the GPU, raising without one), or a ``mesh``, whose
+device it then uses and which a ``DenseVecMatrix`` result lands on
+(``to_dense_vec_matrix``, ``from_dense``, sparse x dense). What needs the
+distributed sparse ring raises ``NotImplementedError`` naming the ROADMAP
+item that ports it: ``distribute``, ``multiply_sparse``,
+``to_dist_sparse`` and ``als`` (A4b).
 """
 
 from __future__ import annotations
@@ -32,9 +33,9 @@ def _deferred(what: str, item: str):
         f"{what} is not ported yet: ROADMAP.md Queue A, item {item}")
 
 
-def _check_mesh(mesh) -> None:
-    if mesh is not None:
-        raise _deferred("a device mesh (mesh=...)", "A2")
+def _device(mesh, device) -> torch.device:
+    """The mesh's device where there is a mesh, else ``device``."""
+    return mesh.device if mesh is not None else resolve_device(device)
 
 
 def _coo(idx, values, shape) -> torch.Tensor:
@@ -82,8 +83,8 @@ class CoordinateMatrix:
     def __init__(self, rows, cols, values,
                  shape: Optional[Tuple[int, int]] = None, mesh=None,
                  padded: bool = False, device="cuda"):
-        _check_mesh(mesh)
-        dev = resolve_device(device)
+        self.mesh = mesh
+        dev = _device(mesh, device)
         idx_dtype = torch.int64 if x64_enabled() else torch.int32
         self.row_idx = torch.as_tensor(rows).to(device=dev, dtype=idx_dtype)
         self.col_idx = torch.as_tensor(cols).to(device=dev, dtype=idx_dtype)
@@ -153,7 +154,18 @@ class CoordinateMatrix:
     to_breeze = to_numpy
 
     def to_dense_vec_matrix(self, mesh=None):
-        raise _deferred("DenseVecMatrix (to_dense_vec_matrix)", "A2")
+        """Densify to the row-distributed type (``toDenseVecMatrix``,
+        CoordinateMatrix.scala:51) in the config's default dtype;
+        duplicate indices add. On ``mesh``, else this matrix's, else the
+        default mesh."""
+        from ..config import get_config
+        from .dense import DenseVecMatrix
+
+        dtype = get_config().default_dtype
+        out = torch.zeros(self.shape, dtype=dtype, device=self.device)
+        out.index_put_((self.row_idx.long(), self.col_idx.long()),
+                       self.values.to(dtype), accumulate=True)
+        return DenseVecMatrix(out, mesh=mesh or self.mesh)
 
     def to_sparse_coo(self) -> torch.Tensor:
         """The triples as a torch sparse COO tensor (not coalesced), the
@@ -176,8 +188,7 @@ class CoordinateMatrix:
                         "A4b")
 
     def to_sparse_vec_matrix(self, mesh=None):
-        _check_mesh(mesh)
-        return SparseVecMatrix(self.to_sparse_coo())
+        return SparseVecMatrix(self.to_sparse_coo(), mesh=mesh or self.mesh)
 
     def als(self, rank: int, iterations: int = 10, lambda_: float = 0.01,
             implicit_prefs: bool = False, alpha: float = 1.0, seed=None):
@@ -191,7 +202,7 @@ class SparseVecMatrix:
     """Sparse matrix backed by a torch sparse COO tensor on one device."""
 
     def __init__(self, coo: torch.Tensor, mesh=None):
-        _check_mesh(mesh)
+        self.mesh = mesh
         if coo.layout != torch.sparse_coo:
             raise ValueError(
                 f"expected a sparse COO tensor, got layout {coo.layout}")
@@ -232,26 +243,27 @@ class SparseVecMatrix:
     # -- constructors -------------------------------------------------------
     @classmethod
     def from_dense(cls, mat, mesh=None):
-        raise _deferred("DenseVecMatrix (from_dense)", "A2")
+        """From a distributed dense matrix (its logical value; collective
+        over its mesh)."""
+        return cls.from_dense_array(mat.logical, mesh=mesh or mat.mesh)
 
     @classmethod
     def from_dense_array(cls, arr, mesh=None, device="cuda"):
         """From a dense array or tensor: one stored entry per nonzero
         element. A tensor stays on its own device; anything else is
-        placed on ``device``."""
-        _check_mesh(mesh)
+        placed on ``device`` (the mesh's, with a mesh)."""
         if not isinstance(arr, torch.Tensor):
-            arr = torch.as_tensor(np.asarray(arr)).to(resolve_device(device))
+            arr = torch.as_tensor(np.asarray(arr)).to(_device(mesh, device))
         idx = arr.nonzero().T
-        return cls(_coo(idx, arr[idx[0], idx[1]], arr.shape))
+        return cls(_coo(idx, arr[idx[0], idx[1]], arr.shape), mesh=mesh)
 
     @classmethod
     def from_coo(cls, rows, cols, values, shape, mesh=None, device="cuda"):
-        _check_mesh(mesh)
-        dev = resolve_device(device)
+        dev = _device(mesh, device)
         idx = torch.stack([torch.as_tensor(rows).to(dev),
                            torch.as_tensor(cols).to(dev)])
-        return cls(_coo(idx, torch.as_tensor(values).to(dev), shape))
+        return cls(_coo(idx, torch.as_tensor(values).to(dev), shape),
+                   mesh=mesh)
 
     # -- ops ----------------------------------------------------------------
     def multiply_sparse(self, other: "SparseVecMatrix"):
@@ -262,12 +274,31 @@ class SparseVecMatrix:
         raise _deferred("the distributed sparse form (distribute)", "A4b")
 
     def multiply(self, other):
+        """Sparse x (sparse | dense): a DenseVecMatrix operand goes
+        through a torch sparse product, sparse first
+        (SparseMultiply.scala:31-82); the result lands on this matrix's
+        mesh, else the operand's."""
+        from .dense import DenseVecMatrix
+
         if isinstance(other, SparseVecMatrix):
             return self.multiply_sparse(other)
-        raise _deferred("sparse x DenseVecMatrix (multiply)", "A2")
+        if isinstance(other, DenseVecMatrix):
+            if self.num_cols != other.num_rows:
+                raise ValueError(
+                    f"dimension mismatch: {self.shape} x {other.shape}")
+            b = other.logical
+            out = torch.sparse.mm(self._coo.to(b.device, b.dtype).coalesce(),
+                                  b)
+            return DenseVecMatrix(out, mesh=self.mesh or other.mesh)
+        raise TypeError(
+            f"cannot multiply SparseVecMatrix by {type(other).__name__}")
 
     def to_dense_vec_matrix(self):
-        raise _deferred("DenseVecMatrix (to_dense_vec_matrix)", "A2")
+        """Densify (``toDenseVecMatrix``, SparseVecMatrix.scala:56) onto
+        this matrix's mesh (the default mesh without one)."""
+        from .dense import DenseVecMatrix
+
+        return DenseVecMatrix(self._densify(), mesh=self.mesh)
 
     def _densify(self) -> torch.Tensor:
         """The dense tensor on this matrix's device; duplicates add."""

@@ -150,6 +150,11 @@ class MetricsRegistry:
         return self._child("histogram", name, labels, help,
                            lambda: Histogram(buckets, self._lock))
 
+    def remove(self, name: str) -> None:
+        """Forget the metric family ``name`` (all its series)."""
+        with self._lock:
+            self._families.pop(name, None)
+
     def snapshot(self) -> Dict[str, object]:
         """JSON-able view: counters/gauges as {series: value}, histograms
         as {series: {count, sum, mean, min, max, buckets}}."""

@@ -22,13 +22,15 @@ only ``(q_hat, k, v, o, lse)`` and its backward recomputes the
 probability tiles from lse, so no (Sq, Skv) tensor is kept between the
 two passes.
 
-Head dims. The kernels are built for D and Dv in :data:`KERNEL_HEAD_DIMS`;
-on the card the wrapper zero-pads q_hat and K (D) and V and dO (Dv) up to
-the smallest of them that holds the head dim and slices O, dQ, dK and dV
-back, as the JAX package pads to its 128-lane tile (zero columns add
-nothing to q_hat K^T, to P V or to Delta). A head dim above 128 raises:
-the reference pads it to 256, for which no kernel is built yet (ROADMAP
-Queue C, C3).
+Head dims. The kernels are built for D and Dv in :data:`KERNEL_HEAD_DIMS`
+(64 and 128 in any pairing, and D = Dv = 256); on the card the wrapper
+zero-pads q_hat and K (D) and V and dO (Dv) up to the smallest of them
+that holds the head dim, both to 256 when either is above 128
+(:func:`_kernel_head_dims`), and slices O, dQ, dK and dV back, as the JAX
+package pads to its 128-lane tile (zero columns add nothing to q_hat K^T,
+to P V or to Delta). A head dim above 256 raises: the reference pads it
+to the next multiple of 128, for which no kernel is built (ROADMAP Queue
+C, C4).
 
 Public layout is the JAX package's ``(S, H, D)``, plus an optional
 leading batch dimension that stands in for ``jax.vmap``.
@@ -50,7 +52,8 @@ _LOG2E = math.log2(math.e)
 
 # Head dims the kernel is instantiated for (template arguments D and Dv),
 # ascending; smaller ones are zero-padded up to the next (_padded_fwd).
-KERNEL_HEAD_DIMS = (64, 128)
+# 64 and 128 pair freely; 256 only with 256 (_kernel_head_dims).
+KERNEL_HEAD_DIMS = (64, 128, 256)
 _KERNEL_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 
 # (query rows, keys) of each bf16 kernel's tile: the forward's kBM x kBN in
@@ -206,17 +209,17 @@ def _check_launch(tensors: dict, d: int, dv: int,
                   stats: Optional[dict] = None) -> None:
     """Raise on anything the kernels do not take: ``tensors`` of a dtype
     other than bf16 or f32 or of several dtypes, ``stats`` (lse, Delta)
-    not f32, a head dim outside :data:`KERNEL_HEAD_DIMS`, a tensor that is
+    not f32, head dims the kernels are not built for, a tensor that is
     not CUDA or not contiguous, a bf16 tensor whose base is not 16-byte
     aligned (TMA reads it), several devices, a card that is not Hopper."""
     stats = stats or {}
     first = next(iter(tensors.values()))
     if first.dtype not in _KERNEL_DTYPES:
         raise ValueError(f"the kernel takes bf16 or f32, got {first.dtype}")
-    if d not in KERNEL_HEAD_DIMS or dv not in KERNEL_HEAD_DIMS:
+    if _kernel_head_dims(d, dv) != (d, dv):
         raise ValueError(
-            f"the kernel is built for head dims {KERNEL_HEAD_DIMS}, got "
-            f"D={d}, Dv={dv}")
+            f"the kernel is built for head dims {KERNEL_HEAD_DIMS} (256 only "
+            f"with 256), got D={d}, Dv={dv}")
     every = {**tensors, **stats}
     for name, x in every.items():
         want = torch.float32 if name in stats else first.dtype
@@ -355,8 +358,20 @@ def _kernel_head_dim(width: int, name: str) -> int:
             return kernel_width
     raise ValueError(
         f"{name}={width}: the kernels are built for head dims up to "
-        f"{KERNEL_HEAD_DIMS[-1]}; the reference pads {name} in (128, 256] "
-        f"to 256, which has no kernel yet (ROADMAP Queue C, C3)")
+        f"{KERNEL_HEAD_DIMS[-1]}; the reference pads {name} above 256 to "
+        f"the next multiple of 128, which has no kernel (ROADMAP Queue C, "
+        f"C4)")
+
+
+def _kernel_head_dims(d: int, dv: int) -> Tuple[int, int]:
+    """The kernel head dims ``(D, Dv)`` that hold ``(d, dv)``: each the
+    smallest of 64 and 128 that holds it, or both 256 when either is above
+    128 (the only instantiation at 256 is D = Dv = 256). Raises above
+    256."""
+    dp, dvp = _kernel_head_dim(d, "D"), _kernel_head_dim(dv, "Dv")
+    if max(dp, dvp) > 128:
+        return 256, 256
+    return dp, dvp
 
 
 def _pad_to(x, width: int):
@@ -373,7 +388,7 @@ def _padded_fwd(fwd, q_hat, k, v, causal: bool, window: int):
     Dv, and O sliced back to Dv. Zero columns add nothing to q_hat K^T or
     P V, so ``(O, lse)`` is the unpadded function's."""
     d, dv = q_hat.shape[-1], v.shape[-1]
-    dp, dvp = _kernel_head_dim(d, "D"), _kernel_head_dim(dv, "Dv")
+    dp, dvp = _kernel_head_dims(d, dv)
     o, lse = fwd(_pad_to(q_hat, dp), _pad_to(k, dp), _pad_to(v, dvp),
                  causal, window)
     return o[..., :dv].contiguous(), lse
@@ -387,7 +402,7 @@ def _padded_bwd(bwd, q_hat, k, v, do, lse, delta, causal: bool,
     dK, dV sliced back. ``scale`` is the unpadded D's (the caller's);
     Delta = rowsum(dO * O) is the same with or without zero columns."""
     d, dv = q_hat.shape[-1], v.shape[-1]
-    dp, dvp = _kernel_head_dim(d, "D"), _kernel_head_dim(dv, "Dv")
+    dp, dvp = _kernel_head_dims(d, dv)
     dq, dk, dvv = bwd(_pad_to(q_hat, dp), _pad_to(k, dp), _pad_to(v, dvp),
                       _pad_to(do, dvp), lse, delta, causal, window, scale)
     return (dq[..., :d].contiguous(), dk[..., :d].contiguous(),

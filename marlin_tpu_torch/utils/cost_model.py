@@ -1,8 +1,8 @@
 """Analytic costs (the part of ``marlin_tpu/utils/cost_model.py`` on the
 ported paths): the decode-step and admission rooflines and the
-measured-vs-predicted drift ledger the serving engine reads, and the
+measured-vs-predicted drift ledger the serving engine reads, the
 flash-attention tile accounting and training-step FLOPs that
-chip_smoke.py reads."""
+chip_smoke.py reads, and the dense GEMM's local and SUMMA costs."""
 
 from __future__ import annotations
 
@@ -216,3 +216,20 @@ def transformer_step_flops(n_params: int, batch: int, s: int,
     attn_fwd, _ = flash_attention_cost(s, n_heads, d_head, block_q,
                                        block_k, window=window, causal=True)
     return 6.0 * n_params * batch * s + 3.5 * batch * n_layers * attn_fwd
+
+
+def gemm_cost(m: int, k: int, n: int, itemsize: int = 4
+              ) -> Tuple[float, float]:
+    """(flops, bytes) of a local C = A @ B, each operand crossing device
+    memory once: A (m, k) and B (k, n) read, C (m, n) written."""
+    return 2.0 * m * k * n, float(itemsize) * (m * k + k * n + m * n)
+
+
+def summa_cost(m: int, k: int, n: int, pr: int, pc: int,
+               itemsize: int = 4) -> Tuple[float, float]:
+    """Per-device (flops, bytes) of the all-gather SUMMA engine on a
+    (pr x pc) mesh: each device gathers A's row panel (m/pr, k) and B's
+    column panel (k, n/pc) and writes its (m/pr, n/pc) block."""
+    flops = 2.0 * (m / pr) * k * (n / pc)
+    byts = itemsize * ((m / pr) * k + k * (n / pc) + (m / pr) * (n / pc))
+    return flops, float(byts)

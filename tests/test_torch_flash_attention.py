@@ -163,6 +163,7 @@ PADDED = {
     "d96": (33, 47, 4, 2, 96, 96, False, 0),
     "d32_dv16": (24, 50, 4, 2, 32, 16, False, 0),
     "d32_window": (48, 48, 4, 1, 32, 32, True, 8),
+    "d160": (24, 24, 2, 1, 160, 160, True, 0),
 }
 
 
@@ -185,7 +186,7 @@ def test_padding_to_the_kernel_head_dims_changes_nothing(name):
         return pfa.flash_attention_reference(qp, kp, vp, c, w)
 
     o, lse = pfa._padded_fwd(plain, q_hat, kt, vt, causal, window)
-    dp, dvp = (pfa._kernel_head_dim(x, "D") for x in (d, dv))
+    dp, dvp = pfa._kernel_head_dims(d, dv)
     assert widths == [(dp, dp, dvp)] and dp in pfa.KERNEL_HEAD_DIMS
     assert o.shape == (1, sq, h, dv) and o.is_contiguous()
     o_ref, lse_ref = pfa.flash_attention_reference(q_hat, kt, vt, causal,
@@ -200,19 +201,47 @@ def test_padding_to_the_kernel_head_dims_changes_nothing(name):
 
 
 @pytest.mark.parametrize("d, width", [(1, 64), (16, 64), (64, 64), (65, 128),
-                                      (96, 128), (128, 128)])
+                                      (96, 128), (128, 128), (129, 256),
+                                      (256, 256)])
 def test_kernel_head_dim_is_the_smallest_that_holds(d, width):
     assert pfa._kernel_head_dim(d, "D") == width
 
 
 @pytest.mark.parametrize("d", [129, 160, 256])
-def test_head_dims_above_128_raise_naming_c3(d):
-    # The reference pads D in (128, 256] to 256; no kernel is built for
-    # it yet (ROADMAP Queue C, C3), so the card's path raises.
-    with pytest.raises(ValueError, match="C3"):
-        pfa._kernel_head_dim(d, "D")
+def test_head_dims_above_128_raise_naming_c3(d, monkeypatch):
+    # The fault this test pinned (ROADMAP Queue C, C3: D in (128, 256]
+    # raised on the card) is repaired: the reference pads D in (128, 256]
+    # to 256, and so does the wrapper now, D and Dv together, for the
+    # kernels' D = Dv = 256 instantiation; nothing raises.
+    assert pfa._kernel_head_dim(d, "D") == 256
+    assert pfa._kernel_head_dims(d, 64) == pfa._kernel_head_dims(64, d) \
+        == (256, 256)
+    seen = []
+
+    def fake_launch(q_hat, k, v, causal, window):
+        seen.append((q_hat.shape[-1], k.shape[-1], v.shape[-1]))
+        b, sq, h, _ = q_hat.shape
+        return (torch.empty((b, sq, h, v.shape[-1]), device=q_hat.device),
+                torch.empty((b, h, sq), device=q_hat.device))
+
+    monkeypatch.setattr(pfa, "_launch", fake_launch)
     q = torch.zeros((1, 8, 2, d), device="meta")
-    with pytest.raises(ValueError, match="C3"):
+    v = torch.zeros((1, 8, 2, 32), device="meta")
+    out = pfa.flash_attention(q, q, v, causal=True)
+    assert seen == [(256, 256, 256)] and out.shape == (1, 8, 2, 32)
+
+
+@pytest.mark.parametrize("d", [257, 320, 384])
+def test_head_dims_above_256_raise_naming_c4(d):
+    # The reference pads D above 256 to the next multiple of 128 (320 to
+    # 384); the kernels stop at 256 (ROADMAP Queue C, C4), so the card's
+    # path raises, for D and for Dv.
+    with pytest.raises(ValueError, match="C4"):
+        pfa._kernel_head_dim(d, "D")
+    with pytest.raises(ValueError, match="C4"):
+        pfa._kernel_head_dims(64, d)
+    q = torch.zeros((1, 8, 2, d), device="meta")
+    with pytest.raises(ValueError, match="C4"):
         pfa.flash_attention(q, q, q, causal=True)
 
 

@@ -135,6 +135,7 @@ PADDED = {
     "d96": (33, 47, 4, 2, 96, 96, False, 0),
     "d32_dv16": (24, 50, 4, 2, 32, 16, False, 0),
     "d32_window": (64, 64, 4, 1, 32, 32, True, 16),
+    "d160": (24, 24, 2, 1, 160, 160, True, 0),
 }
 
 
@@ -164,7 +165,7 @@ def test_padding_to_the_kernel_head_dims_changes_no_gradient(name):
 
     got = pfa._padded_bwd(plain, q_hat, kt, vt, do, lse, delta, causal,
                           window, scale)
-    dp, dvp = (pfa._kernel_head_dim(x, "D") for x in (d, dv))
+    dp, dvp = pfa._kernel_head_dims(d, dv)
     assert widths == [(dp, dp, dvp, dvp)]
     ref = pfa.flash_attention_bwd_reference(q_hat, kt, vt, o, lse, do,
                                             causal, window, scale)
@@ -433,6 +434,12 @@ PLANTED_FAULT_KERNELS = {
                                   "flash_bwd_dkv_bf16("),
     "dkv_drops_last_key_tile": ("flash_attention_bwd.cu",
                                 "flash_bwd_dkv_bf16("),
+    "fwd256_second_half_reads_first_v_half": ("flash_attention_fwd.cu",
+                                              "flash_fwd_bf16("),
+    "dq256_second_half_reads_first_k_half": ("flash_attention_bwd.cu",
+                                             "flash_bwd_dq_bf16("),
+    "dkv256_second_share_reads_first_columns": ("flash_attention_bwd.cu",
+                                                "flash_bwd_dkv_bf16("),
     "gather_drops_last_listed_block": ("block_sparse.cu",
                                        "struct LiveBlocks"),
     "ring_skips_last_k16_of_a_stage": ("block_sparse.cu",

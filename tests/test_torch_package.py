@@ -26,7 +26,7 @@ from marlin_tpu_torch.serving import ServingEngine
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "marlin_tpu_torch").rglob("*.py")) \
-    + [ROOT / "chip_smoke.py"]
+    + [ROOT / "chip_smoke.py", ROOT / "tests" / "torch_dist_worker.py"]
 FORBIDDEN = ("jax", "jaxlib", "marlin_tpu")
 
 
@@ -66,6 +66,19 @@ def test_importing_the_port_pulls_in_no_jax():
             "import marlin_tpu_torch.matrix.sparse\n"
             "import marlin_tpu_torch.utils.cost_model\n"
             "import marlin_tpu_torch.examples.transformer_lm\n"
+            "import marlin_tpu_torch.mesh, marlin_tpu_torch.parallel\n"
+            "import marlin_tpu_torch.parallel.layout\n"
+            "import marlin_tpu_torch.matrix.dense\n"
+            "import marlin_tpu_torch.matrix.block\n"
+            "import marlin_tpu_torch.matrix.vector\n"
+            "import marlin_tpu_torch.utils.random\n"
+            "import marlin_tpu_torch.utils.timing\n"
+            "import marlin_tpu_torch.utils.split\n"
+            "import marlin_tpu_torch.examples.matrix_multiply\n"
+            "import marlin_tpu_torch.examples.blas1\n"
+            "import marlin_tpu_torch.examples.blas3\n"
+            "sys.path.insert(0, 'tests')\n"
+            "import torch_dist_worker\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax', 'jaxlib',\n"
             "                                    'marlin_tpu'))\n"
@@ -177,6 +190,29 @@ class TestNoSilentCpuFallback:
         eng = ServingEngine(params, cfg, device="cpu")
         eng.submit(np.arange(3), 2)
         assert eng.run()[0].tokens.shape == (2,)
+
+
+    def test_dense_entry_points_default_to_cuda_and_raise(self):
+        # The mesh and everything built on the default mesh ask for the
+        # card; without CUDA they raise before any process group exists.
+        import torch.distributed as dist
+
+        from marlin_tpu_torch import mesh
+        from marlin_tpu_torch.examples import blas1, blas3, matrix_multiply
+        from marlin_tpu_torch.matrix import DenseVecMatrix, DistributedVector
+        from marlin_tpu_torch.utils import random as mrand
+
+        calls = [mesh.create_mesh, mesh.default_mesh,
+                 lambda: DenseVecMatrix(np.eye(2)),
+                 lambda: DistributedVector(np.ones(3)),
+                 lambda: mrand.random_den_vec_matrix(4, 4, seed=0),
+                 lambda: matrix_multiply.main(["4", "4", "4"]),
+                 lambda: blas1.main(["16"]),
+                 lambda: blas3.main(["4", "4", "4"])]
+        for call in calls:
+            with pytest.raises(RuntimeError, match="CUDA"):
+                call()
+        assert not dist.is_initialized()
 
 
 def _to_numpy(tree):

@@ -1,10 +1,13 @@
 """The port's sparse matrix types (marlin_tpu_torch/matrix/sparse) against
 the JAX package's on shared numpy inputs: the single-device twins of
 tests/test_sparse.py's CoordinateMatrix and SparseVecMatrix tests,
-``to_block_sparse`` against the JAX one, and each method that waits for
-the mesh (ROADMAP A2) or the distributed sparse ring (A4b) raising with
-its item named. Values are compared exactly: both sides only move and
-add the same numbers.
+``to_block_sparse`` against the JAX one, each method that waits for the
+distributed sparse ring (A4b) raising with its item named, and the
+methods that take a mesh or a DenseVecMatrix against the JAX package's,
+run in 2 gloo rank processes started once for the module
+(tests/torch_dist_worker.py, suite "sparse_dense"). Values are compared
+exactly where both sides only move and add the same numbers, and the
+sparse x dense product within f32 rounding (1e-6).
 """
 
 import numpy as np
@@ -17,6 +20,8 @@ from marlin_tpu_torch import config as pconfig
 from marlin_tpu_torch.matrix import (CoordinateMatrix, MatrixEntry,
                                      SparseVecMatrix)
 from marlin_tpu_torch.ops import block_sparse_matmul
+
+import torch_dist_worker
 
 # Golden 4x4 sparse fixtures of tests/test_sparse.py.
 S1 = np.array([[1.0, 0.0, 0.0, 2.0],
@@ -185,9 +190,52 @@ class TestSparseVecMatrix:
             SparseVecMatrix(torch.ones((2, 2, 2)).to_sparse())
 
 
+SPARSE_DENSE_CASES = ["multiply_by_dense", "sparse_to_dense_vec_matrix",
+                      "from_dense", "coo_to_dense_vec_matrix",
+                      "from_dense_array_mesh", "from_coo_mesh",
+                      "coordinate_matrix_mesh", "to_sparse_vec_matrix_mesh"]
+D45 = np.random.default_rng(11).standard_normal((4, 5)).astype(np.float32)
+
+
+def _jax_cm():
+    return JaxCoordinateMatrix(np.array([0, 1]), np.array([1, 0]),
+                               np.array([2.5, 3.5], np.float32))
+
+
+def _jax_dense(arr):
+    from marlin_tpu.matrix.dense import DenseVecMatrix as JaxDenseVecMatrix
+
+    return JaxDenseVecMatrix(arr)
+
+
+SPARSE_DENSE_REFERENCE = {
+    "multiply_by_dense": lambda: JaxSparseVecMatrix.from_dense_array(
+        S1).multiply(_jax_dense(D45)),
+    "sparse_to_dense_vec_matrix": lambda: JaxSparseVecMatrix
+    .from_dense_array(S1).to_dense_vec_matrix(),
+    "from_dense": lambda: JaxSparseVecMatrix.from_dense(_jax_dense(S1)),
+    "coo_to_dense_vec_matrix": lambda: _jax_cm().to_dense_vec_matrix(),
+    "from_dense_array_mesh": lambda: JaxSparseVecMatrix.from_dense_array(S1),
+    "from_coo_mesh": lambda: JaxSparseVecMatrix.from_coo(
+        np.array([0, 1]), np.array([1, 0]), np.array([2.5, 3.5],
+                                                     np.float32), (2, 3)),
+    "coordinate_matrix_mesh": lambda: JaxCoordinateMatrix(
+        np.array([0, 2]), np.array([1, 0]),
+        np.array([2.5, 3.5], np.float32)).to_dense_vec_matrix(),
+    "to_sparse_vec_matrix_mesh": lambda: _jax_cm().to_sparse_vec_matrix(),
+}
+
+
+@pytest.fixture(scope="module")
+def dense_port(tmp_path_factory):
+    return torch_dist_worker.launch("sparse_dense", 2,
+                                    {"S1": S1, "D43": D45},
+                                    tmp_path_factory.mktemp("sparse_dense"))
+
+
 class TestDeferred:
-    """What needs the mesh or the distributed sparse ring raises, naming
-    the ROADMAP item that ports it."""
+    """What needs the distributed sparse ring raises, naming the ROADMAP
+    item that ports it; what needed only the mesh works."""
 
     @pytest.fixture
     def sp(self):
@@ -210,24 +258,28 @@ class TestDeferred:
             call(sp, cm)
 
     @pytest.mark.parametrize("call", [
-        lambda sp, cm: sp.multiply(np.ones((4, 3))),
-        lambda sp, cm: sp.to_dense_vec_matrix(),
-        lambda sp, cm: SparseVecMatrix.from_dense(object()),
-        lambda sp, cm: cm.to_dense_vec_matrix(),
-        lambda sp, cm: SparseVecMatrix.from_dense_array(S1, mesh=object(),
-                                                        device="cpu"),
-        lambda sp, cm: SparseVecMatrix.from_coo([0], [0], [1.0], (1, 1),
-                                                mesh=object(), device="cpu"),
-        lambda sp, cm: CoordinateMatrix([0], [0], [1.0], mesh=object(),
-                                        device="cpu"),
-        lambda sp, cm: cm.to_sparse_vec_matrix(mesh=object()),
-    ], ids=["multiply_by_dense", "sparse_to_dense_vec_matrix", "from_dense",
-            "coo_to_dense_vec_matrix", "from_dense_array_mesh",
-            "from_coo_mesh", "coordinate_matrix_mesh",
-            "to_sparse_vec_matrix_mesh"])
-    def test_the_mesh_and_dense_types_wait_for_a2(self, sp, cm, call):
-        with pytest.raises(NotImplementedError, match="item A2"):
-            call(sp, cm)
+        getattr(torch_dist_worker, name) for name in SPARSE_DENSE_CASES],
+        ids=SPARSE_DENSE_CASES)
+    def test_the_mesh_and_dense_types_wait_for_a2(self, sp, cm, call,
+                                                  dense_port):
+        # ROADMAP A2a lifted these refusals: a mesh places the sparse data
+        # on its device, and DenseVecMatrix operands and results work. The
+        # call of each id runs in the rank processes (it needs a mesh);
+        # here it is held to the JAX package's value.
+        name = call.__name__
+        got = dense_port.get(name)
+        want = SPARSE_DENSE_REFERENCE[name]()
+        np.testing.assert_allclose(np.asarray(got["value"]),
+                                   want.to_numpy(), rtol=1e-6, atol=1e-6)
+        if "type" in got:
+            assert got["type"] == type(want).__name__ == "DenseVecMatrix"
+        if "device" in got:
+            assert got["device"] == "cpu"
+        if "mesh_size" in got:
+            assert got["mesh_size"] == 2
+        if "dense" in got:
+            np.testing.assert_array_equal(np.asarray(got["dense"]),
+                                          want.to_numpy())
 
 
 class TestNoSilentCpuFallback:
