@@ -83,12 +83,34 @@ Phases, each of which exits non-zero on failure:
    the bf16 peak over 3 timed products a run, in two rounds of opposite
    order, the SM clock and power after each; peak memory; no
    hand-written kernel launched.
+11. Linalg (the dense path's second half, benchlib/configs_linalg.py's
+   sizes, f32 without TF32, on a one-rank NCCL mesh): DenseVecMatrix.
+   lu_decompose at n = 16384 and cholesky_decompose at 16384 in "dist"
+   mode (panels of 1024), inverse at 8192, and the dist-eigs compute_svd
+   of a 200,000 x 2048 matrix (k = 10, tol 1e-6), each 3 times: median ms
+   and spread, TFLOP/s (LU 2n^3/3, Cholesky n^3/3, inverse 2n^3), the
+   share of the f32 bound (the SVD: of its matvecs' HBM bound), peak
+   memory, and the one-call cuSOLVER yardstick beside it (never called by
+   the port). Held: LU and Cholesky reconstructions in f64 on a 256-row
+   band and whole at n = 2048, max |inv A - I|, the singular values
+   non-increasing and against an f64 eigh of the Gramian (bounds and
+   their derivations at LINALG_REL_TOLERANCE); then the blocked LU's
+   dgetf2 semantics on the card (an all-zero matrix, an exactly zero
+   column, a rank-deficient column). Pivot agreement with the one-call
+   getrf is printed, not held. No hand-written kernel launched.
 
 Phases 3 and 4 also take head dims in (128, 256] (D = 160, the transformer
 bench at BENCH_TF_D=320, and D = 256; bf16 and f32), which the wrapper
 pads to the kernels' D = Dv = 256 instantiations, with dK/dV bitwise
 repeatable there too; phase 6's small models include a D = 160 and a
-D = 256 model, trained through those instantiations.
+D = 256 model, trained through those instantiations. Head dims above 256
+(D = 320, 384 under a window, 512, 1024, and the pairs (384, 128) and
+(64, 320), bf16 and f32) go to the wide kernels of
+csrc/flash_attention_wide.cu: phases 3 and 4 hold them to the plain
+versions by the same limits, their dQ and dK/dV bitwise over two runs and
+every forward output chunk's lse equal to the others, and phase 6 trains a
+D = 320 model through them (its launches are the wide kernels' counts; no
+D <= 256 run launches a wide kernel).
 
 The last three lines of output are the card line from nvidia-smi, one
 {"kernels": [...]} JSON object, and {"ok": true, "device": {...}}.
@@ -160,10 +182,32 @@ SHAPES = [
     ("d256", 2, 2048, 2048, 4, 2, 256, 256, "bfloat16", True, 0),
     ("d160_f32", 1, 1000, 1000, 2, 1, 160, 160, "float32", True, 0),
     ("d256_f32", 1, 1000, 1000, 4, 2, 256, 256, "float32", True, 0),
+    # Head dims above 256, which go to the wide kernels of
+    # csrc/flash_attention_wide.cu (D and Dv each zero-padded to a multiple
+    # of 64): D = 320 at the attention shape of phase 6's wide_d320 model
+    # (the main path of the wide kernels), 384 under a window, 512, 1024,
+    # and unequal pairs (384, 128) and a cross-length (64, 320); causal,
+    # GQA, bf16 and f32.
+    ("d320", 2, 512, 512, 2, 2, 320, 320, "bfloat16", True, 0),
+    ("d384_window", 1, 1024, 1024, 4, 2, 384, 384, "bfloat16", True, 200),
+    ("d512", 1, 1024, 1024, 4, 4, 512, 512, "bfloat16", True, 0),
+    ("d1024", 1, 512, 512, 4, 1, 1024, 1024, "bfloat16", True, 0),
+    ("d384_dv128", 1, 1000, 1000, 4, 2, 384, 128, "bfloat16", True, 0),
+    ("d64_dv320", 1, 384, 1000, 4, 2, 64, 320, "bfloat16", False, 0),
+    ("d320_f32", 2, 512, 512, 2, 2, 320, 320, "float32", True, 0),
+    ("d384_window_f32", 1, 1000, 1000, 2, 1, 384, 384, "float32", True,
+     200),
+    ("d512_f32", 1, 512, 512, 2, 2, 512, 512, "float32", True, 0),
+    ("d1024_f32", 1, 512, 512, 2, 1, 1024, 1024, "float32", True, 0),
+    ("d384_dv128_f32", 1, 1000, 1000, 4, 2, 384, 128, "float32", True, 0),
+    ("d64_dv320_f32", 1, 384, 1000, 4, 2, 64, 320, "float32", False, 0),
 ]
 
 # The shapes whose kernels are the D = Dv = 256 instantiations.
 WIDE_SHAPES = ("d160", "d256", "d160_f32", "d256_f32")
+
+# The shapes whose kernels are the wide ones (a head dim above 256).
+WIDE_KERNEL_SHAPES = tuple(s[0] for s in SHAPES if max(s[6], s[7]) > 256)
 
 # Backward shapes: the training paths' two and the same edge cases.
 BWD_SHAPES = [s for s in SHAPES if s[0] != "flagship"]
@@ -264,11 +308,41 @@ WIDE_FAULTS = ("fwd256_second_half_reads_first_v_half",
                "dq256_second_half_reads_first_k_half",
                "dkv256_second_share_reads_first_columns")
 
+# Planted faults of the wide kernels (csrc/flash_attention_wide.cu), one
+# per kernel, each shown only at the WIDE_KERNEL_SHAPES and by the check of
+# its own kernel (WIDE_KERNEL_FAULT_CHECK).
+WIDE_KERNEL_FAULTS = {
+    # The forward does not rescale O when a row's running max grows.
+    "wide_fwd_skips_o_rescale": (
+        "    for (int j = 0; j < kOut / 2; ++j) acc[j] *= corr;\n",
+        "    for (int j = 0; j < 0; ++j) acc[j] *= corr;\n"),
+    # dQ's dP = dO V^T leaves out Dv's last 64-column chunk.
+    "wide_dq_drops_last_dv_chunk": (
+        "             v_row, Skv - n0, DV);\n",
+        "             v_row, Skv - n0, DV - kWC);\n"),
+    # The dK/dV kernel's sweep of each query head stops one query tile
+    # short.
+    "wide_dkv_drops_last_query_tile": (
+        "    for (int m0 = lo; m0 < hi; m0 += kCols) {\n",
+        "    for (int m0 = lo; m0 < hi - kCols; m0 += kCols) {\n"),
+}
+WIDE_KERNEL_FAULT_CHECK = {"wide_fwd_skips_o_rescale": "forward",
+                           "wide_dq_drops_last_dv_chunk": "backward",
+                           "wide_dkv_drops_last_query_tile": "backward"}
 
-def flash_fault_shows(fault: str, shape: str) -> bool:
-    """Whether planted flash fault ``fault`` can show at ``shape``: a
-    fault of the D = 256 instantiation at the WIDE_SHAPES only, every
-    other one at every shape."""
+
+def flash_fault_shows(fault: str, shape: str, check: str) -> bool:
+    """Whether planted flash fault ``fault`` can show at ``shape`` in the
+    ``check`` ("forward" or "backward") of its source's kernels: a fault of
+    the wide kernels at the WIDE_KERNEL_SHAPES only, in its own kernel's
+    check; one of the D = 256 instantiation at the WIDE_SHAPES only; every
+    other one at every shape but the WIDE_KERNEL_SHAPES (whose calls never
+    reach the narrow kernels)."""
+    if fault in WIDE_KERNEL_FAULTS:
+        return (shape in WIDE_KERNEL_SHAPES
+                and WIDE_KERNEL_FAULT_CHECK[fault] == check)
+    if shape in WIDE_KERNEL_SHAPES:
+        return False
     return fault not in WIDE_FAULTS or shape in WIDE_SHAPES
 
 # Card against CPU, the model's gradients at f32: the worst leaf's
@@ -418,6 +492,21 @@ def check_forward(label, o_k, lse_k, o_r, lse_r, dt):
     return err_o, err_lse, tile_o
 
 
+def check_lse_chunks(fa, name, q_hat, k, v, causal, window, lse):
+    """The wide forward's output-column chunks each compute lse: every
+    chunk's copy must equal ``lse`` (the wrapper's) bit for bit."""
+    import torch
+
+    dp, dvp = fa._kernel_head_dims(q_hat.shape[-1], v.shape[-1])
+    _, _, chunks = fa._launch_wide(fa._pad_to(q_hat, dp), fa._pad_to(k, dp),
+                                   fa._pad_to(v, dvp), causal, window,
+                                   lse_chunks=True)
+    torch.cuda.synchronize()
+    if not all(torch.equal(c, lse) for c in chunks):
+        fail(f"kernel {name}: the wide forward's {chunks.shape[0]} output "
+             f"chunks disagree on lse")
+
+
 def phase_device():
     import torch
 
@@ -518,6 +607,8 @@ def phase_kernels():
         torch.cuda.synchronize()
         err_o, err_lse, tile_o = check_forward(f"kernel {name}", o_k, lse_k,
                                                *plain(), dt)
+        if name in WIDE_KERNEL_SHAPES:
+            check_lse_chunks(fa, name, q_hat, kk, vv, causal, window, lse_k)
         ms = cuda_ms(kernel, iters=20)
         cold_ms = cuda_ms_cold(kernel, iters=10)
         plain_ms = cuda_ms(plain, warmup=1, iters=3)
@@ -702,7 +793,7 @@ def phase_backward():
                 fail(f"backward {name}: {label}'s worst tile "
                      f"||kernel - plain|| / ||plain|| = {rel:.3e} "
                      f"(tol {BWD_TOLERANCE[dt]})")
-        if name in ("train", "d160", "d256"):
+        if name in ("train", "d160", "d256") + WIDE_KERNEL_SHAPES:
             # No atomics: two runs agree bit for bit.
             dq2, (dk2, dv2) = c.dq(), c.dkv()
             if not torch.equal(got[0], dq2):
@@ -829,91 +920,112 @@ def _build_planted(sets, tmp, parent=None):
     return libs
 
 
+def _flash_variants(libs):
+    """[(variant, source, lib)] of ``libs`` ({source name: {"sound": lib,
+    fault: lib, ...}}): "sound" (source None: nothing swapped) and every
+    planted fault of every source."""
+    out = [("sound", None, None)]
+    for source, by_fault in libs.items():
+        out += [(f, source, lib) for f, lib in by_fault.items()
+                if f != "sound"]
+    return out
+
+
+def _with_variant(libs, source, lib, fn):
+    """``fn()`` with ``lib`` loaded as ``source``'s library (nothing
+    swapped when ``source`` is None), the sound one restored after."""
+    from marlin_tpu_torch.ops import build
+
+    if source is None:
+        return fn()
+    build._loaded[source] = lib
+    try:
+        return fn()
+    finally:
+        build._loaded[source] = libs[source]["sound"]
+
+
 def _planted_forward(libs):
-    """The forward check's reading of the sound kernel and of each fault
-    at every bf16 forward shape (O's worst 64-row tile, with max |O err|
+    """The forward check's reading of the sound kernels and of each fault
+    (``libs``: {source: {variant: lib}} of the forward and wide sources) at
+    every bf16 forward shape (O's worst 64-row tile, with max |O err|
     beside it): (worst sound reading, whether the limit separated them at
     every shape)."""
     import torch
 
-    from marlin_tpu_torch.ops import build
     from marlin_tpu_torch.ops import flash_attention as fa
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     tol = FWD_TILE_TOLERANCE["bfloat16"]
     worst_sound, caught = 0.0, True
-    try:
-        for (name, b, sq, skv, h, hk, d, dv, dt, causal,
-             window) in SHAPES:
-            if dt != "bfloat16":
-                continue
+    for (name, b, sq, skv, h, hk, d, dv, dt, causal,
+         window) in SHAPES:
+        if dt != "bfloat16":
+            continue
 
-            def randn(*dims):
-                return torch.randn(dims, generator=gen, device="cuda",
-                                   dtype=torch.float32).to(torch.bfloat16)
+        def randn(*dims):
+            return torch.randn(dims, generator=gen, device="cuda",
+                               dtype=torch.float32).to(torch.bfloat16)
 
-            q_hat, k, v = fa._prepare(randn(b, sq, h, d), randn(b, skv, hk, d),
-                                      randn(b, skv, hk, dv), causal, None,
-                                      window)
-            o_r, _ = fa.flash_attention_reference(q_hat, k, v, causal,
-                                                  window)
-            readings = {}
-            for variant, lib in libs.items():
-                build._loaded["flash_attention_fwd"] = lib
-                o, _ = fa._forward(q_hat, k, v, causal, window)
-                readings[variant] = dict(
-                    tile_rel=tile_rel_err(o, o_r),
-                    max_abs=(o.float() - o_r.float()).abs().max().item())
-            sound = max(r["tile_rel"] for f, r in readings.items()
-                        if not flash_fault_shows(f, name) or f == "sound")
-            fault_min = min(r["tile_rel"] for f, r in readings.items()
-                            if f != "sound" and flash_fault_shows(f, name))
-            worst_sound = max(worst_sound, sound)
-            caught = caught and sound <= tol < fault_min
-            print("planted_faults: " + json.dumps(dict(
-                kernel="forward", shape=name, tolerance=tol,
-                sound_max=sound, least_fault_max=fault_min,
-                readings=readings)), flush=True)
-    finally:
-        build._loaded["flash_attention_fwd"] = libs["sound"]
+        q_hat, k, v = fa._prepare(randn(b, sq, h, d), randn(b, skv, hk, d),
+                                  randn(b, skv, hk, dv), causal, None,
+                                  window)
+        o_r, _ = fa.flash_attention_reference(q_hat, k, v, causal,
+                                              window)
+        readings = {}
+        for variant, source, lib in _flash_variants(libs):
+            o, _ = _with_variant(libs, source, lib, lambda: fa._forward(
+                q_hat, k, v, causal, window))
+            readings[variant] = dict(
+                tile_rel=tile_rel_err(o, o_r),
+                max_abs=(o.float() - o_r.float()).abs().max().item())
+        sound = max(r["tile_rel"] for f, r in readings.items()
+                    if f == "sound"
+                    or not flash_fault_shows(f, name, "forward"))
+        fault_min = min(r["tile_rel"] for f, r in readings.items()
+                        if f != "sound"
+                        and flash_fault_shows(f, name, "forward"))
+        worst_sound = max(worst_sound, sound)
+        caught = caught and sound <= tol < fault_min
+        print("planted_faults: " + json.dumps(dict(
+            kernel="forward", shape=name, tolerance=tol,
+            sound_max=sound, least_fault_max=fault_min,
+            readings=readings)), flush=True)
     return worst_sound, caught
 
 
 def _planted_backward(libs):
     """The backward check's reading of the sound kernels and of each
-    fault at every bf16 backward shape: (worst sound reading, whether the
-    limit separated them at every shape)."""
+    fault (``libs``: {source: {variant: lib}} of the backward and wide
+    sources) at every bf16 backward shape: (worst sound reading, whether
+    the limit separated them at every shape)."""
     import torch
-
-    from marlin_tpu_torch.ops import build
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     tol = BWD_TOLERANCE["bfloat16"]
     worst_sound, caught = 0.0, True
-    try:
-        for shape in BWD_SHAPES:
-            if shape[8] != "bfloat16":
-                continue
-            c = BwdCase(gen, shape)
-            ref = c.plain()
-            readings = {}
-            for variant, lib in libs.items():
-                build._loaded["flash_attention_bwd"] = lib
-                readings[variant] = bwd_errors(c.kernels(), ref)
-            sound_max = max(r["tile_rel"] for f, v in readings.items()
-                            if f == "sound" or not flash_fault_shows(
-                                f, c.name) for r in v.values())
-            fault_min = min(max(r["tile_rel"] for r in v.values())
-                            for f, v in readings.items()
-                            if f != "sound" and flash_fault_shows(f, c.name))
-            worst_sound = max(worst_sound, sound_max)
-            caught = caught and sound_max <= tol < fault_min
-            print("planted_faults: " + json.dumps(dict(
-                shape=c.name, tolerance=tol, sound_max=sound_max,
-                least_fault_max=fault_min, readings=readings)), flush=True)
-            del c, ref
-    finally:
-        build._loaded["flash_attention_bwd"] = libs["sound"]
+    for shape in BWD_SHAPES:
+        if shape[8] != "bfloat16":
+            continue
+        c = BwdCase(gen, shape)
+        ref = c.plain()
+        readings = {}
+        for variant, source, lib in _flash_variants(libs):
+            readings[variant] = bwd_errors(
+                _with_variant(libs, source, lib, c.kernels), ref)
+        sound_max = max(r["tile_rel"] for f, v in readings.items()
+                        if f == "sound" or not flash_fault_shows(
+                            f, c.name, "backward") for r in v.values())
+        fault_min = min(max(r["tile_rel"] for r in v.values())
+                        for f, v in readings.items()
+                        if f != "sound"
+                        and flash_fault_shows(f, c.name, "backward"))
+        worst_sound = max(worst_sound, sound_max)
+        caught = caught and sound_max <= tol < fault_min
+        print("planted_faults: " + json.dumps(dict(
+            shape=c.name, tolerance=tol, sound_max=sound_max,
+            least_fault_max=fault_min, readings=readings)), flush=True)
+        del c, ref
     return worst_sound, caught
 
 
@@ -976,15 +1088,20 @@ def phase_planted_faults(card: str):
     with tempfile.TemporaryDirectory() as tmp:
         libs = _build_planted({"flash_attention_fwd": FWD_PLANTED_FAULTS,
                                "flash_attention_bwd": PLANTED_FAULTS,
+                               "flash_attention_wide": WIDE_KERNEL_FAULTS,
                                "block_sparse": SPMM_PLANTED_FAULTS}, tmp)
+        wide = libs["flash_attention_wide"]
         fwd_sound, fwd_caught = _planted_forward(
-            libs["flash_attention_fwd"])
+            {"flash_attention_fwd": libs["flash_attention_fwd"],
+             "flash_attention_wide": wide})
         bwd_sound, bwd_caught = _planted_backward(
-            libs["flash_attention_bwd"])
+            {"flash_attention_bwd": libs["flash_attention_bwd"],
+             "flash_attention_wide": wide})
         spmm_sound, spmm_caught = _planted_spmm(libs["block_sparse"])
     print(card)
     print(json.dumps(dict(
         planted_faults=(list(FWD_PLANTED_FAULTS) + list(PLANTED_FAULTS)
+                        + list(WIDE_KERNEL_FAULTS)
                         + list(SPMM_PLANTED_FAULTS)),
         forward=dict(tolerance=FWD_TILE_TOLERANCE["bfloat16"],
                      worst_sound=fwd_sound, separates=fwd_caught),
@@ -1163,11 +1280,24 @@ def phase_backward_memory():
 
 def _zero_counters(fa):
     fa.launches = fa.bwd_dq_launches = fa.bwd_dkv_launches = 0
+    fa.wide_launches = fa.wide_dq_launches = fa.wide_dkv_launches = 0
 
 
 def _counters(fa):
+    """Every flash kernel's launches: the narrow kernels' (fwd, dq, dkv)
+    and the wide ones' (wide_fwd, wide_dq, wide_dkv)."""
     return dict(fwd=fa.launches, dq=fa.bwd_dq_launches,
-                dkv=fa.bwd_dkv_launches)
+                dkv=fa.bwd_dkv_launches, wide_fwd=fa.wide_launches,
+                wide_dq=fa.wide_dq_launches, wide_dkv=fa.wide_dkv_launches)
+
+
+def _want(fwd, dq, dkv, wide=False):
+    """The launches _counters must read when the narrow kernels (or, with
+    ``wide``, the wide ones) ran fwd, dq and dkv times and the others
+    never."""
+    ran, idle = dict(fwd=fwd, dq=dq, dkv=dkv), dict(fwd=0, dq=0, dkv=0)
+    narrow, wide_ = (idle, ran) if wide else (ran, idle)
+    return {**narrow, **{f"wide_{k}": n for k, n in wide_.items()}}
 
 
 def phase_train(card: str, seed: int = 0):
@@ -1208,9 +1338,9 @@ def phase_train(card: str, seed: int = 0):
     if not losses[-1] < losses[0]:
         fail(f"train: the loss did not fall: {losses}")
     want = cfg.n_layers * TRAIN_STEPS
-    if any(n != want for n in launches.values()):
-        fail(f"train: launches {launches}, expected {want} of each "
-             f"(layers x steps)")
+    if launches != _want(want, want, want):
+        fail(f"train: launches {launches}, expected {want} of each narrow "
+             f"kernel (layers x steps) and no wide one")
     if any(p.dtype != torch.float32 for p in tr._leaves(params)):
         fail("train: master params left f32")
     step = sorted(step_s)[len(step_s) // 2]
@@ -1251,8 +1381,8 @@ def phase_train(card: str, seed: int = 0):
         launches=long_launches)), flush=True)
     if not math.isfinite(lloss):
         fail(f"train_remat: non-finite loss {lloss}")
-    if long_launches != dict(fwd=2 * lcfg.n_layers, dq=lcfg.n_layers,
-                             dkv=lcfg.n_layers):
+    if long_launches != _want(2 * lcfg.n_layers, lcfg.n_layers,
+                              lcfg.n_layers):
         fail(f"train_remat: launches {long_launches}, expected the forward "
              f"twice per layer and each backward kernel once")
     return {"train": launches, "remat": long_launches}
@@ -1292,6 +1422,12 @@ def small_models():
                                          max_len=512), 2, 512),
         "wide_d256": (TransformerConfig(vocab=1024, d_model=512, n_heads=2,
                                         n_layers=2, d_ff=2048, max_len=512),
+                      2, 512),
+        # Above 256 (the wide kernels): 2 heads of D=320 at d_model 640,
+        # cut as bench_d160 is. No configuration of the repo has a head
+        # this wide; the model drives the wide kernels through training.
+        "wide_d320": (TransformerConfig(vocab=1024, d_model=640, n_heads=2,
+                                        n_layers=2, d_ff=2560, max_len=512),
                       2, 512),
     }
 
@@ -1351,9 +1487,11 @@ def phase_small_models(card: str, seed: int = 0):
             if not losses[-1] < losses[0]:
                 fail(f"small_model {run}: the loss did not fall: {losses}")
             want = cfg.n_layers * SMALL_STEPS
-            if any(n != want for n in launches.values()):
+            head_dim = cfg.d_model // cfg.n_heads
+            if launches != _want(want, want, want, wide=head_dim > 256):
                 fail(f"small_model {run}: launches {launches}, expected "
-                     f"{want} of each (layers x steps)")
+                     f"{want} of each (layers x steps) of the "
+                     f"{'wide' if head_dim > 256 else 'narrow'} kernels")
     return out
 
 
@@ -1419,7 +1557,7 @@ def phase_grad_check(seed: int = 0):
     torch.cuda.synchronize()
     launches = _counters(fa)
     loss_c, grads_c = value_and_grad(cpu)
-    if launches != dict(fwd=2, dq=2, dkv=2):
+    if launches != _want(2, 2, 2):
         fail(f"grad_check: the card's launches {launches}, expected one "
              f"per layer of each kernel")
     worst = {}
@@ -1486,7 +1624,7 @@ def phase_slice(card: str, seed: int = 0):
 
     eng = ServingEngine(params, cfg, batch=8, round_steps=8,
                          device="cuda")
-    fa.launches = 0
+    _zero_counters(fa)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     ids = {}
@@ -1503,6 +1641,7 @@ def phase_slice(card: str, seed: int = 0):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = fa.launches
+    every = _counters(fa)
     peak = torch.cuda.max_memory_allocated()
 
     done = {r.request_id: r for r in done}
@@ -1513,6 +1652,9 @@ def phase_slice(card: str, seed: int = 0):
     if launches != admissions * cfg.n_layers:
         fail(f"flash kernel launches {launches} != admissions {admissions} "
              f"x layers {cfg.n_layers}")
+    if every != _want(launches, 0, 0):
+        fail(f"serve: launches {every}, expected the forward only and no "
+             f"wide kernel")
     tokens = sum(r.emitted for r in done.values())
     rounds = [e for e in eng.runlog.events("round")]
     steady = [e["round_s"] / e["iters"] for e in rounds
@@ -2204,6 +2346,351 @@ def phase_gemm(card: str):
     return summary
 
 
+# The dense path's linear algebra at benchlib/configs_linalg.py's sizes on
+# a one-rank NCCL mesh, f32 without TF32 (linalg_precision "highest"):
+# the blocked LU and Cholesky at n = 16384 in panels of 1024 ("dist"
+# mode), the inverse at n = 8192, the dist-eigs SVD of a 200,000 x 2048
+# matrix (k = 10, tol 1e-6).
+LINALG_N = dict(lu=16384, cholesky=16384, inverse=8192)
+LINALG_BASE = 1024
+LINALG_RUNS = 3  # timed runs of each op and of its one-call yardstick
+LINALG_BAND = (8192, 256)  # (first row, rows) reconstructed in f64
+LINALG_SMALL = (2048, 512)  # (n, base) of the whole f64 reconstructions
+SVD_SHAPE, SVD_K, SVD_TOL = (200_000, 2048), 10, 1e-6
+# ||A[perm] - L U||max / ||A||max (and ||A - L L^T||max / ||A||max), in
+# f64 on the band of the 16k factors and on the whole n = 2048 ones: the
+# JAX package's bench oracle bar (config_lu, config_cholesky). The typical
+# backward error of f32 partial-pivoting LU, sqrt(n) u g with growth g ~
+# 10 on random matrices (u = 6e-8), is 7.7e-5 at n = 16384, 13x below it.
+LINALG_REL_TOLERANCE = 1e-3
+# max |inv(A) A - I| for A = randn + n I (config_inverse's bar): its
+# worst case without growth, n u = 4.9e-4 at n = 8192, is 20x below.
+INVERSE_TOLERANCE = 1e-2
+# Each singular value against an f64 eigh of the Gramian, relative: the
+# f32 Gramian matvecs perturb each eigenvalue by ~ sqrt(m) u = 2.7e-5
+# relative (m = 200,000 rows), a singular value by half of that; 1e-4 is
+# 7x above it, and the Lanczos tolerance (1e-6) adds less.
+SVD_REL_TOLERANCE = 1e-4
+
+
+def _events_ms(fn, runs):
+    """(ms of each of ``runs`` calls of ``fn`` between CUDA events, the
+    last call's result); the calls' own host syncs are inside."""
+    import torch
+
+    times, out = [], None
+    for _ in range(runs):
+        del out
+        out = None
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return times, out
+
+
+def _spread(times):
+    t = sorted(times)
+    return dict(ms=t[len(t) // 2], ms_min=t[0], ms_max=t[-1], ms_runs=times)
+
+
+def _lu_band_err(a, packed, perm, band):
+    """||A[perm] - L U||max / ||A||max over rows ``band`` = (first,
+    count), in f64 on the card (L's band rows times U)."""
+    import torch
+
+    r0, rows = band
+    p = packed.double()
+    lb = torch.tril(p[r0:r0 + rows], diagonal=r0 - 1)
+    idx = torch.arange(rows, device=p.device)
+    lb[idx, idx + r0] = 1.0
+    lu = lb @ torch.triu(p)
+    ap = a[torch.as_tensor(perm[r0:r0 + rows], device=a.device)].double()
+    return ((ap - lu).abs().max() / a.abs().max().double()).item()
+
+
+def _chol_band_err(a, l, band):
+    import torch
+
+    r0, rows = band
+    ld = l.double()
+    rec = ld[r0:r0 + rows] @ ld.T
+    return ((a[r0:r0 + rows].double() - rec).abs().max()
+            / a.abs().max().double()).item()
+
+
+def _linalg_line(card, op, n, times, lib_times, flops, nbytes_, peak,
+                 **extra):
+    """One "linalg:" line: median ms and spread, TFLOP/s, share of the f32
+    (non-tensor) bound, peak memory, the one-call yardstick's ms."""
+    t = _spread(times)
+    bound_ms, bound_by = bound(flops, nbytes_, "torch.float32")
+    lib = _spread(lib_times) if lib_times else None
+    row = dict(card=card, op=op, n=n, dtype="float32", base=LINALG_BASE,
+               **t, tflops=flops / t["ms"] / 1e9,
+               bound_ms=bound_ms, bound_by=bound_by,
+               bound_share=bound_ms / t["ms"], peak_mem_gb=peak / 1e9,
+               library_ms=None if lib is None else lib["ms"],
+               library_ms_spread=None if lib is None
+               else [lib["ms_min"], lib["ms_max"]], **extra)
+    print("linalg: " + json.dumps(row), flush=True)
+    return row
+
+
+def phase_linalg_dgetf2():
+    """On the card, cuSOLVER's getrf in the blocked LU (n = 2048, panels
+    of 512) on an all-zero matrix, a matrix with an exactly zero column and
+    one with a rank-deficient column: each must give dgetf2's result (no
+    NaN; a zero pivot leaves U[c, c] = 0 and an L column of 0, pivots
+    stay in place on the zero matrix), whichever route the panel took
+    (zero_pivot_panels counts the panels refactored by the port's own
+    dgetf2 after getrf left a non-finite value)."""
+    import numpy as np
+    import torch
+
+    from marlin_tpu_torch.config import config_override
+    from marlin_tpu_torch.linalg import lu as plu
+
+    n, base = LINALG_SMALL
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    plu.zero_pivot_panels = 0
+    out = {}
+    with config_override(lu_base_size=base):
+        zero = torch.zeros((n, n), device="cuda")
+        packed, perm = plu.lu_factor_array(zero, mode="dist")
+        ok = bool((packed == 0).all()) and np.array_equal(perm,
+                                                          np.arange(n))
+        out["all_zero"] = dict(
+            ok=ok, zero_pivot_panels=plu.zero_pivot_panels,
+            nonzero=int((packed != 0).sum()),
+            finite=bool(torch.isfinite(packed).all()),
+            pivots_moved=int((perm != np.arange(n)).sum()))
+        if not ok:
+            fail(f"linalg dgetf2: the all-zero matrix's LU is not all zero "
+                 f"with pivots in place: {out['all_zero']}")
+        for name, col in (("zero_column", n // 3), ("rank_deficient", 5)):
+            a = torch.randn((n, n), generator=gen, device="cuda")
+            if name == "zero_column":
+                a[:, col] = 0
+            else:
+                a[:, col] = 2 * a[:, 3] - a[:, 1]
+            before = plu.zero_pivot_panels
+            packed, perm = plu.lu_factor_array(a, mode="dist")
+            finite = bool(torch.isfinite(packed).all())
+            err = _lu_band_err(a, packed, perm, (0, n))
+            l_max = torch.tril(packed, -1).abs().max().item()
+            row = dict(finite=finite, rel_err=err, l_max=l_max,
+                       zero_pivot_panels=plu.zero_pivot_panels - before)
+            if name == "zero_column":
+                row["u_cc"] = packed[col, col].item()
+                row["l_col_max"] = packed[col + 1:, col].abs().max().item()
+            out[name] = row
+            if (not finite or not err <= LINALG_REL_TOLERANCE
+                    or l_max > 1.0 + 1e-6
+                    or row.get("u_cc", 0.0) != 0.0
+                    or row.get("l_col_max", 0.0) != 0.0):
+                fail(f"linalg dgetf2 {name}: {row}")
+    print("linalg_dgetf2: " + json.dumps(out), flush=True)
+    return out
+
+
+def phase_linalg(card: str):
+    """The dense path's linear algebra (see LINALG_N): each op LINALG_RUNS
+    times through the entry point a user calls on a DenseVecMatrix of a
+    one-rank NCCL mesh, beside its one-call cuSOLVER yardstick
+    (torch.linalg.lu_factor_ex, cholesky_ex, inv on the whole matrix; the
+    port never calls them so), each held to its oracle (the bounds
+    above). No hand-written kernel launches. Returns the lines."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from marlin_tpu_torch import mesh as pm
+    from marlin_tpu_torch.config import config_override
+    from marlin_tpu_torch.linalg import (cholesky_factor_array, inverse,
+                                         lu_factor_array)
+    from marlin_tpu_torch.matrix import dense as pdense
+    from marlin_tpu_torch.ops import block_sparse as bs
+    from marlin_tpu_torch.ops import flash_attention as fa
+    from marlin_tpu_torch.utils import random as mrand
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = pm.create_mesh()
+    if dist.get_backend() != "nccl" or mesh.size != 1:
+        fail(f"linalg: expected a one-rank NCCL mesh, got "
+             f"{dist.get_backend()} over {mesh.size} ranks")
+    _zero_counters(fa)
+    spmm_before = (bs.gather_launches, bs.masked_launches)
+    rows = {}
+    f32 = 4
+
+    # --- The whole-matrix f64 reconstructions at n = 2048 (config_lu's
+    # and config_cholesky's oracles).
+    n_s, base_s = LINALG_SMALL
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    a_s = torch.randn((n_s, n_s), generator=gen, device="cuda")
+    with config_override(lu_base_size=base_s, cholesky_base_size=base_s):
+        packed, perm = lu_factor_array(a_s, mode="dist")
+        lu_small = _lu_band_err(a_s, packed, perm, (0, n_s))
+        spd_s = a_s @ a_s.T + n_s * torch.eye(n_s, device="cuda")
+        l_s = cholesky_factor_array(spd_s, mode="dist")
+        chol_small = _chol_band_err(spd_s, l_s, (0, n_s))
+    del packed, l_s, spd_s, a_s
+    if not (lu_small <= LINALG_REL_TOLERANCE
+            and chol_small <= LINALG_REL_TOLERANCE):
+        fail(f"linalg: n = {n_s} reconstructions LU {lu_small:.3e}, "
+             f"Cholesky {chol_small:.3e} (tol {LINALG_REL_TOLERANCE})")
+
+    # --- LU, n = 16384.
+    n = LINALG_N["lu"]
+    a = mrand.random_den_vec_matrix(n, n, "normal", seed=3, mesh=mesh,
+                                    dtype=torch.float32)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with config_override(lu_base_size=LINALG_BASE):
+        times, (packed, perm) = _events_ms(
+            lambda: a.lu_decompose(mode="dist"), LINALG_RUNS)
+    peak = torch.cuda.max_memory_allocated()
+    whole = a.local  # one rank: its stripe is the whole matrix
+    err = _lu_band_err(whole, packed.local, perm, LINALG_BAND)
+    lib_times, (lib_lu, lib_piv, _) = _events_ms(
+        lambda: torch.linalg.lu_factor_ex(whole), LINALG_RUNS)
+    from marlin_tpu_torch.linalg.lu import _swaps_to_perm
+
+    lib_perm = _swaps_to_perm(lib_piv.cpu().numpy().astype(np.int64) - 1, n)
+    del lib_lu, lib_piv
+    rows["lu"] = _linalg_line(
+        card, "lu", n, times, lib_times, 2.0 / 3.0 * n ** 3,
+        2 * n * n * f32, peak, band=list(LINALG_BAND), band_rel_err=err,
+        small_n=n_s, small_rel_err=lu_small,
+        tolerance=LINALG_REL_TOLERANCE,
+        pivots_equal_to_library=float(np.mean(perm == lib_perm)))
+    del packed, a, whole
+    if not err <= LINALG_REL_TOLERANCE:
+        fail(f"linalg lu: band error {err:.3e} (tol {LINALG_REL_TOLERANCE})")
+
+    # --- Cholesky, n = 16384: A = G G^T + 2 I, G ~ N(0, 1 / n).
+    n = LINALG_N["cholesky"]
+    g = mrand.random_den_vec_matrix(n, n, "normal", seed=5, mesh=mesh,
+                                    dtype=torch.float32,
+                                    std=1.0 / math.sqrt(n))
+    spd = g.local @ g.local.T
+    spd.diagonal().add_(2.0)
+    del g
+    a = pdense.DenseVecMatrix(spd, mesh=mesh, _logical_shape=(n, n))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with config_override(cholesky_base_size=LINALG_BASE):
+        times, l = _events_ms(lambda: a.cholesky_decompose(mode="dist"),
+                              LINALG_RUNS)
+    peak = torch.cuda.max_memory_allocated()
+    err = _chol_band_err(spd, l.local, LINALG_BAND)
+    del l
+    lib_times, _ = _events_ms(lambda: torch.linalg.cholesky_ex(spd),
+                              LINALG_RUNS)
+    rows["cholesky"] = _linalg_line(
+        card, "cholesky", n, times, lib_times, n ** 3 / 3.0,
+        2 * n * n * f32, peak, band=list(LINALG_BAND), band_rel_err=err,
+        small_n=n_s, small_rel_err=chol_small,
+        tolerance=LINALG_REL_TOLERANCE)
+    del a, spd
+    if not err <= LINALG_REL_TOLERANCE:
+        fail(f"linalg cholesky: band error {err:.3e} (tol "
+             f"{LINALG_REL_TOLERANCE})")
+
+    # --- Inverse, n = 8192: A + n I.
+    n = LINALG_N["inverse"]
+    a = mrand.random_den_vec_matrix(n, n, "normal", seed=9, mesh=mesh,
+                                    dtype=torch.float32)
+    a.local.diagonal().add_(float(n))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with config_override(lu_base_size=LINALG_BASE):
+        times, inv = _events_ms(lambda: a.inverse(mode="dist"), LINALG_RUNS)
+    peak = torch.cuda.max_memory_allocated()
+    eye = torch.eye(n, device="cuda")
+    resid = (inv.local @ a.local - eye).abs().max().item()
+    del inv
+    lib_times, _ = _events_ms(lambda: torch.linalg.inv(a.local),
+                              LINALG_RUNS)
+    rows["inverse"] = _linalg_line(
+        card, "inverse", n, times, lib_times, 2.0 * n ** 3,
+        2 * n * n * f32, peak, max_abs_inv_a_minus_i=resid,
+        tolerance=INVERSE_TOLERANCE)
+    del a, eye
+    if not resid <= INVERSE_TOLERANCE:
+        fail(f"linalg inverse: max |inv A - I| = {resid:.3e} (tol "
+             f"{INVERSE_TOLERANCE})")
+
+    # --- SVD, dist-eigs, 200,000 x 2048.
+    m, n = SVD_SHAPE
+    a = mrand.random_den_vec_matrix(m, n, "normal", seed=11, mesh=mesh,
+                                    dtype=torch.float32)
+    matvecs = [0]
+    real_apply = pdense._GramianOperator.apply
+
+    def counting(self, operand, v):
+        matvecs[0] += 1
+        return real_apply(self, operand, v)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    pdense._GramianOperator.apply = counting
+    try:
+        times, res = _events_ms(lambda: a.compute_svd(
+            SVD_K, compute_u=False, mode="dist-eigs", tol=SVD_TOL),
+            LINALG_RUNS)
+    finally:
+        pdense._GramianOperator.apply = real_apply
+    peak = torch.cuda.max_memory_allocated()
+    s = np.asarray(res.s)
+    # The oracle: an f64 eigh of the Gramian (formed in f64 on the card in
+    # row blocks of A).
+    gram = torch.zeros((n, n), dtype=torch.float64, device="cuda")
+    for r0 in range(0, m, 16384):
+        blk = a.local[r0:r0 + 16384].double()
+        gram += blk.T @ blk
+    lam = torch.linalg.eigvalsh(gram).flip(0)[:SVD_K].clamp_min(0)
+    want = lam.sqrt().cpu().numpy()
+    del gram
+    rel = float(np.max(np.abs(s - want) / want))
+    steps = matvecs[0] / LINALG_RUNS
+    bytes_per_run = steps * 2 * m * n * f32
+    t = _spread(times)
+    hbm_ms = bytes_per_run / PEAK_BYTES * 1e3
+    row = dict(card=card, op="svd_dist_eigs", m=m, n=n, k=SVD_K,
+               tol=SVD_TOL, dtype="float32", **t,
+               matvecs_per_run=steps, hbm_bound_ms=hbm_ms,
+               bound_share=hbm_ms / t["ms"], peak_mem_gb=peak / 1e9,
+               s=s.tolist(), s_f64_eigh=want.tolist(), max_rel_err=rel,
+               tolerance=SVD_REL_TOLERANCE,
+               non_increasing=bool(np.all(np.diff(s) <= 0)))
+    print("linalg: " + json.dumps(row), flush=True)
+    rows["svd"] = row
+    del a
+    if s.shape != (SVD_K,) or not row["non_increasing"]:
+        fail(f"linalg svd: singular values {s.tolist()} not {SVD_K} "
+             f"non-increasing values")
+    if not rel <= SVD_REL_TOLERANCE:
+        fail(f"linalg svd: max relative error {rel:.3e} against the f64 "
+             f"Gramian's eigh (tol {SVD_REL_TOLERANCE})")
+
+    rows["dgetf2"] = phase_linalg_dgetf2()
+    launched = dict(**_counters(fa), gather=bs.gather_launches
+                    - spmm_before[0], masked=bs.masked_launches
+                    - spmm_before[1])
+    if any(launched.values()):
+        fail(f"linalg: hand-written kernels launched: {launched}")
+    dist.destroy_process_group()
+    pm.set_default_mesh(None)
+    return rows
+
+
 def spmm_kernel_entries(spmm, launches):
     """The two SpMM kernels' entries of the {"kernels": [...]} object.
     ``spmm`` is phase_spmm's rows; ``launches`` is {path: {"gather": n,
@@ -2245,6 +2732,67 @@ def spmm_kernel_entries(spmm, launches):
     ]
 
 
+def _fwd_entry(n, r):
+    """A forward kernel's numbers at phase_kernels' row ``r``, launched
+    ``n`` times on the path."""
+    return dict(shape=r["shape"], launches=n,
+                max_abs_err=r["max_abs_err"],
+                max_tile_rel_err=r["o_tile_rel_err"], ms=r["ms"],
+                cold_ms=r["cold_ms"], plain_ms=r["plain_ms"],
+                bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                library_ms=r["library_ms"],
+                tflops=r["tflops"], bound_share=r["bound_share"])
+
+
+def _bwd_entry(kernel, labels, n, r):
+    """Backward kernel ``kernel``'s ("dq" or "dkv") numbers at
+    phase_backward's row ``r`` (its errors over ``labels``), launched
+    ``n`` times on the path."""
+    return dict(
+        shape=r["shape"], launches=n,
+        max_abs_err=max(r[f"{x}_max_abs_err"] for x in labels),
+        max_global_rel_err=max(r[f"{x}_global_rel_err"] for x in labels),
+        max_tile_rel_err=max(r[f"{x}_tile_rel_err"] for x in labels),
+        ms=r[f"{kernel}_ms"], plain_ms=r["plain_ms"],
+        bound_ms=r[f"{kernel}_bound_ms"], bound_by=r[f"{kernel}_bound_by"],
+        library_ms=r["library_ms"], tflops=r[f"{kernel}_tflops"],
+        bound_share=r[f"{kernel}_bound_ms"] / r[f"{kernel}_ms"],
+        cold_ms=r[f"{kernel}_cold_ms"])
+
+
+def wide_kernel_entries(rows, bwd, small):
+    """The wide kernels' entries of the {"kernels": [...]} object: their
+    numbers at the "d320" shape (the attention of phase 6's wide_d320
+    model, their main path: its bf16 and f32 runs' launches), and every
+    WIDE_KERNEL_SHAPES row under "shapes"."""
+    src = "marlin_tpu_torch/csrc/flash_attention_wide.cu"
+    runs = [r for r in small if r.startswith("wide_d320")]
+
+    def entry(name, kernel, replaces, make, table, covers):
+        paths = {run: dict(shape=run, launches=small[run][f"wide_{kernel}"])
+                 for run in runs}
+        top = make(sum(p["launches"] for p in paths.values()), table["d320"])
+        return {"name": name, "route": "cuda", "source": src,
+                "replaces": replaces, **top, "paths": paths,
+                "library_ms_covers": covers,
+                "shapes": {s: make(0, table[s]) for s in WIDE_KERNEL_SHAPES}}
+
+    bwd_covers = ("scaled_dot_product_attention's backward: dQ, dK and dV "
+                  "in one call")
+    return [
+        entry("flash_attention_fwd_wide", "fwd",
+              "marlin_tpu/ops/flash_attention.py:134", _fwd_entry, rows,
+              "scaled_dot_product_attention's forward"),
+        entry("flash_attention_bwd_dq_wide", "dq",
+              "marlin_tpu/ops/flash_attention.py:335",
+              lambda n, r: _bwd_entry("dq", ("dq",), n, r), bwd, bwd_covers),
+        entry("flash_attention_bwd_dkv_wide", "dkv",
+              "marlin_tpu/ops/flash_attention.py:373",
+              lambda n, r: _bwd_entry("dkv", ("dk", "dv"), n, r), bwd,
+              bwd_covers),
+    ]
+
+
 def kernels_line(rows, bwd, launches, small, spmm, spmm_launches):
     """The {"kernels": [...]} object. Each kernel's top-level numbers are
     those of its first path's shape ("serve" for the forward, "train" for
@@ -2259,14 +2807,7 @@ def kernels_line(rows, bwd, launches, small, spmm, spmm_launches):
                  (("serve", "flagship"), ("train", "train"),
                   ("remat", "remat"))}
 
-    def fwd_entry(n, r):
-        return dict(shape=r["shape"], launches=n,
-                    max_abs_err=r["max_abs_err"],
-                    max_tile_rel_err=r["o_tile_rel_err"], ms=r["ms"],
-                    cold_ms=r["cold_ms"], plain_ms=r["plain_ms"],
-                    bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-                    library_ms=r["library_ms"],
-                    tflops=r["tflops"], bound_share=r["bound_share"])
+    fwd_entry = _fwd_entry
 
     def small_paths(kernel):
         return {run: dict(shape=run, launches=n[kernel])
@@ -2284,18 +2825,7 @@ def kernels_line(rows, bwd, launches, small, spmm, spmm_launches):
         paths = {p: (launches[p][kernel], bwd[p]) for p in ("train", "remat")}
 
         def entry(n, r):
-            return dict(
-                shape=r["shape"], launches=n,
-                max_abs_err=max(r[f"{x}_max_abs_err"] for x in labels),
-                max_global_rel_err=max(r[f"{x}_global_rel_err"]
-                                       for x in labels),
-                max_tile_rel_err=max(r[f"{x}_tile_rel_err"] for x in labels),
-                ms=r[f"{kernel}_ms"], plain_ms=r["plain_ms"],
-                bound_ms=r[f"{kernel}_bound_ms"],
-                bound_by=r[f"{kernel}_bound_by"],
-                library_ms=r["library_ms"], tflops=r[f"{kernel}_tflops"],
-                bound_share=r[f"{kernel}_bound_ms"] / r[f"{kernel}_ms"],
-                cold_ms=r[f"{kernel}_cold_ms"])
+            return _bwd_entry(kernel, labels, n, r)
 
         top = entry(*paths["train"])
         all_paths = {**{p: entry(*v) for p, v in paths.items()},
@@ -2322,6 +2852,7 @@ def kernels_line(rows, bwd, launches, small, spmm, spmm_launches):
         bwd_kernel("dq", "marlin_tpu/ops/flash_attention.py:335", ("dq",)),
         bwd_kernel("dkv", "marlin_tpu/ops/flash_attention.py:373",
                    ("dk", "dv")),
+        *wide_kernel_entries(rows, bwd, small),
         *spmm_kernel_entries(spmm, spmm_launches),
     ]}
 
@@ -2362,6 +2893,7 @@ def main(argv=None) -> int:
     spmm_launches["graph512"] = phase_spmm_graph()
     phase_spmm_grad()
     phase_gemm(card)
+    phase_linalg(card)
     kernels = kernels_line(rows, bwd, launches, small, spmm, spmm_launches)
     print(card)
     print(json.dumps(kernels))

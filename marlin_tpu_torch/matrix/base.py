@@ -323,7 +323,11 @@ class DistributedMatrix:
             [self.logical, other.logical.to(self._dtype)], dim=1))
 
     def inverse(self, mode: str = "auto"):
-        raise _deferred("the blocked inverse (inverse)", "A2b")
+        """Blocked inverse -> BlockMatrix (DenseVecMatrix.scala:568;
+        BlockMatrix.scala:529). Collective over the mesh."""
+        from ..linalg.inverse import inverse as _inv
+
+        return _inv(self, mode=mode)
 
     def multiply(self, other, *args, **kwargs):
         raise NotImplementedError

@@ -8,13 +8,13 @@ dispatch follows the reference's ``multiply(that, cores, threshold)``
 ``torch.distributed`` (NCCL on the card, gloo on the CPU). Operands move
 between layouts and meshes shard to shard (``mesh.redistribute``): only
 the broadcast arms put a whole operand, the one under the threshold, on
-every rank. The blocked
-decompositions, the SVD and logistic regression are ROADMAP Queue A2b;
-file I/O is A6.
+every rank. The blocked decompositions, the SVD and least squares are
+:mod:`..linalg`; file I/O is ROADMAP Queue A6.
 """
 
 from __future__ import annotations
 
+import math
 import warnings
 from typing import Optional, Tuple, Union
 
@@ -24,7 +24,7 @@ import torch
 from ..config import (get_config, linalg_precision_scope,
                       matmul_precision_scope)
 from ..mesh import (Layout, Mesh, all_reduce_sum, col_sharding, default_mesh,
-                    row_sharding, submesh)
+                    local_slices, row_sharding, submesh)
 from ..parallel import summa
 from ..utils.split import grid_for_devices, is_near_square
 from ..utils.timing import metrics
@@ -258,24 +258,18 @@ class DenseVecMatrix(DistributedMatrix):
     # ------------------------------------------------------------------
     # Gramian (DenseVecMatrix.scala:1444-1484)
     # ------------------------------------------------------------------
-    def _gramian_matvec(self, v: torch.Tensor) -> torch.Tensor:
-        """(A^T A) v on every rank: each stripe's A_s^T (A_s v), summed
-        over the mesh (pad rows are zero)."""
-        v = v.to(device=self.mesh.device, dtype=self._dtype)
-        with linalg_precision_scope():
-            part = torch.matmul(self._local.T, torch.matmul(self._local, v))
-        return all_reduce_sum(part, self.mesh)
-
     def multiply_gramian_matrix_by(self, v) -> np.ndarray:
         """(A^T A) v without forming the Gramian
         (``multiplyGramianMatrixBy``, DenseVecMatrix.scala:1444-1459), as a
         host array. Collective over the mesh."""
-        return to_host(self._gramian_matvec(as_tensor(v)))
+        return to_host(_GramianOperator(self)(v))
 
-    def gramian_matvec_operator(self):
-        """``v -> (A^T A) v`` on the card's tensors, for an iterative
-        eigensolver. Each call is collective over the mesh."""
-        return self._gramian_matvec
+    def gramian_matvec_operator(self) -> "_GramianOperator":
+        """``v -> (A^T A) v`` on the mesh device's tensors, for an
+        iterative eigensolver, with the Lanczos operator protocol
+        (``apply(operand, v)``, ``operand``: this rank's stripe). Each
+        call is collective over the mesh."""
+        return _GramianOperator(self)
 
     def compute_gramian_matrix(self) -> np.ndarray:
         """G = A^T A as a host array (``computeGramianMatrix``,
@@ -285,17 +279,63 @@ class DenseVecMatrix(DistributedMatrix):
             g = torch.matmul(self._local.T, self._local)
         return to_host(all_reduce_sum(g, self.mesh))
 
-    def compute_svd(self, *args, **kwargs):
-        raise _deferred("the Gramian SVD (compute_svd)", "A2b")
+    def compute_svd(self, k: int, compute_u: bool = True,
+                    r_cond: float = 1e-9, max_iter: int = 300,
+                    tol: float = 1e-10, mode: str = "auto"):
+        """Top-k singular value decomposition via the Gramian
+        (``computeSVD``, DenseVecMatrix.scala:1531-1648). See
+        :mod:`..linalg.svd`. Collective over the mesh."""
+        from ..linalg.svd import compute_svd as _svd
 
+        return _svd(self, k, compute_u=compute_u, r_cond=r_cond,
+                    max_iter=max_iter, tol=tol, mode=mode)
+
+    # ------------------------------------------------------------------
+    # Decompositions (wired to linalg)
+    # ------------------------------------------------------------------
     def lu_decompose(self, mode: str = "auto"):
-        raise _deferred("the blocked LU (lu_decompose)", "A2b")
+        """Blocked LU with partial pivoting (``luDecompose``,
+        DenseVecMatrix.scala:283-461): (BlockMatrix of packed L and U,
+        pivot array). Collective over the mesh."""
+        from ..linalg.lu import lu_decompose as _lu
+
+        return _lu(self, mode=mode)
 
     def cholesky_decompose(self, mode: str = "auto"):
-        raise _deferred("the blocked Cholesky (cholesky_decompose)", "A2b")
+        """Blocked Cholesky (``choleskyDecompose``,
+        DenseVecMatrix.scala:475): lower-triangular BlockMatrix L with
+        A = L L^T. Collective over the mesh."""
+        from ..linalg.cholesky import cholesky_decompose as _chol
 
-    def lr(self, step_size: float, iters: int):
-        raise _deferred("logistic regression (lr)", "A2b")
+        return _chol(self, mode=mode)
+
+    # ------------------------------------------------------------------
+    # ML: full-batch logistic-regression gradient descent
+    # ------------------------------------------------------------------
+    def lr(self, step_size: float, iters: int) -> np.ndarray:
+        """Logistic-regression gradient descent (``lr``,
+        DenseVecMatrix.scala:1005-1035). Row format is (label, features);
+        the label column is replaced by an intercept 1. The reference's
+        mapPartitions + reduce per iteration is each rank's gradient over
+        its own rows, summed by one all-reduce; the weights live on every
+        rank's device and the loop never waits on the host. Returns the
+        weights as a host array. Collective over the mesh."""
+        self._require_local()
+        m, n = self.num_rows, self.num_cols
+        rs = local_slices(self._sharding(), self._physical_shape)[0]
+        real = (torch.arange(rs.start, rs.stop, device=self._local.device)
+                < m)
+        labels = self._local[:, 0]
+        feats = self._local.clone()
+        feats[:, 0] = real.to(feats.dtype)  # intercept; pad rows stay 0
+        w = torch.zeros(n, dtype=feats.dtype, device=feats.device)
+        with matmul_precision_scope():
+            for i in range(1, iters + 1):
+                margin = -torch.matmul(feats, w)
+                mul = 1.0 / (1.0 + torch.exp(margin)) - labels
+                grad = all_reduce_sum(torch.matmul(feats.T, mul), self.mesh)
+                w = w - grad * (step_size / m / math.sqrt(i))
+        return to_host(w)
 
     def save_with_description(self, path: str, name: str = "N/A") -> None:
         raise _deferred("text I/O (save_with_description)", "A6")
@@ -335,6 +375,28 @@ class DenseVecMatrix(DistributedMatrix):
         for idx, vals in chunks:
             asm.add(np.asarray(idx), np.asarray(vals))
         return asm.finish(cls)
+
+
+class _GramianOperator:
+    """``v -> (A^T A) v`` of a DenseVecMatrix on its mesh device's
+    tensors, with the Lanczos operator protocol: ``apply(operand, v)`` runs
+    on the stripe it is handed (``operand``: this rank's stripe, the one
+    ``__call__`` hands over), each stripe's A_s^T (A_s v) summed over the
+    mesh (pad rows are zero). Collective over the mesh."""
+
+    def __init__(self, mat: DenseVecMatrix):
+        mat._require_local()
+        self.mesh = mat.mesh
+        self.operand = mat.local
+
+    def apply(self, operand: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+        v = torch.as_tensor(v).to(device=operand.device, dtype=operand.dtype)
+        with linalg_precision_scope():
+            part = torch.matmul(operand.T, torch.matmul(operand, v))
+        return all_reduce_sum(part, self.mesh)
+
+    def __call__(self, v) -> torch.Tensor:
+        return self.apply(self.operand, v)
 
 
 class _StripeAssembler:

@@ -33,6 +33,7 @@ BUILD_DIR = PACKAGE_DIR / "_build"
 # Every kernel source of the port, by library name.
 SOURCES = {"flash_attention_fwd": CSRC_DIR / "flash_attention_fwd.cu",
            "flash_attention_bwd": CSRC_DIR / "flash_attention_bwd.cu",
+           "flash_attention_wide": CSRC_DIR / "flash_attention_wide.cu",
            "block_sparse": CSRC_DIR / "block_sparse.cu"}
 
 # sm_90a, not sm_90: wgmma and setmaxnreg exist only for the "a" target.

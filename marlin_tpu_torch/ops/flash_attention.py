@@ -6,10 +6,12 @@ become CUDA C++ kernels: ``_kernel`` (the forward) is
 ``csrc/flash_attention_fwd.cu``; ``_bwd_dq_kernel`` and
 ``_bwd_dkv_kernel`` (the backward) are ``csrc/flash_attention_bwd.cu``.
 For bf16 all three kernels run wgmma fed by TMA through an mbarrier
-ring; for f32 all three are FMA kernels. The TPU's block constants and
-VMEM clamps (``DEFAULT_BLOCK_Q/K``, ``effective_blocks``,
-``window_block_clamp``, the backward's 512-row clamp, the lane-replicated
-lse) do not carry over: each CUDA kernel uses its own tiles (:data:`KERNEL_TILES`) and masks the ragged edges itself.
+ring; for f32 all three are FMA kernels. Above head dim 256 the three
+wide kernels of ``csrc/flash_attention_wide.cu`` take their place. The
+TPU's block constants and VMEM clamps (``DEFAULT_BLOCK_Q/K``,
+``effective_blocks``, ``window_block_clamp``, the backward's 512-row
+clamp, the lane-replicated lse) do not carry over: each CUDA kernel uses
+its own tiles (:data:`KERNEL_TILES`) and masks the ragged edges itself.
 
 Dispatch: CPU tensors take the plain versions,
 :func:`flash_attention_reference` and
@@ -22,15 +24,18 @@ only ``(q_hat, k, v, o, lse)`` and its backward recomputes the
 probability tiles from lse, so no (Sq, Skv) tensor is kept between the
 two passes.
 
-Head dims. The kernels are built for D and Dv in :data:`KERNEL_HEAD_DIMS`
-(64 and 128 in any pairing, and D = Dv = 256); on the card the wrapper
-zero-pads q_hat and K (D) and V and dO (Dv) up to the smallest of them
-that holds the head dim, both to 256 when either is above 128
-(:func:`_kernel_head_dims`), and slices O, dQ, dK and dV back, as the JAX
-package pads to its 128-lane tile (zero columns add nothing to q_hat K^T,
-to P V or to Delta). A head dim above 256 raises: the reference pads it
-to the next multiple of 128, for which no kernel is built (ROADMAP Queue
-C, C4).
+Head dims. The kernels of ``flash_attention_fwd.cu`` and
+``flash_attention_bwd.cu`` are built for D and Dv in
+:data:`KERNEL_HEAD_DIMS` (64 and 128 in any pairing, and D = Dv = 256);
+on the card the wrapper zero-pads q_hat and K (D) and V and dO (Dv) up to
+the smallest of them that holds the head dim, both to 256 when either is
+above 128 (:func:`_kernel_head_dims`), and slices O, dQ, dK and dV back,
+as the JAX package pads to its 128-lane tile (zero columns add nothing to
+q_hat K^T, to P V or to Delta). When D or Dv is above 256, each is padded
+on its own to a multiple of :data:`WIDE_MULTIPLE` and the call goes to the
+wide kernels of ``csrc/flash_attention_wide.cu`` (simple FMA kernels whose
+shared memory does not grow with the head dim), which have launch counters
+of their own; a call at D and Dv up to 256 never reaches them.
 
 Public layout is the JAX package's ``(S, H, D)``, plus an optional
 leading batch dimension that stands in for ``jax.vmap``.
@@ -54,6 +59,11 @@ _LOG2E = math.log2(math.e)
 # ascending; smaller ones are zero-padded up to the next (_padded_fwd).
 # 64 and 128 pair freely; 256 only with 256 (_kernel_head_dims).
 KERNEL_HEAD_DIMS = (64, 128, 256)
+# Above 256, D and Dv are each padded to a multiple of this for the wide
+# kernels (their reduction chunk, kWC), whose CTAs each own this many
+# output columns (kOut).
+WIDE_MULTIPLE = 64
+WIDE_OUT_COLUMNS = 128
 _KERNEL_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 
 # (query rows, keys) of each bf16 kernel's tile: the forward's kBM x kBN in
@@ -64,10 +74,14 @@ KERNEL_TILES = {"fwd": (128, 128), "dq": (64, 64), "dkv": (64, 64)}
 
 # Kernel launches since the last reset, one counter per kernel
 # (chip_smoke.py zeroes and reads them to prove that a path ran through
-# the kernels): the forward, the dQ backward and the dK/dV backward.
+# the kernels): the forward, the dQ backward and the dK/dV backward, and
+# the same three of the wide kernels (head dims above 256).
 launches = 0
 bwd_dq_launches = 0
 bwd_dkv_launches = 0
+wide_launches = 0
+wide_dq_launches = 0
+wide_dkv_launches = 0
 
 
 def _prepare(q, k, v, causal: bool, scale: Optional[float], window: int):
@@ -205,6 +219,28 @@ def _bwd_lib() -> ctypes.CDLL:
     return lib
 
 
+def _wide_lib() -> ctypes.CDLL:
+    lib = build.load("flash_attention_wide")
+    fwd, dq, dkv = (lib.marlin_flash_attention_fwd_wide,
+                    lib.marlin_flash_attention_bwd_dq_wide,
+                    lib.marlin_flash_attention_bwd_dkv_wide)
+    if fwd.argtypes is None:
+        fwd.restype = dq.restype = dkv.restype = ctypes.c_int
+        fwd.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 6
+                        + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+        dq.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 7
+                       + [ctypes.c_int] * 9
+                       + [ctypes.c_float, ctypes.c_void_p])
+        dkv.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 8
+                        + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+    return lib
+
+
+def _is_wide(d: int, dv: int) -> bool:
+    """Whether kernel head dims ``(d, dv)`` are the wide kernels'."""
+    return max(d, dv) > KERNEL_HEAD_DIMS[-1]
+
+
 def _check_launch(tensors: dict, d: int, dv: int,
                   stats: Optional[dict] = None) -> None:
     """Raise on anything the kernels do not take: ``tensors`` of a dtype
@@ -218,8 +254,9 @@ def _check_launch(tensors: dict, d: int, dv: int,
         raise ValueError(f"the kernel takes bf16 or f32, got {first.dtype}")
     if _kernel_head_dims(d, dv) != (d, dv):
         raise ValueError(
-            f"the kernel is built for head dims {KERNEL_HEAD_DIMS} (256 only "
-            f"with 256), got D={d}, Dv={dv}")
+            f"the kernels are built for head dims {KERNEL_HEAD_DIMS} (256 "
+            f"only with 256) and, when either is above 256, multiples of "
+            f"{WIDE_MULTIPLE}; got D={d}, Dv={dv}")
     every = {**tensors, **stats}
     for name, x in every.items():
         want = torch.float32 if name in stats else first.dtype
@@ -251,12 +288,15 @@ def _check_err(err: int, what: str, b, sq, skv, h, hk, d, dv) -> None:
 
 
 def _launch(q_hat, k, v, causal: bool, window: int):
-    """Run the forward kernel on batched (B, S, H, D) tensors. Checks what
-    the kernel takes and raises on anything else."""
+    """Run the forward kernel on batched (B, S, H, D) tensors (the wide
+    one above head dim 256). Checks what the kernel takes and raises on
+    anything else."""
     global launches
-    lib = _kernel_lib()
     b, sq, h, d = q_hat.shape
     skv, hk, dv = k.shape[1], k.shape[2], v.shape[3]
+    if _is_wide(d, dv):
+        return _launch_wide(q_hat, k, v, causal, window)[:2]
+    lib = _kernel_lib()
     _check_launch({"q": q_hat, "k": k, "v": v}, d, dv)
     o = torch.empty((b, sq, h, dv), dtype=q_hat.dtype, device=q_hat.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q_hat.device)
@@ -271,13 +311,42 @@ def _launch(q_hat, k, v, causal: bool, window: int):
     return o, lse
 
 
-def _bwd_setup(q_hat, k, v, do, lse, delta):
-    """The backward library and the dims (B, Sq, H, D, Skv, Hk, Dv) of
-    batched inputs, after checking every shape, dtype and device the
-    kernels read."""
-    lib = _bwd_lib()
+def _launch_wide(q_hat, k, v, causal: bool, window: int,
+                 lse_chunks: bool = False):
+    """Run the wide forward kernel (B3 above head dim 256) on batched
+    tensors whose head dims it takes: ``(O, lse, chunks)``, ``chunks``
+    being every output-column chunk's own lse, (chunks, B, H, Sq), when
+    ``lse_chunks`` asks for it (a check that they agree), else None."""
+    global wide_launches
+    lib = _wide_lib()
     b, sq, h, d = q_hat.shape
     skv, hk, dv = k.shape[1], k.shape[2], v.shape[3]
+    _check_launch({"q": q_hat, "k": k, "v": v}, d, dv)
+    o = torch.empty((b, sq, h, dv), dtype=q_hat.dtype, device=q_hat.device)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q_hat.device)
+    chunks = None
+    if lse_chunks:
+        chunks = torch.empty((-(-dv // WIDE_OUT_COLUMNS), b, h, sq),
+                             dtype=torch.float32, device=q_hat.device)
+    with torch.cuda.device(q_hat.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.marlin_flash_attention_fwd_wide(
+            _KERNEL_DTYPES[q_hat.dtype], q_hat.data_ptr(), k.data_ptr(),
+            v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+            None if chunks is None else chunks.data_ptr(), b, h, hk, sq,
+            skv, d, dv, int(causal), int(window), stream)
+    _check_err(err, "flash_attention_fwd_wide", b, sq, skv, h, hk, d, dv)
+    wide_launches += 1
+    return o, lse, chunks
+
+
+def _bwd_setup(q_hat, k, v, do, lse, delta):
+    """The backward library (the wide one above head dim 256) and the
+    dims (B, Sq, H, D, Skv, Hk, Dv) of batched inputs, after checking
+    every shape, dtype and device the kernels read."""
+    b, sq, h, d = q_hat.shape
+    skv, hk, dv = k.shape[1], k.shape[2], v.shape[3]
+    lib = _wide_lib() if _is_wide(d, dv) else _bwd_lib()
     shapes = {"k": (k.shape, (b, skv, hk, d)),
               "v": (v.shape, (b, skv, hk, dv)),
               "do": (do.shape, (b, sq, h, dv)),
@@ -296,41 +365,56 @@ def _bwd_setup(q_hat, k, v, do, lse, delta):
 
 def _launch_bwd_dq(q_hat, k, v, do, lse, delta, causal: bool, window: int,
                    scale: float):
-    """Run the dQ kernel (B4): dQ in q's dtype, (B, Sq, H, D)."""
-    global bwd_dq_launches
+    """Run the dQ kernel (B4; the wide one above head dim 256): dQ in
+    q's dtype, (B, Sq, H, D)."""
+    global bwd_dq_launches, wide_dq_launches
     lib, (b, sq, h, d, skv, hk, dv) = _bwd_setup(q_hat, k, v, do, lse,
                                                  delta)
+    wide = _is_wide(d, dv)
     dq = torch.empty_like(q_hat)
     with torch.cuda.device(q_hat.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.marlin_flash_attention_bwd_dq(
+        fn = (lib.marlin_flash_attention_bwd_dq_wide if wide
+              else lib.marlin_flash_attention_bwd_dq)
+        err = fn(
             _KERNEL_DTYPES[q_hat.dtype], q_hat.data_ptr(), k.data_ptr(),
             v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
             dq.data_ptr(), b, h, hk, sq, skv, d, dv, int(causal),
             int(window), float(scale), stream)
-    _check_err(err, "flash_attention_bwd_dq", b, sq, skv, h, hk, d, dv)
-    bwd_dq_launches += 1
+    _check_err(err, "flash_attention_bwd_dq" + "_wide" * wide, b, sq, skv,
+               h, hk, d, dv)
+    if wide:
+        wide_dq_launches += 1
+    else:
+        bwd_dq_launches += 1
     return dq
 
 
 def _launch_bwd_dkv(q_hat, k, v, do, lse, delta, causal: bool,
                     window: int):
-    """Run the dK/dV kernel (B5): (dK, dV) in k's dtype, summed over each
-    KV head's group of query heads."""
-    global bwd_dkv_launches
+    """Run the dK/dV kernel (B5; the wide one above head dim 256): (dK,
+    dV) in k's dtype, summed over each KV head's group of query heads."""
+    global bwd_dkv_launches, wide_dkv_launches
     lib, (b, sq, h, d, skv, hk, dv) = _bwd_setup(q_hat, k, v, do, lse,
                                                  delta)
+    wide = _is_wide(d, dv)
     dk = torch.empty_like(k)
     dvv = torch.empty_like(v)
     with torch.cuda.device(q_hat.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.marlin_flash_attention_bwd_dkv(
+        fn = (lib.marlin_flash_attention_bwd_dkv_wide if wide
+              else lib.marlin_flash_attention_bwd_dkv)
+        err = fn(
             _KERNEL_DTYPES[q_hat.dtype], q_hat.data_ptr(), k.data_ptr(),
             v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
             dk.data_ptr(), dvv.data_ptr(), b, h, hk, sq, skv, d, dv,
             int(causal), int(window), stream)
-    _check_err(err, "flash_attention_bwd_dkv", b, sq, skv, h, hk, d, dv)
-    bwd_dkv_launches += 1
+    _check_err(err, "flash_attention_bwd_dkv" + "_wide" * wide, b, sq, skv,
+               h, hk, d, dv)
+    if wide:
+        wide_dkv_launches += 1
+    else:
+        bwd_dkv_launches += 1
     return dk, dvv
 
 
@@ -352,23 +436,27 @@ def _launch_bwd(q_hat, k, v, do, lse, delta, causal: bool, window: int,
 
 def _kernel_head_dim(width: int, name: str) -> int:
     """The smallest entry of :data:`KERNEL_HEAD_DIMS` that holds a head
-    dim of ``width``; raises above the largest."""
+    dim of ``width``; above the largest, ``width`` rounded up to a
+    multiple of :data:`WIDE_MULTIPLE` (the wide kernels'). ``name`` ("D"
+    or "Dv") names the dim in the error for a width below 1."""
+    if width < 1:
+        raise ValueError(f"{name}={width}: a head dim is at least 1")
     for kernel_width in KERNEL_HEAD_DIMS:
         if width <= kernel_width:
             return kernel_width
-    raise ValueError(
-        f"{name}={width}: the kernels are built for head dims up to "
-        f"{KERNEL_HEAD_DIMS[-1]}; the reference pads {name} above 256 to "
-        f"the next multiple of 128, which has no kernel (ROADMAP Queue C, "
-        f"C4)")
+    return -(-width // WIDE_MULTIPLE) * WIDE_MULTIPLE
 
 
 def _kernel_head_dims(d: int, dv: int) -> Tuple[int, int]:
-    """The kernel head dims ``(D, Dv)`` that hold ``(d, dv)``: each the
+    """The kernel head dims ``(D, Dv)`` that hold ``(d, dv)``: when
+    either is above 256, each rounded up to a multiple of
+    :data:`WIDE_MULTIPLE` on its own (the wide kernels); else each the
     smallest of 64 and 128 that holds it, or both 256 when either is above
-    128 (the only instantiation at 256 is D = Dv = 256). Raises above
-    256."""
+    128 (the only narrow instantiation at 256 is D = Dv = 256)."""
     dp, dvp = _kernel_head_dim(d, "D"), _kernel_head_dim(dv, "Dv")
+    if max(d, dv) > KERNEL_HEAD_DIMS[-1]:
+        return (-(-d // WIDE_MULTIPLE) * WIDE_MULTIPLE,
+                -(-dv // WIDE_MULTIPLE) * WIDE_MULTIPLE)
     if max(dp, dvp) > 128:
         return 256, 256
     return dp, dvp

@@ -1,5 +1,6 @@
 """The port's dense examples (marlin_tpu_torch/examples: matrix_multiply,
-blas1, blas3) on the CPU, all in one process of their own, which makes no
+blas1, blas3, matrix_lu_decompose, least_squares, logistic_regression) on
+the CPU, all in one process of their own, which makes no
 process group itself: the first mesh then makes a one-rank group on a
 HashStore, the path a single process takes on one card. Each run prints
 the JAX example's JSON line (the same keys); the values are held to the
@@ -28,6 +29,15 @@ RUNS = {
     "blas1_dist": ("blas1", ["1000", "--mode", "dist"]),
     "blas1_local": ("blas1", ["1000", "--mode", "local"]),
     "blas3": ("blas3", ["32", "24", "16", "--grid", "1", "1", "1"]),
+    # The blocked LU in panels of the default 1000 columns (two panels),
+    # and the one-call local route.
+    "lu_dist": ("matrix_lu_decompose", ["--random", "1100", "--mode",
+                                        "dist", "--check"]),
+    "lu_breeze": ("matrix_lu_decompose", ["--random", "48", "--mode",
+                                          "breeze", "--check"]),
+    "lstsq": ("least_squares", ["7000", "16", "--rhs", "2"]),
+    "lr": ("logistic_regression", ["--synthetic", "500", "5", "--iters",
+                                   "50"]),
 }
 EXTRA = {"matrix_multiply": ["--iters", "1", "--check"]}
 
@@ -75,6 +85,51 @@ def test_blas3_times_three_ways(runs):
     out = runs["blas3"]
     assert out["example"] == "BLAS3" and out["shape"] == [32, 24, 16]
     assert set(out["seconds"]) == {"local", "broadcast", "split"}
+
+
+@pytest.mark.parametrize("run", ["lu_dist", "lu_breeze"])
+def test_matrix_lu_decompose(runs, run):
+    out = runs[run]
+    n = int(RUNS[run][1][1])
+    assert out["example"] == "MatrixLUDecompose" and out["shape"] == [n, n]
+    assert {"mode", "seconds", "output"} <= set(out)
+    # f32 LU with partial pivoting, held in f64: backward error of a few
+    # n * eps_f32 (eps 6e-8) at most.
+    assert out["reconstruction_max_err"] < 1e-4
+
+
+def test_least_squares(runs):
+    out = runs["lstsq"]
+    assert out["example"] == "LeastSquares" and out["rows"] == 7000
+    assert out["cols"] == 16 and out["mode"] == "auto"
+    # Noise 0.01 over 7000 rows: the coefficients within a few 1e-4;
+    # CholeskyQR2 in f32 orthogonal to a few f32 ulps.
+    assert out["coef_max_err"] < 1e-2 and out["qr_orth_err"] < 1e-5
+
+
+def test_logistic_regression_matches_the_jax_example(runs, capsys):
+    from marlin_tpu.examples import logistic_regression as jax_lr
+
+    out = runs["lr"]
+    assert out["example"] == "LogisticRegression"
+    assert out["shape"] == [500, 6] and out["iters"] == 50
+    # The same numpy data: the JAX example's weights (f64) and accuracy.
+    jax_lr.main(["--synthetic", "500", "5", "--iters", "50"])
+    want = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    np.testing.assert_allclose(out["weights_head"], want["weights_head"],
+                               rtol=0, atol=2e-6)
+    assert out["train_accuracy"] == want["train_accuracy"] > 0.9
+
+
+@pytest.mark.parametrize("module, argv", [
+    ("matrix_lu_decompose", ["a.txt", "out"]),
+    ("logistic_regression", ["data.txt"])])
+def test_linalg_example_file_input_waits_for_a6(module, argv):
+    import importlib
+
+    example = importlib.import_module(f"marlin_tpu_torch.examples.{module}")
+    with pytest.raises(NotImplementedError, match="item A6"):
+        example.main(argv + ["--device", "cpu"])
 
 
 def test_matrix_multiply_file_io_waits_for_a6():

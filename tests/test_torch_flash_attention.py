@@ -164,6 +164,9 @@ PADDED = {
     "d32_dv16": (24, 50, 4, 2, 32, 16, False, 0),
     "d32_window": (48, 48, 4, 1, 32, 32, True, 8),
     "d160": (24, 24, 2, 1, 160, 160, True, 0),
+    # Above 256, the wide kernels' widths: each dim to a multiple of 64.
+    "d320": (24, 24, 2, 1, 320, 320, True, 0),
+    "d384_dv128": (20, 30, 2, 2, 384, 128, False, 0),
 }
 
 
@@ -187,7 +190,8 @@ def test_padding_to_the_kernel_head_dims_changes_nothing(name):
 
     o, lse = pfa._padded_fwd(plain, q_hat, kt, vt, causal, window)
     dp, dvp = pfa._kernel_head_dims(d, dv)
-    assert widths == [(dp, dp, dvp)] and dp in pfa.KERNEL_HEAD_DIMS
+    assert widths == [(dp, dp, dvp)]
+    assert dp in pfa.KERNEL_HEAD_DIMS or pfa._is_wide(dp, dvp)
     assert o.shape == (1, sq, h, dv) and o.is_contiguous()
     o_ref, lse_ref = pfa.flash_attention_reference(q_hat, kt, vt, causal,
                                                    window)
@@ -231,18 +235,31 @@ def test_head_dims_above_128_raise_naming_c3(d, monkeypatch):
     assert seen == [(256, 256, 256)] and out.shape == (1, 8, 2, 32)
 
 
-@pytest.mark.parametrize("d", [257, 320, 384])
-def test_head_dims_above_256_raise_naming_c4(d):
-    # The reference pads D above 256 to the next multiple of 128 (320 to
-    # 384); the kernels stop at 256 (ROADMAP Queue C, C4), so the card's
-    # path raises, for D and for Dv.
-    with pytest.raises(ValueError, match="C4"):
-        pfa._kernel_head_dim(d, "D")
-    with pytest.raises(ValueError, match="C4"):
-        pfa._kernel_head_dims(64, d)
+@pytest.mark.parametrize("d, width", [(257, 320), (320, 320), (384, 384)])
+def test_head_dims_above_256_raise_naming_c4(d, width, monkeypatch):
+    # The fault this test pinned (ROADMAP Queue C, C4: D or Dv above 256
+    # raised on the card) is repaired: the reference pads such a head dim
+    # to its 128-lane tile and takes it, and the wrapper now pads D and Dv
+    # each on its own to a multiple of 64 for the wide kernels; nothing
+    # raises, and the other dim keeps its own width.
+    assert pfa._kernel_head_dim(d, "D") == width
+    assert pfa._kernel_head_dims(64, d) == (64, width)
+    assert pfa._kernel_head_dims(d, 128) == (width, 128)
+    assert pfa._is_wide(*pfa._kernel_head_dims(d, 16))
+    assert not pfa._is_wide(*pfa._kernel_head_dims(256, 256))
+    seen = []
+
+    def fake_launch(q_hat, k, v, causal, window):
+        seen.append((q_hat.shape[-1], k.shape[-1], v.shape[-1]))
+        b, sq, h, _ = q_hat.shape
+        return (torch.empty((b, sq, h, v.shape[-1]), device=q_hat.device),
+                torch.empty((b, h, sq), device=q_hat.device))
+
+    monkeypatch.setattr(pfa, "_launch", fake_launch)
     q = torch.zeros((1, 8, 2, d), device="meta")
-    with pytest.raises(ValueError, match="C4"):
-        pfa.flash_attention(q, q, q, causal=True)
+    v = torch.zeros((1, 8, 2, 32), device="meta")
+    out = pfa.flash_attention(q, q, v, causal=True)
+    assert seen == [(width, width, 64)] and out.shape == (1, 8, 2, 32)
 
 
 def test_the_card_path_pads_for_the_kernel_and_slices_back(monkeypatch):

@@ -136,6 +136,9 @@ PADDED = {
     "d32_dv16": (24, 50, 4, 2, 32, 16, False, 0),
     "d32_window": (64, 64, 4, 1, 32, 32, True, 16),
     "d160": (24, 24, 2, 1, 160, 160, True, 0),
+    # Above 256, the wide kernels' widths: each dim to a multiple of 64.
+    "d320": (24, 24, 2, 1, 320, 320, True, 0),
+    "d384_dv128": (20, 30, 2, 2, 384, 128, False, 0),
 }
 
 

@@ -15,7 +15,10 @@ threefry draw different streams).
 import numpy as np
 import pytest
 
+import jax.numpy as jnp
+
 import marlin_tpu as mt
+from marlin_tpu import linalg as jlinalg
 from marlin_tpu.matrix.block import BlockMatrix
 from marlin_tpu.matrix.dense import DenseVecMatrix
 from marlin_tpu.matrix.vector import DistributedVector
@@ -276,7 +279,12 @@ WHOLE = {"summa": ("g64x48", "g48x56", (64, 56)),
          "grid_2x2x2": ("g64x48", "g48x56", (64, 56)),
          "left_broadcast": ("g48x56", (4, 56)),
          "row_to_block": ("g64x48",), "block_to_row": ("g64x48",),
-         "transpose": ("g64x48",), "block_transpose": ("g64x48",)}
+         "transpose": ("g64x48",), "block_transpose": ("g64x48",),
+         # The dist-mode decompositions and solves (panels of 16): their
+         # square operand, factor, inverse.
+         "lu_dist": ("lin64",), "cholesky_dist": ("spd64",),
+         "inverse_dist": ("lin64",), "solve_dist": ("lin64",),
+         "solve_spd_dist": ("spd64",)}
 
 
 def holds_whole(shape, whole):
@@ -301,6 +309,14 @@ def test_no_rank_holds_a_whole_operand(port, arm):
                 if holds_whole(s, w)]
     a, b = INPUTS["g64x48"], INPUTS["g48x56"]
     jd, jb = DenseVecMatrix(a), BlockMatrix(a)
+    sq, spd, rhs = INPUTS["lin64"], INPUTS["spd64"], INPUTS["rhs64"]
+
+    def dist(fn):
+        def run():
+            with mt.config_override(lu_base_size=16, cholesky_base_size=16):
+                return np.asarray(fn())
+        return run
+
     want = {"summa": lambda: jd.multiply(DenseVecMatrix(b), mode="summa"),
             "cannon_square_submesh": lambda: jd.multiply(
                 DenseVecMatrix(b), mode="cannon", parallelism=4),
@@ -310,5 +326,18 @@ def test_no_rank_holds_a_whole_operand(port, arm):
                 INPUTS["g4x48"]).multiply(DenseVecMatrix(b)),
             "row_to_block": jd.to_block_matrix,
             "block_to_row": jb.to_dense_vec_matrix,
-            "transpose": jd.transpose, "block_transpose": jb.transpose}
-    close(got["value"], want[arm]().to_numpy())
+            "transpose": jd.transpose, "block_transpose": jb.transpose,
+            "lu_dist": dist(lambda: jlinalg.lu_factor_array(
+                jnp.asarray(sq), mode="dist")[0]),
+            "cholesky_dist": dist(lambda: jlinalg.cholesky_factor_array(
+                jnp.asarray(spd), mode="dist")),
+            "inverse_dist": dist(lambda: jlinalg.inverse(
+                jnp.asarray(sq), mode="dist")),
+            "solve_dist": dist(lambda: jlinalg.solve(
+                jnp.asarray(sq), jnp.asarray(rhs), mode="dist")),
+            "solve_spd_dist": dist(lambda: jlinalg.solve(
+                jnp.asarray(spd), jnp.asarray(rhs), mode="dist",
+                assume_spd=True))}
+    out = want[arm]()
+    close(got["value"], out if isinstance(out, np.ndarray)
+          else out.to_numpy())

@@ -29,6 +29,8 @@ VARIANTS = {
     "plain": dict(),
     "rope_gqa": dict(rope=True, n_kv_heads=2),
     "window": dict(rope=True, window=4),
+    # Two heads of D = 320: the card's wrapper takes the wide kernels here.
+    "head_dim_320": dict(d_model=640, n_heads=2),
 }
 
 

@@ -91,6 +91,42 @@ def make_inputs() -> dict:
         "D43": normal(3, 5),
         "g64x48": normal(64, 48), "g48x56": normal(48, 56),
         "g4x48": normal(4, 48),
+        # The linalg suite's (and the whole-operand check's) square
+        # systems; drawn last, so the arrays above keep their values.
+        **_linalg_inputs(normal),
+    }
+
+
+def _linalg_inputs(normal) -> dict:
+    """The linalg cases' inputs: __graft_entry__.py's dist LU and Cholesky
+    check at 8 ranks (n = 24 x 8, f32, A + n I and A A^T / n + I), the
+    sharded f64 decompositions at n = 192, the whole-operand systems at
+    n = 64, and the small cases of tests/test_linalg.py."""
+    n = 24 * 8
+    graft = (normal(n, n) + n * np.eye(n)).astype(np.float32)
+    g192 = normal(n, n)
+    g64 = normal(64, 64)
+    g24 = normal(24, 24)
+    logit_x = normal(200, 5)
+    logit_w = normal(5)
+    return {
+        "graft_a": graft,
+        "graft_spd": (graft.astype(np.float64) @ graft.T / n
+                      + np.eye(n)).astype(np.float32),
+        "lu192": normal(n, n),
+        "spd192": g192 @ g192.T + n * np.eye(n),
+        "lin64": normal(64, 64) + 8 * np.eye(64),
+        "spd64": g64 @ g64.T + 64 * np.eye(64),
+        "rhs64": normal(64, 5),
+        "lu20": normal(20, 20), "lu12": normal(12, 12),
+        "spd24": g24 @ g24.T + 24 * np.eye(24),
+        "inv18": normal(18, 18) + 18 * np.eye(18),
+        "inv10": normal(10, 10) + 10 * np.eye(10),
+        "svd40x12": normal(40, 12),
+        "rank2_x": normal(20, 2), "rank2_y": normal(2, 6),
+        "qr40x8": normal(40, 8),
+        "logit": np.hstack([(logit_x @ logit_w > 0)[:, None].astype(float),
+                            logit_x]),
     }
 
 
@@ -889,9 +925,21 @@ def _tensor_shapes(fn):
 
 @case("gemm")
 def no_rank_holds_a_whole_operand(c):
+    from marlin_tpu_torch.config import config_override
+    from marlin_tpu_torch.linalg import inverse, solve
+
     a, b = _dvm(c.inp("g64x48")), _dvm(c.inp("g48x56"))
     small = _dvm(c.inp("g4x48"))
     ablk = _blk(c.inp("g64x48"))
+    sq, spd = _dvm(c.inp("lin64")), _dvm(c.inp("spd64"))
+    rhs = c.inp("rhs64")
+
+    def dist(fn):  # the dist-mode decompositions, in panels of 16
+        def run():
+            with config_override(lu_base_size=16, cholesky_base_size=16):
+                return fn()
+        return run
+
     arms = {
         "summa": lambda: a.multiply(b, mode="summa"),
         "cannon_square_submesh": lambda: a.multiply(b, mode="cannon",
@@ -903,13 +951,169 @@ def no_rank_holds_a_whole_operand(c):
         "block_to_row": lambda: ablk.to_dense_vec_matrix(),
         "transpose": lambda: a.transpose(),
         "block_transpose": lambda: ablk.transpose(),
+        "lu_dist": dist(lambda: sq.lu_decompose(mode="dist")[0]),
+        "cholesky_dist": dist(lambda: spd.cholesky_decompose(mode="dist")),
+        "inverse_dist": dist(lambda: inverse(sq, mode="dist")),
+        "solve_dist": dist(lambda: solve(sq, rhs, mode="dist")),
+        "solve_spd_dist": dist(lambda: solve(spd, rhs, mode="dist",
+                                             assume_spd=True)),
     }
     out = {}
     for name, fn in arms.items():
         got, shapes = _tensor_shapes(fn)
         out[name] = {"shapes": shapes, "value": _np(got)
-                     if got.holds else None}
+                     if not hasattr(got, "holds") or got.holds else None}
     return out
+
+
+# -- linalg (twin of tests/test_linalg.py's distributed cases; 8 ranks) -----
+
+def _packed(out):
+    """(packed LU as an ndarray, perm as a list) of an lu_decompose."""
+    lu, perm = out
+    return {"type": type(lu).__name__, "packed": _np(lu),
+            "perm": [int(p) for p in perm]}
+
+
+@case("linalg")
+def graft_dist_lu_cholesky(c):
+    # __graft_entry__.py's check at 8 ranks: n = 24 x 8, base n / 3, f32,
+    # both factorizations sharded (no rank holds a whole n x n operand).
+    from marlin_tpu_torch.config import config_override
+
+    a, spd = c.inp("graft_a"), c.inp("graft_spd")
+    n = a.shape[0]
+    am, sm = _dvm(a), _dvm(spd)
+    with config_override(lu_base_size=n // 3, cholesky_base_size=n // 3):
+        lu, lu_shapes = _tensor_shapes(lambda: am.lu_decompose(mode="dist"))
+        ch, ch_shapes = _tensor_shapes(
+            lambda: sm.cholesky_decompose(mode="dist"))
+    return {"lu": _packed(lu), "chol": _np(ch), "lu_shapes": lu_shapes,
+            "chol_shapes": ch_shapes, "dtype": str(ch.dtype),
+            "mesh_size": ch.mesh.size}
+
+
+@case("linalg")
+def sharded_decompositions(c):
+    # TestShardedDecompositions: block-sharded f64 inputs, n = 192, base
+    # 48; the factors come back as BlockMatrix shards on the whole mesh.
+    from marlin_tpu_torch.config import config_override
+    from marlin_tpu_torch.linalg import (cholesky_factor_array,
+                                         lu_factor_array)
+
+    with config_override(lu_base_size=48, cholesky_base_size=48):
+        lu = lu_factor_array(_blk(c.inp("lu192")), mode="dist")
+        ch = cholesky_factor_array(_blk(c.inp("spd192")), mode="dist")
+    return {"lu": _packed(lu), "chol": _np(ch),
+            "holders": _gather(lu[0].local is not None
+                               and ch.local is not None)}
+
+
+@case("linalg")
+def lu_modes(c):
+    # TestLU: the factorization at local and dist (bases 7 and 8), the
+    # "breeze" API contract, the non-square and bad-mode errors.
+    from marlin_tpu_torch.config import config_override
+
+    out = {}
+    for mode, base in (("local", None), ("dist", 7), ("dist", 8)):
+        with config_override(lu_base_size=base or 1000):
+            out[f"{mode}_{base}"] = _packed(
+                _dvm(c.inp("lu20")).lu_decompose(mode=mode))
+    out["breeze"] = _packed(_dvm(c.inp("lu12")).lu_decompose(mode="breeze"))
+    out["non_square"] = _raises(
+        lambda: _dvm(c.inp("a")).lu_decompose(), ValueError)
+    out["bad_mode"] = _raises(
+        lambda: _dvm(c.inp("lu12")).lu_decompose(mode="gpu"), ValueError)
+    return out
+
+
+@case("linalg")
+def cholesky_modes(c):
+    from marlin_tpu_torch.config import config_override
+
+    out = {}
+    for mode, base in (("local", None), ("dist", 7)):
+        with config_override(cholesky_base_size=base or 1000):
+            l = _dvm(c.inp("spd24")).cholesky_decompose(mode=mode)
+        out[mode] = {"type": type(l).__name__, "value": _np(l)}
+    return out
+
+
+@case("linalg")
+def inverses(c):
+    from marlin_tpu_torch.config import config_override
+
+    p = np.array([[0.0, 1.0, 0.0], [0.0, 0.0, 1.0], [1.0, 0.0, 0.0]])
+    out = {"permutation": _np(_dvm(p).inverse())}
+    for mode in ("local", "dist"):
+        with config_override(lu_base_size=5):
+            inv = _dvm(c.inp("inv18")).inverse(mode=mode)
+        out[mode] = {"type": type(inv).__name__, "value": _np(inv)}
+    out["block"] = _np(_blk(c.inp("inv10")).inverse())
+    return out
+
+
+@case("linalg")
+def svds(c):
+    # TestSVD: each mode with U, without U, the rCond cutoff, auto.
+    out = {}
+    a = _dvm(c.inp("svd40x12"))
+    for mode in ("local-svd", "local-eigs", "dist-eigs"):
+        u, s, v = a.compute_svd(4, compute_u=True, mode=mode)
+        out[mode] = {"u": _np(u), "s": s, "v": v, "u_type": type(u).__name__}
+    u, s, v = a.compute_svd(3, compute_u=False, mode="local-svd")
+    out["no_u"] = {"u": u, "s_shape": list(s.shape), "v_shape": list(v.shape)}
+    rank2 = _dvm(c.inp("rank2_x") @ c.inp("rank2_y"))
+    out["rcond"] = list(rank2.compute_svd(4, mode="local-svd",
+                                          r_cond=1e-6).s.shape)
+    out["auto"] = a.compute_svd(2).s
+    return out
+
+
+@case("linalg")
+def gramian_operator(c):
+    # TestLanczosOperandProtocol: the operator's protocol and its matvec.
+    m = _dvm(c.inp("svd40x12"))
+    op = m.gramian_matvec_operator()
+    v = np.linspace(-1.0, 1.0, 12)
+    import torch
+
+    return {"has_apply": callable(getattr(op, "apply", None)),
+            "operand_is_local": op.operand is m.local,
+            "apply": _np(op.apply(op.operand, torch.from_numpy(v))),
+            "call": _np(op(v))}
+
+
+@case("linalg")
+def qr_roundtrip(c):
+    from marlin_tpu_torch.linalg import lstsq, qr_decompose
+
+    m = _dvm(c.inp("qr40x8"))
+    q, r = qr_decompose(m, mode="tsqr")
+    bq, br = qr_decompose(_blk(c.inp("qr40x8")), mode="tsqr")
+    b = c.inp("qr40x8") @ np.arange(1.0, 9.0)
+    return {"type": type(q).__name__, "q": _np(q), "r": _np(r),
+            "block_type": type(bq).__name__, "block_q": _np(bq),
+            "lstsq": _np(lstsq(m, b, mode="tsqr"))}
+
+
+@case("linalg")
+def logistic_regression(c):
+    return {"w": _dvm(c.inp("logit")).lr(step_size=1.0, iters=20)}
+
+
+@case("linalg")
+def dist_solves(c):
+    # TestSolve on a distributed operand: the LU and the SPD routes.
+    from marlin_tpu_torch.config import config_override
+    from marlin_tpu_torch.linalg import solve
+
+    with config_override(lu_base_size=16, cholesky_base_size=16):
+        return {"lu": _np(solve(_dvm(c.inp("lin64")), c.inp("rhs64"),
+                                mode="dist")),
+                "spd": _np(solve(_dvm(c.inp("spd64")), c.inp("rhs64")[:, 0],
+                                 mode="dist", assume_spd=True))}
 
 
 # -- sparse x dense: the lifted refusals of tests/test_torch_sparse.py -------
