@@ -104,30 +104,38 @@ bench at BENCH_TF_D=320, and D = 256; bf16 and f32), which the wrapper
 pads to the kernels' D = Dv = 256 instantiations, with dK/dV bitwise
 repeatable there too; phase 6's small models include a D = 160 and a
 D = 256 model, trained through those instantiations. Head dims above 256
-(D = 320, 384 under a window, 512, 1024, and the pairs (384, 128) and
-(64, 320), bf16 and f32) go to the wide kernels of
-csrc/flash_attention_wide.cu: phases 3 and 4 hold them to the plain
+(D = 320, 384 under a window, 512, 1024, the pairs (384, 128) and
+(64, 320), and two shapes large enough to read a share of the bound:
+D = 512 at S = 4096 and DeepSeek-V3's absorbed-MLA widths (576, 512) at
+S = 4096 over one KV head; bf16, and the first six in f32) go to the wide
+kernels of csrc/flash_attention_wide.cu (bf16 forward and dQ on wgmma and
+a TMA ring; f32, and dK/dV, FMA): phases 3 and 4 hold them to the plain
 versions by the same limits, their dQ and dK/dV bitwise over two runs and
 every forward output chunk's lse equal to the others, and phase 6 trains a
 D = 320 model through them (its launches are the wide kernels' counts; no
-D <= 256 run launches a wide kernel).
+D <= 256 run launches a wide kernel). At the two large shapes dK/dV and
+the plain backward are timed over 2 launches, not 10.
 
 The last three lines of output are the card line from nvidia-smi, one
 {"kernels": [...]} JSON object, and {"ok": true, "device": {...}}.
 
 With ``--planted-faults`` it runs phase 1, then builds the forward source
 with each fault of FWD_PLANTED_FAULTS, the backward source with each fault
-of PLANTED_FAULTS and the SpMM source with each fault of
-SPMM_PLANTED_FAULTS into a temporary directory and prints, at every bf16
-shape of the forward, backward and SpMM checks, the sound kernels' and
-each fault's reading of the check; it fails unless the check's limit
-separates them.
+of PLANTED_FAULTS, the wide source with each fault of WIDE_KERNEL_FAULTS
+and the SpMM source with each fault of SPMM_PLANTED_FAULTS into a
+temporary directory and prints, at every bf16 shape of the forward,
+backward and SpMM checks and at the f32 shapes of the wide kernels, the
+sound kernels' and each fault's reading of the check; it fails unless the
+check's limit (the shape's dtype's) separates them.
 
-With ``--compare-with DIR`` it runs phase 1, then builds DIR's backward and
-SpMM sources (another checkout, e.g. the parent commit unpacked by ``git
-archive``) and this tree's KERNEL_VARIANTS, holds each against the plain
-version and times dQ at the train and remat shapes and both SpMM routes
-at bench512 and coo128, warm and cold, in two rounds in opposite orders.
+With ``--compare-with DIR`` it runs phase 1, then builds DIR's backward,
+wide and SpMM sources (another checkout, e.g. the parent commit unpacked
+by ``git archive``) and this tree's KERNEL_VARIANTS, holds each against
+the plain version and times dQ at the train and remat shapes, both SpMM
+routes at bench512 and coo128 and the wide bf16 forward and dQ at the
+LARGE_WIDE_SHAPES, warm and cold, in two rounds in opposite orders;
+beside them the wide kernels' ablations (wide_ablations: no TMA loads,
+no logit products, loads only, the ring's sync only), timed, not held.
 """
 
 from __future__ import annotations
@@ -194,6 +202,15 @@ SHAPES = [
     ("d1024", 1, 512, 512, 4, 1, 1024, 1024, "bfloat16", True, 0),
     ("d384_dv128", 1, 1000, 1000, 4, 2, 384, 128, "bfloat16", True, 0),
     ("d64_dv320", 1, 384, 1000, 4, 2, 64, 320, "bfloat16", False, 0),
+    # The wide kernels at sizes whose bounds exceed a launch's overhead
+    # (LARGE_WIDE_SHAPES): D = Dv = 512 at S = 4096 (MHA), and the
+    # attention widths of DeepSeek-V3's absorbed multi-head latent
+    # attention (its config.json: kv_lora_rank 512 + qk_rope_head_dim 64 =
+    # 576 for q and k, kv_lora_rank 512 for v, over one latent KV head; its
+    # 128 heads cut to 16, one of eight tensor-parallel shards). Kernel
+    # measurement shapes, not model configurations.
+    ("d512_s4096", 2, 4096, 4096, 8, 8, 512, 512, "bfloat16", True, 0),
+    ("mla_d576_dv512", 1, 4096, 4096, 16, 1, 576, 512, "bfloat16", True, 0),
     ("d320_f32", 2, 512, 512, 2, 2, 320, 320, "float32", True, 0),
     ("d384_window_f32", 1, 1000, 1000, 2, 1, 384, 384, "float32", True,
      200),
@@ -208,6 +225,12 @@ WIDE_SHAPES = ("d160", "d256", "d160_f32", "d256_f32")
 
 # The shapes whose kernels are the wide ones (a head dim above 256).
 WIDE_KERNEL_SHAPES = tuple(s[0] for s in SHAPES if max(s[6], s[7]) > 256)
+
+# The wide shapes at which the FMA dK/dV kernel and the plain backward take
+# a good part of a second a launch: timed with 2 launches, not 10.
+LARGE_WIDE_SHAPES = ("d512_s4096", "mla_d576_dv512")
+
+SHAPE_BY_NAME = {s[0]: s for s in SHAPES}
 
 # Backward shapes: the training paths' two and the same edge cases.
 BWD_SHAPES = [s for s in SHAPES if s[0] != "flagship"]
@@ -308,40 +331,89 @@ WIDE_FAULTS = ("fwd256_second_half_reads_first_v_half",
                "dq256_second_half_reads_first_k_half",
                "dkv256_second_share_reads_first_columns")
 
-# Planted faults of the wide kernels (csrc/flash_attention_wide.cu), one
-# per kernel, each shown only at the WIDE_KERNEL_SHAPES and by the check of
-# its own kernel (WIDE_KERNEL_FAULT_CHECK).
+# Planted faults of the wide kernels (csrc/flash_attention_wide.cu): two
+# for each bf16 kernel (one of them a fault of the split of the output's
+# columns between its two consumer warpgroups), one of the f32 forward and
+# one of dK/dV. Each is shown only at the WIDE_KERNEL_SHAPES of its dtype,
+# by the check of its own kernel (WIDE_KERNEL_FAULT_CHECK).
 WIDE_KERNEL_FAULTS = {
-    # The forward does not rescale O when a row's running max grows.
+    # The bf16 forward does not rescale O when a row's running max grows.
     "wide_fwd_skips_o_rescale": (
+        "    for (int e = 0; e < kMaxBoxes * 32; ++e) "
+        "acc[e] *= corr[(e >> 1) & 1];\n",
+        "    for (int e = 0; e < 0; ++e) acc[e] *= corr[(e >> 1) & 1];\n"),
+    # The bf16 forward's second consumer adds P times the first consumer's
+    # V columns into its own columns of O (the producer loads the first
+    # consumer's V boxes in place of the second's).
+    "wide_fwd_second_consumer_reads_first_v_columns": (
+        "&tv, &full[p.s],\n                            sp.col(w, x0 + x),",
+        "&tv, &full[p.s],\n                            sp.col(0, x0 + x),"),
+    # The bf16 dQ's dP = dO V^T leaves out Dv's last 64-column box (the
+    # producer and the consumers agree on the shorter sweep).
+    "wide_dq_drops_last_dv_chunk": (
+        "  const int ndv = DV / 64;\n",
+        "  const int ndv = DV / 64 - 1;\n"),
+    # The bf16 dQ's second consumer adds dS times the first consumer's K
+    # columns into its own columns of dQ.
+    "wide_dq_second_consumer_reads_first_k_columns": (
+        "&tk, &full[p.s],\n                            sp.col(w, x0 + x),",
+        "&tk, &full[p.s],\n                            sp.col(0, x0 + x),"),
+    # The f32 forward (FMA) does not rescale O when a row's running max
+    # grows.
+    "wide_f32_fwd_skips_o_rescale": (
         "    for (int j = 0; j < kOut / 2; ++j) acc[j] *= corr;\n",
         "    for (int j = 0; j < 0; ++j) acc[j] *= corr;\n"),
-    # dQ's dP = dO V^T leaves out Dv's last 64-column chunk.
-    "wide_dq_drops_last_dv_chunk": (
-        "             v_row, Skv - n0, DV);\n",
-        "             v_row, Skv - n0, DV - kWC);\n"),
-    # The dK/dV kernel's sweep of each query head stops one query tile
-    # short.
+    # The dK/dV kernel's (FMA, both dtypes) sweep of each query head stops
+    # one query tile short.
     "wide_dkv_drops_last_query_tile": (
         "    for (int m0 = lo; m0 < hi; m0 += kCols) {\n",
         "    for (int m0 = lo; m0 < hi - kCols; m0 += kCols) {\n"),
 }
-WIDE_KERNEL_FAULT_CHECK = {"wide_fwd_skips_o_rescale": "forward",
-                           "wide_dq_drops_last_dv_chunk": "backward",
-                           "wide_dkv_drops_last_query_tile": "backward"}
+
+
+def _boxes(width: int) -> int:
+    """64-column boxes of a head dim padded for the wide kernels."""
+    return -(-width // 64)
+
+
+# Each wide fault's check ("forward" or "backward"), the dtype of the
+# shapes whose kernels it breaks (None: both) and, where not every such
+# shape can show it, which can: a fault of the column split shows where the
+# CTA has two output boxes or more (Dv for the forward, D for dQ).
+WIDE_KERNEL_FAULT_CHECK = {
+    "wide_fwd_skips_o_rescale": ("forward", "bfloat16", None),
+    "wide_fwd_second_consumer_reads_first_v_columns": (
+        "forward", "bfloat16", lambda s: _boxes(s[7]) >= 2),
+    "wide_dq_drops_last_dv_chunk": ("backward", "bfloat16", None),
+    "wide_dq_second_consumer_reads_first_k_columns": (
+        "backward", "bfloat16", lambda s: _boxes(s[6]) >= 2),
+    "wide_f32_fwd_skips_o_rescale": ("forward", "float32", None),
+    "wide_dkv_drops_last_query_tile": ("backward", None, None),
+}
+
+
+def planted_shape(name: str) -> bool:
+    """Whether ``--planted-faults`` reads the checks at shape ``name``:
+    every bf16 shape, and the f32 ones of the wide kernels (where the f32
+    and dK/dV faults of the wide source show)."""
+    return (SHAPE_BY_NAME[name][8] == "bfloat16"
+            or name in WIDE_KERNEL_SHAPES)
 
 
 def flash_fault_shows(fault: str, shape: str, check: str) -> bool:
     """Whether planted flash fault ``fault`` can show at ``shape`` in the
     ``check`` ("forward" or "backward") of its source's kernels: a fault of
-    the wide kernels at the WIDE_KERNEL_SHAPES only, in its own kernel's
-    check; one of the D = 256 instantiation at the WIDE_SHAPES only; every
-    other one at every shape but the WIDE_KERNEL_SHAPES (whose calls never
-    reach the narrow kernels)."""
+    the wide kernels at the WIDE_KERNEL_SHAPES of its dtype only, where it
+    can, in its own kernel's check; one of the D = 256 instantiation at the
+    WIDE_SHAPES only; every other one (the narrow bf16 kernels') at every
+    bf16 shape but the WIDE_KERNEL_SHAPES (whose calls never reach the
+    narrow kernels)."""
+    s = SHAPE_BY_NAME[shape]
     if fault in WIDE_KERNEL_FAULTS:
-        return (shape in WIDE_KERNEL_SHAPES
-                and WIDE_KERNEL_FAULT_CHECK[fault] == check)
-    if shape in WIDE_KERNEL_SHAPES:
+        kernel_check, dtype, can = WIDE_KERNEL_FAULT_CHECK[fault]
+        return (shape in WIDE_KERNEL_SHAPES and kernel_check == check
+                and dtype in (None, s[8]) and (can is None or can(s)))
+    if shape in WIDE_KERNEL_SHAPES or s[8] != "bfloat16":
         return False
     return fault not in WIDE_FAULTS or shape in WIDE_SHAPES
 
@@ -802,8 +874,11 @@ def phase_backward():
                 fail(f"backward {name}: dK/dV differ between two runs")
         ms_dq = cuda_ms(c.dq, iters=10)
         ms_dq_cold = cuda_ms_cold(c.dq, iters=10)
-        ms_dkv = cuda_ms(c.dkv, iters=10)
-        ms_dkv_cold = cuda_ms_cold(c.dkv, iters=10)
+        # The FMA dK/dV kernel takes a good part of a second a launch at
+        # the LARGE_WIDE_SHAPES: 2 launches there.
+        n = 2 if name in LARGE_WIDE_SHAPES else 10
+        ms_dkv = cuda_ms(c.dkv, warmup=1 if n == 2 else 3, iters=n)
+        ms_dkv_cold = cuda_ms_cold(c.dkv, iters=n)
         plain_ms = cuda_ms(c.plain, warmup=1, iters=2)
         lib_ms, lib_lo, lib_hi = library_bwd_ms(F, c.q, c.k, c.v, c.do,
                                                 c.causal, c.window)
@@ -825,7 +900,9 @@ def phase_backward():
                    plain_ms=plain_ms, library_ms=lib_ms,
                    library_ms_spread=[lib_lo, lib_hi],
                    dq_bound_ms=b_dq[0], dq_bound_by=b_dq[1],
+                   dq_bound_share=b_dq[0] / ms_dq,
                    dkv_bound_ms=b_dkv[0], dkv_bound_by=b_dkv[1],
+                   dkv_bound_share=b_dkv[0] / ms_dkv,
                    dq_tflops=2.0 * pairs * (2 * d + dv) / ms_dq / 1e9,
                    dkv_tflops=2.0 * pairs * (2 * d + 2 * dv) / ms_dkv / 1e9)
         rows[name] = row
@@ -948,24 +1025,24 @@ def _with_variant(libs, source, lib, fn):
 def _planted_forward(libs):
     """The forward check's reading of the sound kernels and of each fault
     (``libs``: {source: {variant: lib}} of the forward and wide sources) at
-    every bf16 forward shape (O's worst 64-row tile, with max |O err|
-    beside it): (worst sound reading, whether the limit separated them at
-    every shape)."""
+    every forward shape of planted_shape (O's worst 64-row tile, with max
+    |O err| beside it): (worst sound reading by dtype, whether the limit of
+    the shape's dtype separated them at every shape)."""
     import torch
 
     from marlin_tpu_torch.ops import flash_attention as fa
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    tol = FWD_TILE_TOLERANCE["bfloat16"]
-    worst_sound, caught = 0.0, True
+    worst_sound, caught = {}, True
     for (name, b, sq, skv, h, hk, d, dv, dt, causal,
          window) in SHAPES:
-        if dt != "bfloat16":
+        if not planted_shape(name):
             continue
+        tol = FWD_TILE_TOLERANCE[dt]
 
         def randn(*dims):
             return torch.randn(dims, generator=gen, device="cuda",
-                               dtype=torch.float32).to(torch.bfloat16)
+                               dtype=torch.float32).to(getattr(torch, dt))
 
         q_hat, k, v = fa._prepare(randn(b, sq, h, d), randn(b, skv, hk, d),
                                   randn(b, skv, hk, dv), causal, None,
@@ -985,7 +1062,7 @@ def _planted_forward(libs):
         fault_min = min(r["tile_rel"] for f, r in readings.items()
                         if f != "sound"
                         and flash_fault_shows(f, name, "forward"))
-        worst_sound = max(worst_sound, sound)
+        worst_sound[dt] = max(worst_sound.get(dt, 0.0), sound)
         caught = caught and sound <= tol < fault_min
         print("planted_faults: " + json.dumps(dict(
             kernel="forward", shape=name, tolerance=tol,
@@ -997,16 +1074,17 @@ def _planted_forward(libs):
 def _planted_backward(libs):
     """The backward check's reading of the sound kernels and of each
     fault (``libs``: {source: {variant: lib}} of the backward and wide
-    sources) at every bf16 backward shape: (worst sound reading, whether
-    the limit separated them at every shape)."""
+    sources) at every backward shape of planted_shape: (worst sound
+    reading by dtype, whether the limit of the shape's dtype separated them
+    at every shape)."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(1)
-    tol = BWD_TOLERANCE["bfloat16"]
-    worst_sound, caught = 0.0, True
+    worst_sound, caught = {}, True
     for shape in BWD_SHAPES:
-        if shape[8] != "bfloat16":
+        if not planted_shape(shape[0]):
             continue
+        tol = BWD_TOLERANCE[shape[8]]
         c = BwdCase(gen, shape)
         ref = c.plain()
         readings = {}
@@ -1020,7 +1098,7 @@ def _planted_backward(libs):
                         for f, v in readings.items()
                         if f != "sound"
                         and flash_fault_shows(f, c.name, "backward"))
-        worst_sound = max(worst_sound, sound_max)
+        worst_sound[c.dt] = max(worst_sound.get(c.dt, 0.0), sound_max)
         caught = caught and sound_max <= tol < fault_min
         print("planted_faults: " + json.dumps(dict(
             shape=c.name, tolerance=tol, sound_max=sound_max,
@@ -1103,9 +1181,9 @@ def phase_planted_faults(card: str):
         planted_faults=(list(FWD_PLANTED_FAULTS) + list(PLANTED_FAULTS)
                         + list(WIDE_KERNEL_FAULTS)
                         + list(SPMM_PLANTED_FAULTS)),
-        forward=dict(tolerance=FWD_TILE_TOLERANCE["bfloat16"],
+        forward=dict(tolerance=FWD_TILE_TOLERANCE,
                      worst_sound=fwd_sound, separates=fwd_caught),
-        backward=dict(tolerance=BWD_TOLERANCE["bfloat16"],
+        backward=dict(tolerance=BWD_TOLERANCE,
                       worst_sound=bwd_sound, separates=bwd_caught),
         spmm=dict(tolerance=SPMM_TOLERANCE["bfloat16"],
                   worst_sound=spmm_sound, separates=spmm_caught),
@@ -1121,10 +1199,10 @@ def phase_planted_faults(card: str):
              "every planted fault")
 
 
-# Alternatives to dQ and the SpMM ring kernel, timed beside them and beside
-# the parent tree's kernels by ``--compare-with``: each a list of edits of
-# this tree's source, applied as the planted faults are; a variant of the
-# ring kernel changes both SpMM routes.
+# Alternatives to dQ, the SpMM ring kernel and the wide bf16 kernels, timed
+# beside them and beside the parent tree's kernels by ``--compare-with``:
+# each a list of edits of this tree's source, applied as the planted faults
+# are; a variant of the ring kernel changes both SpMM routes.
 KERNEL_VARIANTS = {
     "flash_attention_bwd": {
         # Three K/V stages (128 KB of shared memory: one CTA an SM).
@@ -1156,28 +1234,80 @@ KERNEL_VARIANTS = {
             ("__launch_bounds__(kGThreads, 2)\nspmm_ring_bf16(",
              "__launch_bounds__(kGThreads, 1)\nspmm_ring_bf16(")],
     },
+    "flash_attention_wide": {
+        # Ring slots of 2 boxes in dQ (4 in this tree). (The forward's
+        # 48 KB slots cannot double: three 96 KB slots do not fit.)
+        "wide_dq_group_2": [("constexpr int kDqGroup = 4;",
+                             "constexpr int kDqGroup = 2;")],
+        # At most 4 ring slots (16 in this tree).
+        "wide_4_stages": [("constexpr int kMaxStages = 16;",
+                           "constexpr int kMaxStages = 4;")],
+    },
 }
 
-# The shapes --compare-with times: the main path's, by kernel.
+# Ablations of the wide bf16 kernels, timed beside them by --compare-with
+# and never held to the plain version (they compute something else): what
+# a kernel's time is made of. Each edit takes the first occurrence, so an
+# edit that must reach both kernels is listed twice; a replacement never
+# contains its own text.
+_WIDE_S_MMA = ("sm90::wgmma_ss<0>(sc, sm90::desc_sw128(a + kk * 32, 16, "
+               "1024),")
+_WIDE_NO_LOGIT_MMA = [(_WIDE_S_MMA, "if (0) " + _WIDE_S_MMA.replace(
+    "16, 1024", "16,  1024"))] * 2 + [
+    ("sm90::wgmma_ss<0>(dp,", "if (0) sm90::wgmma_ss<0>(dp,")]
+_WIDE_NO_OUT_MMA = [
+    ("sm90::wgmma_ss<1>(\n", "if (0) sm90::wgmma_ss<1>(\n")] * 2 + [
+    ("sm90::wgmma_ss<1>(d,\n", "if (0) sm90::wgmma_ss<1>(d,\n")] * 2
+
+
+def _wide_no_tma(source: str):
+    """Edits of the wide source that keep every ring barrier but load
+    nothing through the ring: the producer arrives on a slot's full
+    barrier with no bytes, and each TMA load into a slot is skipped (q_hat
+    and dO resident still come in)."""
+    edits = [("    sm90::mbar_arrive_expect_tx(&full[p.s], bytes);\n",
+              "    sm90::mbar_arrive(&full[p.s]);\n")]
+    for m in re.finditer(r"sm90::tma_load_4d\((dst|ring\.at)", source):
+        edits.append((m.group(0),
+                      "if (0) sm90::tma_load_4d( " + m.group(1)))
+    return edits
+
+
+def wide_ablations(source: str):
+    """{ablation: edits} of the wide source (``source``, its text)."""
+    no_tma = _wide_no_tma(source)
+    return {"wide_no_tma": no_tma,
+            "wide_no_logit_mma": _WIDE_NO_LOGIT_MMA,
+            "wide_loads_only": _WIDE_NO_LOGIT_MMA + _WIDE_NO_OUT_MMA,
+            "wide_sync_only": _WIDE_NO_LOGIT_MMA + _WIDE_NO_OUT_MMA + no_tma}
+
+
+# The shapes --compare-with times: the main path's, by kernel, and the wide
+# bf16 kernels' at LARGE_WIDE_SHAPES (3 launches a turn there: the parent
+# tree's FMA kernels take hundreds of ms a launch).
 COMPARE_SHAPES = {"dq": ("train", "remat"), "gather": ("bench512", "coo128"),
-                  "masked": ("bench512", "coo128")}
+                  "masked": ("bench512", "coo128"),
+                  "fwd_wide": LARGE_WIDE_SHAPES, "dq_wide": LARGE_WIDE_SHAPES}
 
 
 def phase_compare(card: str, parent: str):
-    """This tree's dQ and SpMM kernels (both routes) against the parent
-    tree's (the checkout at ``parent``, built from its own csrc/) and
-    against KERNEL_VARIANTS, on one card: at each COMPARE_SHAPES shape every
-    version is first held to the plain version (worst tile, the phase
-    checks' limit), then timed warm (cuda_ms) and cold (cuda_ms_cold), in
-    two rounds, parent, this tree, the variants, then the reverse. Prints
-    one "compare:" line per kernel, shape and version, and fails if any
-    version disagrees with the plain one."""
+    """This tree's dQ, SpMM (both routes) and wide bf16 forward and dQ
+    kernels against the parent tree's (the checkout at ``parent``, built
+    from its own csrc/) and against KERNEL_VARIANTS, on one card: at each
+    COMPARE_SHAPES shape every version is first held to the plain version
+    (worst tile, the phase checks' limit), then timed warm (cuda_ms) and
+    cold (cuda_ms_cold), in two rounds, parent, this tree, the variants,
+    then the reverse; the wide kernels' ablations (wide_ablations) are
+    timed in the same turns, their error printed and not held. Prints one
+    "compare:" line per kernel, shape and version, and fails if any version
+    but an ablation disagrees with the plain one."""
     import tempfile
     from pathlib import Path
 
     import torch
 
     from marlin_tpu_torch.ops import build
+    from marlin_tpu_torch.ops import flash_attention as fa
 
     csrc = Path(parent).resolve() / "marlin_tpu_torch" / "csrc"
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1190,6 +1320,21 @@ def phase_compare(card: str, parent: str):
             cases["dq", shape[0]] = ("flash_attention_bwd", c.dq,
                                      lambda out, ref=ref: tile_rel_err(
                                          out, ref), BWD_TOLERANCE[shape[8]])
+        if shape[0] in COMPARE_SHAPES["dq_wide"]:
+            c = BwdCase(gen, shape)
+            ref = c.plain()[0]
+            o_ref = fa.flash_attention_reference(c.q_hat, c.k, c.v, c.causal,
+                                                 c.window)[0]
+            cases["fwd_wide", shape[0]] = (
+                "flash_attention_wide",
+                lambda c=c: fa._launch(*c.padded[:3], c.causal,
+                                       c.window)[0][..., :c.dv],
+                lambda out, ref=o_ref: tile_rel_err(out, ref),
+                FWD_TILE_TOLERANCE[shape[8]])
+            cases["dq_wide", shape[0]] = (
+                "flash_attention_wide", c.dq,
+                lambda out, ref=ref: tile_rel_err(out, ref),
+                BWD_TOLERANCE[shape[8]])
     gen = torch.Generator(device="cuda").manual_seed(3)
     for shape in SPMM_SHAPES:
         if shape[0] in COMPARE_SHAPES["gather"] + COMPARE_SHAPES["masked"]:
@@ -1201,14 +1346,19 @@ def phase_compare(card: str, parent: str):
                         "block_sparse", fn,
                         lambda out, ref=ref: tile_rel_err_2d(out, ref),
                         SPMM_TOLERANCE[shape[6]])
+    ablations = wide_ablations(
+        build.SOURCES["flash_attention_wide"].read_text())
+    variants = {name: dict(v) for name, v in KERNEL_VARIANTS.items()}
+    variants["flash_attention_wide"].update(ablations)
     readings = {}
     with tempfile.TemporaryDirectory() as tmp:
-        libs = _build_planted(KERNEL_VARIANTS, tmp, parent=csrc)
+        libs = _build_planted(variants, tmp, parent=csrc)
         try:
             for turn in range(2):
                 for (kernel, shape), (name, fn, err_of, tol) in \
                         cases.items():
-                    order = ["parent", "sound", *KERNEL_VARIANTS[name]]
+                    order = ["parent", "sound", *variants[name]]
+                    n = 3 if shape in LARGE_WIDE_SHAPES else 10
                     for version in order if turn == 0 else order[::-1]:
                         build._loaded[name] = libs[name][version]
                         out = fn()
@@ -1218,10 +1368,11 @@ def phase_compare(card: str, parent: str):
                             dict(tile_rel_err=err_of(out), warm_ms=[],
                                  cold_ms=[]))
                         del out
-                        r["warm_ms"].append(cuda_ms(fn, iters=10))
-                        r["cold_ms"].append(cuda_ms_cold(fn, iters=10))
+                        r["warm_ms"].append(cuda_ms(
+                            fn, warmup=1 if n == 3 else 3, iters=n))
+                        r["cold_ms"].append(cuda_ms_cold(fn, iters=n))
         finally:
-            for name in KERNEL_VARIANTS:
+            for name in variants:
                 build._loaded[name] = libs[name]["sound"]
     bad = []
     for (kernel, shape, version), r in readings.items():
@@ -1229,11 +1380,11 @@ def phase_compare(card: str, parent: str):
         print("compare: " + json.dumps(dict(
             card=card, kernel=kernel, shape=shape,
             version="this tree" if version == "sound" else version,
-            tolerance=tol, **r,
+            ablation=version in ablations, tolerance=tol, **r,
             warm_ms_mean=sum(r["warm_ms"]) / len(r["warm_ms"]),
             cold_ms_mean=sum(r["cold_ms"]) / len(r["cold_ms"]))),
             flush=True)
-        if not r["tile_rel_err"] <= tol:
+        if version not in ablations and not r["tile_rel_err"] <= tol:
             bad.append(f"{kernel} {shape} {version}: {r['tile_rel_err']:.3e}")
     print(card)
     if bad:

@@ -3,61 +3,87 @@
 //
 // The wide counterparts of flash_attention_fwd.cu (B3) and
 // flash_attention_bwd.cu (B4, B5), which are built for D and Dv up to 256:
-// the reference (marlin_tpu/ops/flash_attention.py) zero-pads D and Dv to
-// its 128-lane tile and takes any width, and so does the port through
-// these kernels. The wrapper zero-pads D and Dv each to a multiple of 64
-// (kWC) and calls them when either is above 256; zero columns change
-// neither q_hat K^T, P V nor Delta. Same contract as the narrow kernels:
-// base-2 softmax on the prescaled q_hat, -1e30 masks (never -inf), keys at
-// or past Skv masked, causal k <= q, a window k > q - window, GQA by index,
-// l clamped at 1e-30, lse = m + log2(l) in (B, H, Sq) f32, dQ = scale *
-// dS K, dK = ln2 * dS^T q_hat, dV = P^T dO summed over the KV head's group.
+// the reference (marlin_tpu/ops/flash_attention.py, _kernel and
+// _bwd_dq_kernel / _bwd_dkv_kernel) zero-pads D and Dv to its 128-lane tile
+// and takes any width, and so does the port through these kernels. The
+// wrapper zero-pads D and Dv each to a multiple of 64 and calls them when
+// either is above 256; zero columns change neither q_hat K^T, P V nor
+// Delta. Same contract as the narrow kernels: base-2 softmax on the
+// prescaled q_hat, -1e30 masks (never -inf), keys at or past Skv masked,
+// causal k <= q, a window k > q - window, whole tiles outside the band
+// skipped, GQA by index (K and V never replicated), l clamped at 1e-30,
+// lse = m + log2(l) in (B, H, Sq) f32, dQ = scale * dS K, dK = ln2 * dS^T
+// q_hat, dV = P^T dO summed over the KV head's group. No CTA reduces into
+// another's output and no atomics are used: dQ, dK and dV come out bitwise
+// the same run after run.
 //
-// Design: shared memory does not grow with the head dim. Every CTA owns
-// 64 output rows (query rows for O and dQ, keys for dK and dV) and 128 of
-// the output's columns, a chunk picked by blockIdx.z; the 64 x 64 logit
-// tiles S = q_hat K^T (and dP = dO V^T) accumulate over D (Dv) in
-// 64-column chunks streamed through shared memory, and each CTA recomputes
-// S, P and dS for its own column chunk. No CTA reduces into another's
-// output: no atomics, so dQ, dK and dV come out bitwise the same run after
-// run, and every forward CTA of a query tile computes the same lse
-// (chunk 0 writes it; with `lse_chunks` every chunk writes its own copy,
-// for a check that they agree).
+// Bound on the H100. At D = Dv = 512, S = 4096, causal, the forward runs
+// 2 (D + Dv) FLOP and dQ 2 (2 D + Dv) FLOP per live (q, k) pair, some 1000
+// FLOP per byte of their inputs and outputs: the tensor-core rate (989
+// TFLOP/s bf16) bounds them, and only wgmma reaches it.
 //
-// Arithmetic: FMA in f32 for both input types (bf16 is widened on load,
-// results rounded once on store); two threads per output row, each holding
-// 32 of the tile's logits and 64 of the row's output columns. This is the
-// simple kernel that is right, not a fast one: no tensor cores, no TMA, no
-// pipelining (its times are in PERF.md).
+// bf16 forward and dQ (flash_fwd_wide_bf16, flash_bwd_dq_wide_bf16): wgmma
+// fed by TMA through an mbarrier ring (pieces in sm90.cuh).
+//   * A CTA owns 64 query rows and up to 640 of the output's columns (Dv
+//     for O, D for dQ) in 64-column boxes: a producer warpgroup, whose one
+//     thread issues every TMA load (setmaxnreg hands the rest of its
+//     registers on), and two consumer warpgroups. The first consumer owns
+//     ceil(n / 2) of the CTA's n boxes, the second the rest, each in an f32
+//     accumulator of at most 160 registers. Only a wider output splits
+//     over CTAs on grid z, as evenly as whole boxes allow (D = 1024: two
+//     CTAs of 512 columns), each of them computing the logits again.
+//   * The logits S = q_hat K^T (and for dQ dP = dO V^T) are computed once
+//     per (query tile, key tile) per CTA: each consumer takes half of the
+//     tile's keys (SS wgmma, m64n64k16 on the forward's 128-key tile,
+//     m64n32k16 on dQ's 64-key tile: 160 accumulator registers leave no
+//     room for 64 keys of both S and dP), accumulated over D (Dv) in
+//     64-column chunks. The forward's online softmax trades each half's
+//     row max, and at the end its row sum, through shared memory: both
+//     halves rescale by one factor. P (dS), rounded to bf16, goes to one
+//     shared tile in the layout of TMA's 128-byte swizzle, and each
+//     consumer adds P V (dS K) into its own column boxes, V (K) read as
+//     the MN-major B, two adjacent boxes as one n128 product.
+//   * Everything streams through one ring (a "full" mbarrier per slot
+//     counting TMA bytes, an "empty" one that the 8 consumer warps arrive
+//     on once their wgmma reading it have retired), in the order both
+//     sides walk: per key tile the D/64 K boxes, then the output's V boxes
+//     (dQ: the Dv/64 V boxes for dP, then the K boxes of dQ's own columns
+//     once more), the two consumers' groups of boxes interleaved. A slot
+//     holds a group of boxes (2 for the forward, 4 for dQ): the ring's
+//     waits, frees and wgmma groups cost the same for a group as for one
+//     box, and they, not the bytes, bound a kernel that waits for every
+//     box (PERF.md). q_hat (and dO) stay resident in shared memory where
+//     they leave room for at least four slots; otherwise (the forward
+//     above D = 640, dQ above D + Dv = 704) their 64 x 64 chunks ride in
+//     the slots beside the K (V) boxes. The ring takes what is left of the 227 KB, up to 16 slots, so
+//     shared memory does not grow with the head dim beyond the resident
+//     tiles.
+//   * A consumer keeps one wgmma group in flight: it issues group i, then
+//     frees group i - 1's slot once that group has retired.
+// It has no ping-pong of two tiles per warpgroup and no TMA multicast
+// across a cluster; those are the next steps toward the bound.
+//
+// The FMA kernels (f32 forward and dQ, and dK/dV in both dtypes): every
+// CTA owns 64 output rows (query rows for O and dQ, keys for dK and dV) and
+// 128 of the output's columns, a chunk picked by blockIdx.z; the 64 x 64
+// logit tiles S (and dP) accumulate over D (Dv) in 64-column chunks
+// streamed through shared memory, and each CTA recomputes S, P and dS for
+// its own column chunk. FMA in f32 (bf16 widened on load, results rounded
+// once on store); two threads per output row, each holding 32 of the
+// tile's logits and 64 of the row's output columns. Every forward CTA of a
+// query tile computes the same lse (chunk 0 writes it; with `lse_chunks`
+// every chunk writes its own copy, for a check that they agree).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <stdint.h>
+
+#include "sm90.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kRows = 64;   // output rows per CTA (queries or keys)
-constexpr int kCols = 64;   // partners per tile (keys or queries)
-constexpr int kWC = 64;     // width of a reduction chunk over D or Dv
-constexpr int kOut = 128;   // output columns per CTA
-constexpr int kLd = kWC + 1;  // padded row stride of the shared tiles
 constexpr float kNegInf = -1e30f;  // the TPU kernel's _NEG_INF
 constexpr float kLn2 = 0.693147180559945309f;
-
-// Shared memory: the two reduction-chunk tiles (each kRows x kLd f32),
-// which the output step reuses for its 64 x 128 operand, then P (or dS).
-constexpr int kTileFloats = kRows * kLd;
-constexpr size_t kSmemBytes = sizeof(float) * 3 * kTileFloats;
-static_assert(2 * kTileFloats >= kCols * kOut, "the operand tile fits");
-
-__device__ __forceinline__ float load(const float* p) { return *p; }
-__device__ __forceinline__ float load(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
 
 __device__ __forceinline__ bool key_live(int q_pos, int k_pos, int skv,
                                          int causal, int window) {
@@ -98,6 +124,32 @@ __device__ __forceinline__ void query_range(int n0, int bn, int bm, int sq,
   }
   *lo = first * bm;
   *hi = last * bm;
+}
+
+// ---------------------------------------------------------------------
+// FMA kernels: the f32 forward and dQ, and dK/dV in both dtypes
+// ---------------------------------------------------------------------
+
+constexpr int kThreads = 128;
+constexpr int kRows = 64;   // output rows per CTA (queries or keys)
+constexpr int kCols = 64;   // partners per tile (keys or queries)
+constexpr int kWC = 64;     // width of a reduction chunk over D or Dv
+constexpr int kOut = 128;   // output columns per CTA
+constexpr int kLd = kWC + 1;  // padded row stride of the shared tiles
+
+// Shared memory: the two reduction-chunk tiles (each kRows x kLd f32),
+// which the output step reuses for its 64 x 128 operand, then P (or dS).
+constexpr int kTileFloats = kRows * kLd;
+constexpr size_t kSmemBytes = sizeof(float) * 3 * kTileFloats;
+static_assert(2 * kTileFloats >= kCols * kOut, "the operand tile fits");
+
+__device__ __forceinline__ float load(const float* p) { return *p; }
+__device__ __forceinline__ float load(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
+}
+__device__ __forceinline__ void store(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16_rn(x);
 }
 
 // acc[j] += sum_w X[r][w] * Y[c0 + 2 j][w] over w in [0, width): X is this
@@ -156,14 +208,13 @@ __device__ __forceinline__ void tile_out(float (&out)[kOut / 2],
   }
 }
 
-// B3, wide: O's columns [z * kOut, z * kOut + kOut) of 64 query rows.
-template <typename T>
+// B3, wide, f32: O's columns [z * kOut, z * kOut + kOut) of 64 query rows.
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_wide(const T* __restrict__ q, const T* __restrict__ k,
-               const T* __restrict__ v, T* __restrict__ o,
-               float* __restrict__ lse, float* __restrict__ lse_chunks,
-               int H, int Hk, int Sq, int Skv, int D, int DV, int causal,
-               int window) {
+flash_fwd_wide_f32(const float* __restrict__ q, const float* __restrict__ k,
+                   const float* __restrict__ v, float* __restrict__ o,
+                   float* __restrict__ lse, float* __restrict__ lse_chunks,
+                   int H, int Hk, int Sq, int Skv, int D, int DV, int causal,
+                   int window) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* sX = reinterpret_cast<float*>(smem_raw);
   float* sY = sX + kTileFloats;
@@ -178,9 +229,9 @@ flash_fwd_wide(const T* __restrict__ q, const T* __restrict__ k,
 
   const long long q_row = (long long)H * D, k_row = (long long)Hk * D;
   const long long v_row = (long long)Hk * DV;
-  const T* qg = q + ((long long)b * Sq + m0) * q_row + (long long)h * D;
-  const T* kg = k + (long long)b * Skv * k_row + (long long)hk * D;
-  const T* vg = v + (long long)b * Skv * v_row + (long long)hk * DV;
+  const float* qg = q + ((long long)b * Sq + m0) * q_row + (long long)h * D;
+  const float* kg = k + (long long)b * Skv * k_row + (long long)hk * D;
+  const float* vg = v + (long long)b * Skv * v_row + (long long)hk * DV;
 
   float m = kNegInf, l = 0.f;
   float acc[kOut / 2];
@@ -222,11 +273,11 @@ flash_fwd_wide(const T* __restrict__ q, const T* __restrict__ k,
   if (qp < Sq) {
     l = fmaxf(l, 1e-30f);
     const float inv = 1.f / l;
-    T* orow = o + ((long long)b * Sq + qp) * H * DV + (long long)h * DV;
+    float* orow = o + ((long long)b * Sq + qp) * H * DV + (long long)h * DV;
 #pragma unroll
     for (int j = 0; j < kOut / 2; ++j) {
       const int c = col0 + c0 + 2 * j;
-      if (c < DV) store(orow + c, acc[j] * inv);
+      if (c < DV) orow[c] = acc[j] * inv;
     }
     if (c0 == 0) {
       const float ls = m + log2f(l);
@@ -237,15 +288,16 @@ flash_fwd_wide(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// B4, wide: dQ's columns [z * kOut, z * kOut + kOut) of 64 query rows.
-template <typename T>
+// B4, wide, f32: dQ's columns [z * kOut, z * kOut + kOut) of 64 query rows.
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_wide(const T* __restrict__ q, const T* __restrict__ k,
-                  const T* __restrict__ v, const T* __restrict__ dout,
-                  const float* __restrict__ lse,
-                  const float* __restrict__ delta, T* __restrict__ dq, int H,
-                  int Hk, int Sq, int Skv, int D, int DV, int causal,
-                  int window, float scale) {
+flash_bwd_dq_wide_f32(const float* __restrict__ q,
+                      const float* __restrict__ k,
+                      const float* __restrict__ v,
+                      const float* __restrict__ dout,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ delta, float* __restrict__ dq,
+                      int H, int Hk, int Sq, int Skv, int D, int DV,
+                      int causal, int window, float scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* sX = reinterpret_cast<float*>(smem_raw);
   float* sY = sX + kTileFloats;
@@ -260,10 +312,11 @@ flash_bwd_dq_wide(const T* __restrict__ q, const T* __restrict__ k,
 
   const long long q_row = (long long)H * D, o_row = (long long)H * DV;
   const long long k_row = (long long)Hk * D, v_row = (long long)Hk * DV;
-  const T* qg = q + ((long long)b * Sq + m0) * q_row + (long long)h * D;
-  const T* dog = dout + ((long long)b * Sq + m0) * o_row + (long long)h * DV;
-  const T* kg = k + (long long)b * Skv * k_row + (long long)hk * D;
-  const T* vg = v + (long long)b * Skv * v_row + (long long)hk * DV;
+  const float* qg = q + ((long long)b * Sq + m0) * q_row + (long long)h * D;
+  const float* dog =
+      dout + ((long long)b * Sq + m0) * o_row + (long long)h * DV;
+  const float* kg = k + (long long)b * Skv * k_row + (long long)hk * D;
+  const float* vg = v + (long long)b * Skv * v_row + (long long)hk * DV;
   const float lrow = qp < Sq ? lse[(long long)bh * Sq + qp] : 0.f;
   const float drow = qp < Sq ? delta[(long long)bh * Sq + qp] : 0.f;
 
@@ -293,11 +346,11 @@ flash_bwd_dq_wide(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   if (qp < Sq) {
-    T* row = dq + ((long long)b * Sq + qp) * q_row + (long long)h * D;
+    float* row = dq + ((long long)b * Sq + qp) * q_row + (long long)h * D;
 #pragma unroll
     for (int j = 0; j < kOut / 2; ++j) {
       const int c = col0 + c0 + 2 * j;
-      if (c < D) store(row + c, acc[j] * scale);
+      if (c < D) row[c] = acc[j] * scale;
     }
   }
 }
@@ -391,10 +444,719 @@ flash_bwd_dkv_wide(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ---------------------------------------------------------------------
+// bf16 forward and dQ: wgmma fed by TMA through an mbarrier ring
+// ---------------------------------------------------------------------
+
+constexpr int kQRows = 64;    // query rows per CTA
+constexpr int kFwdBN = 128;   // keys per forward tile, 64 per consumer
+constexpr int kDqBN = 64;     // keys per dQ tile, 32 per consumer
+constexpr int kFwdGroup = 2;  // 64-column boxes a forward ring slot holds
+constexpr int kDqGroup = 4;   // and a dQ ring slot
+constexpr int kMaxBoxes = 5;  // 64-column output boxes per consumer
+static_assert(kFwdGroup % 2 == 0 && kDqGroup % 2 == 0,
+              "a group's boxes pair up into n128 products from its first");
+constexpr int kMaxStages = 16;         // ring slots at most
+// Ring slots at least: a consumer keeps its last group's slot until its
+// next group's wgmma are issued, and between the two it waits for and
+// frees the other consumer's group, so its next group is two slots on; with
+// two slots that is the slot it still holds, and the ring stops.
+constexpr int kMinStages = 3;
+constexpr int kMinResidentStages = 4;  // slots beside resident q_hat, dO
+static_assert(kMinResidentStages >= kMinStages, "a resident ring moves");
+constexpr int kBf16Threads = 384;      // the producer and two consumers
+constexpr int kConsumerThreads = 256;
+constexpr int kConsumerWarps = 8;
+constexpr int kChunk = kQRows * 128;   // bytes of a 64 x 64 bf16 box
+
+// CTAs on grid z for an output `width` columns wide (a multiple of 64):
+// at most 2 * kMaxBoxes boxes a CTA.
+__host__ __device__ inline int out_chunks(int width) {
+  return (width / 64 + 2 * kMaxBoxes - 1) / (2 * kMaxBoxes);
+}
+
+// A CTA's share of the output on grid z: the boxes [first, first + n[0] +
+// n[1]), the first n[0] consumer 0's and the next n[1] consumer 1's. Each
+// consumer's boxes stream in groups of G (a ring slot each, the last group
+// holding the rest), the two consumers' groups interleaved: the CTA's u-th
+// group is consumer (u & 1)'s (u >> 1)-th. n[0] is n[1] or n[1] + 1, so
+// consumer 0 never has fewer groups, and its odd one out comes last.
+struct OutSplit {
+  int first, n[2];
+  __host__ __device__ OutSplit(int width, int z) {
+    const int nbox = width / 64, chunks = out_chunks(width);
+    first = z * nbox / chunks;
+    const int count = (z + 1) * nbox / chunks - first;
+    n[0] = (count + 1) / 2;
+    n[1] = count / 2;
+  }
+  // The first output column of consumer `w`'s box `x`.
+  __host__ __device__ int col(int w, int x) const {
+    return (first + w * n[0] + x) * 64;
+  }
+  // Groups of G boxes of both consumers.
+  __host__ __device__ int groups(int G) const {
+    return (n[0] + G - 1) / G + (n[1] + G - 1) / G;
+  }
+};
+
+// A walk of the ring: the slot of the next group and the parity of its
+// round (slot s's n-th fill, n from 0, completes phase n of full[s] and
+// the n-th release phase n of empty[s]).
+struct RingPos {
+  int s = 0;
+  uint32_t phase = 0;
+  __device__ void next(int stages) {
+    if (++s == stages) {
+      s = 0;
+      phase ^= 1;
+    }
+  }
+};
+
+// The ring: `stages` slots of `slot_bytes` from `base`.
+struct Ring {
+  unsigned char* base;
+  int slot_bytes, stages;
+  uint64_t* full;
+  uint64_t* empty;
+
+  __device__ unsigned char* at(int s) const { return base + s * slot_bytes; }
+  // Producer: wait until the slot at `p` is free (in its first round it
+  // is: a fresh barrier reads its phase "-1" as complete) and tell its
+  // full barrier the bytes coming.
+  __device__ void acquire(const RingPos& p, uint32_t bytes) const {
+    sm90::mbar_wait(&empty[p.s], p.phase ^ 1);
+    sm90::mbar_arrive_expect_tx(&full[p.s], bytes);
+  }
+  // Consumer: wait until the group at `p` has landed.
+  __device__ void wait(const RingPos& p) const {
+    sm90::mbar_wait(&full[p.s], p.phase);
+  }
+  // Consumer warp: its reads of slot s have retired.
+  __device__ void release(int s) const {
+    __syncwarp();
+    if ((threadIdx.x & 31) == 0) sm90::mbar_arrive(&empty[s]);
+  }
+  __device__ void init() const {
+    for (int s = 0; s < stages; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], kConsumerWarps);
+    }
+  }
+};
+
+// Byte offsets into the forward's (1024-aligned) dynamic shared memory:
+// P (64 x 128 keys, bf16: two 64 x 64 boxes, one per consumer), q_hat's
+// D / 64 chunks when resident, the ring (a slot: kFwdGroup 128-key K or V
+// boxes and, when q_hat is not resident, kFwdGroup q_hat chunks after
+// them), the consumers' row maxima and sums (2 x 64 f32 each), the
+// barriers.
+struct FwdLayout {
+  int p, q, ring, slot, stats, bars, bytes;
+  __host__ __device__ FwdLayout(int D, int stages, int resident)
+      : p(0),
+        q(2 * kChunk),
+        ring(q + (resident ? D / 64 * kChunk : 0)),
+        slot(kFwdGroup * (kFwdBN * 128 + (resident ? 0 : kChunk))),
+        stats(ring + stages * slot),
+        bars(stats + 4 * kQRows * (int)sizeof(float)),
+        bytes(bars + 8 * (2 * stages + 1) + 1024) {}
+};
+
+// The same for dQ: dS (64 x 64 keys, bf16, one box), q_hat's and dO's
+// chunks when resident, the ring (kDqGroup 64-key K or V boxes and, when
+// not resident, as many q_hat or dO chunks), the barriers.
+struct DqLayout {
+  int ds, q, o, ring, slot, bars, bytes;
+  __host__ __device__ DqLayout(int D, int DV, int stages, int resident)
+      : ds(0),
+        q(kChunk),
+        o(q + (resident ? D / 64 * kChunk : 0)),
+        ring(o + (resident ? DV / 64 * kChunk : 0)),
+        slot(kDqGroup * (kDqBN * 128 + (resident ? 0 : kChunk))),
+        bars(ring + stages * slot),
+        bytes(bars + 8 * (2 * stages + 1) + 1024) {}
+};
+
+// Byte offset of the bf16 pair at (row, column 2 t of n8-tile `chunk`) of
+// a 64 x 64 box in the 128-byte-swizzled layout that TMA writes and the
+// K-major wgmma descriptor reads.
+__device__ __forceinline__ int swizzled(int row, int chunk, int t) {
+  return row * 128 + ((chunk ^ (row & 7)) << 4) + 4 * t;
+}
+
+// B3, wide, bf16: one CTA per (b, h, 64 query rows, output chunk); the
+// query tiles on grid y (causal: heaviest first), B * H on grid x.
+__global__ void __launch_bounds__(kBf16Threads, 1)
+flash_fwd_wide_bf16(const __grid_constant__ CUtensorMap tq,
+                    const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv,
+                    __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                    float* __restrict__ lse_chunks, int H, int Hk, int Sq,
+                    int Skv, int D, int DV, int causal, int window,
+                    int stages, int resident) {
+  constexpr int G = kFwdGroup;
+  constexpr uint32_t kv = kFwdBN * 128;  // bytes of a K or V box
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* smem = sm90::align1024(smem_raw);
+  const FwdLayout L(D, stages, resident);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L.bars);
+  const Ring ring{smem + L.ring, L.slot, stages, full, full + stages};
+  uint64_t* qbar = full + 2 * stages;
+  float* stats = reinterpret_cast<float*>(smem + L.stats);
+
+  const int mt = causal ? (int)(gridDim.y - 1 - blockIdx.y) : (int)blockIdx.y;
+  const int m0 = mt * kQRows;
+  const int bh = blockIdx.x;
+  const int b = bh / H, h = bh % H, hk = h / (H / Hk);
+  const OutSplit sp(DV, blockIdx.z);
+  const int nd = D / 64, nu = sp.groups(G);
+  int lo, hi;
+  key_range(m0, kQRows, kFwdBN, Skv, causal, window, &lo, &hi);
+  const int n_tiles = hi > lo ? (hi - lo + kFwdBN - 1) / kFwdBN : 0;
+
+  if (threadIdx.x == 0) {
+    ring.init();
+    sm90::mbar_init(qbar, 1);
+    sm90::fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {  // the producer warpgroup: one thread loads
+    sm90::setmaxnreg_dec<24>();
+    if (threadIdx.x != 0) return;
+    if (resident) {
+      sm90::mbar_arrive_expect_tx(qbar, nd * kChunk);
+      for (int c = 0; c < nd; ++c)
+        sm90::tma_load_4d(smem + L.q + c * kChunk, &tq, qbar, c * 64, h, m0,
+                          b);
+    }
+    RingPos p;
+    for (int j = 0; j < n_tiles; ++j) {
+      const int n0 = lo + j * kFwdBN;
+      for (int c0 = 0; c0 < nd; c0 += G, p.next(stages)) {
+        const int gb = min(G, nd - c0);
+        ring.acquire(p, gb * (resident ? kv : kv + kChunk));
+        unsigned char* dst = ring.at(p.s);
+        for (int x = 0; x < gb; ++x) {
+          sm90::tma_load_4d(dst + x * kv, &tk, &full[p.s], (c0 + x) * 64, hk,
+                            n0, b);
+          if (!resident)
+            sm90::tma_load_4d(dst + G * kv + x * kChunk, &tq, &full[p.s],
+                              (c0 + x) * 64, h, m0, b);
+        }
+      }
+      for (int u = 0; u < nu; ++u, p.next(stages)) {
+        const int w = u & 1, x0 = (u >> 1) * G;
+        const int gb = min(G, sp.n[w] - x0);
+        ring.acquire(p, gb * kv);
+        for (int x = 0; x < gb; ++x)
+          sm90::tma_load_4d(ring.at(p.s) + x * kv, &tv, &full[p.s],
+                            sp.col(w, x0 + x), hk, n0, b);
+      }
+    }
+    return;
+  }
+
+  sm90::setmaxnreg_inc<240>();
+  const int w = threadIdx.x / 128 - 1;  // consumer 0 or 1
+  const int warp = (threadIdx.x % 128) / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;  // accumulator row in the warp's 16 (and + 8)
+  const int t = lane % 4;  // accumulator column pair
+  const int row0 = warp * 16 + g;  // this thread's rows row0, row0 + 8
+  const int qp0 = m0 + row0;
+  const int kw = w * kFwdBN / 2;  // this consumer's first key of a tile
+  const int mine = sp.n[w];
+  const uint32_t p_base = sm90::smem_u32(smem + L.p);
+  const uint32_t q_base = sm90::smem_u32(smem + L.q);
+
+  float mrow[2] = {kNegInf, kNegInf};
+  float lrow[2] = {0.f, 0.f};  // this thread's partial sums of its keys
+  float acc[kMaxBoxes * 32];   // O: this consumer's boxes, 32 f32 a box
+#pragma unroll
+  for (int e = 0; e < kMaxBoxes * 32; ++e) acc[e] = 0.f;
+
+  if (resident) sm90::mbar_wait(qbar, 0);  // even with no key tile
+  RingPos p;
+  for (int j = 0; j < n_tiles; ++j) {
+    const int n0 = lo + j * kFwdBN;
+
+    // S = q_hat K^T over this consumer's 64 keys: groups of G K boxes of
+    // four k16 steps each, one wgmma group a slot.
+    float sc[32];
+#pragma unroll
+    for (int e = 0; e < 32; ++e) sc[e] = 0.f;
+    sm90::fence_regs(sc);
+    sm90::wgmma_fence();
+    int pend = -1;
+    for (int c0 = 0; c0 < nd; c0 += G, p.next(stages)) {
+      ring.wait(p);
+      const uint32_t slot = sm90::smem_u32(ring.at(p.s));
+#pragma unroll
+      for (int x = 0; x < G; ++x) {
+        if (c0 + x >= nd) break;
+        const uint32_t a =
+            resident ? q_base + (c0 + x) * kChunk : slot + G * kv + x * kChunk;
+        const uint32_t bk = slot + x * kv + kw * 128;
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          sm90::wgmma_ss<0>(sc, sm90::desc_sw128(a + kk * 32, 16, 1024),
+                            sm90::desc_sw128(bk + kk * 32, 16, 1024), 1);
+      }
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<1>();
+      if (pend >= 0) ring.release(pend);
+      pend = p.s;
+    }
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(sc);
+    ring.release(pend);
+
+    // Per-element masks only where the tile straddles an edge.
+    const bool edge = n0 + kFwdBN > Skv ||
+                      (causal && n0 + kFwdBN - 1 > m0) ||
+                      (window && n0 <= m0 + kQRows - 1 - window);
+    if (edge) {
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kp = n0 + kw + nt * 8 + 2 * t + (e & 1);
+          if (!key_live(qp0 + 8 * (e >> 1), kp, Skv, causal, window))
+            sc[nt * 4 + e] = kNegInf;
+        }
+      }
+    }
+
+    // Online softmax in base 2: the row max over both consumers' keys.
+    float mx[2] = {mrow[0], mrow[1]};
+#pragma unroll
+    for (int e = 0; e < 32; ++e)
+      mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], sc[e]);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffff, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffff, mx[r], 2));
+    }
+    if (t == 0) {
+      stats[w * kQRows + row0] = mx[0];
+      stats[w * kQRows + row0 + 8] = mx[1];
+    }
+    // Both maxima written; both consumers' P V of the last tile retired.
+    sm90::named_barrier(1, kConsumerThreads);
+    float corr[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float mn =
+          fmaxf(mx[r], stats[(1 - w) * kQRows + row0 + 8 * r]);
+      corr[r] = exp2f(mrow[r] - mn);
+      mrow[r] = mn;
+      lrow[r] *= corr[r];
+    }
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      sc[e] = exp2f(sc[e] - mrow[(e >> 1) & 1]);
+      lrow[(e >> 1) & 1] += sc[e];
+    }
+#pragma unroll
+    for (int e = 0; e < kMaxBoxes * 32; ++e) acc[e] *= corr[(e >> 1) & 1];
+
+    // P, rounded to bf16, into this consumer's box of the shared P tile.
+    unsigned char* pt = smem + L.p + w * kChunk;
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        *reinterpret_cast<uint32_t*>(pt + swizzled(row0 + 8 * r, nt, t)) =
+            sm90::pack_bf16(sc[nt * 4 + 2 * r], sc[nt * 4 + 2 * r + 1]);
+    }
+    sm90::fence_proxy_async();
+    sm90::named_barrier(2, kConsumerThreads);  // the whole P tile written
+
+    // O += P V for this consumer's boxes: P the K-major A (128 keys, 8 k16
+    // steps), V the MN-major B (k16 step = 16 keys = 2048 bytes in). The
+    // other consumer's groups are only waited for and released.
+    sm90::fence_regs(acc);
+    sm90::wgmma_fence();
+    pend = -1;
+    for (int u = 0; u < nu; ++u, p.next(stages)) {
+      ring.wait(p);
+      if ((u & 1) != w) {
+        ring.release(p.s);
+        continue;
+      }
+      const uint32_t slot = sm90::smem_u32(ring.at(p.s));
+      const int x0 = (u >> 1) * G, gb = min(G, mine - x0);
+#pragma unroll
+      for (int x = 0; x < kMaxBoxes; x += 2) {
+        // Boxes x and x + 1 (slot boxes x - x0 and the next, kv apart: the
+        // LBO) as one n128 product where both are in the group, else x as
+        // an n64 one. G is even, so a group starts on an even box.
+        if (x < x0 || x >= x0 + gb) continue;
+        const uint32_t vb = slot + (x - x0) * kv;
+        if (x + 1 < kMaxBoxes && x + 1 < x0 + gb) {
+          float(&d)[64] = *reinterpret_cast<float(*)[64]>(&acc[32 * x]);
+#pragma unroll
+          for (int kc = 0; kc < kFwdBN / 16; ++kc)
+            sm90::wgmma_ss<1>(
+                d,
+                sm90::desc_sw128(p_base + (kc / 4) * kChunk + (kc % 4) * 32,
+                                 16, 1024),
+                sm90::desc_sw128(vb + kc * 16 * 128, kv, 1024), 1);
+        } else {
+          float(&d)[32] = *reinterpret_cast<float(*)[32]>(&acc[32 * x]);
+#pragma unroll
+          for (int kc = 0; kc < kFwdBN / 16; ++kc)
+            sm90::wgmma_ss<1>(
+                d,
+                sm90::desc_sw128(p_base + (kc / 4) * kChunk + (kc % 4) * 32,
+                                 16, 1024),
+                sm90::desc_sw128(vb + kc * 16 * 128, kv, 1024), 1);
+        }
+      }
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<1>();
+      if (pend >= 0) ring.release(pend);
+      pend = p.s;
+    }
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(acc);
+    if (pend >= 0) ring.release(pend);
+  }
+
+  // l over both consumers' keys: a + b == b + a, so both get the same.
+  float l[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    lrow[r] += __shfl_xor_sync(0xffffffff, lrow[r], 1);
+    lrow[r] += __shfl_xor_sync(0xffffffff, lrow[r], 2);
+  }
+  if (t == 0) {
+    stats[(2 + w) * kQRows + row0] = lrow[0];
+    stats[(2 + w) * kQRows + row0 + 8] = lrow[1];
+  }
+  sm90::named_barrier(1, kConsumerThreads);
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+    l[r] = fmaxf(lrow[r] + stats[(3 - w) * kQRows + row0 + 8 * r], 1e-30f);
+
+  const int col0 = sp.col(w, 0);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qp = qp0 + 8 * r;
+    if (qp >= Sq) continue;
+    const float inv = 1.f / l[r];
+    __nv_bfloat16* orow =
+        o + (((long long)b * Sq + qp) * H + h) * DV + col0 + 2 * t;
+#pragma unroll
+    for (int x = 0; x < kMaxBoxes; ++x) {
+      if (x >= mine) break;
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+        *reinterpret_cast<__nv_bfloat162*>(orow + x * 64 + nt * 8) =
+            __floats2bfloat162_rn(acc[32 * x + nt * 4 + 2 * r] * inv,
+                                  acc[32 * x + nt * 4 + 2 * r + 1] * inv);
+    }
+    if (w == 0 && t == 0) {
+      const float ls = mrow[r] + log2f(l[r]);
+      if (blockIdx.z == 0) lse[(long long)bh * Sq + qp] = ls;
+      if (lse_chunks)
+        lse_chunks[((long long)blockIdx.z * gridDim.x + bh) * Sq + qp] = ls;
+    }
+  }
+}
+
+// B4, wide, bf16: one CTA per (b, h, 64 query rows, chunk of dQ's
+// columns), laid out on the grid as the forward. Per 64-key tile:
+//   S = q_hat K^T, dP = dO V^T   SS wgmma, each consumer its 32 keys
+//   dS = P (dP - Delta)          in registers, under the forward's masks,
+//                                rounded to bf16 into the shared dS tile
+//   dQ += dS K                   SS wgmma on the consumer's column boxes,
+//                                K's boxes streamed again as MN-major B
+__global__ void __launch_bounds__(kBf16Threads, 1)
+flash_bwd_dq_wide_bf16(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv,
+                       const __grid_constant__ CUtensorMap tdo,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ delta,
+                       __nv_bfloat16* __restrict__ dq, int H, int Hk, int Sq,
+                       int Skv, int D, int DV, int causal, int window,
+                       float scale, int stages, int resident) {
+  constexpr int G = kDqGroup;
+  constexpr uint32_t kv = kDqBN * 128;  // bytes of a K or V box
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* smem = sm90::align1024(smem_raw);
+  const DqLayout L(D, DV, stages, resident);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L.bars);
+  const Ring ring{smem + L.ring, L.slot, stages, full, full + stages};
+  uint64_t* qbar = full + 2 * stages;
+
+  const int mt = causal ? (int)(gridDim.y - 1 - blockIdx.y) : (int)blockIdx.y;
+  const int m0 = mt * kQRows;
+  const int bh = blockIdx.x;
+  const int b = bh / H, h = bh % H, hk = h / (H / Hk);
+  const OutSplit sp(D, blockIdx.z);
+  const int nd = D / 64;
+  const int ndv = DV / 64;
+  const int nu = sp.groups(G);
+  int lo, hi;
+  key_range(m0, kQRows, kDqBN, Skv, causal, window, &lo, &hi);
+  const int n_tiles = hi > lo ? (hi - lo + kDqBN - 1) / kDqBN : 0;
+
+  if (threadIdx.x == 0) {
+    ring.init();
+    sm90::mbar_init(qbar, 1);
+    sm90::fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {  // the producer warpgroup: one thread loads
+    sm90::setmaxnreg_dec<24>();
+    if (threadIdx.x != 0) return;
+    if (resident) {
+      sm90::mbar_arrive_expect_tx(qbar, (nd + ndv) * kChunk);
+      for (int c = 0; c < nd; ++c)
+        sm90::tma_load_4d(smem + L.q + c * kChunk, &tq, qbar, c * 64, h, m0,
+                          b);
+      for (int c = 0; c < ndv; ++c)
+        sm90::tma_load_4d(smem + L.o + c * kChunk, &tdo, qbar, c * 64, h, m0,
+                          b);
+    }
+    const uint32_t box = resident ? kv : kv + kChunk;
+    RingPos p;
+    for (int j = 0; j < n_tiles; ++j) {
+      const int n0 = lo + j * kDqBN;
+      for (int c0 = 0; c0 < nd; c0 += G, p.next(stages)) {
+        const int gb = min(G, nd - c0);
+        ring.acquire(p, gb * box);
+        unsigned char* dst = ring.at(p.s);
+        for (int x = 0; x < gb; ++x) {
+          sm90::tma_load_4d(dst + x * kv, &tk, &full[p.s], (c0 + x) * 64, hk,
+                            n0, b);
+          if (!resident)
+            sm90::tma_load_4d(dst + G * kv + x * kChunk, &tq, &full[p.s],
+                              (c0 + x) * 64, h, m0, b);
+        }
+      }
+      for (int c0 = 0; c0 < ndv; c0 += G, p.next(stages)) {
+        const int gb = min(G, ndv - c0);
+        ring.acquire(p, gb * box);
+        unsigned char* dst = ring.at(p.s);
+        for (int x = 0; x < gb; ++x) {
+          sm90::tma_load_4d(dst + x * kv, &tv, &full[p.s], (c0 + x) * 64, hk,
+                            n0, b);
+          if (!resident)
+            sm90::tma_load_4d(dst + G * kv + x * kChunk, &tdo, &full[p.s],
+                              (c0 + x) * 64, h, m0, b);
+        }
+      }
+      for (int u = 0; u < nu; ++u, p.next(stages)) {
+        const int w = u & 1, x0 = (u >> 1) * G;
+        const int gb = min(G, sp.n[w] - x0);
+        ring.acquire(p, gb * kv);
+        for (int x = 0; x < gb; ++x)
+          sm90::tma_load_4d(ring.at(p.s) + x * kv, &tk, &full[p.s],
+                            sp.col(w, x0 + x), hk, n0, b);
+      }
+    }
+    return;
+  }
+
+  sm90::setmaxnreg_inc<240>();
+  const int w = threadIdx.x / 128 - 1;  // consumer 0 or 1
+  const int warp = (threadIdx.x % 128) / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int row0 = warp * 16 + g;  // this thread's rows row0, row0 + 8
+  const int qp0 = m0 + row0;
+  const int kw = w * kDqBN / 2;  // this consumer's first key of a tile
+  const int mine = sp.n[w];
+  const uint32_t ds_base = sm90::smem_u32(smem + L.ds);
+  const uint32_t q_base = sm90::smem_u32(smem + L.q);
+  const uint32_t o_base = sm90::smem_u32(smem + L.o);
+
+  // lse and Delta of the thread's rows: plain loads, 0 past Sq.
+  float lrow[2], drow[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qp = qp0 + 8 * r;
+    lrow[r] = qp < Sq ? lse[(long long)bh * Sq + qp] : 0.f;
+    drow[r] = qp < Sq ? delta[(long long)bh * Sq + qp] : 0.f;
+  }
+  float dqa[kMaxBoxes * 32];  // dQ: this consumer's boxes, 32 f32 a box
+#pragma unroll
+  for (int e = 0; e < kMaxBoxes * 32; ++e) dqa[e] = 0.f;
+
+  if (resident) sm90::mbar_wait(qbar, 0);  // even with no key tile
+  RingPos p;
+  for (int j = 0; j < n_tiles; ++j) {
+    const int n0 = lo + j * kDqBN;
+
+    // S = q_hat K^T and dP = dO V^T over this consumer's 32 keys, one
+    // wgmma group a slot, one group kept in flight across both sweeps.
+    float sc[16], dp[16];
+#pragma unroll
+    for (int e = 0; e < 16; ++e) sc[e] = dp[e] = 0.f;
+    sm90::fence_regs(sc);
+    sm90::fence_regs(dp);
+    sm90::wgmma_fence();
+    int pend = -1;
+    for (int c0 = 0; c0 < nd; c0 += G, p.next(stages)) {
+      ring.wait(p);
+      const uint32_t slot = sm90::smem_u32(ring.at(p.s));
+#pragma unroll
+      for (int x = 0; x < G; ++x) {
+        if (c0 + x >= nd) break;
+        const uint32_t a =
+            resident ? q_base + (c0 + x) * kChunk : slot + G * kv + x * kChunk;
+        const uint32_t bk = slot + x * kv + kw * 128;
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          sm90::wgmma_ss<0>(sc, sm90::desc_sw128(a + kk * 32, 16, 1024),
+                            sm90::desc_sw128(bk + kk * 32, 16, 1024), 1);
+      }
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<1>();
+      if (pend >= 0) ring.release(pend);
+      pend = p.s;
+    }
+    for (int c0 = 0; c0 < ndv; c0 += G, p.next(stages)) {
+      ring.wait(p);
+      const uint32_t slot = sm90::smem_u32(ring.at(p.s));
+#pragma unroll
+      for (int x = 0; x < G; ++x) {
+        if (c0 + x >= ndv) break;
+        const uint32_t a =
+            resident ? o_base + (c0 + x) * kChunk : slot + G * kv + x * kChunk;
+        const uint32_t bv = slot + x * kv + kw * 128;
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          sm90::wgmma_ss<0>(dp, sm90::desc_sw128(a + kk * 32, 16, 1024),
+                            sm90::desc_sw128(bv + kk * 32, 16, 1024), 1);
+      }
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<1>();
+      ring.release(pend);
+      pend = p.s;
+    }
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(sc);
+    sm90::fence_regs(dp);
+    ring.release(pend);
+
+    // dS = P (dP - Delta), P = exp2(S - lse); a dead pair (query past Sq,
+    // key past Skv, causal or window) gets P = dS = 0 exactly. Masks only
+    // where the tile straddles an edge.
+    const bool edge = m0 + kQRows > Sq || n0 + kDqBN > Skv ||
+                      (causal && n0 + kDqBN - 1 > m0) ||
+                      (window && n0 <= m0 + kQRows - 1 - window);
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        float pr = exp2f(sc[nt * 4 + e] - lrow[r]);
+        if (edge) {
+          const int qp = qp0 + 8 * r;
+          const int kp = n0 + kw + nt * 8 + 2 * t + (e & 1);
+          if (!(qp < Sq && key_live(qp, kp, Skv, causal, window))) pr = 0.f;
+        }
+        dp[nt * 4 + e] = pr * (dp[nt * 4 + e] - drow[r]);
+      }
+    }
+
+    // dS, rounded to bf16, into this consumer's 32 columns of the shared
+    // dS tile, once both consumers' dQ products of the last tile retired.
+    sm90::named_barrier(1, kConsumerThreads);
+    unsigned char* dst = smem + L.ds;
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        *reinterpret_cast<uint32_t*>(
+            dst + swizzled(row0 + 8 * r, kw / 8 + nt, t)) =
+            sm90::pack_bf16(dp[nt * 4 + 2 * r], dp[nt * 4 + 2 * r + 1]);
+    }
+    sm90::fence_proxy_async();
+    sm90::named_barrier(2, kConsumerThreads);  // the whole dS tile written
+
+    // dQ += dS K for this consumer's boxes: dS the K-major A (64 keys, 4
+    // k16 steps), K the MN-major B (k16 step = 16 keys = 2048 bytes in).
+    sm90::fence_regs(dqa);
+    sm90::wgmma_fence();
+    pend = -1;
+    for (int u = 0; u < nu; ++u, p.next(stages)) {
+      ring.wait(p);
+      if ((u & 1) != w) {
+        ring.release(p.s);
+        continue;
+      }
+      const uint32_t slot = sm90::smem_u32(ring.at(p.s));
+      const int x0 = (u >> 1) * G, gb = min(G, mine - x0);
+#pragma unroll
+      for (int x = 0; x < kMaxBoxes; x += 2) {
+        // Boxes x and x + 1 as one n128 product where both are in the
+        // group, else x as an n64 one (as in the forward's P V).
+        if (x < x0 || x >= x0 + gb) continue;
+        const uint32_t kb = slot + (x - x0) * kv;
+        if (x + 1 < kMaxBoxes && x + 1 < x0 + gb) {
+          float(&d)[64] = *reinterpret_cast<float(*)[64]>(&dqa[32 * x]);
+#pragma unroll
+          for (int kc = 0; kc < kDqBN / 16; ++kc)
+            sm90::wgmma_ss<1>(d,
+                              sm90::desc_sw128(ds_base + kc * 32, 16, 1024),
+                              sm90::desc_sw128(kb + kc * 16 * 128, kv, 1024),
+                              1);
+        } else {
+          float(&d)[32] = *reinterpret_cast<float(*)[32]>(&dqa[32 * x]);
+#pragma unroll
+          for (int kc = 0; kc < kDqBN / 16; ++kc)
+            sm90::wgmma_ss<1>(d,
+                              sm90::desc_sw128(ds_base + kc * 32, 16, 1024),
+                              sm90::desc_sw128(kb + kc * 16 * 128, kv, 1024),
+                              1);
+        }
+      }
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<1>();
+      if (pend >= 0) ring.release(pend);
+      pend = p.s;
+    }
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(dqa);
+    if (pend >= 0) ring.release(pend);
+  }
+
+  const int col0 = sp.col(w, 0);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qp = qp0 + 8 * r;
+    if (qp >= Sq) continue;
+    __nv_bfloat16* row =
+        dq + (((long long)b * Sq + qp) * H + h) * D + col0 + 2 * t;
+#pragma unroll
+    for (int x = 0; x < kMaxBoxes; ++x) {
+      if (x >= mine) break;
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+        *reinterpret_cast<__nv_bfloat162*>(row + x * 64 + nt * 8) =
+            __floats2bfloat162_rn(dqa[32 * x + nt * 4 + 2 * r] * scale,
+                                  dqa[32 * x + nt * 4 + 2 * r + 1] * scale);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------
+// Host
+// ---------------------------------------------------------------------
+
 template <typename Kernel>
-cudaError_t set_smem(Kernel kernel) {
+cudaError_t set_smem(Kernel kernel, size_t bytes) {
   return cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemBytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
 int chunks(int width) { return (width + kOut - 1) / kOut; }
@@ -402,39 +1164,113 @@ int chunks(int width) { return (width + kOut - 1) / kOut; }
 bool valid(int dtype, int B, int H, int Hk, int Sq, int Skv, int D, int DV) {
   return (dtype == 0 || dtype == 1) && B >= 1 && H >= 1 && Hk >= 1 &&
          H % Hk == 0 && Sq >= 1 && Skv >= 1 && D >= kWC && DV >= kWC &&
-         D % kWC == 0 && DV % kWC == 0 && B * H <= 65535;
+         D % kWC == 0 && DV % kWC == 0 && B * H <= 65535 &&
+         (Sq + kQRows - 1) / kQRows <= 65535;
 }
 
-template <typename T>
-cudaError_t run_fwd(const void* q, const void* k, const void* v, void* o,
-                    float* lse, float* lse_chunks, int B, int H, int Hk,
-                    int Sq, int Skv, int D, int DV, int causal, int window,
-                    cudaStream_t st) {
-  auto kernel = flash_fwd_wide<T>;
-  cudaError_t err = set_smem(kernel);
-  if (err != cudaSuccess) return err;
-  dim3 grid((Sq + kRows - 1) / kRows, B * H, chunks(DV));
-  kernel<<<grid, kThreads, kSmemBytes, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), lse, lse_chunks, H, Hk,
-      Sq, Skv, D, DV, causal, window);
+// The ring for a layout, `make(stages, resident)`: q_hat (and dO) resident
+// where they leave room for kMinResidentStages slots, else streamed; as
+// many slots as the card's shared memory takes, up to kMaxStages. False
+// when not even kMinStages streamed slots fit.
+template <typename Make>
+bool pick_ring(Make make, int* stages, int* resident) {
+  int dev = 0, budget = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&budget,
+                             cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev) != cudaSuccess)
+    return false;
+  for (int res = 1; res >= 0; --res) {
+    int s = kMaxStages;
+    while (s > 0 && make(s, res).bytes > budget) --s;
+    if (s >= (res ? kMinResidentStages : kMinStages)) {
+      *stages = s;
+      *resident = res;
+      return true;
+    }
+  }
+  return false;
+}
+
+cudaError_t run_fwd_bf16(const void* q, const void* k, const void* v,
+                         void* o, float* lse, float* lse_chunks, int B,
+                         int H, int Hk, int Sq, int Skv, int D, int DV,
+                         int causal, int window, cudaStream_t st) {
+  CUtensorMap tq, tk, tv;
+  cudaError_t err;
+  if ((err = sm90::tmap_bshd(&tq, q, B, Sq, H, D, kQRows)) != cudaSuccess ||
+      (err = sm90::tmap_bshd(&tk, k, B, Skv, Hk, D, kFwdBN)) !=
+          cudaSuccess ||
+      (err = sm90::tmap_bshd(&tv, v, B, Skv, Hk, DV, kFwdBN)) != cudaSuccess)
+    return err;
+  int stages, resident;
+  if (!pick_ring([&](int s, int r) { return FwdLayout(D, s, r); }, &stages,
+                 &resident))
+    return cudaErrorInvalidValue;
+  const int smem = FwdLayout(D, stages, resident).bytes;
+  if ((err = set_smem(flash_fwd_wide_bf16, smem)) != cudaSuccess) return err;
+  dim3 grid(B * H, (Sq + kQRows - 1) / kQRows, out_chunks(DV));
+  flash_fwd_wide_bf16<<<grid, kBf16Threads, smem, st>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, lse_chunks, H, Hk, Sq,
+      Skv, D, DV, causal, window, stages, resident);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t run_dq(const void* q, const void* k, const void* v,
-                   const void* dout, const float* lse, const float* delta,
-                   void* dq, int B, int H, int Hk, int Sq, int Skv, int D,
-                   int DV, int causal, int window, float scale,
-                   cudaStream_t st) {
-  auto kernel = flash_bwd_dq_wide<T>;
-  cudaError_t err = set_smem(kernel);
+cudaError_t run_fwd_f32(const void* q, const void* k, const void* v, void* o,
+                        float* lse, float* lse_chunks, int B, int H, int Hk,
+                        int Sq, int Skv, int D, int DV, int causal,
+                        int window, cudaStream_t st) {
+  cudaError_t err = set_smem(flash_fwd_wide_f32, kSmemBytes);
+  if (err != cudaSuccess) return err;
+  dim3 grid((Sq + kRows - 1) / kRows, B * H, chunks(DV));
+  flash_fwd_wide_f32<<<grid, kThreads, kSmemBytes, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), lse, lse_chunks,
+      H, Hk, Sq, Skv, D, DV, causal, window);
+  return cudaGetLastError();
+}
+
+cudaError_t run_dq_bf16(const void* q, const void* k, const void* v,
+                        const void* dout, const float* lse,
+                        const float* delta, void* dq, int B, int H, int Hk,
+                        int Sq, int Skv, int D, int DV, int causal,
+                        int window, float scale, cudaStream_t st) {
+  CUtensorMap tq, tk, tv, tdo;
+  cudaError_t err;
+  if ((err = sm90::tmap_bshd(&tq, q, B, Sq, H, D, kQRows)) != cudaSuccess ||
+      (err = sm90::tmap_bshd(&tk, k, B, Skv, Hk, D, kDqBN)) != cudaSuccess ||
+      (err = sm90::tmap_bshd(&tv, v, B, Skv, Hk, DV, kDqBN)) !=
+          cudaSuccess ||
+      (err = sm90::tmap_bshd(&tdo, dout, B, Sq, H, DV, kQRows)) !=
+          cudaSuccess)
+    return err;
+  int stages, resident;
+  if (!pick_ring([&](int s, int r) { return DqLayout(D, DV, s, r); },
+                 &stages, &resident))
+    return cudaErrorInvalidValue;
+  const int smem = DqLayout(D, DV, stages, resident).bytes;
+  if ((err = set_smem(flash_bwd_dq_wide_bf16, smem)) != cudaSuccess)
+    return err;
+  dim3 grid(B * H, (Sq + kQRows - 1) / kQRows, out_chunks(D));
+  flash_bwd_dq_wide_bf16<<<grid, kBf16Threads, smem, st>>>(
+      tq, tk, tv, tdo, lse, delta, static_cast<__nv_bfloat16*>(dq), H, Hk,
+      Sq, Skv, D, DV, causal, window, scale, stages, resident);
+  return cudaGetLastError();
+}
+
+cudaError_t run_dq_f32(const void* q, const void* k, const void* v,
+                       const void* dout, const float* lse,
+                       const float* delta, void* dq, int B, int H, int Hk,
+                       int Sq, int Skv, int D, int DV, int causal,
+                       int window, float scale, cudaStream_t st) {
+  cudaError_t err = set_smem(flash_bwd_dq_wide_f32, kSmemBytes);
   if (err != cudaSuccess) return err;
   dim3 grid((Sq + kRows - 1) / kRows, B * H, chunks(D));
-  kernel<<<grid, kThreads, kSmemBytes, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
-      static_cast<T*>(dq), H, Hk, Sq, Skv, D, DV, causal, window, scale);
+  flash_bwd_dq_wide_f32<<<grid, kThreads, kSmemBytes, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout), lse,
+      delta, static_cast<float*>(dq), H, Hk, Sq, Skv, D, DV, causal, window,
+      scale);
   return cudaGetLastError();
 }
 
@@ -445,7 +1281,7 @@ cudaError_t run_dkv(const void* q, const void* k, const void* v,
                     int Skv, int D, int DV, int causal, int window,
                     cudaStream_t st) {
   auto kernel = flash_bwd_dkv_wide<T>;
-  cudaError_t err = set_smem(kernel);
+  cudaError_t err = set_smem(kernel, kSmemBytes);
   if (err != cudaSuccess) return err;
   dim3 grid((Skv + kRows - 1) / kRows, B * Hk, chunks(D) + chunks(DV));
   kernel<<<grid, kThreads, kSmemBytes, st>>>(
@@ -462,8 +1298,9 @@ cudaError_t run_dkv(const void* q, const void* k, const void* v,
 // dtype: 0 = bf16, 1 = f32. Each returns the cudaError_t of its launch
 // (0 = ok); D or DV not a multiple of 64, or a shape out of range, returns
 // cudaErrorInvalidValue. Layouts as in flash_attention_fwd.cu and
-// flash_attention_bwd.cu; `lse_chunks` (may be null) is (chunks of DV,
-// B, H, Sq) f32, every output chunk's copy of lse.
+// flash_attention_bwd.cu; `lse_chunks` (may be null) is (chunks, B, H, Sq)
+// f32, every output chunk's copy of lse: DV's 640-column CTA shares for
+// bf16 (out_chunks), its 128-column ones for f32 (chunks).
 extern "C" int marlin_flash_attention_fwd_wide(
     int dtype, const void* q, const void* k, const void* v, void* o,
     void* lse, void* lse_chunks, int B, int H, int Hk, int Sq, int Skv,
@@ -474,10 +1311,10 @@ extern "C" int marlin_flash_attention_fwd_wide(
   float* l = static_cast<float*>(lse);
   float* lc = static_cast<float*>(lse_chunks);
   if (dtype == 0)
-    return (int)run_fwd<__nv_bfloat16>(q, k, v, o, l, lc, B, H, Hk, Sq, Skv,
-                                       D, DV, causal, window, st);
-  return (int)run_fwd<float>(q, k, v, o, l, lc, B, H, Hk, Sq, Skv, D, DV,
+    return (int)run_fwd_bf16(q, k, v, o, l, lc, B, H, Hk, Sq, Skv, D, DV,
                              causal, window, st);
+  return (int)run_fwd_f32(q, k, v, o, l, lc, B, H, Hk, Sq, Skv, D, DV,
+                          causal, window, st);
 }
 
 extern "C" int marlin_flash_attention_bwd_dq_wide(
@@ -491,10 +1328,10 @@ extern "C" int marlin_flash_attention_bwd_dq_wide(
   const float* l = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
   if (dtype == 0)
-    return (int)run_dq<__nv_bfloat16>(q, k, v, dout, l, dl, dq, B, H, Hk, Sq,
-                                      Skv, D, DV, causal, window, scale, st);
-  return (int)run_dq<float>(q, k, v, dout, l, dl, dq, B, H, Hk, Sq, Skv, D,
+    return (int)run_dq_bf16(q, k, v, dout, l, dl, dq, B, H, Hk, Sq, Skv, D,
                             DV, causal, window, scale, st);
+  return (int)run_dq_f32(q, k, v, dout, l, dl, dq, B, H, Hk, Sq, Skv, D, DV,
+                         causal, window, scale, st);
 }
 
 extern "C" int marlin_flash_attention_bwd_dkv_wide(

@@ -1,7 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the port's bf16 kernels (flash
-// attention forward, dQ and dK/dV; the SpMM ring kernel): TMA tensor maps
-// and loads, mbarriers, and wgmma with shared-memory matrix descriptors.
-// Header-only; the kernel sources include it (nvcc -I csrc).
+// attention forward, dQ and dK/dV, and the wide forward and dQ above head
+// dim 256; the SpMM ring kernel): TMA tensor maps and loads, mbarriers,
+// wgmma with shared-memory matrix descriptors, named barriers, the async
+// proxy fence and setmaxnreg. Header-only; the kernel sources include it
+// (nvcc -I csrc).
 //
 // Layout convention. Every tile lives in shared memory as TMA wrote it with
 // a 128-byte swizzle: boxes of `rows` x 64 bf16 columns (128 bytes a row),
@@ -222,6 +224,31 @@ __device__ __forceinline__ void fence_regs(float (&d)[R]) {
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
+// Make this thread's generic-proxy writes to shared memory (a tile written
+// with st.shared) visible to the async proxy that wgmma reads it through.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Named barrier `id` (1..15; 0 is __syncthreads) over `count` threads, a
+// multiple of 32: the consumer warpgroups synchronise without the
+// producer.
+__device__ __forceinline__ void named_barrier(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// Hand registers between warpgroups: every thread of a warpgroup runs the
+// same call. A producer that only issues TMA gives its registers up to the
+// consumers, whose accumulators need them.
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
 // Two floats rounded to a bf16 pair (lo in the low half).
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -238,6 +265,24 @@ __device__ __forceinline__ void acc_to_a(const float (&d)[R], int kc,
   a[1] = pack_bf16(d[8 * kc + 2], d[8 * kc + 3]);
   a[2] = pack_bf16(d[8 * kc + 4], d[8 * kc + 5]);
   a[3] = pack_bf16(d[8 * kc + 6], d[8 * kc + 7]);
+}
+
+// D (64 x 32, f32) = A (64 x 16, bf16, shared) B (16 x 32, bf16, shared),
+// plus D when scale_d is nonzero. TB = 1: B is MN-major (N contiguous).
+template <int TB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t desc_a,
+                                         uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, %19;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TB));
 }
 
 // D (64 x 64, f32) = A (64 x 16, bf16, shared) B (16 x 64, bf16, shared),

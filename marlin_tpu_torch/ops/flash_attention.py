@@ -33,9 +33,12 @@ above 128 (:func:`_kernel_head_dims`), and slices O, dQ, dK and dV back,
 as the JAX package pads to its 128-lane tile (zero columns add nothing to
 q_hat K^T, to P V or to Delta). When D or Dv is above 256, each is padded
 on its own to a multiple of :data:`WIDE_MULTIPLE` and the call goes to the
-wide kernels of ``csrc/flash_attention_wide.cu`` (simple FMA kernels whose
-shared memory does not grow with the head dim), which have launch counters
-of their own; a call at D and Dv up to 256 never reaches them.
+wide kernels of ``csrc/flash_attention_wide.cu``, which have launch
+counters of their own; a call at D and Dv up to 256 never reaches them.
+For bf16 the wide forward and dQ run wgmma fed by TMA through an mbarrier
+ring, a CTA owning up to :data:`WIDE_BF16_COLUMNS` of the output's columns
+(:func:`_wide_column_chunks`); f32, and dK/dV in both dtypes, run FMA
+kernels whose CTAs own :data:`WIDE_OUT_COLUMNS` columns each.
 
 Public layout is the JAX package's ``(S, H, D)``, plus an optional
 leading batch dimension that stands in for ``jax.vmap``.
@@ -60,10 +63,13 @@ _LOG2E = math.log2(math.e)
 # 64 and 128 pair freely; 256 only with 256 (_kernel_head_dims).
 KERNEL_HEAD_DIMS = (64, 128, 256)
 # Above 256, D and Dv are each padded to a multiple of this for the wide
-# kernels (their reduction chunk, kWC), whose CTAs each own this many
-# output columns (kOut).
+# kernels (their box and reduction chunk), whose FMA kernels' CTAs each own
+# WIDE_OUT_COLUMNS output columns (kOut) and whose bf16 forward and dQ
+# CTAs at most WIDE_BF16_COLUMNS (two consumer warpgroups of kMaxBoxes
+# 64-column boxes each).
 WIDE_MULTIPLE = 64
 WIDE_OUT_COLUMNS = 128
+WIDE_BF16_COLUMNS = 640
 _KERNEL_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 
 # (query rows, keys) of each bf16 kernel's tile: the forward's kBM x kBN in
@@ -236,6 +242,27 @@ def _wide_lib() -> ctypes.CDLL:
     return lib
 
 
+def _wide_column_chunks(width: int, dtype) -> list:
+    """``[(first column, columns)]``: the wide kernels' CTAs along grid z
+    for an output ``width`` columns wide (Dv for the forward, D for dQ; a
+    multiple of :data:`WIDE_MULTIPLE`), as ``csrc/flash_attention_wide.cu``
+    cuts it. bf16 (the wgmma kernels, ``out_chunks`` and ``OutSplit``):
+    64-column boxes, at most :data:`WIDE_BF16_COLUMNS` a CTA, as evenly as
+    whole boxes allow, so one CTA up to 640 columns and two of 512 at
+    1024. f32 (the FMA kernels, ``chunks``): :data:`WIDE_OUT_COLUMNS` a
+    CTA, the last one holding the rest."""
+    if width < WIDE_MULTIPLE or width % WIDE_MULTIPLE:
+        raise ValueError(f"width {width} is not a positive multiple of "
+                         f"{WIDE_MULTIPLE}")
+    if dtype == torch.bfloat16:
+        boxes = width // WIDE_MULTIPLE
+        n = -(-width // WIDE_BF16_COLUMNS)
+        edges = [z * boxes // n * WIDE_MULTIPLE for z in range(n + 1)]
+        return [(a, b - a) for a, b in zip(edges, edges[1:])]
+    return [(c, min(WIDE_OUT_COLUMNS, width - c))
+            for c in range(0, width, WIDE_OUT_COLUMNS)]
+
+
 def _is_wide(d: int, dv: int) -> bool:
     """Whether kernel head dims ``(d, dv)`` are the wide kernels'."""
     return max(d, dv) > KERNEL_HEAD_DIMS[-1]
@@ -315,8 +342,9 @@ def _launch_wide(q_hat, k, v, causal: bool, window: int,
                  lse_chunks: bool = False):
     """Run the wide forward kernel (B3 above head dim 256) on batched
     tensors whose head dims it takes: ``(O, lse, chunks)``, ``chunks``
-    being every output-column chunk's own lse, (chunks, B, H, Sq), when
-    ``lse_chunks`` asks for it (a check that they agree), else None."""
+    being every CTA's own lse along grid z (:func:`_wide_column_chunks` of
+    Dv), (chunks, B, H, Sq), when ``lse_chunks`` asks for it (a check that
+    they agree), else None."""
     global wide_launches
     lib = _wide_lib()
     b, sq, h, d = q_hat.shape
@@ -326,7 +354,8 @@ def _launch_wide(q_hat, k, v, causal: bool, window: int,
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q_hat.device)
     chunks = None
     if lse_chunks:
-        chunks = torch.empty((-(-dv // WIDE_OUT_COLUMNS), b, h, sq),
+        chunks = torch.empty((len(_wide_column_chunks(dv, q_hat.dtype)), b,
+                              h, sq),
                              dtype=torch.float32, device=q_hat.device)
     with torch.cuda.device(q_hat.device):
         stream = torch.cuda.current_stream().cuda_stream

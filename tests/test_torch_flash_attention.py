@@ -12,6 +12,8 @@ plain version there.
 """
 
 import math
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -167,6 +169,9 @@ PADDED = {
     # Above 256, the wide kernels' widths: each dim to a multiple of 64.
     "d320": (24, 24, 2, 1, 320, 320, True, 0),
     "d384_dv128": (20, 30, 2, 2, 384, 128, False, 0),
+    # DeepSeek-V3's absorbed-MLA widths (chip_smoke's mla_d576_dv512): q
+    # and k 576 wide, v 512, one KV head.
+    "mla_d576_dv512": (96, 96, 4, 1, 576, 512, True, 0),
 }
 
 
@@ -260,6 +265,42 @@ def test_head_dims_above_256_raise_naming_c4(d, width, monkeypatch):
     v = torch.zeros((1, 8, 2, 32), device="meta")
     out = pfa.flash_attention(q, q, v, causal=True)
     assert seen == [(width, width, 64)] and out.shape == (1, 8, 2, 32)
+
+
+def _kernel_constant(name):
+    text = (Path(__file__).resolve().parents[1] / "marlin_tpu_torch" / "csrc"
+            / "flash_attention_wide.cu").read_text()
+    return int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
+
+
+@pytest.mark.parametrize("width", [64, 128, 320, 512, 576, 640, 704, 1024,
+                                   1088, 2048])
+def test_wide_column_chunks_follow_the_kernels_split(width):
+    # The wide kernels' CTAs along grid z (out_chunks and OutSplit of
+    # csrc/flash_attention_wide.cu for bf16, chunks for f32), which the
+    # wrapper sizes the forward's per-CTA lse copies by. bf16: 64-column
+    # boxes, at most two consumers of kMaxBoxes boxes a CTA (640 columns),
+    # one CTA up to 640 and the boxes shared as evenly as whole boxes
+    # allow beyond (two CTAs of 512 at 1024); each CTA's first consumer
+    # takes ceil(n / 2) of its n boxes. f32: 128 columns a CTA.
+    assert pfa.WIDE_BF16_COLUMNS == 2 * _kernel_constant("kMaxBoxes") * 64
+    assert pfa.WIDE_OUT_COLUMNS == _kernel_constant("kOut")
+    for dtype in (torch.bfloat16, torch.float32):
+        chunks = pfa._wide_column_chunks(width, dtype)
+        assert chunks[0][0] == 0
+        assert all(a + n == b for (a, n), (b, _) in zip(chunks, chunks[1:]))
+        assert chunks[-1][0] + chunks[-1][1] == width
+        assert all(n % 64 == 0 and n > 0 for _, n in chunks)
+    bf16 = [n for _, n in pfa._wide_column_chunks(width, torch.bfloat16)]
+    assert max(bf16) <= pfa.WIDE_BF16_COLUMNS
+    assert (len(bf16) == 1) == (width <= pfa.WIDE_BF16_COLUMNS)
+    assert len(bf16) == -(-width // pfa.WIDE_BF16_COLUMNS)
+    assert max(bf16) - min(bf16) <= 64
+    f32 = [n for _, n in pfa._wide_column_chunks(width, torch.float32)]
+    assert f32[:-1] == [pfa.WIDE_OUT_COLUMNS] * (len(f32) - 1)
+    assert len(f32) == -(-width // pfa.WIDE_OUT_COLUMNS)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        pfa._wide_column_chunks(width + 32, torch.bfloat16)
 
 
 def test_the_card_path_pads_for_the_kernel_and_slices_back(monkeypatch):

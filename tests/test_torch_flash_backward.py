@@ -139,6 +139,9 @@ PADDED = {
     # Above 256, the wide kernels' widths: each dim to a multiple of 64.
     "d320": (24, 24, 2, 1, 320, 320, True, 0),
     "d384_dv128": (20, 30, 2, 2, 384, 128, False, 0),
+    # DeepSeek-V3's absorbed-MLA widths (chip_smoke's mla_d576_dv512): q
+    # and k 576 wide, v 512, one KV head.
+    "mla_d576_dv512": (96, 96, 4, 1, 576, 512, True, 0),
 }
 
 
@@ -181,6 +184,31 @@ def test_padding_to_the_kernel_head_dims_changes_no_gradient(name):
         *(jnp.asarray(x) for x in (q, k, v)))
     for label, a, r in zip(("dq", "dk", "dv"), got, vjp(jnp.asarray(g))):
         assert _rel_err(a[0].numpy(), r) <= RTOL, label
+
+
+def test_mla_widths_match_jax_forward_and_gradients():
+    # The public flash_attention at the widths of chip_smoke's
+    # mla_d576_dv512 shape (DeepSeek-V3's absorbed multi-head latent
+    # attention: q and k 576 wide, v 512, one KV head), cut to 4 heads and
+    # 96 positions, causal: O and, through torch.autograd, dQ, dK and dV
+    # against the JAX package's flash_attention and jax.vjp (its Pallas
+    # kernels in interpret mode, which pad D to 640). f32, 1e-5.
+    sq, h, hk, d, dv = 96, 4, 1, 576, 512
+    q, k, v, g = _inputs(41, sq, sq, h, hk, d, dv)
+    ref, vjp = jax.vjp(lambda a, b, c: jax_flash(
+        a, b, c, causal=True, interpret=True),
+        *(jnp.asarray(x) for x in (q, k, v)))
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_(True)
+                  for x in (q, k, v))
+    out = pfa.flash_attention(tq, tk, tv, causal=True)
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref),
+                               atol=1e-5, rtol=1e-5)
+    out.backward(torch.from_numpy(g))
+    for label, a, r in zip(("dq", "dk", "dv"), (tq.grad, tk.grad, tv.grad),
+                           vjp(jnp.asarray(g))):
+        assert a.shape == r.shape, label
+        np.testing.assert_allclose(a.numpy(), np.asarray(r), atol=1e-5,
+                                   rtol=1e-5, err_msg=label)
 
 
 def test_strided_incoming_gradient():
@@ -450,6 +478,18 @@ PLANTED_FAULT_KERNELS = {
     "masked_ignores_the_mask": ("block_sparse.cu", "struct LiveBlocks"),
     "masked_count_stops_one_block_short": ("block_sparse.cu",
                                            "struct LiveBlocks"),
+    "wide_fwd_skips_o_rescale": ("flash_attention_wide.cu",
+                                 "flash_fwd_wide_bf16("),
+    "wide_fwd_second_consumer_reads_first_v_columns": (
+        "flash_attention_wide.cu", "flash_fwd_wide_bf16("),
+    "wide_dq_drops_last_dv_chunk": ("flash_attention_wide.cu",
+                                    "flash_bwd_dq_wide_bf16("),
+    "wide_dq_second_consumer_reads_first_k_columns": (
+        "flash_attention_wide.cu", "flash_bwd_dq_wide_bf16("),
+    "wide_f32_fwd_skips_o_rescale": ("flash_attention_wide.cu",
+                                     "flash_fwd_wide_f32("),
+    "wide_dkv_drops_last_query_tile": ("flash_attention_wide.cu",
+                                       "flash_bwd_dkv_wide("),
 }
 
 
@@ -458,10 +498,13 @@ def test_every_planted_fault_is_anchored_in_its_kernel(fault):
     import chip_smoke
 
     faults = {**chip_smoke.FWD_PLANTED_FAULTS, **chip_smoke.PLANTED_FAULTS,
-              **chip_smoke.SPMM_PLANTED_FAULTS}
+              **chip_smoke.SPMM_PLANTED_FAULTS,
+              **chip_smoke.WIDE_KERNEL_FAULTS}
     assert set(faults) == set(PLANTED_FAULT_KERNELS)
     assert set(chip_smoke.SPMM_FAULT_SHOWS) == set(
         chip_smoke.SPMM_PLANTED_FAULTS)
+    assert set(chip_smoke.WIDE_KERNEL_FAULT_CHECK) == set(
+        chip_smoke.WIDE_KERNEL_FAULTS)
     src_name, start = PLANTED_FAULT_KERNELS[fault]
     src = (ROOT / "marlin_tpu_torch" / "csrc" / src_name).read_text()
     old, new = faults[fault]
