@@ -108,13 +108,16 @@ D = 256 model, trained through those instantiations. Head dims above 256
 (64, 320), and two shapes large enough to read a share of the bound:
 D = 512 at S = 4096 and DeepSeek-V3's absorbed-MLA widths (576, 512) at
 S = 4096 over one KV head; bf16, and the first six in f32) go to the wide
-kernels of csrc/flash_attention_wide.cu (bf16 forward and dQ on wgmma and
-a TMA ring; f32, and dK/dV, FMA): phases 3 and 4 hold them to the plain
-versions by the same limits, their dQ and dK/dV bitwise over two runs and
-every forward output chunk's lse equal to the others, and phase 6 trains a
-D = 320 model through them (its launches are the wide kernels' counts; no
-D <= 256 run launches a wide kernel). At the two large shapes dK/dV and
-the plain backward are timed over 2 launches, not 10.
+kernels of csrc/flash_attention_wide.cu (bf16 forward, dQ and dK/dV on
+wgmma and a TMA ring, dK/dV with the group plan it took, G group parts
+summed by a second pass where G > 1; f32 FMA): phases 3 and 4 hold them to
+the plain versions by the same limits, their dQ and dK/dV bitwise over two
+runs and every forward output chunk's lse equal to the others, and phase 6
+trains a D = 320 model through them (its launches are the wide kernels'
+counts; no D <= 256 run launches a wide kernel). At every f32 shape
+phases 3 and 4 name the backend scaled_dot_product_attention took (the
+kernels one call launched, by torch.profiler) and whether its output is
+within the f32 limits the port's kernels are held to.
 
 The last three lines of output are the card line from nvidia-smi, one
 {"kernels": [...]} JSON object, and {"ok": true, "device": {...}}.
@@ -132,8 +135,8 @@ With ``--compare-with DIR`` it runs phase 1, then builds DIR's backward,
 wide and SpMM sources (another checkout, e.g. the parent commit unpacked
 by ``git archive``) and this tree's KERNEL_VARIANTS, holds each against
 the plain version and times dQ at the train and remat shapes, both SpMM
-routes at bench512 and coo128 and the wide bf16 forward and dQ at the
-LARGE_WIDE_SHAPES, warm and cold, in two rounds in opposite orders;
+routes at bench512 and coo128 and the wide bf16 forward, dQ and dK/dV at
+the LARGE_WIDE_SHAPES, warm and cold, in two rounds in opposite orders;
 beside them the wide kernels' ablations (wide_ablations: no TMA loads,
 no logit products, loads only, the ring's sync only), timed, not held.
 """
@@ -226,8 +229,8 @@ WIDE_SHAPES = ("d160", "d256", "d160_f32", "d256_f32")
 # The shapes whose kernels are the wide ones (a head dim above 256).
 WIDE_KERNEL_SHAPES = tuple(s[0] for s in SHAPES if max(s[6], s[7]) > 256)
 
-# The wide shapes at which the FMA dK/dV kernel and the plain backward take
-# a good part of a second a launch: timed with 2 launches, not 10.
+# The wide shapes large enough to read a share of the bound, which
+# --compare-with times.
 LARGE_WIDE_SHAPES = ("d512_s4096", "mla_d576_dv512")
 
 SHAPE_BY_NAME = {s[0]: s for s in SHAPES}
@@ -333,9 +336,10 @@ WIDE_FAULTS = ("fwd256_second_half_reads_first_v_half",
 
 # Planted faults of the wide kernels (csrc/flash_attention_wide.cu): two
 # for each bf16 kernel (one of them a fault of the split of the output's
-# columns between its two consumer warpgroups), one of the f32 forward and
-# one of dK/dV. Each is shown only at the WIDE_KERNEL_SHAPES of its dtype,
-# by the check of its own kernel (WIDE_KERNEL_FAULT_CHECK).
+# columns between its two consumer warpgroups) and one of the bf16 dK/dV's
+# second pass, one of the f32 forward and one of the f32 dK/dV. Each is
+# shown only at the WIDE_KERNEL_SHAPES of its dtype, by the check of its
+# own kernel (WIDE_KERNEL_FAULT_CHECK).
 WIDE_KERNEL_FAULTS = {
     # The bf16 forward does not rescale O when a row's running max grows.
     "wide_fwd_skips_o_rescale": (
@@ -363,11 +367,26 @@ WIDE_KERNEL_FAULTS = {
     "wide_f32_fwd_skips_o_rescale": (
         "    for (int j = 0; j < kOut / 2; ++j) acc[j] *= corr;\n",
         "    for (int j = 0; j < 0; ++j) acc[j] *= corr;\n"),
-    # The dK/dV kernel's (FMA, both dtypes) sweep of each query head stops
-    # one query tile short.
+    # The f32 dK/dV kernel's (FMA) sweep of each query head stops one
+    # query tile short.
     "wide_dkv_drops_last_query_tile": (
         "    for (int m0 = lo; m0 < hi; m0 += kCols) {\n",
         "    for (int m0 = lo; m0 < hi - kCols; m0 += kCols) {\n"),
+    # The bf16 dK/dV's dK parts: the second consumer adds dS^T times the
+    # first consumer's q_hat columns into its own columns of dK (the
+    # producer loads the first consumer's boxes in place of the second's).
+    "wide_dkv_dk_second_consumer_reads_first_q_columns": (
+        "sp.col(w, x0 + x), h, m0, b);",
+        "sp.col(dkp ? 0 : w, x0 + x), h, m0, b);"),
+    # The bf16 dK/dV's dV parts stop each query head's sweep one query
+    # tile short (the producer and the consumers agree on it).
+    "wide_dkv_dv_drops_last_query_tile": (
+        "  const int n_qt = hi > lo ? (hi - lo) / kDkvBM : 0;",
+        "  const int n_qt = hi > lo ? (hi - lo) / kDkvBM - !dkp : 0;"),
+    # The bf16 dK/dV's second pass leaves out the last group part.
+    "wide_dkv_sum_drops_last_group_part": (
+        "    for (int g = 0; g < G; ++g) {\n",
+        "    for (int g = 0; g < G - 1; ++g) {\n"),
 }
 
 
@@ -388,8 +407,25 @@ WIDE_KERNEL_FAULT_CHECK = {
     "wide_dq_second_consumer_reads_first_k_columns": (
         "backward", "bfloat16", lambda s: _boxes(s[6]) >= 2),
     "wide_f32_fwd_skips_o_rescale": ("forward", "float32", None),
-    "wide_dkv_drops_last_query_tile": ("backward", None, None),
+    "wide_dkv_drops_last_query_tile": ("backward", "float32", None),
+    "wide_dkv_dk_second_consumer_reads_first_q_columns": (
+        "backward", "bfloat16", lambda s: _boxes(s[6]) >= 2),
+    "wide_dkv_dv_drops_last_query_tile": ("backward", "bfloat16", None),
+    "wide_dkv_sum_drops_last_group_part": (
+        "backward", "bfloat16", lambda s: dkv_plan(s).group_parts > 1),
 }
+
+
+def dkv_plan(shape):
+    """The bf16 wide dK/dV kernel's plan (_wide_dkv_plan) at ``shape`` on
+    this card: its parts and its group parts G."""
+    import torch
+
+    from marlin_tpu_torch.ops import flash_attention as fa
+
+    _, b, _, skv, h, hk, d, dv = shape[:8]
+    return fa._wide_dkv_plan(b, h, hk, skv, *fa._kernel_head_dims(d, dv),
+                             fa._sm_count(torch.device("cuda")))
 
 
 def planted_shape(name: str) -> bool:
@@ -685,6 +721,8 @@ def phase_kernels():
         cold_ms = cuda_ms_cold(kernel, iters=10)
         plain_ms = cuda_ms(plain, warmup=1, iters=3)
         lib_ms, lib_lo, lib_hi = library_ms(F, q, k, v, causal, window)
+        extra = (sdpa_f32_fwd(F, q, k, v, causal, window, plain()[0])
+                 if dt == "float32" else {})
         # Bound: max(FLOPs / peak, bytes / HBM rate), reading Q, K, V once
         # and writing O and lse once.
         flops = attention_flops(b, sq, skv, h, d, dv, causal, window)
@@ -697,7 +735,7 @@ def phase_kernels():
                    library_ms=lib_ms, library_ms_spread=[lib_lo, lib_hi],
                    bound_ms=bound_ms, bound_by=bound_by,
                    bound_share=bound_ms / ms,
-                   tflops=flops / (ms * 1e-3) / 1e12)
+                   tflops=flops / (ms * 1e-3) / 1e12, **extra)
         rows[name] = row
         print("kernel: " + json.dumps(row), flush=True)
     return rows
@@ -763,6 +801,84 @@ def library_bwd_ms(F, q, k, v, do, causal, window):
         print(f"  library: scaled_dot_product_attention backward "
               f"unavailable for this case: {e}")
         return None, None, None
+
+
+def sdpa_backend(fn):
+    """(backend, kernel names): the CUDA kernels one call of ``fn`` (a call
+    of scaled_dot_product_attention or of its backward) launched, by
+    torch.profiler, and the backend their names show ("flash",
+    "efficient", "cudnn", else "math")."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = sorted({e.key for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA})
+    text = " ".join(names).lower()
+    for backend, marks in (("flash", ("flash",)),
+                           ("efficient", ("fmha", "efficient", "mem_eff")),
+                           ("cudnn", ("cudnn",))):
+        if any(m in text for m in marks):
+            return backend, names
+    return "math", names
+
+
+def sdpa_f32_fwd(F, q, k, v, causal, window, o_ref):
+    """At an f32 shape: the backend scaled_dot_product_attention took and
+    its O against the plain version's, held (not failed) to the limit of
+    the port's f32 forward, TOLERANCE's 1e-4: a library time outside it
+    is no yardstick."""
+    args = _sdpa_args(q, k, v, causal, window)
+    if args is None:
+        return dict(library_backend=None)
+    qt, kt, vt, kw = args
+
+    def call():
+        return F.scaled_dot_product_attention(qt, kt, vt, **kw)
+
+    try:
+        backend, names = sdpa_backend(call)
+        err = (call().transpose(1, 2).float() - o_ref.float()).abs().max()
+    except (RuntimeError, TypeError):  # the yardstick only
+        return dict(library_backend=None)
+    return dict(library_backend=backend, library_kernels=names[:6],
+                library_max_abs_err=err.item(),
+                library_within_limits=err.item() <= TOLERANCE["float32"][0])
+
+
+def sdpa_f32_bwd(F, c, ref):
+    """The same for the backward at an f32 BwdCase ``c``: SDPA's dQ, dK and
+    dV against the plain backward's (``ref``) by the worst tile, held (not
+    failed) to BWD_TOLERANCE's 1e-5, the port's f32 backward limit."""
+    import torch
+
+    args = _sdpa_args(c.q, c.k, c.v, c.causal, c.window)
+    if args is None:
+        return dict(library_backend=None)
+    qt, kt, vt, kw = args
+    leaves = [x.detach().contiguous().requires_grad_(True)
+              for x in (qt, kt, vt)]
+    try:
+        out = F.scaled_dot_product_attention(*leaves, **kw)
+        dot = c.do.transpose(1, 2).contiguous()
+
+        def call():
+            return torch.autograd.grad(out, leaves, dot, retain_graph=True)
+
+        backend, names = sdpa_backend(call)
+        errs = bwd_errors([g.transpose(1, 2) for g in call()], ref)
+    except (RuntimeError, TypeError):  # the yardstick only
+        return dict(library_backend=None)
+    worst = max(e["tile_rel"] for e in errs.values())
+    return dict(library_backend=backend, library_kernels=names[:6],
+                library_tile_rel_err=worst,
+                library_global_rel_err=max(e["global_rel"]
+                                           for e in errs.values()),
+                library_within_limits=worst <= BWD_TOLERANCE["float32"])
 
 
 class BwdCase:
@@ -858,7 +974,8 @@ def phase_backward():
         skv, hk, dv = c.k.shape[1], c.k.shape[2], c.v.shape[3]
         got = c.kernels()
         torch.cuda.synchronize()
-        errs = bwd_errors(got, c.plain())
+        ref = c.plain()
+        errs = bwd_errors(got, ref)
         for label, e in errs.items():
             rel = e["tile_rel"]
             if not math.isfinite(rel) or rel > BWD_TOLERANCE[dt]:
@@ -874,14 +991,19 @@ def phase_backward():
                 fail(f"backward {name}: dK/dV differ between two runs")
         ms_dq = cuda_ms(c.dq, iters=10)
         ms_dq_cold = cuda_ms_cold(c.dq, iters=10)
-        # The FMA dK/dV kernel takes a good part of a second a launch at
-        # the LARGE_WIDE_SHAPES: 2 launches there.
-        n = 2 if name in LARGE_WIDE_SHAPES else 10
-        ms_dkv = cuda_ms(c.dkv, warmup=1 if n == 2 else 3, iters=n)
-        ms_dkv_cold = cuda_ms_cold(c.dkv, iters=n)
+        ms_dkv = cuda_ms(c.dkv, iters=10)
+        ms_dkv_cold = cuda_ms_cold(c.dkv, iters=10)
         plain_ms = cuda_ms(c.plain, warmup=1, iters=2)
         lib_ms, lib_lo, lib_hi = library_bwd_ms(F, c.q, c.k, c.v, c.do,
                                                 c.causal, c.window)
+        extra = {}
+        if dt == "float32":
+            extra = sdpa_f32_bwd(F, c, ref)
+        elif name in WIDE_KERNEL_SHAPES:
+            plan = dkv_plan(shape)
+            extra = dict(dkv_group_parts=plan.group_parts,
+                         dkv_parts=len(plan.parts),
+                         dkv_workspace_bytes=plan.workspace_bytes)
         pairs = b * h * live_pairs(sq, skv, c.causal, c.window)
         # dQ: S, dP, dQ per live pair; dK/dV: S, dP, dV, dK. Bytes: every
         # input read once (q_hat, k, v, dO, lse, Delta), every output
@@ -904,10 +1026,11 @@ def phase_backward():
                    dkv_bound_ms=b_dkv[0], dkv_bound_by=b_dkv[1],
                    dkv_bound_share=b_dkv[0] / ms_dkv,
                    dq_tflops=2.0 * pairs * (2 * d + dv) / ms_dq / 1e9,
-                   dkv_tflops=2.0 * pairs * (2 * d + 2 * dv) / ms_dkv / 1e9)
+                   dkv_tflops=2.0 * pairs * (2 * d + 2 * dv) / ms_dkv / 1e9,
+                   **extra)
         rows[name] = row
         print("backward: " + json.dumps(row), flush=True)
-        del c, got
+        del c, got, ref
     return rows
 
 
@@ -1242,22 +1365,38 @@ KERNEL_VARIANTS = {
         # At most 4 ring slots (16 in this tree).
         "wide_4_stages": [("constexpr int kMaxStages = 16;",
                            "constexpr int kMaxStages = 4;")],
+        # dK/dV's ring slots of 2 boxes in both roles (this tree: 4 where
+        # at least four slots fit beside the resident K and V, else 2).
+        "wide_dkv_group_2": [
+            ("    for (int gs = kDkvMaxGroup; gs >= 2; gs /= 2) {",
+             "    for (int gs = 2; gs >= 2; gs /= 2) {")],
+        # dK/dV's slots of 4 boxes first: where 4 do not fit beside the
+        # resident K and V (a dK part at D = Dv = 512 and at MLA), K and V
+        # stream beside q_hat and dO in slots of 4 (this tree: resident,
+        # slots of 2).
+        "wide_dkv_group_4_streamed": [
+            ("  for (int res = 1; res >= 0; --res) {\n"
+             "    for (int gs = kDkvMaxGroup; gs >= 2; gs /= 2) {",
+             "  for (int gs = kDkvMaxGroup; gs >= 2; gs /= 2) {\n"
+             "    for (int res = 1; res >= 0; --res) {")],
     },
 }
 
 # Ablations of the wide bf16 kernels, timed beside them by --compare-with
 # and never held to the plain version (they compute something else): what
 # a kernel's time is made of. Each edit takes the first occurrence, so an
-# edit that must reach both kernels is listed twice; a replacement never
-# contains its own text.
+# edit that must reach several places (the forward's, dQ's and dK/dV's
+# logits; each kernel's n128 and n64 output products) is listed once for
+# each; a replacement never contains its own text.
 _WIDE_S_MMA = ("sm90::wgmma_ss<0>(sc, sm90::desc_sw128(a + kk * 32, 16, "
                "1024),")
 _WIDE_NO_LOGIT_MMA = [(_WIDE_S_MMA, "if (0) " + _WIDE_S_MMA.replace(
-    "16, 1024", "16,  1024"))] * 2 + [
-    ("sm90::wgmma_ss<0>(dp,", "if (0) sm90::wgmma_ss<0>(dp,")]
+    "16, 1024", "16,  1024"))] * 3 + [
+    ("sm90::wgmma_ss<0>(dp,", "if (0) sm90::wgmma_ss<0>( dp,"),
+    ("sm90::wgmma_ss<0>(sh,", "if (0) sm90::wgmma_ss<0>( sh,")]
 _WIDE_NO_OUT_MMA = [
-    ("sm90::wgmma_ss<1>(\n", "if (0) sm90::wgmma_ss<1>(\n")] * 2 + [
-    ("sm90::wgmma_ss<1>(d,\n", "if (0) sm90::wgmma_ss<1>(d,\n")] * 2
+    ("sm90::wgmma_ss<1>(\n", "if (0) sm90::wgmma_ss<1>( \n")] * 2 + [
+    ("sm90::wgmma_ss<1>(d,\n", "if (0) sm90::wgmma_ss<1>(d, \n")] * 4
 
 
 def _wide_no_tma(source: str):
@@ -1273,26 +1412,77 @@ def _wide_no_tma(source: str):
     return edits
 
 
+# Ablations of the bf16 dK/dV alone: its lse and Delta loads, its two
+# named barriers a query tile, its exp2.
+_WIDE_DKV_ABLATIONS = {
+    "wide_dkv_no_stat_loads": [(
+        "      lcol[j] = qp < Sq ? lse[row + qp] : 0.f;\n"
+        "      dcol[j] = dkp && qp < Sq ? delta[row + qp] : 0.f;",
+        "      lcol[j] = 0.f;\n      dcol[j] = 0.f;")],
+    "wide_dkv_no_barriers": [
+        ("    sm90::named_barrier(1, kConsumerThreads);\n"
+         "    if (dkp && w == 0) {", "    if (dkp && w == 0) {"),
+        ("    sm90::named_barrier(2, kConsumerThreads);  // the whole tile "
+         "written\n", "\n")],
+    "wide_dkv_no_exp2": [(
+        "        float pr = exp2f(sc[nt * 4 + e] - lcol[j]);",
+        "        float pr = sc[nt * 4 + e] - lcol[j];")],
+}
+
+
 def wide_ablations(source: str):
     """{ablation: edits} of the wide source (``source``, its text)."""
     no_tma = _wide_no_tma(source)
     return {"wide_no_tma": no_tma,
             "wide_no_logit_mma": _WIDE_NO_LOGIT_MMA,
             "wide_loads_only": _WIDE_NO_LOGIT_MMA + _WIDE_NO_OUT_MMA,
-            "wide_sync_only": _WIDE_NO_LOGIT_MMA + _WIDE_NO_OUT_MMA + no_tma}
+            "wide_sync_only": _WIDE_NO_LOGIT_MMA + _WIDE_NO_OUT_MMA + no_tma,
+            **_WIDE_DKV_ABLATIONS}
 
 
 # The shapes --compare-with times: the main path's, by kernel, and the wide
-# bf16 kernels' at LARGE_WIDE_SHAPES (3 launches a turn there: the parent
+# bf16 kernels' at LARGE_WIDE_SHAPES (3 launches a turn there: a parent
 # tree's FMA kernels take hundreds of ms a launch).
 COMPARE_SHAPES = {"dq": ("train", "remat"), "gather": ("bench512", "coo128"),
                   "masked": ("bench512", "coo128"),
-                  "fwd_wide": LARGE_WIDE_SHAPES, "dq_wide": LARGE_WIDE_SHAPES}
+                  "fwd_wide": LARGE_WIDE_SHAPES, "dq_wide": LARGE_WIDE_SHAPES,
+                  "dkv_wide": LARGE_WIDE_SHAPES}
+
+def _dkv_wide_call(c, libs):
+    """c.dkv(); but where the library loaded as flash_attention_wide is
+    ``libs``'s "parent" and that tree's wide dK/dV entry takes no
+    workspace and no group parts (its source has no ``parts_g``: the FMA
+    kernel in both dtypes), that entry called with its own arguments on
+    c's padded inputs."""
+    import ctypes
+
+    import torch
+
+    from marlin_tpu_torch.ops import build
+
+    lib = build._loaded["flash_attention_wide"]
+    if lib is not libs.get("parent") or libs.get("parent_has_parts"):
+        return c.dkv()
+    fn = lib.marlin_flash_attention_bwd_dkv_wide
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 8
+                   + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+    q, k, v, do = c.padded
+    b, sq, h, d = q.shape
+    skv, hk, dv = k.shape[1], k.shape[2], v.shape[3]
+    dk, dvv = torch.empty_like(k), torch.empty_like(v)
+    err = fn(0, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+             c.lse.data_ptr(), c.delta.data_ptr(), dk.data_ptr(),
+             dvv.data_ptr(), b, h, hk, sq, skv, d, dv, int(c.causal),
+             int(c.window), torch.cuda.current_stream().cuda_stream)
+    if err:
+        fail(f"the parent tree's wide dK/dV: cudaError_t {err}")
+    return dk[..., :c.d], dvv[..., :c.dv]
 
 
 def phase_compare(card: str, parent: str):
-    """This tree's dQ, SpMM (both routes) and wide bf16 forward and dQ
-    kernels against the parent tree's (the checkout at ``parent``, built
+    """This tree's dQ, SpMM (both routes) and wide bf16 forward, dQ and
+    dK/dV kernels against the parent tree's (the checkout at ``parent``, built
     from its own csrc/) and against KERNEL_VARIANTS, on one card: at each
     COMPARE_SHAPES shape every version is first held to the plain version
     (worst tile, the phase checks' limit), then timed warm (cuda_ms) and
@@ -1312,6 +1502,7 @@ def phase_compare(card: str, parent: str):
     csrc = Path(parent).resolve() / "marlin_tpu_torch" / "csrc"
     torch.backends.cuda.matmul.allow_tf32 = False
     cases = {}
+    wide_libs = {}  # the wide source's versions, once built
     gen = torch.Generator(device="cuda").manual_seed(1)
     for shape in BWD_SHAPES:
         if shape[0] in COMPARE_SHAPES["dq"]:
@@ -1320,21 +1511,28 @@ def phase_compare(card: str, parent: str):
             cases["dq", shape[0]] = ("flash_attention_bwd", c.dq,
                                      lambda out, ref=ref: tile_rel_err(
                                          out, ref), BWD_TOLERANCE[shape[8]])
-        if shape[0] in COMPARE_SHAPES["dq_wide"]:
+        wide = [k for k in ("fwd_wide", "dq_wide", "dkv_wide")
+                if shape[0] in COMPARE_SHAPES[k]]
+        if wide:
             c = BwdCase(gen, shape)
-            ref = c.plain()[0]
+            dq_ref, *dkv_ref = c.plain()
             o_ref = fa.flash_attention_reference(c.q_hat, c.k, c.v, c.causal,
                                                  c.window)[0]
-            cases["fwd_wide", shape[0]] = (
-                "flash_attention_wide",
-                lambda c=c: fa._launch(*c.padded[:3], c.causal,
-                                       c.window)[0][..., :c.dv],
-                lambda out, ref=o_ref: tile_rel_err(out, ref),
-                FWD_TILE_TOLERANCE[shape[8]])
-            cases["dq_wide", shape[0]] = (
-                "flash_attention_wide", c.dq,
-                lambda out, ref=ref: tile_rel_err(out, ref),
-                BWD_TOLERANCE[shape[8]])
+            by_kernel = {
+                "fwd_wide": (
+                    lambda c=c: fa._launch(*c.padded[:3], c.causal,
+                                           c.window)[0][..., :c.dv],
+                    lambda out, ref=o_ref: tile_rel_err(out, ref),
+                    FWD_TILE_TOLERANCE[shape[8]]),
+                "dq_wide": (c.dq, lambda out, ref=dq_ref: tile_rel_err(
+                    out, ref), BWD_TOLERANCE[shape[8]]),
+                "dkv_wide": (
+                    lambda c=c: _dkv_wide_call(c, wide_libs),
+                    lambda out, ref=dkv_ref: max(
+                        tile_rel_err(o, r) for o, r in zip(out, ref)),
+                    BWD_TOLERANCE[shape[8]])}
+            for k in wide:
+                cases[k, shape[0]] = ("flash_attention_wide", *by_kernel[k])
     gen = torch.Generator(device="cuda").manual_seed(3)
     for shape in SPMM_SHAPES:
         if shape[0] in COMPARE_SHAPES["gather"] + COMPARE_SHAPES["masked"]:
@@ -1353,6 +1551,9 @@ def phase_compare(card: str, parent: str):
     readings = {}
     with tempfile.TemporaryDirectory() as tmp:
         libs = _build_planted(variants, tmp, parent=csrc)
+        wide_libs.update(libs["flash_attention_wide"])
+        wide_libs["parent_has_parts"] = "parts_g" in (
+            csrc / "flash_attention_wide.cu").read_text()
         try:
             for turn in range(2):
                 for (kernel, shape), (name, fn, err_of, tol) in \
@@ -2883,6 +3084,11 @@ def spmm_kernel_entries(spmm, launches):
     ]
 
 
+# The f32 rows' readings of the library call (sdpa_f32_fwd, sdpa_f32_bwd).
+_LIBRARY_F32 = ("library_backend", "library_within_limits",
+                "library_max_abs_err", "library_tile_rel_err")
+
+
 def _fwd_entry(n, r):
     """A forward kernel's numbers at phase_kernels' row ``r``, launched
     ``n`` times on the path."""
@@ -2892,7 +3098,8 @@ def _fwd_entry(n, r):
                 cold_ms=r["cold_ms"], plain_ms=r["plain_ms"],
                 bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                 library_ms=r["library_ms"],
-                tflops=r["tflops"], bound_share=r["bound_share"])
+                tflops=r["tflops"], bound_share=r["bound_share"],
+                **{k: r[k] for k in _LIBRARY_F32 if k in r})
 
 
 def _bwd_entry(kernel, labels, n, r):
@@ -2908,7 +3115,10 @@ def _bwd_entry(kernel, labels, n, r):
         bound_ms=r[f"{kernel}_bound_ms"], bound_by=r[f"{kernel}_bound_by"],
         library_ms=r["library_ms"], tflops=r[f"{kernel}_tflops"],
         bound_share=r[f"{kernel}_bound_ms"] / r[f"{kernel}_ms"],
-        cold_ms=r[f"{kernel}_cold_ms"])
+        cold_ms=r[f"{kernel}_cold_ms"],
+        **{k: r[k] for k in _LIBRARY_F32 if k in r},
+        **{k: r[k] for k in ("dkv_group_parts",)
+           if kernel == "dkv" and k in r})
 
 
 def wide_kernel_entries(rows, bwd, small):
@@ -2964,6 +3174,14 @@ def kernels_line(rows, bwd, launches, small, spmm, spmm_launches):
         return {run: dict(shape=run, launches=n[kernel])
                 for run, n in small.items()}
 
+    def f32(kernel, make, table):
+        """The f32 kernel at the "f32" shape (D = 128), with the launches
+        of the small models' f32 runs at D <= 128."""
+        runs = [r for r in small if r.endswith("_float32")
+                and r.startswith(("test_train_d16", "example_d32"))]
+        return {"f32": {**make(sum(small[r][kernel] for r in runs),
+                               table["f32"]), "launches_of_runs": runs}}
+
     def wide(kernel, make, table):
         """The D = Dv = 256 instantiation's entries: each WIDE_SHAPES
         row, with the launches of the small model run of that head dim
@@ -2988,7 +3206,8 @@ def kernels_line(rows, bwd, launches, small, spmm, spmm_launches):
                 "plain_ms_covers": "the whole plain backward: dQ, dK, dV",
                 "library_ms_covers": "scaled_dot_product_attention's "
                                      "backward: dQ, dK and dV in one call",
-                "paths": all_paths, "head_dim_256": wide(kernel, entry, bwd)}
+                "paths": all_paths, "head_dim_256": wide(kernel, entry, bwd),
+                "f32_shapes": f32(kernel, entry, bwd)}
 
     fwd_top = fwd_entry(*fwd_paths["serve"])
     fwd_all = {**{p: fwd_entry(*v) for p, v in fwd_paths.items()},
@@ -2999,7 +3218,8 @@ def kernels_line(rows, bwd, launches, small, spmm, spmm_launches):
          "replaces": "marlin_tpu/ops/flash_attention.py:134",
          **fwd_top, "launches": sum(e["launches"] for e in fwd_all.values()),
          "library_ms_covers": "scaled_dot_product_attention's forward",
-         "paths": fwd_all, "head_dim_256": wide("fwd", fwd_entry, rows)},
+         "paths": fwd_all, "head_dim_256": wide("fwd", fwd_entry, rows),
+         "f32_shapes": f32("fwd", fwd_entry, rows)},
         bwd_kernel("dq", "marlin_tpu/ops/flash_attention.py:335", ("dq",)),
         bwd_kernel("dkv", "marlin_tpu/ops/flash_attention.py:373",
                    ("dk", "dv")),

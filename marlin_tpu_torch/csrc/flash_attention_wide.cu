@@ -13,63 +13,87 @@
 // causal k <= q, a window k > q - window, whole tiles outside the band
 // skipped, GQA by index (K and V never replicated), l clamped at 1e-30,
 // lse = m + log2(l) in (B, H, Sq) f32, dQ = scale * dS K, dK = ln2 * dS^T
-// q_hat, dV = P^T dO summed over the KV head's group. No CTA reduces into
-// another's output and no atomics are used: dQ, dK and dV come out bitwise
-// the same run after run.
+// q_hat, dV = P^T dO summed over the KV head's group. No atomics are used:
+// a CTA writes only its own outputs, or (bf16 dK/dV with its group split)
+// its own f32 partial sums, which a second pass adds in a fixed order, so
+// dQ, dK and dV come out bitwise the same run after run.
 //
 // Bound on the H100. At D = Dv = 512, S = 4096, causal, the forward runs
-// 2 (D + Dv) FLOP and dQ 2 (2 D + Dv) FLOP per live (q, k) pair, some 1000
-// FLOP per byte of their inputs and outputs: the tensor-core rate (989
-// TFLOP/s bf16) bounds them, and only wgmma reaches it.
+// 2 (D + Dv) FLOP, dQ 2 (2 D + Dv) and dK/dV 2 (2 D + 2 Dv) FLOP per live
+// (q, k) pair, some 1000 FLOP per byte of their inputs and outputs: the
+// tensor-core rate (989 TFLOP/s bf16) bounds them, and only wgmma reaches
+// it.
 //
-// bf16 forward and dQ (flash_fwd_wide_bf16, flash_bwd_dq_wide_bf16): wgmma
-// fed by TMA through an mbarrier ring (pieces in sm90.cuh).
-//   * A CTA owns 64 query rows and up to 640 of the output's columns (Dv
-//     for O, D for dQ) in 64-column boxes: a producer warpgroup, whose one
-//     thread issues every TMA load (setmaxnreg hands the rest of its
-//     registers on), and two consumer warpgroups. The first consumer owns
-//     ceil(n / 2) of the CTA's n boxes, the second the rest, each in an f32
-//     accumulator of at most 160 registers. Only a wider output splits
-//     over CTAs on grid z, as evenly as whole boxes allow (D = 1024: two
-//     CTAs of 512 columns), each of them computing the logits again.
-//   * The logits S = q_hat K^T (and for dQ dP = dO V^T) are computed once
-//     per (query tile, key tile) per CTA: each consumer takes half of the
-//     tile's keys (SS wgmma, m64n64k16 on the forward's 128-key tile,
-//     m64n32k16 on dQ's 64-key tile: 160 accumulator registers leave no
-//     room for 64 keys of both S and dP), accumulated over D (Dv) in
-//     64-column chunks. The forward's online softmax trades each half's
-//     row max, and at the end its row sum, through shared memory: both
-//     halves rescale by one factor. P (dS), rounded to bf16, goes to one
+// bf16 (flash_fwd_wide_bf16, flash_bwd_dq_wide_bf16,
+// flash_bwd_dkv_wide_bf16): wgmma fed by TMA through an mbarrier ring
+// (pieces in sm90.cuh).
+//   * A CTA owns 64 rows (query rows for O and dQ, keys for dK and dV) and
+//     up to 640 of the output's columns in 64-column boxes: a producer
+//     warpgroup, whose one thread issues every TMA load (setmaxnreg hands
+//     the rest of its registers on), and two consumer warpgroups. The
+//     first consumer owns ceil(n / 2) of the CTA's n boxes, the second the
+//     rest, each in an f32 accumulator of at most 160 registers. A wider
+//     output splits over CTAs as evenly as whole boxes allow (D = 1024:
+//     two CTAs of 512 columns), each of them computing the logits again.
+//     dK/dV's parts of a key tile are dK's column shares, then dV's: a dV
+//     part computes only S^T and adds P^T dO; a dK part also dP^T, and
+//     adds dS^T q_hat (S^T twice in all: 1.25 times the counted FLOP at
+//     D = Dv).
+//   * The logits S = q_hat K^T (dQ: and dP = dO V^T; dK/dV: S^T = K q_hat^T
+//     and dP^T = V dO^T) are computed once per (query tile, key tile) per
+//     CTA: each consumer takes half of the tile's partners (SS wgmma,
+//     m64n64k16 on the forward's 128-key tile, m64n32k16 on dQ's and a dV
+//     part's 64-wide tiles: 160 accumulator registers leave no room for 64
+//     of both S and dP), accumulated over D (Dv) in 64-column chunks; a dK
+//     part's consumer 0 computes all of S^T and consumer 1 all of dP^T
+//     (m64n64k16, a third less shared memory read per FLOP and half the
+//     instructions), and each hands the other half of its columns over in
+//     f32. The forward's online softmax trades each half's row max, and at
+//     the end its row sum, through shared memory: both halves rescale by
+//     one factor. P (dS; dK/dV: P^T or dS^T), rounded to bf16, goes to one
 //     shared tile in the layout of TMA's 128-byte swizzle, and each
-//     consumer adds P V (dS K) into its own column boxes, V (K) read as
-//     the MN-major B, two adjacent boxes as one n128 product.
+//     consumer adds P V (dS K; P^T dO or dS^T q_hat) into its own column
+//     boxes, V (K; dO or q_hat) read as the MN-major B, two adjacent boxes
+//     as one n128 product.
 //   * Everything streams through one ring (a "full" mbarrier per slot
 //     counting TMA bytes, an "empty" one that the 8 consumer warps arrive
 //     on once their wgmma reading it have retired), in the order both
 //     sides walk: per key tile the D/64 K boxes, then the output's V boxes
 //     (dQ: the Dv/64 V boxes for dP, then the K boxes of dQ's own columns
-//     once more), the two consumers' groups of boxes interleaved. A slot
-//     holds a group of boxes (2 for the forward, 4 for dQ): the ring's
+//     once more; dK/dV, per query tile: the D/64 q_hat boxes, in a dK part
+//     each slot's beside the dO boxes of the same columns, then the part's
+//     own q_hat or dO boxes once more), the two consumers' groups of boxes
+//     of the output interleaved. A slot holds a group
+//     of boxes (2 for the forward, 4 for dQ, 4 or 2 for dK/dV): the ring's
 //     waits, frees and wgmma groups cost the same for a group as for one
 //     box, and they, not the bytes, bound a kernel that waits for every
-//     box (PERF.md). q_hat (and dO) stay resident in shared memory where
-//     they leave room for at least four slots; otherwise (the forward
-//     above D = 640, dQ above D + Dv = 704) their 64 x 64 chunks ride in
-//     the slots beside the K (V) boxes. The ring takes what is left of the 227 KB, up to 16 slots, so
-//     shared memory does not grow with the head dim beyond the resident
-//     tiles.
+//     box (PERF.md). The CTA's fixed tiles (q_hat and dO; dK/dV: K, and for
+//     a dK part V) stay resident in shared memory where they leave room
+//     for at least four slots; otherwise (the forward above D = 640, dQ
+//     above D + Dv = 704, a dK part above D + Dv = 1088) their 64 x 64
+//     chunks ride in the slots beside the streamed boxes. The ring takes
+//     what is left of the 227 KB, up to 16 slots, so shared memory does
+//     not grow with the head dim beyond the resident tiles.
 //   * A consumer keeps one wgmma group in flight: it issues group i, then
 //     frees group i - 1's slot once that group has retired.
-// It has no ping-pong of two tiles per warpgroup and no TMA multicast
+//   * dK/dV walks the query heads of its KV head's group, each head's live
+//     query tiles in turn (query_range). Where B x Hk x key tiles x parts
+//     CTAs would not fill two waves of the card, the wrapper splits the
+//     group into G equal parts (MLA, one KV head of 16 query heads: G = 4),
+//     each a CTA that stores f32 partial sums; flash_dkv_group_sum adds
+//     them in part order and rounds once. Every streamed q_hat or dO box
+//     comes from L2 once per key tile that reads it (some 65 FLOP per
+//     byte), but the time goes to the consumers' chain, not to the loads
+//     (PERF.md); lse and Delta are read a query tile ahead of their use.
+// They have no ping-pong of two tiles per warpgroup and no TMA multicast
 // across a cluster; those are the next steps toward the bound.
 //
-// The FMA kernels (f32 forward and dQ, and dK/dV in both dtypes): every
-// CTA owns 64 output rows (query rows for O and dQ, keys for dK and dV) and
-// 128 of the output's columns, a chunk picked by blockIdx.z; the 64 x 64
-// logit tiles S (and dP) accumulate over D (Dv) in 64-column chunks
-// streamed through shared memory, and each CTA recomputes S, P and dS for
-// its own column chunk. FMA in f32 (bf16 widened on load, results rounded
-// once on store); two threads per output row, each holding 32 of the
+// The FMA kernels (f32 forward, dQ and dK/dV): every CTA owns 64 output
+// rows (query rows for O and dQ, keys for dK and dV) and 128 of the
+// output's columns, a chunk picked by blockIdx.z; the 64 x 64 logit tiles
+// S (and dP) accumulate over D (Dv) in 64-column chunks streamed through
+// shared memory, and each CTA recomputes S, P and dS for its own column
+// chunk. FMA in f32; two threads per output row, each holding 32 of the
 // tile's logits and 64 of the row's output columns. Every forward CTA of a
 // query tile computes the same lse (chunk 0 writes it; with `lse_chunks`
 // every chunk writes its own copy, for a check that they agree).
@@ -127,7 +151,7 @@ __device__ __forceinline__ void query_range(int n0, int bn, int bm, int sq,
 }
 
 // ---------------------------------------------------------------------
-// FMA kernels: the f32 forward and dQ, and dK/dV in both dtypes
+// FMA kernels: the f32 forward, dQ and dK/dV
 // ---------------------------------------------------------------------
 
 constexpr int kThreads = 128;
@@ -144,13 +168,7 @@ constexpr size_t kSmemBytes = sizeof(float) * 3 * kTileFloats;
 static_assert(2 * kTileFloats >= kCols * kOut, "the operand tile fits");
 
 __device__ __forceinline__ float load(const float* p) { return *p; }
-__device__ __forceinline__ float load(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
 
 // acc[j] += sum_w X[r][w] * Y[c0 + 2 j][w] over w in [0, width): X is this
 // CTA's 64 rows (row r = threadIdx.x / 2 is this thread's), Y the tile's 64
@@ -355,7 +373,7 @@ flash_bwd_dq_wide_f32(const float* __restrict__ q,
   }
 }
 
-// B5, wide: 64 keys' columns [c, c + kOut) of dK (blockIdx.z below the
+// B5, wide, f32: 64 keys' columns [c, c + kOut) of dK (blockIdx.z below the
 // dK chunk count) or of dV (the rest), summed over the KV head's group of
 // query heads. The thread's row is a key; its 32 partners are queries.
 template <typename T>
@@ -1150,6 +1168,451 @@ flash_bwd_dq_wide_bf16(const __grid_constant__ CUtensorMap tq,
 }
 
 // ---------------------------------------------------------------------
+// bf16 dK/dV: wgmma fed by TMA through an mbarrier ring
+// ---------------------------------------------------------------------
+
+constexpr int kDkvKeys = 64;      // keys per CTA
+constexpr int kDkvBM = 64;        // queries per streamed tile, 32 a consumer
+constexpr int kDkvMaxGroup = 4;   // 64-column boxes a ring slot holds at most
+constexpr int kSumThreads = 256;  // the group sum's block
+
+// One role's ring: slots, whether K (and V) are resident, boxes a slot.
+struct RingCfg {
+  int stages, resident, group;
+};
+// The dK parts' ring (r[0]) and the dV parts' (r[1]).
+struct DkvRings {
+  RingCfg r[2];
+};
+
+// A key tile's parts: out_chunks(D) dK parts, then out_chunks(DV) dV
+// parts, each a CTA that owns its OutSplit of dK's (dV's) columns.
+struct DkvPart {
+  bool dk;
+  OutSplit sp;
+  __host__ __device__ DkvPart(int D, int DV, int z)
+      : dk(z < out_chunks(D)),
+        sp(dk ? D : DV, dk ? z : z - out_chunks(D)) {}
+};
+
+// Byte offsets into the dK/dV kernel's (1024-aligned) dynamic shared
+// memory for a part of role `dk`: P^T or dS^T (64 keys x 64 queries, bf16,
+// one box), (dK part) the consumers' handover of half their logits in f32
+// (2 x 8 KB), K's D / 64 boxes and (dK part) V's DV / 64 when resident, the
+// ring (a slot: `group` q_hat or dO boxes and, when K and V are not
+// resident, as many K or V boxes after them), the barriers.
+struct DkvLayout {
+  int ds, xchg, k, v, ring, slot, bars, bytes;
+  __host__ __device__ DkvLayout(int D, int DV, bool dk, int stages,
+                                int resident, int group)
+      : ds(0),
+        xchg(kChunk),
+        k(xchg + (dk ? 2 * kChunk : 0)),
+        v(k + (resident ? D / 64 * kChunk : 0)),
+        ring(v + (resident && dk ? DV / 64 * kChunk : 0)),
+        slot(group * kChunk * (resident ? 1 : 2)),
+        bars(ring + stages * slot),
+        bytes(bars + 8 * (2 * stages + 1) + 1024) {}
+};
+
+// B5, wide, bf16: one CTA per (b, kv head, group part, part, 64 keys);
+// (b, kv head, group part, part) on grid x, the key tiles on grid y (causal:
+// key tile 0, which sees every query tile, launches first). The CTA walks
+// the query heads of its group part, each head's live 64-row query tiles
+// in turn, streaming q_hat and dO; its K (dK part: and V) stay. Per query
+// tile:
+//   S^T = K q_hat^T              SS wgmma; dV part: each consumer its 32
+//   dP^T = V dO^T (dK part)      queries; dK part: consumer 0 S^T, consumer
+//                                1 dP^T, over all 64, then each hands
+//                                the other the other's 32 columns in f32
+//   P^T, or dS^T = P^T (dP^T - Delta), each consumer its 32 queries, under
+//                                the forward's masks (lse and Delta read
+//                                per query column), rounded to bf16 into
+//                                the shared tile
+//   dV += P^T dO, dK += dS^T q_hat  SS wgmma on the consumer's column
+//                                boxes, q_hat's or dO's boxes streamed
+//                                again as MN-major B
+// One group part (parts_g = 1) stores dK (times ln2) and dV in bf16;
+// several store f32 partial sums into `ws` (parts_g, B, Skv, Hk, D + DV),
+// which flash_dkv_group_sum adds in the parts' order.
+__global__ void __launch_bounds__(kBf16Threads, 1)
+flash_bwd_dkv_wide_bf16(const __grid_constant__ CUtensorMap tq,
+                        const __grid_constant__ CUtensorMap tk,
+                        const __grid_constant__ CUtensorMap tv,
+                        const __grid_constant__ CUtensorMap tdo,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta,
+                        __nv_bfloat16* __restrict__ dk,
+                        __nv_bfloat16* __restrict__ dv,
+                        float* __restrict__ ws, int B, int H, int Hk, int Sq,
+                        int Skv, int D, int DV, int causal, int window,
+                        int parts_g, DkvRings rings) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* smem = sm90::align1024(smem_raw);
+  const int nz = out_chunks(D) + out_chunks(DV);
+  const int z = blockIdx.x % nz;
+  const int gp = blockIdx.x / nz % parts_g;
+  const int bhk = blockIdx.x / nz / parts_g;
+  const int b = bhk / Hk, hk = bhk % Hk;
+  const DkvPart part(D, DV, z);
+  const bool dkp = part.dk;
+  const OutSplit& sp = part.sp;
+  const RingCfg rc = rings.r[dkp ? 0 : 1];
+  const int gs = rc.group, resident = rc.resident, stages = rc.stages;
+  const DkvLayout L(D, DV, dkp, stages, resident, gs);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L.bars);
+  const Ring ring{smem + L.ring, L.slot, stages, full, full + stages};
+  uint64_t* kvbar = full + 2 * stages;
+
+  const int n0 = blockIdx.y * kDkvKeys;
+  const int per = H / Hk / parts_g;  // query heads of a group part
+  const int h0 = hk * (H / Hk) + gp * per;
+  const int nd = D / 64, ndv = DV / 64;
+  const int nu = sp.groups(gs);
+  int lo, hi;
+  query_range(n0, kDkvKeys, kDkvBM, Sq, causal, window, &lo, &hi);
+  const int n_qt = hi > lo ? (hi - lo) / kDkvBM : 0;  // per query head
+  const int n_tiles = per * n_qt;
+
+  if (threadIdx.x == 0) {
+    ring.init();
+    sm90::mbar_init(kvbar, 1);
+    sm90::fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {  // the producer warpgroup: one thread loads
+    sm90::setmaxnreg_dec<24>();
+    if (threadIdx.x != 0) return;
+    if (resident) {
+      sm90::mbar_arrive_expect_tx(kvbar, (nd + (dkp ? ndv : 0)) * kChunk);
+      for (int c = 0; c < nd; ++c)
+        sm90::tma_load_4d(smem + L.k + c * kChunk, &tk, kvbar, c * 64, hk,
+                          n0, b);
+      if (dkp)
+        for (int c = 0; c < ndv; ++c)
+          sm90::tma_load_4d(smem + L.v + c * kChunk, &tv, kvbar, c * 64, hk,
+                            n0, b);
+    }
+    const uint32_t box = resident ? kChunk : 2 * kChunk;
+    RingPos p;
+    for (int i = 0; i < n_tiles; ++i) {
+      const int h = h0 + i / n_qt, m0 = lo + i % n_qt * kDkvBM;
+      // The logits' boxes. dK part: a slot holds gs / 2 q_hat boxes
+      // (consumer 0's S^T) and then as many dO boxes (consumer 1's dP^T)
+      // of the same columns; dV part: gs q_hat boxes. Riding K (V) boxes
+      // follow the slot's gs streamed ones in the same order.
+      const int per_slot = dkp ? gs / 2 : gs;
+      for (int c0 = 0; c0 < max(nd, dkp ? ndv : 0); c0 += per_slot,
+               p.next(stages)) {
+        const int gq = min(per_slot, max(nd - c0, 0));
+        const int go = dkp ? min(per_slot, max(ndv - c0, 0)) : 0;
+        ring.acquire(p, (gq + go) * box);
+        unsigned char* dst = ring.at(p.s);
+        for (int x = 0; x < gq; ++x) {
+          sm90::tma_load_4d(dst + x * kChunk, &tq, &full[p.s], (c0 + x) * 64,
+                            h, m0, b);
+          if (!resident)
+            sm90::tma_load_4d(dst + (gs + x) * kChunk, &tk, &full[p.s],
+                              (c0 + x) * 64, hk, n0, b);
+        }
+        for (int x = 0; x < go; ++x) {
+          sm90::tma_load_4d(dst + (per_slot + x) * kChunk, &tdo, &full[p.s],
+                            (c0 + x) * 64, h, m0, b);
+          if (!resident)
+            sm90::tma_load_4d(dst + (gs + per_slot + x) * kChunk, &tv,
+                              &full[p.s], (c0 + x) * 64, hk, n0, b);
+        }
+      }
+      for (int u = 0; u < nu; ++u, p.next(stages)) {
+        const int w = u & 1, x0 = (u >> 1) * gs;
+        const int gb = min(gs, sp.n[w] - x0);
+        ring.acquire(p, gb * kChunk);
+        for (int x = 0; x < gb; ++x)
+          sm90::tma_load_4d(ring.at(p.s) + x * kChunk, dkp ? &tq : &tdo,
+                            &full[p.s], sp.col(w, x0 + x), h, m0, b);
+      }
+    }
+    return;
+  }
+
+  sm90::setmaxnreg_inc<240>();
+  const int w = threadIdx.x / 128 - 1;  // consumer 0 or 1
+  const int warp = (threadIdx.x % 128) / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int row0 = warp * 16 + g;  // this thread's keys n0 + row0, + 8
+  const int qw = w * kDkvBM / 2;   // this consumer's first query of a tile
+  const int mine = sp.n[w];
+  const uint32_t ds_base = sm90::smem_u32(smem + L.ds);
+  const uint32_t k_base = sm90::smem_u32(smem + L.k);
+  const uint32_t v_base = sm90::smem_u32(smem + L.v);
+
+  float acc[kMaxBoxes * 32];  // dK or dV: this consumer's boxes, 32 a box
+#pragma unroll
+  for (int e = 0; e < kMaxBoxes * 32; ++e) acc[e] = 0.f;
+
+  // lse and (dK part) Delta of query tile i at the thread's 8 query
+  // columns (2 t, 2 t + 1 of each n8 tile of this consumer's 32): plain
+  // loads, 0 past Sq, issued a tile ahead of their use so that their
+  // latency hides behind the tile before.
+  float lcol[8], dcol[8];
+  auto load_stats = [&](int i) {
+    const int m0 = lo + i % n_qt * kDkvBM;
+    const long long row = ((long long)b * H + h0 + i / n_qt) * Sq;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int qp = m0 + qw + (j >> 1) * 8 + 2 * t + (j & 1);
+      lcol[j] = qp < Sq ? lse[row + qp] : 0.f;
+      dcol[j] = dkp && qp < Sq ? delta[row + qp] : 0.f;
+    }
+  };
+  if (n_tiles > 0) load_stats(0);
+
+  if (resident) sm90::mbar_wait(kvbar, 0);  // even with no query tile
+  RingPos p;
+  for (int i = 0; i < n_tiles; ++i) {
+    const int m0 = lo + i % n_qt * kDkvBM;
+
+    // The logits, one wgmma group a slot, one group kept in flight. dK
+    // part: consumer 0 S^T = K q_hat^T from the slot's q_hat boxes,
+    // consumer 1 dP^T = V dO^T from its dO boxes, each over all 64 queries
+    // (m64n64k16; a consumer with no box in a slot commits an empty
+    // group). dV part: S^T, each consumer its 32 queries (m64n32k16) of
+    // every q_hat box.
+    float sc[32];
+#pragma unroll
+    for (int e = 0; e < 32; ++e) sc[e] = 0.f;
+    sm90::fence_regs(sc);
+    sm90::wgmma_fence();
+    int pend = -1;
+    if (dkp) {
+      const int half = gs / 2, n = w ? ndv : nd;
+      const uint32_t res = w ? v_base : k_base;
+      for (int c0 = 0; c0 < max(nd, ndv); c0 += half, p.next(stages)) {
+        ring.wait(p);
+        const uint32_t slot = sm90::smem_u32(ring.at(p.s));
+#pragma unroll
+        for (int x = 0; x < kDkvMaxGroup / 2; ++x) {
+          if (x >= half || c0 + x >= n) break;
+          const uint32_t a = resident ? res + (c0 + x) * kChunk
+                                      : slot + (gs + w * half + x) * kChunk;
+          const uint32_t bq = slot + (w * half + x) * kChunk;
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            sm90::wgmma_ss<0>(sc, sm90::desc_sw128(a + kk * 32, 16, 1024),
+                              sm90::desc_sw128(bq + kk * 32, 16, 1024), 1);
+        }
+        sm90::wgmma_commit();
+        sm90::wgmma_wait<1>();
+        if (pend >= 0) ring.release(pend);
+        pend = p.s;
+      }
+      sm90::wgmma_wait<0>();
+      ring.release(pend);
+    } else {
+      float(&sh)[16] = *reinterpret_cast<float(*)[16]>(sc);
+      for (int c0 = 0; c0 < nd; c0 += gs, p.next(stages)) {
+        ring.wait(p);
+        const uint32_t slot = sm90::smem_u32(ring.at(p.s));
+#pragma unroll
+        for (int x = 0; x < kDkvMaxGroup; ++x) {
+          if (x >= gs || c0 + x >= nd) break;
+          const uint32_t a = resident ? k_base + (c0 + x) * kChunk
+                                      : slot + (gs + x) * kChunk;
+          const uint32_t bq = slot + x * kChunk + qw * 128;
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            sm90::wgmma_ss<0>(sh, sm90::desc_sw128(a + kk * 32, 16, 1024),
+                              sm90::desc_sw128(bq + kk * 32, 16, 1024), 1);
+        }
+        sm90::wgmma_commit();
+        sm90::wgmma_wait<1>();
+        if (pend >= 0) ring.release(pend);
+        pend = p.s;
+      }
+      sm90::wgmma_wait<0>();
+      ring.release(pend);
+    }
+    sm90::fence_regs(sc);
+
+    // dK part: each consumer keeps the logits of its own 32 query columns
+    // (qw on) and hands the other 32 over in f32 through shared memory, in
+    // the accumulator's layout (element e of thread i at e * 128 + i): half
+    // 0 consumer 0's S^T columns 32-63, half 1 consumer 1's dP^T columns
+    // 0-31. Then both hold S^T in sc[0..15] and dP^T in sc[16..31] for
+    // their own columns. Barrier 1: both wrote, and both consumers'
+    // products of the last tile (which read the shared tile) retired.
+    float* xchg = reinterpret_cast<float*>(smem + L.xchg) + threadIdx.x % 128;
+    if (dkp && w == 0) {
+#pragma unroll
+      for (int e = 0; e < 16; ++e) xchg[e * 128] = sc[16 + e];
+    } else if (dkp) {
+#pragma unroll
+      for (int e = 0; e < 16; ++e) xchg[(16 + e) * 128] = sc[e];
+    }
+    sm90::named_barrier(1, kConsumerThreads);
+    if (dkp && w == 0) {
+#pragma unroll
+      for (int e = 0; e < 16; ++e) sc[16 + e] = xchg[(16 + e) * 128];
+    } else if (dkp) {
+#pragma unroll
+      for (int e = 0; e < 16; ++e) sc[e] = xchg[e * 128];
+    }
+
+    // P^T = exp2(S^T - lse), and for the dK part dS^T = P^T (dP^T -
+    // Delta); a dead pair (query past Sq, key past Skv, causal or window)
+    // gets exactly 0. Masks only where the tile straddles an edge.
+    const bool edge = m0 + kDkvBM > Sq || n0 + kDkvKeys > Skv ||
+                      (causal && n0 + kDkvKeys - 1 > m0) ||
+                      (window && n0 <= m0 + kDkvBM - 1 - window);
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int j = nt * 2 + (e & 1);
+        float pr = exp2f(sc[nt * 4 + e] - lcol[j]);
+        if (edge) {
+          const int qp = m0 + qw + nt * 8 + 2 * t + (e & 1);
+          const int kp = n0 + row0 + 8 * (e >> 1);
+          if (!(qp < Sq && key_live(qp, kp, Skv, causal, window))) pr = 0.f;
+        }
+        sc[nt * 4 + e] = dkp ? pr * (sc[16 + nt * 4 + e] - dcol[j]) : pr;
+      }
+    }
+    if (i + 1 < n_tiles) load_stats(i + 1);
+
+    // P^T (dS^T), rounded to bf16, into this consumer's 32 columns of the
+    // shared tile.
+    unsigned char* dst = smem + L.ds;
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        *reinterpret_cast<uint32_t*>(
+            dst + swizzled(row0 + 8 * r, qw / 8 + nt, t)) =
+            sm90::pack_bf16(sc[nt * 4 + 2 * r], sc[nt * 4 + 2 * r + 1]);
+    }
+    sm90::fence_proxy_async();
+    sm90::named_barrier(2, kConsumerThreads);  // the whole tile written
+
+    // dV += P^T dO (dK += dS^T q_hat) for this consumer's boxes: the tile
+    // the K-major A (64 queries, 4 k16 steps), dO (q_hat) the MN-major B.
+    sm90::fence_regs(acc);
+    sm90::wgmma_fence();
+    pend = -1;
+    for (int u = 0; u < nu; ++u, p.next(stages)) {
+      ring.wait(p);
+      if ((u & 1) != w) {
+        ring.release(p.s);
+        continue;
+      }
+      const uint32_t slot = sm90::smem_u32(ring.at(p.s));
+      const int x0 = (u >> 1) * gs, gb = min(gs, mine - x0);
+#pragma unroll
+      for (int x = 0; x < kMaxBoxes; x += 2) {
+        // Boxes x and x + 1 as one n128 product where both are in the
+        // group, else x as an n64 one (a group starts on an even box).
+        if (x < x0 || x >= x0 + gb) continue;
+        const uint32_t ob = slot + (x - x0) * kChunk;
+        if (x + 1 < kMaxBoxes && x + 1 < x0 + gb) {
+          float(&d)[64] = *reinterpret_cast<float(*)[64]>(&acc[32 * x]);
+#pragma unroll
+          for (int kc = 0; kc < kDkvBM / 16; ++kc)
+            sm90::wgmma_ss<1>(d,
+                              sm90::desc_sw128(ds_base + kc * 32, 16, 1024),
+                              sm90::desc_sw128(ob + kc * 16 * 128, kChunk,
+                                               1024),
+                              1);
+        } else {
+          float(&d)[32] = *reinterpret_cast<float(*)[32]>(&acc[32 * x]);
+#pragma unroll
+          for (int kc = 0; kc < kDkvBM / 16; ++kc)
+            sm90::wgmma_ss<1>(d,
+                              sm90::desc_sw128(ds_base + kc * 32, 16, 1024),
+                              sm90::desc_sw128(ob + kc * 16 * 128, kChunk,
+                                               1024),
+                              1);
+        }
+      }
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<1>();
+      if (pend >= 0) ring.release(pend);
+      pend = p.s;
+    }
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(acc);
+    if (pend >= 0) ring.release(pend);
+  }
+
+  const int col0 = sp.col(w, 0);
+  const int width = dkp ? D : DV;
+  const float f = dkp ? kLn2 : 1.f;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int kp = n0 + row0 + 8 * r;
+    if (kp >= Skv) continue;
+    const long long key = ((long long)b * Skv + kp) * Hk + hk;
+    if (parts_g == 1) {
+      __nv_bfloat16* row = (dkp ? dk : dv) + key * width + col0 + 2 * t;
+#pragma unroll
+      for (int x = 0; x < kMaxBoxes; ++x) {
+        if (x >= mine) break;
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt)
+          *reinterpret_cast<__nv_bfloat162*>(row + x * 64 + nt * 8) =
+              __floats2bfloat162_rn(acc[32 * x + nt * 4 + 2 * r] * f,
+                                    acc[32 * x + nt * 4 + 2 * r + 1] * f);
+      }
+    } else {
+      float* row = ws + ((long long)gp * B * Skv * Hk + key) * (D + DV) +
+                   (dkp ? 0 : D) + col0 + 2 * t;
+#pragma unroll
+      for (int x = 0; x < kMaxBoxes; ++x) {
+        if (x >= mine) break;
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt)
+          *reinterpret_cast<float2*>(row + x * 64 + nt * 8) =
+              make_float2(acc[32 * x + nt * 4 + 2 * r],
+                          acc[32 * x + nt * 4 + 2 * r + 1]);
+      }
+    }
+  }
+}
+
+// The dK/dV kernel's second pass where the group is split over G parts:
+// dK = ln2 * (part 0 + part 1 + ...) and dV = part 0 + part 1 + ..., in
+// that order, from `ws` (G, rows, D + DV) f32, rows = B * Skv * Hk, each
+// rounded to bf16 once. A column pair per thread, so the sums are the same
+// run after run.
+__global__ void __launch_bounds__(kSumThreads)
+flash_dkv_group_sum(const float* __restrict__ ws,
+                    __nv_bfloat16* __restrict__ dk,
+                    __nv_bfloat16* __restrict__ dv, int G, long long rows,
+                    int D, int DV) {
+  const int pairs = (D + DV) / 2;
+  const long long plane = rows * (D + DV);
+  for (long long i = blockIdx.x * (long long)kSumThreads + threadIdx.x;
+       i < rows * pairs; i += (long long)gridDim.x * kSumThreads) {
+    const long long row = i / pairs;
+    const int c = (int)(i % pairs) * 2;
+    const float* src = ws + row * (D + DV) + c;
+    float2 s = make_float2(0.f, 0.f);
+    for (int g = 0; g < G; ++g) {
+      const float2 x = *reinterpret_cast<const float2*>(src + g * plane);
+      s.x += x.x;
+      s.y += x.y;
+    }
+    if (c < D)
+      *reinterpret_cast<__nv_bfloat162*>(dk + row * D + c) =
+          __floats2bfloat162_rn(s.x * kLn2, s.y * kLn2);
+    else
+      *reinterpret_cast<__nv_bfloat162*>(dv + row * DV + c - D) =
+          __floats2bfloat162_rn(s.x, s.y);
+  }
+}
+
+// ---------------------------------------------------------------------
 // Host
 // ---------------------------------------------------------------------
 
@@ -1274,21 +1737,98 @@ cudaError_t run_dq_f32(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t run_dkv(const void* q, const void* k, const void* v,
-                    const void* dout, const float* lse, const float* delta,
-                    void* dk, void* dv, int B, int H, int Hk, int Sq,
-                    int Skv, int D, int DV, int causal, int window,
-                    cudaStream_t st) {
-  auto kernel = flash_bwd_dkv_wide<T>;
+// A dK/dV role's ring in `budget` bytes: K (and V) resident where they
+// leave room for kMinResidentStages slots, of kDkvMaxGroup boxes, else of
+// 2; otherwise streamed beside q_hat and dO, slots of kDkvMaxGroup boxes,
+// else of 2, at least kMinStages; as many slots as fit, up to kMaxStages.
+bool pick_dkv_ring(int D, int DV, bool dk, int budget, RingCfg* out) {
+  for (int res = 1; res >= 0; --res) {
+    for (int gs = kDkvMaxGroup; gs >= 2; gs /= 2) {
+      int s = kMaxStages;
+      while (s > 0 && DkvLayout(D, DV, dk, s, res, gs).bytes > budget) --s;
+      if (s >= (res ? kMinResidentStages : kMinStages)) {
+        *out = RingCfg{s, res, gs};
+        return true;
+      }
+    }
+  }
+  return false;
+}
+
+cudaError_t run_dkv_bf16(const void* q, const void* k, const void* v,
+                         const void* dout, const float* lse,
+                         const float* delta, void* dk, void* dv, float* ws,
+                         int B, int H, int Hk, int Sq, int Skv, int D,
+                         int DV, int causal, int window, int parts_g,
+                         cudaStream_t st) {
+  const long long nx =
+      (long long)B * Hk * parts_g * (out_chunks(D) + out_chunks(DV));
+  const int key_tiles = (Skv + kDkvKeys - 1) / kDkvKeys;
+  if (parts_g < 1 || (H / Hk) % parts_g || (parts_g > 1 && ws == nullptr) ||
+      nx > 0x7fffffff || key_tiles > 65535)
+    return cudaErrorInvalidValue;
+  CUtensorMap tq, tk, tv, tdo;
+  cudaError_t err;
+  if ((err = sm90::tmap_bshd(&tq, q, B, Sq, H, D, kDkvBM)) != cudaSuccess ||
+      (err = sm90::tmap_bshd(&tk, k, B, Skv, Hk, D, kDkvKeys)) !=
+          cudaSuccess ||
+      (err = sm90::tmap_bshd(&tv, v, B, Skv, Hk, DV, kDkvKeys)) !=
+          cudaSuccess ||
+      (err = sm90::tmap_bshd(&tdo, dout, B, Sq, H, DV, kDkvBM)) !=
+          cudaSuccess)
+    return err;
+  int dev = 0, budget = 0, sms = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(
+           &budget, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev)) !=
+          cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess)
+    return err;
+  DkvRings rings;
+  if (!pick_dkv_ring(D, DV, true, budget, &rings.r[0]) ||
+      !pick_dkv_ring(D, DV, false, budget, &rings.r[1]))
+    return cudaErrorInvalidValue;
+  int smem = 0;
+  for (int role = 0; role < 2; ++role) {
+    const RingCfg& c = rings.r[role];
+    const int bytes =
+        DkvLayout(D, DV, role == 0, c.stages, c.resident, c.group).bytes;
+    if (bytes > smem) smem = bytes;
+  }
+  if ((err = set_smem(flash_bwd_dkv_wide_bf16, smem)) != cudaSuccess)
+    return err;
+  dim3 grid((unsigned)nx, key_tiles);
+  flash_bwd_dkv_wide_bf16<<<grid, kBf16Threads, smem, st>>>(
+      tq, tk, tv, tdo, lse, delta, static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), ws, B, H, Hk, Sq, Skv, D, DV, causal,
+      window, parts_g, rings);
+  if ((err = cudaGetLastError()) != cudaSuccess || parts_g == 1) return err;
+  const long long rows = (long long)B * Skv * Hk;
+  const long long blocks = (rows * (D + DV) / 2 + kSumThreads - 1) /
+                           kSumThreads;
+  const long long most = 8LL * sms;  // a grid-stride loop past that
+  flash_dkv_group_sum<<<(unsigned)(blocks < most ? blocks : most),
+                        kSumThreads, 0, st>>>(
+      ws, static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv),
+      parts_g, rows, D, DV);
+  return cudaGetLastError();
+}
+
+cudaError_t run_dkv_f32(const void* q, const void* k, const void* v,
+                        const void* dout, const float* lse,
+                        const float* delta, void* dk, void* dv, int B, int H,
+                        int Hk, int Sq, int Skv, int D, int DV, int causal,
+                        int window, cudaStream_t st) {
+  auto kernel = flash_bwd_dkv_wide<float>;
   cudaError_t err = set_smem(kernel, kSmemBytes);
   if (err != cudaSuccess) return err;
   dim3 grid((Skv + kRows - 1) / kRows, B * Hk, chunks(D) + chunks(DV));
   kernel<<<grid, kThreads, kSmemBytes, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
-      static_cast<T*>(dk), static_cast<T*>(dv), H, Hk, Sq, Skv, D, DV,
-      causal, window);
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout), lse,
+      delta, static_cast<float*>(dk), static_cast<float*>(dv), H, Hk, Sq,
+      Skv, D, DV, causal, window);
   return cudaGetLastError();
 }
 
@@ -1334,20 +1874,24 @@ extern "C" int marlin_flash_attention_bwd_dq_wide(
                          causal, window, scale, st);
 }
 
+// dK/dV: `parts_g` (bf16: a divisor of H / Hk; f32: 1) group parts, each
+// summing its contiguous 1 / parts_g of a KV head's query heads; above 1,
+// `workspace` is (parts_g, B, Skv, Hk, D + DV) f32 for their partial sums,
+// which a second launch on the same stream adds in order.
 extern "C" int marlin_flash_attention_bwd_dkv_wide(
     int dtype, const void* q, const void* k, const void* v, const void* dout,
-    const void* lse, const void* delta, void* dk, void* dv, int B, int H,
-    int Hk, int Sq, int Skv, int D, int DV, int causal, int window,
-    void* stream) {
-  if (!valid(dtype, B, H, Hk, Sq, Skv, D, DV))
+    const void* lse, const void* delta, void* dk, void* dv, void* workspace,
+    int B, int H, int Hk, int Sq, int Skv, int D, int DV, int causal,
+    int window, int parts_g, void* stream) {
+  if (!valid(dtype, B, H, Hk, Sq, Skv, D, DV) || (dtype == 1 && parts_g != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
   if (dtype == 0)
-    return (int)run_dkv<__nv_bfloat16>(q, k, v, dout, l, dl, dk, dv, B, H,
-                                       Hk, Sq, Skv, D, DV, causal, window,
-                                       st);
-  return (int)run_dkv<float>(q, k, v, dout, l, dl, dk, dv, B, H, Hk, Sq, Skv,
-                             D, DV, causal, window, st);
+    return (int)run_dkv_bf16(q, k, v, dout, l, dl, dk, dv,
+                             static_cast<float*>(workspace), B, H, Hk, Sq,
+                             Skv, D, DV, causal, window, parts_g, st);
+  return (int)run_dkv_f32(q, k, v, dout, l, dl, dk, dv, B, H, Hk, Sq, Skv, D,
+                          DV, causal, window, st);
 }

@@ -7,7 +7,8 @@ become CUDA C++ kernels: ``_kernel`` (the forward) is
 ``_bwd_dkv_kernel`` (the backward) are ``csrc/flash_attention_bwd.cu``.
 For bf16 all three kernels run wgmma fed by TMA through an mbarrier
 ring; for f32 all three are FMA kernels. Above head dim 256 the three
-wide kernels of ``csrc/flash_attention_wide.cu`` take their place. The
+wide kernels of ``csrc/flash_attention_wide.cu`` take their place, on
+wgmma and a TMA ring for bf16 and FMA for f32. The
 TPU's block constants and VMEM clamps (``DEFAULT_BLOCK_Q/K``,
 ``effective_blocks``, ``window_block_clamp``, the backward's 512-row
 clamp, the lane-replicated lse) do not carry over: each CUDA kernel uses
@@ -35,10 +36,14 @@ q_hat K^T, to P V or to Delta). When D or Dv is above 256, each is padded
 on its own to a multiple of :data:`WIDE_MULTIPLE` and the call goes to the
 wide kernels of ``csrc/flash_attention_wide.cu``, which have launch
 counters of their own; a call at D and Dv up to 256 never reaches them.
-For bf16 the wide forward and dQ run wgmma fed by TMA through an mbarrier
+For bf16 the three wide kernels run wgmma fed by TMA through an mbarrier
 ring, a CTA owning up to :data:`WIDE_BF16_COLUMNS` of the output's columns
-(:func:`_wide_column_chunks`); f32, and dK/dV in both dtypes, run FMA
-kernels whose CTAs own :data:`WIDE_OUT_COLUMNS` columns each.
+(:func:`_wide_column_chunks`): the forward's O, dQ, and dK/dV's 64 keys
+of dK or of dV (a key tile's parts, :func:`_wide_dkv_plan`, each computing
+S^T again; where the CTAs would not fill two waves of the card, the group
+of query heads is split too and a second launch sums the parts' f32
+partials in a fixed order). f32 runs FMA kernels whose CTAs own
+:data:`WIDE_OUT_COLUMNS` columns each.
 
 Public layout is the JAX package's ``(S, H, D)``, plus an optional
 leading batch dimension that stands in for ``jax.vmap``.
@@ -48,7 +53,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -63,13 +68,18 @@ _LOG2E = math.log2(math.e)
 # 64 and 128 pair freely; 256 only with 256 (_kernel_head_dims).
 KERNEL_HEAD_DIMS = (64, 128, 256)
 # Above 256, D and Dv are each padded to a multiple of this for the wide
-# kernels (their box and reduction chunk), whose FMA kernels' CTAs each own
-# WIDE_OUT_COLUMNS output columns (kOut) and whose bf16 forward and dQ
-# CTAs at most WIDE_BF16_COLUMNS (two consumer warpgroups of kMaxBoxes
-# 64-column boxes each).
+# kernels (their box and reduction chunk), whose FMA kernels' CTAs (f32)
+# each own WIDE_OUT_COLUMNS output columns (kOut) and whose bf16 CTAs at
+# most WIDE_BF16_COLUMNS (two consumer warpgroups of kMaxBoxes 64-column
+# boxes each): the forward's and dQ's query rows, and dK/dV's
+# WIDE_DKV_KEYS keys (kDkvKeys). The bf16 dK/dV splits each KV head's group
+# of query heads over CTAs where its grid would not fill WIDE_DKV_WAVES
+# waves of one CTA per SM (_wide_dkv_plan).
 WIDE_MULTIPLE = 64
 WIDE_OUT_COLUMNS = 128
 WIDE_BF16_COLUMNS = 640
+WIDE_DKV_KEYS = 64
+WIDE_DKV_WAVES = 2
 _KERNEL_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 
 # (query rows, keys) of each bf16 kernel's tile: the forward's kBM x kBN in
@@ -237,8 +247,8 @@ def _wide_lib() -> ctypes.CDLL:
         dq.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 7
                        + [ctypes.c_int] * 9
                        + [ctypes.c_float, ctypes.c_void_p])
-        dkv.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 8
-                        + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+        dkv.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 9
+                        + [ctypes.c_int] * 10 + [ctypes.c_void_p])
     return lib
 
 
@@ -261,6 +271,43 @@ def _wide_column_chunks(width: int, dtype) -> list:
         return [(a, b - a) for a, b in zip(edges, edges[1:])]
     return [(c, min(WIDE_OUT_COLUMNS, width - c))
             for c in range(0, width, WIDE_OUT_COLUMNS)]
+
+
+class WideDkvPlan(NamedTuple):
+    """How the bf16 wide dK/dV kernel cuts its work. ``parts``: each 64-key
+    tile's CTAs along its columns, ``("dk" or "dv", first column,
+    columns)``, dK's then dV's (``DkvPart``). ``heads``: the group parts,
+    ``(first, count)`` of a KV head's query heads each, in the order the
+    second pass sums them. ``workspace_bytes``: their f32 partial sums,
+    (G, B, Skv, Hk, D + Dv), 0 for one group part (no second pass)."""
+    parts: list
+    heads: list
+    workspace_bytes: int
+
+    @property
+    def group_parts(self) -> int:
+        return len(self.heads)
+
+
+def _wide_dkv_plan(b: int, h: int, hk: int, skv: int, d: int, dv: int,
+                   sms: int) -> WideDkvPlan:
+    """The bf16 wide dK/dV kernel's cut on a card of ``sms`` SMs, as
+    ``csrc/flash_attention_wide.cu`` takes it (kernel head dims ``d``,
+    ``dv``). One CTA an SM; when B x Hk x key tiles x parts CTAs do not
+    fill :data:`WIDE_DKV_WAVES` waves, the group of H / Hk query heads goes
+    to the fewest equal group parts (a divisor of the group) that do, or
+    to one head each."""
+    parts = ([("dk", a, n) for a, n in _wide_column_chunks(d, torch.bfloat16)]
+             + [("dv", a, n)
+                for a, n in _wide_column_chunks(dv, torch.bfloat16)])
+    group = h // hk
+    ctas = b * hk * -(-skv // WIDE_DKV_KEYS) * len(parts)
+    g = next((n for n in range(1, group + 1) if group % n == 0
+              and ctas * n >= WIDE_DKV_WAVES * sms), group)
+    per = group // g
+    heads = [(i * per, per) for i in range(g)]
+    ws = g * b * skv * hk * (d + dv) * 4 if g > 1 else 0
+    return WideDkvPlan(parts, heads, ws)
 
 
 def _is_wide(d: int, dv: int) -> bool:
@@ -419,25 +466,45 @@ def _launch_bwd_dq(q_hat, k, v, do, lse, delta, causal: bool, window: int,
     return dq
 
 
+def _sm_count(device) -> int:
+    """The card's SM count, which :func:`_wide_dkv_plan` fills."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def _launch_bwd_dkv(q_hat, k, v, do, lse, delta, causal: bool,
                     window: int):
     """Run the dK/dV kernel (B5; the wide one above head dim 256): (dK,
-    dV) in k's dtype, summed over each KV head's group of query heads."""
+    dV) in k's dtype, summed over each KV head's group of query heads. The
+    bf16 wide kernel gets the group parts of :func:`_wide_dkv_plan` and,
+    for more than one, their f32 workspace; its second pass is part of
+    the same call (one launch counted)."""
     global bwd_dkv_launches, wide_dkv_launches
     lib, (b, sq, h, d, skv, hk, dv) = _bwd_setup(q_hat, k, v, do, lse,
                                                  delta)
     wide = _is_wide(d, dv)
     dk = torch.empty_like(k)
     dvv = torch.empty_like(v)
+    args = (_KERNEL_DTYPES[q_hat.dtype], q_hat.data_ptr(), k.data_ptr(),
+            v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            dk.data_ptr(), dvv.data_ptr())
+    dims = (b, h, hk, sq, skv, d, dv, int(causal), int(window))
     with torch.cuda.device(q_hat.device):
         stream = torch.cuda.current_stream().cuda_stream
-        fn = (lib.marlin_flash_attention_bwd_dkv_wide if wide
-              else lib.marlin_flash_attention_bwd_dkv)
-        err = fn(
-            _KERNEL_DTYPES[q_hat.dtype], q_hat.data_ptr(), k.data_ptr(),
-            v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-            dk.data_ptr(), dvv.data_ptr(), b, h, hk, sq, skv, d, dv,
-            int(causal), int(window), stream)
+        if not wide:
+            err = lib.marlin_flash_attention_bwd_dkv(*args, *dims, stream)
+        else:
+            parts, ws = 1, None
+            if q_hat.dtype == torch.bfloat16:
+                plan = _wide_dkv_plan(b, h, hk, skv, d, dv,
+                                      _sm_count(q_hat.device))
+                parts = plan.group_parts
+                if plan.workspace_bytes:
+                    ws = torch.empty(plan.workspace_bytes // 4,
+                                     dtype=torch.float32,
+                                     device=q_hat.device)
+            err = lib.marlin_flash_attention_bwd_dkv_wide(
+                *args, None if ws is None else ws.data_ptr(), *dims, parts,
+                stream)
     _check_err(err, "flash_attention_bwd_dkv" + "_wide" * wide, b, sq, skv,
                h, hk, d, dv)
     if wide:

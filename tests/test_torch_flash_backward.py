@@ -490,6 +490,12 @@ PLANTED_FAULT_KERNELS = {
                                      "flash_fwd_wide_f32("),
     "wide_dkv_drops_last_query_tile": ("flash_attention_wide.cu",
                                        "flash_bwd_dkv_wide("),
+    "wide_dkv_dk_second_consumer_reads_first_q_columns": (
+        "flash_attention_wide.cu", "flash_bwd_dkv_wide_bf16("),
+    "wide_dkv_dv_drops_last_query_tile": ("flash_attention_wide.cu",
+                                          "flash_bwd_dkv_wide_bf16("),
+    "wide_dkv_sum_drops_last_group_part": ("flash_attention_wide.cu",
+                                           "flash_dkv_group_sum("),
 }
 
 
