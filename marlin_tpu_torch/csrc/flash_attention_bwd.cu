@@ -20,9 +20,10 @@
 //   dK = ln2 * dS^T q_hat             (the base-2 softmax Jacobian)
 //   dV = p^T dO
 //
-// GQA/MQA by index: query head h reads K/V head h / (H / Hk); the dK/dV
-// kernel sums each KV head's gradient over the query heads of its group
-// inside one CTA, so no atomics are used and the result is deterministic.
+// GQA/MQA by index: query head h reads K/V head h / (H / Hk); the bf16
+// dK/dV kernel sums each KV head's gradient over the query heads of its
+// group inside one CTA, the f32 one over the parts of its sweep in a fixed
+// order, so no atomics are used and the result is deterministic.
 //
 // Masks and ragged edges, as in the forward (csrc/flash_attention_fwd.cu):
 // keys at or past Skv, causal k <= q, a window k > q - window; query rows
@@ -80,14 +81,17 @@
 // columns and recomputing the whole S^T and dP^T: twice those two
 // products, the same fixed order of sums, still no atomics.
 //
-// The f32 path is a plain FMA kernel per direction (4 threads per row,
-// f32 products in f32, no TF32), so it matches a full-f32 reference to
-// summation order.
+// f32, no TF32, so the kernels match a full-f32 reference to summation
+// order: dQ is a plain FMA kernel (4 threads per row); dK/dV
+// (flash_bwd_dkv_f32) is built from flash_dkv_f32.cuh, register-tiled FMA
+// fed by a cp.async ring, each key tile's sweep split into parts by its
+// live work and summed by a second pass in part order.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "flash_dkv_f32.cuh"
 #include "sm90.cuh"
 
 namespace {
@@ -634,7 +638,7 @@ flash_bwd_dkv_bf16(const __grid_constant__ CUtensorMap tq,
 // f32: FMA path
 // ---------------------------------------------------------------------
 
-constexpr int kThreads = 128;
+constexpr int kThreads = 128;  // the dQ kernel's
 constexpr int kFM = 32;  // query rows per tile
 constexpr int kFN = 32;  // key rows per tile
 
@@ -735,113 +739,39 @@ flash_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// B5, f32: 4 threads per key row; each computes P^T and dS^T for a quarter
-// of the query tile's rows, then accumulates a quarter of dK's and dV's
-// columns.
-template <int D, int DV>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
-                  const float* __restrict__ v, const float* __restrict__ dout,
-                  const float* __restrict__ lse,
-                  const float* __restrict__ delta, float* __restrict__ dk,
-                  float* __restrict__ dv, int H, int Hk, int Sq, int Skv,
-                  int causal, int window) {
+// B5, f32, D and DV up to 256 (flash_dkv_f32.cuh holds the design and
+// its pieces): one column share of all of dK and dV (D + DV <= 512), NB =
+// (D + DV) / 64 output boxes; the CTA's key tile, its sweep part's pairs
+// and where they go are cut here.
+template <int NB>
+__global__ void __launch_bounds__(dkv_f32::kThreads, 1)
+flash_bwd_dkv_f32(const dkv_f32::Args a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* sK = reinterpret_cast<float*>(smem_raw);  // [kFN][D + 1]
-  float* sV = sK + kFN * (D + 1);                  // [kFN][DV + 1]
-  float* sQ = sV + kFN * (DV + 1);                 // [kFM][D + 1]
-  float* sdO = sQ + kFM * (D + 1);                 // [kFM][DV + 1]
-  float* sP = sdO + kFM * (DV + 1);                // [kFN][kFM + 1]
-  float* sS = sP + kFN * (kFM + 1);                // [kFN][kFM + 1]
-  float* sL = sS + kFN * (kFM + 1);                // [kFM]
-  float* sD = sL + kFM;                            // [kFM]
+  const dkv_f32::Cta c = dkv_f32::cta_of(a, 1);
+  int tile0, n_qt;
+  dkv_f32::query_tiles(c.t * dkv_f32::kKeys, a.Sq, a.causal, a.window,
+                       &tile0, &n_qt);
+  const int pairs = a.H / a.Hk * n_qt;  // (query head, query tile), head-major
+  const int parts = dkv_f32::part_count(pairs, a.chunk);
+  if (c.p >= parts) return;
+  const int first = c.p * a.chunk;
+  const int last = min(first + a.chunk, pairs);
+  dkv_f32::sweep<NB>(a, c, tile0, n_qt, first, last,
+                     dkv_f32::share_of(a.D, a.DV, 0), a.q, a.dout,
+                     dkv_f32::dest_of(a, c, parts),
+                     reinterpret_cast<float*>(smem_raw));
+}
 
-  const int n0 = blockIdx.x * kFN;
-  const int bhk = blockIdx.y;
-  const int b = bhk / Hk;
-  const int hk = bhk % Hk;
-  const int group = H / Hk;
-  const int r = threadIdx.x / 4;
-  const int t = threadIdx.x % 4;
-  const int kp = n0 + r;
-
-  const long long q_row = (long long)H * D;
-  const long long o_row = (long long)H * DV;
-  const long long k_row = (long long)Hk * D;
-  const long long v_row = (long long)Hk * DV;
-
-  load_tile_f32<D>(sK, k + ((long long)b * Skv + n0) * k_row + hk * D, k_row,
-                   kFN, Skv - n0);
-  load_tile_f32<DV>(sV, v + ((long long)b * Skv + n0) * v_row + hk * DV,
-                    v_row, kFN, Skv - n0);
-
-  float dka[D / 4], dva[DV / 4];
-#pragma unroll
-  for (int i = 0; i < D / 4; ++i) dka[i] = 0.f;
-#pragma unroll
-  for (int i = 0; i < DV / 4; ++i) dva[i] = 0.f;
-
-  int lo, hi;
-  query_range(n0, kFN, kFM, Sq, causal, window, &lo, &hi);
-  for (int gi = 0; gi < group; ++gi) {
-    const int h = hk * group + gi;
-    const float* qg = q + (long long)b * Sq * q_row + h * D;
-    const float* dog = dout + (long long)b * Sq * o_row + h * DV;
-    const float* lg = lse + ((long long)b * H + h) * Sq;
-    const float* dg = delta + ((long long)b * H + h) * Sq;
-    for (int m0 = lo; m0 < hi; m0 += kFM) {
-      __syncthreads();
-      load_tile_f32<D>(sQ, qg + (long long)m0 * q_row, q_row, kFM, Sq - m0);
-      load_tile_f32<DV>(sdO, dog + (long long)m0 * o_row, o_row, kFM,
-                        Sq - m0);
-      for (int i = threadIdx.x; i < kFM; i += kThreads) {
-        bool ok = m0 + i < Sq;
-        sL[i] = ok ? lg[m0 + i] : 0.f;
-        sD[i] = ok ? dg[m0 + i] : 0.f;
-      }
-      __syncthreads();
-
-      const float* kr = sK + r * (D + 1);
-      const float* vr = sV + r * (DV + 1);
-#pragma unroll
-      for (int ii = 0; ii < kFM / 4; ++ii) {
-        int i = t + 4 * ii;
-        int qp = m0 + i;
-        const float* qr = sQ + i * (D + 1);
-        const float* dr = sdO + i * (DV + 1);
-        float s = 0.f, dp = 0.f;
-#pragma unroll 8
-        for (int d = 0; d < D; ++d) s = fmaf(kr[d], qr[d], s);
-#pragma unroll 8
-        for (int d = 0; d < DV; ++d) dp = fmaf(vr[d], dr[d], dp);
-        bool live = qp < Sq && key_live(qp, kp, Skv, causal, window);
-        float p = live ? exp2f(s - sL[i]) : 0.f;
-        sP[r * (kFM + 1) + i] = p;
-        sS[r * (kFM + 1) + i] = p * (dp - sD[i]);
-      }
-      __syncwarp();
-      for (int i = 0; i < kFM; ++i) {
-        float p = sP[r * (kFM + 1) + i];
-        float ds = sS[r * (kFM + 1) + i];
-        const float* dr = sdO + i * (DV + 1) + t;
-        const float* qr = sQ + i * (D + 1) + t;
-#pragma unroll
-        for (int cc = 0; cc < DV / 4; ++cc)
-          dva[cc] = fmaf(p, dr[4 * cc], dva[cc]);
-#pragma unroll
-        for (int cc = 0; cc < D / 4; ++cc)
-          dka[cc] = fmaf(ds, qr[4 * cc], dka[cc]);
-      }
-    }
-  }
-
-  if (kp < Skv) {
-    float* krow = dk + ((long long)b * Skv + kp) * k_row + hk * D + t;
-    float* vrow = dv + ((long long)b * Skv + kp) * v_row + hk * DV + t;
-#pragma unroll
-    for (int cc = 0; cc < D / 4; ++cc) krow[4 * cc] = dka[cc] * kLn2;
-#pragma unroll
-    for (int cc = 0; cc < DV / 4; ++cc) vrow[4 * cc] = dva[cc];
+// The f32 dK/dV's second pass where a key tile has several parts: their
+// partial sums added in part order (a float4 of one row a step).
+__global__ void __launch_bounds__(dkv_f32::kSumThreads)
+flash_dkv_part_sum_f32(const dkv_f32::Args a) {
+  const long long n = (long long)a.B * a.Skv * a.Hk * ((a.D + a.DV) / 4);
+  for (long long e = blockIdx.x * (long long)dkv_f32::kSumThreads +
+                     threadIdx.x;
+       e < n; e += (long long)gridDim.x * dkv_f32::kSumThreads) {
+    const int parts = dkv_f32::row_parts(a, e);
+    if (parts > 1) dkv_f32::sum_parts(a, e, parts);
   }
 }
 
@@ -897,40 +827,38 @@ cudaError_t run_dq(int dtype, const void* q, const void* k, const void* v,
 template <int D, int DV>
 cudaError_t run_dkv(int dtype, const void* q, const void* k, const void* v,
                     const void* dout, const float* lse, const float* delta,
-                    void* dk, void* dv, int B, int H, int Hk, int Sq,
-                    int Skv, int causal, int window, cudaStream_t st) {
-  cudaError_t err;
-  if (dtype == 0) {
-    CUtensorMap tq, tk, tv, tdo;
-    if ((err = sm90::tmap_bshd(&tq, q, B, Sq, H, D, kDkvBM)) != cudaSuccess ||
-        (err = sm90::tmap_bshd(&tk, k, B, Skv, Hk, D, kDkvBN)) !=
-            cudaSuccess ||
-        (err = sm90::tmap_bshd(&tv, v, B, Skv, Hk, DV, kDkvBN)) !=
-            cudaSuccess ||
-        (err = sm90::tmap_bshd(&tdo, dout, B, Sq, H, DV, kDkvBM)) !=
-            cudaSuccess)
-      return err;
-    const size_t smem = DkvSmem<D, DV>::kBytes;
-    auto kernel = flash_bwd_dkv_bf16<D, DV>;
-    if ((err = set_smem(kernel, smem)) != cudaSuccess) return err;
-    dim3 grid(B * Hk, (Skv + kDkvBN - 1) / kDkvBN, dkv_split<D, DV>());
-    kernel<<<grid, kDkvThreads, smem, st>>>(
-        tq, tk, tv, tdo, lse, delta, static_cast<__nv_bfloat16*>(dk),
-        static_cast<__nv_bfloat16*>(dv), H, Hk, Sq, Skv, causal, window);
-  } else {
-    size_t smem = sizeof(float) *
-                  ((size_t)(kFM + kFN) * (D + 1) +
-                   (size_t)(kFM + kFN) * (DV + 1) +
-                   2 * (size_t)kFN * (kFM + 1) + 2 * (size_t)kFM);
-    auto kernel = flash_bwd_dkv_f32<D, DV>;
-    if ((err = set_smem(kernel, smem)) != cudaSuccess) return err;
-    dim3 grid((Skv + kFN - 1) / kFN, B * Hk);
-    kernel<<<grid, kThreads, smem, st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<const float*>(dout), lse,
-        delta, static_cast<float*>(dk), static_cast<float*>(dv), H, Hk, Sq,
-        Skv, causal, window);
+                    void* dk, void* dv, float* ws, int B, int H, int Hk,
+                    int Sq, int Skv, int causal, int window, int parts,
+                    cudaStream_t st) {
+  if (dtype == 1) {
+    const dkv_f32::Args a{static_cast<const float*>(q),
+                          static_cast<const float*>(k),
+                          static_cast<const float*>(v),
+                          static_cast<const float*>(dout), lse, delta,
+                          static_cast<float*>(dk), static_cast<float*>(dv),
+                          ws, B, H, Hk, Sq, Skv, D, DV, causal, window,
+                          parts, 0};
+    return dkv_f32::launch(flash_bwd_dkv_f32<(D + DV) / 64>,
+                           flash_dkv_part_sum_f32, a, 1, st);
   }
+  if (parts != 1) return cudaErrorInvalidValue;
+  cudaError_t err;
+  CUtensorMap tq, tk, tv, tdo;
+  if ((err = sm90::tmap_bshd(&tq, q, B, Sq, H, D, kDkvBM)) != cudaSuccess ||
+      (err = sm90::tmap_bshd(&tk, k, B, Skv, Hk, D, kDkvBN)) !=
+          cudaSuccess ||
+      (err = sm90::tmap_bshd(&tv, v, B, Skv, Hk, DV, kDkvBN)) !=
+          cudaSuccess ||
+      (err = sm90::tmap_bshd(&tdo, dout, B, Sq, H, DV, kDkvBM)) !=
+          cudaSuccess)
+    return err;
+  const size_t smem = DkvSmem<D, DV>::kBytes;
+  auto kernel = flash_bwd_dkv_bf16<D, DV>;
+  if ((err = set_smem(kernel, smem)) != cudaSuccess) return err;
+  dim3 grid(B * Hk, (Skv + kDkvBN - 1) / kDkvBN, dkv_split<D, DV>());
+  kernel<<<grid, kDkvThreads, smem, st>>>(
+      tq, tk, tv, tdo, lse, delta, static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), H, Hk, Sq, Skv, causal, window);
   return cudaGetLastError();
 }
 
@@ -968,18 +896,24 @@ extern "C" int marlin_flash_attention_bwd_dq(
   return (int)cudaErrorInvalidValue;
 }
 
+// dK/dV: f32 cuts each key tile's sweep into at most `parts` parts (the
+// wrapper's plan, ops/flash_attention.py::_f32_dkv_plan); above 1,
+// `workspace` is (parts, B, Skv, Hk, D + DV) f32 for their partial sums,
+// which a second launch on the same stream adds in order. bf16: parts 1,
+// no workspace.
 extern "C" int marlin_flash_attention_bwd_dkv(
     int dtype, const void* q, const void* k, const void* v, const void* dout,
-    const void* lse, const void* delta, void* dk, void* dv, int B, int H,
-    int Hk, int Sq, int Skv, int D, int DV, int causal, int window,
-    void* stream) {
+    const void* lse, const void* delta, void* dk, void* dv, void* workspace,
+    int B, int H, int Hk, int Sq, int Skv, int D, int DV, int causal,
+    int window, int parts, void* stream) {
   if (!valid_shape(dtype, B, H, Hk, Sq, Skv))
     return (int)cudaErrorInvalidValue;
   const float* l = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
+  float* ws = static_cast<float*>(workspace);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  MARLIN_DISPATCH_DIMS(run_dkv, dtype, q, k, v, dout, l, dl, dk, dv, B, H, Hk,
-                       Sq, Skv, causal, window, st)
+  MARLIN_DISPATCH_DIMS(run_dkv, dtype, q, k, v, dout, l, dl, dk, dv, ws, B,
+                       H, Hk, Sq, Skv, causal, window, parts, st)
   return (int)cudaErrorInvalidValue;
 }
 

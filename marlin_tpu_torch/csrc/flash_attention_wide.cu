@@ -88,20 +88,24 @@
 // They have no ping-pong of two tiles per warpgroup and no TMA multicast
 // across a cluster; those are the next steps toward the bound.
 //
-// The FMA kernels (f32 forward, dQ and dK/dV): every CTA owns 64 output
-// rows (query rows for O and dQ, keys for dK and dV) and 128 of the
-// output's columns, a chunk picked by blockIdx.z; the 64 x 64 logit tiles
-// S (and dP) accumulate over D (Dv) in 64-column chunks streamed through
-// shared memory, and each CTA recomputes S, P and dS for its own column
-// chunk. FMA in f32; two threads per output row, each holding 32 of the
-// tile's logits and 64 of the row's output columns. Every forward CTA of a
-// query tile computes the same lse (chunk 0 writes it; with `lse_chunks`
-// every chunk writes its own copy, for a check that they agree).
+// The FMA kernels of the f32 forward and dQ: every CTA owns 64 query rows
+// and 128 of the output's columns, a chunk picked by blockIdx.z; the
+// 64 x 64 logit tiles S (and dP) accumulate over D (Dv) in 64-column
+// chunks streamed through shared memory, and each CTA recomputes S, P and
+// dS for its own column chunk. FMA in f32; two threads per output row,
+// each holding 32 of the tile's logits and 64 of the row's output columns.
+// Every forward CTA of a query tile computes the same lse (chunk 0 writes
+// it; with `lse_chunks` every chunk writes its own copy, for a check that
+// they agree). The f32 dK/dV (flash_bwd_dkv_wide_f32) is built from
+// flash_dkv_f32.cuh: register-tiled FMA fed by a cp.async ring, up to 512
+// output columns a CTA, each key tile's sweep split into parts by its live
+// work and summed by a second pass in part order.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "flash_dkv_f32.cuh"
 #include "sm90.cuh"
 
 namespace {
@@ -167,26 +171,23 @@ constexpr int kTileFloats = kRows * kLd;
 constexpr size_t kSmemBytes = sizeof(float) * 3 * kTileFloats;
 static_assert(2 * kTileFloats >= kCols * kOut, "the operand tile fits");
 
-__device__ __forceinline__ float load(const float* p) { return *p; }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-
 // acc[j] += sum_w X[r][w] * Y[c0 + 2 j][w] over w in [0, width): X is this
 // CTA's 64 rows (row r = threadIdx.x / 2 is this thread's), Y the tile's 64
 // partners (c0 = threadIdx.x % 2), both rows of global matrices with row
 // stride `xs`/`ys`; rows at or past `xv`/`yv` read as zero. `width` is a
 // multiple of kWC.
-template <typename T>
 __device__ __forceinline__ void tile_dot(float (&acc)[kCols / 2], float* sX,
-                                         float* sY, const T* x, long long xs,
-                                         int xv, const T* y, long long ys,
+                                         float* sY, const float* x,
+                                         long long xs, int xv,
+                                         const float* y, long long ys,
                                          int yv, int width) {
   const int r = threadIdx.x >> 1, c0 = threadIdx.x & 1;
   for (int w0 = 0; w0 < width; w0 += kWC) {
     __syncthreads();  // every thread is done with the previous tiles
     for (int i = threadIdx.x; i < kRows * kWC; i += kThreads) {
       const int rr = i / kWC, cc = i % kWC;
-      sX[rr * kLd + cc] = rr < xv ? load(x + rr * xs + w0 + cc) : 0.f;
-      sY[rr * kLd + cc] = rr < yv ? load(y + rr * ys + w0 + cc) : 0.f;
+      sX[rr * kLd + cc] = rr < xv ? x[rr * xs + w0 + cc] : 0.f;
+      sY[rr * kLd + cc] = rr < yv ? y[rr * ys + w0 + cc] : 0.f;
     }
     __syncthreads();
     const float* xr = sX + r * kLd;
@@ -205,16 +206,15 @@ __device__ __forceinline__ void tile_dot(float (&acc)[kCols / 2], float* sX,
 // `zv` read as zero), its columns [col0, col0 + kOut) those below `zw`
 // (the rest read as zero). sP must be written before the call; sZ
 // aliases the reduction tiles.
-template <typename T>
 __device__ __forceinline__ void tile_out(float (&out)[kOut / 2],
                                          const float* sP, float* sZ,
-                                         const T* z, long long zs, int zv,
+                                         const float* z, long long zs, int zv,
                                          int col0, int zw) {
   const int r = threadIdx.x >> 1, c0 = threadIdx.x & 1;
   __syncthreads();  // sP written; tile_dot's reads of sZ's space retired
   for (int i = threadIdx.x; i < kCols * kOut; i += kThreads) {
     const int rr = i / kOut, cc = i % kOut;
-    sZ[i] = rr < zv && col0 + cc < zw ? load(z + rr * zs + col0 + cc) : 0.f;
+    sZ[i] = rr < zv && col0 + cc < zw ? z[rr * zs + col0 + cc] : 0.f;
   }
   __syncthreads();
   const float* pr = sP + r * kLd;
@@ -373,92 +373,39 @@ flash_bwd_dq_wide_f32(const float* __restrict__ q,
   }
 }
 
-// B5, wide, f32: 64 keys' columns [c, c + kOut) of dK (blockIdx.z below the
-// dK chunk count) or of dV (the rest), summed over the KV head's group of
-// query heads. The thread's row is a key; its 32 partners are queries.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_wide(const T* __restrict__ q, const T* __restrict__ k,
-                   const T* __restrict__ v, const T* __restrict__ dout,
-                   const float* __restrict__ lse,
-                   const float* __restrict__ delta, T* __restrict__ dk,
-                   T* __restrict__ dv, int H, int Hk, int Sq, int Skv, int D,
-                   int DV, int causal, int window) {
+// B5, wide, f32 (flash_dkv_f32.cuh holds the design and its pieces): a
+// CTA's column share is all of dK and dV where D + DV <= 512, else one of
+// dK's shares, then dV's; the CTA's key tile, its sweep part's pairs, its
+// share and where they go are cut here.
+__global__ void __launch_bounds__(dkv_f32::kThreads, 1)
+flash_bwd_dkv_wide_f32(const dkv_f32::Args a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* sX = reinterpret_cast<float*>(smem_raw);
-  float* sY = sX + kTileFloats;
-  float* sP = sY + kTileFloats;
+  const dkv_f32::Cta c = dkv_f32::cta_of(a, dkv_f32::share_count(a.D, a.DV));
+  int tile0, n_qt;
+  dkv_f32::query_tiles(c.t * dkv_f32::kKeys, a.Sq, a.causal, a.window,
+                       &tile0, &n_qt);
+  const int pairs = a.H / a.Hk * n_qt;  // (query head, query tile), head-major
+  const int parts = dkv_f32::part_count(pairs, a.chunk);
+  if (c.p >= parts) return;
+  const int first = c.p * a.chunk;
+  const int last = min(first + a.chunk, pairs);
+  const dkv_f32::Share s = dkv_f32::share_of(a.D, a.DV, c.z);
+  dkv_f32::sweep<dkv_f32::kMaxBoxes>(
+      a, c, tile0, n_qt, first, last, s, a.q + dkv_f32::kBox * s.dk0,
+      a.dout + dkv_f32::kBox * s.dv0, dkv_f32::dest_of(a, c, parts),
+      reinterpret_cast<float*>(smem_raw));
+}
 
-  const int n0 = blockIdx.x * kRows;
-  const int bhk = blockIdx.y;
-  const int b = bhk / Hk, hk = bhk % Hk, group = H / Hk;
-  const int dk_chunks = (D + kOut - 1) / kOut;
-  const bool is_dk = (int)blockIdx.z < dk_chunks;
-  const int col0 = (is_dk ? blockIdx.z : blockIdx.z - dk_chunks) * kOut;
-  const int r = threadIdx.x >> 1, c0 = threadIdx.x & 1;
-  const int kp = n0 + r;
-
-  const long long q_row = (long long)H * D, o_row = (long long)H * DV;
-  const long long k_row = (long long)Hk * D, v_row = (long long)Hk * DV;
-  const T* kg = k + ((long long)b * Skv + n0) * k_row + (long long)hk * D;
-  const T* vg = v + ((long long)b * Skv + n0) * v_row + (long long)hk * DV;
-
-  float acc[kOut / 2];
-#pragma unroll
-  for (int j = 0; j < kOut / 2; ++j) acc[j] = 0.f;
-
-  int lo, hi;
-  query_range(n0, kRows, kCols, Sq, causal, window, &lo, &hi);
-  for (int g = 0; g < group; ++g) {
-    const int h = hk * group + g;
-    const long long bh = (long long)b * H + h;
-    const T* qg = q + (long long)b * Sq * q_row + (long long)h * D;
-    const T* dog = dout + (long long)b * Sq * o_row + (long long)h * DV;
-    for (int m0 = lo; m0 < hi; m0 += kCols) {
-      float st[kCols / 2];
-#pragma unroll
-      for (int j = 0; j < kCols / 2; ++j) st[j] = 0.f;
-      tile_dot(st, sX, sY, kg, k_row, Skv - n0, qg + (long long)m0 * q_row,
-               q_row, Sq - m0, D);
-      float dpt[kCols / 2];
-      if (is_dk) {
-#pragma unroll
-        for (int j = 0; j < kCols / 2; ++j) dpt[j] = 0.f;
-        tile_dot(dpt, sX, sY, vg, v_row, Skv - n0,
-                 dog + (long long)m0 * o_row, o_row, Sq - m0, DV);
-      }
-#pragma unroll
-      for (int j = 0; j < kCols / 2; ++j) {
-        const int qp = m0 + c0 + 2 * j;
-        float val = 0.f;
-        if (qp < Sq) {
-          const float sc = key_live(qp, kp, Skv, causal, window) ? st[j]
-                                                                 : kNegInf;
-          const float p = exp2f(sc - lse[bh * Sq + qp]);
-          val = is_dk ? p * (dpt[j] - delta[bh * Sq + qp]) : p;
-        }
-        sP[r * kLd + c0 + 2 * j] = val;
-      }
-      if (is_dk)
-        tile_out(acc, sP, sX, qg + (long long)m0 * q_row, q_row, Sq - m0,
-                 col0, D);
-      else
-        tile_out(acc, sP, sX, dog + (long long)m0 * o_row, o_row, Sq - m0,
-                 col0, DV);
-    }
-  }
-
-  if (kp < Skv) {
-    const int width = is_dk ? D : DV;
-    T* row = is_dk ? dk + ((long long)b * Skv + kp) * k_row + (long long)hk * D
-                   : dv + ((long long)b * Skv + kp) * v_row +
-                         (long long)hk * DV;
-    const float f = is_dk ? kLn2 : 1.f;
-#pragma unroll
-    for (int j = 0; j < kOut / 2; ++j) {
-      const int c = col0 + c0 + 2 * j;
-      if (c < width) store(row + c, acc[j] * f);
-    }
+// The wide f32 dK/dV's second pass where a key tile has several parts:
+// their partial sums added in part order (a float4 of one row a step).
+__global__ void __launch_bounds__(dkv_f32::kSumThreads)
+flash_dkv_part_sum_f32(const dkv_f32::Args a) {
+  const long long n = (long long)a.B * a.Skv * a.Hk * ((a.D + a.DV) / 4);
+  for (long long e = blockIdx.x * (long long)dkv_f32::kSumThreads +
+                     threadIdx.x;
+       e < n; e += (long long)gridDim.x * dkv_f32::kSumThreads) {
+    const int parts = dkv_f32::row_parts(a, e);
+    if (parts > 1) dkv_f32::sum_parts(a, e, parts);
   }
 }
 
@@ -1817,19 +1764,17 @@ cudaError_t run_dkv_bf16(const void* q, const void* k, const void* v,
 
 cudaError_t run_dkv_f32(const void* q, const void* k, const void* v,
                         const void* dout, const float* lse,
-                        const float* delta, void* dk, void* dv, int B, int H,
-                        int Hk, int Sq, int Skv, int D, int DV, int causal,
-                        int window, cudaStream_t st) {
-  auto kernel = flash_bwd_dkv_wide<float>;
-  cudaError_t err = set_smem(kernel, kSmemBytes);
-  if (err != cudaSuccess) return err;
-  dim3 grid((Skv + kRows - 1) / kRows, B * Hk, chunks(D) + chunks(DV));
-  kernel<<<grid, kThreads, kSmemBytes, st>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const float*>(dout), lse,
-      delta, static_cast<float*>(dk), static_cast<float*>(dv), H, Hk, Sq,
-      Skv, D, DV, causal, window);
-  return cudaGetLastError();
+                        const float* delta, void* dk, void* dv, float* ws,
+                        int B, int H, int Hk, int Sq, int Skv, int D, int DV,
+                        int causal, int window, int parts, cudaStream_t st) {
+  const dkv_f32::Args a{static_cast<const float*>(q),
+                        static_cast<const float*>(k),
+                        static_cast<const float*>(v),
+                        static_cast<const float*>(dout), lse, delta,
+                        static_cast<float*>(dk), static_cast<float*>(dv), ws,
+                        B, H, Hk, Sq, Skv, D, DV, causal, window, parts, 0};
+  return dkv_f32::launch(flash_bwd_dkv_wide_f32, flash_dkv_part_sum_f32, a,
+                         dkv_f32::share_count(D, DV), st);
 }
 
 }  // namespace
@@ -1874,16 +1819,18 @@ extern "C" int marlin_flash_attention_bwd_dq_wide(
                          causal, window, scale, st);
 }
 
-// dK/dV: `parts_g` (bf16: a divisor of H / Hk; f32: 1) group parts, each
-// summing its contiguous 1 / parts_g of a KV head's query heads; above 1,
-// `workspace` is (parts_g, B, Skv, Hk, D + DV) f32 for their partial sums,
-// which a second launch on the same stream adds in order.
+// dK/dV: `parts_g` parts of each key tile's sweep. bf16: group parts, a
+// divisor of H / Hk, each summing its contiguous 1 / parts_g of a KV
+// head's query heads. f32: at most parts_g parts of (query head, query
+// tile) pairs, cut by live work (ops/flash_attention.py::_f32_dkv_plan).
+// Above 1, `workspace` is (parts_g, B, Skv, Hk, D + DV) f32 for their
+// partial sums, which a second launch on the same stream adds in order.
 extern "C" int marlin_flash_attention_bwd_dkv_wide(
     int dtype, const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dk, void* dv, void* workspace,
     int B, int H, int Hk, int Sq, int Skv, int D, int DV, int causal,
     int window, int parts_g, void* stream) {
-  if (!valid(dtype, B, H, Hk, Sq, Skv, D, DV) || (dtype == 1 && parts_g != 1))
+  if (!valid(dtype, B, H, Hk, Sq, Skv, D, DV))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
@@ -1892,6 +1839,7 @@ extern "C" int marlin_flash_attention_bwd_dkv_wide(
     return (int)run_dkv_bf16(q, k, v, dout, l, dl, dk, dv,
                              static_cast<float*>(workspace), B, H, Hk, Sq,
                              Skv, D, DV, causal, window, parts_g, st);
-  return (int)run_dkv_f32(q, k, v, dout, l, dl, dk, dv, B, H, Hk, Sq, Skv, D,
-                          DV, causal, window, st);
+  return (int)run_dkv_f32(q, k, v, dout, l, dl, dk, dv,
+                          static_cast<float*>(workspace), B, H, Hk, Sq, Skv,
+                          D, DV, causal, window, parts_g, st);
 }

@@ -42,8 +42,13 @@ ring, a CTA owning up to :data:`WIDE_BF16_COLUMNS` of the output's columns
 of dK or of dV (a key tile's parts, :func:`_wide_dkv_plan`, each computing
 S^T again; where the CTAs would not fill two waves of the card, the group
 of query heads is split too and a second launch sums the parts' f32
-partials in a fixed order). f32 runs FMA kernels whose CTAs own
-:data:`WIDE_OUT_COLUMNS` columns each.
+partials in a fixed order). The f32 forward and dQ run FMA kernels whose
+CTAs own :data:`WIDE_OUT_COLUMNS` columns each. The f32 dK/dV, narrow
+and wide, is one register-tiled FMA design (``csrc/flash_dkv_f32.cuh``)
+whose CTAs own 64 keys, up to :data:`F32_DKV_COLUMNS` output columns and
+one part of the key tile's sweep over (query head, query tile) pairs;
+:func:`_f32_dkv_plan` cuts it, and a second launch adds the parts' f32
+partials in a fixed order.
 
 Public layout is the JAX package's ``(S, H, D)``, plus an optional
 leading batch dimension that stands in for ``jax.vmap``.
@@ -52,6 +57,8 @@ leading batch dimension that stands in for ``jax.vmap``.
 from __future__ import annotations
 
 import ctypes
+import functools
+import heapq
 import math
 from typing import NamedTuple, Optional, Tuple
 
@@ -80,6 +87,13 @@ WIDE_OUT_COLUMNS = 128
 WIDE_BF16_COLUMNS = 640
 WIDE_DKV_KEYS = 64
 WIDE_DKV_WAVES = 2
+# The f32 dK/dV (csrc/flash_dkv_f32.cuh, narrow and wide): a CTA's keys
+# (kKeys) and query rows a tile (kQueries), the most output columns it
+# holds (kMaxBoxes x kBox) and the waves of one CTA an SM its plan aims at.
+F32_DKV_KEYS = 64
+F32_DKV_QUERIES = 64
+F32_DKV_COLUMNS = 512
+F32_DKV_WAVES = 2
 _KERNEL_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 
 # (query rows, keys) of each bf16 kernel's tile: the forward's kBM x kBN in
@@ -230,8 +244,8 @@ def _bwd_lib() -> ctypes.CDLL:
         dq.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 7
                        + [ctypes.c_int] * 9
                        + [ctypes.c_float, ctypes.c_void_p])
-        dkv.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 8
-                        + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+        dkv.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 9
+                        + [ctypes.c_int] * 10 + [ctypes.c_void_p])
     return lib
 
 
@@ -310,6 +324,117 @@ def _wide_dkv_plan(b: int, h: int, hk: int, skv: int, d: int, dv: int,
     return WideDkvPlan(parts, heads, ws)
 
 
+def _f32_query_tiles(n0: int, sq: int, causal: bool, window: int):
+    """``(first, n)``: the query tiles the 64-key tile at key ``n0`` visits
+    (``query_tiles`` of ``csrc/flash_dkv_f32.cuh``): causal from the tile
+    holding row ``n0``, a window up to the tile holding the last row that
+    still sees a key of this tile."""
+    first = n0 // F32_DKV_QUERIES if causal else 0
+    last = -(-sq // F32_DKV_QUERIES)
+    if window:
+        last = min(last, (n0 + F32_DKV_KEYS - 1 + window - 1)
+                   // F32_DKV_QUERIES + 1)
+    return first, max(0, last - first)
+
+
+def _f32_dkv_shares(d: int, dv: int) -> list:
+    """The f32 dK/dV's column shares ``[(dK's first column, columns, dV's
+    first column, columns)]`` (``share_of``): all of dK and dV in one where
+    D + Dv <= :data:`F32_DKV_COLUMNS`, else dK's shares then dV's, each of
+    ceil(width / 512) shares as even as 64-column boxes allow."""
+    box = WIDE_MULTIPLE
+    if d + dv <= F32_DKV_COLUMNS:
+        return [(0, d, 0, dv)]
+    out = []
+    for role, width in (("dk", d), ("dv", dv)):
+        boxes = width // box
+        n = -(-boxes // (F32_DKV_COLUMNS // box))
+        for z in range(n):
+            a, e = z * boxes // n * box, (z + 1) * boxes // n * box
+            out.append((a, e - a, 0, 0) if role == "dk" else (0, 0, a, e - a))
+    return out
+
+
+class F32DkvPlan(NamedTuple):
+    """How the f32 dK/dV kernels cut their work (``csrc/flash_dkv_f32.cuh``;
+    the C entries take ``parts``). ``shares``: each 64-key tile's CTAs along
+    its columns (:func:`_f32_dkv_shares`). ``tiles``: each key tile's
+    ``(first query tile, live query tiles)``. A key tile's sweep is its
+    (query head, query tile) pairs, head-major, cut into parts of
+    ``chunk`` pairs, ``tile_parts[t]`` of them (at least 1); ``parts`` (P)
+    is the most, key tile 0's under causal attention. ``workspace_bytes``:
+    the parts' f32 partial sums, (P, B, Skv, Hk, D + Dv), 0 for P = 1 (no
+    second pass)."""
+    shares: list
+    group: int
+    tiles: list
+    parts: int
+    chunk: int
+    tile_parts: list
+    workspace_bytes: int
+
+
+def _f32_cut(pairs: list, parts: int):
+    """``(chunk, parts of each key tile)`` for the live pairs ``pairs`` of
+    each key tile and P = ``parts`` (``launch`` and ``part_count``)."""
+    most = max(pairs)
+    chunk = -(-most // parts) if most > parts else 1
+    return chunk, [-(-n // chunk) if n > chunk else 1 for n in pairs]
+
+
+def _f32_makespan(cost: list, sms: int) -> float:
+    """The time of CTAs of ``cost`` steps each, launched in that order onto
+    ``sms`` SMs of one CTA each, every CTA to the first SM free."""
+    free = [0.0] * min(sms, len(cost))
+    for c in cost:
+        heapq.heapreplace(free, free[0] + c)
+    return max(free)
+
+
+@functools.lru_cache(maxsize=256)
+def _f32_dkv_plan(b: int, h: int, hk: int, sq: int, skv: int, d: int,
+                  dv: int, causal: bool, window: int,
+                  sms: int) -> F32DkvPlan:
+    """The f32 dK/dV kernels' cut on a card of ``sms`` SMs (kernel head dims
+    ``d``, ``dv``). One CTA an SM. Of the P whose CTAs fill
+    :data:`F32_DKV_WAVES` waves (all P when none does), the one whose
+    CTAs, launched heaviest key tile first, finish soonest on ``sms`` SMs,
+    in steps (a 64 x 64 x 64 box product for each of the CTA's two
+    warpgroups): a CTA's pairs take max(D, Dv) / 64 logit steps where it
+    holds dK columns (S^T beside dP^T), else ceil(D / 128) (S^T's halves
+    side by side), and one per two output boxes; its ring and its stores
+    one more; and a part of a key tile of several one step per 256
+    columns for its partial sums, written and read back. Each chunk of
+    pairs counts once, at its least P."""
+    shares = _f32_dkv_shares(d, dv)
+    group = h // hk
+    tiles = [_f32_query_tiles(t * F32_DKV_KEYS, sq, causal, window)
+             for t in range(-(-skv // F32_DKV_KEYS))]
+    pairs = [group * n for _, n in tiles]
+    box = WIDE_MULTIPLE
+    steps = [((max(d, dv) if nk else -(-d // (2 * box)) * box) // box
+              + -(-(nk + nv) // (2 * box)), (nk + nv) / 256)
+             for _, nk, _, nv in shares]
+    cands, seen = [], set()
+    for p in range(1, max(pairs) + 1):
+        chunk, tile_parts = _f32_cut(pairs, p)
+        if chunk in seen:
+            continue
+        seen.add(chunk)
+        ctas = b * hk * len(shares) * sum(tile_parts)
+        cost = [min(chunk, n - i * chunk) * st + 1 + (tp > 1) * ws
+                for n, tp in zip(pairs, tile_parts) for i in range(tp)
+                for _ in range(b * hk) for st, ws in steps]
+        cands.append((ctas >= F32_DKV_WAVES * sms,
+                      -_f32_makespan(cost, sms), -p, p))
+        if ctas >= 8 * F32_DKV_WAVES * sms:
+            break
+    p = max(cands)[-1]
+    chunk, tile_parts = _f32_cut(pairs, p)
+    ws = p * b * skv * hk * (d + dv) * 4 if p > 1 else 0
+    return F32DkvPlan(shares, group, tiles, p, chunk, tile_parts, ws)
+
+
 def _is_wide(d: int, dv: int) -> bool:
     """Whether kernel head dims ``(d, dv)`` are the wide kernels'."""
     return max(d, dv) > KERNEL_HEAD_DIMS[-1]
@@ -320,8 +445,9 @@ def _check_launch(tensors: dict, d: int, dv: int,
     """Raise on anything the kernels do not take: ``tensors`` of a dtype
     other than bf16 or f32 or of several dtypes, ``stats`` (lse, Delta)
     not f32, head dims the kernels are not built for, a tensor that is
-    not CUDA or not contiguous, a bf16 tensor whose base is not 16-byte
-    aligned (TMA reads it), several devices, a card that is not Hopper."""
+    not CUDA or not contiguous, a tensor whose base is not 16-byte
+    aligned (TMA and cp.async read 16 bytes at a time), several devices,
+    a card that is not Hopper."""
     stats = stats or {}
     first = next(iter(tensors.values()))
     if first.dtype not in _KERNEL_DTYPES:
@@ -337,10 +463,11 @@ def _check_launch(tensors: dict, d: int, dv: int,
         if x.dtype != want:
             raise ValueError(f"{name} is {x.dtype}, the kernel takes {want}")
     for name, x in tensors.items():
-        if x.dtype == torch.bfloat16 and x.data_ptr() % 16:
+        if x.data_ptr() % 16:
             raise ValueError(
                 f"{name}'s base address is not 16-byte aligned, which the "
-                f"kernels' TMA loads need (a view at an odd offset?)")
+                f"kernels' TMA and cp.async loads need (a view at an odd "
+                f"offset?)")
     for name, x in every.items():
         if x.device.type != "cuda":
             raise ValueError(f"{name} must be a CUDA tensor, got {x.device}")
@@ -475,36 +602,38 @@ def _launch_bwd_dkv(q_hat, k, v, do, lse, delta, causal: bool,
                     window: int):
     """Run the dK/dV kernel (B5; the wide one above head dim 256): (dK,
     dV) in k's dtype, summed over each KV head's group of query heads. The
-    bf16 wide kernel gets the group parts of :func:`_wide_dkv_plan` and,
-    for more than one, their f32 workspace; its second pass is part of
-    the same call (one launch counted)."""
+    f32 kernels get the sweep parts P of :func:`_f32_dkv_plan`, the bf16
+    wide kernel the group parts of :func:`_wide_dkv_plan`, and for more
+    than one their f32 workspace; the second pass is part of the same
+    call (one launch counted)."""
     global bwd_dkv_launches, wide_dkv_launches
     lib, (b, sq, h, d, skv, hk, dv) = _bwd_setup(q_hat, k, v, do, lse,
                                                  delta)
     wide = _is_wide(d, dv)
     dk = torch.empty_like(k)
     dvv = torch.empty_like(v)
-    args = (_KERNEL_DTYPES[q_hat.dtype], q_hat.data_ptr(), k.data_ptr(),
-            v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-            dk.data_ptr(), dvv.data_ptr())
-    dims = (b, h, hk, sq, skv, d, dv, int(causal), int(window))
+    parts, ws = 1, None
+    if q_hat.dtype == torch.float32:
+        plan = _f32_dkv_plan(b, h, hk, sq, skv, d, dv, bool(causal),
+                             int(window), _sm_count(q_hat.device))
+        parts, ws_bytes = plan.parts, plan.workspace_bytes
+    elif wide:
+        plan = _wide_dkv_plan(b, h, hk, skv, d, dv, _sm_count(q_hat.device))
+        parts, ws_bytes = plan.group_parts, plan.workspace_bytes
+    else:
+        ws_bytes = 0
+    if ws_bytes:
+        ws = torch.empty(ws_bytes // 4, dtype=torch.float32,
+                         device=q_hat.device)
+    fn = (lib.marlin_flash_attention_bwd_dkv_wide if wide
+          else lib.marlin_flash_attention_bwd_dkv)
     with torch.cuda.device(q_hat.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if not wide:
-            err = lib.marlin_flash_attention_bwd_dkv(*args, *dims, stream)
-        else:
-            parts, ws = 1, None
-            if q_hat.dtype == torch.bfloat16:
-                plan = _wide_dkv_plan(b, h, hk, skv, d, dv,
-                                      _sm_count(q_hat.device))
-                parts = plan.group_parts
-                if plan.workspace_bytes:
-                    ws = torch.empty(plan.workspace_bytes // 4,
-                                     dtype=torch.float32,
-                                     device=q_hat.device)
-            err = lib.marlin_flash_attention_bwd_dkv_wide(
-                *args, None if ws is None else ws.data_ptr(), *dims, parts,
-                stream)
+        err = fn(_KERNEL_DTYPES[q_hat.dtype], q_hat.data_ptr(), k.data_ptr(),
+                 v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                 delta.data_ptr(), dk.data_ptr(), dvv.data_ptr(),
+                 None if ws is None else ws.data_ptr(), b, h, hk, sq, skv, d,
+                 dv, int(causal), int(window), parts, stream)
     _check_err(err, "flash_attention_bwd_dkv" + "_wide" * wide, b, sq, skv,
                h, hk, d, dv)
     if wide:

@@ -451,9 +451,10 @@ def test_transformer_step_flops_counts_at_64_tiles_whatever_the_kernels():
 
 
 # Each planted fault of chip_smoke.py (an edit of the first occurrence of
-# its text) and the body that occurrence must lie in: the bf16 kernel it
-# breaks, or for the SpMM walk's faults the walk (struct LiveBlocks) whose
-# part it edits only the kernel of its route takes.
+# its text) and the body that occurrence must lie in: the kernel it breaks
+# (for the f32 dK/dV, the kernel whose own body cuts its work, or its
+# second pass), or for the SpMM walk's faults the walk (struct LiveBlocks)
+# whose part it edits only the kernel of its route takes.
 PLANTED_FAULT_KERNELS = {
     "fwd_drops_last_key_tile": ("flash_attention_fwd.cu", "flash_fwd_bf16("),
     "fwd_skips_o_rescale": ("flash_attention_fwd.cu", "flash_fwd_bf16("),
@@ -471,6 +472,12 @@ PLANTED_FAULT_KERNELS = {
                                              "flash_bwd_dq_bf16("),
     "dkv256_second_share_reads_first_columns": ("flash_attention_bwd.cu",
                                                 "flash_bwd_dkv_bf16("),
+    "dkv_f32_drops_last_query_tile": ("flash_attention_bwd.cu",
+                                      "flash_bwd_dkv_f32("),
+    "dkv_f32_part_drops_last_pair": ("flash_attention_bwd.cu",
+                                     "flash_bwd_dkv_f32("),
+    "dkv_f32_sum_drops_last_part": ("flash_attention_bwd.cu",
+                                    "flash_dkv_part_sum_f32("),
     "gather_drops_last_listed_block": ("block_sparse.cu",
                                        "struct LiveBlocks"),
     "ring_skips_last_k16_of_a_stage": ("block_sparse.cu",
@@ -489,7 +496,9 @@ PLANTED_FAULT_KERNELS = {
     "wide_f32_fwd_skips_o_rescale": ("flash_attention_wide.cu",
                                      "flash_fwd_wide_f32("),
     "wide_dkv_drops_last_query_tile": ("flash_attention_wide.cu",
-                                       "flash_bwd_dkv_wide("),
+                                       "flash_bwd_dkv_wide_f32("),
+    "wide_f32_dkv_second_share_reads_first_columns": (
+        "flash_attention_wide.cu", "flash_bwd_dkv_wide_f32("),
     "wide_dkv_dk_second_consumer_reads_first_q_columns": (
         "flash_attention_wide.cu", "flash_bwd_dkv_wide_bf16("),
     "wide_dkv_dv_drops_last_query_tile": ("flash_attention_wide.cu",

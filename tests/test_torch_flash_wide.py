@@ -240,9 +240,9 @@ def _meta_inputs(b, sq, h, hk, d, dv, dtype):
     ("mla_d576_dv512", torch.bfloat16), ("d512_s4096", torch.bfloat16),
     ("mla_d576_dv512", torch.float32)])
 def test_the_wrapper_hands_the_entry_its_plan(monkeypatch, name, dtype):
-    # bf16: the plan's G and, for G > 1, a workspace (None for G = 1); f32
-    # (the FMA kernel): G = 1 and no workspace. One launch counted either
-    # way, the second pass included.
+    # bf16: the plan's G and, for G > 1, a workspace (None for G = 1); f32:
+    # the sweep parts P of _f32_dkv_plan and, for P > 1, a workspace. One
+    # launch counted either way, the second pass included.
     lib = _FakeWideLib()
     _fake_card(monkeypatch, lib)
     b, skv, h, hk, d, dv = _shape(name)
@@ -253,7 +253,8 @@ def test_the_wrapper_hands_the_entry_its_plan(monkeypatch, name, dtype):
     assert dk.shape == args[1].shape and dv_.shape == args[2].shape
     (call,) = lib.calls
     g = (pfa._wide_dkv_plan(b, h, hk, skv, d, dv, H100_SMS).group_parts
-         if dtype == torch.bfloat16 else 1)
+         if dtype == torch.bfloat16 else pfa._f32_dkv_plan(
+             b, h, hk, skv, skv, d, dv, True, 0, H100_SMS).parts)
     assert call[0] == pfa._KERNEL_DTYPES[dtype]
     assert call[10:19] == (b, h, hk, skv, skv, d, dv, 1, 0)
     assert call[19] == g and call[20] == 0
