@@ -110,9 +110,11 @@ D = 512 at S = 4096 and DeepSeek-V3's absorbed-MLA widths (576, 512) at
 S = 4096 over one KV head; bf16, and the first six in f32) go to the wide
 kernels of csrc/flash_attention_wide.cu (bf16 forward, dQ and dK/dV on
 wgmma and a TMA ring, dK/dV with the group plan it took, G group parts
-summed by a second pass where G > 1; f32 FMA): phases 3 and 4 hold them to
-the plain versions by the same limits, their dQ and dK/dV bitwise over two
-runs and every forward output chunk's lse equal to the others, and phase 6
+summed by a second pass where G > 1; f32 register-tiled FMA fed by a
+cp.async ring, each tile's sweep cut into parts by its live work): phases
+3 and 4 hold them to the plain versions by the same limits, their dQ and
+dK/dV bitwise over two runs and every forward output chunk's lse equal to
+the others, and phase 6
 trains a D = 320 model through them (its launches are the wide kernels'
 counts; no D <= 256 run launches a wide kernel). At every f32 shape
 phases 3 and 4 name the backend scaled_dot_product_attention took (the
@@ -121,6 +123,9 @@ within the f32 limits the port's kernels are held to. The f32 dK/dV,
 narrow and wide, is one design (csrc/flash_dkv_f32.cuh): phase 4 holds it
 bitwise over two runs at every f32 shape (with P = 1 and P > 1 sweep
 parts) and prints its plan (P, chunk, column shares, workspace bytes);
+the wide f32 forward and dQ (csrc/flash_fwd_dq_f32.cuh) print theirs in
+phases 3 and 4, and are held with their plan's P and with P = 1: the
+forward's lse copies equal, dQ bitwise over two runs each.
 LARGE_F32_SHAPES (the flagship step's attention in f32, and D = Dv = 512
 at S = 2048 under GQA) read its share of the bound.
 
@@ -142,12 +147,14 @@ wide and SpMM sources (another checkout, e.g. the parent commit unpacked
 by ``git archive``) and this tree's KERNEL_VARIANTS, holds each against
 the plain version and times dQ at the train and remat shapes, both SpMM
 routes at bench512 and coo128, the wide bf16 forward, dQ and dK/dV at
-the LARGE_WIDE_SHAPES and the f32 dK/dV (narrow and wide) at PERF.md's
-f32 table shapes and the LARGE_F32_SHAPES, warm and cold, in two rounds
-in opposite orders; beside them the wide kernels' ablations
-(wide_ablations: no TMA loads, no logit products, loads only, the ring's
-sync only) and the f32 dK/dV's (F32_DKV_ABLATIONS), timed, not held, and
-at the f32 dK/dV's shapes SDPA's whole backward with its backend.
+the LARGE_WIDE_SHAPES, the f32 dK/dV (narrow and wide) at PERF.md's f32
+table shapes and the LARGE_F32_SHAPES and the wide f32 forward and dQ at
+PERF.md's wide f32 table shapes, warm and cold, in two rounds in opposite
+orders; beside them the wide kernels' ablations (wide_ablations: no TMA
+loads, no logit products, loads only, the ring's sync only), the f32
+dK/dV's (F32_DKV_ABLATIONS) and the wide f32 forward's and dQ's
+(F32_Q_ABLATIONS), timed, not held, and at the f32 shapes SDPA's forward
+or whole backward with its backend.
 """
 
 from __future__ import annotations
@@ -383,12 +390,14 @@ WIDE_FAULTS = ("fwd256_second_half_reads_first_v_half",
                "dq256_second_half_reads_first_k_half",
                "dkv256_second_share_reads_first_columns")
 
-# Planted faults of the wide kernels (csrc/flash_attention_wide.cu): two
-# for each bf16 kernel (one of them a fault of the split of the output's
-# columns between its two consumer warpgroups) and one of the bf16 dK/dV's
-# second pass, one of the f32 forward and two of the f32 dK/dV (its sweep,
-# its column shares). Each is shown only at the WIDE_KERNEL_SHAPES of its
-# dtype, by the check of its own kernel (WIDE_KERNEL_FAULT_CHECK).
+# Planted faults of the wide kernels (csrc/flash_attention_wide.cu, or a
+# header it includes): two for each bf16 kernel (one of them a fault of the
+# split of the output's columns between its two consumer warpgroups) and
+# one of the bf16 dK/dV's second pass, three of the f32 forward (its
+# rescale, its second pass, its column shares), two of the f32 dQ (its
+# dP, its second pass) and two of the f32 dK/dV (its sweep, its column
+# shares). Each is shown only at the WIDE_KERNEL_SHAPES of its dtype, by
+# the check of its own kernel (WIDE_KERNEL_FAULT_CHECK).
 WIDE_KERNEL_FAULTS = {
     # The bf16 forward does not rescale O when a row's running max grows.
     "wide_fwd_skips_o_rescale": (
@@ -411,11 +420,29 @@ WIDE_KERNEL_FAULTS = {
     "wide_dq_second_consumer_reads_first_k_columns": (
         "&tk, &full[p.s],\n                            sp.col(w, x0 + x),",
         "&tk, &full[p.s],\n                            sp.col(0, x0 + x),"),
-    # The f32 forward (FMA) does not rescale O when a row's running max
-    # grows.
+    # The f32 forward (flash_fwd_dq_f32.cuh) does not rescale O when a
+    # row's running max grows.
     "wide_f32_fwd_skips_o_rescale": (
-        "    for (int j = 0; j < kOut / 2; ++j) acc[j] *= corr;\n",
-        "    for (int j = 0; j < 0; ++j) acc[j] *= corr;\n"),
+        "        acc[q][i] = scale4(acc[q][i], corr);\n",
+        "        acc[q][i] = scale4(acc[q][i], 1.f);\n"),
+    # The f32 forward's second pass leaves out a query tile's last part.
+    "wide_f32_fwd_merge_drops_last_part": (
+        "    if (parts > 1) fwd_dq_f32::merge_parts(a, e, parts);\n",
+        "    if (parts > 1) fwd_dq_f32::merge_parts(a, e, parts - 1);\n"),
+    # The f32 forward's shares past the first add P times the first
+    # share's V columns into their own columns of O.
+    "wide_f32_fwd_second_share_reads_first_v_columns": (
+        "      a, c, kt0, kt1, s, a.v + flash_f32::kBox * s.b0, parts,\n",
+        "      a, c, kt0, kt1, s, a.v, parts,\n"),
+    # The f32 dQ's dP = dO V^T leaves out Dv's last 64-column box (its
+    # loads and its products agree on the shorter sweep).
+    "wide_f32_dq_drops_last_dv_box": (
+        "  const int n_v = a.DV / kBox;\n",
+        "  const int n_v = a.DV / kBox - 1;\n"),
+    # The f32 dQ's second pass leaves out a query tile's last part.
+    "wide_f32_dq_sum_drops_last_part": (
+        "    if (parts > 1) fwd_dq_f32::sum_parts(a, e, parts);\n",
+        "    if (parts > 1) fwd_dq_f32::sum_parts(a, e, parts - 1);\n"),
     # The f32 dK/dV kernel's (flash_bwd_dkv_wide_f32) sweep of each query
     # head stops one query tile short.
     "wide_dkv_drops_last_query_tile": (
@@ -456,7 +483,11 @@ def _boxes(width: int) -> int:
 # Each wide fault's check ("forward" or "backward"), the dtype of the
 # shapes whose kernels it breaks (None: both) and, where not every such
 # shape can show it, which can: a fault of the column split shows where the
-# CTA has two output boxes or more (Dv for the forward, D for dQ).
+# CTA has two output boxes or more (Dv for the forward, D for dQ), or
+# where there are two column shares; a fault of a second pass where the
+# plan has P > 1. The f32 forward's check reads the plan's P and P = 1
+# (every wide f32 shape has a query tile of several key tiles, whose
+# rescale only P = 1 keeps in one CTA).
 WIDE_KERNEL_FAULT_CHECK = {
     "wide_fwd_skips_o_rescale": ("forward", "bfloat16", None),
     "wide_fwd_second_consumer_reads_first_v_columns": (
@@ -465,6 +496,13 @@ WIDE_KERNEL_FAULT_CHECK = {
     "wide_dq_second_consumer_reads_first_k_columns": (
         "backward", "bfloat16", lambda s: _boxes(s[6]) >= 2),
     "wide_f32_fwd_skips_o_rescale": ("forward", "float32", None),
+    "wide_f32_fwd_merge_drops_last_part": (
+        "forward", "float32", lambda s: f32_q_plan(s, "fwd").parts > 1),
+    "wide_f32_fwd_second_share_reads_first_v_columns": (
+        "forward", "float32", lambda s: len(f32_q_plan(s, "fwd").shares) > 1),
+    "wide_f32_dq_drops_last_dv_box": ("backward", "float32", None),
+    "wide_f32_dq_sum_drops_last_part": (
+        "backward", "float32", lambda s: f32_q_plan(s, "dq").parts > 1),
     "wide_dkv_drops_last_query_tile": ("backward", "float32", None),
     "wide_f32_dkv_second_share_reads_first_columns": (
         "backward", "float32", lambda s: any(
@@ -500,6 +538,38 @@ def f32_dkv_plan(shape):
     return fa._f32_dkv_plan(b, h, hk, sq, skv, *fa._kernel_head_dims(d, dv),
                             causal, window,
                             fa._sm_count(torch.device("cuda")))
+
+
+def f32_q_plan(shape, kind, parts=None):
+    """The wide f32 forward's (``kind`` "fwd") or dQ's ("dq") plan
+    (_f32_q_plan) at ``shape`` on this card: its column shares, its sweep
+    parts P (``parts`` where given) and its workspace."""
+    import torch
+
+    from marlin_tpu_torch.ops import flash_attention as fa
+
+    _, b, sq, skv, h, hk, d, dv, _, causal, window = shape
+    return fa._f32_q_plan(kind, b, h, hk, sq, skv,
+                          *fa._kernel_head_dims(d, dv), causal, window,
+                          fa._sm_count(torch.device("cuda")), parts)
+
+
+def other_parts(plan) -> int:
+    """The P a check runs beside an f32 plan's own: 1 where the plan cuts
+    its tiles into parts, else 2, so that both the sweep's own stores and
+    the second pass are held at every shape."""
+    return 1 if plan.parts > 1 else 2
+
+
+def plan_summary(plan) -> dict:
+    """An f32 plan's shares, P, chunk and workspace bytes, for a row."""
+    return dict(shares=len(plan.shares), parts=plan.parts, chunk=plan.chunk,
+                workspace_bytes=plan.workspace_bytes)
+
+
+def wide_f32(shape) -> bool:
+    """Whether ``shape`` runs the wide f32 kernels."""
+    return shape[0] in WIDE_KERNEL_SHAPES and shape[8] == "float32"
 
 
 def planted_shape(name: str, check: str) -> bool:
@@ -684,19 +754,37 @@ def check_forward(label, o_k, lse_k, o_r, lse_r, dt):
     return err_o, err_lse, tile_o
 
 
+def wide_fwd(fa, q_hat, k, v, causal, window, parts=None,
+             lse_chunks=False):
+    """The wide forward kernel on inputs padded to its head dims, O sliced
+    back: (O, lse, every output chunk's lse or None); ``parts`` sets an
+    f32 kernel's P (the plan's where None)."""
+    dp, dvp = fa._kernel_head_dims(q_hat.shape[-1], v.shape[-1])
+    o, lse, chunks = fa._launch_wide(
+        fa._pad_to(q_hat, dp), fa._pad_to(k, dp), fa._pad_to(v, dvp),
+        causal, window, lse_chunks=lse_chunks, parts=parts)
+    return o[..., :v.shape[-1]], lse, chunks
+
+
 def check_lse_chunks(fa, name, q_hat, k, v, causal, window, lse):
     """The wide forward's output-column chunks each compute lse: every
-    chunk's copy must equal ``lse`` (the wrapper's) bit for bit."""
+    chunk's copy must equal ``lse`` (the wrapper's) bit for bit, and for
+    f32 so must those of a run with the other P (other_parts: the sweep
+    writes them where a tile has one part, the second pass where it has
+    several) equal each other."""
     import torch
 
-    dp, dvp = fa._kernel_head_dims(q_hat.shape[-1], v.shape[-1])
-    _, _, chunks = fa._launch_wide(fa._pad_to(q_hat, dp), fa._pad_to(k, dp),
-                                   fa._pad_to(v, dvp), causal, window,
-                                   lse_chunks=True)
-    torch.cuda.synchronize()
-    if not all(torch.equal(c, lse) for c in chunks):
-        fail(f"kernel {name}: the wide forward's {chunks.shape[0]} output "
-             f"chunks disagree on lse")
+    runs = [None]
+    if q_hat.dtype == torch.float32:
+        runs.append(other_parts(f32_q_plan(SHAPE_BY_NAME[name], "fwd")))
+    for parts in runs:
+        _, own, chunks = wide_fwd(fa, q_hat, k, v, causal, window, parts,
+                                  lse_chunks=True)
+        torch.cuda.synchronize()
+        want = lse if parts is None else own
+        if not all(torch.equal(c, want) for c in chunks):
+            fail(f"kernel {name}: the wide forward's {chunks.shape[0]} "
+                 f"output chunks disagree on lse (P = {parts or 'plan'})")
 
 
 def phase_device():
@@ -807,6 +895,9 @@ def phase_kernels():
         lib_ms, lib_lo, lib_hi = library_ms(F, q, k, v, causal, window)
         extra = (sdpa_f32_fwd(F, q, k, v, causal, window, plain()[0])
                  if dt == "float32" else {})
+        if wide_f32(SHAPE_BY_NAME[name]):
+            extra["fwd_plan"] = plan_summary(
+                f32_q_plan(SHAPE_BY_NAME[name], "fwd"))
         # Bound: max(FLOPs / peak, bytes / HBM rate), reading Q, K, V once
         # and writing O and lse once.
         flops = attention_flops(b, sq, skv, h, d, dv, causal, window)
@@ -1009,10 +1100,10 @@ class BwdCase:
                                    self.v, self.do, self.lse, self.delta,
                                    self.causal, self.window, self.scale)
 
-    def dq(self):
+    def dq(self, parts=None):
         return self.fa._launch_bwd_dq(*self.padded, self.lse, self.delta,
-                                      self.causal, self.window,
-                                      self.scale)[..., :self.d]
+                                      self.causal, self.window, self.scale,
+                                      parts)[..., :self.d]
 
     def dkv(self):
         dk, dv = self.fa._launch_bwd_dkv(*self.padded, self.lse, self.delta,
@@ -1071,6 +1162,18 @@ def phase_backward():
                 fail(f"backward {name}: dQ differs between two runs")
             if not (torch.equal(got[1], dk2) and torch.equal(got[2], dv2)):
                 fail(f"backward {name}: dK/dV differ between two runs")
+        if wide_f32(shape):
+            # The wide f32 dQ with the other P too (other_parts): within
+            # the limit, bitwise over two runs.
+            p = other_parts(f32_q_plan(shape, "dq"))
+            one, one2 = c.dq(parts=p), c.dq(parts=p)
+            rel = tile_rel_err(one, ref[0])
+            if not torch.equal(one, one2):
+                fail(f"backward {name}: dQ (P = {p}) differs between two "
+                     f"runs")
+            if not rel <= BWD_TOLERANCE[dt]:
+                fail(f"backward {name}: dQ (P = {p})'s worst tile "
+                     f"{rel:.3e} (tol {BWD_TOLERANCE[dt]})")
         ms_dq = cuda_ms(c.dq, iters=10)
         ms_dq_cold = cuda_ms_cold(c.dq, iters=10)
         ms_dkv = cuda_ms(c.dkv, iters=10)
@@ -1084,6 +1187,8 @@ def phase_backward():
             extra = dict(sdpa_f32_bwd(F, c, ref), dkv_parts=plan.parts,
                          dkv_chunk=plan.chunk, dkv_shares=len(plan.shares),
                          dkv_workspace_bytes=plan.workspace_bytes)
+            if wide_f32(shape):
+                extra["dq_plan"] = plan_summary(f32_q_plan(shape, "dq"))
         elif name in WIDE_KERNEL_SHAPES:
             plan = dkv_plan(shape)
             extra = dict(dkv_group_parts=plan.group_parts,
@@ -1271,13 +1376,20 @@ def _planted_forward(libs):
                                   window)
         o_r, _ = fa.flash_attention_reference(q_hat, k, v, causal,
                                               window)
+        # The wide f32 forward with its plan's P and with the other one
+        # (other_parts), the worse reading of the two.
+        runs = [lambda: fa._forward(q_hat, k, v, causal, window)[0]]
+        if wide_f32(SHAPE_BY_NAME[name]):
+            p = other_parts(f32_q_plan(SHAPE_BY_NAME[name], "fwd"))
+            runs.append(lambda: wide_fwd(fa, q_hat, k, v, causal, window,
+                                         p)[0])
         readings = {}
         for variant, source, lib in _flash_variants(libs):
-            o, _ = _with_variant(libs, source, lib, lambda: fa._forward(
-                q_hat, k, v, causal, window))
+            outs = [_with_variant(libs, source, lib, run) for run in runs]
             readings[variant] = dict(
-                tile_rel=tile_rel_err(o, o_r),
-                max_abs=(o.float() - o_r.float()).abs().max().item())
+                tile_rel=max(tile_rel_err(o, o_r) for o in outs),
+                max_abs=max((o.float() - o_r.float()).abs().max().item()
+                            for o in outs))
         sound = max(r["tile_rel"] for f, r in readings.items()
                     if f == "sound"
                     or not flash_fault_shows(f, name, "forward"))
@@ -1553,10 +1665,11 @@ _WIDE_DKV_ABLATIONS = {
 }
 
 
-# Ablations of the f32 dK/dV (edits of csrc/flash_dkv_f32.cuh, timed at
-# its --compare-with shapes, never held): without its logit products (S^T,
-# dP^T), without its output products, without its loads (the ring's
-# barriers and waits stay), and with none of the three.
+# Ablations of the f32 dK/dV (edits of csrc/flash_dkv_f32.cuh and
+# csrc/flash_f32.cuh, timed at its --compare-with shapes, never held):
+# without its logit products (S^T, dP^T), without its output products,
+# without its loads (the ring's barriers and waits stay), and with none of
+# the three.
 _F32_NO_LOGITS = [("      if (x < mine) tile_dot(",
                    "      if (0) tile_dot(")]
 _F32_NO_OUT = [("        if (j < n_o) tile_out(", "        if (0) tile_out(")]
@@ -1567,6 +1680,27 @@ F32_DKV_ABLATIONS = {
     "f32_dkv_no_out_products": _F32_NO_OUT,
     "f32_dkv_no_loads": _F32_NO_LOADS,
     "f32_dkv_sync_only": _F32_NO_LOGITS + _F32_NO_OUT + _F32_NO_LOADS,
+}
+
+# The same four of the wide f32 forward and dQ (edits of
+# csrc/flash_fwd_dq_f32.cuh and csrc/flash_f32.cuh, timed at their
+# --compare-with shapes): the forward's S and dQ's S and dP, the forward's
+# P V and dQ's dS K, every box load, and none of the three (the softmax's
+# row exchange, the ring's barriers and the stores stay).
+_F32_Q_NO_LOGITS = [
+    ("      tile_dot(cc, sl, sl + (1 + wg) * kBoxFloats, tn, tm);",
+     "      if (0) tile_dot(cc, sl, sl + (1 + wg) * kBoxFloats, tn, tm);"),
+    ("if (x < mine) tile_dot(cc, box,", "if (0) tile_dot(cc, box,")]
+_F32_Q_NO_OUT = [
+    ("        if (2 * q + wg < n_o) {\n          tile_out(",
+     "        if (0) {\n          tile_out("),
+    ("if (2 * q + wg < n_o) tile_out(acc[q], sdS,",
+     "if (0) tile_out(acc[q], sdS,")]
+F32_Q_ABLATIONS = {
+    "f32_q_no_logit_products": _F32_Q_NO_LOGITS,
+    "f32_q_no_out_products": _F32_Q_NO_OUT,
+    "f32_q_no_loads": _F32_NO_LOADS,
+    "f32_q_sync_only": _F32_Q_NO_LOGITS + _F32_Q_NO_OUT + _F32_NO_LOADS,
 }
 
 
@@ -1582,16 +1716,25 @@ def wide_ablations(source: str):
 
 # The shapes --compare-with times: the main path's, by kernel, the wide
 # bf16 kernels' at LARGE_WIDE_SHAPES (3 launches a turn there: a parent
-# tree's FMA kernels take hundreds of ms a launch), and the f32 dK/dV's
+# tree's FMA kernels take hundreds of ms a launch), the f32 dK/dV's
 # (narrow: "dkv_f32", wide: "dkv_wide_f32") at PERF.md's f32 table shapes
-# and the LARGE_F32_SHAPES (3 launches a turn there too), with SDPA's
-# whole f32 backward timed in the same turns.
+# and the LARGE_F32_SHAPES (3 launches a turn there too), and the wide f32
+# forward's and dQ's at PERF.md's wide f32 table shapes, with SDPA's f32
+# forward or whole f32 backward timed in the same turns.
+_WIDE_F32_TABLE = ("d320_f32", "d1024_f32", "d512_s2048_f32")
 COMPARE_SHAPES = {"dq": ("train", "remat"), "gather": ("bench512", "coo128"),
                   "masked": ("bench512", "coo128"),
                   "fwd_wide": LARGE_WIDE_SHAPES, "dq_wide": LARGE_WIDE_SHAPES,
                   "dkv_wide": LARGE_WIDE_SHAPES,
                   "dkv_f32": ("f32", "d256_f32", "train_f32"),
-                  "dkv_wide_f32": ("d320_f32", "d1024_f32", "d512_s2048_f32")}
+                  "dkv_wide_f32": _WIDE_F32_TABLE,
+                  "fwd_wide_f32": _WIDE_F32_TABLE,
+                  "dq_wide_f32": _WIDE_F32_TABLE}
+
+# Each --compare-with kernel's own variants and ablations, by name prefix
+# (the others' are those with neither prefix).
+_OWN_VARIANTS = {"dkv_f32": "f32_dkv_", "dkv_wide_f32": "f32_dkv_",
+                 "fwd_wide_f32": "f32_q_", "dq_wide_f32": "f32_q_"}
 
 
 def _dkv_call(c, libs, source):
@@ -1614,8 +1757,8 @@ def _dkv_call(c, libs, source):
             or (wide and libs["parent_has_parts"]
                 and c.q_hat.dtype == torch.bfloat16)):
         return c.dkv()
-    fn = (lib.marlin_flash_attention_bwd_dkv_wide if wide
-          else lib.marlin_flash_attention_bwd_dkv)
+    fn = lib["marlin_flash_attention_bwd_dkv_wide" if wide
+             else "marlin_flash_attention_bwd_dkv"]
     with_parts = wide and libs["parent_has_parts"]
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * (8 + with_parts)
@@ -1635,18 +1778,71 @@ def _dkv_call(c, libs, source):
     return dk[..., :c.d], dvv[..., :c.dv]
 
 
+def _wide_q_call(kind, c, libs):
+    """The wide forward's O (``kind`` "fwd") or dQ ("dq") of c's padded
+    inputs through this tree's wrapper; but where the library loaded as the
+    wide source is ``libs``'s "parent" and that tree's entries take no
+    sweep parts (its csrc has no flash_fwd_dq_f32.cuh), that entry called
+    with its own arguments, through a function object of its own (the
+    wrapper's _wide_lib sets the library's cached ones once)."""
+    import ctypes
+
+    import torch
+
+    from marlin_tpu_torch.ops import build
+    from marlin_tpu_torch.ops import flash_attention as fa
+
+    source = "flash_attention_wide"
+    lib = build._loaded[source]
+    q, k, v, do = c.padded
+    if lib is not libs[source].get("parent") or libs["parent_has_q_parts"]:
+        if kind == "dq":
+            return c.dq()
+        return fa._launch(q, k, v, c.causal, c.window)[0][..., :c.dv]
+    b, sq, h, d = q.shape
+    skv, hk, dv = k.shape[1], k.shape[2], v.shape[3]
+    dims = (b, h, hk, sq, skv, d, dv, int(c.causal), int(c.window))
+    stream = torch.cuda.current_stream().cuda_stream
+    dtype = int(q.dtype == torch.float32)
+    if kind == "fwd":
+        fn = lib["marlin_flash_attention_fwd_wide"]
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 6
+                       + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+        out = torch.empty((b, sq, h, dv), dtype=q.dtype, device=q.device)
+        lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+        err = fn(dtype, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                 out.data_ptr(), lse.data_ptr(), None, *dims, stream)
+        out = out[..., :c.dv]
+    else:
+        fn = lib["marlin_flash_attention_bwd_dq_wide"]
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 7
+                       + [ctypes.c_int] * 9
+                       + [ctypes.c_float, ctypes.c_void_p])
+        out = torch.empty_like(q)
+        err = fn(dtype, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                 do.data_ptr(), c.lse.data_ptr(), c.delta.data_ptr(),
+                 out.data_ptr(), *dims, float(c.scale), stream)
+        out = out[..., :c.d]
+    if err:
+        fail(f"the parent tree's wide {kind}: cudaError_t {err}")
+    return out
+
+
 def phase_compare(card: str, parent: str):
-    """This tree's dQ, SpMM (both routes), wide bf16 forward, dQ and dK/dV
-    and f32 dK/dV (narrow and wide) kernels against the parent tree's (the
+    """This tree's dQ, SpMM (both routes), wide bf16 forward, dQ and dK/dV,
+    f32 dK/dV (narrow and wide) and wide f32 forward and dQ kernels
+    against the parent tree's (the
     checkout at ``parent``, built from its own csrc/) and against
     KERNEL_VARIANTS, on one card: at each COMPARE_SHAPES shape every
     version is first held to the plain version (worst tile, the phase
     checks' limit), then timed warm (cuda_ms) and cold (cuda_ms_cold), in
     two rounds, parent, this tree, the variants, then the reverse; the wide
     kernels' ablations (wide_ablations) are timed in the same turns, their
-    error printed and not held, and so is SDPA's whole backward at the f32
-    dK/dV's shapes (its backend and its reading of the f32 limits beside
-    it). Prints one "compare:" line per kernel, shape and version, and
+    error printed and not held, and so is SDPA's forward or whole backward
+    at the f32 kernels' shapes (its backend and its reading of the f32
+    limits beside it). Prints one "compare:" line per kernel, shape and version, and
     fails if any version but an ablation or SDPA disagrees with the plain
     one."""
     import tempfile
@@ -1681,12 +1877,12 @@ def phase_compare(card: str, parent: str):
                                                  c.window)[0]
             by_kernel = {
                 "fwd_wide": (
-                    lambda c=c: fa._launch(*c.padded[:3], c.causal,
-                                           c.window)[0][..., :c.dv],
+                    lambda c=c: _wide_q_call("fwd", c, libs),
                     lambda out, ref=o_ref: tile_rel_err(out, ref),
                     FWD_TILE_TOLERANCE[shape[8]]),
-                "dq_wide": (c.dq, lambda out, ref=dq_ref: tile_rel_err(
-                    out, ref), BWD_TOLERANCE[shape[8]]),
+                "dq_wide": (lambda c=c: _wide_q_call("dq", c, libs),
+                            lambda out, ref=dq_ref: tile_rel_err(out, ref),
+                            BWD_TOLERANCE[shape[8]]),
                 "dkv_wide": (
                     lambda c=c: _dkv_call(c, libs, "flash_attention_wide"),
                     lambda out, ref=dkv_ref: max(
@@ -1708,6 +1904,26 @@ def phase_compare(card: str, parent: str):
                 sdpa[kernel, shape[0]] = (
                     _sdpa_bwd_call(F, c.q, c.k, c.v, c.do, c.causal,
                                    c.window), sdpa_f32_bwd(F, c, ref))
+                if shape[0] in COMPARE_SHAPES["fwd_wide_f32"]:
+                    # The wide f32 forward and dQ on the same inputs.
+                    o_ref = fa.flash_attention_reference(
+                        c.q_hat, c.k, c.v, c.causal, c.window)[0]
+                    cases["fwd_wide_f32", shape[0]] = (
+                        source, lambda c=c: _wide_q_call("fwd", c, libs),
+                        lambda out, ref=o_ref: tile_rel_err(out, ref),
+                        FWD_TILE_TOLERANCE[shape[8]])
+                    qt, kt, vt, kw = _sdpa_args(c.q, c.k, c.v, c.causal,
+                                                c.window)
+                    sdpa["fwd_wide_f32", shape[0]] = (
+                        lambda qt=qt, kt=kt, vt=vt, kw=kw:
+                        F.scaled_dot_product_attention(qt, kt, vt, **kw),
+                        sdpa_f32_fwd(F, c.q, c.k, c.v, c.causal, c.window,
+                                     o_ref))
+                    cases["dq_wide_f32", shape[0]] = (
+                        source, lambda c=c: _wide_q_call("dq", c, libs),
+                        lambda out, ref=ref[0]: tile_rel_err(out, ref),
+                        BWD_TOLERANCE[shape[8]])
+                    sdpa["dq_wide_f32", shape[0]] = sdpa[kernel, shape[0]]
                 del ref
     gen = torch.Generator(device="cuda").manual_seed(3)
     for shape in SPMM_SHAPES:
@@ -1726,13 +1942,17 @@ def phase_compare(card: str, parent: str):
     variants["flash_attention_wide"].update(ablations)
     for name in ("flash_attention_bwd", "flash_attention_wide"):
         variants[name].update(F32_DKV_ABLATIONS)
+    variants["flash_attention_wide"].update(F32_Q_ABLATIONS)
     ablations.update(F32_DKV_ABLATIONS)
+    ablations.update(F32_Q_ABLATIONS)
 
     def versions(kernel, shape, name):
-        # The f32 dK/dV's own variants (named f32_dkv_...) at its cases,
+        # The f32 kernels' own variants (_OWN_VARIANTS) at their cases,
         # every other variant of the source at the others.
+        prefix = _OWN_VARIANTS.get(kernel)
         own = [v for v in variants[name]
-               if v.startswith("f32_dkv_") == kernel.endswith("f32")]
+               if (v.startswith(prefix) if prefix else
+                   not v.startswith(tuple(_OWN_VARIANTS.values())))]
         return ["parent", "sound", *own] + (
             ["sdpa"] if (kernel, shape) in sdpa else [])
 
@@ -1742,6 +1962,7 @@ def phase_compare(card: str, parent: str):
         libs["parent_has_parts"] = "parts_g" in (
             csrc / "flash_attention_wide.cu").read_text()
         libs["parent_has_f32_parts"] = (csrc / "flash_dkv_f32.cuh").exists()
+        libs["parent_has_q_parts"] = (csrc / "flash_fwd_dq_f32.cuh").exists()
         try:
             for turn in range(2):
                 for (kernel, shape), (name, fn, err_of, tol) in \
@@ -3314,7 +3535,7 @@ def _fwd_entry(n, r):
                 bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                 library_ms=r["library_ms"],
                 tflops=r["tflops"], bound_share=r["bound_share"],
-                **{k: r[k] for k in _LIBRARY_F32 if k in r})
+                **{k: r[k] for k in _LIBRARY_F32 + ("fwd_plan",) if k in r})
 
 
 def _bwd_entry(kernel, labels, n, r):
@@ -3334,7 +3555,8 @@ def _bwd_entry(kernel, labels, n, r):
         **{k: r[k] for k in _LIBRARY_F32 if k in r},
         **{k: r[k] for k in ("dkv_group_parts", "dkv_parts", "dkv_chunk",
                              "dkv_shares", "dkv_workspace_bytes")
-           if kernel == "dkv" and k in r})
+           if kernel == "dkv" and k in r},
+        **{k: r[k] for k in ("dq_plan",) if kernel == "dq" and k in r})
 
 
 def wide_kernel_entries(rows, bwd, small):

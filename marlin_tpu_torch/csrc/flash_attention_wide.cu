@@ -14,9 +14,10 @@
 // skipped, GQA by index (K and V never replicated), l clamped at 1e-30,
 // lse = m + log2(l) in (B, H, Sq) f32, dQ = scale * dS K, dK = ln2 * dS^T
 // q_hat, dV = P^T dO summed over the KV head's group. No atomics are used:
-// a CTA writes only its own outputs, or (bf16 dK/dV with its group split)
-// its own f32 partial sums, which a second pass adds in a fixed order, so
-// dQ, dK and dV come out bitwise the same run after run.
+// a CTA writes only its own outputs, or (the bf16 dK/dV with its group
+// split, an f32 tile of several sweep parts) its own f32 partials, which a
+// second pass merges in a fixed order, so O, lse, dQ, dK and dV come out
+// bitwise the same run after run.
 //
 // Bound on the H100. At D = Dv = 512, S = 4096, causal, the forward runs
 // 2 (D + Dv) FLOP, dQ 2 (2 D + Dv) and dK/dV 2 (2 D + 2 Dv) FLOP per live
@@ -88,24 +89,19 @@
 // They have no ping-pong of two tiles per warpgroup and no TMA multicast
 // across a cluster; those are the next steps toward the bound.
 //
-// The FMA kernels of the f32 forward and dQ: every CTA owns 64 query rows
-// and 128 of the output's columns, a chunk picked by blockIdx.z; the
-// 64 x 64 logit tiles S (and dP) accumulate over D (Dv) in 64-column
-// chunks streamed through shared memory, and each CTA recomputes S, P and
-// dS for its own column chunk. FMA in f32; two threads per output row,
-// each holding 32 of the tile's logits and 64 of the row's output columns.
-// Every forward CTA of a query tile computes the same lse (chunk 0 writes
-// it; with `lse_chunks` every chunk writes its own copy, for a check that
-// they agree). The f32 dK/dV (flash_bwd_dkv_wide_f32) is built from
-// flash_dkv_f32.cuh: register-tiled FMA fed by a cp.async ring, up to 512
-// output columns a CTA, each key tile's sweep split into parts by its live
-// work and summed by a second pass in part order.
+// f32 (flash_fwd_wide_f32, flash_bwd_dq_wide_f32, flash_bwd_dkv_wide_f32):
+// register-tiled FMA on the CUDA cores fed by a cp.async ring, up to 512
+// output columns a CTA, each tile's sweep split into parts by its live
+// work and merged or summed by a second pass in part order. The forward
+// and dQ are built from flash_fwd_dq_f32.cuh (a CTA owns 64 query rows),
+// the dK/dV from flash_dkv_f32.cuh (64 keys); both headers hold the design.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
 #include "flash_dkv_f32.cuh"
+#include "flash_fwd_dq_f32.cuh"
 #include "sm90.cuh"
 
 namespace {
@@ -155,221 +151,74 @@ __device__ __forceinline__ void query_range(int n0, int bn, int bm, int sq,
 }
 
 // ---------------------------------------------------------------------
-// FMA kernels: the f32 forward, dQ and dK/dV
+// f32: the forward, dQ and dK/dV on the CUDA cores
 // ---------------------------------------------------------------------
 
-constexpr int kThreads = 128;
-constexpr int kRows = 64;   // output rows per CTA (queries or keys)
-constexpr int kCols = 64;   // partners per tile (keys or queries)
-constexpr int kWC = 64;     // width of a reduction chunk over D or Dv
-constexpr int kOut = 128;   // output columns per CTA
-constexpr int kLd = kWC + 1;  // padded row stride of the shared tiles
-
-// Shared memory: the two reduction-chunk tiles (each kRows x kLd f32),
-// which the output step reuses for its 64 x 128 operand, then P (or dS).
-constexpr int kTileFloats = kRows * kLd;
-constexpr size_t kSmemBytes = sizeof(float) * 3 * kTileFloats;
-static_assert(2 * kTileFloats >= kCols * kOut, "the operand tile fits");
-
-// acc[j] += sum_w X[r][w] * Y[c0 + 2 j][w] over w in [0, width): X is this
-// CTA's 64 rows (row r = threadIdx.x / 2 is this thread's), Y the tile's 64
-// partners (c0 = threadIdx.x % 2), both rows of global matrices with row
-// stride `xs`/`ys`; rows at or past `xv`/`yv` read as zero. `width` is a
-// multiple of kWC.
-__device__ __forceinline__ void tile_dot(float (&acc)[kCols / 2], float* sX,
-                                         float* sY, const float* x,
-                                         long long xs, int xv,
-                                         const float* y, long long ys,
-                                         int yv, int width) {
-  const int r = threadIdx.x >> 1, c0 = threadIdx.x & 1;
-  for (int w0 = 0; w0 < width; w0 += kWC) {
-    __syncthreads();  // every thread is done with the previous tiles
-    for (int i = threadIdx.x; i < kRows * kWC; i += kThreads) {
-      const int rr = i / kWC, cc = i % kWC;
-      sX[rr * kLd + cc] = rr < xv ? x[rr * xs + w0 + cc] : 0.f;
-      sY[rr * kLd + cc] = rr < yv ? y[rr * ys + w0 + cc] : 0.f;
-    }
-    __syncthreads();
-    const float* xr = sX + r * kLd;
-#pragma unroll 4
-    for (int w = 0; w < kWC; ++w) {
-      const float xw = xr[w];
-#pragma unroll
-      for (int j = 0; j < kCols / 2; ++j)
-        acc[j] = fmaf(xw, sY[(c0 + 2 * j) * kLd + w], acc[j]);
-    }
-  }
-}
-
-// out[j] += sum_k sP[r][k] * Z[k][col0 + c0 + 2 j] over the tile's 64
-// partners k: Z's rows are global rows of stride `zs` (rows at or past
-// `zv` read as zero), its columns [col0, col0 + kOut) those below `zw`
-// (the rest read as zero). sP must be written before the call; sZ
-// aliases the reduction tiles.
-__device__ __forceinline__ void tile_out(float (&out)[kOut / 2],
-                                         const float* sP, float* sZ,
-                                         const float* z, long long zs, int zv,
-                                         int col0, int zw) {
-  const int r = threadIdx.x >> 1, c0 = threadIdx.x & 1;
-  __syncthreads();  // sP written; tile_dot's reads of sZ's space retired
-  for (int i = threadIdx.x; i < kCols * kOut; i += kThreads) {
-    const int rr = i / kOut, cc = i % kOut;
-    sZ[i] = rr < zv && col0 + cc < zw ? z[rr * zs + col0 + cc] : 0.f;
-  }
-  __syncthreads();
-  const float* pr = sP + r * kLd;
-  for (int k = 0; k < kCols; ++k) {
-    const float p = pr[k];
-    const float* zr = sZ + k * kOut + c0;
-#pragma unroll
-    for (int j = 0; j < kOut / 2; ++j) out[j] = fmaf(p, zr[2 * j], out[j]);
-  }
-}
-
-// B3, wide, f32: O's columns [z * kOut, z * kOut + kOut) of 64 query rows.
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_wide_f32(const float* __restrict__ q, const float* __restrict__ k,
-                   const float* __restrict__ v, float* __restrict__ o,
-                   float* __restrict__ lse, float* __restrict__ lse_chunks,
-                   int H, int Hk, int Sq, int Skv, int D, int DV, int causal,
-                   int window) {
+// B3, wide, f32 (flash_fwd_dq_f32.cuh holds the design and its pieces): a
+// CTA's query tile, its sweep part's key tiles and its share of O's
+// columns are cut here.
+__global__ void __launch_bounds__(flash_f32::kThreads, 1)
+flash_fwd_wide_f32(const fwd_dq_f32::Args a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* sX = reinterpret_cast<float*>(smem_raw);
-  float* sY = sX + kTileFloats;
-  float* sP = sY + kTileFloats;
+  const fwd_dq_f32::Cta c =
+      fwd_dq_f32::cta_of(a, fwd_dq_f32::share_count(a.DV));
+  int first, n;
+  fwd_dq_f32::key_tiles(c.t * fwd_dq_f32::kQueries, fwd_dq_f32::kFwdKeys,
+                        a.Skv, a.causal, a.window, &first, &n);
+  const int parts = flash_f32::part_count(n, a.chunk);
+  if (c.p >= parts) return;
+  const int kt0 = first + c.p * a.chunk;
+  const int kt1 = min(kt0 + a.chunk, first + n);
+  const fwd_dq_f32::Share s = fwd_dq_f32::share_of(a.DV, c.z);
+  fwd_dq_f32::fwd_sweep<flash_f32::kMaxBoxes>(
+      a, c, kt0, kt1, s, a.v + flash_f32::kBox * s.b0, parts,
+      reinterpret_cast<float*>(smem_raw));
+}
 
-  const int m0 = blockIdx.x * kRows;
-  const int bh = blockIdx.y;
-  const int b = bh / H, h = bh % H, hk = h / (H / Hk);
-  const int col0 = blockIdx.z * kOut;
-  const int r = threadIdx.x >> 1, c0 = threadIdx.x & 1;
-  const int qp = m0 + r;
-
-  const long long q_row = (long long)H * D, k_row = (long long)Hk * D;
-  const long long v_row = (long long)Hk * DV;
-  const float* qg = q + ((long long)b * Sq + m0) * q_row + (long long)h * D;
-  const float* kg = k + (long long)b * Skv * k_row + (long long)hk * D;
-  const float* vg = v + (long long)b * Skv * v_row + (long long)hk * DV;
-
-  float m = kNegInf, l = 0.f;
-  float acc[kOut / 2];
-#pragma unroll
-  for (int j = 0; j < kOut / 2; ++j) acc[j] = 0.f;
-
-  int lo, hi;
-  key_range(m0, kRows, kCols, Skv, causal, window, &lo, &hi);
-  for (int n0 = lo; n0 < hi; n0 += kCols) {
-    float s[kCols / 2];
-#pragma unroll
-    for (int j = 0; j < kCols / 2; ++j) s[j] = 0.f;
-    tile_dot(s, sX, sY, qg, q_row, Sq - m0, kg + (long long)n0 * k_row,
-             k_row, Skv - n0, D);
-    float mx = m;
-#pragma unroll
-    for (int j = 0; j < kCols / 2; ++j) {
-      if (!key_live(qp, n0 + c0 + 2 * j, Skv, causal, window)) s[j] = kNegInf;
-      mx = fmaxf(mx, s[j]);
-    }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffff, mx, 1));
-    const float corr = exp2f(m - mx);
-    m = mx;
-    float sum = 0.f;
-#pragma unroll
-    for (int j = 0; j < kCols / 2; ++j) {
-      const float p = exp2f(s[j] - m);
-      sP[r * kLd + c0 + 2 * j] = p;
-      sum += p;
-    }
-    sum += __shfl_xor_sync(0xffffffff, sum, 1);
-    l = l * corr + sum;
-#pragma unroll
-    for (int j = 0; j < kOut / 2; ++j) acc[j] *= corr;
-    tile_out(acc, sP, sX, vg + (long long)n0 * v_row, v_row, Skv - n0, col0,
-             DV);
-  }
-
-  if (qp < Sq) {
-    l = fmaxf(l, 1e-30f);
-    const float inv = 1.f / l;
-    float* orow = o + ((long long)b * Sq + qp) * H * DV + (long long)h * DV;
-#pragma unroll
-    for (int j = 0; j < kOut / 2; ++j) {
-      const int c = col0 + c0 + 2 * j;
-      if (c < DV) orow[c] = acc[j] * inv;
-    }
-    if (c0 == 0) {
-      const float ls = m + log2f(l);
-      if (blockIdx.z == 0) lse[(long long)bh * Sq + qp] = ls;
-      if (lse_chunks)
-        lse_chunks[((long long)blockIdx.z * gridDim.y + bh) * Sq + qp] = ls;
-    }
+// The wide f32 forward's second pass where a query tile has several parts:
+// their O, m and l merged in part order (a float4 of one row a step).
+__global__ void __launch_bounds__(flash_f32::kSumThreads)
+flash_fwd_merge_f32(const fwd_dq_f32::Args a) {
+  const long long n = (long long)a.B * a.Sq * a.H * (a.DV / 4);
+  for (long long e = blockIdx.x * (long long)flash_f32::kSumThreads +
+                     threadIdx.x;
+       e < n; e += (long long)gridDim.x * flash_f32::kSumThreads) {
+    const int parts =
+        fwd_dq_f32::row_parts(a, e, a.DV, fwd_dq_f32::kFwdKeys);
+    if (parts > 1) fwd_dq_f32::merge_parts(a, e, parts);
   }
 }
 
-// B4, wide, f32: dQ's columns [z * kOut, z * kOut + kOut) of 64 query rows.
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_wide_f32(const float* __restrict__ q,
-                      const float* __restrict__ k,
-                      const float* __restrict__ v,
-                      const float* __restrict__ dout,
-                      const float* __restrict__ lse,
-                      const float* __restrict__ delta, float* __restrict__ dq,
-                      int H, int Hk, int Sq, int Skv, int D, int DV,
-                      int causal, int window, float scale) {
+// B4, wide, f32: a CTA's query tile, its sweep part's key tiles and its
+// share of dQ's columns.
+__global__ void __launch_bounds__(flash_f32::kThreads, 1)
+flash_bwd_dq_wide_f32(const fwd_dq_f32::Args a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* sX = reinterpret_cast<float*>(smem_raw);
-  float* sY = sX + kTileFloats;
-  float* sP = sY + kTileFloats;
+  const fwd_dq_f32::Cta c =
+      fwd_dq_f32::cta_of(a, fwd_dq_f32::share_count(a.D));
+  int first, n;
+  fwd_dq_f32::key_tiles(c.t * fwd_dq_f32::kQueries, fwd_dq_f32::kDqKeys,
+                        a.Skv, a.causal, a.window, &first, &n);
+  const int parts = flash_f32::part_count(n, a.chunk);
+  if (c.p >= parts) return;
+  const int kt0 = first + c.p * a.chunk;
+  const int kt1 = min(kt0 + a.chunk, first + n);
+  const fwd_dq_f32::Share s = fwd_dq_f32::share_of(a.D, c.z);
+  fwd_dq_f32::dq_sweep<flash_f32::kMaxBoxes>(
+      a, c, kt0, kt1, s, a.k + flash_f32::kBox * s.b0, parts,
+      reinterpret_cast<float*>(smem_raw));
+}
 
-  const int m0 = blockIdx.x * kRows;
-  const int bh = blockIdx.y;
-  const int b = bh / H, h = bh % H, hk = h / (H / Hk);
-  const int col0 = blockIdx.z * kOut;
-  const int r = threadIdx.x >> 1, c0 = threadIdx.x & 1;
-  const int qp = m0 + r;
-
-  const long long q_row = (long long)H * D, o_row = (long long)H * DV;
-  const long long k_row = (long long)Hk * D, v_row = (long long)Hk * DV;
-  const float* qg = q + ((long long)b * Sq + m0) * q_row + (long long)h * D;
-  const float* dog =
-      dout + ((long long)b * Sq + m0) * o_row + (long long)h * DV;
-  const float* kg = k + (long long)b * Skv * k_row + (long long)hk * D;
-  const float* vg = v + (long long)b * Skv * v_row + (long long)hk * DV;
-  const float lrow = qp < Sq ? lse[(long long)bh * Sq + qp] : 0.f;
-  const float drow = qp < Sq ? delta[(long long)bh * Sq + qp] : 0.f;
-
-  float acc[kOut / 2];
-#pragma unroll
-  for (int j = 0; j < kOut / 2; ++j) acc[j] = 0.f;
-
-  int lo, hi;
-  key_range(m0, kRows, kCols, Skv, causal, window, &lo, &hi);
-  for (int n0 = lo; n0 < hi; n0 += kCols) {
-    float s[kCols / 2], dp[kCols / 2];
-#pragma unroll
-    for (int j = 0; j < kCols / 2; ++j) s[j] = dp[j] = 0.f;
-    tile_dot(s, sX, sY, qg, q_row, Sq - m0, kg + (long long)n0 * k_row,
-             k_row, Skv - n0, D);
-    tile_dot(dp, sX, sY, dog, o_row, Sq - m0, vg + (long long)n0 * v_row,
-             v_row, Skv - n0, DV);
-#pragma unroll
-    for (int j = 0; j < kCols / 2; ++j) {
-      const float sc = key_live(qp, n0 + c0 + 2 * j, Skv, causal, window)
-                           ? s[j] : kNegInf;
-      const float p = exp2f(sc - lrow);
-      sP[r * kLd + c0 + 2 * j] = p * (dp[j] - drow);
-    }
-    tile_out(acc, sP, sX, kg + (long long)n0 * k_row, k_row, Skv - n0, col0,
-             D);
-  }
-
-  if (qp < Sq) {
-    float* row = dq + ((long long)b * Sq + qp) * q_row + (long long)h * D;
-#pragma unroll
-    for (int j = 0; j < kOut / 2; ++j) {
-      const int c = col0 + c0 + 2 * j;
-      if (c < D) row[c] = acc[j] * scale;
-    }
+// The wide f32 dQ's second pass where a query tile has several parts:
+// their partial sums added in part order, times scale.
+__global__ void __launch_bounds__(flash_f32::kSumThreads)
+flash_dq_part_sum_f32(const fwd_dq_f32::Args a) {
+  const long long n = (long long)a.B * a.Sq * a.H * (a.D / 4);
+  for (long long e = blockIdx.x * (long long)flash_f32::kSumThreads +
+                     threadIdx.x;
+       e < n; e += (long long)gridDim.x * flash_f32::kSumThreads) {
+    const int parts = fwd_dq_f32::row_parts(a, e, a.D, fwd_dq_f32::kDqKeys);
+    if (parts > 1) fwd_dq_f32::sum_parts(a, e, parts);
   }
 }
 
@@ -1569,12 +1418,10 @@ cudaError_t set_smem(Kernel kernel, size_t bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-int chunks(int width) { return (width + kOut - 1) / kOut; }
-
 bool valid(int dtype, int B, int H, int Hk, int Sq, int Skv, int D, int DV) {
   return (dtype == 0 || dtype == 1) && B >= 1 && H >= 1 && Hk >= 1 &&
-         H % Hk == 0 && Sq >= 1 && Skv >= 1 && D >= kWC && DV >= kWC &&
-         D % kWC == 0 && DV % kWC == 0 && B * H <= 65535 &&
+         H % Hk == 0 && Sq >= 1 && Skv >= 1 && D >= 64 && DV >= 64 &&
+         D % 64 == 0 && DV % 64 == 0 && B * H <= 65535 &&
          (Sq + kQRows - 1) / kQRows <= 65535;
 }
 
@@ -1627,17 +1474,22 @@ cudaError_t run_fwd_bf16(const void* q, const void* k, const void* v,
 }
 
 cudaError_t run_fwd_f32(const void* q, const void* k, const void* v, void* o,
-                        float* lse, float* lse_chunks, int B, int H, int Hk,
-                        int Sq, int Skv, int D, int DV, int causal,
-                        int window, cudaStream_t st) {
-  cudaError_t err = set_smem(flash_fwd_wide_f32, kSmemBytes);
-  if (err != cudaSuccess) return err;
-  dim3 grid((Sq + kRows - 1) / kRows, B * H, chunks(DV));
-  flash_fwd_wide_f32<<<grid, kThreads, kSmemBytes, st>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), lse, lse_chunks,
-      H, Hk, Sq, Skv, D, DV, causal, window);
-  return cudaGetLastError();
+                        float* lse, float* lse_chunks, float* ws, int B, int H,
+                        int Hk, int Sq, int Skv, int D, int DV, int causal,
+                        int window, int parts, cudaStream_t st) {
+  const fwd_dq_f32::Args a{static_cast<const float*>(q),
+                           static_cast<const float*>(k),
+                           static_cast<const float*>(v),
+                           nullptr,
+                           nullptr,
+                           static_cast<float*>(o),
+                           lse,
+                           lse_chunks,
+                           ws,
+                           B, H, Hk, Sq, Skv, D, DV, causal, window, 1.f,
+                           parts, 0};
+  return fwd_dq_f32::launch(flash_fwd_wide_f32, flash_fwd_merge_f32, a,
+                            fwd_dq_f32::kFwdKeys, DV, st);
 }
 
 cudaError_t run_dq_bf16(const void* q, const void* k, const void* v,
@@ -1670,18 +1522,22 @@ cudaError_t run_dq_bf16(const void* q, const void* k, const void* v,
 
 cudaError_t run_dq_f32(const void* q, const void* k, const void* v,
                        const void* dout, const float* lse,
-                       const float* delta, void* dq, int B, int H, int Hk,
-                       int Sq, int Skv, int D, int DV, int causal,
-                       int window, float scale, cudaStream_t st) {
-  cudaError_t err = set_smem(flash_bwd_dq_wide_f32, kSmemBytes);
-  if (err != cudaSuccess) return err;
-  dim3 grid((Sq + kRows - 1) / kRows, B * H, chunks(D));
-  flash_bwd_dq_wide_f32<<<grid, kThreads, kSmemBytes, st>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const float*>(dout), lse,
-      delta, static_cast<float*>(dq), H, Hk, Sq, Skv, D, DV, causal, window,
-      scale);
-  return cudaGetLastError();
+                       const float* delta, void* dq, float* ws, int B, int H,
+                       int Hk, int Sq, int Skv, int D, int DV, int causal,
+                       int window, int parts, float scale, cudaStream_t st) {
+  const fwd_dq_f32::Args a{static_cast<const float*>(q),
+                           static_cast<const float*>(k),
+                           static_cast<const float*>(v),
+                           static_cast<const float*>(dout),
+                           delta,
+                           static_cast<float*>(dq),
+                           const_cast<float*>(lse),
+                           nullptr,
+                           ws,
+                           B, H, Hk, Sq, Skv, D, DV, causal, window, scale,
+                           parts, 0};
+  return fwd_dq_f32::launch(flash_bwd_dq_wide_f32, flash_dq_part_sum_f32, a,
+                            fwd_dq_f32::kDqKeys, D, st);
 }
 
 // A dK/dV role's ring in `budget` bytes: K (and V) resident where they
@@ -1785,12 +1641,19 @@ cudaError_t run_dkv_f32(const void* q, const void* k, const void* v,
 // cudaErrorInvalidValue. Layouts as in flash_attention_fwd.cu and
 // flash_attention_bwd.cu; `lse_chunks` (may be null) is (chunks, B, H, Sq)
 // f32, every output chunk's copy of lse: DV's 640-column CTA shares for
-// bf16 (out_chunks), its 128-column ones for f32 (chunks).
+// bf16 (out_chunks), its 512-column ones for f32 (fwd_dq_f32::share_count).
+// The forward and dQ: `parts` parts of each query tile's key sweep, 1 for
+// bf16; for f32 at most `parts`, cut by live work
+// (ops/flash_attention.py::_f32_q_plan). Above 1, `workspace` holds their
+// f32 partials (the forward: (parts, B, Sq, H, DV) then m and l, each
+// (parts, shares, B, H, Sq); dQ: (parts, B, Sq, H, D)), which a second
+// launch on the same stream merges in order.
 extern "C" int marlin_flash_attention_fwd_wide(
     int dtype, const void* q, const void* k, const void* v, void* o,
-    void* lse, void* lse_chunks, int B, int H, int Hk, int Sq, int Skv,
-    int D, int DV, int causal, int window, void* stream) {
-  if (!valid(dtype, B, H, Hk, Sq, Skv, D, DV))
+    void* lse, void* lse_chunks, void* workspace, int B, int H, int Hk,
+    int Sq, int Skv, int D, int DV, int causal, int window, int parts,
+    void* stream) {
+  if (!valid(dtype, B, H, Hk, Sq, Skv, D, DV) || (dtype == 0 && parts != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
@@ -1798,16 +1661,17 @@ extern "C" int marlin_flash_attention_fwd_wide(
   if (dtype == 0)
     return (int)run_fwd_bf16(q, k, v, o, l, lc, B, H, Hk, Sq, Skv, D, DV,
                              causal, window, st);
-  return (int)run_fwd_f32(q, k, v, o, l, lc, B, H, Hk, Sq, Skv, D, DV,
-                          causal, window, st);
+  return (int)run_fwd_f32(q, k, v, o, l, lc, static_cast<float*>(workspace),
+                          B, H, Hk, Sq, Skv, D, DV, causal, window, parts,
+                          st);
 }
 
 extern "C" int marlin_flash_attention_bwd_dq_wide(
     int dtype, const void* q, const void* k, const void* v, const void* dout,
-    const void* lse, const void* delta, void* dq, int B, int H, int Hk,
-    int Sq, int Skv, int D, int DV, int causal, int window, float scale,
-    void* stream) {
-  if (!valid(dtype, B, H, Hk, Sq, Skv, D, DV))
+    const void* lse, const void* delta, void* dq, void* workspace, int B,
+    int H, int Hk, int Sq, int Skv, int D, int DV, int causal, int window,
+    int parts, float scale, void* stream) {
+  if (!valid(dtype, B, H, Hk, Sq, Skv, D, DV) || (dtype == 0 && parts != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
@@ -1815,8 +1679,9 @@ extern "C" int marlin_flash_attention_bwd_dq_wide(
   if (dtype == 0)
     return (int)run_dq_bf16(q, k, v, dout, l, dl, dq, B, H, Hk, Sq, Skv, D,
                             DV, causal, window, scale, st);
-  return (int)run_dq_f32(q, k, v, dout, l, dl, dq, B, H, Hk, Sq, Skv, D, DV,
-                         causal, window, scale, st);
+  return (int)run_dq_f32(q, k, v, dout, l, dl, dq,
+                         static_cast<float*>(workspace), B, H, Hk, Sq, Skv,
+                         D, DV, causal, window, parts, scale, st);
 }
 
 // dK/dV: `parts_g` parts of each key tile's sweep. bf16: group parts, a

@@ -11,31 +11,21 @@
 // flash_bwd_dkv_f32) and flash_attention_wide.cu (above 256:
 // flash_bwd_dkv_wide_f32) each define their kernel and second pass from
 // these pieces and spell out the cut of a CTA's work in their own body.
+// The box products, the loads and the ring are flash_f32.cuh's.
 //
-// Bound on the H100. Exact f32 (TF32 misses the 1e-5 tile limit) runs on
-// the CUDA cores: 67 TFLOP/s, 128 FMA a clock an SM. 4 (D + DV) FLOP a live
-// (q, k) pair against (D + DV) * 4 bytes a row of the inputs: at D = DV =
-// 128, S = 1000, 8 heads, 4.1 GFLOP against 5 MB, so the FMA rate bounds
-// it (0.061 ms), not HBM. What keeps a kernel from that rate is shared
-// memory: an SM's shared memory fills one warp register a clock against
-// four FFMA a clock, so a register tile of m x n, which needs (m + n) / mn
-// fills a FMA, caps the FMA rate at 1 / (4 (m + n) / mn): 50% at 4 x 4,
-// 67% at 8 x 4.
+// Bound on the H100: 4 (D + DV) FLOP a live (q, k) pair against (D + DV) *
+// 4 bytes a row of the inputs: at D = DV = 128, S = 1000, 8 heads, 4.1
+// GFLOP against 5 MB, so the FMA rate bounds it (0.061 ms), not HBM.
 //
 // Design.
 //  * Two warpgroups, 8 x 4 register tiles. A step gives each warpgroup
 //    one 64 x 64 x 64 box product. In a logit step warpgroup 0 adds a box
-//    of S^T = K q_hat^T and warpgroup 1 one of dP^T = V dO^T where the
-//    CTA holds dK columns, else one of the second half of S^T's boxes
+//    of S^T = K q_hat^T and warpgroup 1 one of dP^T = V dO^T where the CTA
+//    holds dK columns, else one of the second half of S^T's boxes
 //    (warpgroup 0 adds that half's sum to its own). In an output step each
 //    warpgroup adds one of a pair of output boxes: P^T dO into dV, dS^T
-//    q_hat into dK. A thread owns 8 x 4 of each 64 x 64 tile (rows tn + 8 i,
-//    columns tm + 16 j of S^T or dP^T; rows tn + 8 i, columns 4 tm .. 4 tm
-//    + 3 of an output box), reading its operands as float4: 12 reads a
-//    thread per 128 FMA. Rows sit kLd = 68 floats apart, so the 8 threads
-//    of a quarter warp read 8 rows in 32 banks, or one row by broadcast.
-//    P^T (warpgroup 0) and dS^T (warpgroup 1, from P^T) pass through
-//    shared memory once a pair, one barrier apart.
+//    q_hat into dK. P^T (warpgroup 0) and dS^T (warpgroup 1, from P^T)
+//    pass through shared memory once a pair, one barrier apart.
 //  * A split sweep. A CTA owns 64 keys of one KV head, one column share
 //    and one part of the key tile's sweep over its (query head, live query
 //    tile) pairs, head-major: part p holds pairs [p * chunk, (p + 1) *
@@ -53,13 +43,9 @@
 //    live pair: 4 (D + DV) where D + DV <= 512, the counted work; else
 //    nk (2 D + 2 DV) + 2 D + nv 2 D + 2 DV, nk = ceil(D / 512) and nv =
 //    ceil(DV / 512): 1.25x the counted at D = DV = 320 or 512, 2x at 1024.
-//  * Overlapped loads. Every operand comes in 64 x 64 boxes by cp.async
-//    into two ring slots of four boxes (four 16-byte copies a thread a
-//    box; rows past Skv or Sq zero-filled, so 0 * NaN never enters a
-//    product): the next step's boxes load while this step's products run,
-//    one barrier a step. K and V stream too: at D = 1024 a 64-key K tile
-//    alone is 256 KB. lse and Delta of a pair are read into registers at
-//    its first step.
+//  * Overlapped loads. K and V stream like q_hat and dO: at D = 1024 a
+//    64-key K tile alone is 256 KB. lse and Delta of a pair are read into
+//    registers at its first step.
 //
 // ptxas (sm_90a, 256 threads, one CTA an SM): 255 registers, spilling 48
 // to 84 bytes at NB = 8 and the wide kernel, 64 at NB = 3 and 4, none at
@@ -70,17 +56,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "flash_f32.cuh"
+
 namespace dkv_f32 {
 
-constexpr int kThreads = 256;     // two warpgroups
+using namespace flash_f32;
+
 constexpr int kKeys = 64;          // keys a CTA: its rows of dK and dV
 constexpr int kQueries = 64;       // query rows a tile
-constexpr int kBox = 64;           // columns of a streamed box
-constexpr int kLd = kBox + 4;      // row stride of a box in shared memory
-constexpr int kBoxFloats = 64 * kLd;
-constexpr int kStages = 2;         // ring slots, four boxes each
-constexpr int kMaxBoxes = 8;       // output boxes a CTA: 512 columns
-constexpr int kSumThreads = 256;   // the second pass's block
 constexpr float kLn2 = 0.693147180559945309f;
 // The ring, then P^T and dS^T: 174,080 bytes, one CTA an SM.
 constexpr size_t kSmemBytes = sizeof(float) * (4 * kStages + 2) * kBoxFloats;
@@ -103,8 +86,6 @@ struct Args {
   int parts, chunk;
 };
 
-__host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
-
 // Query tiles [*first, *first + *n) that 64-key tile n0 visits: causal
 // starts at the tile holding row n0, a window ends at the tile holding the
 // last row that still sees a key of this tile, never past the last one.
@@ -118,12 +99,6 @@ __host__ __device__ inline void query_tiles(int n0, int Sq, int causal,
   }
   *first = f;
   *n = last > f ? last - f : 0;
-}
-
-// Sweep parts of a key tile of `pairs` (query head, query tile) pairs: at
-// least one, which writes zeros where the tile sees no query.
-__host__ __device__ inline int part_count(int pairs, int chunk) {
-  return pairs > chunk ? cdiv(pairs, chunk) : 1;
 }
 
 // A CTA's output columns, in 64-column boxes: dK's [dk0, dk0 + ndk), dV's
@@ -187,96 +162,11 @@ __device__ __forceinline__ Dest dest_of(const Args& a, const Cta& c,
   return Dest{base, base + a.D, a.Hk * width, a.Hk * width, 1.f};
 }
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           bool valid) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 // Whether query qp sees key kp: both in range, causal k <= q, a window
 // k > q - window.
 __device__ __forceinline__ bool live(const Args& a, int qp, int kp) {
   return qp < a.Sq && kp < a.Skv && (!a.causal || kp <= qp) &&
          (!a.window || kp > qp - a.window);
-}
-
-// A 64 x 64 box from `src` (row stride `stride` floats) into `dst`; rows
-// at or past `valid` are zero-filled.
-__device__ __forceinline__ void load_box(float* dst, const float* src,
-                                         long long stride, int valid) {
-#pragma unroll
-  for (int x = 0; x < 4; ++x) {
-    const int c = threadIdx.x + x * kThreads;
-    const int r = c >> 4, col = (c & 15) * 4;
-    const bool ok = r < valid;
-    cp_async16(dst + r * kLd + col, src + (ok ? r * stride : 0) + col, ok);
-  }
-}
-
-// c[i][j] += sum_w A[tn + 8 i][w] * B[tm + 16 j][w] over the box's 64
-// columns, w in order.
-__device__ __forceinline__ void tile_dot(float (&c)[8][4], const float* A,
-                                         const float* B, int tn, int tm) {
-  const float* a0 = A + tn * kLd;
-  const float* b0 = B + tm * kLd;
-#pragma unroll 2
-  for (int w = 0; w < kBox; w += 4) {
-    float4 y[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      y[j] = *reinterpret_cast<const float4*>(b0 + 16 * j * kLd + w);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const float4 x = *reinterpret_cast<const float4*>(a0 + 8 * i * kLd + w);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        float v = c[i][j];
-        v = fmaf(x.x, y[j].x, v);
-        v = fmaf(x.y, y[j].y, v);
-        v = fmaf(x.z, y[j].z, v);
-        v = fmaf(x.w, y[j].w, v);
-        c[i][j] = v;
-      }
-    }
-  }
-}
-
-// acc[i] += sum_m S[tn + 8 i][m] * Z[m][4 tm .. 4 tm + 3] over the tile's
-// 64 query rows m, in order (S: P^T or dS^T; Z: a dO or q_hat box).
-__device__ __forceinline__ void tile_out(float4 (&acc)[8], const float* S,
-                                         const float* Z, int tn, int tm) {
-  const float* s0 = S + tn * kLd;
-  const float* z0 = Z + 4 * tm;
-#pragma unroll 2
-  for (int m = 0; m < kQueries; m += 4) {
-    float4 z[4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-      z[r] = *reinterpret_cast<const float4*>(z0 + (m + r) * kLd);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const float4 p = *reinterpret_cast<const float4*>(s0 + 8 * i * kLd + m);
-      const float pv[4] = {p.x, p.y, p.z, p.w};
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        acc[i].x = fmaf(pv[r], z[r].x, acc[i].x);
-        acc[i].y = fmaf(pv[r], z[r].y, acc[i].y);
-        acc[i].z = fmaf(pv[r], z[r].z, acc[i].z);
-        acc[i].w = fmaf(pv[r], z[r].w, acc[i].w);
-      }
-    }
-  }
 }
 
 // One CTA's sweep: pairs [first, last) of key tile c.t's (query head,
@@ -337,7 +227,7 @@ __device__ __forceinline__ void sweep(const Args& a, const Cta& c,
     if (p_pair < last) {
       const int h = c.hk * group + p_g;
       const int m0 = (tile0 + p_q) * kQueries;
-      float* slot = smem + (p_step % kStages) * 4 * kBoxFloats;
+      float* slot = slot_of(smem, p_step);
       const long long qo =
           ((long long)c.b * a.Sq + m0) * q_row + (long long)h * a.D;
       const long long oo =
@@ -376,14 +266,7 @@ __device__ __forceinline__ void sweep(const Args& a, const Cta& c,
     cp_async_commit();
     ++p_step;
   };
-  // Wait for step i's boxes; every thread is past step i - 1, so its slot
-  // takes step i + kStages - 1's.
-  auto advance = [&](int i) -> const float* {
-    cp_async_wait<kStages - 2>();
-    __syncthreads();
-    load_next();
-    return smem + (i % kStages) * 4 * kBoxFloats;
-  };
+  auto advance = [&](int i) { return flash_f32::advance(smem, i, load_next); };
 
   float4 acc[(NB + 1) / 2][8];
 #pragma unroll

@@ -8,7 +8,8 @@ become CUDA C++ kernels: ``_kernel`` (the forward) is
 For bf16 all three kernels run wgmma fed by TMA through an mbarrier
 ring; for f32 all three are FMA kernels. Above head dim 256 the three
 wide kernels of ``csrc/flash_attention_wide.cu`` take their place, on
-wgmma and a TMA ring for bf16 and FMA for f32. The
+wgmma and a TMA ring for bf16 and register-tiled FMA fed by a cp.async
+ring for f32. The
 TPU's block constants and VMEM clamps (``DEFAULT_BLOCK_Q/K``,
 ``effective_blocks``, ``window_block_clamp``, the backward's 512-row
 clamp, the lane-replicated lse) do not carry over: each CUDA kernel uses
@@ -42,13 +43,15 @@ ring, a CTA owning up to :data:`WIDE_BF16_COLUMNS` of the output's columns
 of dK or of dV (a key tile's parts, :func:`_wide_dkv_plan`, each computing
 S^T again; where the CTAs would not fill two waves of the card, the group
 of query heads is split too and a second launch sums the parts' f32
-partials in a fixed order). The f32 forward and dQ run FMA kernels whose
-CTAs own :data:`WIDE_OUT_COLUMNS` columns each. The f32 dK/dV, narrow
-and wide, is one register-tiled FMA design (``csrc/flash_dkv_f32.cuh``)
-whose CTAs own 64 keys, up to :data:`F32_DKV_COLUMNS` output columns and
-one part of the key tile's sweep over (query head, query tile) pairs;
-:func:`_f32_dkv_plan` cuts it, and a second launch adds the parts' f32
-partials in a fixed order.
+partials in a fixed order). The f32 kernels are register-tiled FMA on
+the CUDA cores (the pieces in ``csrc/flash_f32.cuh``), every CTA holding
+up to :data:`F32_COLUMNS` output columns and one part of its tile's
+sweep, a second launch merging the parts' f32 partials in a fixed order.
+The wide forward and dQ (``csrc/flash_fwd_dq_f32.cuh``) own 64 query rows
+of one query head a CTA and cut each query tile's sweep over its live key
+tiles (:func:`_f32_q_plan`); the f32 dK/dV, narrow and wide
+(``csrc/flash_dkv_f32.cuh``), owns 64 keys a CTA and cuts each key tile's
+sweep over its (query head, query tile) pairs (:func:`_f32_dkv_plan`).
 
 Public layout is the JAX package's ``(S, H, D)``, plus an optional
 leading batch dimension that stands in for ``jax.vmap``.
@@ -75,25 +78,29 @@ _LOG2E = math.log2(math.e)
 # 64 and 128 pair freely; 256 only with 256 (_kernel_head_dims).
 KERNEL_HEAD_DIMS = (64, 128, 256)
 # Above 256, D and Dv are each padded to a multiple of this for the wide
-# kernels (their box and reduction chunk), whose FMA kernels' CTAs (f32)
-# each own WIDE_OUT_COLUMNS output columns (kOut) and whose bf16 CTAs at
-# most WIDE_BF16_COLUMNS (two consumer warpgroups of kMaxBoxes 64-column
-# boxes each): the forward's and dQ's query rows, and dK/dV's
-# WIDE_DKV_KEYS keys (kDkvKeys). The bf16 dK/dV splits each KV head's group
-# of query heads over CTAs where its grid would not fill WIDE_DKV_WAVES
-# waves of one CTA per SM (_wide_dkv_plan).
+# kernels (their box), whose bf16 CTAs own at most WIDE_BF16_COLUMNS
+# output columns (two consumer warpgroups of kMaxBoxes 64-column boxes
+# each): the forward's and dQ's query rows, and dK/dV's WIDE_DKV_KEYS keys
+# (kDkvKeys). The bf16 dK/dV splits each KV head's group of query heads
+# over CTAs where its grid would not fill WIDE_DKV_WAVES waves of one CTA
+# per SM (_wide_dkv_plan).
 WIDE_MULTIPLE = 64
-WIDE_OUT_COLUMNS = 128
 WIDE_BF16_COLUMNS = 640
 WIDE_DKV_KEYS = 64
 WIDE_DKV_WAVES = 2
-# The f32 dK/dV (csrc/flash_dkv_f32.cuh, narrow and wide): a CTA's keys
-# (kKeys) and query rows a tile (kQueries), the most output columns it
-# holds (kMaxBoxes x kBox) and the waves of one CTA an SM its plan aims at.
+# The f32 kernels: the most output columns a CTA holds (kMaxBoxes x kBox
+# of csrc/flash_f32.cuh). The f32 dK/dV (csrc/flash_dkv_f32.cuh, narrow
+# and wide): a CTA's keys (kKeys), the query rows of a tile (kQueries)
+# and the waves of one CTA an SM its plan aims at. The wide f32 forward
+# and dQ (csrc/flash_fwd_dq_f32.cuh): a CTA's query rows (kQueries) and
+# the keys of a forward tile (kFwdKeys) and of a dQ tile (kDqKeys).
+F32_COLUMNS = 512
 F32_DKV_KEYS = 64
 F32_DKV_QUERIES = 64
-F32_DKV_COLUMNS = 512
 F32_DKV_WAVES = 2
+F32_Q_ROWS = 64
+F32_FWD_KEYS = 128
+F32_DQ_KEYS = 64
 _KERNEL_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 
 # (query rows, keys) of each bf16 kernel's tile: the forward's kBM x kBN in
@@ -256,35 +263,41 @@ def _wide_lib() -> ctypes.CDLL:
                     lib.marlin_flash_attention_bwd_dkv_wide)
     if fwd.argtypes is None:
         fwd.restype = dq.restype = dkv.restype = ctypes.c_int
-        fwd.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 6
-                        + [ctypes.c_int] * 9 + [ctypes.c_void_p])
-        dq.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 7
-                       + [ctypes.c_int] * 9
+        fwd.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 7
+                        + [ctypes.c_int] * 10 + [ctypes.c_void_p])
+        dq.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 8
+                       + [ctypes.c_int] * 10
                        + [ctypes.c_float, ctypes.c_void_p])
         dkv.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 9
                         + [ctypes.c_int] * 10 + [ctypes.c_void_p])
     return lib
 
 
+def _even_shares(width: int, most: int) -> list:
+    """``[(first column, columns)]``: ``width`` (a multiple of
+    :data:`WIDE_MULTIPLE`) in the fewest shares of at most ``most``
+    columns, as even as 64-column boxes allow."""
+    boxes = width // WIDE_MULTIPLE
+    n = -(-width // most)
+    edges = [z * boxes // n * WIDE_MULTIPLE for z in range(n + 1)]
+    return [(a, b - a) for a, b in zip(edges, edges[1:])]
+
+
 def _wide_column_chunks(width: int, dtype) -> list:
-    """``[(first column, columns)]``: the wide kernels' CTAs along grid z
-    for an output ``width`` columns wide (Dv for the forward, D for dQ; a
-    multiple of :data:`WIDE_MULTIPLE`), as ``csrc/flash_attention_wide.cu``
-    cuts it. bf16 (the wgmma kernels, ``out_chunks`` and ``OutSplit``):
-    64-column boxes, at most :data:`WIDE_BF16_COLUMNS` a CTA, as evenly as
-    whole boxes allow, so one CTA up to 640 columns and two of 512 at
-    1024. f32 (the FMA kernels, ``chunks``): :data:`WIDE_OUT_COLUMNS` a
-    CTA, the last one holding the rest."""
+    """``[(first column, columns)]``: the wide kernels' CTAs along the
+    output's columns for an output ``width`` columns wide (Dv for the
+    forward, D for dQ; a multiple of :data:`WIDE_MULTIPLE`), as
+    ``csrc/flash_attention_wide.cu`` cuts it: 64-column boxes, as evenly as
+    whole boxes allow, at most :data:`WIDE_BF16_COLUMNS` a CTA for bf16
+    (the wgmma kernels, ``out_chunks`` and ``OutSplit``: one CTA up to 640
+    columns) and :data:`F32_COLUMNS` for f32 (``share_of`` of
+    ``csrc/flash_fwd_dq_f32.cuh``: one up to 512); two CTAs of 512 at
+    1024 either way."""
     if width < WIDE_MULTIPLE or width % WIDE_MULTIPLE:
         raise ValueError(f"width {width} is not a positive multiple of "
                          f"{WIDE_MULTIPLE}")
-    if dtype == torch.bfloat16:
-        boxes = width // WIDE_MULTIPLE
-        n = -(-width // WIDE_BF16_COLUMNS)
-        edges = [z * boxes // n * WIDE_MULTIPLE for z in range(n + 1)]
-        return [(a, b - a) for a, b in zip(edges, edges[1:])]
-    return [(c, min(WIDE_OUT_COLUMNS, width - c))
-            for c in range(0, width, WIDE_OUT_COLUMNS)]
+    return _even_shares(width, WIDE_BF16_COLUMNS if dtype == torch.bfloat16
+                        else F32_COLUMNS)
 
 
 class WideDkvPlan(NamedTuple):
@@ -340,19 +353,12 @@ def _f32_query_tiles(n0: int, sq: int, causal: bool, window: int):
 def _f32_dkv_shares(d: int, dv: int) -> list:
     """The f32 dK/dV's column shares ``[(dK's first column, columns, dV's
     first column, columns)]`` (``share_of``): all of dK and dV in one where
-    D + Dv <= :data:`F32_DKV_COLUMNS`, else dK's shares then dV's, each of
+    D + Dv <= :data:`F32_COLUMNS`, else dK's shares then dV's, each of
     ceil(width / 512) shares as even as 64-column boxes allow."""
-    box = WIDE_MULTIPLE
-    if d + dv <= F32_DKV_COLUMNS:
+    if d + dv <= F32_COLUMNS:
         return [(0, d, 0, dv)]
-    out = []
-    for role, width in (("dk", d), ("dv", dv)):
-        boxes = width // box
-        n = -(-boxes // (F32_DKV_COLUMNS // box))
-        for z in range(n):
-            a, e = z * boxes // n * box, (z + 1) * boxes // n * box
-            out.append((a, e - a, 0, 0) if role == "dk" else (0, 0, a, e - a))
-    return out
+    return ([(a, n, 0, 0) for a, n in _even_shares(d, F32_COLUMNS)]
+            + [(0, 0, a, n) for a, n in _even_shares(dv, F32_COLUMNS)])
 
 
 class F32DkvPlan(NamedTuple):
@@ -375,11 +381,34 @@ class F32DkvPlan(NamedTuple):
 
 
 def _f32_cut(pairs: list, parts: int):
-    """``(chunk, parts of each key tile)`` for the live pairs ``pairs`` of
-    each key tile and P = ``parts`` (``launch`` and ``part_count``)."""
+    """``(chunk, parts of each tile)`` for the live units of work ``pairs``
+    of each tile (the dK/dV's pairs of each key tile, the forward's and
+    dQ's key tiles of each query tile) and P = ``parts`` (``launch`` and
+    ``part_count``)."""
     most = max(pairs)
     chunk = -(-most // parts) if most > parts else 1
     return chunk, [-(-n // chunk) if n > chunk else 1 for n in pairs]
+
+
+def _f32_best_parts(units: list, cost_of, ctas_of, sms: int,
+                    waves: int) -> int:
+    """P of an f32 plan: of the P whose CTAs (``ctas_of(chunk,
+    tile_parts)``) fill ``waves`` waves of ``sms`` SMs (all P when none
+    does), the one whose CTAs (``cost_of(chunk, tile_parts)``, each CTA's
+    steps in launch order) finish soonest on ``sms`` SMs, then the least.
+    Each chunk of ``units`` counts once, at its least P."""
+    cands, seen = [], set()
+    for p in range(1, max(units) + 1):
+        chunk, tile_parts = _f32_cut(units, p)
+        if chunk in seen:
+            continue
+        seen.add(chunk)
+        ctas = ctas_of(chunk, tile_parts)
+        cands.append((ctas >= waves * sms,
+                      -_f32_makespan(cost_of(chunk, tile_parts), sms), -p, p))
+        if ctas >= 16 * sms:
+            break
+    return max(cands)[-1]
 
 
 def _f32_makespan(cost: list, sms: int) -> float:
@@ -415,24 +444,96 @@ def _f32_dkv_plan(b: int, h: int, hk: int, sq: int, skv: int, d: int,
     steps = [((max(d, dv) if nk else -(-d // (2 * box)) * box) // box
               + -(-(nk + nv) // (2 * box)), (nk + nv) / 256)
              for _, nk, _, nv in shares]
-    cands, seen = [], set()
-    for p in range(1, max(pairs) + 1):
-        chunk, tile_parts = _f32_cut(pairs, p)
-        if chunk in seen:
-            continue
-        seen.add(chunk)
-        ctas = b * hk * len(shares) * sum(tile_parts)
-        cost = [min(chunk, n - i * chunk) * st + 1 + (tp > 1) * ws
+
+    def cost_of(chunk, tile_parts):
+        return [min(chunk, n - i * chunk) * st + 1 + (tp > 1) * ws
                 for n, tp in zip(pairs, tile_parts) for i in range(tp)
                 for _ in range(b * hk) for st, ws in steps]
-        cands.append((ctas >= F32_DKV_WAVES * sms,
-                      -_f32_makespan(cost, sms), -p, p))
-        if ctas >= 8 * F32_DKV_WAVES * sms:
-            break
-    p = max(cands)[-1]
+
+    p = _f32_best_parts(
+        pairs, cost_of,
+        lambda chunk, tile_parts: b * hk * len(shares) * sum(tile_parts), sms,
+        F32_DKV_WAVES)
     chunk, tile_parts = _f32_cut(pairs, p)
     ws = p * b * skv * hk * (d + dv) * 4 if p > 1 else 0
     return F32DkvPlan(shares, group, tiles, p, chunk, tile_parts, ws)
+
+
+def _f32_key_tiles(m0: int, keys: int, skv: int, causal: bool,
+                   window: int):
+    """``(first, n)``: the tiles of ``keys`` keys that the query tile at
+    row ``m0`` visits (``key_tiles`` of ``csrc/flash_fwd_dq_f32.cuh``):
+    causal up to the tile's last row, a window from the band's first key
+    tile."""
+    hi = min(skv, m0 + F32_Q_ROWS) if causal else skv
+    lo = max(0, m0 - window + 1) // keys * keys if window else 0
+    return lo // keys, (-(-(hi - lo) // keys) if hi > lo else 0)
+
+
+class F32QPlan(NamedTuple):
+    """How the wide f32 forward or dQ kernel cuts its work
+    (``csrc/flash_fwd_dq_f32.cuh``; the C entries take ``parts``).
+    ``shares``: each query tile's CTAs along the output's columns (O's Dv
+    for the forward, dQ's D), ``(first column, columns)``. ``keys``: the
+    keys of a tile. ``tiles``: each query tile's ``(first key tile, live
+    key tiles)``. A query tile's sweep is cut into parts of ``chunk`` key
+    tiles, ``tile_parts[t]`` of them (at least 1); ``parts`` (P) is the
+    most. ``workspace_bytes``: the parts' f32 partials, 0 for P = 1 (no
+    second pass): the forward's unnormalised O (P, B, Sq, H, Dv), then m
+    and l, each (P, shares, B, H, Sq); dQ's sums (P, B, Sq, H, D)."""
+    shares: list
+    keys: int
+    tiles: list
+    parts: int
+    chunk: int
+    tile_parts: list
+    workspace_bytes: int
+
+
+@functools.lru_cache(maxsize=256)
+def _f32_q_plan(kind: str, b: int, h: int, hk: int, sq: int, skv: int,
+                d: int, dv: int, causal: bool, window: int, sms: int,
+                parts: Optional[int] = None) -> F32QPlan:
+    """The wide f32 forward's (``kind`` "fwd") or dQ's ("dq") cut on a card
+    of ``sms`` SMs (kernel head dims ``d``, ``dv``), one CTA an SM; P =
+    ``parts`` where given, else the P whose CTAs finish soonest by the
+    makespan model of :func:`_f32_dkv_plan`, with no aim of filling two
+    waves (at ``d512_s2048_f32`` P = 1's 256 CTAs beat P = 2's 384 on the
+    card, as the model says: PERF.md). The grid runs the last query tile
+    (the heaviest) first. A CTA's steps (a 64 x 64 x 64 box product for
+    each of its two warpgroups) per key tile: the forward D / 64 logit
+    steps (a 64-key half each) and two per two of its output boxes (both
+    halves' keys), dQ max(D, Dv) / 64 (S beside dP) and one per two output
+    boxes; its ring and its stores one more, and a part of a query tile of
+    several one step per 256 columns for its partials."""
+    fwd = kind == "fwd"
+    keys = F32_FWD_KEYS if fwd else F32_DQ_KEYS
+    width = dv if fwd else d
+    shares = _even_shares(width, F32_COLUMNS)
+    tiles = [_f32_key_tiles(t * F32_Q_ROWS, keys, skv, causal, window)
+             for t in range(-(-sq // F32_Q_ROWS))]
+    units = [n for _, n in tiles]
+    box = WIDE_MULTIPLE
+    steps = [((d // box + 2 * -(-cols // (2 * box))) if fwd
+              else max(d, dv) // box + -(-cols // (2 * box)), cols / 256)
+             for _, cols in shares]
+
+    def cost_of(chunk, tile_parts):
+        return [min(chunk, n - i * chunk) * st + 1 + (tp > 1) * ws
+                for n, tp in zip(units[::-1], tile_parts[::-1])
+                for i in range(tp) for _ in range(b * h) for st, ws in steps]
+
+    if parts is None:  # a query tile with no live key tile still runs a part
+        parts = _f32_best_parts(
+            [max(n, 1) for n in units], cost_of,
+            lambda chunk, tile_parts: b * h * len(shares) * sum(tile_parts),
+            sms, 0)
+    chunk, tile_parts = _f32_cut(units, parts)
+    ws = 0
+    if parts > 1:
+        per = b * sq * h * width + (2 * len(shares) * b * h * sq if fwd else 0)
+        ws = parts * per * 4
+    return F32QPlan(shares, keys, tiles, parts, chunk, tile_parts, ws)
 
 
 def _is_wide(d: int, dv: int) -> bool:
@@ -512,13 +613,35 @@ def _launch(q_hat, k, v, causal: bool, window: int):
     return o, lse
 
 
+def _q_parts(kind, q_hat, k, v, causal: bool, window: int,
+             parts: Optional[int]):
+    """``(P, workspace or None)`` of the wide forward (``kind`` "fwd") or
+    dQ ("dq") kernel on these batched tensors: 1 and none for bf16; for
+    f32 :func:`_f32_q_plan`'s P (``parts`` where given) and, for P > 1,
+    its f32 workspace."""
+    if q_hat.dtype != torch.float32:
+        return 1, None
+    b, sq, h, d = q_hat.shape
+    skv, hk, dv = k.shape[1], k.shape[2], v.shape[3]
+    plan = _f32_q_plan(kind, b, h, hk, sq, skv, d, dv, bool(causal),
+                       int(window), _sm_count(q_hat.device), parts)
+    ws = None
+    if plan.workspace_bytes:
+        ws = torch.empty(plan.workspace_bytes // 4, dtype=torch.float32,
+                         device=q_hat.device)
+    return plan.parts, ws
+
+
 def _launch_wide(q_hat, k, v, causal: bool, window: int,
-                 lse_chunks: bool = False):
+                 lse_chunks: bool = False, parts: Optional[int] = None):
     """Run the wide forward kernel (B3 above head dim 256) on batched
     tensors whose head dims it takes: ``(O, lse, chunks)``, ``chunks``
-    being every CTA's own lse along grid z (:func:`_wide_column_chunks` of
-    Dv), (chunks, B, H, Sq), when ``lse_chunks`` asks for it (a check that
-    they agree), else None."""
+    being every CTA's own lse along the output's columns
+    (:func:`_wide_column_chunks` of Dv), (chunks, B, H, Sq), when
+    ``lse_chunks`` asks for it (a check that they agree), else None. The
+    f32 kernel gets the sweep parts P of :func:`_f32_q_plan` (``parts``
+    where given) and for P > 1 its workspace; the second pass is part of
+    the same call (one launch counted)."""
     global wide_launches
     lib = _wide_lib()
     b, sq, h, d = q_hat.shape
@@ -531,13 +654,15 @@ def _launch_wide(q_hat, k, v, causal: bool, window: int,
         chunks = torch.empty((len(_wide_column_chunks(dv, q_hat.dtype)), b,
                               h, sq),
                              dtype=torch.float32, device=q_hat.device)
+    p, ws = _q_parts("fwd", q_hat, k, v, causal, window, parts)
     with torch.cuda.device(q_hat.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.marlin_flash_attention_fwd_wide(
             _KERNEL_DTYPES[q_hat.dtype], q_hat.data_ptr(), k.data_ptr(),
             v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-            None if chunks is None else chunks.data_ptr(), b, h, hk, sq,
-            skv, d, dv, int(causal), int(window), stream)
+            None if chunks is None else chunks.data_ptr(),
+            None if ws is None else ws.data_ptr(), b, h, hk, sq, skv, d, dv,
+            int(causal), int(window), p, stream)
     _check_err(err, "flash_attention_fwd_wide", b, sq, skv, h, hk, d, dv)
     wide_launches += 1
     return o, lse, chunks
@@ -567,23 +692,32 @@ def _bwd_setup(q_hat, k, v, do, lse, delta):
 
 
 def _launch_bwd_dq(q_hat, k, v, do, lse, delta, causal: bool, window: int,
-                   scale: float):
+                   scale: float, parts: Optional[int] = None):
     """Run the dQ kernel (B4; the wide one above head dim 256): dQ in
-    q's dtype, (B, Sq, H, D)."""
+    q's dtype, (B, Sq, H, D). The wide f32 kernel gets the sweep parts P
+    of :func:`_f32_q_plan` (``parts`` where given) and for P > 1 its
+    workspace; the second pass is part of the same call (one launch
+    counted)."""
     global bwd_dq_launches, wide_dq_launches
     lib, (b, sq, h, d, skv, hk, dv) = _bwd_setup(q_hat, k, v, do, lse,
                                                  delta)
     wide = _is_wide(d, dv)
     dq = torch.empty_like(q_hat)
+    args = (q_hat.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr())
+    dims = (b, h, hk, sq, skv, d, dv, int(causal), int(window))
     with torch.cuda.device(q_hat.device):
         stream = torch.cuda.current_stream().cuda_stream
-        fn = (lib.marlin_flash_attention_bwd_dq_wide if wide
-              else lib.marlin_flash_attention_bwd_dq)
-        err = fn(
-            _KERNEL_DTYPES[q_hat.dtype], q_hat.data_ptr(), k.data_ptr(),
-            v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-            dq.data_ptr(), b, h, hk, sq, skv, d, dv, int(causal),
-            int(window), float(scale), stream)
+        if wide:
+            p, ws = _q_parts("dq", q_hat, k, v, causal, window, parts)
+            err = lib.marlin_flash_attention_bwd_dq_wide(
+                _KERNEL_DTYPES[q_hat.dtype], *args,
+                None if ws is None else ws.data_ptr(), *dims, p,
+                float(scale), stream)
+        else:
+            err = lib.marlin_flash_attention_bwd_dq(
+                _KERNEL_DTYPES[q_hat.dtype], *args, *dims, float(scale),
+                stream)
     _check_err(err, "flash_attention_bwd_dq" + "_wide" * wide, b, sq, skv,
                h, hk, d, dv)
     if wide:
@@ -594,7 +728,7 @@ def _launch_bwd_dq(q_hat, k, v, do, lse, delta, causal: bool, window: int,
 
 
 def _sm_count(device) -> int:
-    """The card's SM count, which :func:`_wide_dkv_plan` fills."""
+    """The card's SM count, which the plans fill."""
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 

@@ -267,38 +267,40 @@ def test_head_dims_above_256_raise_naming_c4(d, width, monkeypatch):
     assert seen == [(width, width, 64)] and out.shape == (1, 8, 2, 32)
 
 
-def _kernel_constant(name):
+def _kernel_constant(name, source="flash_attention_wide.cu"):
     text = (Path(__file__).resolve().parents[1] / "marlin_tpu_torch" / "csrc"
-            / "flash_attention_wide.cu").read_text()
+            / source).read_text()
     return int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
 
 
 @pytest.mark.parametrize("width", [64, 128, 320, 512, 576, 640, 704, 1024,
                                    1088, 2048])
 def test_wide_column_chunks_follow_the_kernels_split(width):
-    # The wide kernels' CTAs along grid z (out_chunks and OutSplit of
-    # csrc/flash_attention_wide.cu for bf16, chunks for f32), which the
-    # wrapper sizes the forward's per-CTA lse copies by. bf16: 64-column
-    # boxes, at most two consumers of kMaxBoxes boxes a CTA (640 columns),
-    # one CTA up to 640 and the boxes shared as evenly as whole boxes
-    # allow beyond (two CTAs of 512 at 1024); each CTA's first consumer
-    # takes ceil(n / 2) of its n boxes. f32: 128 columns a CTA.
+    # The wide kernels' CTAs along the output's columns (out_chunks and
+    # OutSplit of csrc/flash_attention_wide.cu for bf16, share_of of
+    # csrc/flash_fwd_dq_f32.cuh for f32), which the wrapper sizes the
+    # forward's per-CTA lse copies by: 64-column boxes, as evenly as whole
+    # boxes allow. bf16: at most two consumers of kMaxBoxes boxes a CTA
+    # (640 columns), one CTA up to 640 and two of 512 at 1024; each CTA's
+    # first consumer takes ceil(n / 2) of its n boxes. f32: at most
+    # kMaxBoxes boxes of csrc/flash_f32.cuh a CTA (512 columns), one CTA up
+    # to 512 and two of 512 at 1024.
     assert pfa.WIDE_BF16_COLUMNS == 2 * _kernel_constant("kMaxBoxes") * 64
-    assert pfa.WIDE_OUT_COLUMNS == _kernel_constant("kOut")
+    assert pfa.F32_COLUMNS == _kernel_constant("kMaxBoxes",
+                                               "flash_f32.cuh") * 64
     for dtype in (torch.bfloat16, torch.float32):
         chunks = pfa._wide_column_chunks(width, dtype)
         assert chunks[0][0] == 0
         assert all(a + n == b for (a, n), (b, _) in zip(chunks, chunks[1:]))
         assert chunks[-1][0] + chunks[-1][1] == width
         assert all(n % 64 == 0 and n > 0 for _, n in chunks)
-    bf16 = [n for _, n in pfa._wide_column_chunks(width, torch.bfloat16)]
-    assert max(bf16) <= pfa.WIDE_BF16_COLUMNS
-    assert (len(bf16) == 1) == (width <= pfa.WIDE_BF16_COLUMNS)
-    assert len(bf16) == -(-width // pfa.WIDE_BF16_COLUMNS)
-    assert max(bf16) - min(bf16) <= 64
-    f32 = [n for _, n in pfa._wide_column_chunks(width, torch.float32)]
-    assert f32[:-1] == [pfa.WIDE_OUT_COLUMNS] * (len(f32) - 1)
-    assert len(f32) == -(-width // pfa.WIDE_OUT_COLUMNS)
+    for dtype, most in ((torch.bfloat16, pfa.WIDE_BF16_COLUMNS),
+                        (torch.float32, pfa.F32_COLUMNS)):
+        cols = [n for _, n in pfa._wide_column_chunks(width, dtype)]
+        assert max(cols) <= most
+        assert (len(cols) == 1) == (width <= most)
+        assert len(cols) == -(-width // most)
+        assert max(cols) - min(cols) <= 64
     with pytest.raises(ValueError, match="multiple of 64"):
         pfa._wide_column_chunks(width + 32, torch.bfloat16)
 

@@ -453,8 +453,10 @@ def test_transformer_step_flops_counts_at_64_tiles_whatever_the_kernels():
 # Each planted fault of chip_smoke.py (an edit of the first occurrence of
 # its text) and the body that occurrence must lie in: the kernel it breaks
 # (for the f32 dK/dV, the kernel whose own body cuts its work, or its
-# second pass), or for the SpMM walk's faults the walk (struct LiveBlocks)
-# whose part it edits only the kernel of its route takes.
+# second pass; for the wide f32 forward and dQ, that or the sweep of
+# csrc/flash_fwd_dq_f32.cuh), or for the SpMM walk's faults the walk
+# (struct LiveBlocks) whose part it edits only the kernel of its route
+# takes.
 PLANTED_FAULT_KERNELS = {
     "fwd_drops_last_key_tile": ("flash_attention_fwd.cu", "flash_fwd_bf16("),
     "fwd_skips_o_rescale": ("flash_attention_fwd.cu", "flash_fwd_bf16("),
@@ -493,8 +495,14 @@ PLANTED_FAULT_KERNELS = {
                                     "flash_bwd_dq_wide_bf16("),
     "wide_dq_second_consumer_reads_first_k_columns": (
         "flash_attention_wide.cu", "flash_bwd_dq_wide_bf16("),
-    "wide_f32_fwd_skips_o_rescale": ("flash_attention_wide.cu",
-                                     "flash_fwd_wide_f32("),
+    "wide_f32_fwd_skips_o_rescale": ("flash_fwd_dq_f32.cuh", "fwd_sweep("),
+    "wide_f32_fwd_merge_drops_last_part": ("flash_attention_wide.cu",
+                                           "flash_fwd_merge_f32("),
+    "wide_f32_fwd_second_share_reads_first_v_columns": (
+        "flash_attention_wide.cu", "flash_fwd_wide_f32("),
+    "wide_f32_dq_drops_last_dv_box": ("flash_fwd_dq_f32.cuh", "dq_sweep("),
+    "wide_f32_dq_sum_drops_last_part": ("flash_attention_wide.cu",
+                                        "flash_dq_part_sum_f32("),
     "wide_dkv_drops_last_query_tile": ("flash_attention_wide.cu",
                                        "flash_bwd_dkv_wide_f32("),
     "wide_f32_dkv_second_share_reads_first_columns": (
