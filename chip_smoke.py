@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py                    # every phase below
     python3 chip_smoke.py --planted-faults   # the kernel checks' teeth
-    python3 chip_smoke.py --compare-with DIR # dQ and SpMM against DIR's
+    python3 chip_smoke.py --compare-with DIR # the kernels against DIR's
 
 Phases, each of which exits non-zero on failure:
 
@@ -123,9 +123,11 @@ within the f32 limits the port's kernels are held to. The f32 dK/dV,
 narrow and wide, is one design (csrc/flash_dkv_f32.cuh): phase 4 holds it
 bitwise over two runs at every f32 shape (with P = 1 and P > 1 sweep
 parts) and prints its plan (P, chunk, column shares, workspace bytes);
-the wide f32 forward and dQ (csrc/flash_fwd_dq_f32.cuh) print theirs in
-phases 3 and 4, and are held with their plan's P and with P = 1: the
-forward's lse copies equal, dQ bitwise over two runs each.
+the f32 forward and dQ, narrow and wide, are one design too
+(csrc/flash_fwd_dq_f32.cuh): phases 3 and 4 print their plans and hold
+them at every f32 shape with their plan's P and with the other of 1 and
+2 (other_parts): O and lse to the plain version's limits, the wide
+forward's lse copies equal, dQ bitwise over two runs at each P.
 LARGE_F32_SHAPES (the flagship step's attention in f32, and D = Dv = 512
 at S = 2048 under GQA) read its share of the bound.
 
@@ -136,23 +138,23 @@ With ``--planted-faults`` it runs phase 1, then builds the forward source
 with each fault of FWD_PLANTED_FAULTS, the backward source with each fault
 of PLANTED_FAULTS, the wide source with each fault of WIDE_KERNEL_FAULTS
 and the SpMM source with each fault of SPMM_PLANTED_FAULTS into a
-temporary directory and prints, at every bf16 shape of the forward,
-backward and SpMM checks, at the f32 shapes of the wide kernels and, for
-the backward, at those of the narrow ones (not the LARGE_F32_SHAPES), the
-sound kernels' and each fault's reading of the check; it fails unless the
-check's limit (the shape's dtype's) separates them.
+temporary directory and prints, at every shape of the forward and
+backward checks but the LARGE_F32_SHAPES and at every bf16 SpMM shape,
+the sound kernels' and each fault's reading of the check; it fails unless
+the check's limit (the shape's dtype's) separates them wherever the fault
+can show.
 
-With ``--compare-with DIR`` it runs phase 1, then builds DIR's backward,
-wide and SpMM sources (another checkout, e.g. the parent commit unpacked
-by ``git archive``) and this tree's KERNEL_VARIANTS, holds each against
-the plain version and times dQ at the train and remat shapes, both SpMM
+With ``--compare-with DIR`` it runs phase 1, then builds DIR's forward,
+backward, wide and SpMM sources (another checkout, e.g. the parent commit
+unpacked by ``git archive``) and this tree's KERNEL_VARIANTS, holds each
+against the plain version and times dQ at the train and remat shapes, both SpMM
 routes at bench512 and coo128, the wide bf16 forward, dQ and dK/dV at
 the LARGE_WIDE_SHAPES, the f32 dK/dV (narrow and wide) at PERF.md's f32
-table shapes and the LARGE_F32_SHAPES and the wide f32 forward and dQ at
-PERF.md's wide f32 table shapes, warm and cold, in two rounds in opposite
-orders; beside them the wide kernels' ablations (wide_ablations: no TMA
-loads, no logit products, loads only, the ring's sync only), the f32
-dK/dV's (F32_DKV_ABLATIONS) and the wide f32 forward's and dQ's
+table shapes and the LARGE_F32_SHAPES and the f32 forward and dQ
+(narrow and wide) at the same shapes, warm and cold, in two rounds in
+opposite orders; beside them the wide kernels' ablations (wide_ablations:
+no TMA loads, no logit products, loads only, the ring's sync only), the
+f32 dK/dV's (F32_DKV_ABLATIONS) and the f32 forward's and dQ's
 (F32_Q_ABLATIONS), timed, not held, and at the f32 shapes SDPA's forward
 or whole backward with its backend.
 """
@@ -290,9 +292,11 @@ TILE = 64  # positions per tile of tile_rel_err (the backward kernels' tile)
 FWD_TILE_TOLERANCE = {"bfloat16": 2e-2, "float32": 1e-5}
 
 # Planted faults of the forward: edits of csrc/flash_attention_fwd.cu (the
-# first occurrence of the text, in the bf16 kernel), built like
-# PLANTED_FAULTS below. The forward check must pass the sound kernel and
-# fail every fault at every bf16 forward shape.
+# first occurrence of the text, in the bf16 kernel or in the f32 kernel's
+# own cut of its work and its second pass), built like PLANTED_FAULTS
+# below. The forward check must pass the sound kernels and fail every bf16
+# fault at every bf16 forward shape, every f32 one at the f32 shapes of
+# the narrow kernels (F32_FAULT_SHOWS).
 FWD_PLANTED_FAULTS = {
     # Every query tile's key sweep stops one key tile short.
     "fwd_drops_last_key_tile": (
@@ -307,6 +311,15 @@ FWD_PLANTED_FAULTS = {
     "fwd256_second_half_reads_first_v_half": (
         "                           v_base + 2 * L::kKvBox + kc * 16 * 128,\n",
         "                           v_base + kc * 16 * 128,\n"),
+    # Every sweep part of the f32 forward (flash_fwd_f32) leaves out its
+    # last key tile.
+    "fwd_f32_part_drops_last_key_tile": (
+        "  const int kt1 = min(kt0 + a.chunk, first + n);\n",
+        "  const int kt1 = min(kt0 + a.chunk, first + n) - 1;\n"),
+    # The f32 forward's second pass leaves out a query tile's last part.
+    "fwd_f32_merge_drops_last_part": (
+        "    if (parts > 1) fwd_dq_f32::merge_parts(a, e, parts);\n",
+        "    if (parts > 1) fwd_dq_f32::merge_parts(a, e, parts - 1);\n"),
 }
 
 # Planted faults of the backward (``python3 chip_smoke.py
@@ -315,7 +328,7 @@ FWD_PLANTED_FAULTS = {
 # dK/dV's own cut of its work), built into a temporary directory outside
 # the checkout. The backward check must pass the sound kernels and fail
 # every bf16 fault at every bf16 backward shape, every f32 one at the f32
-# shapes of the narrow kernels (F32_DKV_FAULT_SHOWS).
+# shapes of the narrow kernels (F32_FAULT_SHOWS).
 PLANTED_FAULTS = {
     # Every query tile's key sweep in the dQ kernel stops one key tile
     # short (the producer and the consumers agree on the shorter sweep, so
@@ -373,15 +386,37 @@ PLANTED_FAULTS = {
     "dkv_f32_sum_drops_last_part": (
         "    if (parts > 1) dkv_f32::sum_parts(a, e, parts);\n",
         "    if (parts > 1) dkv_f32::sum_parts(a, e, parts - 1);\n"),
+    # Every sweep part of the f32 dQ (flash_bwd_dq_f32) leaves out its last
+    # key tile.
+    "dq_f32_part_drops_last_key_tile": (
+        "  const int kt1 = min(kt0 + a.chunk, first + n);\n",
+        "  const int kt1 = min(kt0 + a.chunk, first + n) - 1;\n"),
+    # The f32 dQ's second pass leaves out a query tile's last part.
+    "dq_f32_sum_drops_last_part": (
+        "    if (parts > 1) fwd_dq_f32::sum_parts(a, e, parts);\n",
+        "    if (parts > 1) fwd_dq_f32::sum_parts(a, e, parts - 1);\n"),
 }
 
-# The planted faults of the narrow f32 dK/dV, each shown at the f32 shapes
-# of the narrow kernels only, where it can: the second pass's where the
-# plan cuts a key tile's sweep into parts (P > 1).
-F32_DKV_FAULT_SHOWS = {
-    "dkv_f32_drops_last_query_tile": None,
-    "dkv_f32_part_drops_last_pair": None,
-    "dkv_f32_sum_drops_last_part": lambda s: f32_dkv_plan(s).parts > 1,
+# The planted faults of the narrow f32 kernels, each shown at the f32
+# shapes of the narrow kernels only, by its own kernel's check ("forward"
+# or "backward"), where it can (None: at every such shape). The forward
+# check reads the plan's P and the other of 1 and 2 (other_parts), so a
+# fault of its second pass shows wherever a query tile has two key tiles
+# or more (at P = 2 the most loaded one has two parts); the backward check
+# reads the plans' P, so a fault of the dK/dV's or dQ's second pass shows
+# where that plan has P > 1.
+F32_FAULT_SHOWS = {
+    "dkv_f32_drops_last_query_tile": ("backward", None),
+    "dkv_f32_part_drops_last_pair": ("backward", None),
+    "dkv_f32_sum_drops_last_part": (
+        "backward", lambda s: f32_dkv_plan(s).parts > 1),
+    "fwd_f32_part_drops_last_key_tile": ("forward", None),
+    "fwd_f32_merge_drops_last_part": (
+        "forward",
+        lambda s: max(n for _, n in f32_q_plan(s, "fwd").tiles) > 1),
+    "dq_f32_part_drops_last_key_tile": ("backward", None),
+    "dq_f32_sum_drops_last_part": (
+        "backward", lambda s: f32_q_plan(s, "dq").parts > 1),
 }
 
 # The planted faults of the flash kernels that only the D = Dv = 256
@@ -541,7 +576,7 @@ def f32_dkv_plan(shape):
 
 
 def f32_q_plan(shape, kind, parts=None):
-    """The wide f32 forward's (``kind`` "fwd") or dQ's ("dq") plan
+    """The f32 forward's (``kind`` "fwd") or dQ's ("dq") plan
     (_f32_q_plan) at ``shape`` on this card: its column shares, its sweep
     parts P (``parts`` where given) and its workspace."""
     import torch
@@ -567,21 +602,11 @@ def plan_summary(plan) -> dict:
                 workspace_bytes=plan.workspace_bytes)
 
 
-def wide_f32(shape) -> bool:
-    """Whether ``shape`` runs the wide f32 kernels."""
-    return shape[0] in WIDE_KERNEL_SHAPES and shape[8] == "float32"
-
-
 def planted_shape(name: str, check: str) -> bool:
     """Whether ``--planted-faults`` reads ``check`` ("forward" or
-    "backward") at shape ``name``: every bf16 shape, the f32 ones of the
-    wide kernels (where the f32 and dK/dV faults of the wide source show)
-    and, for the backward, those of the narrow ones (the f32 dK/dV's);
-    never the LARGE_F32_SHAPES."""
-    if name in LARGE_F32_SHAPES:
-        return False
-    return (SHAPE_BY_NAME[name][8] == "bfloat16"
-            or name in WIDE_KERNEL_SHAPES or check == "backward")
+    "backward") at shape ``name``: every shape, bf16 and f32, narrow and
+    wide, but the LARGE_F32_SHAPES."""
+    return name not in LARGE_F32_SHAPES
 
 
 def flash_fault_shows(fault: str, shape: str, check: str) -> bool:
@@ -591,12 +616,13 @@ def flash_fault_shows(fault: str, shape: str, check: str) -> bool:
     can, in its own kernel's check; one of the D = 256 instantiation at the
     WIDE_SHAPES only; every other one (the narrow bf16 kernels') at every
     bf16 shape but the WIDE_KERNEL_SHAPES (whose calls never reach the
-    narrow kernels); one of the narrow f32 dK/dV at the f32 shapes of the
-    narrow kernels, where it can (F32_DKV_FAULT_SHOWS)."""
+    narrow kernels); one of the narrow f32 kernels at the f32 shapes of the
+    narrow kernels, in its own kernel's check, where it can
+    (F32_FAULT_SHOWS)."""
     s = SHAPE_BY_NAME[shape]
-    if fault in F32_DKV_FAULT_SHOWS:
-        can = F32_DKV_FAULT_SHOWS[fault]
-        return (check == "backward" and s[8] == "float32"
+    if fault in F32_FAULT_SHOWS:
+        kernel_check, can = F32_FAULT_SHOWS[fault]
+        return (check == kernel_check and s[8] == "float32"
                 and shape not in WIDE_KERNEL_SHAPES
                 and (can is None or can(s)))
     if fault in WIDE_KERNEL_FAULTS:
@@ -766,6 +792,13 @@ def wide_fwd(fa, q_hat, k, v, causal, window, parts=None,
     return o[..., :v.shape[-1]], lse, chunks
 
 
+def fwd_with_parts(fa, q_hat, k, v, causal, window, parts):
+    """The forward kernel, narrow or wide, with an f32 kernel's sweep parts
+    P = ``parts``, through the wrapper's padding: (O, lse)."""
+    return fa._padded_fwd(lambda *args: fa._launch(*args, parts=parts),
+                          q_hat, k, v, causal, window)
+
+
 def check_lse_chunks(fa, name, q_hat, k, v, causal, window, lse):
     """The wide forward's output-column chunks each compute lse: every
     chunk's copy must equal ``lse`` (the wrapper's) bit for bit, and for
@@ -885,19 +918,30 @@ def phase_kernels():
 
         o_k, lse_k = fa.flash_attention_fwd(q, k, v, causal, None, window)
         torch.cuda.synchronize()
+        ref = plain()
         err_o, err_lse, tile_o = check_forward(f"kernel {name}", o_k, lse_k,
-                                               *plain(), dt)
+                                               *ref, dt)
         if name in WIDE_KERNEL_SHAPES:
             check_lse_chunks(fa, name, q_hat, kk, vv, causal, window, lse_k)
+        if dt == "float32":
+            # The f32 forward with the other P too (other_parts): its own
+            # stores where the plan cuts tiles into parts, else the second
+            # pass, held to the same limits.
+            p = other_parts(f32_q_plan(SHAPE_BY_NAME[name], "fwd"))
+            o_p, lse_p = fwd_with_parts(fa, q_hat, kk, vv, causal, window, p)
+            torch.cuda.synchronize()
+            check_forward(f"kernel {name} (P = {p})", o_p, lse_p, *ref, dt)
+            del o_p, lse_p
         ms = cuda_ms(kernel, iters=20)
         cold_ms = cuda_ms_cold(kernel, iters=10)
         plain_ms = cuda_ms(plain, warmup=1, iters=3)
         lib_ms, lib_lo, lib_hi = library_ms(F, q, k, v, causal, window)
-        extra = (sdpa_f32_fwd(F, q, k, v, causal, window, plain()[0])
-                 if dt == "float32" else {})
-        if wide_f32(SHAPE_BY_NAME[name]):
-            extra["fwd_plan"] = plan_summary(
-                f32_q_plan(SHAPE_BY_NAME[name], "fwd"))
+        extra = {}
+        if dt == "float32":
+            extra = dict(sdpa_f32_fwd(F, q, k, v, causal, window, ref[0]),
+                         fwd_plan=plan_summary(
+                             f32_q_plan(SHAPE_BY_NAME[name], "fwd")))
+        del ref
         # Bound: max(FLOPs / peak, bytes / HBM rate), reading Q, K, V once
         # and writing O and lse once.
         flops = attention_flops(b, sq, skv, h, d, dv, causal, window)
@@ -1162,9 +1206,9 @@ def phase_backward():
                 fail(f"backward {name}: dQ differs between two runs")
             if not (torch.equal(got[1], dk2) and torch.equal(got[2], dv2)):
                 fail(f"backward {name}: dK/dV differ between two runs")
-        if wide_f32(shape):
-            # The wide f32 dQ with the other P too (other_parts): within
-            # the limit, bitwise over two runs.
+        if dt == "float32":
+            # The f32 dQ with the other P too (other_parts): within the
+            # limit, bitwise over two runs.
             p = other_parts(f32_q_plan(shape, "dq"))
             one, one2 = c.dq(parts=p), c.dq(parts=p)
             rel = tile_rel_err(one, ref[0])
@@ -1187,8 +1231,7 @@ def phase_backward():
             extra = dict(sdpa_f32_bwd(F, c, ref), dkv_parts=plan.parts,
                          dkv_chunk=plan.chunk, dkv_shares=len(plan.shares),
                          dkv_workspace_bytes=plan.workspace_bytes)
-            if wide_f32(shape):
-                extra["dq_plan"] = plan_summary(f32_q_plan(shape, "dq"))
+            extra["dq_plan"] = plan_summary(f32_q_plan(shape, "dq"))
         elif name in WIDE_KERNEL_SHAPES:
             plan = dkv_plan(shape)
             extra = dict(dkv_group_parts=plan.group_parts,
@@ -1376,13 +1419,13 @@ def _planted_forward(libs):
                                   window)
         o_r, _ = fa.flash_attention_reference(q_hat, k, v, causal,
                                               window)
-        # The wide f32 forward with its plan's P and with the other one
+        # The f32 forward with its plan's P and with the other one
         # (other_parts), the worse reading of the two.
         runs = [lambda: fa._forward(q_hat, k, v, causal, window)[0]]
-        if wide_f32(SHAPE_BY_NAME[name]):
+        if dt == "float32":
             p = other_parts(f32_q_plan(SHAPE_BY_NAME[name], "fwd"))
-            runs.append(lambda: wide_fwd(fa, q_hat, k, v, causal, window,
-                                         p)[0])
+            runs.append(lambda: fwd_with_parts(fa, q_hat, k, v, causal,
+                                               window, p)[0])
         readings = {}
         for variant, source, lib in _flash_variants(libs):
             outs = [_with_variant(libs, source, lib, run) for run in runs]
@@ -1682,7 +1725,7 @@ F32_DKV_ABLATIONS = {
     "f32_dkv_sync_only": _F32_NO_LOGITS + _F32_NO_OUT + _F32_NO_LOADS,
 }
 
-# The same four of the wide f32 forward and dQ (edits of
+# The same four of the f32 forward and dQ, narrow and wide (edits of
 # csrc/flash_fwd_dq_f32.cuh and csrc/flash_f32.cuh, timed at their
 # --compare-with shapes): the forward's S and dQ's S and dP, the forward's
 # P V and dQ's dS K, every box load, and none of the three (the softmax's
@@ -1718,22 +1761,25 @@ def wide_ablations(source: str):
 # bf16 kernels' at LARGE_WIDE_SHAPES (3 launches a turn there: a parent
 # tree's FMA kernels take hundreds of ms a launch), the f32 dK/dV's
 # (narrow: "dkv_f32", wide: "dkv_wide_f32") at PERF.md's f32 table shapes
-# and the LARGE_F32_SHAPES (3 launches a turn there too), and the wide f32
-# forward's and dQ's at PERF.md's wide f32 table shapes, with SDPA's f32
-# forward or whole f32 backward timed in the same turns.
+# and the LARGE_F32_SHAPES (3 launches a turn there too), and the f32
+# forward's and dQ's (narrow: "fwd_f32", "dq_f32"; wide: "fwd_wide_f32",
+# "dq_wide_f32") at the same shapes, with SDPA's f32 forward or whole f32
+# backward timed in the same turns.
 _WIDE_F32_TABLE = ("d320_f32", "d1024_f32", "d512_s2048_f32")
+_F32_TABLE = ("f32", "d256_f32", "train_f32")
 COMPARE_SHAPES = {"dq": ("train", "remat"), "gather": ("bench512", "coo128"),
                   "masked": ("bench512", "coo128"),
                   "fwd_wide": LARGE_WIDE_SHAPES, "dq_wide": LARGE_WIDE_SHAPES,
                   "dkv_wide": LARGE_WIDE_SHAPES,
-                  "dkv_f32": ("f32", "d256_f32", "train_f32"),
-                  "dkv_wide_f32": _WIDE_F32_TABLE,
+                  "dkv_f32": _F32_TABLE, "fwd_f32": _F32_TABLE,
+                  "dq_f32": _F32_TABLE, "dkv_wide_f32": _WIDE_F32_TABLE,
                   "fwd_wide_f32": _WIDE_F32_TABLE,
                   "dq_wide_f32": _WIDE_F32_TABLE}
 
 # Each --compare-with kernel's own variants and ablations, by name prefix
 # (the others' are those with neither prefix).
 _OWN_VARIANTS = {"dkv_f32": "f32_dkv_", "dkv_wide_f32": "f32_dkv_",
+                 "fwd_f32": "f32_q_", "dq_f32": "f32_q_",
                  "fwd_wide_f32": "f32_q_", "dq_wide_f32": "f32_q_"}
 
 
@@ -1778,13 +1824,15 @@ def _dkv_call(c, libs, source):
     return dk[..., :c.d], dvv[..., :c.dv]
 
 
-def _wide_q_call(kind, c, libs):
-    """The wide forward's O (``kind`` "fwd") or dQ ("dq") of c's padded
-    inputs through this tree's wrapper; but where the library loaded as the
-    wide source is ``libs``'s "parent" and that tree's entries take no
-    sweep parts (its csrc has no flash_fwd_dq_f32.cuh), that entry called
-    with its own arguments, through a function object of its own (the
-    wrapper's _wide_lib sets the library's cached ones once)."""
+def _q_call(kind, c, libs, source):
+    """The forward's O (``kind`` "fwd") or dQ ("dq") of c's padded inputs
+    through this tree's wrapper, by the library loaded as ``source``
+    ("flash_attention_fwd" or "flash_attention_bwd": the narrow kernels;
+    "flash_attention_wide"); but where that library is ``libs``'s "parent"
+    and its entry takes no sweep parts (``libs["parent_q_parts"]``), that
+    entry called with its own arguments, through a function object of its
+    own (the wrapper's _kernel_lib, _bwd_lib and _wide_lib set the
+    library's cached ones once)."""
     import ctypes
 
     import torch
@@ -1792,30 +1840,32 @@ def _wide_q_call(kind, c, libs):
     from marlin_tpu_torch.ops import build
     from marlin_tpu_torch.ops import flash_attention as fa
 
-    source = "flash_attention_wide"
     lib = build._loaded[source]
     q, k, v, do = c.padded
-    if lib is not libs[source].get("parent") or libs["parent_has_q_parts"]:
+    if (lib is not libs[source].get("parent")
+            or libs["parent_q_parts"][source]):
         if kind == "dq":
             return c.dq()
         return fa._launch(q, k, v, c.causal, c.window)[0][..., :c.dv]
+    wide = source == "flash_attention_wide"
     b, sq, h, d = q.shape
     skv, hk, dv = k.shape[1], k.shape[2], v.shape[3]
     dims = (b, h, hk, sq, skv, d, dv, int(c.causal), int(c.window))
     stream = torch.cuda.current_stream().cuda_stream
     dtype = int(q.dtype == torch.float32)
     if kind == "fwd":
-        fn = lib["marlin_flash_attention_fwd_wide"]
+        fn = lib["marlin_flash_attention_fwd" + "_wide" * wide]
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 6
+        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * (5 + wide)
                        + [ctypes.c_int] * 9 + [ctypes.c_void_p])
         out = torch.empty((b, sq, h, dv), dtype=q.dtype, device=q.device)
         lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
         err = fn(dtype, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                 out.data_ptr(), lse.data_ptr(), None, *dims, stream)
+                 out.data_ptr(), lse.data_ptr(), *[None] * wide, *dims,
+                 stream)
         out = out[..., :c.dv]
     else:
-        fn = lib["marlin_flash_attention_bwd_dq_wide"]
+        fn = lib["marlin_flash_attention_bwd_dq" + "_wide" * wide]
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 7
                        + [ctypes.c_int] * 9
@@ -1826,14 +1876,31 @@ def _wide_q_call(kind, c, libs):
                  out.data_ptr(), *dims, float(c.scale), stream)
         out = out[..., :c.d]
     if err:
-        fail(f"the parent tree's wide {kind}: cudaError_t {err}")
+        fail(f"the parent tree's {source} {kind}: cudaError_t {err}")
     return out
+
+
+def _parent_q_parts(csrc) -> dict:
+    """Whether each source's forward or dQ entry of the checkout whose csrc
+    directory is ``csrc`` takes sweep parts: the wide ones where it has
+    csrc/flash_fwd_dq_f32.cuh, the narrow ones where their entry takes a
+    workspace."""
+    def entry_takes_parts(source, entry):
+        text = (csrc / f"{source}.cu").read_text()
+        at = text.find(f"int {entry}(")
+        return at >= 0 and "workspace" in text[at:text.find("{", at)]
+
+    return {"flash_attention_wide": (csrc / "flash_fwd_dq_f32.cuh").exists(),
+            "flash_attention_fwd": entry_takes_parts(
+                "flash_attention_fwd", "marlin_flash_attention_fwd"),
+            "flash_attention_bwd": entry_takes_parts(
+                "flash_attention_bwd", "marlin_flash_attention_bwd_dq")}
 
 
 def phase_compare(card: str, parent: str):
     """This tree's dQ, SpMM (both routes), wide bf16 forward, dQ and dK/dV,
-    f32 dK/dV (narrow and wide) and wide f32 forward and dQ kernels
-    against the parent tree's (the
+    and f32 forward, dQ and dK/dV (narrow and wide) kernels against the
+    parent tree's (the
     checkout at ``parent``, built from its own csrc/) and against
     KERNEL_VARIANTS, on one card: at each COMPARE_SHAPES shape every
     version is first held to the plain version (worst tile, the phase
@@ -1865,9 +1932,11 @@ def phase_compare(card: str, parent: str):
         if shape[0] in COMPARE_SHAPES["dq"]:
             c = BwdCase(gen, shape)
             ref = c.plain()[0]
-            cases["dq", shape[0]] = ("flash_attention_bwd", c.dq,
-                                     lambda out, ref=ref: tile_rel_err(
-                                         out, ref), BWD_TOLERANCE[shape[8]])
+            cases["dq", shape[0]] = (
+                "flash_attention_bwd",
+                lambda c=c: _q_call("dq", c, libs, "flash_attention_bwd"),
+                lambda out, ref=ref: tile_rel_err(out, ref),
+                BWD_TOLERANCE[shape[8]])
         wide = [k for k in ("fwd_wide", "dq_wide", "dkv_wide")
                 if shape[0] in COMPARE_SHAPES[k]]
         if wide:
@@ -1877,10 +1946,12 @@ def phase_compare(card: str, parent: str):
                                                  c.window)[0]
             by_kernel = {
                 "fwd_wide": (
-                    lambda c=c: _wide_q_call("fwd", c, libs),
+                    lambda c=c: _q_call("fwd", c, libs,
+                                        "flash_attention_wide"),
                     lambda out, ref=o_ref: tile_rel_err(out, ref),
                     FWD_TILE_TOLERANCE[shape[8]]),
-                "dq_wide": (lambda c=c: _wide_q_call("dq", c, libs),
+                "dq_wide": (lambda c=c: _q_call("dq", c, libs,
+                                                "flash_attention_wide"),
                             lambda out, ref=dq_ref: tile_rel_err(out, ref),
                             BWD_TOLERANCE[shape[8]]),
                 "dkv_wide": (
@@ -1904,26 +1975,34 @@ def phase_compare(card: str, parent: str):
                 sdpa[kernel, shape[0]] = (
                     _sdpa_bwd_call(F, c.q, c.k, c.v, c.do, c.causal,
                                    c.window), sdpa_f32_bwd(F, c, ref))
-                if shape[0] in COMPARE_SHAPES["fwd_wide_f32"]:
-                    # The wide f32 forward and dQ on the same inputs.
+                if shape[0] in COMPARE_SHAPES["fwd" + kernel[3:]]:
+                    # The f32 forward and dQ, narrow or wide, on the same
+                    # inputs.
+                    q_kernels = (kernel.replace("dkv", "fwd"),
+                                 kernel.replace("dkv", "dq"))
                     o_ref = fa.flash_attention_reference(
                         c.q_hat, c.k, c.v, c.causal, c.window)[0]
-                    cases["fwd_wide_f32", shape[0]] = (
-                        source, lambda c=c: _wide_q_call("fwd", c, libs),
+                    fwd_source = ("flash_attention_fwd"
+                                  if source == "flash_attention_bwd"
+                                  else source)
+                    cases[q_kernels[0], shape[0]] = (
+                        fwd_source,
+                        lambda c=c, s=fwd_source: _q_call("fwd", c, libs, s),
                         lambda out, ref=o_ref: tile_rel_err(out, ref),
                         FWD_TILE_TOLERANCE[shape[8]])
                     qt, kt, vt, kw = _sdpa_args(c.q, c.k, c.v, c.causal,
                                                 c.window)
-                    sdpa["fwd_wide_f32", shape[0]] = (
+                    sdpa[q_kernels[0], shape[0]] = (
                         lambda qt=qt, kt=kt, vt=vt, kw=kw:
                         F.scaled_dot_product_attention(qt, kt, vt, **kw),
                         sdpa_f32_fwd(F, c.q, c.k, c.v, c.causal, c.window,
                                      o_ref))
-                    cases["dq_wide_f32", shape[0]] = (
-                        source, lambda c=c: _wide_q_call("dq", c, libs),
+                    cases[q_kernels[1], shape[0]] = (
+                        source,
+                        lambda c=c, s=source: _q_call("dq", c, libs, s),
                         lambda out, ref=ref[0]: tile_rel_err(out, ref),
                         BWD_TOLERANCE[shape[8]])
-                    sdpa["dq_wide_f32", shape[0]] = sdpa[kernel, shape[0]]
+                    sdpa[q_kernels[1], shape[0]] = sdpa[kernel, shape[0]]
                 del ref
     gen = torch.Generator(device="cuda").manual_seed(3)
     for shape in SPMM_SHAPES:
@@ -1942,7 +2021,9 @@ def phase_compare(card: str, parent: str):
     variants["flash_attention_wide"].update(ablations)
     for name in ("flash_attention_bwd", "flash_attention_wide"):
         variants[name].update(F32_DKV_ABLATIONS)
-    variants["flash_attention_wide"].update(F32_Q_ABLATIONS)
+    for name in ("flash_attention_fwd", "flash_attention_bwd",
+                 "flash_attention_wide"):
+        variants.setdefault(name, {}).update(F32_Q_ABLATIONS)
     ablations.update(F32_DKV_ABLATIONS)
     ablations.update(F32_Q_ABLATIONS)
 
@@ -1962,7 +2043,7 @@ def phase_compare(card: str, parent: str):
         libs["parent_has_parts"] = "parts_g" in (
             csrc / "flash_attention_wide.cu").read_text()
         libs["parent_has_f32_parts"] = (csrc / "flash_dkv_f32.cuh").exists()
-        libs["parent_has_q_parts"] = (csrc / "flash_fwd_dq_f32.cuh").exists()
+        libs["parent_q_parts"] = _parent_q_parts(csrc)
         try:
             for turn in range(2):
                 for (kernel, shape), (name, fn, err_of, tol) in \

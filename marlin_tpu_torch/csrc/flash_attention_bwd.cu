@@ -82,16 +82,18 @@
 // products, the same fixed order of sums, still no atomics.
 //
 // f32, no TF32, so the kernels match a full-f32 reference to summation
-// order: dQ is a plain FMA kernel (4 threads per row); dK/dV
-// (flash_bwd_dkv_f32) is built from flash_dkv_f32.cuh, register-tiled FMA
-// fed by a cp.async ring, each key tile's sweep split into parts by its
-// live work and summed by a second pass in part order.
+// order. Both are register-tiled FMA fed by a cp.async ring, each tile's
+// sweep split into parts by its live work and summed by a second pass in
+// part order: dQ (flash_bwd_dq_f32, second pass flash_dq_part_sum_f32) is
+// the sweep of flash_fwd_dq_f32.cuh (64 query rows a CTA, 64-key tiles, S
+// beside dP), dK/dV (flash_bwd_dkv_f32) that of flash_dkv_f32.cuh.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
 #include "flash_dkv_f32.cuh"
+#include "flash_fwd_dq_f32.cuh"
 #include "sm90.cuh"
 
 namespace {
@@ -635,107 +637,38 @@ flash_bwd_dkv_bf16(const __grid_constant__ CUtensorMap tq,
 }
 
 // ---------------------------------------------------------------------
-// f32: FMA path
+// f32: register-tiled FMA on the CUDA cores
 // ---------------------------------------------------------------------
 
-constexpr int kThreads = 128;  // the dQ kernel's
-constexpr int kFM = 32;  // query rows per tile
-constexpr int kFN = 32;  // key rows per tile
-
-// Rows [r0, r0 + rows) of a (.., stride) f32 matrix into a shared tile with
-// row stride WIDTH + 1; rows at or past `valid` are zero-filled.
-template <int WIDTH>
-__device__ __forceinline__ void load_tile_f32(float* smem, const float* g,
-                                              long long gstride, int rows,
-                                              int valid) {
-  for (int i = threadIdx.x; i < rows * WIDTH; i += kThreads) {
-    int r = i / WIDTH, c = i % WIDTH;
-    smem[r * (WIDTH + 1) + c] = r < valid ? g[r * gstride + c] : 0.f;
-  }
+// B4, f32, D up to 256 (flash_fwd_dq_f32.cuh holds the design and its
+// pieces): one share of all of dQ's NB = D / 64 boxes; the CTA's query
+// tile and its sweep part's key tiles are cut here.
+template <int NB>
+__global__ void __launch_bounds__(flash_f32::kThreads, 1)
+flash_bwd_dq_f32(const fwd_dq_f32::Args a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const fwd_dq_f32::Cta c = fwd_dq_f32::cta_of(a, 1);
+  int first, n;
+  fwd_dq_f32::key_tiles(c.t * fwd_dq_f32::kQueries, fwd_dq_f32::kDqKeys,
+                        a.Skv, a.causal, a.window, &first, &n);
+  const int parts = flash_f32::part_count(n, a.chunk);
+  if (c.p >= parts) return;
+  const int kt0 = first + c.p * a.chunk;
+  const int kt1 = min(kt0 + a.chunk, first + n);
+  fwd_dq_f32::dq_sweep<NB>(a, c, kt0, kt1, fwd_dq_f32::Share{0, NB}, a.k,
+                           parts, reinterpret_cast<float*>(smem_raw));
 }
 
-// B4, f32: 4 threads per query row; each computes dS for a quarter of the
-// tile's keys, then accumulates a quarter of dQ's columns.
-template <int D, int DV>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, const float* __restrict__ dout,
-                 const float* __restrict__ lse,
-                 const float* __restrict__ delta, float* __restrict__ dq,
-                 int H, int Hk, int Sq, int Skv, int causal, int window,
-                 float scale) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* sQ = reinterpret_cast<float*>(smem_raw);  // [kFM][D + 1]
-  float* sdO = sQ + kFM * (D + 1);                 // [kFM][DV + 1]
-  float* sK = sdO + kFM * (DV + 1);                // [kFN][D + 1]
-  float* sV = sK + kFN * (D + 1);                  // [kFN][DV + 1]
-  float* sS = sV + kFN * (DV + 1);                 // [kFM][kFN + 1]
-
-  const int m0 = blockIdx.x * kFM;
-  const int bh = blockIdx.y;
-  const int b = bh / H;
-  const int h = bh % H;
-  const int hk = h / (H / Hk);
-  const int r = threadIdx.x / 4;
-  const int t = threadIdx.x % 4;
-  const int qp = m0 + r;
-
-  const long long q_row = (long long)H * D;
-  const long long o_row = (long long)H * DV;
-  const long long k_row = (long long)Hk * D;
-  const long long v_row = (long long)Hk * DV;
-  const float* kg = k + (long long)b * Skv * k_row + hk * D;
-  const float* vg = v + (long long)b * Skv * v_row + hk * DV;
-
-  load_tile_f32<D>(sQ, q + ((long long)b * Sq + m0) * q_row + h * D, q_row,
-                   kFM, Sq - m0);
-  load_tile_f32<DV>(sdO, dout + ((long long)b * Sq + m0) * o_row + h * DV,
-                    o_row, kFM, Sq - m0);
-  const float lrow = qp < Sq ? lse[(long long)bh * Sq + qp] : 0.f;
-  const float drow = qp < Sq ? delta[(long long)bh * Sq + qp] : 0.f;
-
-  float acc[D / 4];
-#pragma unroll
-  for (int i = 0; i < D / 4; ++i) acc[i] = 0.f;
-
-  int lo, hi;
-  key_range(m0, kFM, kFN, Skv, causal, window, &lo, &hi);
-  for (int n0 = lo; n0 < hi; n0 += kFN) {
-    __syncthreads();
-    load_tile_f32<D>(sK, kg + (long long)n0 * k_row, k_row, kFN, Skv - n0);
-    load_tile_f32<DV>(sV, vg + (long long)n0 * v_row, v_row, kFN, Skv - n0);
-    __syncthreads();
-
-    const float* qr = sQ + r * (D + 1);
-    const float* dr = sdO + r * (DV + 1);
-#pragma unroll
-    for (int jj = 0; jj < kFN / 4; ++jj) {
-      int j = t + 4 * jj;
-      const float* kr = sK + j * (D + 1);
-      const float* vr = sV + j * (DV + 1);
-      float s = 0.f, dp = 0.f;
-#pragma unroll 8
-      for (int d = 0; d < D; ++d) s = fmaf(qr[d], kr[d], s);
-#pragma unroll 8
-      for (int d = 0; d < DV; ++d) dp = fmaf(dr[d], vr[d], dp);
-      bool live = qp < Sq && key_live(qp, n0 + j, Skv, causal, window);
-      float p = live ? exp2f(s - lrow) : 0.f;
-      sS[r * (kFN + 1) + j] = p * (dp - drow);
-    }
-    __syncwarp();  // a row's four threads share one warp
-    for (int j = 0; j < kFN; ++j) {
-      float ds = sS[r * (kFN + 1) + j];
-      const float* kr = sK + j * (D + 1) + t;
-#pragma unroll
-      for (int cc = 0; cc < D / 4; ++cc)
-        acc[cc] = fmaf(ds, kr[4 * cc], acc[cc]);
-    }
-  }
-
-  if (qp < Sq) {
-    float* row = dq + ((long long)b * Sq + qp) * q_row + h * D + t;
-#pragma unroll
-    for (int cc = 0; cc < D / 4; ++cc) row[4 * cc] = acc[cc] * scale;
+// The f32 dQ's second pass where a query tile has several parts: their
+// partial sums added in part order, times scale.
+__global__ void __launch_bounds__(flash_f32::kSumThreads)
+flash_dq_part_sum_f32(const fwd_dq_f32::Args a) {
+  const long long n = (long long)a.B * a.Sq * a.H * (a.D / 4);
+  for (long long e = blockIdx.x * (long long)flash_f32::kSumThreads +
+                     threadIdx.x;
+       e < n; e += (long long)gridDim.x * flash_f32::kSumThreads) {
+    const int parts = fwd_dq_f32::row_parts(a, e, a.D, fwd_dq_f32::kDqKeys);
+    if (parts > 1) fwd_dq_f32::sum_parts(a, e, parts);
   }
 }
 
@@ -788,39 +721,42 @@ cudaError_t set_smem(Kernel kernel, size_t smem) {
 template <int D, int DV>
 cudaError_t run_dq(int dtype, const void* q, const void* k, const void* v,
                    const void* dout, const float* lse, const float* delta,
-                   void* dq, int B, int H, int Hk, int Sq, int Skv,
-                   int causal, int window, float scale, cudaStream_t st) {
-  cudaError_t err;
-  if (dtype == 0) {
-    CUtensorMap tq, tk, tv, tdo;
-    if ((err = sm90::tmap_bshd(&tq, q, B, Sq, H, D, kDqBM)) != cudaSuccess ||
-        (err = sm90::tmap_bshd(&tk, k, B, Skv, Hk, D, kDqBN)) !=
-            cudaSuccess ||
-        (err = sm90::tmap_bshd(&tv, v, B, Skv, Hk, DV, kDqBN)) !=
-            cudaSuccess ||
-        (err = sm90::tmap_bshd(&tdo, dout, B, Sq, H, DV, kDqBM)) !=
-            cudaSuccess)
-      return err;
-    const size_t smem = DqSmem<D, DV>::kBytes;
-    auto kernel = flash_bwd_dq_bf16<D, DV>;
-    if ((err = set_smem(kernel, smem)) != cudaSuccess) return err;
-    dim3 grid(B * H, (Sq + kDqBM - 1) / kDqBM);
-    kernel<<<grid, kDqThreads, smem, st>>>(
-        tq, tk, tv, tdo, lse, delta, static_cast<__nv_bfloat16*>(dq), H, Hk,
-        Sq, Skv, causal, window, scale);
-  } else {
-    size_t smem = sizeof(float) *
-                  ((size_t)(kFM + kFN) * (D + 1) +
-                   (size_t)(kFM + kFN) * (DV + 1) + (size_t)kFM * (kFN + 1));
-    auto kernel = flash_bwd_dq_f32<D, DV>;
-    if ((err = set_smem(kernel, smem)) != cudaSuccess) return err;
-    dim3 grid((Sq + kFM - 1) / kFM, B * H);
-    kernel<<<grid, kThreads, smem, st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<const float*>(dout), lse,
-        delta, static_cast<float*>(dq), H, Hk, Sq, Skv, causal, window,
-        scale);
+                   void* dq, float* ws, int B, int H, int Hk, int Sq,
+                   int Skv, int causal, int window, int parts, float scale,
+                   cudaStream_t st) {
+  if (dtype == 1) {
+    const fwd_dq_f32::Args a{static_cast<const float*>(q),
+                             static_cast<const float*>(k),
+                             static_cast<const float*>(v),
+                             static_cast<const float*>(dout),
+                             delta,
+                             static_cast<float*>(dq),
+                             const_cast<float*>(lse),
+                             nullptr,
+                             ws,
+                             B, H, Hk, Sq, Skv, D, DV, causal, window,
+                             scale, parts, 0};
+    return fwd_dq_f32::launch(flash_bwd_dq_f32<D / 64>,
+                              flash_dq_part_sum_f32, a, fwd_dq_f32::kDqKeys,
+                              D, st);
   }
+  if (parts != 1) return cudaErrorInvalidValue;
+  cudaError_t err;
+  CUtensorMap tq, tk, tv, tdo;
+  if ((err = sm90::tmap_bshd(&tq, q, B, Sq, H, D, kDqBM)) != cudaSuccess ||
+      (err = sm90::tmap_bshd(&tk, k, B, Skv, Hk, D, kDqBN)) != cudaSuccess ||
+      (err = sm90::tmap_bshd(&tv, v, B, Skv, Hk, DV, kDqBN)) !=
+          cudaSuccess ||
+      (err = sm90::tmap_bshd(&tdo, dout, B, Sq, H, DV, kDqBM)) !=
+          cudaSuccess)
+    return err;
+  const size_t smem = DqSmem<D, DV>::kBytes;
+  auto kernel = flash_bwd_dq_bf16<D, DV>;
+  if ((err = set_smem(kernel, smem)) != cudaSuccess) return err;
+  dim3 grid(B * H, (Sq + kDqBM - 1) / kDqBM);
+  kernel<<<grid, kDqThreads, smem, st>>>(
+      tq, tk, tv, tdo, lse, delta, static_cast<__nv_bfloat16*>(dq), H, Hk,
+      Sq, Skv, causal, window, scale);
   return cudaGetLastError();
 }
 
@@ -880,19 +816,24 @@ bool valid_shape(int dtype, int B, int H, int Hk, int Sq, int Skv) {
 // dtype: 0 = bf16, 1 = f32. Each returns the cudaError_t of its launch
 // (0 = ok); an unsupported (dtype, D, DV) returns cudaErrorInvalidValue.
 // `q` is the prescaled q_hat the forward saw; `scale` is the softmax scale
-// (dQ = scale * dS K).
+// (dQ = scale * dS K). dQ: `parts` is 1 for bf16; f32 cuts each query
+// tile's key sweep into at most `parts` parts by live work (the wrapper's
+// plan, ops/flash_attention.py::_f32_q_plan); above 1, `workspace` is
+// (parts, B, Sq, H, D) f32 for their partial sums, which a second launch
+// on the same stream adds in order.
 extern "C" int marlin_flash_attention_bwd_dq(
     int dtype, const void* q, const void* k, const void* v, const void* dout,
-    const void* lse, const void* delta, void* dq, int B, int H, int Hk,
-    int Sq, int Skv, int D, int DV, int causal, int window, float scale,
-    void* stream) {
+    const void* lse, const void* delta, void* dq, void* workspace, int B,
+    int H, int Hk, int Sq, int Skv, int D, int DV, int causal, int window,
+    int parts, float scale, void* stream) {
   if (!valid_shape(dtype, B, H, Hk, Sq, Skv))
     return (int)cudaErrorInvalidValue;
   const float* l = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
+  float* ws = static_cast<float*>(workspace);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  MARLIN_DISPATCH_DIMS(run_dq, dtype, q, k, v, dout, l, dl, dq, B, H, Hk, Sq,
-                       Skv, causal, window, scale, st)
+  MARLIN_DISPATCH_DIMS(run_dq, dtype, q, k, v, dout, l, dl, dq, ws, B, H, Hk,
+                       Sq, Skv, causal, window, parts, scale, st)
   return (int)cudaErrorInvalidValue;
 }
 

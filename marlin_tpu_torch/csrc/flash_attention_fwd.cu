@@ -53,14 +53,19 @@
 // It does not use a producer warp, setmaxnreg or two tiles in flight per
 // warpgroup (FA3's ping-pong); those are the next steps toward the bound.
 //
-// The f32 path (not on the serving path) is a plain FMA kernel: 4 threads
-// per query row, f32 products in f32, so it matches a full-f32 reference
-// to ~1e-6.
+// The f32 path (not on the serving path) runs on the CUDA cores in exact
+// f32 (no TF32), so it matches a full-f32 reference to summation order:
+// flash_fwd_f32<NB> is the sweep of flash_fwd_dq_f32.cuh (two warpgroups
+// of 8 x 4 register tiles, 64 x 64 boxes by cp.async through a ring, a
+// 128-key tile a step, each query tile's key sweep cut into parts by its
+// live work), one share of O's Dv <= 256 columns (NB = Dv / 64 boxes), and
+// flash_fwd_merge_f32 merges a query tile's parts in part order.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "flash_fwd_dq_f32.cuh"
 #include "sm90.cuh"
 
 namespace {
@@ -313,113 +318,39 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tq,
 }
 
 // ---------------------------------------------------------------------
-// f32: FMA path
+// f32: register-tiled FMA on the CUDA cores
 // ---------------------------------------------------------------------
 
-constexpr int kThreads = 128;
-constexpr int kFM = 32;  // query rows per CTA, 4 threads each
-constexpr int kFN = 32;  // keys per shared-memory tile
-
-template <int D, int DV>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, float* __restrict__ o,
-              float* __restrict__ lse, int H, int Hk, int Sq, int Skv,
-              int causal, int window) {
+// B3, f32, Dv up to 256 (flash_fwd_dq_f32.cuh holds the design and its
+// pieces): one share of all of O's NB = Dv / 64 boxes; the CTA's query
+// tile and its sweep part's key tiles are cut here.
+template <int NB>
+__global__ void __launch_bounds__(flash_f32::kThreads, 1)
+flash_fwd_f32(const fwd_dq_f32::Args a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* sQ = reinterpret_cast<float*>(smem_raw);  // [kFM][D + 1]
-  float* sK = sQ + kFM * (D + 1);                  // [kFN][D + 1]
-  float* sV = sK + kFN * (D + 1);                  // [kFN][DV]
-  float* sP = sV + kFN * DV;                       // [kFM][kFN + 1]
+  const fwd_dq_f32::Cta c = fwd_dq_f32::cta_of(a, 1);
+  int first, n;
+  fwd_dq_f32::key_tiles(c.t * fwd_dq_f32::kQueries, fwd_dq_f32::kFwdKeys,
+                        a.Skv, a.causal, a.window, &first, &n);
+  const int parts = flash_f32::part_count(n, a.chunk);
+  if (c.p >= parts) return;
+  const int kt0 = first + c.p * a.chunk;
+  const int kt1 = min(kt0 + a.chunk, first + n);
+  fwd_dq_f32::fwd_sweep<NB>(a, c, kt0, kt1, fwd_dq_f32::Share{0, NB}, a.v,
+                            parts, reinterpret_cast<float*>(smem_raw));
+}
 
-  const int m0 = blockIdx.x * kFM;
-  const int bh = blockIdx.y;
-  const int b = bh / H;
-  const int h = bh % H;
-  const int hk = h / (H / Hk);
-  const int r = threadIdx.x / 4;  // this thread's query row in the tile
-  const int t = threadIdx.x % 4;  // its quarter of the keys and columns
-  const int qp = m0 + r;
-
-  const long long q_row = (long long)H * D;
-  const long long k_row = (long long)Hk * D;
-  const long long v_row = (long long)Hk * DV;
-  const float* qg = q + (long long)b * Sq * q_row + h * D;
-  const float* kg = k + (long long)b * Skv * k_row + hk * D;
-  const float* vg = v + (long long)b * Skv * v_row + hk * DV;
-
-  for (int i = threadIdx.x; i < kFM * D; i += kThreads) {
-    int rr = i / D, c = i % D;
-    sQ[rr * (D + 1) + c] = m0 + rr < Sq ? qg[(m0 + rr) * q_row + c] : 0.f;
-  }
-
-  float m = kNegInf, l = 0.f;
-  float acc[DV / 4];
-#pragma unroll
-  for (int i = 0; i < DV / 4; ++i) acc[i] = 0.f;
-
-  int lo, hi;
-  key_range(m0, kFM, kFN, Skv, causal, window, &lo, &hi);
-  for (int n0 = lo; n0 < hi; n0 += kFN) {
-    __syncthreads();
-    for (int i = threadIdx.x; i < kFN * D; i += kThreads) {
-      int rr = i / D, c = i % D;
-      sK[rr * (D + 1) + c] =
-          n0 + rr < Skv ? kg[(long long)(n0 + rr) * k_row + c] : 0.f;
-    }
-    for (int i = threadIdx.x; i < kFN * DV; i += kThreads) {
-      int rr = i / DV, c = i % DV;
-      sV[rr * DV + c] =
-          n0 + rr < Skv ? vg[(long long)(n0 + rr) * v_row + c] : 0.f;
-    }
-    __syncthreads();
-
-    float s[kFN / 4];
-    float mx = m;
-#pragma unroll
-    for (int jj = 0; jj < kFN / 4; ++jj) {
-      int j = t + 4 * jj;
-      const float* qr = sQ + r * (D + 1);
-      const float* kr = sK + j * (D + 1);
-      float dot = 0.f;
-#pragma unroll 8
-      for (int d = 0; d < D; ++d) dot = fmaf(qr[d], kr[d], dot);
-      if (!key_live(qp, n0 + j, Skv, causal, window)) dot = kNegInf;
-      s[jj] = dot;
-      mx = fmaxf(mx, dot);
-    }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffff, mx, 1));
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffff, mx, 2));
-    float corr = exp2f(m - mx);
-    m = mx;
-    float sum = 0.f;
-#pragma unroll
-    for (int jj = 0; jj < kFN / 4; ++jj) {
-      float p = exp2f(s[jj] - m);
-      sP[r * (kFN + 1) + t + 4 * jj] = p;
-      sum += p;
-    }
-    sum += __shfl_xor_sync(0xffffffff, sum, 1);
-    sum += __shfl_xor_sync(0xffffffff, sum, 2);
-    l = l * corr + sum;
-    __syncwarp();  // a row's four threads share one warp
-#pragma unroll
-    for (int cc = 0; cc < DV / 4; ++cc) acc[cc] *= corr;
-    for (int j = 0; j < kFN; ++j) {
-      float p = sP[r * (kFN + 1) + j];
-      const float* vr = sV + j * DV + t;
-#pragma unroll
-      for (int cc = 0; cc < DV / 4; ++cc) acc[cc] = fmaf(p, vr[4 * cc], acc[cc]);
-    }
-  }
-
-  if (qp < Sq) {
-    l = fmaxf(l, 1e-30f);
-    float inv = 1.f / l;
-    float* orow = o + ((long long)b * Sq + qp) * H * DV + h * DV + t;
-#pragma unroll
-    for (int cc = 0; cc < DV / 4; ++cc) orow[4 * cc] = acc[cc] * inv;
-    if (t == 0) lse[(long long)bh * Sq + qp] = m + log2f(l);
+// The f32 forward's second pass where a query tile has several parts:
+// their O, m and l merged in part order (a float4 of one row a step).
+__global__ void __launch_bounds__(flash_f32::kSumThreads)
+flash_fwd_merge_f32(const fwd_dq_f32::Args a) {
+  const long long n = (long long)a.B * a.Sq * a.H * (a.DV / 4);
+  for (long long e = blockIdx.x * (long long)flash_f32::kSumThreads +
+                     threadIdx.x;
+       e < n; e += (long long)gridDim.x * flash_f32::kSumThreads) {
+    const int parts =
+        fwd_dq_f32::row_parts(a, e, a.DV, fwd_dq_f32::kFwdKeys);
+    if (parts > 1) fwd_dq_f32::merge_parts(a, e, parts);
   }
 }
 
@@ -446,60 +377,70 @@ cudaError_t run_bf16(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
-template <int D, int DV>
+template <int NB>
 cudaError_t run_f32(const void* q, const void* k, const void* v, void* o,
-                    float* lse, int B, int H, int Hk, int Sq, int Skv,
-                    int causal, int window, cudaStream_t stream) {
-  size_t smem = sizeof(float) * ((size_t)kFM * (D + 1) + (size_t)kFN * (D + 1) +
-                                 (size_t)kFN * DV + (size_t)kFM * (kFN + 1));
-  auto kernel = flash_fwd_f32<D, DV>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid((Sq + kFM - 1) / kFM, B * H);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), lse, H, Hk, Sq,
-      Skv, causal, window);
-  return cudaGetLastError();
+                    float* lse, float* ws, int B, int H, int Hk, int Sq,
+                    int Skv, int D, int DV, int causal, int window,
+                    int parts, cudaStream_t stream) {
+  const fwd_dq_f32::Args a{static_cast<const float*>(q),
+                           static_cast<const float*>(k),
+                           static_cast<const float*>(v),
+                           nullptr,
+                           nullptr,
+                           static_cast<float*>(o),
+                           lse,
+                           nullptr,
+                           ws,
+                           B, H, Hk, Sq, Skv, D, DV, causal, window, 1.f,
+                           parts, 0};
+  return fwd_dq_f32::launch(flash_fwd_f32<NB>, flash_fwd_merge_f32, a,
+                            fwd_dq_f32::kFwdKeys, DV, stream);
 }
 
 }  // namespace
 
 // C entry point, bound with ctypes (marlin_tpu_torch/ops/flash_attention.py).
 // dtype: 0 = bf16, 1 = f32. Returns the cudaError_t of the launch (0 = ok);
-// an unsupported (dtype, D, DV) returns cudaErrorInvalidValue.
+// an unsupported (dtype, D, DV) returns cudaErrorInvalidValue. `parts`: 1
+// for bf16; for f32 at most `parts` parts of each query tile's key sweep,
+// cut by live work (ops/flash_attention.py::_f32_q_plan). Above 1,
+// `workspace` holds their f32 partials (unnormalised O (parts, B, Sq, H,
+// DV), then m and l, each (parts, 1, B, H, Sq)), which a second launch on
+// the same stream merges in order.
 extern "C" int marlin_flash_attention_fwd(int dtype, const void* q,
                                           const void* k, const void* v,
-                                          void* o, void* lse, int B, int H,
+                                          void* o, void* lse,
+                                          void* workspace, int B, int H,
                                           int Hk, int Sq, int Skv, int D,
                                           int DV, int causal, int window,
-                                          void* stream) {
+                                          int parts, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
-  if (B < 1 || H < 1 || Hk < 1 || H % Hk || Sq < 1 || Skv < 1)
+  const bool dims = ((D == 64 || D == 128) && (DV == 64 || DV == 128)) ||
+                    (D == 256 && DV == 256);
+  if (B < 1 || H < 1 || Hk < 1 || H % Hk || Sq < 1 || Skv < 1 || !dims ||
+      (dtype == 0 && parts != 1))
     return (int)cudaErrorInvalidValue;
-#define MARLIN_DISPATCH(RUN)                                                  \
-  if (D == 64 && DV == 64)                                                    \
-    return (int)RUN<64, 64>(q, k, v, o, l, B, H, Hk, Sq, Skv, causal, window, \
-                            st);                                              \
-  if (D == 64 && DV == 128)                                                   \
-    return (int)RUN<64, 128>(q, k, v, o, l, B, H, Hk, Sq, Skv, causal,        \
-                             window, st);                                     \
-  if (D == 128 && DV == 64)                                                   \
-    return (int)RUN<128, 64>(q, k, v, o, l, B, H, Hk, Sq, Skv, causal,        \
-                             window, st);                                     \
-  if (D == 128 && DV == 128)                                                  \
-    return (int)RUN<128, 128>(q, k, v, o, l, B, H, Hk, Sq, Skv, causal,       \
-                              window, st);                                    \
-  if (D == 256 && DV == 256)                                                  \
-    return (int)RUN<256, 256>(q, k, v, o, l, B, H, Hk, Sq, Skv, causal,       \
-                              window, st);
-  if (dtype == 0) {
-    MARLIN_DISPATCH(run_bf16)
-  } else if (dtype == 1) {
-    MARLIN_DISPATCH(run_f32)
+  if (dtype == 1) {
+    float* ws = static_cast<float*>(workspace);
+#define MARLIN_RUN_F32(NB)                                                   \
+  return (int)run_f32<NB>(q, k, v, o, l, ws, B, H, Hk, Sq, Skv, D, DV,       \
+                          causal, window, parts, st)
+    if (DV == 64) MARLIN_RUN_F32(1);
+    if (DV == 128) MARLIN_RUN_F32(2);
+    MARLIN_RUN_F32(4);
+#undef MARLIN_RUN_F32
   }
-#undef MARLIN_DISPATCH
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
+#define MARLIN_RUN_BF16(D_, DV_)                                              \
+  if (D == D_ && DV == DV_)                                                   \
+  return (int)run_bf16<D_, DV_>(q, k, v, o, l, B, H, Hk, Sq, Skv, causal,     \
+                                window, st)
+  MARLIN_RUN_BF16(64, 64);
+  MARLIN_RUN_BF16(64, 128);
+  MARLIN_RUN_BF16(128, 64);
+  MARLIN_RUN_BF16(128, 128);
+  MARLIN_RUN_BF16(256, 256);
+#undef MARLIN_RUN_BF16
   return (int)cudaErrorInvalidValue;
 }

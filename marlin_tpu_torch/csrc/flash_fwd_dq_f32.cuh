@@ -8,9 +8,11 @@
 // dQ = scale * sum dS K, dS = P (dO V^T - Delta), P = exp2(q_hat K^T - lse)
 // recomputed from lse; masks -1e30 (never -inf): keys at or past Skv,
 // causal k <= q, a window k > q - window; l clamped at 1e-30; GQA by index,
-// K and V never replicated. flash_attention_wide.cu (head dims above 256:
-// flash_fwd_wide_f32, flash_bwd_dq_wide_f32) defines the kernels and their
-// second passes from these pieces and spells out the cut of a CTA's work in
+// K and V never replicated. flash_attention_fwd.cu and
+// flash_attention_bwd.cu (head dims up to 256: flash_fwd_f32<NB>,
+// flash_bwd_dq_f32<NB>, one share) and flash_attention_wide.cu (above 256:
+// flash_fwd_wide_f32, flash_bwd_dq_wide_f32) define the kernels and their
+// second passes from these pieces and spell out the cut of a CTA's work in
 // their own bodies; the box products, the loads and the ring are
 // flash_f32.cuh's.
 //
@@ -54,7 +56,9 @@
 //    equal: each share computes the same logits in the same order).
 //
 // Template argument NB: the most output boxes a share has (kMaxBoxes for
-// the wide kernels), so the accumulators stay in registers.
+// the wide kernels; Dv / 64 or D / 64, so 1, 2 or 4, for the narrow ones),
+// so the accumulators stay in registers. An odd count leaves one
+// warpgroup idle in the last output step of a key tile.
 
 #pragma once
 

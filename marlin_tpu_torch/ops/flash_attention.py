@@ -6,11 +6,10 @@ become CUDA C++ kernels: ``_kernel`` (the forward) is
 ``csrc/flash_attention_fwd.cu``; ``_bwd_dq_kernel`` and
 ``_bwd_dkv_kernel`` (the backward) are ``csrc/flash_attention_bwd.cu``.
 For bf16 all three kernels run wgmma fed by TMA through an mbarrier
-ring; for f32 all three are FMA kernels. Above head dim 256 the three
-wide kernels of ``csrc/flash_attention_wide.cu`` take their place, on
-wgmma and a TMA ring for bf16 and register-tiled FMA fed by a cp.async
-ring for f32. The
-TPU's block constants and VMEM clamps (``DEFAULT_BLOCK_Q/K``,
+ring; for f32 all three are register-tiled FMA on the CUDA cores fed by a
+cp.async ring. Above head dim 256 the three wide kernels of
+``csrc/flash_attention_wide.cu`` take their place, of the same two
+designs. The TPU's block constants and VMEM clamps (``DEFAULT_BLOCK_Q/K``,
 ``effective_blocks``, ``window_block_clamp``, the backward's 512-row
 clamp, the lane-replicated lse) do not carry over: each CUDA kernel uses
 its own tiles (:data:`KERNEL_TILES`) and masks the ragged edges itself.
@@ -47,11 +46,12 @@ partials in a fixed order). The f32 kernels are register-tiled FMA on
 the CUDA cores (the pieces in ``csrc/flash_f32.cuh``), every CTA holding
 up to :data:`F32_COLUMNS` output columns and one part of its tile's
 sweep, a second launch merging the parts' f32 partials in a fixed order.
-The wide forward and dQ (``csrc/flash_fwd_dq_f32.cuh``) own 64 query rows
-of one query head a CTA and cut each query tile's sweep over its live key
-tiles (:func:`_f32_q_plan`); the f32 dK/dV, narrow and wide
-(``csrc/flash_dkv_f32.cuh``), owns 64 keys a CTA and cuts each key tile's
-sweep over its (query head, query tile) pairs (:func:`_f32_dkv_plan`).
+The f32 forward and dQ, narrow and wide (``csrc/flash_fwd_dq_f32.cuh``),
+own 64 query rows of one query head a CTA and cut each query tile's sweep
+over its live key tiles (:func:`_f32_q_plan`); the f32 dK/dV, narrow and
+wide (``csrc/flash_dkv_f32.cuh``), owns 64 keys a CTA and cuts each key
+tile's sweep over its (query head, query tile) pairs
+(:func:`_f32_dkv_plan`).
 
 Public layout is the JAX package's ``(S, H, D)``, plus an optional
 leading batch dimension that stands in for ``jax.vmap``.
@@ -91,9 +91,10 @@ WIDE_DKV_WAVES = 2
 # The f32 kernels: the most output columns a CTA holds (kMaxBoxes x kBox
 # of csrc/flash_f32.cuh). The f32 dK/dV (csrc/flash_dkv_f32.cuh, narrow
 # and wide): a CTA's keys (kKeys), the query rows of a tile (kQueries)
-# and the waves of one CTA an SM its plan aims at. The wide f32 forward
-# and dQ (csrc/flash_fwd_dq_f32.cuh): a CTA's query rows (kQueries) and
-# the keys of a forward tile (kFwdKeys) and of a dQ tile (kDqKeys).
+# and the waves of one CTA an SM its plan aims at. The f32 forward and dQ,
+# narrow and wide (csrc/flash_fwd_dq_f32.cuh): a CTA's query rows
+# (kQueries) and the keys of a forward tile (kFwdKeys) and of a dQ tile
+# (kDqKeys).
 F32_COLUMNS = 512
 F32_DKV_KEYS = 64
 F32_DKV_QUERIES = 64
@@ -237,8 +238,8 @@ def _kernel_lib() -> ctypes.CDLL:
     fn = lib.marlin_flash_attention_fwd
     if fn.argtypes is None:  # c_void_p, or ctypes would cut pointers to int
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 5
-                       + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 6
+                       + [ctypes.c_int] * 10 + [ctypes.c_void_p])
     return lib
 
 
@@ -248,8 +249,8 @@ def _bwd_lib() -> ctypes.CDLL:
                lib.marlin_flash_attention_bwd_dkv)
     if dq.argtypes is None:
         dq.restype = dkv.restype = ctypes.c_int
-        dq.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 7
-                       + [ctypes.c_int] * 9
+        dq.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 8
+                       + [ctypes.c_int] * 10
                        + [ctypes.c_float, ctypes.c_void_p])
         dkv.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 9
                         + [ctypes.c_int] * 10 + [ctypes.c_void_p])
@@ -471,7 +472,7 @@ def _f32_key_tiles(m0: int, keys: int, skv: int, causal: bool,
 
 
 class F32QPlan(NamedTuple):
-    """How the wide f32 forward or dQ kernel cuts its work
+    """How the f32 forward or dQ kernel, narrow or wide, cuts its work
     (``csrc/flash_fwd_dq_f32.cuh``; the C entries take ``parts``).
     ``shares``: each query tile's CTAs along the output's columns (O's Dv
     for the forward, dQ's D), ``(first column, columns)``. ``keys``: the
@@ -494,10 +495,11 @@ class F32QPlan(NamedTuple):
 def _f32_q_plan(kind: str, b: int, h: int, hk: int, sq: int, skv: int,
                 d: int, dv: int, causal: bool, window: int, sms: int,
                 parts: Optional[int] = None) -> F32QPlan:
-    """The wide f32 forward's (``kind`` "fwd") or dQ's ("dq") cut on a card
-    of ``sms`` SMs (kernel head dims ``d``, ``dv``), one CTA an SM; P =
-    ``parts`` where given, else the P whose CTAs finish soonest by the
-    makespan model of :func:`_f32_dkv_plan`, with no aim of filling two
+    """The f32 forward's (``kind`` "fwd") or dQ's ("dq") cut on a card of
+    ``sms`` SMs, at every kernel head dim ``d``, ``dv`` (up to 256: the
+    narrow kernels, one column share; above: the wide ones), one CTA an
+    SM; P = ``parts`` where given, else the P whose CTAs finish soonest by
+    the makespan model of :func:`_f32_dkv_plan`, with no aim of filling two
     waves (at ``d512_s2048_f32`` P = 1's 256 CTAs beat P = 2's 384 on the
     card, as the model says: PERF.md). The grid runs the last query tile
     (the heaviest) first. A CTA's steps (a 64 x 64 x 64 box product for
@@ -589,25 +591,31 @@ def _check_err(err: int, what: str, b, sq, skv, h, hk, d, dv) -> None:
             f"Skv={skv}, H={h}, Hk={hk}, D={d}, Dv={dv})")
 
 
-def _launch(q_hat, k, v, causal: bool, window: int):
+def _launch(q_hat, k, v, causal: bool, window: int,
+            parts: Optional[int] = None):
     """Run the forward kernel on batched (B, S, H, D) tensors (the wide
     one above head dim 256). Checks what the kernel takes and raises on
-    anything else."""
+    anything else. The f32 kernel gets the sweep parts P of
+    :func:`_f32_q_plan` (``parts`` where given) and for P > 1 its
+    workspace; the second pass is part of the same call (one launch
+    counted)."""
     global launches
     b, sq, h, d = q_hat.shape
     skv, hk, dv = k.shape[1], k.shape[2], v.shape[3]
     if _is_wide(d, dv):
-        return _launch_wide(q_hat, k, v, causal, window)[:2]
+        return _launch_wide(q_hat, k, v, causal, window, parts=parts)[:2]
     lib = _kernel_lib()
     _check_launch({"q": q_hat, "k": k, "v": v}, d, dv)
     o = torch.empty((b, sq, h, dv), dtype=q_hat.dtype, device=q_hat.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q_hat.device)
+    p, ws = _q_parts("fwd", q_hat, k, v, causal, window, parts)
     with torch.cuda.device(q_hat.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.marlin_flash_attention_fwd(
             _KERNEL_DTYPES[q_hat.dtype], q_hat.data_ptr(), k.data_ptr(),
-            v.data_ptr(), o.data_ptr(), lse.data_ptr(), b, h, hk, sq, skv,
-            d, dv, int(causal), int(window), stream)
+            v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+            None if ws is None else ws.data_ptr(), b, h, hk, sq, skv, d, dv,
+            int(causal), int(window), p, stream)
     _check_err(err, "flash_attention_fwd", b, sq, skv, h, hk, d, dv)
     launches += 1
     return o, lse
@@ -615,10 +623,10 @@ def _launch(q_hat, k, v, causal: bool, window: int):
 
 def _q_parts(kind, q_hat, k, v, causal: bool, window: int,
              parts: Optional[int]):
-    """``(P, workspace or None)`` of the wide forward (``kind`` "fwd") or
-    dQ ("dq") kernel on these batched tensors: 1 and none for bf16; for
-    f32 :func:`_f32_q_plan`'s P (``parts`` where given) and, for P > 1,
-    its f32 workspace."""
+    """``(P, workspace or None)`` of the forward (``kind`` "fwd") or dQ
+    ("dq") kernel, narrow or wide, on these batched tensors: 1 and none
+    for bf16; for f32 :func:`_f32_q_plan`'s P (``parts`` where given) and,
+    for P > 1, its f32 workspace."""
     if q_hat.dtype != torch.float32:
         return 1, None
     b, sq, h, d = q_hat.shape
@@ -694,8 +702,8 @@ def _bwd_setup(q_hat, k, v, do, lse, delta):
 def _launch_bwd_dq(q_hat, k, v, do, lse, delta, causal: bool, window: int,
                    scale: float, parts: Optional[int] = None):
     """Run the dQ kernel (B4; the wide one above head dim 256): dQ in
-    q's dtype, (B, Sq, H, D). The wide f32 kernel gets the sweep parts P
-    of :func:`_f32_q_plan` (``parts`` where given) and for P > 1 its
+    q's dtype, (B, Sq, H, D). The f32 kernels get the sweep parts P of
+    :func:`_f32_q_plan` (``parts`` where given) and for P > 1 its
     workspace; the second pass is part of the same call (one launch
     counted)."""
     global bwd_dq_launches, wide_dq_launches
@@ -706,18 +714,14 @@ def _launch_bwd_dq(q_hat, k, v, do, lse, delta, causal: bool, window: int,
     args = (q_hat.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr())
     dims = (b, h, hk, sq, skv, d, dv, int(causal), int(window))
+    p, ws = _q_parts("dq", q_hat, k, v, causal, window, parts)
+    fn = (lib.marlin_flash_attention_bwd_dq_wide if wide
+          else lib.marlin_flash_attention_bwd_dq)
     with torch.cuda.device(q_hat.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if wide:
-            p, ws = _q_parts("dq", q_hat, k, v, causal, window, parts)
-            err = lib.marlin_flash_attention_bwd_dq_wide(
-                _KERNEL_DTYPES[q_hat.dtype], *args,
-                None if ws is None else ws.data_ptr(), *dims, p,
-                float(scale), stream)
-        else:
-            err = lib.marlin_flash_attention_bwd_dq(
-                _KERNEL_DTYPES[q_hat.dtype], *args, *dims, float(scale),
-                stream)
+        err = fn(_KERNEL_DTYPES[q_hat.dtype], *args,
+                 None if ws is None else ws.data_ptr(), *dims, p,
+                 float(scale), stream)
     _check_err(err, "flash_attention_bwd_dq" + "_wide" * wide, b, sq, skv,
                h, hk, d, dv)
     if wide:

@@ -452,11 +452,11 @@ def test_transformer_step_flops_counts_at_64_tiles_whatever_the_kernels():
 
 # Each planted fault of chip_smoke.py (an edit of the first occurrence of
 # its text) and the body that occurrence must lie in: the kernel it breaks
-# (for the f32 dK/dV, the kernel whose own body cuts its work, or its
-# second pass; for the wide f32 forward and dQ, that or the sweep of
-# csrc/flash_fwd_dq_f32.cuh), or for the SpMM walk's faults the walk
-# (struct LiveBlocks) whose part it edits only the kernel of its route
-# takes.
+# (for the f32 dK/dV and the narrow f32 forward and dQ, the kernel whose
+# own body cuts its work, or its second pass; for the wide f32 forward and
+# dQ, that or the sweep of csrc/flash_fwd_dq_f32.cuh), or for the SpMM
+# walk's faults the walk (struct LiveBlocks) whose part it edits only the
+# kernel of its route takes.
 PLANTED_FAULT_KERNELS = {
     "fwd_drops_last_key_tile": ("flash_attention_fwd.cu", "flash_fwd_bf16("),
     "fwd_skips_o_rescale": ("flash_attention_fwd.cu", "flash_fwd_bf16("),
@@ -480,6 +480,14 @@ PLANTED_FAULT_KERNELS = {
                                      "flash_bwd_dkv_f32("),
     "dkv_f32_sum_drops_last_part": ("flash_attention_bwd.cu",
                                     "flash_dkv_part_sum_f32("),
+    "fwd_f32_part_drops_last_key_tile": ("flash_attention_fwd.cu",
+                                         "flash_fwd_f32("),
+    "fwd_f32_merge_drops_last_part": ("flash_attention_fwd.cu",
+                                      "flash_fwd_merge_f32("),
+    "dq_f32_part_drops_last_key_tile": ("flash_attention_bwd.cu",
+                                        "flash_bwd_dq_f32("),
+    "dq_f32_sum_drops_last_part": ("flash_attention_bwd.cu",
+                                   "flash_dq_part_sum_f32("),
     "gather_drops_last_listed_block": ("block_sparse.cu",
                                        "struct LiveBlocks"),
     "ring_skips_last_k16_of_a_stage": ("block_sparse.cu",
