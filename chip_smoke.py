@@ -1268,9 +1268,11 @@ def phase_backward():
 
 
 # Planted faults of the SpMM kernels: each is one edit of
-# csrc/block_sparse.cu. The SpMM check must pass the sound kernels and
-# fail each fault at every bf16 SpMM shape where the fault can show
-# (SPMM_FAULT_SHOWS).
+# csrc/block_sparse.cu (or of the header it includes that has the text).
+# The SpMM check must pass the sound kernels and fail each fault at every
+# SpMM shape where the fault can show (SPMM_FAULT_SHOWS); at the f32
+# shapes both routes run at the plan's P and at the other of 1 and 2, as
+# phase_spmm runs them.
 SPMM_PLANTED_FAULTS = {
     # The gather route's walk stops one short of its column's list.
     "gather_drops_last_listed_block": (
@@ -1292,20 +1294,47 @@ SPMM_PLANTED_FAULTS = {
     "masked_count_stops_one_block_short": (
         "    return live;\n",
         "    return live - 1;\n"),
+    # The f32 kernel (both routes): each sweep part stops one block short
+    # of its run of the column's live blocks.
+    "f32_part_drops_last_live_block": (
+        "  return (hi - lo) * (g.bs / kFStep);\n",
+        "  return (hi - lo - (hi > lo)) * (g.bs / kFStep);\n"),
+    # The f32 second pass adds every part but the last.
+    "f32_sum_drops_last_part": (
+        "    for (int q = 1; q < parts; ++q) {\n",
+        "    for (int q = 1; q < parts - 1; ++q) {\n"),
+    # The f32 box product (flash_f32.cuh's tile_out, copied for this
+    # build) skips the last 4 of each box's 64 depth columns.
+    "f32_box_product_skips_last_4_depth_columns": (
+        "  for (int m = 0; m < 64; m += 4) {\n",
+        "  for (int m = 0; m < 60; m += 4) {\n"),
 }
 
-# The kernels each SpMM fault breaks and whether a case can show it: the
-# faults of the list walk, the ring and the count wherever some block is
-# live, the mask test wherever some block is dead (the check's backing
-# array is not zeroed under dead blocks).
+# The kernels each SpMM fault breaks, the dtypes it reaches and whether a
+# case can show it: the faults of the list walk, the count, the part runs
+# and the box product wherever some block is live, the bf16 ring's only
+# at bf16 and the f32 kernel's only at f32 (the list walk, the mask test
+# and the count are shared by both dtypes), the mask test wherever some
+# block is dead (the check's backing array is not zeroed under dead
+# blocks); the f32 second pass's at every f32 shape with a live block,
+# since the check runs P = 2 where the plan's P is 1 (the last of two
+# parts holds the column's last live block).
 SPMM_FAULT_SHOWS = {
-    "gather_drops_last_listed_block": (("gather",), lambda c: c.nnz > 0),
-    "ring_skips_last_k16_of_a_stage": (("gather", "masked"),
+    "gather_drops_last_listed_block": (("gather",), ("bfloat16", "float32"),
                                        lambda c: c.nnz > 0),
-    "masked_ignores_the_mask": (("masked",),
+    "ring_skips_last_k16_of_a_stage": (("gather", "masked"), ("bfloat16",),
+                                       lambda c: c.nnz > 0),
+    "masked_ignores_the_mask": (("masked",), ("bfloat16", "float32"),
                                 lambda c: c.nnz < c.mask.numel()),
     "masked_count_stops_one_block_short": (("masked",),
+                                           ("bfloat16", "float32"),
                                            lambda c: c.nnz > 0),
+    "f32_part_drops_last_live_block": (("gather", "masked"), ("float32",),
+                                       lambda c: c.nnz > 0),
+    "f32_sum_drops_last_part": (("gather", "masked"), ("float32",),
+                                lambda c: c.nnz > 0),
+    "f32_box_product_skips_last_4_depth_columns": (
+        ("gather", "masked"), ("float32",), lambda c: c.nnz > 0),
 }
 
 
@@ -1486,43 +1515,48 @@ def _planted_backward(libs):
 
 def _planted_spmm(libs):
     """The SpMM check's reading of the sound kernels and of each fault
-    at every bf16 SpMM shape: (worst sound reading, whether the limit
-    separated them wherever the fault can show and the kernels a fault
-    does not touch stayed sound)."""
+    at every SpMM shape (f32: the worse of the plan's P and the other of
+    1 and 2, each route): (worst sound reading by dtype,
+    whether the limit of the shape's dtype separated them wherever the
+    fault can show and the kernels a fault does not touch stayed sound)."""
     import torch
 
     from marlin_tpu_torch.ops import build
 
     gen = torch.Generator(device="cuda").manual_seed(3)
-    tol = SPMM_TOLERANCE["bfloat16"]
-    worst_sound, caught = 0.0, True
+    worst_sound, caught = {}, True
     try:
         for shape in SPMM_SHAPES:
-            if shape[6] != "bfloat16":
-                continue
             c = SpmmCase(gen, shape)
+            tol = SPMM_TOLERANCE[c.dt]
             ref = c.plain()
+            ps = [None]
+            if c.dt == "float32":
+                ps = [c.plan().parts, other_parts(c.plan())]
             readings = {}
             for variant, lib in libs.items():
                 build._loaded["block_sparse"] = lib
-                readings[variant] = dict(
-                    gather=tile_rel_err_2d(c.gather(), ref),
-                    masked=tile_rel_err_2d(c.masked(), ref))
+                readings[variant] = {
+                    route: max(tile_rel_err_2d(fn(p), ref) for p in ps)
+                    for route, fn in (("gather", c.gather),
+                                      ("masked", c.masked))}
             # What each variant must read: within the limit, except the
             # kernels a fault breaks, wherever that fault can show.
             for variant, r in readings.items():
-                kernels, can_show = SPMM_FAULT_SHOWS.get(
-                    variant, ((), lambda _: False))
-                shows = can_show(c)
+                kernels, dtypes, can_show = SPMM_FAULT_SHOWS.get(
+                    variant, ((), (), lambda _: False))
+                shows = c.dt in dtypes and can_show(c)
                 for k, v in r.items():
                     if k in kernels and shows:
                         caught = caught and v > tol
                     else:
                         caught = caught and v <= tol
-            worst_sound = max(worst_sound, *readings["sound"].values())
+            worst_sound[c.dt] = max(worst_sound.get(c.dt, 0.0),
+                                    *readings["sound"].values())
             print("planted_faults: " + json.dumps(dict(
                 shape=c.name, tolerance=tol, live_blocks=c.nnz,
-                blocks=int(c.mask.numel()), readings=readings)), flush=True)
+                blocks=int(c.mask.numel()), parts=ps, readings=readings)),
+                flush=True)
             del c, ref
     finally:
         build._loaded["block_sparse"] = libs["sound"]
@@ -1532,10 +1566,11 @@ def _planted_spmm(libs):
 def phase_planted_faults(card: str):
     """The kernel checks against planted faults: build each fault of
     FWD_PLANTED_FAULTS, PLANTED_FAULTS and SPMM_PLANTED_FAULTS into a
-    temporary directory, and at every bf16 shape of the check print the
-    sound kernels' and each fault's reading (tile_rel_err of O for the
-    forward and of dQ, dK, dV for the backward, with max |err| beside it;
-    tile_rel_err_2d for SpMM). Fails unless every sound reading is within
+    temporary directory, and at every shape of each check (planted_shape;
+    every SpMM shape) print the sound kernels' and each
+    fault's reading (tile_rel_err of O for the forward and of dQ, dK, dV
+    for the backward, with max |err| beside it; tile_rel_err_2d for
+    SpMM). Fails unless every sound reading is within
     the check's limit and every fault's reading exceeds it wherever the
     fault can show."""
     import tempfile
@@ -1562,7 +1597,7 @@ def phase_planted_faults(card: str):
                      worst_sound=fwd_sound, separates=fwd_caught),
         backward=dict(tolerance=BWD_TOLERANCE,
                       worst_sound=bwd_sound, separates=bwd_caught),
-        spmm=dict(tolerance=SPMM_TOLERANCE["bfloat16"],
+        spmm=dict(tolerance=SPMM_TOLERANCE,
                   worst_sound=spmm_sound, separates=spmm_caught),
         separates=fwd_caught and bwd_caught and spmm_caught)), flush=True)
     if not fwd_caught:
@@ -1633,6 +1668,15 @@ KERNEL_VARIANTS = {
              "constexpr int kGThreads = 512;"),
             ("__launch_bounds__(kGThreads, 2)\nspmm_ring_bf16(",
              "__launch_bounds__(kGThreads, 1)\nspmm_ring_bf16(")],
+        # The f32 kernel's persistent grid at one CTA an SM (this tree:
+        # two, 104 KB of ring each).
+        "spmm_f32_one_cta_an_sm": [("constexpr int kFCtasPerSm = 2;",
+                                    "constexpr int kFCtasPerSm = 1;")],
+        # The f32 kernel with one unit a CTA (a grid of every unit, as the
+        # first design ran): no ring across units.
+        "spmm_f32_one_unit_a_cta": [
+            ("  const unsigned ctas = min(grid, (unsigned)(kFCtasPerSm * "
+             "sms));", "  const unsigned ctas = grid;")],
     },
     "flash_attention_wide": {
         # Ring slots of 2 boxes in dQ (4 in this tree). (The forward's
@@ -1747,6 +1791,25 @@ F32_Q_ABLATIONS = {
 }
 
 
+# Ablations of the f32 SpMM kernel (edits of csrc/block_sparse.cu and
+# csrc/flash_f32.cuh, timed at its --compare-with shapes, never held):
+# without its box products, without its loads, with its loads alone (no
+# products, no stores), and with neither products nor loads (the column
+# count, the ring's barriers and the stores stay).
+_SPMM_F32_NO_PRODUCTS = [
+    ("      tile_out(acc, sl + wg * kBoxFloats,",
+     "      if (0) tile_out(acc, sl + wg * kBoxFloats,")]
+_SPMM_F32_NO_STORES = [
+    ("      if (row < g.M)\n        *reinterpret_cast<float4*>(out",
+     "      if (0)\n        *reinterpret_cast<float4*>(out")]
+SPMM_F32_ABLATIONS = {
+    "spmm_f32_no_products": _SPMM_F32_NO_PRODUCTS,
+    "spmm_f32_no_loads": _F32_NO_LOADS,
+    "spmm_f32_loads_only": _SPMM_F32_NO_PRODUCTS + _SPMM_F32_NO_STORES,
+    "spmm_f32_sync_only": _SPMM_F32_NO_PRODUCTS + _F32_NO_LOADS,
+}
+
+
 def wide_ablations(source: str):
     """{ablation: edits} of the wide source (``source``, its text)."""
     no_tma = _wide_no_tma(source)
@@ -1767,6 +1830,10 @@ def wide_ablations(source: str):
 # backward timed in the same turns.
 _WIDE_F32_TABLE = ("d320_f32", "d1024_f32", "d512_s2048_f32")
 _F32_TABLE = ("f32", "d256_f32", "train_f32")
+# The f32 SpMM shapes of SPMM_SHAPES, PERF.md's f32 table: the small
+# shape, the two edge shapes, and the sparse bench configuration at the
+# parity dtype (`bench512_f32`).
+SPMM_F32_SHAPES = ("f32", "tall_m_f32", "wide_n_f32", "bench512_f32")
 COMPARE_SHAPES = {"dq": ("train", "remat"), "gather": ("bench512", "coo128"),
                   "masked": ("bench512", "coo128"),
                   "fwd_wide": LARGE_WIDE_SHAPES, "dq_wide": LARGE_WIDE_SHAPES,
@@ -1774,13 +1841,54 @@ COMPARE_SHAPES = {"dq": ("train", "remat"), "gather": ("bench512", "coo128"),
                   "dkv_f32": _F32_TABLE, "fwd_f32": _F32_TABLE,
                   "dq_f32": _F32_TABLE, "dkv_wide_f32": _WIDE_F32_TABLE,
                   "fwd_wide_f32": _WIDE_F32_TABLE,
-                  "dq_wide_f32": _WIDE_F32_TABLE}
+                  "dq_wide_f32": _WIDE_F32_TABLE,
+                  "spmm_f32": SPMM_F32_SHAPES,
+                  "spmm_f32_masked": SPMM_F32_SHAPES}
 
 # Each --compare-with kernel's own variants and ablations, by name prefix
-# (the others' are those with neither prefix).
+# (the others' are those with no such prefix).
 _OWN_VARIANTS = {"dkv_f32": "f32_dkv_", "dkv_wide_f32": "f32_dkv_",
                  "fwd_f32": "f32_q_", "dq_f32": "f32_q_",
-                 "fwd_wide_f32": "f32_q_", "dq_wide_f32": "f32_q_"}
+                 "fwd_wide_f32": "f32_q_", "dq_wide_f32": "f32_q_",
+                 "spmm_f32": "spmm_f32_", "spmm_f32_masked": "spmm_f32_"}
+
+# The library calls --compare-with times beside a kernel, by the name its
+# version takes: SDPA beside the f32 flash kernels, one dense torch.matmul
+# on the zero-filled backing beside the f32 SpMM.
+_LIBRARY_VERSIONS = ("sdpa", "matmul")
+
+
+def _spmm_call(route, c, libs):
+    """c.gather() (``route`` "gather") or c.masked(); but where the
+    library loaded as "block_sparse" is ``libs``'s "parent" and its entries
+    take no sweep parts (``libs["parent_spmm_parts"]``), that route's entry
+    called with its own arguments, through a function object of its own
+    (the wrapper's _kernel_lib sets the library's cached ones once)."""
+    import ctypes
+
+    import torch
+
+    from marlin_tpu_torch.ops import build
+
+    lib = build._loaded["block_sparse"]
+    if (lib is not libs["block_sparse"].get("parent")
+            or libs["parent_spmm_parts"]):
+        return c.gather() if route == "gather" else c.masked()
+    gather = route == "gather"
+    fn = lib["marlin_block_sparse_spmm_" + route]
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * (4 + gather)
+                   + [ctypes.c_int] * (4 + gather) + [ctypes.c_void_p])
+    (m, k), n = c.a.shape, c.data.shape[1]
+    out = torch.empty((m, n), dtype=c.data.dtype, device=c.data.device)
+    lists = ([c.kidx_d.data_ptr(), c.kcnt_d.data_ptr()] if gather
+             else [c.mask.data_ptr()])
+    err = fn(int(c.data.dtype == torch.float32), c.a.data_ptr(),
+             c.data.data_ptr(), out.data_ptr(), *lists, m, k, n, c.bs,
+             *[c.max_nnz] * gather, torch.cuda.current_stream().cuda_stream)
+    if err:
+        fail(f"the parent tree's SpMM {route}: cudaError_t {err}")
+    return out
 
 
 def _dkv_call(c, libs, source):
@@ -1909,8 +2017,9 @@ def phase_compare(card: str, parent: str):
     kernels' ablations (wide_ablations) are timed in the same turns, their
     error printed and not held, and so is SDPA's forward or whole backward
     at the f32 kernels' shapes (its backend and its reading of the f32
-    limits beside it). Prints one "compare:" line per kernel, shape and version, and
-    fails if any version but an ablation or SDPA disagrees with the plain
+    limits beside it), and one dense torch.matmul at the f32 SpMM's.
+    Prints one "compare:" line per kernel, shape and version, and fails if
+    any version but an ablation or a library call disagrees with the plain
     one."""
     import tempfile
     from pathlib import Path
@@ -1920,12 +2029,15 @@ def phase_compare(card: str, parent: str):
 
     from marlin_tpu_torch.ops import build
     from marlin_tpu_torch.ops import flash_attention as fa
+    from marlin_tpu_torch.ops.block_sparse import BlockSparse
 
     csrc = Path(parent).resolve() / "marlin_tpu_torch" / "csrc"
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cases = {}
-    sdpa = {}  # (kernel, shape): (call, its readings of the f32 limits)
+    # (kernel, shape): (version, call, its first reading): SDPA (with its
+    # readings of the f32 limits) or torch.matmul (its worst tile)
+    library = {}
     libs = {}  # every source's versions, once built
     gen = torch.Generator(device="cuda").manual_seed(1)
     for shape in BWD_SHAPES:
@@ -1972,9 +2084,9 @@ def phase_compare(card: str, parent: str):
                     lambda out, ref=ref[1:]: max(
                         tile_rel_err(o, r) for o, r in zip(out, ref)),
                     BWD_TOLERANCE[shape[8]])
-                sdpa[kernel, shape[0]] = (
-                    _sdpa_bwd_call(F, c.q, c.k, c.v, c.do, c.causal,
-                                   c.window), sdpa_f32_bwd(F, c, ref))
+                library[kernel, shape[0]] = (
+                    "sdpa", _sdpa_bwd_call(F, c.q, c.k, c.v, c.do, c.causal,
+                                           c.window), sdpa_f32_bwd(F, c, ref))
                 if shape[0] in COMPARE_SHAPES["fwd" + kernel[3:]]:
                     # The f32 forward and dQ, narrow or wide, on the same
                     # inputs.
@@ -1992,8 +2104,8 @@ def phase_compare(card: str, parent: str):
                         FWD_TILE_TOLERANCE[shape[8]])
                     qt, kt, vt, kw = _sdpa_args(c.q, c.k, c.v, c.causal,
                                                 c.window)
-                    sdpa[q_kernels[0], shape[0]] = (
-                        lambda qt=qt, kt=kt, vt=vt, kw=kw:
+                    library[q_kernels[0], shape[0]] = (
+                        "sdpa", lambda qt=qt, kt=kt, vt=vt, kw=kw:
                         F.scaled_dot_product_attention(qt, kt, vt, **kw),
                         sdpa_f32_fwd(F, c.q, c.k, c.v, c.causal, c.window,
                                      o_ref))
@@ -2002,19 +2114,35 @@ def phase_compare(card: str, parent: str):
                         lambda c=c, s=source: _q_call("dq", c, libs, s),
                         lambda out, ref=ref[0]: tile_rel_err(out, ref),
                         BWD_TOLERANCE[shape[8]])
-                    sdpa[q_kernels[1], shape[0]] = sdpa[kernel, shape[0]]
+                    library[q_kernels[1], shape[0]] = library[kernel,
+                                                              shape[0]]
                 del ref
     gen = torch.Generator(device="cuda").manual_seed(3)
+    spmm_kernels = {"gather": ("gather", "spmm_f32"),
+                    "masked": ("masked", "spmm_f32_masked")}
     for shape in SPMM_SHAPES:
-        if shape[0] in COMPARE_SHAPES["gather"] + COMPARE_SHAPES["masked"]:
-            c = SpmmCase(gen, shape)
-            ref = c.plain()
-            for route, fn in (("gather", c.gather), ("masked", c.masked)):
-                if shape[0] in COMPARE_SHAPES[route]:
-                    cases[route, shape[0]] = (
-                        "block_sparse", fn,
-                        lambda out, ref=ref: tile_rel_err_2d(out, ref),
-                        SPMM_TOLERANCE[shape[6]])
+        kernels = {route: k for route, ks in spmm_kernels.items()
+                   for k in ks if shape[0] in COMPARE_SHAPES[k]}
+        if not kernels:
+            continue
+        c = SpmmCase(gen, shape)
+        ref = c.plain()
+        for route, kernel in kernels.items():
+            cases[kernel, shape[0]] = (
+                "block_sparse",
+                lambda c=c, route=route: _spmm_call(route, c, libs),
+                lambda out, ref=ref: tile_rel_err_2d(out, ref),
+                SPMM_TOLERANCE[shape[6]])
+        if shape[6] == "float32":
+            zeroed = BlockSparse(c.data, c.mask, c.bs).data
+            dense = torch.matmul(c.a, zeroed)
+            library["spmm_f32", shape[0]] = (
+                "matmul", lambda a=c.a, z=zeroed: torch.matmul(a, z),
+                dict(tile_rel_err=tile_rel_err_2d(dense, ref)))
+            library["spmm_f32_masked", shape[0]] = library["spmm_f32",
+                                                           shape[0]]
+            del dense
+        del ref
     ablations = wide_ablations(
         build.SOURCES["flash_attention_wide"].read_text())
     variants = {name: dict(v) for name, v in KERNEL_VARIANTS.items()}
@@ -2024,8 +2152,10 @@ def phase_compare(card: str, parent: str):
     for name in ("flash_attention_fwd", "flash_attention_bwd",
                  "flash_attention_wide"):
         variants.setdefault(name, {}).update(F32_Q_ABLATIONS)
+    variants["block_sparse"].update(SPMM_F32_ABLATIONS)
     ablations.update(F32_DKV_ABLATIONS)
     ablations.update(F32_Q_ABLATIONS)
+    ablations.update(SPMM_F32_ABLATIONS)
 
     def versions(kernel, shape, name):
         # The f32 kernels' own variants (_OWN_VARIANTS) at their cases,
@@ -2035,7 +2165,8 @@ def phase_compare(card: str, parent: str):
                if (v.startswith(prefix) if prefix else
                    not v.startswith(tuple(_OWN_VARIANTS.values())))]
         return ["parent", "sound", *own] + (
-            ["sdpa"] if (kernel, shape) in sdpa else [])
+            [library[kernel, shape][0]] if (kernel, shape) in library
+            else [])
 
     readings = {}
     with tempfile.TemporaryDirectory() as tmp:
@@ -2044,6 +2175,8 @@ def phase_compare(card: str, parent: str):
             csrc / "flash_attention_wide.cu").read_text()
         libs["parent_has_f32_parts"] = (csrc / "flash_dkv_f32.cuh").exists()
         libs["parent_q_parts"] = _parent_q_parts(csrc)
+        libs["parent_spmm_parts"] = "workspace" in (
+            csrc / "block_sparse.cu").read_text()
         try:
             for turn in range(2):
                 for (kernel, shape), (name, fn, err_of, tol) in \
@@ -2053,13 +2186,13 @@ def phase_compare(card: str, parent: str):
                         else 10
                     for version in order if turn == 0 else order[::-1]:
                         call = fn
-                        if version == "sdpa":
-                            call, first = sdpa[kernel, shape]
+                        if version in _LIBRARY_VERSIONS:
+                            _, call, first = library[kernel, shape]
                         else:
                             build._loaded[name] = libs[name][version]
                         out = call()
                         torch.cuda.synchronize()
-                        if version != "sdpa":
+                        if version not in _LIBRARY_VERSIONS:
                             first = dict(tile_rel_err=err_of(out))
                         r = readings.setdefault(
                             (kernel, shape, version),
@@ -2081,7 +2214,7 @@ def phase_compare(card: str, parent: str):
             warm_ms_mean=sum(r["warm_ms"]) / len(r["warm_ms"]),
             cold_ms_mean=sum(r["cold_ms"]) / len(r["cold_ms"]))),
             flush=True)
-        if (version not in ablations and version != "sdpa"
+        if (version not in ablations and version not in _LIBRARY_VERSIONS
                 and not r["tile_rel_err"] <= tol):
             bad.append(f"{kernel} {shape} {version}: {r['tile_rel_err']:.3e}")
     print(card)
@@ -2622,7 +2755,8 @@ def phase_profile(params, cfg, workload):
 # main path's two shapes come first: "bench512" is the sparse bench
 # configuration (n = 8192, bs = 512, 12% of the blocks live), "coo128" the
 # same matrix size at the default block size that to_block_sparse gives;
-# "oracle" is that bench's own oracle shape; the rest are edge cases,
+# "bench512_f32" is "bench512" in f32, the library's default and parity
+# dtype; "oracle" is that bench's own oracle shape; the rest are edge cases,
 # "tall_m" and "wide_n" past the 65535 tiles a grid dimension other than x
 # holds (M > 8,388,480 rows of 128; N > 4,194,240 columns of 64). mask: a
 # density in (0, 1) draws it at random; "zero" is all zero, "full" all
@@ -2646,6 +2780,7 @@ SPMM_SHAPES = [
     ("wide_n", 128, 64, 4194304, 64, 0.01, "bfloat16"),
     ("tall_m_f32", 8388608, 128, 128, 64, "diagonal", "float32"),
     ("wide_n_f32", 128, 64, 4194304, 64, 0.01, "float32"),
+    ("bench512_f32", 8192, 8192, 8192, 512, 0.12, "float32"),
 ]
 
 # SpMM tolerance by dtype, on the worst 64 x 64 output tile's relative
@@ -2736,12 +2871,24 @@ class SpmmCase:
         self.kcnt_d = torch.from_numpy(self.kcnt).cuda()
         self.nnz = int(self.kcnt.sum())
 
-    def gather(self):
-        return self.bsp._launch_gather(self.a, self.data, self.kidx_d,
-                                       self.kcnt_d, self.max_nnz, self.bs)
+    def plan(self, parts=None):
+        """The f32 kernel's plan (_spmm_f32_plan) on this card, with P =
+        ``parts`` where given."""
+        import torch
 
-    def masked(self):
-        return self.bsp._launch_masked(self.a, self.data, self.mask, self.bs)
+        (m, k), n = self.a.shape, self.data.shape[1]
+        return self.bsp._spmm_f32_plan(
+            m, k, n, self.bs, self.bsp._sm_count(torch.device("cuda")),
+            parts)
+
+    def gather(self, parts=None):
+        return self.bsp._launch_gather(self.a, self.data, self.kidx_d,
+                                       self.kcnt_d, self.max_nnz, self.bs,
+                                       parts=parts)
+
+    def masked(self, parts=None):
+        return self.bsp._launch_masked(self.a, self.data, self.mask, self.bs,
+                                       parts=parts)
 
     def plain(self):
         return self.bsp.spmm_gather_reference(self.a, self.data, self.kidx,
@@ -2767,9 +2914,47 @@ class SpmmCase:
         return flops, bound(flops, moved, self.a.dtype)
 
 
+def check_spmm_parts(c, ref, tol):
+    """The f32 kernel at its plan's P and at the other of 1 and 2
+    (other_parts), both routes, each run twice: every output within
+    ``tol`` of the plain version ``ref`` (worst 64 x 64 tile), bitwise
+    equal over the two runs and across the routes, empty columns exactly
+    0. Returns {P: {"gather": worst tile, "masked": worst tile}} and the
+    other P's gather time, warm and cold."""
+    import torch
+
+    plan = c.plan()
+    errs = {}
+    for p in (plan.parts, other_parts(plan)):
+        outs = {route: (fn(p), fn(p)) for route, fn in
+                (("gather", c.gather), ("masked", c.masked))}
+        torch.cuda.synchronize()
+        errs[p] = {}
+        for route, (x, y) in outs.items():
+            errs[p][route] = tile_rel_err_2d(x, ref)
+            if not errs[p][route] <= tol:
+                fail(f"spmm {c.name}: the {route} kernel at P = {p}: worst "
+                     f"tile {errs[p][route]:.3e} (tol {tol})")
+            if not torch.equal(x, y):
+                fail(f"spmm {c.name}: the {route} kernel at P = {p} differs "
+                     f"bitwise between two runs")
+            if not c.empty_columns_zero(x):
+                fail(f"spmm {c.name}: an empty block column is not exactly "
+                     f"0 at P = {p}")
+        if not torch.equal(outs["gather"][0], outs["masked"][0]):
+            fail(f"spmm {c.name}: the gather and the masked route differ "
+                 f"bitwise at P = {p}")
+        del outs
+    other = other_parts(plan)
+    return errs, (cuda_ms(lambda: c.gather(other), iters=20),
+                  cuda_ms_cold(lambda: c.gather(other), iters=10))
+
+
 def phase_spmm(card: str):
     """The gather and the masked-grid routes' SpMM kernels against the
-    plain version at every SpMM shape; returns the rows by shape name."""
+    plain version at every SpMM shape (the f32 kernel at its plan's P and
+    at the other of 1 and 2: check_spmm_parts); returns the rows by shape
+    name."""
     import torch
 
     from marlin_tpu_torch.ops.block_sparse import BlockSparse
@@ -2800,6 +2985,18 @@ def phase_spmm(card: str):
                  f"bitwise")
         if not (c.empty_columns_zero(got_g) and c.empty_columns_zero(got_m)):
             fail(f"spmm {c.name}: an empty block column is not exactly 0")
+        del got_m
+        f32 = {}
+        if c.dt == "float32":
+            plan = c.plan()
+            errs, other_ms = check_spmm_parts(c, ref, tol)
+            f32 = dict(spmm_plan=plan._asdict(),
+                       tile_rel_err_by_parts=errs,
+                       other_parts=other_parts(plan),
+                       other_parts_gather_ms=other_ms[0],
+                       other_parts_gather_cold_ms=other_ms[1])
+            print(f"spmm_plan: {c.name} " + json.dumps(f32["spmm_plan"]),
+                  flush=True)
         # The library yardstick: one dense product on the zero-filled
         # backing, which does 1 / density times the work. The port's
         # forward never calls it.
@@ -2827,10 +3024,11 @@ def phase_spmm(card: str):
                    bound_ms=bound_ms, bound_by=bound_by,
                    gather_tflops=flops / ms_g / 1e9,
                    masked_tflops=flops / ms_m / 1e9,
-                   peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+                   peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   **f32)
         rows[c.name] = row
         print("spmm: " + json.dumps(row), flush=True)
-        del c, got_g, got_m, ref, zeroed
+        del c, got_g, ref, zeroed
     return rows
 
 
@@ -2869,7 +3067,7 @@ def _spmm_products(a, b, plain_lists, label, card, extra):
     kidx, kcnt = plain_lists
     ref = bsp.spmm_gather_reference(a, b.data, kidx, kcnt, b.block_size)
     err = tile_rel_err_2d(out, ref)
-    tol = SPMM_TOLERANCE["bfloat16"]
+    tol = SPMM_TOLERANCE[str(out.dtype).removeprefix("torch.")]
     if not err <= tol:
         fail(f"{label}: worst tile ||result - plain|| / ||plain|| = "
              f"{err:.3e} (tol {tol})")
@@ -2892,7 +3090,9 @@ def phase_spmm_path(card: str, seed: int = 0):
     the entry points a user calls: (a) BlockSparse(data, mask, 512) as the
     bench builds it; (b) the same size as COO triples ->
     SparseVecMatrix.from_coo -> to_block_sparse() at the default block
-    size of 128. Returns {path: {"gather": n, "masked": n}}."""
+    size of 128; (c) (a) at f32, the library's default and parity dtype
+    (the f32 kernel, held at its limit of 1e-5). Returns {path:
+    {"gather": n, "masked": n}}."""
     import numpy as np
     import torch
 
@@ -2900,6 +3100,7 @@ def phase_spmm_path(card: str, seed: int = 0):
     from marlin_tpu_torch.ops import BlockSparse
     from marlin_tpu_torch.ops import block_sparse as bsp
 
+    torch.backends.cuda.matmul.allow_tf32 = False  # f32 plain version
     n, density = 8192, 0.12
     rng = np.random.default_rng(seed)
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -2914,6 +3115,16 @@ def phase_spmm_path(card: str, seed: int = 0):
         a, b, bsp._column_block_lists(mask)[:2], "spmm_path bench512", card,
         {})
     del b, data
+
+    mask = rng.random((n // 512, n // 512)) < density
+    a32 = torch.randn((n, n), generator=gen, device="cuda")
+    b = BlockSparse(torch.randn((n, n), generator=gen, device="cuda"),
+                    torch.from_numpy(mask).cuda(), 512)
+    plan = bsp._spmm_f32_plan(n, n, n, 512, bsp._sm_count(a32.device))
+    launches["bench512_f32"] = _spmm_products(
+        a32, b, bsp._column_block_lists(mask)[:2], "spmm_path bench512_f32",
+        card, dict(spmm_plan=plan._asdict()))
+    del a32, b
 
     mask = rng.random((n // 128, n // 128)) < density
     mask_d = torch.from_numpy(mask).cuda()
@@ -3000,7 +3211,8 @@ def phase_spmm_grad(seed: int = 0):
     plain version's autograd, dB exactly 0 outside the mask; and at a
     small f32 shape, the card (kernel forward) against the CPU (plain
     version). Returns the f32 run's launches, {"gather": n, "masked":
-    n}: the f32 kernel's (spmm_f32) only launches on a path."""
+    n}: the f32 kernel's (spmm_f32), beside phase_spmm_path's bench512_f32
+    run."""
     import torch
 
     from marlin_tpu_torch.ops import BlockSparse, block_sparse_matmul
@@ -3553,11 +3765,13 @@ def spmm_kernel_entries(spmm, launches, f32_launches):
     """The SpMM kernels' entries of the {"kernels": [...]} object: the two
     bf16 routes and their f32 kernel. ``spmm`` is phase_spmm's rows;
     ``launches`` is {path: {"gather": n, "masked": n}} for the paths
-    "bench512", "coo128" (the gather kernel's) and "graph512" (the masked
-    kernel's, at the bench512 shape: launches there are graph captures);
-    ``f32_launches`` phase_spmm_grad's f32 run's (the f32 kernel's,
-    spmm_f32, which both routes take for f32 operands; its numbers at the
-    f32 SpMM shapes are the gather route's)."""
+    "bench512", "coo128" (the gather kernel's), "bench512_f32" (the f32
+    kernel's) and "graph512" (the masked kernel's, at the bench512 shape:
+    launches there are graph captures); ``f32_launches`` phase_spmm_grad's
+    f32 run's (the f32 kernel's, spmm_f32, which both routes take for f32
+    operands). The f32 entry's numbers are the gather route's at
+    `bench512_f32` (its main path), with every SPMM_F32_SHAPES row and its
+    plan's P under "shapes"."""
     covers = ("one torch.matmul on the zero-filled backing array: the "
               "dense product, 1 / density times the work")
 
@@ -3569,13 +3783,15 @@ def spmm_kernel_entries(spmm, launches, f32_launches):
                     column_blocks_min=r["column_blocks_min"],
                     column_blocks_mean=r["column_blocks_mean"],
                     column_blocks_max=r["column_blocks_max"],
-                    launches=launches[path][kernel],
+                    launches=launches[path][kernel] if path else 0,
                     max_abs_err=r["max_abs_err"],
                     max_tile_rel_err=r[f"{kernel}_tile_rel_err"],
                     ms=r[f"{kernel}_ms"], plain_ms=r["plain_ms"],
                     bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                     library_ms=r["library_ms"],
-                    cold_ms=r[f"{kernel}_cold_ms"])
+                    cold_ms=r[f"{kernel}_cold_ms"],
+                    **{k: r[k] for k in ("spmm_plan", "masked_ms",
+                                         "masked_cold_ms") if k in r})
 
     def kernel_entry(kernel, replaces, paths):
         per_path = {p: entry(kernel, p, shape) for p, shape in paths}
@@ -3586,8 +3802,11 @@ def spmm_kernel_entries(spmm, launches, f32_launches):
                 "library_ms_covers": covers, "paths": per_path}
 
     launches = {**launches, "f32_grad": f32_launches}
-    f32 = {shape: entry("gather", "f32_grad", shape)
-           for shape in ("f32", "tall_m_f32", "wide_n_f32")}
+    f32 = {shape: entry("gather", None, shape) for shape in SPMM_F32_SHAPES}
+    f32_paths = {"bench512_f32": entry("gather", "bench512_f32",
+                                       "bench512_f32"),
+                 "f32_grad": dict(shape="n = 512, bs = 64, 40% live",
+                                  launches=sum(f32_launches.values()))}
     return [
         kernel_entry("gather", "marlin_tpu/ops/block_sparse.py:136",
                      (("bench512", "bench512"), ("coo128", "coo128"))),
@@ -3596,8 +3815,9 @@ def spmm_kernel_entries(spmm, launches, f32_launches):
         {"name": "block_sparse_spmm_f32", "route": "cuda",
          "source": "marlin_tpu_torch/csrc/block_sparse.cu",
          "replaces": "marlin_tpu/ops/block_sparse.py:136 and :114 (f32)",
-         **f32["f32"], "launches": sum(f32_launches.values()),
-         "library_ms_covers": covers, "shapes": f32},
+         **f32_paths["bench512_f32"],
+         "launches": sum(e["launches"] for e in f32_paths.values()),
+         "library_ms_covers": covers, "paths": f32_paths, "shapes": f32},
     ]
 
 

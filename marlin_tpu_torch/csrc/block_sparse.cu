@@ -41,8 +41,7 @@
 // Both routes run one bf16 kernel body, spmm_ring_bf16<BN, GATHER>, which
 // differs only in how it finds a column's live blocks (LiveBlocks below):
 // the same blocks in the same ascending-k order through the same
-// instructions, so the two routes' bf16 results are bitwise equal. The f32
-// kernels share one loop in the same way.
+// instructions, so the two routes' bf16 results are bitwise equal.
 //
 // Bound on the H100. At the main shape (M = K = N = 8192, bf16, 12% of the
 // blocks live) the work is 2 M bs^2 nnz_blocks = 132 GFLOP against ~285 MB
@@ -65,14 +64,30 @@
 // exists (it runs under CUDA-graph capture, where the host cannot build
 // one).
 //
-// The f32 path is a plain FMA kernel (64 x 64 tile, 4 x 4 per thread):
-// full f32 products and sums, no TF32, so it matches an f32 reference to
-// summation order. It is bounded by the card's 67 TFLOP/s f32 rate.
+// The f32 kernel, spmm_f32<GATHER> (both routes, one body, so bitwise
+// equal), keeps full f32 products and sums, no TF32, so it matches an f32
+// reference to summation order; its bound is the card's 67 TFLOP/s f32
+// rate or its 3.35 TB/s, whichever is larger (tall or wide outputs with
+// few live blocks are bytes: A read, C written). It is built on the f32
+// flash kernels' pieces (flash_f32.cuh): a 128 x 64 output tile on two
+// warpgroups of 8 x 4 register tiles (the shared-memory fills cap the FMA
+// rate at 67%, where 4 x 4 tiles cap it at 50%), A's and B's 64 x 64 boxes
+// by cp.async through a two-slot ring of its own (three boxes a step, 104
+// KB, so two CTAs share an SM). The grid is persistent: each CTA takes its
+// units of work (a tile and one sweep part of it) in turn with one ring
+// across them, so the next unit's boxes load while a unit's last products
+// run and its sums are stored; at one depth step a tile (a tall output
+// over few blocks) nothing else would hide them. Where the output has few
+// tiles and K many blocks, a column's live blocks are cut into P sweep
+// parts (P from the shape alone: the wrapper's _spmm_f32_plan) whose f32
+// partial sums a second pass, spmm_part_sum_f32, adds in part order: no
+// atomics, bitwise repeatable.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "flash_f32.cuh"
 #include "sm90.cuh"
 
 namespace {
@@ -321,90 +336,191 @@ spmm_ring_bf16(const __grid_constant__ CUtensorMap ta,
 }
 
 // ---------------------------------------------------------------------
-// f32: FMA path
+// f32: register-tiled FMA fed by cp.async (both routes)
 // ---------------------------------------------------------------------
 
-constexpr int kFM = 64;        // output rows per CTA
-constexpr int kFN = 64;        // output columns per CTA
-constexpr int kFK = 16;        // depth per step
-constexpr int kFThreads = 256; // 16 x 16, a 4 x 4 patch each
+constexpr int kFRows = 128;  // output rows per tile (2 warpgroups x 64)
+constexpr int kFCols = 64;   // output columns per tile
+constexpr int kFStep = 64;   // depth per step: one box
+constexpr int kFStages = 2;  // ring slots
+constexpr int kFCtasPerSm = 2;  // CTAs of the persistent grid an SM
+// A ring slot: A's two 64-row boxes of the step, then B's box.
+constexpr int kFSlotFloats = 3 * flash_f32::kBoxFloats;
+constexpr int kFSmemBytes = kFStages * kFSlotFloats * 4;  // 104,448: 2 CTAs
 
-// One CTA per 64 x 64 output tile, row tiles fastest on the grid. Every
-// thread walks the column, reading the mask one entry at a time: a
-// window's registers would cost this kernel occupancy, and its CTAs, many
-// and short, overlap each other's walks.
+// The f32 kernel's arguments. A unit of work is one 128 x 64 output tile
+// inside one block column and one sweep part of it; `units` is row tiles
+// x P x column tiles.
+struct F32Args {
+  const float* a;
+  const float* b;
+  float* c;
+  float* ws;  // (parts, M, N) for parts > 1
+  const int* kidx;
+  const int* kcnt;
+  const int* mask;
+  int M, K, N, bs, max_nnz, parts;
+  unsigned units;
+};
+
+// Unit u: column tiles fastest, then the parts, then the row tiles, so the
+// units in flight share rows of A.
+struct F32Unit {
+  int m0, n0, p;
+};
+
+__device__ __forceinline__ F32Unit unit_of(const F32Args& g, unsigned u) {
+  const unsigned n_cols = g.N / kFCols;
+  const unsigned rest = u / n_cols;
+  return F32Unit{(int)(rest / g.parts) * kFRows, (int)(u % n_cols) * kFCols,
+                 (int)(rest % g.parts)};
+}
+
+// The run of live blocks [lo, hi) that part p of P takes of a column of n:
+// P runs in ascending k whose lengths differ by at most one; a run may be
+// empty. A function of (n, P, p) alone, so both routes cut alike.
+__device__ __forceinline__ void part_run(int n, int parts, int p, int* lo,
+                                         int* hi) {
+  *lo = (int)((long long)p * n / parts);
+  *hi = (int)((long long)(p + 1) * n / parts);
+}
+
+// Unit t's column walk, set on its column (init) and its run cut from the
+// column's count (n_live, which every thread of the CTA calls together):
+// the run's depth steps, with the walk stood on the run's first block.
 template <bool GATHER>
-__global__ void __launch_bounds__(kFThreads)
-spmm_f32(const float* __restrict__ a, const float* __restrict__ b,
-         float* __restrict__ c, const int* __restrict__ kidx,
-         const int* __restrict__ kcnt, const int* __restrict__ mask, int M,
-         int K, int N, int bs, int max_nnz) {
-  __shared__ __align__(16) float sA[kFK][kFM + 4];  // transposed: [k][m]
-  __shared__ __align__(16) float sB[kFK][kFN];
+__device__ __forceinline__ int unit_steps(const F32Args& g, const F32Unit& t,
+                                          LiveBlocks<GATHER, 1>& blocks) {
+  blocks.init(g.kidx, g.kcnt, g.mask, t.n0 / g.bs, g.max_nnz, g.K / g.bs,
+              g.N / g.bs);
+  int lo, hi;
+  part_run(blocks.n_live(flash_f32::kThreads), g.parts, t.p, &lo, &hi);
+  if (hi > lo) {
+    blocks.skip_dead();  // on the column's first live block
+    for (int x = 0; x < lo; ++x) blocks.next();
+  }
+  return (hi - lo) * (g.bs / kFStep);
+}
 
-  const unsigned n_rows = (M - 1) / kFM + 1;
-  const int m0 = (int)(blockIdx.x % n_rows) * kFM;
-  const size_t n0 = (size_t)(blockIdx.x / n_rows) * kFN;
-  const int j = (int)(n0 / bs);
-  const int tx = threadIdx.x % 16;  // 4 columns each
-  const int ty = threadIdx.x / 16;  // 4 rows each
+// A persistent grid: CTA x takes units x, x + G, x + 2G, ... (G CTAs,
+// kFCtasPerSm an SM), in that order, and one ring of two slots runs on
+// across them. Its producer (every thread together) walks the CTA's units
+// ahead of the products: it counts one unit at a time (unit_steps: its
+// list's length, or its mask column's live entries) and walks the live
+// blocks of each unit's run (the list, or the mask column one entry at a
+// time), loading each step into its slot as the step after the last one
+// the products took, never further ahead. It runs at each step's barrier
+// and, between units, while the consumer catches it up to its next unit,
+// so a run of empty units costs one count and one store each, in turn,
+// and the first boxes of the next unit with a step load while this
+// unit's last products run and its sums are stored. A step is A's two
+// 64 x 64 boxes (rows m0 .. m0 + 128 at depth k; rows past M zero-filled)
+// and B's box (depth k, columns n0 .. n0 + 64), by cp.async (flash_f32's
+// load_box). The consumer takes the units in the same order, reading
+// each one's step count off the producer (a unit it has passed has none);
+// each warpgroup multiplies its A box by the B box on 8 x 4 register
+// tiles (flash_f32's tile_out) in ascending k, and the sums go once,
+// uncast, to C at P = 1, or to the part's plane of the workspace (P, M,
+// N); an empty column or part runs no step and writes exact zeros. No
+// atomics: spmm_part_sum_f32 adds the parts' planes in part order. Rows
+// past M are not stored.
+template <bool GATHER>
+__global__ void __launch_bounds__(flash_f32::kThreads, kFCtasPerSm)
+spmm_f32(const F32Args g) {
+  using namespace flash_f32;
+  extern __shared__ __align__(16) float smem_f[];
+  const int wg = threadIdx.x >> 7, warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int tn = lane & 7, tm = (warp & 3) * 4 + (lane >> 3);
+  const int per_block = g.bs / kFStep;
 
-  DepthSteps<GATHER, 1> st;
-  st.blocks.init(kidx, kcnt, mask, j, max_nnz, K / bs, N / bs);
-  st.blocks.skip_dead();
-  st.sub = 0;
-  st.per_block = bs / kFK;
-  st.bs = bs;
-  st.step = kFK;
+  // The producer: the unit it stands on, whether it has counted it, the
+  // unit's steps, its walk of the unit's run, the steps of the run still
+  // to load, the step inside the current block, and the steps loaded.
+  unsigned p_unit = blockIdx.x;
+  bool p_counted = false;
+  LiveBlocks<GATHER, 1> p_blocks;
+  int p_steps = 0, p_left = 0, p_sub = 0, loaded = 0;
+  // With no step of its unit left, count the next unit; then, if it
+  // stands on a step and `may` is the next step to load, load it into its
+  // slot. Commits one group either way.
+  auto produce = [&](int may) {
+    if (p_left <= 0 && p_unit < g.units) {
+      if (p_counted) p_unit += gridDim.x;
+      p_counted = p_unit < g.units;
+      if (p_counted) {
+        p_steps = p_left = unit_steps(g, unit_of(g, p_unit), p_blocks);
+        p_sub = 0;
+      }
+    }
+    if (p_left > 0 && loaded == may) {
+      const F32Unit t = unit_of(g, p_unit);
+      float* slot = smem_f + (may % kFStages) * kFSlotFloats;
+      const size_t k = (size_t)p_blocks.block() * g.bs + p_sub * kFStep;
+      const int valid0 = min(kBox, g.M - t.m0);
+      const int valid1 = min(kBox, g.M - t.m0 - kBox);
+      const float* a0 = g.a + (size_t)t.m0 * g.K + k;
+      load_box(slot, a0, g.K, valid0);
+      load_box(slot + kBoxFloats, valid1 > 0 ? a0 + (size_t)kBox * g.K : a0,
+               g.K, valid1);
+      load_box(slot + 2 * kBoxFloats, g.b + k * g.N + t.n0, g.N, kBox);
+      ++loaded;
+      if (--p_left > 0 && ++p_sub == per_block) {
+        p_sub = 0;
+        p_blocks.next();
+      }
+    }
+    cp_async_commit();
+  };
 
-  float acc[4][4];
+  int step = 0;  // steps the products took
+  for (unsigned u = blockIdx.x; u < g.units; u += gridDim.x) {
+    // The producer catches up to this unit: it loads the unit's first step
+    // (the next one) where it has one.
+    while (p_unit < u || (p_unit == u && !p_counted)) produce(step);
+    const F32Unit t = unit_of(g, u);
+    const int n_steps = u == p_unit ? p_steps : 0;
+    float4 acc[8];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < 8; ++i) acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int i = 0; i < n_steps; ++i, ++step) {
+      // The step's boxes are in; every thread is past the step before,
+      // whose slot takes the step after this one.
+      cp_async_wait<0>();
+      __syncthreads();
+      produce(step + 1);
+      const float* sl = smem_f + (step % kFStages) * kFSlotFloats;
+      tile_out(acc, sl + wg * kBoxFloats, sl + 2 * kBoxFloats, tn, tm);
+    }
+    float* out = g.parts == 1 ? g.c : g.ws + (size_t)t.p * g.M * g.N;
 #pragma unroll
-    for (int jj = 0; jj < 4; ++jj) acc[i][jj] = 0.f;
-
-  // Each thread brings one float4 of A (row ar, depth ak .. ak + 3) and
-  // one of B (depth br, columns bc .. bc + 3) per step.
-  const int ar = threadIdx.x / 4;
-  const int ak = (threadIdx.x % 4) * 4;
-  const int br = threadIdx.x / 16;
-  const int bc = (threadIdx.x % 16) * 4;
-
-  for (; st.live(); st.advance()) {
-    const size_t k = st.k();
-    float4 av = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (m0 + ar < M)
-      av = *reinterpret_cast<const float4*>(a + (size_t)(m0 + ar) * K + k +
-                                            ak);
-    float4 bv =
-        *reinterpret_cast<const float4*>(b + (k + br) * (size_t)N + n0 + bc);
-    __syncthreads();  // the previous step is fully consumed
-    sA[ak + 0][ar] = av.x;
-    sA[ak + 1][ar] = av.y;
-    sA[ak + 2][ar] = av.z;
-    sA[ak + 3][ar] = av.w;
-    *reinterpret_cast<float4*>(&sB[br][bc]) = bv;
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kFK; ++kk) {
-      float4 x = *reinterpret_cast<const float4*>(&sA[kk][ty * 4]);
-      float4 y = *reinterpret_cast<const float4*>(&sB[kk][tx * 4]);
-      const float xs[4] = {x.x, x.y, x.z, x.w};
-      const float ys[4] = {y.x, y.y, y.z, y.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj)
-          acc[i][jj] = fmaf(xs[i], ys[jj], acc[i][jj]);
+    for (int i = 0; i < 8; ++i) {
+      const int row = t.m0 + wg * kBox + tn + 8 * i;
+      if (row < g.M)
+        *reinterpret_cast<float4*>(out + (size_t)row * g.N + t.n0 + 4 * tm) =
+            acc[i];
     }
   }
+  cp_async_wait<0>();
+}
 
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    int row = m0 + ty * 4 + i;
-    if (row >= M) continue;
-    *reinterpret_cast<float4*>(c + (size_t)row * N + n0 + tx * 4) =
-        make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+// The second pass where P > 1: C = the parts' planes of the workspace
+// added in part order, a float4 a step (a grid-stride loop).
+__global__ void __launch_bounds__(flash_f32::kSumThreads)
+spmm_part_sum_f32(const float4* __restrict__ ws, float4* __restrict__ c,
+                  long long n4, int parts) {
+  for (long long e = blockIdx.x * (long long)flash_f32::kSumThreads +
+                     threadIdx.x;
+       e < n4; e += (long long)gridDim.x * flash_f32::kSumThreads) {
+    float4 s = ws[e];
+    for (int q = 1; q < parts; ++q) {
+      const float4 x = ws[q * n4 + e];
+      s.x += x.x;
+      s.y += x.y;
+      s.z += x.z;
+      s.w += x.w;
+    }
+    c[e] = s;
   }
 }
 
@@ -442,25 +558,51 @@ cudaError_t run_ring_bf16(const void* a, const void* b, void* c,
   return cudaGetLastError();
 }
 
+// The f32 kernel's persistent grid over its row tiles x column tiles x
+// `parts` units and, for parts > 1, its second pass on the same stream.
 template <bool GATHER>
-cudaError_t run_f32(const void* a, const void* b, void* c, const int* kidx,
-                    const int* kcnt, const int* mask, int M, int K, int N,
-                    int bs, int max_nnz, cudaStream_t stream) {
-  const unsigned grid = grid_1d((M - 1) / kFM + 1, N / kFN);
+cudaError_t run_f32(const void* a, const void* b, void* c, void* ws,
+                    const int* kidx, const int* kcnt, const int* mask, int M,
+                    int K, int N, int bs, int max_nnz, int parts,
+                    cudaStream_t stream) {
+  if (parts < 1 || (parts > 1 && ws == nullptr)) return cudaErrorInvalidValue;
+  const long long cols = (long long)(N / kFCols) * parts;  // x P parts
+  const unsigned grid = grid_1d((M - 1) / kFRows + 1, cols);  // the units
   if (grid == 0) return cudaErrorInvalidValue;
-  spmm_f32<GATHER><<<grid, kFThreads, 0, stream>>>(
-      static_cast<const float*>(a), static_cast<const float*>(b),
-      static_cast<float*>(c), kidx, kcnt, mask, M, K, N, bs, max_nnz);
+  int dev = 0, sms = 0;
+  cudaError_t err;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess)
+    return err;
+  const unsigned ctas = min(grid, (unsigned)(kFCtasPerSm * sms));
+  auto kernel = spmm_f32<GATHER>;
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kFSmemBytes);
+  if (err != cudaSuccess) return err;
+  const F32Args g{static_cast<const float*>(a), static_cast<const float*>(b),
+                  static_cast<float*>(c), static_cast<float*>(ws), kidx,
+                  kcnt, mask, M, K, N, bs, max_nnz, parts, grid};
+  kernel<<<ctas, flash_f32::kThreads, kFSmemBytes, stream>>>(g);
+  if ((err = cudaGetLastError()) != cudaSuccess || parts == 1) return err;
+  const long long n4 = (long long)M * N / 4;
+  long long blocks = (n4 + flash_f32::kSumThreads - 1) / flash_f32::kSumThreads;
+  if (blocks > 8LL * sms) blocks = 8LL * sms;  // a grid-stride loop past it
+  const unsigned sum_grid = (unsigned)blocks;
+  spmm_part_sum_f32<<<sum_grid, flash_f32::kSumThreads, 0, stream>>>(
+      static_cast<const float4*>(ws), static_cast<float4*>(c), n4, parts);
   return cudaGetLastError();
 }
 
 template <bool GATHER>
-cudaError_t run(int dtype, const void* a, const void* b, void* c,
+cudaError_t run(int dtype, const void* a, const void* b, void* c, void* ws,
                 const int* kidx, const int* kcnt, const int* mask, int M,
-                int K, int N, int bs, int max_nnz, cudaStream_t stream) {
+                int K, int N, int bs, int max_nnz, int parts,
+                cudaStream_t stream) {
   if (M < 1 || K < 1 || N < 1 || bs < 64 || bs % 64 || K % bs || N % bs)
     return cudaErrorInvalidValue;
   if (dtype == 0) {
+    if (parts != 1) return cudaErrorInvalidValue;
     if (bs % 128 == 0)
       return run_ring_bf16<128, GATHER>(a, b, c, kidx, kcnt, mask, M, K, N,
                                         bs, max_nnz, stream);
@@ -468,8 +610,8 @@ cudaError_t run(int dtype, const void* a, const void* b, void* c,
                                      max_nnz, stream);
   }
   if (dtype == 1)
-    return run_f32<GATHER>(a, b, c, kidx, kcnt, mask, M, K, N, bs, max_nnz,
-                           stream);
+    return run_f32<GATHER>(a, b, c, ws, kidx, kcnt, mask, M, K, N, bs,
+                           max_nnz, parts, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -478,29 +620,35 @@ cudaError_t run(int dtype, const void* a, const void* b, void* c,
 // C entry points, bound with ctypes (marlin_tpu_torch/ops/block_sparse.py).
 // dtype: 0 = bf16, 1 = f32. Each returns the cudaError_t of its launch
 // (0 = ok); a shape or dtype the kernels do not take returns
-// cudaErrorInvalidValue. Launched on `stream`; nothing is allocated and
-// nothing synchronises.
+// cudaErrorInvalidValue. `parts` is the f32 kernel's sweep parts P per
+// output tile (bf16: 1 only), `workspace` its f32 (P, M, N) partial sums
+// for P > 1 (the caller allocates it; unused at P = 1 and for bf16).
+// Launched on `stream`; nothing is allocated and nothing synchronises.
 
 // The gather route: kidx (N / bs, max_nnz) and kcnt (N / bs), on the
 // device.
 extern "C" int marlin_block_sparse_spmm_gather(int dtype, const void* a,
                                                const void* b, void* c,
                                                const void* kidx,
-                                               const void* kcnt, int M, int K,
+                                               const void* kcnt,
+                                               void* workspace, int M, int K,
                                                int N, int bs, int max_nnz,
-                                               void* stream) {
+                                               int parts, void* stream) {
   if (max_nnz < 1) return (int)cudaErrorInvalidValue;
-  return (int)run<true>(dtype, a, b, c, static_cast<const int*>(kidx),
+  return (int)run<true>(dtype, a, b, c, workspace,
+                        static_cast<const int*>(kidx),
                         static_cast<const int*>(kcnt), nullptr, M, K, N, bs,
-                        max_nnz, static_cast<cudaStream_t>(stream));
+                        max_nnz, parts, static_cast<cudaStream_t>(stream));
 }
 
 // The masked-grid route: mask (K / bs, N / bs) int32, on the device.
 extern "C" int marlin_block_sparse_spmm_masked(int dtype, const void* a,
                                                const void* b, void* c,
-                                               const void* mask, int M, int K,
-                                               int N, int bs, void* stream) {
-  return (int)run<false>(dtype, a, b, c, nullptr, nullptr,
+                                               const void* mask,
+                                               void* workspace, int M, int K,
+                                               int N, int bs, int parts,
+                                               void* stream) {
+  return (int)run<false>(dtype, a, b, c, workspace, nullptr, nullptr,
                          static_cast<const int*>(mask), M, K, N, bs, 0,
-                         static_cast<cudaStream_t>(stream));
+                         parts, static_cast<cudaStream_t>(stream));
 }

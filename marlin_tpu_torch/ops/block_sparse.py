@@ -21,7 +21,10 @@ surviving FLOP on the tensor cores. This module provides:
   At bf16 both routes run one kernel body (wgmma fed by TMA through an
   mbarrier ring) and differ only in how a CTA finds its column's live
   blocks: its list, or a scan of its mask column; so their results are
-  bitwise equal, as are the two f32 FMA kernels'.
+  bitwise equal. At f32 both run one register-tiled FMA kernel fed by
+  cp.async, whose columns' sweeps may be cut into P parts
+  (:func:`_spmm_f32_plan`, from the shape alone, so the two routes cut
+  alike) added in part order by a second pass: bitwise equal too.
 
 Dispatch: CPU tensors take the plain versions
 (:func:`spmm_gather_reference`, :func:`spmm_masked_reference`); CUDA
@@ -35,7 +38,8 @@ themselves and nothing is copied.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+import functools
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -43,11 +47,26 @@ import torch
 from ..config import get_config, matmul_precision_scope
 from ..utils.hw import is_sm90, resolve_device
 from . import build
+from .flash_attention import _sm_count
 
 # Block sizes the kernels take: every multiple of this (their CTA tile is
 # 128 x 128, or 128 x 64 for a block size that 128 does not divide).
 KERNEL_BLOCK_MULTIPLE = 64
 _KERNEL_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
+
+# The f32 kernel's cut (csrc/block_sparse.cu, spmm_f32): a CTA's output
+# tile and the depth of one step (a 64 x 64 x 64 box product for each of
+# its two warpgroups).
+SPMM_F32_ROWS = 128
+SPMM_F32_COLS = 64
+SPMM_F32_STEP = 64
+# CTAs of its persistent grid an SM (kFCtasPerSm).
+SPMM_F32_CTAS_PER_SM = 2
+# Bytes the card moves (3.35 TB/s) in the time of one step on one SM (two
+# 64 x 64 x 64 box products at 2/3 of an SM's 128 FMA a clock, ~3.1 us):
+# what the plan charges its second pass, which reads P planes of C and
+# writes one.
+SPMM_F32_STEP_BYTES = 10e6
 
 # Kernel launches since the last reset, one counter per kernel
 # (chip_smoke.py zeroes and reads them to prove that a path ran through
@@ -226,16 +245,86 @@ def spmm_masked_reference(a, data, mask, block_size: int):
     return out.to(data.dtype)
 
 
+def _spmm_f32_part_run(n: int, parts: int, p: int) -> Tuple[int, int]:
+    """``(lo, hi)``: the run of a column's ``n`` live blocks (their
+    indices in ascending k) that part ``p`` of ``parts`` takes
+    (``part_run`` of ``csrc/block_sparse.cu``): P runs whose lengths
+    differ by at most one, some empty where n < P."""
+    return p * n // parts, (p + 1) * n // parts
+
+
+class SpmmF32Plan(NamedTuple):
+    """How the f32 SpMM kernel cuts its work (``csrc/block_sparse.cu``; the
+    C entries take ``parts``). ``parts``: P, the sweep parts of each 128 x
+    64 output tile, each a run of its column's live blocks
+    (:func:`_spmm_f32_part_run`). ``units``: row tiles x P x column tiles,
+    which a persistent grid of ``ctas`` CTAs takes in turn (CTA x: units
+    x, x + ctas, ...). ``workspace_bytes``: the parts' f32 sums, (P, M,
+    N), 0 for P = 1 (no second pass)."""
+    parts: int
+    units: int
+    ctas: int
+    workspace_bytes: int
+
+
+def _spmm_f32_makespan(cost: list, sms: int) -> float:
+    """The time of units of ``cost`` steps each on the kernel's persistent
+    grid over ``sms`` SMs: min(units, :data:`SPMM_F32_CTAS_PER_SM` x sms)
+    CTAs, CTA x taking units x, x + G, ...; CTAs x, x + sms, ... share SM
+    x and its rate, so an SM takes the sum of its CTAs' units."""
+    ctas = min(len(cost), SPMM_F32_CTAS_PER_SM * sms)
+    per_sm = [0.0] * min(sms, ctas)
+    for u, c in enumerate(cost):
+        per_sm[u % ctas % sms] += c
+    return max(per_sm)
+
+
+@functools.lru_cache(maxsize=256)
+def _spmm_f32_plan(m: int, k: int, n: int, bs: int, sms: int,
+                   parts: Optional[int] = None) -> SpmmF32Plan:
+    """The f32 SpMM kernel's cut of C (M, N) = A (M, K) @ B (K, N) in blocks
+    of ``bs`` on a card of ``sms`` SMs: P = ``parts`` where given, else the
+    P whose units finish soonest on the persistent grid
+    (:func:`_spmm_f32_makespan`), then the least. The model assumes every
+    block live, since the masked route runs where the mask has no host
+    value (graph capture), and both routes must cut alike (their results
+    are bitwise equal): P comes from the shape alone, never from the column
+    counts. A unit's steps: its run of the K / bs blocks, bs / 64 each, and
+    one for its stores; above P = 1 the second pass costs (P + 1) M N 4
+    bytes at :data:`SPMM_F32_STEP_BYTES` a step. Units that fill every SM
+    16 times over take P = 1."""
+    tiles = -(-m // SPMM_F32_ROWS) * (n // SPMM_F32_COLS)
+    blocks, per_block = k // bs, bs // SPMM_F32_STEP
+
+    def makespan(p):
+        runs = [hi - lo for lo, hi in
+                (_spmm_f32_part_run(blocks, p, q) for q in range(p))]
+        # units in grid order: the parts of a row of tiles, then the next
+        cost = [r * per_block + 1 for r in runs
+                for _ in range(n // SPMM_F32_COLS)] * -(-m // SPMM_F32_ROWS)
+        return (_spmm_f32_makespan(cost, sms)
+                + (p > 1) * (p + 1) * m * n * 4 / SPMM_F32_STEP_BYTES)
+
+    if parts is None:
+        parts = 1
+        if tiles < 16 * sms:
+            parts = min(range(1, blocks + 1), key=lambda p: (makespan(p), p))
+    units = tiles * parts
+    return SpmmF32Plan(parts, units,
+                       min(units, SPMM_F32_CTAS_PER_SM * sms),
+                       parts * m * n * 4 if parts > 1 else 0)
+
+
 def _kernel_lib() -> ctypes.CDLL:
     lib = build.load("block_sparse")
     gather, masked = (lib.marlin_block_sparse_spmm_gather,
                       lib.marlin_block_sparse_spmm_masked)
     if gather.argtypes is None:  # c_void_p, or ctypes would cut pointers
         gather.restype = masked.restype = ctypes.c_int
-        gather.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 5
+        gather.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 6
+                           + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+        masked.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 5
                            + [ctypes.c_int] * 5 + [ctypes.c_void_p])
-        masked.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4
-                           + [ctypes.c_int] * 4 + [ctypes.c_void_p])
     return lib
 
 
@@ -277,9 +366,10 @@ def _check_launch(a, data, block_size: int, **ints) -> None:
         if x.dtype != torch.int32:
             raise ValueError(f"{name} is {x.dtype}, the kernels take int32")
     every = {"a": a, "b": data, **ints}
-    # The bf16 kernel's TMA loads (both routes) need 16-byte-aligned bases
-    # (a view at an odd offset is not); its row strides, K and N elements,
-    # are multiples of 64 and so already whole 16-byte units.
+    # The bf16 kernel's TMA loads and the f32 kernel's cp.async (both
+    # routes) need 16-byte-aligned bases (a view at an odd offset is not);
+    # their row strides, K and N elements, are multiples of 64 and so
+    # already whole 16-byte units.
     for name, x in every.items():
         if x.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
@@ -304,44 +394,70 @@ def _check_err(err: int, what: str, a, data, block_size: int) -> None:
             f"{data.dtype})")
 
 
-def _launch_gather(a, data, kidx, kcnt, max_nnz: int, block_size: int):
+def _parts(a, data, block_size: int, parts: Optional[int]):
+    """``(P, workspace or None)`` of the kernels on these operands: 1 and
+    none for bf16; for f32 :func:`_spmm_f32_plan`'s P (``parts`` where
+    given) and, for P > 1, its f32 workspace."""
+    if data.dtype != torch.float32:
+        return 1, None
+    (m, k), n = a.shape, data.shape[1]
+    plan = _spmm_f32_plan(m, k, n, block_size, _sm_count(data.device),
+                          parts)
+    ws = None
+    if plan.workspace_bytes:
+        ws = torch.empty(plan.workspace_bytes // 4, dtype=torch.float32,
+                         device=data.device)
+    return plan.parts, ws
+
+
+def _launch_gather(a, data, kidx, kcnt, max_nnz: int, block_size: int,
+                   parts: Optional[int] = None):
     """Run the gather route's kernel (B1): C (M, N) in B's dtype.
     ``kidx`` (N/bs, max_nnz) and ``kcnt`` (N/bs) are int32 tensors on the
-    card.
-    Allocates with ``torch.empty`` only and launches on the current
-    stream."""
+    card. The f32 kernel gets the sweep parts P of :func:`_spmm_f32_plan`
+    (``parts`` where given) and for P > 1 its workspace; the second pass
+    is part of the same call (one launch counted). Allocates with
+    ``torch.empty`` only and launches on the current stream."""
     global gather_launches
     lib = _kernel_lib()
     _check_launch(a, data, block_size, kidx=kidx, kcnt=kcnt)
     (m, k), n = a.shape, data.shape[1]
     out = torch.empty((m, n), dtype=data.dtype, device=data.device)
+    p, ws = _parts(a, data, block_size, parts)
     with torch.cuda.device(data.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.marlin_block_sparse_spmm_gather(
             _KERNEL_DTYPES[data.dtype], a.data_ptr(), data.data_ptr(),
-            out.data_ptr(), kidx.data_ptr(), kcnt.data_ptr(), m, k, n,
-            block_size, max_nnz, stream)
+            out.data_ptr(), kidx.data_ptr(), kcnt.data_ptr(),
+            None if ws is None else ws.data_ptr(), m, k, n, block_size,
+            max_nnz, p, stream)
     _check_err(err, "block_sparse_spmm_gather", a, data, block_size)
     gather_launches += 1
     return out
 
 
-def _launch_masked(a, data, mask, block_size: int):
+def _launch_masked(a, data, mask, block_size: int,
+                   parts: Optional[int] = None):
     """Run the masked-grid route's kernel (B2): C (M, N) in B's dtype,
     the (K/bs, N/bs) int32 ``mask`` read on the card (each CTA counts its
-    column's live blocks there before its first load). Touches nothing on
-    the host, allocates with ``torch.empty`` only and launches on the
-    current stream, so it can be captured into a CUDA graph."""
+    column's live blocks there before its first load). The f32 kernel gets
+    the same P as the gather route (from the shape alone) and its
+    workspace. Touches nothing on the host, allocates with ``torch.empty``
+    only and launches on the current stream, so it can be captured into a
+    CUDA graph."""
     global masked_launches
     lib = _kernel_lib()
     _check_launch(a, data, block_size, mask=mask)
     (m, k), n = a.shape, data.shape[1]
     out = torch.empty((m, n), dtype=data.dtype, device=data.device)
+    p, ws = _parts(a, data, block_size, parts)
     with torch.cuda.device(data.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.marlin_block_sparse_spmm_masked(
             _KERNEL_DTYPES[data.dtype], a.data_ptr(), data.data_ptr(),
-            out.data_ptr(), mask.data_ptr(), m, k, n, block_size, stream)
+            out.data_ptr(), mask.data_ptr(),
+            None if ws is None else ws.data_ptr(), m, k, n, block_size, p,
+            stream)
     _check_err(err, "block_sparse_spmm_masked", a, data, block_size)
     masked_launches += 1
     return out

@@ -503,28 +503,47 @@ class TestLaunchGrid:
         ("spmm_ring_bf16(", ("const unsigned n_cols = N / BN;",
                              "(blockIdx.x % n_cols) * BN",
                              "(blockIdx.x / n_cols) * kGBM")),
-        ("spmm_f32(", ("const unsigned n_rows = (M - 1) / kFM + 1;",
-                       "(blockIdx.x % n_rows) * kFM",
-                       "(blockIdx.x / n_rows) * kFN")),
+        ("spmm_f32(", ("unsigned p_unit = blockIdx.x;",
+                       "p_unit += gridDim.x;",
+                       "for (unsigned u = blockIdx.x; u < g.units; "
+                       "u += gridDim.x) {",
+                       "const unsigned n_cols = g.N / kFCols;",
+                       "const unsigned rest = u / n_cols;",
+                       "(int)(rest / g.parts) * kFRows",
+                       "(int)(u % n_cols) * kFCols",
+                       "(int)(rest % g.parts)")),
     ])
     def test_each_kernel_decodes_its_tile_from_blockidx_x(self, kernel,
                                                           decode):
-        # The ring keeps block columns fastest (the CTAs in flight share
-        # rows of A), the f32 kernel its row tiles fastest.
+        # Both kernels keep block columns fastest (the CTAs in flight share
+        # rows of A). The bf16 ring's CTA is one tile; the f32 kernel's grid
+        # is persistent: CTA x takes units x, x + G, ... of row tiles x
+        # sweep parts x column tiles (an unsigned count of at most
+        # 2^31 - 1), each decoded by unit_of.
         body = self._body(kernel)
+        if kernel == "spmm_f32(":
+            body += self._body("F32Unit unit_of(")
         for text in decode:
             assert text in body, text
         assert "blockIdx.y" not in body and "blockIdx.z" not in body
 
     def test_no_launch_puts_a_tile_count_on_grid_y_or_z(self):
+        # Three 1-D launches: the bf16 ring's grid of row tiles x column
+        # tiles; the f32 kernel's persistent grid, at most two CTAs an SM,
+        # over its units (row tiles x column tiles x sweep parts, counted
+        # by the same guard); the f32 second pass's grid-stride loop over C.
         launches = re.findall(r"<<<([^,]+),", self.SRC)
-        assert len(launches) == 2 and set(launches) == {"grid"}
+        assert sorted(launches) == ["ctas", "grid", "sum_grid"]
         assert "dim3" not in self.SRC
         assert "gridDim.y" not in self.SRC and "gridDim.z" not in self.SRC
         for run in ("run_ring_bf16(", "run_f32("):
             body = self._body(run)
             assert "const unsigned grid = grid_1d(" in body
             assert "if (grid == 0) return cudaErrorInvalidValue;" in body
+        assert ("const unsigned ctas = min(grid, (unsigned)(kFCtasPerSm * "
+                "sms));") in self._body("run_f32(")
+        assert "e += (long long)gridDim.x *" in self._body(
+            "spmm_part_sum_f32(")
         assert "n > 0x7fffffffLL ? 0u" in self._body("inline unsigned "
                                                      "grid_1d(")
 

@@ -454,9 +454,11 @@ def test_transformer_step_flops_counts_at_64_tiles_whatever_the_kernels():
 # its text) and the body that occurrence must lie in: the kernel it breaks
 # (for the f32 dK/dV and the narrow f32 forward and dQ, the kernel whose
 # own body cuts its work, or its second pass; for the wide f32 forward and
-# dQ, that or the sweep of csrc/flash_fwd_dq_f32.cuh), or for the SpMM
-# walk's faults the walk (struct LiveBlocks) whose part it edits only the
-# kernel of its route takes.
+# dQ, that or the sweep of csrc/flash_fwd_dq_f32.cuh; for the f32 SpMM,
+# the count of a unit's run, its second pass, or the box product of
+# csrc/flash_f32.cuh that its build copies), or for the SpMM walk's
+# faults the walk (struct LiveBlocks) whose part it edits only the kernels
+# of its route take.
 PLANTED_FAULT_KERNELS = {
     "fwd_drops_last_key_tile": ("flash_attention_fwd.cu", "flash_fwd_bf16("),
     "fwd_skips_o_rescale": ("flash_attention_fwd.cu", "flash_fwd_bf16("),
@@ -495,6 +497,10 @@ PLANTED_FAULT_KERNELS = {
     "masked_ignores_the_mask": ("block_sparse.cu", "struct LiveBlocks"),
     "masked_count_stops_one_block_short": ("block_sparse.cu",
                                            "struct LiveBlocks"),
+    "f32_part_drops_last_live_block": ("block_sparse.cu", "int unit_steps("),
+    "f32_sum_drops_last_part": ("block_sparse.cu", "spmm_part_sum_f32("),
+    "f32_box_product_skips_last_4_depth_columns": ("flash_f32.cuh",
+                                                   "void tile_out("),
     "wide_fwd_skips_o_rescale": ("flash_attention_wide.cu",
                                  "flash_fwd_wide_bf16("),
     "wide_fwd_second_consumer_reads_first_v_columns": (
@@ -555,8 +561,11 @@ def test_the_spmm_walk_faults_reach_only_their_route():
     # LiveBlocks: the list walk (init's GATHER branch) is the gather
     # route's; the mask test (is_live) and the mask count (n_live past its
     # GATHER return) are the masked route's. Each walk fault edits its
-    # route's part, the ring fault the loop both run. The mma.sync path is
-    # gone.
+    # route's part, the ring fault the loop both run. The f32 kernel,
+    # spmm_f32<GATHER>, walks and counts through the same LiveBlocks, so
+    # the walk faults reach its route's f32 kernel too. The mma.sync path
+    # and its hand-written cp.async are gone (the f32 kernel loads through
+    # flash_f32.cuh's load_box).
     import chip_smoke
 
     faults = chip_smoke.SPMM_PLANTED_FAULTS
@@ -579,8 +588,14 @@ def test_the_spmm_walk_faults_reach_only_their_route():
     count = count[count.index("if (GATHER) return count;\n"):]
     assert faults["masked_count_stops_one_block_short"][0] in count
     assert "__syncthreads_count(k < count && is_live(k))" in count
+    header = (ROOT / "marlin_tpu_torch" / "csrc" /
+              "flash_f32.cuh").read_text()
     for fault in faults:
-        assert src.count(faults[fault][0]) == 1, fault
+        text = src if faults[fault][0] in src else header
+        assert text.count(faults[fault][0]) == 1, fault
+    f32 = src[src.index("int unit_steps("):src.index("spmm_part_sum_f32(")]
+    assert "blocks.n_live(flash_f32::kThreads)" in f32
+    assert "LiveBlocks<GATHER, 1> p_blocks;" in f32
     ring = src[src.index("spmm_ring_bf16("):]
     ring = ring[:ring.index("__global__")]
     assert "DepthSteps<GATHER, kGAhead> steps;" in ring
@@ -590,8 +605,9 @@ def test_the_spmm_walk_faults_reach_only_their_route():
     assert "run_ring_bf16<64, GATHER>(" in src
     assert "run<true>(" in src and "run<false>(" in src
     assert "if constexpr" not in src
-    for gone in ("spmm_bf16", "spmm_gather_bf16", "mma.sync", "cp.async",
-                 "ldmatrix", "Bf16Tiles", "load_stage", "run_bf16"):
+    for gone in ("spmm_bf16", "spmm_gather_bf16", "mma.sync",
+                 'asm volatile("cp.async', "ldmatrix", "Bf16Tiles",
+                 "load_stage", "run_bf16"):
         assert gone not in src, gone
 
 
