@@ -97,7 +97,22 @@ Phases, each of which exits non-zero on failure:
    their derivations at LINALG_REL_TOLERANCE); then the blocked LU's
    dgetf2 semantics on the card (an all-zero matrix, an exactly zero
    column, a rank-deficient column). Pivot agreement with the one-call
-   getrf is printed, not held. No hand-written kernel launched.
+   getrf is printed, not held. Then one torch.profiler pass over the
+   n = 16384 LU (recorded, not held): its device time by the op that
+   launched each kernel (panel getrf, pivot row swaps and syncs,
+   triangular solves, Schur GEMMs and their subtraction, copies) and the
+   host idle. No hand-written kernel launched.
+12. Dense examples (the dense path's last two, on a one-rank NCCL mesh):
+   rmm_compare's three arms (the 3-D grid, all-gather SUMMA and the
+   Cannon ring; grid 1 x 1 x 1) at m = k = n = 16384, f32, each through
+   the example's own timing (a warm-up, then 3 products between fences),
+   seconds and TFLOP/s, a 256-row band of each product against the f64
+   product of the same rows (GEMM_REL_TOLERANCE); then neural_network's
+   training at MNIST's size (synthetic 60,000 x 784, 10 classes, hidden
+   256, batch 512, 50 steps, the example's CLI defaults): the final loss
+   finite and below the first, and every step's loss within
+   NN_REL_TOLERANCE of a CPU run of the port from the same seed on the
+   same index table. No hand-written kernel launched.
 
 Phases 3 and 4 also take head dims in (128, 256] (D = 160, the transformer
 bench at BENCH_TF_D=320, and D = 256; bf16 and f32), which the wrapper
@@ -3511,6 +3526,85 @@ def _linalg_line(card, op, n, times, lib_times, flops, nbytes_, peak,
     return row
 
 
+# Where the LU's device time goes: each kernel goes to the first of these
+# ops met walking up from the op that launched it (the LU's own calls,
+# linalg/lu.py's _lu_stripes); a device-to-host copy is a sync wherever it
+# came from.
+LU_TRACE_OPS = (
+    ("panel_getrf", ("aten::linalg_lu_factor_ex",)),
+    ("triangular_solve", ("aten::linalg_solve_triangular",)),
+    ("schur_gemm", ("aten::mm", "aten::matmul", "aten::addmm")),
+    ("schur_subtract", ("aten::sub_",)),
+    ("row_swaps", ("aten::index", "aten::index_put_",
+                   "aten::_index_put_impl_", "aten::index_select")),
+    ("syncs", ("aten::_local_scalar_dense", "aten::item")),
+)
+
+
+def _lu_trace(card, a, times):
+    """One torch.profiler pass over ``a.lu_decompose(mode="dist")``
+    (recorded, not held): the device time of each LU_TRACE_OPS class
+    (the rest: "copies", the panels' assembly and write-back; kernels no
+    op claims: "unattributed"), the wall time, the union of the device's
+    busy intervals and the host idle (wall minus busy). Prints one
+    "linalg_trace:" line and returns it."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from marlin_tpu_torch.config import config_override
+
+    def kind(ev):
+        while ev is not None:
+            for name, ops in LU_TRACE_OPS:
+                if ev.name in ops:
+                    return name
+            ev = getattr(ev, "cpu_parent", None)
+        return "copies"
+
+    torch.cuda.synchronize()
+    with config_override(lu_base_size=LINALG_BASE):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            out = a.lu_decompose(mode="dist")
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    del out
+    events = prof.events()
+    split = {name: 0.0 for name, _ in LU_TRACE_OPS}
+    split.update(copies=0.0, unattributed=0.0)
+    counts = {name: 0 for name in split}
+    attributed = 0.0
+    for ev in events:
+        if getattr(ev, "device_type", None) != DeviceType.CPU:
+            continue
+        for k in getattr(ev, "kernels", []):
+            label = "syncs" if "DtoH" in k.name else kind(ev)
+            split[label] += k.duration / 1e3
+            counts[label] += 1
+            attributed += k.duration / 1e3
+    spans = sorted((ev.time_range.start, ev.time_range.end) for ev in events
+                   if getattr(ev, "device_type", None) == DeviceType.CUDA)
+    device_ms, busy_ms, end = 0.0, 0.0, None
+    for start, stop in spans:
+        device_ms += (stop - start) / 1e3
+        if end is None or start >= end:
+            busy_ms += (stop - start) / 1e3
+            end = stop
+        elif stop > end:
+            busy_ms += (stop - end) / 1e3
+            end = stop
+    split["unattributed"] = max(0.0, device_ms - attributed)
+    row = dict(card=card, op="lu", n=a.num_rows, base=LINALG_BASE,
+               timed_ms=_spread(times)["ms"], traced_wall_ms=wall_ms,
+               device_ms=device_ms, device_busy_ms=busy_ms,
+               host_idle_ms=wall_ms - busy_ms,
+               device_ms_by_op=split, kernels_by_op=counts)
+    print("linalg_trace: " + json.dumps(row), flush=True)
+    return row
+
+
 def phase_linalg_dgetf2():
     """On the card, cuSOLVER's getrf in the blocked LU (n = 2048, panels
     of 512) on an all-zero matrix, a matrix with an exactly zero column and
@@ -3640,7 +3734,9 @@ def phase_linalg(card: str):
         small_n=n_s, small_rel_err=lu_small,
         tolerance=LINALG_REL_TOLERANCE,
         pivots_equal_to_library=float(np.mean(perm == lib_perm)))
-    del packed, a, whole
+    del packed, whole
+    rows["lu_trace"] = _lu_trace(card, a, times)
+    del a
     if not err <= LINALG_REL_TOLERANCE:
         fail(f"linalg lu: band error {err:.3e} (tol {LINALG_REL_TOLERANCE})")
 
@@ -3759,6 +3855,152 @@ def phase_linalg(card: str):
     dist.destroy_process_group()
     pm.set_default_mesh(None)
     return rows
+
+
+# The dense path's two examples on one card (ROADMAP A2c):
+# examples/rmm_compare.py at m = k = n = RMM_N, f32 (on one rank the grid
+# is 1 x 1 x 1 and the mesh square, so all three arms run), a band of each
+# arm's product held to the f64 product of the same rows at
+# GEMM_REL_TOLERANCE (f32 without TF32 sums 16384 products of two U(0, 1)
+# with at most ~16384 * 2^-24 = 1e-3 relative error, far inside it);
+# examples/neural_network.py at MNIST's size with the example CLI's
+# defaults.
+RMM_N = 16384
+RMM_BAND = (8192, 256)  # (first row, rows) of each product held to f64
+NN_RUN = dict(samples=60000, d_in=784, d_out=10, hidden=256,
+              batch_size=512, iterations=50, learning_rate=0.5, seed=0)
+# Every step's loss on the card against the CPU run's, relative: the two
+# differ in summation order only (f32, no TF32: the port's "highest"
+# matmul precision), a few ulps (6e-8) a step, carried over 50 SGD steps.
+NN_REL_TOLERANCE = 1e-4
+
+
+def phase_dense_examples(card: str):
+    """rmm_compare and neural_network (see RMM_N, NN_RUN) through the
+    examples' own functions on a one-rank NCCL mesh, then the network's
+    CPU run on a one-rank gloo mesh. Prints one "dense_examples:" line per
+    run; fails on a band, loss or launch check. Returns the lines."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from marlin_tpu_torch import mesh as pm
+    from marlin_tpu_torch.examples import neural_network as nn
+    from marlin_tpu_torch.examples import rmm_compare
+    from marlin_tpu_torch.ops import block_sparse as bs
+    from marlin_tpu_torch.ops import flash_attention as fa
+    from marlin_tpu_torch.utils import random as mrand
+    from marlin_tpu_torch.utils.split import grid_for_devices
+
+    mesh = pm.create_mesh()
+    if dist.get_backend() != "nccl" or mesh.size != 1:
+        fail(f"dense examples: expected a one-rank NCCL mesh, got "
+             f"{dist.get_backend()} over {mesh.size} ranks")
+    _zero_counters(fa)
+    spmm_before = (bs.gather_launches, bs.masked_launches)
+    out = {}
+
+    # --- rmm_compare.
+    n = RMM_N
+    a = mrand.random_den_vec_matrix(n, n, seed=1, mesh=mesh,
+                                    dtype=torch.float32)
+    b = mrand.random_den_vec_matrix(n, n, seed=2, mesh=mesh,
+                                    dtype=torch.float32)
+    grid = grid_for_devices(n, n, n, mesh.size)
+    arms = rmm_compare.arms(a, b, mesh, grid)
+    if set(arms) != {"rmm_3d_grid", "summa_allgather", "cannon_ring"}:
+        fail(f"rmm_compare: arms {sorted(arms)} on grid {grid}")
+    r0, rows = RMM_BAND
+    ref = a.local[r0:r0 + rows].double() @ b.local.double()
+    flops = 2.0 * n ** 3
+    bound_ms, bound_by = bound(flops, 3 * n * n * 4, torch.float32)
+    torch.cuda.reset_peak_memory_stats()
+    for label, fn in arms.items():
+        c = fn()
+        torch.cuda.synchronize()
+        band = c[r0:r0 + rows].double()
+        if tuple(c.shape) != (n, n) or not bool(torch.isfinite(band).all()):
+            fail(f"rmm_compare {label}: shape {tuple(c.shape)} or "
+                 f"non-finite values")
+        rel = ((band - ref).abs() / ref.abs()).max().item()
+        del c, band
+        if not rel <= GEMM_REL_TOLERANCE:
+            fail(f"rmm_compare {label}: band |C - f64| / |f64| = {rel:.3e} "
+                 f"(tol {GEMM_REL_TOLERANCE})")
+        seconds = rmm_compare._time(fn)
+        clock, power = smi_clock_power()
+        row = dict(card=card, example="rmm_compare", arm=label, n=n,
+                   grid=list(grid), dtype="float32", seconds=seconds,
+                   tflops=flops / seconds / 1e12, bound_ms=bound_ms,
+                   bound_by=bound_by, bound_share=bound_ms / 1e3 / seconds,
+                   band=list(RMM_BAND), band_max_rel_err=rel,
+                   tolerance=GEMM_REL_TOLERANCE, sm_clock_mhz=clock,
+                   power_w=power)
+        print("dense_examples: " + json.dumps(row), flush=True)
+        out[label] = row
+    peak = torch.cuda.max_memory_allocated()
+    del a, b, ref, arms
+
+    # --- neural_network at MNIST's size: the data as the CLI's synthetic
+    # set (the reference's), on the card, then on the CPU.
+    rng = np.random.default_rng(0)
+    images = rng.random((NN_RUN["samples"], NN_RUN["d_in"]))
+    classes = rng.integers(0, NN_RUN["d_out"], NN_RUN["samples"])
+    labels = np.eye(NN_RUN["d_out"])[classes]
+    kw = dict(hidden=NN_RUN["hidden"], batch_size=NN_RUN["batch_size"],
+              iterations=NN_RUN["iterations"],
+              learning_rate=NN_RUN["learning_rate"], seed=NN_RUN["seed"])
+    def run(iterations):
+        """(wall s, the loss tensor) of one training call on the card:
+        the data's placement on the card, then ``iterations`` steps."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, losses = nn.train_with_losses(
+            images, labels, mesh=mesh, **dict(kw, iterations=iterations))
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, losses
+
+    run(2)  # warm-up
+    short_s, _ = run(2)
+    card_s, losses = run(NN_RUN["iterations"])
+    # The steps beyond the short run's two, whose set-up is the same.
+    step_ms = (card_s - short_s) / (NN_RUN["iterations"] - 2) * 1e3
+    card_losses = losses.double().cpu().numpy()
+    del losses
+    dist.destroy_process_group()
+    pm.set_default_mesh(None)
+    cpu_mesh = pm.create_mesh(device="cpu")
+    t0 = time.perf_counter()
+    _, cpu_losses = nn.train_with_losses(images, labels, mesh=cpu_mesh, **kw)
+    cpu_s = time.perf_counter() - t0
+    cpu_losses = cpu_losses.double().numpy()
+    dist.destroy_process_group()
+    pm.set_default_mesh(None)
+    rel = float(np.max(np.abs(card_losses - cpu_losses)
+                       / np.abs(cpu_losses)))
+    row = dict(card=card, example="neural_network", **NN_RUN,
+               dtype="float32", seconds=card_s, step_ms=step_ms,
+               setup_s=short_s - 2 * step_ms / 1e3,
+               first_loss=float(card_losses[0]),
+               final_loss=float(card_losses[-1]),
+               cpu_seconds=cpu_s, cpu_final_loss=float(cpu_losses[-1]),
+               max_rel_loss_diff_vs_cpu=rel, tolerance=NN_REL_TOLERANCE,
+               rmm_peak_mem_gb=peak / 1e9)
+    print("dense_examples: " + json.dumps(row), flush=True)
+    out["neural_network"] = row
+    if not (np.isfinite(card_losses).all()
+            and card_losses[-1] < card_losses[0]):
+        fail(f"neural_network: losses not finite or not falling "
+             f"({card_losses[0]:.6f} -> {card_losses[-1]:.6f})")
+    if not rel <= NN_REL_TOLERANCE:
+        fail(f"neural_network: card losses differ from the CPU run's by "
+             f"{rel:.3e} relative (tol {NN_REL_TOLERANCE})")
+    launched = dict(**_counters(fa), gather=bs.gather_launches
+                    - spmm_before[0], masked=bs.masked_launches
+                    - spmm_before[1])
+    if any(launched.values()):
+        fail(f"dense examples: hand-written kernels launched: {launched}")
+    return out
 
 
 def spmm_kernel_entries(spmm, launches, f32_launches):
@@ -4008,6 +4250,7 @@ def main(argv=None) -> int:
     spmm_f32_launches = phase_spmm_grad()
     phase_gemm(card)
     phase_linalg(card)
+    phase_dense_examples(card)
     kernels = kernels_line(rows, bwd, launches, small, spmm, spmm_launches,
                            spmm_f32_launches)
     print(card)

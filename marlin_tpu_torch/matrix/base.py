@@ -21,12 +21,12 @@ from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
-
-from ..config import get_config
+import torch.distributed as dist
 from torch.distributed.tensor import Shard
 
+from ..config import get_config
 from ..mesh import (Layout, Mesh, all_reduce_sum, default_mesh, local_slices,
-                    redistribute, shard, unshard)
+                    redistribute, shard, unshard, whole)
 from ..utils.split import pad_to
 
 Scalar = Union[int, float]
@@ -140,6 +140,34 @@ class DistributedMatrix:
                                   out._physical_shape, shape, dtype)
         return out
 
+    @classmethod
+    def _assembled(cls, parts, shape: Tuple[int, int], dtype: torch.dtype,
+                   mesh: Mesh):
+        """A ``cls`` matrix of logical ``shape`` on ``mesh`` made of windows
+        of other matrices: ``parts`` is a list of (matrix, moves), each
+        matrix's elements moved shard to shard as ``moves`` says
+        (:func:`redistribute`); the windows do not overlap and what none
+        covers is zero. Collective over the ranks of every mesh."""
+        out = cls(None, mesh=mesh, dtype=dtype, _logical_shape=shape)
+        for mat, moves in parts:
+            piece = redistribute(mat._local, mat._sharding(),
+                                 mat._physical_shape, out._sharding(),
+                                 out._physical_shape, shape, mat._dtype,
+                                 moves)
+            if piece is not None:
+                piece = piece.to(dtype)
+                out._local = piece if out._local is None \
+                    else out._local.add_(piece)
+        return out
+
+    def _window(self, rows: slice, cols: slice):
+        """Rows ``rows`` and columns ``cols`` (half-open) as a matrix of
+        this type on this mesh, shard to shard."""
+        shape = (rows.stop - rows.start, cols.stop - cols.start)
+        return type(self)._assembled(
+            [(self, [((rows, cols), (-rows.start, -cols.start))])], shape,
+            self._dtype, self.mesh)
+
     def _as(self, cls, mesh: Optional[Mesh] = None, **kw):
         """This matrix as a ``cls`` matrix on ``mesh`` (default: its own),
         moved shard to shard. Collective over the ranks of both meshes."""
@@ -203,7 +231,9 @@ class DistributedMatrix:
     @property
     def logical(self) -> torch.Tensor:
         """The logical matrix, whole, on every rank of the mesh (gathered
-        from the shards). Collective over the mesh."""
+        from the shards): for the calls that are whole by design, the
+        broadcast arms, the "local" linalg modes and the host export.
+        Collective over the mesh."""
         self._require_local()
         m, n = self._shape
         return unshard(self._local, self._sharding(),
@@ -222,8 +252,9 @@ class DistributedMatrix:
 
     # -- materialization ----------------------------------------------------
     def to_numpy(self) -> np.ndarray:
-        """The logical matrix on the host (``toBreeze``). Collective over
-        the mesh."""
+        """The logical matrix on the host (``toBreeze``): whole on every
+        rank by contract, as ``np.asarray`` of a sharded jax array is.
+        Collective over the mesh."""
         return to_host(self.logical)
 
     to_breeze = to_numpy
@@ -286,14 +317,38 @@ class DistributedMatrix:
         return self._sum_over_mesh(
             (self._local.to(acc) * self._coerce(other).to(acc)).sum())
 
+    def _axes_splitting(self, dim: int):
+        """(whether a mesh axis splits dim ``dim`` of this layout, the
+        process group of the axes that do)."""
+        names = [name for name, p in zip(self.mesh.axis_names,
+                                         self._sharding().placements)
+                 if isinstance(p, Shard) and p.dim == dim
+                 and self.mesh.shape[name] > 1]
+        if not names:
+            return False, None
+        if len(names) == 1:
+            return True, self.mesh.dim_group(names[0])
+        return True, self.mesh.group
+
     def norm(self, kind: str = "1") -> float:
         """Matrix norm: "1" (max abs column sum) or "inf" (max abs row
-        sum) (DenseVecMatrix.scala:975)."""
+        sum) (DenseVecMatrix.scala:975). Each rank sums its shard's
+        absolute columns (rows), the partial sums are summed over the mesh
+        axes that split the rows (columns), and the max is taken over the
+        mesh; pad zeros change no sum. Collective over the mesh."""
         if kind not in ("1", "inf", "Inf"):
             raise ValueError(
                 f"unsupported norm kind {kind!r} (use '1' or 'inf')")
-        a = self.logical.abs().to(self._acc_dtype())
-        return float(a.sum(dim=0 if kind == "1" else 1).max())
+        self._require_local()
+        split = 0 if kind == "1" else 1
+        sums = self._local.abs().sum(dim=split, dtype=self._acc_dtype())
+        split_by_mesh, group = self._axes_splitting(split)
+        if split_by_mesh:
+            dist.all_reduce(sums, group=group)
+        top = sums.max().reshape(1)
+        if self.mesh.size > 1:
+            dist.all_reduce(top, op=dist.ReduceOp.MAX, group=self.mesh.group)
+        return float(top)
 
     # -- structure ----------------------------------------------------------
     def transpose(self) -> "DistributedMatrix":
@@ -315,12 +370,17 @@ class DistributedMatrix:
         return self.transpose()
 
     def c_bind(self, other: "DistributedMatrix") -> "DistributedMatrix":
-        """Column concatenation [A | B] (DenseVecMatrix.scala:238)."""
+        """Column concatenation [A | B] (DenseVecMatrix.scala:238), shard
+        to shard: A's shards in place, B's at column offset
+        ``A.num_cols``. Collective over both matrices' meshes."""
         if self.num_rows != other.num_rows:
             raise ValueError(f"cBind requires equal row counts: "
                              f"{self.num_rows} vs {other.num_rows}")
-        return self._from_logical(torch.cat(
-            [self.logical, other.logical.to(self._dtype)], dim=1))
+        shape = (self.num_rows, self.num_cols + other.num_cols)
+        return type(self)._assembled(
+            [(self, [(whole(self._shape), (0, 0))]),
+             (other, [(whole(other._shape), (0, self.num_cols))])],
+            shape, self._dtype, self.mesh)
 
     def inverse(self, mode: str = "auto"):
         """Blocked inverse -> BlockMatrix (DenseVecMatrix.scala:568;

@@ -15,7 +15,8 @@ import numpy as np
 import torch
 
 from ..config import get_config, matmul_precision_scope
-from ..mesh import Layout, axis_sizes, block_sharding, row_sharding, submesh
+from ..mesh import (Layout, axis_sizes, block_sharding, redistribute,
+                    replicated_sharding, row_sharding, submesh)
 from ..parallel import summa
 from .base import DistributedMatrix, _deferred, as_tensor
 
@@ -69,9 +70,16 @@ class BlockMatrix(DistributedMatrix):
                                                         self.num_cols)
 
     def get_block(self, bi: int, bj: int) -> torch.Tensor:
-        """One logical block's value. Collective over the mesh."""
+        """One logical block's value, on every rank of the mesh: only the
+        ranks that hold pieces of the block send them, point to point.
+        Collective over the mesh."""
         r0, r1, c0, c1 = self.block_extent(bi, bj)
-        return self.logical[r0:r1, c0:c1]
+        shape = (r1 - r0, c1 - c0)
+        return redistribute(self._local, self._sharding(),
+                            self._physical_shape,
+                            replicated_sharding(self.mesh), shape, shape,
+                            self._dtype, [((slice(r0, r1), slice(c0, c1)),
+                                           (-r0, -c0))])
 
     # ------------------------------------------------------------------
     # GEMM (BlockMatrix.scala:87-343)
@@ -117,6 +125,7 @@ class BlockMatrix(DistributedMatrix):
                      if broadcast_threshold_mb is not None
                      else cfg.broadcast_threshold_mb)
         if mode is None and size_mb(other) < threshold:
+            # Broadcast-B: B whole on every device, by design.
             if not self.holds:
                 return _on(self.mesh, BlockMatrix, None, self,
                            shape=(self.num_rows, other.num_cols))
@@ -173,13 +182,11 @@ class BlockMatrix(DistributedMatrix):
 
     def c_bind(self, other) -> "BlockMatrix":
         """[A | B] keeping A's row grid; the column grid resets to the mesh
-        default (BlockMatrix.scala:687)."""
-        if self.num_rows != other.num_rows:
-            raise ValueError(f"cBind requires equal row counts: "
-                             f"{self.num_rows} vs {other.num_rows}")
-        return BlockMatrix(
-            torch.cat([self.logical, other.logical.to(self._dtype)], dim=1),
-            mesh=self.mesh, blks_by_row=self.blks_by_row)
+        default (BlockMatrix.scala:687). Shard to shard, as
+        ``DistributedMatrix.c_bind``."""
+        out = super().c_bind(other)
+        out.blks_by_row = self.blks_by_row
+        return out
 
     # ------------------------------------------------------------------
     # Conversions

@@ -75,11 +75,7 @@ class DenseVecMatrix(DistributedMatrix):
             if self.num_cols != other.num_rows:
                 raise ValueError(
                     f"dimension mismatch: {self.shape} x {other.shape}")
-            # Dense x sparse without densifying B (LibMatrixMult.scala:
-            # 15-41): (B^T A^T)^T, the sparse operand first.
-            coo = other.coo.to(self.mesh.device, self._dtype)
-            out = torch.sparse.mm(coo.t().coalesce(), self.logical.t()).t()
-            return DenseVecMatrix(out.contiguous(), mesh=self.mesh)
+            return self._times_sparse(other)
         if isinstance(other, DistributedVector):
             return self._times_vector(other)
         if not isinstance(other, DistributedMatrix):
@@ -151,7 +147,8 @@ class DenseVecMatrix(DistributedMatrix):
 
     def _broadcast_of(self, other: DistributedMatrix) -> "DenseVecMatrix":
         """The broadcast-B path for a distributed B (its logical value on
-        every device); a rank outside the mesh gets an empty result."""
+        every device, whole by design); a rank outside the mesh gets an
+        empty result."""
         if not self.holds:
             return _on(self.mesh, DenseVecMatrix, None, self,
                        shape=(self.num_rows, other.num_cols))
@@ -172,9 +169,24 @@ class DenseVecMatrix(DistributedMatrix):
         return DenseVecMatrix(out, mesh=self.mesh,
                               _logical_shape=(self.num_rows, int(b.shape[1])))
 
+    def _times_sparse(self, other) -> "DenseVecMatrix":
+        """Dense x sparse without densifying B (LibMatrixMult.scala:15-41):
+        each rank's row stripe times B, which every rank holds, as (B^T
+        A_s^T)^T, the sparse operand first; the stripes of the product are
+        the result's (pad rows stay zero)."""
+        if not self.holds:
+            return DenseVecMatrix(None, mesh=self.mesh, dtype=self._dtype,
+                                  _logical_shape=(self.num_rows,
+                                                  other.num_cols))
+        coo = other.coo.to(self.mesh.device, self._dtype)
+        out = torch.sparse.mm(coo.t().coalesce(), self._local.t()).t()
+        return DenseVecMatrix(out.contiguous(), mesh=self.mesh,
+                              _logical_shape=(self.num_rows, other.num_cols))
+
     def _times_vector(self, v) -> "DistributedVector":
         """Distributed mat-vec y = A x (DenseVecMatrix.scala:162): x on
-        every device, each row stripe gives its chunk of y."""
+        every device (whole by design, as the broadcast arms' operand),
+        each row stripe gives its chunk of y."""
         from .vector import DistributedVector
 
         x = v.to_tensor().to(device=self.mesh.device, dtype=self._dtype)
@@ -199,33 +211,46 @@ class DenseVecMatrix(DistributedMatrix):
     # Structure ops
     # ------------------------------------------------------------------
     def row_exchange(self, i: int, j: int) -> "DenseVecMatrix":
-        """Swap rows i and j (``rowExchange``, DenseVecMatrix.scala:261)."""
+        """Swap rows i and j (``rowExchange``, DenseVecMatrix.scala:261):
+        every other row stays in place, and the two rows pass between
+        their owning ranks (a local swap when one rank owns both).
+        Collective over the mesh."""
         if not (0 <= i < self.num_rows and 0 <= j < self.num_rows):
             raise ValueError(f"row indices [{i}, {j}] out of range for "
                              f"{self.num_rows} rows")
-        idx = torch.arange(self.num_rows)
-        idx[i], idx[j] = j, i
-        return self._from_logical(self.logical[idx.to(self.mesh.device)])
+        lo, hi = sorted((i, j))
+        cols = slice(0, self.num_cols)
+        moves = [((slice(a, b), cols), (0, 0)) for a, b in
+                 ((0, lo), (lo + 1, hi), (hi + 1, self.num_rows)) if a < b]
+        if lo < hi:
+            moves += [((slice(hi, hi + 1), cols), (lo - hi, 0)),
+                      ((slice(lo, lo + 1), cols), (hi - lo, 0))]
+        else:
+            moves.append(((slice(lo, lo + 1), cols), (0, 0)))
+        return self._assembled([(self, moves)], self._shape, self._dtype,
+                               self.mesh)
 
     def slice_by_row(self, start: int, end: int) -> "DenseVecMatrix":
         """Rows [start, end], both ends inclusive
-        (DenseVecMatrix.scala:928)."""
+        (DenseVecMatrix.scala:928), shard to shard. Collective over the
+        mesh."""
         self._check_range(start, end, self.num_rows, "row")
-        return DenseVecMatrix(self.logical[start:end + 1, :], mesh=self.mesh)
+        return self._window(slice(start, end + 1), slice(0, self.num_cols))
 
     def slice_by_column(self, start: int, end: int) -> "DenseVecMatrix":
-        """Columns [start, end] inclusive (DenseVecMatrix.scala:941)."""
+        """Columns [start, end] inclusive (DenseVecMatrix.scala:941),
+        shard to shard. Collective over the mesh."""
         self._check_range(start, end, self.num_cols, "column")
-        return DenseVecMatrix(self.logical[:, start:end + 1], mesh=self.mesh)
+        return self._window(slice(0, self.num_rows), slice(start, end + 1))
 
     def get_sub_matrix(self, start_row: int, end_row: int, start_col: int,
                        end_col: int) -> "DenseVecMatrix":
-        """Inclusive-range sub-matrix (DenseVecMatrix.scala:956)."""
+        """Inclusive-range sub-matrix (DenseVecMatrix.scala:956), shard
+        to shard. Collective over the mesh."""
         self._check_range(start_row, end_row, self.num_rows, "row")
         self._check_range(start_col, end_col, self.num_cols, "column")
-        return DenseVecMatrix(
-            self.logical[start_row:end_row + 1, start_col:end_col + 1],
-            mesh=self.mesh)
+        return self._window(slice(start_row, end_row + 1),
+                            slice(start_col, end_col + 1))
 
     @staticmethod
     def _check_range(start: int, end: int, limit: int, what: str) -> None:
@@ -274,7 +299,8 @@ class DenseVecMatrix(DistributedMatrix):
     def compute_gramian_matrix(self) -> np.ndarray:
         """G = A^T A as a host array (``computeGramianMatrix``,
         DenseVecMatrix.scala:1464-1484): one local product per stripe,
-        summed over the mesh. Collective over the mesh."""
+        summed over the mesh, so G (n x n by contract) is whole on every
+        rank. Collective over the mesh."""
         with linalg_precision_scope():
             g = torch.matmul(self._local.T, self._local)
         return to_host(all_reduce_sum(g, self.mesh))

@@ -23,6 +23,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config import x64_enabled
 from ..utils.hw import resolve_device
@@ -243,8 +244,9 @@ class SparseVecMatrix:
     # -- constructors -------------------------------------------------------
     @classmethod
     def from_dense(cls, mat, mesh=None):
-        """From a distributed dense matrix (its logical value; collective
-        over its mesh)."""
+        """From a distributed dense matrix (its logical value, gathered:
+        this sparse type is whole on every rank by design until ROADMAP
+        A4b distributes it; collective over its mesh)."""
         return cls.from_dense_array(mat.logical, mesh=mesh or mat.mesh)
 
     @classmethod
@@ -275,9 +277,10 @@ class SparseVecMatrix:
 
     def multiply(self, other):
         """Sparse x (sparse | dense): a DenseVecMatrix operand goes
-        through a torch sparse product, sparse first
-        (SparseMultiply.scala:31-82); the result lands on this matrix's
-        mesh, else the operand's."""
+        through torch sparse products, sparse first
+        (SparseMultiply.scala:31-82), on a ring of the operand's ranks
+        (:meth:`_times_dense`); the result lands on this matrix's mesh,
+        else the operand's. Collective over the operand's mesh."""
         from .dense import DenseVecMatrix
 
         if isinstance(other, SparseVecMatrix):
@@ -286,12 +289,51 @@ class SparseVecMatrix:
             if self.num_cols != other.num_rows:
                 raise ValueError(
                     f"dimension mismatch: {self.shape} x {other.shape}")
-            b = other.logical
-            out = torch.sparse.mm(self._coo.to(b.device, b.dtype).coalesce(),
-                                  b)
-            return DenseVecMatrix(out, mesh=self.mesh or other.mesh)
+            out = self._times_dense(other)
+            if self.mesh is not None and self.mesh is not other.mesh:
+                out = out._as(DenseVecMatrix, mesh=self.mesh)
+            return out
         raise TypeError(
             f"cannot multiply SparseVecMatrix by {type(other).__name__}")
+
+    def _times_dense(self, b):
+        """S @ B for a row-striped B on B's mesh, row-striped, with no
+        whole dense operand: B's row stripes pass round a ring of the
+        mesh's ranks, and at each step a rank adds the product of its rows
+        of S, restricted to the columns of the stripe in hand, times that
+        stripe. S (held by every rank) is never densified. Collective over
+        B's mesh."""
+        from ..parallel.summa import ring_exchange
+        from .dense import DenseVecMatrix
+
+        mesh = b.mesh
+        m, n = self.num_rows, b.num_cols
+        p = mesh.size
+        hm, hk = -(-m // p), b._physical_shape[0] // p
+        out = DenseVecMatrix(None, mesh=mesh, dtype=b.dtype,
+                             _logical_shape=(m, n))
+        if not b.holds:
+            return out
+        at = mesh.ranks.index(dist.get_rank())
+        coo = self._coo.to(b.local.device, b.dtype).coalesce()
+        idx, vals = coo.indices(), coo.values()
+        mine = (idx[0] >= at * hm) & (idx[0] < (at + 1) * hm)
+        idx, vals = idx[:, mine], vals[mine]
+        acc = torch.zeros((hm, n), dtype=b.dtype, device=b.local.device)
+        stripe = b.local
+        for step in range(p):
+            s = (at + step) % p
+            cols = (idx[1] >= s * hk) & (idx[1] < (s + 1) * hk)
+            part = torch.sparse_coo_tensor(
+                idx[:, cols] - torch.tensor([[at * hm], [s * hk]],
+                                            device=idx.device),
+                vals[cols], (hm, hk))
+            acc += torch.sparse.mm(part, stripe)
+            if step + 1 < p:
+                stripe = ring_exchange(stripe, mesh.ranks[(at - 1) % p],
+                                       mesh.ranks[(at + 1) % p])
+        out._local = acc
+        return out
 
     def to_dense_vec_matrix(self):
         """Densify (``toDenseVecMatrix``, SparseVecMatrix.scala:56) onto

@@ -15,8 +15,9 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
-from ..config import matmul_precision_scope
-from ..mesh import (Mesh, all_reduce_sum, default_mesh, shard, unshard,
+from ..config import get_config, matmul_precision_scope
+from ..mesh import (Layout, Mesh, _layout, all_reduce_sum, default_mesh,
+                    redistribute, replicated_sharding, shard,
                     vector_sharding)
 from ..utils.split import pad_to
 from .base import as_tensor, to_host
@@ -72,15 +73,30 @@ class DistributedVector:
     def holds(self) -> bool:
         return self._local is not None
 
+    @property
+    def _physical_len(self) -> int:
+        return -(-self._len // self.mesh.size) * self.mesh.size
+
+    def _local_in(self, layout: Layout, multiple: int
+                  ) -> Optional[torch.Tensor]:
+        """This rank's chunk of the vector zero-padded to ``multiple``
+        under ``layout`` (on this mesh or another), moved shard to shard;
+        None outside ``layout``'s mesh. Collective over the ranks of both
+        meshes."""
+        return redistribute(self._local, vector_sharding(self.mesh),
+                            (self._physical_len,), layout,
+                            (-(-self._len // multiple) * multiple,),
+                            (self._len,), self._dtype)
+
     def to_tensor(self) -> torch.Tensor:
-        """The logical vector, whole, on every rank of the mesh.
-        Collective over the mesh."""
-        n = -(-self._len // self.mesh.size) * self.mesh.size
-        return unshard(self._local, vector_sharding(self.mesh),
-                       (n,))[:self._len]
+        """The logical vector on every rank of the mesh, whole by contract
+        (the host export's and the mat-vec's operand): each chunk passes
+        point to point from its rank. Collective over the mesh."""
+        return self._local_in(replicated_sharding(self.mesh), 1)
 
     def to_numpy(self) -> np.ndarray:
-        """``toBreeze`` (DistributedVector.scala:65)."""
+        """``toBreeze`` (DistributedVector.scala:65): whole on every rank
+        by contract. Collective over the mesh."""
         return to_host(self.to_tensor())
 
     to_breeze = to_numpy
@@ -103,8 +119,8 @@ class DistributedVector:
         self._check_len(other)
         if other.mesh is self.mesh:
             return other._local.to(self._dtype)
-        return shard(pad_to(other.to_tensor(), (self.mesh.size,)),
-                     vector_sharding(self.mesh)).to(self._dtype)
+        return other._local_in(vector_sharding(self.mesh),
+                               self.mesh.size).to(self._dtype)
 
     def subtract(self, other: "DistributedVector") -> "DistributedVector":
         return self._like(self._local - self._other_local(other))
@@ -129,22 +145,37 @@ class DistributedVector:
                         mode: str = "dist"):
         """Orientation-dispatched product (DistributedVector.scala:147-181):
         column x row -> outer product, a BlockMatrix ("dist") or a local
-        ndarray ("local"); row x column -> inner product. Collective over
-        the mesh."""
+        ndarray ("local", whole by contract); row x column -> inner
+        product. Collective over the mesh."""
         if self.column_major and not other.column_major:
-            outer = torch.outer(self.to_tensor(),
-                                other.to_tensor().to(self._dtype))
             if mode == "local":
-                return to_host(outer)
-            from .block import BlockMatrix
-
-            return BlockMatrix(outer, mesh=self.mesh)
+                return to_host(torch.outer(self.to_tensor(),
+                                           other.to_tensor().to(self._dtype)))
+            return self._outer_blocks(other)
         if not self.column_major and other.column_major:
             return self.dot(other)
         raise ValueError(
             "vector multiply needs opposite orientations "
             f"(self.column_major={self.column_major}, "
             f"other={other.column_major})")
+
+    def _outer_blocks(self, other: "DistributedVector"):
+        """The outer product as a BlockMatrix on this mesh, shard to
+        shard: each rank takes the window of this vector its block's rows
+        need (a chunk over the "mr" axis) and the window of ``other`` its
+        columns need (over "mc"), and multiplies the two; no rank holds a
+        whole vector or the product."""
+        from .block import BlockMatrix
+
+        cfg = get_config()
+        mesh = self.mesh
+        pr, pc = mesh.shape[cfg.mesh_axis_rows], mesh.shape[cfg.mesh_axis_cols]
+        rows = self._local_in(_layout(mesh, {cfg.mesh_axis_rows: 0}), pr)
+        cols = other._local_in(_layout(mesh, {cfg.mesh_axis_cols: 0}), pc)
+        local = None if rows is None else torch.outer(
+            rows, cols.to(self._dtype))
+        return BlockMatrix(local, mesh=mesh, dtype=self._dtype,
+                           _logical_shape=(self._len, other._len))
 
     def dot(self, other: "DistributedVector") -> float:
         """Inner product: a local dot per chunk in >= f32 (pads are zero on

@@ -317,8 +317,8 @@ def shard(full: torch.Tensor, layout: Layout) -> Optional[torch.Tensor]:
 
 def _dtensor(local: torch.Tensor, layout: Layout,
              shape: Sequence[int]) -> DTensor:
-    shape = tuple(shape)
-    stride = tuple(int(s) for s in torch.empty(shape, device="meta").stride())
+    shape = tuple(int(s) for s in shape)
+    stride = tuple(int(np.prod(shape[d + 1:])) for d in range(len(shape)))
     return DTensor.from_local(local, layout.mesh.device_mesh,
                               list(layout.placements), run_check=False,
                               shape=torch.Size(shape), stride=stride)
@@ -352,16 +352,20 @@ def _rank_slices(layout: Layout, shape: Sequence[int]) -> Dict[int, tuple]:
             for idx in np.ndindex(devices.shape)}
 
 
-def _overlap(a: tuple, b: tuple, shape: Sequence[int]) -> Optional[tuple]:
-    """The part of slices ``a`` and ``b`` inside the logical ``shape``
-    (None when empty)."""
+def _intersect(*regions: tuple) -> Optional[tuple]:
+    """The slices common to every region (None when empty)."""
     out = []
-    for x, y, extent in zip(a, b, shape):
-        lo, hi = max(x.start, y.start), min(x.stop, y.stop, extent)
+    for sls in zip(*regions):
+        lo, hi = max(s.start for s in sls), min(s.stop for s in sls)
         if lo >= hi:
             return None
         out.append(slice(lo, hi))
     return tuple(out)
+
+
+def _shift(region: tuple, offset: Sequence[int]) -> tuple:
+    return tuple(slice(r.start + o, r.stop + o)
+                 for r, o in zip(region, offset))
 
 
 def _within(region: tuple, outer: tuple) -> tuple:
@@ -370,26 +374,38 @@ def _within(region: tuple, outer: tuple) -> tuple:
                  for r, o in zip(region, outer))
 
 
+def whole(shape: Sequence[int]) -> tuple:
+    """The region (one slice a dim) of all of a tensor of ``shape``."""
+    return tuple(slice(0, int(s)) for s in shape)
+
+
 def redistribute(local: Optional[torch.Tensor], src: Layout,
                  src_shape: Sequence[int], dst: Layout,
                  dst_shape: Sequence[int], shape: Sequence[int],
-                 dtype: torch.dtype) -> Optional[torch.Tensor]:
+                 dtype: torch.dtype, moves=None) -> Optional[torch.Tensor]:
     """This rank's shard under ``dst`` of a tensor zero-padded to
-    ``dst_shape``, from each rank's shard ``local`` under ``src`` of the
-    same tensor zero-padded to ``src_shape`` (``shape`` is the logical
-    extent; the meshes may differ). Shard to shard: each rank sends every
-    other rank the part of its shard that lies in the other's, point to
-    point, so no rank holds more than its two shards and the pieces in
-    flight. A piece held by several ranks (a replicated axis) comes from
-    the receiver itself when it holds it. None on a rank outside ``dst``'s
-    mesh. Collective over the ranks of both meshes."""
+    ``dst_shape``, from each rank's shard ``local`` under ``src`` of a
+    tensor zero-padded to ``src_shape`` (the meshes may differ). By
+    default the two are the same tensor, of logical extent ``shape``.
+    ``moves`` makes a window of it instead: a list of (region, offset)
+    pairs, each moving the source's elements inside ``region`` (one slice
+    a dim, in its logical coordinates) to their position plus ``offset``
+    in the destination, of logical extent ``shape``; what no move covers
+    is zero. Shard to shard: each rank sends every other rank the part of
+    its shard that lands in the other's, point to point, so no rank holds
+    more than its two shards and the pieces in flight. A piece held by
+    several ranks (a replicated axis) comes from the receiver itself when
+    it holds it. None on a rank outside ``dst``'s mesh. Collective over
+    the ranks of both meshes."""
     shape, src_shape, dst_shape = (tuple(int(s) for s in x)
                                    for x in (shape, src_shape, dst_shape))
     me = dist.get_rank()
     src_sl, dst_sl = _rank_slices(src, src_shape), _rank_slices(dst, dst_shape)
-    if (src.mesh is dst.mesh and src_shape == dst_shape
-            and all(src_sl[r] == dst_sl[r] for r in src_sl)):
-        return local
+    if moves is None:
+        if (src.mesh is dst.mesh and src_shape == dst_shape
+                and all(src_sl[r] == dst_sl[r] for r in src_sl)):
+            return local
+        moves = [(whole(shape), (0,) * len(shape))]
     holders: Dict[tuple, list] = {}
     for rank, sl in src_sl.items():
         holders.setdefault(sl, []).append(rank)
@@ -399,21 +415,26 @@ def redistribute(local: Optional[torch.Tensor], src: Layout,
                           dtype=dtype, device=dst.mesh.device)
     ops, landed = [], []
     for receiver, want in dst_sl.items():
-        for sl, ranks in holders.items():
-            piece = _overlap(want, sl, shape)
-            if piece is None:
-                continue
-            sender = receiver if receiver in ranks else ranks[0]
-            if sender == me and receiver == me:
-                out[_within(piece, want)] = local[_within(piece, sl)]
-            elif sender == me:
-                ops.append(dist.P2POp(dist.isend, local[_within(
-                    piece, sl)].contiguous(), receiver))
-            elif receiver == me:
-                buf = torch.empty(tuple(s.stop - s.start for s in piece),
-                                  dtype=dtype, device=out.device)
-                ops.append(dist.P2POp(dist.irecv, buf, sender))
-                landed.append((_within(piece, want), buf))
+        want = _intersect(want, whole(shape))
+        for tag, (region, offset) in enumerate(moves):
+            back = tuple(-o for o in offset)
+            for sl, ranks in holders.items():
+                piece = None if want is None else _intersect(
+                    _shift(want, back), sl, region)
+                if piece is None:
+                    continue
+                at = _within(_shift(piece, offset), dst_sl[receiver])
+                sender = receiver if receiver in ranks else ranks[0]
+                if sender == me and receiver == me:
+                    out[at] = local[_within(piece, sl)]
+                elif sender == me:
+                    ops.append(dist.P2POp(dist.isend, local[_within(
+                        piece, sl)].contiguous(), receiver, tag=tag))
+                elif receiver == me:
+                    buf = torch.empty(tuple(s.stop - s.start for s in piece),
+                                      dtype=dtype, device=out.device)
+                    ops.append(dist.P2POp(dist.irecv, buf, sender, tag=tag))
+                    landed.append((at, buf))
     if ops:
         for req in dist.batch_isend_irecv(ops):
             req.wait()

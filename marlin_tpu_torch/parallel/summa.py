@@ -6,8 +6,9 @@ the card, gloo on the CPU) on each rank's shard; each per-device product
 is a ``torch.matmul`` (cuBLAS on the card), as it was a ``jnp.dot`` for
 XLA. Four engines:
 
-* ``gspmd``  -- ``torch.matmul`` of two DTensors in the block layout;
-  DTensor's sharding propagation chooses and runs the collectives.
+* ``gspmd``  -- two DTensors in the block layout, redistributed by
+  DTensor to A's row stripes and B's column stripes, then one local
+  product into C's block (the plan GSPMD makes, steered explicitly).
 * ``summa``  -- all-gather SUMMA: gather A's row panel along "mc" and B's
   column panel along "mr", then one local product.
 * ``cannon`` -- square meshes: skew, then p - 1 ring steps of point to
@@ -74,7 +75,8 @@ def _all_gather_cat(x: torch.Tensor, mesh: Mesh, axis: str,
                       for r in _axis_ranks(mesh, axis)], dim=dim)
 
 
-def _exchange(x: torch.Tensor, send_to: int, recv_from: int) -> torch.Tensor:
+def ring_exchange(x: torch.Tensor, send_to: int,
+                  recv_from: int) -> torch.Tensor:
     """Send ``x`` to rank ``send_to`` and return what rank ``recv_from``
     sends (one step of a ring or the skew)."""
     me = dist.get_rank()
@@ -110,28 +112,36 @@ def _cannon_local(a, b, mesh: Mesh, precision):
         return int(mesh.devices[tuple(index)])
 
     # Skew: (i, j) ends up with A(i, i + j) and B(i + j, j).
-    a = _exchange(a, rank(i, j - i), rank(i, j + i))
-    b = _exchange(b, rank(i - j, j), rank(i + j, j))
+    a = ring_exchange(a, rank(i, j - i), rank(i, j + i))
+    b = ring_exchange(b, rank(i - j, j), rank(i + j, j))
     if p == 1:
         return _mm(a, b, precision)
     acc_t = _acc_dtype(a.dtype)
     acc = _mm(a.to(acc_t), b.to(acc_t), precision)
     for _ in range(p - 1):
-        a = _exchange(a, rank(i, j - 1), rank(i, j + 1))  # A left by one
-        b = _exchange(b, rank(i - 1, j), rank(i + 1, j))  # B up by one
+        a = ring_exchange(a, rank(i, j - 1), rank(i, j + 1))  # A left by one
+        b = ring_exchange(b, rank(i - 1, j), rank(i + 1, j))  # B up by one
         acc += _mm(a.to(acc_t), b.to(acc_t), precision)
     return acc.to(a.dtype)
 
 
 def _gspmd_local(a, b, mesh: Mesh, precision):
+    """GSPMD's plan for two block-sharded operands, steered rather than
+    left to DTensor's propagation: DTensor moves A to its row stripe (rows
+    over "mr", columns whole) and B to its column stripe (rows whole,
+    columns over "mc"), and each rank multiplies its two stripes into its
+    block of C, which stays block-sharded (the reference's
+    ``out_shardings``). No rank holds a whole A, B or C."""
+    cfg = get_config()
     lay = block_sharding(mesh)
     pr, pc = axis_sizes(mesh)
+    rows = _layout(mesh, {cfg.mesh_axis_rows: 0}).placements
+    cols = _layout(mesh, {cfg.mesh_axis_cols: 1}).placements
     da = _dtensor(a, lay, (a.shape[0] * pr, a.shape[1] * pc))
     db = _dtensor(b, lay, (b.shape[0] * pr, b.shape[1] * pc))
-    with matmul_precision_scope(precision):
-        dc = torch.matmul(da, db)
-    return (dc.redistribute(mesh.device_mesh, list(lay.placements))
-            .to_local().contiguous())
+    a_stripe = da.redistribute(mesh.device_mesh, list(rows)).to_local()
+    b_stripe = db.redistribute(mesh.device_mesh, list(cols)).to_local()
+    return _mm(a_stripe, b_stripe, precision)
 
 
 def _operand(x, layout: Layout, mults) -> Optional[torch.Tensor]:

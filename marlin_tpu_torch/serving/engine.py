@@ -60,6 +60,7 @@ _UNPORTED_OPTIONS = {
     "host_kv_dir": (None, "the host KV tier"),
     "restore_min_tokens": (None, "the host KV tier"),
     "scheduler": (None, "SLO scheduling (serving/sched.py)"),
+    "stats": (None, "the supervised restart surface"),
 }
 
 

@@ -12,6 +12,8 @@ threefry draw different streams).
 """
 
 
+import json
+
 import numpy as np
 import pytest
 
@@ -21,6 +23,7 @@ import marlin_tpu as mt
 from marlin_tpu import linalg as jlinalg
 from marlin_tpu.matrix.block import BlockMatrix
 from marlin_tpu.matrix.dense import DenseVecMatrix
+from marlin_tpu.matrix.sparse import SparseVecMatrix
 from marlin_tpu.matrix.vector import DistributedVector
 from marlin_tpu.parallel import summa
 from marlin_tpu.utils.split import grid_for_devices
@@ -284,12 +287,31 @@ WHOLE = {"summa": ("g64x48", "g48x56", (64, 56)),
          # square operand, factor, inverse.
          "lu_dist": ("lin64",), "cholesky_dist": ("spd64",),
          "inverse_dist": ("lin64",), "solve_dist": ("lin64",),
-         "solve_spd_dist": ("spd64",)}
+         "solve_spd_dist": ("spd64",),
+         # The engine GSPMD's plan stands for, and the structure ops and
+         # products that move windows of shards: their operands and
+         # results. A sparse operand is held by every rank by design
+         # (its shapes are chosen so that it could hold no whole dense
+         # one).
+         "gspmd": ("g64x48", "g48x56", (64, 56)),
+         "norm": ("g64x48",), "c_bind": ("g64x48", (64, 96)),
+         "slice_by_row": ("g64x48", (36, 48)),
+         "slice_by_column": ("g64x48", (64, 28)),
+         "get_sub_matrix": ("g64x48", (36, 28)),
+         "row_exchange": ("g64x48",), "get_block": ("g64x48",),
+         "dense_x_sparse": ("g64x48", (64, 56)),
+         "sparse_x_dense": ("g48x56", (40, 56)),
+         # The outer product of a 64- and a 56-vector: neither vector nor
+         # the product whole on a rank.
+         "vector_to_tensor": ((64,), (56,), (64, 56))}
 
 
 def holds_whole(shape, whole):
     """Whether a tensor of ``shape`` is large enough to hold a ``whole``
-    matrix, either way round (or, flattened, as many elements)."""
+    matrix, either way round (or, flattened, as many elements), or a
+    ``whole`` vector along one of its dims."""
+    if len(whole) == 1:
+        return max(shape, default=1) >= whole[0]
     if len(shape) == 2:
         return any(shape[0] >= r and shape[1] >= c
                    for r, c in (whole, whole[::-1]))
@@ -317,6 +339,11 @@ def test_no_rank_holds_a_whole_operand(port, arm):
                 return np.asarray(fn())
         return run
 
+    grid = BlockMatrix(a, blks_by_row=2, blks_by_col=3)
+    masked = np.where(np.abs(b) > 1.0, b, 0.0)
+    masked_left = np.where(np.abs(a[:40]) > 1.0, a[:40], 0.0)
+    col = DistributedVector(a[:, 0])
+    row = DistributedVector(b[0], column_major=False)
     want = {"summa": lambda: jd.multiply(DenseVecMatrix(b), mode="summa"),
             "cannon_square_submesh": lambda: jd.multiply(
                 DenseVecMatrix(b), mode="cannon", parallelism=4),
@@ -337,7 +364,47 @@ def test_no_rank_holds_a_whole_operand(port, arm):
                 jnp.asarray(sq), jnp.asarray(rhs), mode="dist")),
             "solve_spd_dist": dist(lambda: jlinalg.solve(
                 jnp.asarray(spd), jnp.asarray(rhs), mode="dist",
-                assume_spd=True))}
+                assume_spd=True)),
+            "gspmd": lambda: jd.multiply(DenseVecMatrix(b), mode="gspmd"),
+            "norm": lambda: [jd.norm("1"), jd.norm("inf"), jb.norm("1"),
+                             jb.norm("inf")],
+            "c_bind": lambda: [jd.c_bind(jb), jb.c_bind(jd)],
+            "slice_by_row": lambda: jd.slice_by_row(5, 40),
+            "slice_by_column": lambda: jd.slice_by_column(3, 30),
+            "get_sub_matrix": lambda: jd.get_sub_matrix(5, 40, 3, 30),
+            "row_exchange": lambda: [jd.row_exchange(50, 3),
+                                     jd.row_exchange(1, 6)],
+            "get_block": lambda: np.asarray(grid.get_block(1, 2)),
+            "dense_x_sparse": lambda: jd.multiply(
+                SparseVecMatrix.from_dense_array(masked)),
+            "sparse_x_dense": lambda: SparseVecMatrix.from_dense_array(
+                masked_left).multiply(DenseVecMatrix(b)),
+            "vector_to_tensor": lambda: col.multiply_vector(row)}
     out = want[arm]()
-    close(got["value"], out if isinstance(out, np.ndarray)
+    close(got["value"], [x.to_numpy() for x in out]
+          if isinstance(out, list) and hasattr(out[0], "to_numpy")
+          else out if isinstance(out, (np.ndarray, list))
           else out.to_numpy())
+    if arm == "vector_to_tensor":
+        # The vectors' own export, whole by contract, is theirs too.
+        close(got["to_tensor"][0], col.to_numpy())
+        close(got["to_tensor"][1], row.to_numpy())
+
+
+def test_rmm_compare_example(port, capsys):
+    # The port's example on 8 ranks and the JAX package's on the 8
+    # virtual devices: the same JSON keys and grid (a (4, 2) mesh: no
+    # Cannon ring), each arm timed.
+    from marlin_tpu.examples import rmm_compare
+
+    got = port.get("rmm_compare")
+    rmm_compare.main(["32", "32", "32"])
+    want = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert set(got["line"]) == set(want) == {"example", "shape", "grid",
+                                             "seconds"}
+    assert got["line"]["example"] == want["example"] == "RMMcompare"
+    assert got["line"]["shape"] == want["shape"] == [32, 32, 32]
+    assert got["line"]["grid"] == want["grid"]
+    assert set(got["line"]["seconds"]) == set(want["seconds"]) == set(
+        got["arms"]) == {"rmm_3d_grid", "summa_allgather"}
+    assert all(t > 0 for t in got["line"]["seconds"].values())

@@ -319,12 +319,19 @@ class TestServingLedgerAndGuards:
     ("host_kv_bytes", 1 << 20), ("host_kv_dir", "/tmp/kv"),
     ("restore_min_tokens", 32), ("scheduler", object()),
     ("prefill_chunks_per_round", 3), ("spec_ngram", 3),
-    ("spec_adaptive", False),
+    ("spec_adaptive", False), ("stats", object()),
 ])
 def test_non_default_engine_options_raise(option, value):
     cfg = _cfg()
     with pytest.raises(NotImplementedError, match="ROADMAP Queue A1"):
         _engine(_params(cfg), cfg, **{option: value})
+
+
+def test_stats_default_is_accepted():
+    # The reference's default (no inherited EngineStats) builds the engine.
+    cfg = _cfg()
+    eng = _engine(_params(cfg), cfg, stats=None)
+    assert eng.stats.n_admitted == 0
 
 
 def test_configs_outside_the_slice_raise():

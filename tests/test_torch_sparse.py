@@ -228,9 +228,11 @@ SPARSE_DENSE_REFERENCE = {
 
 @pytest.fixture(scope="module")
 def dense_port(tmp_path_factory):
-    return torch_dist_worker.launch("sparse_dense", 2,
-                                    {"S1": S1, "D43": D45},
-                                    tmp_path_factory.mktemp("sparse_dense"))
+    # One launch a session, shared with test_torch_dense_examples.py.
+    inputs = torch_dist_worker.sparse_dense_inputs()
+    assert (inputs["S1"] == S1).all() and (inputs["D43"] == D45).all()
+    return torch_dist_worker.shared_launch("sparse_dense", 2, inputs,
+                                           tmp_path_factory)
 
 
 class TestDeferred:

@@ -923,16 +923,42 @@ def _tensor_shapes(fn):
     return out, sorted(mode.seen)
 
 
+def _masked(arr):
+    """``arr`` with its entries under 1 in magnitude zeroed (a sparse
+    operand of the whole-operand check)."""
+    return np.where(np.abs(arr) > 1.0, arr, 0.0)
+
+
+def _value(got):
+    """A whole-operand arm's value: a matrix's or tensor's as an ndarray,
+    a number as a float, a tuple item by item."""
+    if isinstance(got, (tuple, list)):
+        return [_value(x) for x in got]
+    if isinstance(got, (int, float)):
+        return float(got)
+    if hasattr(got, "holds") and not got.holds:
+        return None
+    return _np(got)
+
+
 @case("gemm")
 def no_rank_holds_a_whole_operand(c):
     from marlin_tpu_torch.config import config_override
     from marlin_tpu_torch.linalg import inverse, solve
+    from marlin_tpu_torch.matrix import DistributedVector, SparseVecMatrix
 
     a, b = _dvm(c.inp("g64x48")), _dvm(c.inp("g48x56"))
     small = _dvm(c.inp("g4x48"))
     ablk = _blk(c.inp("g64x48"))
+    grid = _blk(c.inp("g64x48"), blks_by_row=2, blks_by_col=3)
     sq, spd = _dvm(c.inp("lin64")), _dvm(c.inp("spd64"))
     rhs = c.inp("rhs64")
+    sp_right = SparseVecMatrix.from_dense_array(_masked(c.inp("g48x56")),
+                                                device="cpu")
+    sp_left = SparseVecMatrix.from_dense_array(
+        _masked(c.inp("g64x48")[:40]), device="cpu")
+    col = DistributedVector(c.inp("g64x48")[:, 0])
+    row = DistributedVector(c.inp("g48x56")[0], column_major=False)
 
     def dist(fn):  # the dist-mode decompositions, in panels of 16
         def run():
@@ -957,13 +983,42 @@ def no_rank_holds_a_whole_operand(c):
         "solve_dist": dist(lambda: solve(sq, rhs, mode="dist")),
         "solve_spd_dist": dist(lambda: solve(spd, rhs, mode="dist",
                                              assume_spd=True)),
+        "gspmd": lambda: a.multiply(b, mode="gspmd"),
+        "norm": lambda: (a.norm("1"), a.norm("inf"), ablk.norm("1"),
+                         ablk.norm("inf")),
+        "c_bind": lambda: (a.c_bind(ablk), ablk.c_bind(a)),
+        "slice_by_row": lambda: a.slice_by_row(5, 40),
+        "slice_by_column": lambda: a.slice_by_column(3, 30),
+        "get_sub_matrix": lambda: a.get_sub_matrix(5, 40, 3, 30),
+        # Rows of two ranks' stripes, and two rows of one stripe.
+        "row_exchange": lambda: (a.row_exchange(50, 3),
+                                 a.row_exchange(1, 6)),
+        "get_block": lambda: grid.get_block(1, 2),
+        "dense_x_sparse": lambda: a.multiply(sp_right),
+        "sparse_x_dense": lambda: sp_left.multiply(b),
+        "vector_to_tensor": lambda: col.multiply_vector(row),
     }
     out = {}
     for name, fn in arms.items():
         got, shapes = _tensor_shapes(fn)
-        out[name] = {"shapes": shapes, "value": _np(got)
-                     if not hasattr(got, "holds") or got.holds else None}
+        out[name] = {"shapes": shapes, "value": _value(got)}
+    out["vector_to_tensor"]["to_tensor"] = [_np(col.to_tensor()),
+                                            _np(row.to_tensor())]
     return out
+
+
+@case("gemm")
+def rmm_compare(c):
+    import contextlib
+    import io
+
+    from marlin_tpu_torch.examples import rmm_compare as ex
+
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        timings = ex.main(["32", "32", "32", "--device", "cpu"])
+    return {"line": json.loads(text.getvalue().strip().splitlines()[-1]),
+            "arms": sorted(timings)}
 
 
 # -- linalg (twin of tests/test_linalg.py's distributed cases; 8 ranks) -----
@@ -1116,7 +1171,32 @@ def dist_solves(c):
                                  mode="dist", assume_spd=True))}
 
 
-# -- sparse x dense: the lifted refusals of tests/test_torch_sparse.py -------
+# -- sparse x dense: the lifted refusals of tests/test_torch_sparse.py, and
+# the neural-network example on two ranks (2 ranks) ------------------------
+
+SPARSE_S1 = np.array([[1.0, 0.0, 0.0, 2.0],
+                      [0.0, 3.0, 0.0, 0.0],
+                      [0.0, 0.0, 0.0, 0.0],
+                      [4.0, 0.0, 5.0, 0.0]], np.float32)
+
+
+def sparse_dense_inputs() -> dict:
+    """The "sparse_dense" suite's inputs, the same for each module that
+    reads it (tests/test_torch_sparse.py's golden S1 and its 4 x 5 dense
+    operand)."""
+    return {"S1": SPARSE_S1,
+            "D43": np.random.default_rng(11).standard_normal(
+                (4, 5)).astype(np.float32)}
+
+
+def nn_data(n: int = 300, d_in: int = 16):
+    """The neural-network example's two-class data of the rank runs:
+    (images, labels), seeded."""
+    rng = np.random.default_rng(5)
+    images = rng.random((n, d_in))
+    classes = (images.sum(axis=1) > d_in / 2).astype(int)
+    return images, np.eye(2)[classes]
+
 
 def _sp(c):
     from marlin_tpu_torch.matrix import SparseVecMatrix
@@ -1196,6 +1276,23 @@ def to_sparse_vec_matrix_mesh(c):
 
     sp = _cm().to_sparse_vec_matrix(mesh=pm.default_mesh())
     return {"value": sp.to_numpy(), "mesh_size": sp.mesh.size}
+
+
+@case("sparse_dense")
+def neural_network_ranks(c):
+    # The same index table on one rank (a submesh of rank 0) and on two:
+    # each rank's part of the gradient, summed by the all-reduce.
+    from marlin_tpu_torch import mesh as pm
+    from marlin_tpu_torch.examples import neural_network as nn
+
+    images, labels = nn_data()
+    kw = dict(hidden=8, batch_size=64, iterations=20, learning_rate=1.0,
+              seed=3)
+    one_mesh = pm.submesh(pm.default_mesh(), 1)
+    one = nn.train_with_losses(images, labels, mesh=one_mesh, **kw)[1]
+    params, two = nn.train_with_losses(images, labels, **kw)
+    return {"one": None if one is None else _np(one), "two": _np(two),
+            "two_params": {k: _np(v) for k, v in params.items()}}
 
 
 if __name__ == "__main__":
