@@ -37,6 +37,23 @@ Phases, each of which exits non-zero on failure:
    waves. Check every request against the port's own B=1 generate, and
    that the flash kernel ran exactly once per layer per admission (its
    launch counter is zeroed just before the run and read just after).
+   Then the serving disciplines at the same width, batch 8, round_steps
+   8: 16 requests behind one 512-token system prompt (tails of 16-80
+   tokens, 32 steps), through chunked admission (prefill_chunk=128, 2
+   chunks a round) without reuse, with PrefixCache(pool_rows=4), paged
+   (kv_pages = 8 x 2048 / 16 + 64) with prefix_sharing off, and the same
+   pool with sharing on. Held: the four arms' tokens equal request by
+   request; the first arm against B=1 generate (4 bf16 ulps of logit
+   gap); hits in the two reuse arms, each reclaiming >= 512 prefill
+   tokens; no admission copy bytes with sharing, some with the cache; no
+   flash launch; after the drain every pool page held only by stored
+   prefixes; the cache's, pool's and buffer's storage unmoved; and one
+   512-token prefill_chunk against its splits into 16 and 128, equal
+   cache bytes and last logits. Printed (serve_disciplines:) per arm:
+   tokens/s, steady decode-iteration ms, TTFT median and max, prefill ms
+   per chunk, rounds, hit rate, peak memory; and the split check's times
+   at the fixed prefill tile, at 16-row tiles and with no tile (the
+   tile's cost).
 6. Train: the same flagship, bf16 compute on f32 master params, B=8,
    S=2048, SGD at lr 0.1: one warm-up train_step, then 5 timed steps on
    one fixed batch. Every loss finite, the last below the first, and the
@@ -2593,11 +2610,58 @@ def _workload(cfg, seed: int):
     return [(rng.integers(0, cfg.vocab, int(s)), 32) for s in lens]
 
 
+def _against_generate(params, cfg, tr, ids, done, label):
+    """Every request's tokens against the port's own B=1 generate. A
+    divergence passes only where the chosen token's logit in generate's
+    own logits is within 4 bf16 ulps of generate's pick. Returns (tokens
+    agreeing, tokens, divergences)."""
+    import numpy as np
+    import torch
+
+    from marlin_tpu_torch.models import generate
+
+    agree = 0
+    total = 0
+    divergences = []
+    for rid, (prompt, steps) in ids.items():
+        ref = generate(params, torch.as_tensor(prompt[None]), steps,
+                       cfg).cpu().numpy()[0]
+        got = done[rid].tokens
+        same = ref == got
+        total += steps
+        if same.all():
+            agree += steps
+            continue
+        j = int(np.argmin(same))
+        agree += j
+        seq = np.concatenate([prompt, ref[:j]])[None]
+        logits, _ = tr.prefill(params, torch.as_tensor(seq, device="cuda"),
+                               cfg)
+        lg = logits[0].float()
+        top2 = torch.topk(lg, 2).values
+        margin = (top2[0] - top2[1]).item()
+        gap = (lg[int(ref[j])] - lg[int(got[j])]).item()
+        ulp = 2.0 ** (math.floor(math.log2(abs(top2[0].item()))) - 7)
+        divergences.append(dict(request=rid, prompt_len=len(prompt),
+                                index=j, top2_margin=margin,
+                                chosen_gap=gap, bf16_ulps=gap / ulp))
+        # Four bf16 ulps: two runs whose matmuls accumulate in different
+        # orders (batch 8 vs 1) differ by a few ulps after 8 layers of
+        # bf16 rounding; a real fault moves logits by whole units.
+        if abs(gap) > 4 * ulp:
+            fail(f"{label}: request {rid} diverges from B=1 generate at "
+                 f"token {j} with a logit gap of {gap:.4f} "
+                 f"({gap / ulp:.1f} bf16 ulps) — beyond bf16 noise")
+    for d in divergences:
+        print(f"{label}: divergence " + json.dumps(d))
+    return agree, total, divergences
+
+
 def phase_slice(card: str, seed: int = 0):
     import numpy as np
     import torch
 
-    from marlin_tpu_torch.models import TransformerConfig, generate
+    from marlin_tpu_torch.models import TransformerConfig
     from marlin_tpu_torch.models import transformer as tr
     from marlin_tpu_torch.ops import flash_attention as fa
     from marlin_tpu_torch.serving import ServingEngine
@@ -2669,41 +2733,8 @@ def phase_slice(card: str, seed: int = 0):
         prefill_ms.append(cuda_ms(lambda: prefill_into_row(
             run_params, cache, buf, 0, pt, cfg), warmup=1, iters=3))
 
-    # Every request against the port's own B=1 generate.
-    agree = 0
-    total = 0
-    divergences = []
-    for rid, (prompt, steps) in ids.items():
-        ref = generate(params, torch.as_tensor(prompt[None]), steps,
-                       cfg).cpu().numpy()[0]
-        got = done[rid].tokens
-        same = ref == got
-        total += steps
-        if same.all():
-            agree += steps
-            continue
-        j = int(np.argmin(same))
-        agree += j
-        seq = np.concatenate([prompt, ref[:j]])[None]
-        logits, _ = tr.prefill(params, torch.as_tensor(seq, device="cuda"),
-                               cfg)
-        lg = logits[0].float()
-        top2 = torch.topk(lg, 2).values
-        margin = (top2[0] - top2[1]).item()
-        gap = (lg[int(ref[j])] - lg[int(got[j])]).item()
-        ulp = 2.0 ** (math.floor(math.log2(abs(top2[0].item()))) - 7)
-        divergences.append(dict(request=rid, prompt_len=len(prompt),
-                                index=j, top2_margin=margin,
-                                chosen_gap=gap, bf16_ulps=gap / ulp))
-        # Four bf16 ulps: two runs whose matmuls accumulate in different
-        # orders (batch 8 vs 1) differ by a few ulps after 8 layers of
-        # bf16 rounding; a real fault moves logits by whole units.
-        if abs(gap) > 4 * ulp:
-            fail(f"request {rid} diverges from B=1 generate at token {j} "
-                 f"with a logit gap of {gap:.4f} ({gap / ulp:.1f} bf16 "
-                 f"ulps) — beyond bf16 noise")
-    for d in divergences:
-        print("slice: divergence " + json.dumps(d))
+    agree, total, divergences = _against_generate(
+        params, cfg, tr, ids, done, "slice")
     summary = dict(
         card=card, requests=len(done), admissions=admissions,
         flash_launches=launches, tokens=tokens, wall_s=wall,
@@ -2720,6 +2751,210 @@ def phase_slice(card: str, seed: int = 0):
     print("slice: " + json.dumps(summary, default=str), flush=True)
     phase_profile(params, cfg, workload)
     return launches
+
+
+SYSTEM_PROMPT = 512  # tokens of the shared system prompt
+DISCIPLINE_CHUNK = 128  # prefill_chunk of the disciplines' arms
+
+
+def _chat_workload(cfg, seed: int):
+    """16 chat requests behind one system prompt: the prompt, then each
+    request's own tail of 16-80 tokens; 32 steps each."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed + 17)
+    system = rng.integers(0, cfg.vocab, SYSTEM_PROMPT)
+    return [(np.concatenate([system, rng.integers(0, cfg.vocab, int(t))]),
+             32) for t in rng.integers(16, 81, 16)]
+
+
+def _storage(eng):
+    """Storage pointers of an engine's device state: the token buffer and
+    the cache (or page pool), and its prefix cache's pool."""
+    kv = eng.page_pool.pages if eng.paged else eng._cache
+    if eng.prefix_cache is not None:
+        kv = kv + eng.prefix_cache.pool
+    return [eng._buf.data_ptr()] + [buf.data_ptr() for layer in kv
+                                    for buf in layer.values()]
+
+
+def _split_check(params, cfg, tr, prompt):
+    """One SYSTEM_PROMPT-token prefill_chunk against its splits into 16
+    and DISCIPLINE_CHUNK: cache bytes and last logits equal (held). Then
+    the same chunk body, not held, in 16-row tiles and untiled (each
+    chunk at its own width), and the times of all three: what the fixed
+    tile (tr.PREFILL_TILE) costs, and whether the card needs it."""
+    import torch
+
+    n = prompt.shape[0]
+
+    def chunk_body(width):
+        def run(cache, toks, c0):
+            tiles = tr._chunk_states(
+                params, cache, toks,
+                tr._chunk_pos(c0, 1, toks.shape[1], toks.device), cfg,
+                width=width)
+            return tr._logits_at(params, tiles, toks.shape[1] - 1)
+        return run
+
+    def public(cache, toks, c0):
+        return tr.prefill_chunk(params, cache, toks, c0, cfg)[0]
+
+    def prefill(body, chunk):
+        cache = tr.init_kv_cache(cfg, 1, dtype=cfg.compute_dtype,
+                                 device="cuda")
+        for c0 in range(0, n, chunk):
+            logits = body(cache, prompt[None, c0:c0 + chunk], c0)
+        return logits, cache
+
+    def equal(a, b):
+        return bool(torch.equal(a[0], b[0])) and all(
+            torch.equal(x[k][:, :n], y[k][:, :n])
+            for x, y in zip(a[1], b[1]) for k in x)
+
+    def run(body):
+        one = prefill(body, n)
+        return dict(
+            split_equal={c: equal(one, prefill(body, c))
+                         for c in (16, DISCIPLINE_CHUNK)},
+            ms=cuda_ms(lambda: prefill(body, n), warmup=1, iters=3),
+            chunk_ms=cuda_ms(lambda: prefill(body, DISCIPLINE_CHUNK),
+                             warmup=1, iters=3))
+
+    out = {f"tile{tr.PREFILL_TILE}": run(public)}
+    if not all(out[f"tile{tr.PREFILL_TILE}"]["split_equal"].values()):
+        fail(f"serve_disciplines: a {n}-token prefill_chunk and its splits "
+             f"write different cache bytes or last logits: {out}")
+    out["tile16"] = run(chunk_body(16))
+    out["untiled"] = run(chunk_body(None))
+    return out
+
+
+def phase_serving_disciplines(card: str, seed: int = 0):
+    """Chunked admission, the prefix cache and paged KV (with and without
+    sharing) on the flagship at full width: see the module docstring."""
+    from collections import Counter
+
+    import numpy as np
+    import torch
+
+    from marlin_tpu_torch.models import TransformerConfig
+    from marlin_tpu_torch.models import transformer as tr
+    from marlin_tpu_torch.ops import flash_attention as fa
+    from marlin_tpu_torch.serving import PrefixCache, ServingEngine
+
+    cfg = TransformerConfig(**FLAGSHIP)
+    params = tr.init_params(cfg, seed=seed, device="cuda")
+    workload = _chat_workload(cfg, seed)
+    pages = 8 * cfg.max_len // 16 + 64
+    chunked = dict(prefill_chunk=DISCIPLINE_CHUNK,
+                   prefill_chunks_per_round=2)
+    arms = {
+        "chunked": lambda: chunked,
+        "prefix_cache": lambda: dict(chunked, prefix_cache=PrefixCache(
+            cfg, pool_rows=4, device="cuda")),
+        "paged": lambda: dict(chunked, kv_pages=pages,
+                              prefix_sharing=False),
+        "paged_shared": lambda: dict(chunked, kv_pages=pages),
+    }
+    warm = ServingEngine(params, cfg, batch=8, round_steps=8,
+                         device="cuda", **chunked)
+    warm.submit(workload[0][0][:48], 4)
+    warm.run()
+    torch.cuda.synchronize()
+
+    tokens = {}
+    for name, options in arms.items():
+        eng = ServingEngine(params, cfg, batch=8, round_steps=8,
+                            device="cuda", **options())
+        before = _storage(eng)
+        _zero_counters(fa)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        ids, done = {}, []
+        # As phase_slice: 5 requests, a round, then the other 11.
+        for prompt, steps in workload[:5]:
+            ids[eng.submit(prompt, steps)] = (prompt, steps)
+        done += eng.step()
+        for prompt, steps in workload[5:]:
+            ids[eng.submit(prompt, steps)] = (prompt, steps)
+        done += eng.drain()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        every = _counters(fa)
+        peak = torch.cuda.max_memory_allocated()
+        done = {r.request_id: r for r in done}
+        if len(done) != 16 or any(r.status != "done"
+                                  for r in done.values()):
+            fail(f"serve_disciplines {name}: answered {len(done)} of 16: "
+                 f"{[(r.request_id, r.status) for r in done.values()]}")
+        if every != _want(0, 0, 0):
+            fail(f"serve_disciplines {name}: flash launches {every}, "
+                 f"expected none (chunked admission attends through the "
+                 f"plain cached attention)")
+        if _storage(eng) != before:
+            fail(f"serve_disciplines {name}: the cache, pool or buffer "
+                 f"storage moved across admissions")
+        st = eng.stats
+        if name in ("prefix_cache", "paged_shared"):
+            if not st.n_prefix_hits or st.reclaimed_prefill_tokens \
+                    < SYSTEM_PROMPT * st.n_prefix_hits:
+                fail(f"serve_disciplines {name}: {st.n_prefix_hits} hits "
+                     f"reclaimed {st.reclaimed_prefill_tokens} tokens "
+                     f"(< {SYSTEM_PROMPT} a hit)")
+        copy_ok = {"prefix_cache": st.admission_copy_bytes > 0,
+                   "paged_shared": st.admission_copy_bytes == 0}
+        if not copy_ok.get(name, True):
+            fail(f"serve_disciplines {name}: admission_copy_bytes "
+                 f"{st.admission_copy_bytes}")
+        if eng.paged:
+            held = Counter(p for e in (eng.prefix_index._entries.values()
+                                       if eng.prefix_index else ())
+                           for p in e.pages)
+            if dict(eng.page_pool._refs) != dict(held):
+                fail(f"serve_disciplines {name}: after the drain the pool "
+                     f"holds {dict(eng.page_pool._refs)}, the stored "
+                     f"prefixes {dict(held)}")
+        order = sorted(ids)
+        tokens[name] = [done[r].tokens.tolist() for r in order]
+        if tokens[name] != tokens["chunked"]:
+            bad = [r for r, a, b in zip(order, tokens[name],
+                                        tokens["chunked"]) if a != b]
+            fail(f"serve_disciplines {name}: tokens differ from the "
+                 f"chunked arm's at requests {bad}")
+        if name == "chunked":
+            agree, total, _ = _against_generate(
+                params, cfg, tr, ids, done, "serve_disciplines")
+        rounds = eng.runlog.events("round")
+        steady = [e["round_s"] / e["iters"] for e in rounds
+                  if e["iters"] and not e["admitted"]
+                  and not e["prefilling"]]
+        admits = eng.runlog.events("admit")
+        ttft = [r.admit_time - r.submit_time for r in done.values()]
+        n_tokens = sum(r.emitted for r in done.values())
+        print("serve_disciplines: " + json.dumps(dict(
+            card=card, arm=name, requests=len(done), tokens=n_tokens,
+            wall_s=wall, tokens_per_s=n_tokens / wall,
+            decode_iter_ms=(1e3 * float(np.median(steady)) if steady
+                            else None),
+            ttft_s_median=float(np.median(ttft)), ttft_s_max=max(ttft),
+            prefill_ms_per_chunk=1e3 * sum(r.prefill_s
+                                           for r in done.values())
+            / sum(e["chunks"] for e in admits),
+            chunks=sum(e["chunks"] for e in admits),
+            rounds=st.n_rounds, hit_rate=round(st.prefix_hit_rate(), 4),
+            hits=st.n_prefix_hits,
+            reclaimed_tokens=st.reclaimed_prefill_tokens,
+            admission_copy_bytes=st.admission_copy_bytes,
+            peak_mem_gb=peak / 1e9,
+            token_agreement_with_generate=agree / total,
+            pages=(st.page_pool.summary() if st.page_pool else None)),
+            default=str), flush=True)
+
+    prompt = torch.as_tensor(workload[0][0][:SYSTEM_PROMPT], device="cuda")
+    split = _split_check(tr._cast_params(params, cfg), cfg, tr, prompt)
+    print("serve_disciplines_split: " + json.dumps(dict(card=card, **split),
+                                                   default=str), flush=True)
 
 
 def phase_profile(params, cfg, workload):
@@ -4241,6 +4476,7 @@ def main(argv=None) -> int:
     phase_backward_memory()
     spmm = phase_spmm(card)
     serve_launches = phase_slice(card)
+    phase_serving_disciplines(card)
     launches = phase_train(card)
     launches["serve"] = dict(fwd=serve_launches)
     phase_grad_check()

@@ -9,8 +9,11 @@ in-place KV-cache writes where JAX donated the cache. Prompt attention
 (``_attend_local``) is the flash-attention kernel of
 :mod:`marlin_tpu_torch.ops.flash_attention`, differentiable through its
 backward kernels; the projections, the MLP, layer norm, RoPE, the
-chunked cross-entropy, the cached decode attention and sampling stay
-plain torch, as the JAX package left them to XLA. Training is autograd
+chunked cross-entropy, the cached decode attention, the chunked prefill
+(:func:`prefill_chunk`, in tiles of one fixed shape), the paged reads and
+writes (:func:`gather_kv_pages`, :func:`decode_chunk_paged`,
+:func:`prefill_chunk_paged`) and sampling stay plain torch, as the JAX
+package left them to XLA. Training is autograd
 over the same functions: :func:`loss_fn`, :func:`train_step` (SGD, f32
 master params) and :func:`make_train_step` (a ``torch.optim``
 optimizer); ``cfg.remat`` checkpoints each block.
@@ -438,26 +441,107 @@ def _check_cache(cache, cfg: TransformerConfig):
             "build the cache with init_kv_cache(cfg, ...)")
 
 
-def _chunk_states(params, cache, tokens, pos, cfg: TransformerConfig):
-    """The shared body of :func:`decode_step` and :func:`decode_chunk`:
-    (B, C) tokens at per-row positions ``pos`` (B, C); each layer writes
-    its K/V into the cache IN PLACE (the JAX package donated the cache),
-    then every position attends its own prefix. Returns the hidden states
-    (B, C, D) before the final LN. ``params`` must already be cast."""
+# Positions per prefill tile. A GEMM or a row reduction need not give a
+# row the same bits at another row count: cuBLAS and MKL choose their
+# algorithm by shape (on the H100 a 16-row prefill chunk and a 512-row
+# one write different cache bits). So prefill runs in tiles of this many
+# positions, each padded to exactly this many rows: every prefill GEMM,
+# reduction and attention call sees one shape, whatever the chunk width.
+PREFILL_TILE = 128
+
+
+def _chunk_guards(cache, cfg: TransformerConfig):
+    """Contract checks of the chunk paths (:func:`decode_chunk`,
+    :func:`prefill_chunk`): the dense slot == position cache only."""
+    check_ported(cfg)
+    if cfg.window:
+        raise NotImplementedError(
+            "decode_chunk needs the dense slot==position cache: a ring "
+            "cache can't absorb a partially rejected chunk (overwritten "
+            "slots held live positions)")
+    _check_cache(cache, cfg)
+
+
+def _chunk_pos(pos, b: int, c: int, device):
+    """(B, C) absolute positions of a chunk starting at ``pos`` (a scalar
+    or a per-row (B,) tensor)."""
+    pos = torch.as_tensor(pos, dtype=torch.long, device=device)
+    return pos.expand(b).reshape(b, 1) + torch.arange(c, device=device)
+
+
+def _tiles(params, kv, tokens, pos, cfg: TransformerConfig, write_read,
+           width: Optional[int] = None):
+    """The chunk body shared by the contiguous and paged paths: (B, C)
+    tokens at positions ``pos`` (B, C) in tiles of ``width`` positions
+    (default: one tile of C), taken in order, each through every layer
+    before the next starts. A short last tile is padded to ``width`` rows
+    (token 0 at the tile's last position); pad rows write no K/V and are
+    never read back. Per layer ``write_read(layer, k, v, tile_pos)``
+    stores the real rows' K/V and returns the (B, T, Hk, Dh) keys and
+    values attention reads. Returns ``[(hidden states (B, width, D)
+    before the final LN, real rows), ...]``, one per tile. ``params``
+    must already be cast.
+
+    With a fixed ``width`` (:data:`PREFILL_TILE`) every position of a
+    prompt is computed by calls of one shape, so any split of a prompt
+    into chunks, a copied prefix plus its tail among them, writes the
+    same cache bits and gives the same logits: the property the prefix
+    cache and paged sharing rest on."""
     b, c = tokens.shape
-    x = _embed_rows(params, tokens, cfg.compute_dtype)
-    if not cfg.rope:
-        x = x + params["pos"][pos].to(x.dtype)
-    slots = pos % cache[0]["k"].shape[1] if cfg.window else pos
-    rows = torch.arange(b, device=tokens.device)[:, None]
-    for bp, layer in zip(params["blocks"], cache):
-        q, k, v = _split_qkv(bp, x, cfg, positions=pos if cfg.rope else None)
+    width = width or c
+    out = []
+    for t0 in range(0, c, width):
+        tile = tokens[:, t0:t0 + width]
+        tile_pos = pos[:, t0:t0 + width]
+        n = tile.shape[1]
+        if n < width:
+            tile = F.pad(tile, (0, width - n))
+            tile_pos = torch.cat(
+                [tile_pos, tile_pos[:, -1:].expand(b, width - n)], dim=1)
+        x = _embed_rows(params, tile, cfg.compute_dtype)
+        if not cfg.rope:
+            x = x + params["pos"][tile_pos].to(x.dtype)
+        for bp, layer in zip(params["blocks"], kv):
+            q, k, v = _split_qkv(bp, x, cfg,
+                                 positions=tile_pos if cfg.rope else None)
+            ck, cv = write_read(layer, k[:, :n], v[:, :n], tile_pos[:, :n])
+            att = _attend_cached(q, ck, cv, tile_pos, window=cfg.window)
+            x = _mlp_residual(bp, x + att @ bp["wo"], cfg)
+        out.append((x, n))
+    return out
+
+
+def _chunk_states(params, cache, tokens, pos, cfg: TransformerConfig,
+                  width: Optional[int] = None):
+    """:func:`_tiles` over the contiguous cache: each layer writes its
+    K/V into the cache IN PLACE (the JAX package donated the cache), at
+    slot == position (``pos mod cache_len`` on a ring), then every
+    position attends its own prefix."""
+    rows = torch.arange(tokens.shape[0], device=tokens.device)[:, None]
+
+    def write_read(layer, k, v, tile_pos):
+        slots = tile_pos % layer["k"].shape[1] if cfg.window else tile_pos
         layer["k"][rows, slots] = k.to(layer["k"].dtype)
         layer["v"][rows, slots] = v.to(layer["v"].dtype)
-        att = _attend_cached(q, layer["k"], layer["v"], pos,
-                             window=cfg.window)
-        x = _mlp_residual(bp, x + att @ bp["wo"], cfg)
-    return x
+        return layer["k"], layer["v"]
+
+    return _tiles(params, cache, tokens, pos, cfg, write_read, width)
+
+
+def _tile_logits(params, tiles):
+    """Final LN and readout of every tile's real rows, (B, C, vocab)."""
+    return torch.cat([_readout(params, _layer_norm(params["ln_f"], x))[:, :n]
+                      for x, n in tiles], dim=1)
+
+
+def _logits_at(params, tiles, last: int):
+    """(B, vocab) logits at chunk index ``last``: the final LN and readout
+    of ``last``'s whole tile (its padded shape, like every other call),
+    not of the chunk."""
+    width = tiles[0][0].shape[1]
+    x, _ = tiles[last // width]
+    lg = _readout(params, _layer_norm(params["ln_f"], x))
+    return lg[:, last % width]
 
 
 @torch.no_grad()
@@ -471,7 +555,7 @@ def decode_step(params, cache, tokens, pos: int, cfg: TransformerConfig):
     b = tokens.shape[0]
     pos_t = torch.full((b, 1), int(pos), dtype=torch.long,
                        device=tokens.device)
-    x = _chunk_states(params, cache, tokens[:, None], pos_t, cfg)
+    ((x, _),) = _chunk_states(params, cache, tokens[:, None], pos_t, cfg)
     return _readout(params, _layer_norm(params["ln_f"], x[:, 0])), cache
 
 
@@ -481,19 +565,132 @@ def decode_chunk(params, cache, tokens, pos, cfg: TransformerConfig):
     (``pos`` a scalar or a per-row (B,) tensor) -> (logits (B, C, vocab),
     cache updated in place). Needs the dense slot == position cache.
     Caller contract: pos + C <= max_len for every row."""
+    _chunk_guards(cache, cfg)
+    params = _cast_params(params, cfg)
+    b, c = tokens.shape
+    tiles = _chunk_states(params, cache, tokens,
+                          _chunk_pos(pos, b, c, tokens.device), cfg)
+    return _tile_logits(params, tiles), cache
+
+
+@torch.no_grad()
+def prefill_chunk(params, cache, tokens, pos, cfg: TransformerConfig,
+                  last: Optional[int] = None):
+    """Chunked-prefill continuation: run (B, C) prompt tokens at positions
+    pos..pos+C-1 against a cache that already holds [0, pos) (earlier
+    chunks, or a prefix-cache copy), writing this chunk's K/V in place.
+    Returns ``(logits (B, vocab) at chunk index last, cache)``; ``last``
+    defaults to C - 1, and entries past it may be padding (their K/V land
+    in dead slots that decode overwrites before any live read). Only the
+    readout of ``last``'s tile is computed, not the chunk's.
+
+    Bit-exactness: positions run in :data:`PREFILL_TILE` tiles
+    (:func:`_tiles`), so any split of a prompt into chunks, including a
+    resume at ``pos = hit_len`` over copied prefix K/V, writes the same
+    cache bits and gives the same logits as one chunk."""
+    _chunk_guards(cache, cfg)
+    params = _cast_params(params, cfg)
+    b, c = tokens.shape
+    tiles = _chunk_states(params, cache, tokens,
+                          _chunk_pos(pos, b, c, tokens.device), cfg,
+                          width=PREFILL_TILE)
+    return _logits_at(params, tiles, c - 1 if last is None else int(last)), \
+        cache
+
+
+# ---------------------------------------------------------------------------
+# Paged KV: gathered reads and scattered writes over a page pool
+# ---------------------------------------------------------------------------
+#
+# serving/pages.py owns the pool (per layer, one (n_pages, PAGE, Hk, Dh)
+# buffer per K and V) and its allocator; these functions are the model
+# half: the same _tiles as _chunk_states, with the row-major cache replaced
+# by page-gathered reads and page-scattered writes through (B, max_len //
+# PAGE) page tables. A gather of identical bytes hands _attend_cached an
+# operand of the contiguous cache's shape and bytes, and positions past a
+# row's fill get exactly zero weight in both layouts (exp(-1e30 - max)
+# underflows to 0.0 and every page holds finite values), so the paged read
+# is bitwise the contiguous read of the same logical cache.
+
+
+def gather_kv_pages(pool, tables):
+    """Contiguous per-layer cache views of a page pool: ``pool`` is a list
+    of per-layer dicts of (P, page, Hk, Dh) buffers, ``tables`` (B,
+    n_chunks) page ids. Returns per-layer dicts of (B, n_chunks * page,
+    Hk, Dh) tensors with slot == absolute position."""
+    b = tables.shape[0]
+    return [{name: buf[tables].reshape((b, -1) + tuple(buf.shape[2:]))
+             for name, buf in layer.items()}
+            for layer in pool]
+
+
+def _paged_guards(pool, tables, cfg: TransformerConfig):
+    """Contract checks of the paged chunk paths: the dense slot ==
+    position layout, and a table extent that tiles max_len exactly."""
     check_ported(cfg)
     if cfg.window:
         raise NotImplementedError(
-            "decode_chunk needs the dense slot==position cache: a ring "
-            "cache can't absorb a partially rejected chunk")
-    _check_cache(cache, cfg)
+            "paged decode needs the dense slot==position layout: a ring "
+            "cache cannot be paged at fixed position-aligned chunks")
+    page = pool[0]["k"].shape[1]
+    if tables.shape[-1] * page != cfg.max_len:
+        raise ValueError(
+            f"page table covers {tables.shape[-1]} x {page} slots != "
+            f"max_len {cfg.max_len}; build tables at max_len // page "
+            "entries (serving/pages.py)")
+
+
+def _chunk_states_paged(params, pool, tables, tokens, pos,
+                        cfg: TransformerConfig, width: Optional[int] = None):
+    """:func:`_tiles` over a page pool: each position's K/V is written IN
+    PLACE into page ``tables[row, p // page]`` at slot ``p % page``, and
+    each tile attends over its rows' page-gathered caches. Rows whose
+    table entries point at the write-sink page (serving/pages.py) write
+    dead values there; duplicate sink writes race benignly because
+    nothing attends the sink through a live mask."""
+    page = pool[0]["k"].shape[1]
+    rows = torch.arange(tokens.shape[0], device=tokens.device)[:, None]
+
+    def write_read(layer, k, v, tile_pos):
+        page_ids = tables[rows, tile_pos // page]
+        slots = tile_pos % page
+        layer["k"][page_ids, slots] = k.to(layer["k"].dtype)
+        layer["v"][page_ids, slots] = v.to(layer["v"].dtype)
+        (view,) = gather_kv_pages([layer], tables)
+        return view["k"], view["v"]
+
+    return _tiles(params, pool, tokens, pos, cfg, write_read, width)
+
+
+@torch.no_grad()
+def decode_chunk_paged(params, pool, tables, tokens, pos,
+                       cfg: TransformerConfig):
+    """:func:`decode_chunk` over a page pool: tokens (B, C) at per-row
+    positions ``pos`` -> (logits (B, C, vocab), pool updated in place).
+    The serving engine's paged decode round runs it at C = 1."""
+    _paged_guards(pool, tables, cfg)
     params = _cast_params(params, cfg)
     b, c = tokens.shape
-    pos = torch.as_tensor(pos, dtype=torch.long, device=tokens.device)
-    chunk_pos = pos.expand(b).reshape(b, 1) + torch.arange(
-        c, device=tokens.device)
-    x = _chunk_states(params, cache, tokens, chunk_pos, cfg)
-    return _readout(params, _layer_norm(params["ln_f"], x)), cache
+    tiles = _chunk_states_paged(params, pool, tables, tokens,
+                                _chunk_pos(pos, b, c, tokens.device), cfg)
+    return _tile_logits(params, tiles), pool
+
+
+@torch.no_grad()
+def prefill_chunk_paged(params, pool, tables, tokens, pos,
+                        cfg: TransformerConfig, last: Optional[int] = None):
+    """:func:`prefill_chunk` over a page pool: prompt tokens (B, C) at
+    positions pos..pos+C-1 against pages that already hold [0, pos)
+    (earlier chunks, or aliased prefix pages), writing through the table.
+    Returns ``(logits (B, vocab) at chunk index last, pool)``."""
+    _paged_guards(pool, tables, cfg)
+    params = _cast_params(params, cfg)
+    b, c = tokens.shape
+    tiles = _chunk_states_paged(params, pool, tables, tokens,
+                                _chunk_pos(pos, b, c, tokens.device), cfg,
+                                width=PREFILL_TILE)
+    return _logits_at(params, tiles, c - 1 if last is None else int(last)), \
+        pool
 
 
 @torch.no_grad()

@@ -1,31 +1,51 @@
 """Continuous-batching serving engine — port of
-``marlin_tpu/serving/engine.py`` in its default discipline: a contiguous
-per-row KV cache, one-shot admission prefill through the flash kernel
-(:func:`.slots.prefill_into_row`), FIFO admission, greedy or temperature
-sampling, ``eos_id`` and deadlines.
+``marlin_tpu/serving/engine.py``: FIFO admission, greedy or temperature
+sampling, ``eos_id`` and deadlines, in three admission disciplines.
+
+* Default: one-shot admission prefill through the flash kernel
+  (:func:`.slots.prefill_into_row`) into a contiguous per-row KV cache.
+* ``prefill_chunk=N``: chunked admission (:func:`.slots.
+  prefill_chunk_into_row`), Sarathi-style: a prompt is prefilled in
+  16-aligned chunks, at most ``prefill_chunks_per_round`` per round, so a
+  long cold prompt spreads over rounds instead of stalling the live rows.
+  ``prefix_cache=PrefixCache(...)`` (serving/prefix.py) rides on it: a
+  hit copies the donor's K/V rows and prefills only the tail.
+* ``kv_pages=N``: paged KV (serving/pages.py): the cache is a pool of
+  16-token pages and a row holds a page table; pages are reserved whole
+  at admission; with ``prefix_sharing`` (the default) a hit aliases the
+  stored prefix's pages into the new row's table, zero copy.
+
+The chunked and paged disciplines attend through the plain cached
+attention, in prefill tiles of one fixed shape (models/transformer._tiles),
+which makes any chunk split bitwise exact: prefix cache on == off,
+sharing on == off and paged == contiguous, token for token.
 
 Decode runs in bounded ROUNDS of at most ``round_steps`` iterations over
 the whole batch; between rounds the engine retires finished rows and
 admits queued requests into the freed rows. Within a round every row
-feeds its last token at its own position (``decode_chunk`` at C=1 with
-per-row positions); rows that reach their target or emit ``eos_id``
-freeze, and a frozen row re-feeds its last token at its last position —
-a fixed point that writes only dead state. The loop's exit test is one
-device-to-host copy of the (B,) ``done`` flags per iteration; JAX ran the
-same loop as a ``lax.while_loop`` on the device.
+feeds its last token at its own position (``decode_chunk``, or
+``decode_chunk_paged``, at C=1 with per-row positions); rows that reach
+their target or emit ``eos_id`` freeze, and a frozen row re-feeds its
+last token at its last position — a fixed point that writes only dead
+state. A row still being prefilled rides through rounds frozen, its feed
+parked at the buffer's last slot (dead by the write-before-read rule).
+The loop's exit test is one device-to-host copy of the (B,) ``done``
+flags per iteration; JAX ran the same loop as a ``lax.while_loop`` on the
+device.
 
 Sampling at ``temperature > 0`` draws each request's tokens from its own
 ``torch.Generator``, seeded from (engine seed, request id) and advanced
 only on the request's live iterations, so sampled outputs do not depend
 on batch composition or arrival pattern.
 
-Options of the JAX engine outside this discipline (chunked admission,
-the prefix cache, paged KV, speculative rounds, the host KV tier, the
-scheduler, tensor parallelism) raise ``NotImplementedError``.
+Options of the JAX engine outside these disciplines (speculative rounds,
+the host KV tier, the scheduler, an inherited ``stats``, tensor
+parallelism) raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import threading
 import time
@@ -40,19 +60,19 @@ from ..obs import trace as obs_trace
 from ..obs.runlog import RunLog
 from ..utils import cost_model as cm
 from ..utils.hw import resolve_device
+from ..utils.split import pad_to_multiple
 from . import faults
+from .pages import PAGE, SINK_PAGE, PagePool
+from .prefix import PagedPrefixIndex, PrefixCache
 from .queue import AdmissionQueue, Request
-from .slots import SlotManager, pad_prompt_len, prefill_into_row
+from .slots import (ADMISSION_BUCKET, SlotManager, pad_prompt_len,
+                    prefill_chunk_into_row, prefill_chunk_into_row_paged,
+                    prefill_into_row)
 from .stats import EngineStats
 
 # The JAX engine's other options, with their defaults: any other value
 # selects a discipline this port does not carry yet (ROADMAP Queue A1).
 _UNPORTED_OPTIONS = {
-    "prefill_chunk": (None, "chunked admission"),
-    "prefix_cache": (None, "the prefix cache"),
-    "prefill_chunks_per_round": (2, "chunked admission"),
-    "kv_pages": (None, "paged KV"),
-    "prefix_sharing": (True, "paged prefix sharing"),
     "spec_draft_lens": (None, "speculative rounds"),
     "spec_ngram": (2, "speculative rounds"),
     "spec_adaptive": (True, "speculative rounds"),
@@ -62,6 +82,23 @@ _UNPORTED_OPTIONS = {
     "scheduler": (None, "SLO scheduling (serving/sched.py)"),
     "stats": (None, "the supervised restart surface"),
 }
+
+
+@dataclasses.dataclass
+class _PrefillJob:
+    """One in-flight chunked admission: the host cursor of a prompt being
+    prefilled into its claimed row across rounds, starting past any
+    prefix hit."""
+
+    req: Request
+    row: int
+    prompt: torch.Tensor  # (prompt_len,) on the engine's device
+    pos: int            # next uncovered prompt position (16-aligned)
+    hit_len: int        # prefix hit this admission started from
+    gen: Optional[torch.Generator]  # the request's sampling stream
+    start_round: int
+    chunks: int = 0
+    done: bool = False
 
 
 def request_seed(seed: int, request_id: int) -> int:
@@ -77,13 +114,19 @@ class ServingEngine:
     Owns the device state (KV cache, token buffer) and the host
     scheduling state (queue, slots, per-request records). ``batch`` is
     the static row count; the queue absorbs everything beyond it.
-    ``params`` must live on ``device`` (default ``"cuda"``)."""
+    ``params`` (and a ``prefix_cache``) must live on ``device`` (default
+    ``"cuda"``); the cache, or the page pool, is allocated there."""
 
     def __init__(self, params, cfg, batch: int = 8, round_steps: int = 8,
                  max_pending: int = 64, temperature: float = 0.0,
                  eos_id: Optional[int] = None, seed: int = 0,
                  tracer=None, runlog: Optional[RunLog] = None,
-                 metrics_registry=None, device="cuda", **options):
+                 metrics_registry=None,
+                 prefill_chunk: Optional[int] = None,
+                 prefix_cache: Optional[PrefixCache] = None,
+                 prefill_chunks_per_round: int = 2,
+                 kv_pages: Optional[int] = None,
+                 prefix_sharing: bool = True, device="cuda", **options):
         for name, value in options.items():
             if name not in _UNPORTED_OPTIONS:
                 raise TypeError(
@@ -105,15 +148,61 @@ class ServingEngine:
                 "admission overwrites (see decode_chunk)")
         if round_steps < 1:
             raise ValueError(f"round_steps must be >= 1, got {round_steps}")
+        # Admission discipline. Paged KV and the prefix cache run on the
+        # chunked admission (the bitwise-stable substrate), so either one
+        # defaults prefill_chunk; the paged engine shares prefixes through
+        # its own pool, so PrefixCache (the contiguous engine's copy-based
+        # surface) is refused beside it.
+        if kv_pages is not None:
+            if prefix_cache is not None:
+                raise ValueError(
+                    "kv_pages and prefix_cache are mutually exclusive: "
+                    "the paged engine shares prefixes through its own "
+                    "page pool (prefix_sharing=True, the default); "
+                    "PrefixCache is the contiguous-row engine's copy-"
+                    "based surface")
+            if prefill_chunk is None:
+                prefill_chunk = 32
+        elif not prefix_sharing:
+            raise ValueError(
+                "prefix_sharing applies to the PAGED engine "
+                "(kv_pages=...); disable the contiguous engine's "
+                "copy-based sharing by omitting prefix_cache instead")
+        if prefix_cache is not None and prefill_chunk is None:
+            prefill_chunk = 32
+        if prefill_chunk is not None and (prefill_chunk < 16
+                                          or prefill_chunk % 16):
+            raise ValueError(
+                f"prefill_chunk must be a multiple of 16 (the admission "
+                f"bucket), got {prefill_chunk}")
+        if prefill_chunks_per_round < 1:
+            raise ValueError(
+                f"prefill_chunks_per_round must be >= 1, got "
+                f"{prefill_chunks_per_round}")
+        if prefix_cache is not None and prefix_cache.cfg != cfg:
+            raise ValueError(
+                "prefix_cache was built for a different TransformerConfig; "
+                "its pool rows would not be shape-compatible with this "
+                "engine's cache")
         self.device = resolve_device(device)
         if params["embed"].device != self.device:
             raise ValueError(
                 f"params live on {params['embed'].device}, the engine on "
                 f"{self.device}")
+        if prefix_cache is not None and prefix_cache.device != self.device:
+            raise ValueError(
+                f"prefix_cache lives on {prefix_cache.device}, the engine "
+                f"on {self.device}")
         self.params = params
         self.cfg = cfg
         self.batch = batch
         self.round_steps = round_steps
+        self.prefill_chunk = prefill_chunk
+        self.prefill_chunks_per_round = prefill_chunks_per_round
+        self.prefix_cache = prefix_cache
+        self.kv_pages = kv_pages
+        self.paged = kv_pages is not None
+        self.prefix_sharing = bool(prefix_sharing)
         self.temperature = float(temperature)
         self.eos_id = eos_id
         self._seed = int(seed)
@@ -131,6 +220,10 @@ class ServingEngine:
             else obs_metrics.registry
         self.stats = EngineStats(batch=batch, cfg=cfg,
                                  registry=self.metrics)
+        if prefix_cache is not None and prefix_cache._registry is None:
+            # The cache's store/evict series land beside this engine's
+            # hit/miss mirrors (first attaching engine wins).
+            prefix_cache._registry = self.metrics
         self._next_id = 0
         self.round_idx = 0
         self._decode_flops, _ = cm.decode_step_cost(cfg, batch)
@@ -141,11 +234,35 @@ class ServingEngine:
         # concurrent submitters; everything else runs on the stepping thread.
         self._submit_lock = threading.Lock()
         self._drain_reported = False
+        # In-flight chunked admissions (row -> job); empty in the one-shot
+        # discipline.
+        self._prefilling: Dict[int, _PrefillJob] = {}
         # Device state, updated in place by admission and decode. Free
         # rows sit at filled=1 over a zero buffer so their frozen feed
-        # (token 0 at position 0) is well-defined dead state.
-        self._cache = tr.init_kv_cache(cfg, batch, dtype=cfg.compute_dtype,
-                                       device=self.device)
+        # (token 0 at position 0) is well-defined dead state. In paged
+        # mode the contiguous cache is replaced by the page pool plus
+        # host-side page tables (row r: chunk index -> pool page; chunks
+        # not reserved point at the write sink).
+        if self.paged:
+            self._cache = None
+            self.page_pool = PagePool(cfg, kv_pages, registry=self.metrics,
+                                      device=self.device)
+            self.prefix_index = PagedPrefixIndex(
+                self.page_pool, registry=self.metrics) \
+                if self.prefix_sharing else None
+            self._tables = np.full((batch, cfg.max_len // PAGE), SINK_PAGE,
+                                   np.int64)
+            self._row_pages: Dict[int, List[int]] = {}  # row -> held refs
+            # Slack slots in each reservation's last page: the numerator
+            # of the round's fragmentation gauge.
+            self._row_slack: Dict[int, int] = {}
+        else:
+            self.page_pool = None
+            self.prefix_index = None
+            self._cache = tr.init_kv_cache(cfg, batch,
+                                           dtype=cfg.compute_dtype,
+                                           device=self.device)
+        self.stats.page_pool = self.page_pool
         self._buf = torch.zeros((batch, cfg.max_len), dtype=torch.long,
                                 device=self.device)
         self._filled = np.ones((batch,), np.int64)
@@ -153,8 +270,13 @@ class ServingEngine:
         self._active = np.zeros((batch,), bool)
         self._gens: List[Optional[torch.Generator]] = [None] * batch
         self.runlog.emit("engine_start", batch=batch,
-                         round_steps=round_steps, max_pending=max_pending,
-                         max_len=cfg.max_len, device=str(self.device))
+                         round_steps=round_steps,
+                         prefill_chunk=prefill_chunk,
+                         max_pending=max_pending, max_len=cfg.max_len,
+                         prefix_cache=prefix_cache is not None,
+                         kv_pages=kv_pages,
+                         prefix_sharing=self.paged and self.prefix_sharing,
+                         device=str(self.device))
 
     # -- submission ---------------------------------------------------
 
@@ -178,6 +300,13 @@ class ServingEngine:
             raise ValueError(
                 f"padded prompt {pad_prompt_len(s)} exceeds max_len "
                 f"{self.cfg.max_len}")
+        if self.paged and -(-(s + steps) // PAGE) > self.kv_pages:
+            # Hopeless even against an empty pool: fail now, not by
+            # queueing forever.
+            raise ValueError(
+                f"request needs {-(-(s + steps) // PAGE)} KV pages > pool "
+                f"size {self.kv_pages} (prompt {s} + steps {steps} at "
+                f"{PAGE} tokens/page)")
         now = time.perf_counter()
         with self._submit_lock:
             rid = self._next_id
@@ -222,9 +351,31 @@ class ServingEngine:
             with self._submit_lock:
                 self.requests.pop(req.request_id, None)
 
+    def _activate_row(self, req: Request, row: int,
+                      gen: Optional[torch.Generator]) -> None:
+        """Shared admission epilogue: the row's prompt K/V and first token
+        are in place; arm it for decode and record the ledger."""
+        s = req.prompt_len
+        self._filled[row] = s + 1
+        self._target[row] = s + req.steps
+        self._active[row] = True
+        self._gens[row] = gen
+        req.row = row
+        req.admit_round = self.round_idx
+        req.admit_time = time.perf_counter()
+        req.status = "active"
+        self.stats.record_admission(req)
+
+    def _admit(self) -> List[Request]:
+        """Fill free rows from the queue, FIFO; returns the requests
+        dropped for deadline on the way. One-shot flash admission by
+        default, chunked with ``prefill_chunk`` set."""
+        if self.prefill_chunk is None:
+            return self._admit_oneshot()
+        return self._admit_chunked()
+
     def _admit_oneshot(self) -> List[Request]:
-        """Fill free rows from the queue, FIFO, each with one flash
-        prefill; returns the requests dropped for deadline on the way."""
+        """Each admission one flash prefill."""
         expired: List[Request] = []
         while self.slots.n_free:
             faults.check("admission_pop", round_idx=self.round_idx)
@@ -251,23 +402,208 @@ class ServingEngine:
             self.stats.calibration.record(
                 "prefill", cm.admission_cost(self.cfg, req.prompt_len)[0],
                 req.prefill_s)
-            s = req.prompt_len
-            self._filled[row] = s + 1
-            self._target[row] = s + req.steps
-            self._active[row] = True
-            self._gens[row] = gen
-            req.row = row
-            req.admit_round = self.round_idx
-            req.admit_time = time.perf_counter()
-            req.status = "active"
-            self.stats.record_admission(req)
+            self._activate_row(req, row, gen)
             self.runlog.emit(
                 "admit", request_id=req.request_id, row=row,
-                round=self.round_idx, prompt_len=s,
+                round=self.round_idx, prompt_len=req.prompt_len,
                 wait_rounds=self.round_idx - req.submit_round,
                 queue_depth=len(self.queue))
         self._drop_expired(expired)
         return expired
+
+    # -- chunked admission --------------------------------------------
+
+    def _admit_chunked(self) -> List[Request]:
+        """Claim free rows for queued requests (taking any prefix hit as
+        a row copy or a page alias), then advance every in-flight prefill
+        by up to ``prefill_chunks_per_round`` chunks."""
+        expired: List[Request] = []
+        while self.slots.n_free:
+            faults.check("admission_pop", round_idx=self.round_idx)
+            req, dropped = self.queue.pop_ready(self.round_idx)
+            expired.extend(dropped)
+            if req is None:
+                break
+            if not self._start_prefill(req):
+                # Page pressure: the reservation does not fit even after
+                # evicting stored prefixes. Back to the queue's head;
+                # retirements free pages and the next round retries.
+                self.queue.push_front(req)
+                break
+        for row, job in sorted(self._prefilling.items()):
+            for _ in range(self.prefill_chunks_per_round):
+                self._advance_chunk(job)
+                if job.done:
+                    break
+            if job.done:
+                del self._prefilling[row]
+                self._finish_admission(job)
+        self._drop_expired(expired)
+        return expired
+
+    def _reserve_pages(self, req: Request):
+        """Paged placement: resolve the prefix-index hit and reserve the
+        request's whole page complement, ``ceil((prompt + steps) /
+        PAGE)`` chunks, aliased prefix pages first and fresh pages for the
+        rest, so a placed request never runs out mid-decode. Returns
+        ``(alias_pages, hit_len, fresh_pages)``, or None when the pool
+        cannot fit it even after evicting stored prefixes."""
+        entry_pages, hit = None, 0
+        if self.prefix_index is not None:
+            entry_pages, hit = self.prefix_index.lookup(req.prompt)
+        need = -(-(req.prompt_len + req.steps) // PAGE) - hit // PAGE
+        if hit:
+            # Pin the aliased pages first: the eviction below may drop the
+            # very entry this hit resolved to.
+            self.page_pool.ref(entry_pages)
+        if self.page_pool.n_free < need and self.prefix_index is not None:
+            self.prefix_index.evict_until_free(need)
+        fresh = self.page_pool.alloc(need)
+        if fresh is None:
+            if hit:
+                self.page_pool.unref(entry_pages)
+            return None
+        return (list(entry_pages) if hit else []), hit, fresh
+
+    def _bind_row_pages(self, req: Request, row: int, alias_pages,
+                        hit: int, fresh) -> None:
+        """Write the claimed row's page table: the aliased prefix pages
+        for chunks [0, hit / PAGE), fresh pages up to the reservation,
+        the write sink beyond it. No KV byte moves."""
+        n_total = -(-(req.prompt_len + req.steps) // PAGE)
+        if hit:
+            # The contiguous copy's fault site, at the aliasing here.
+            faults.check("prefix_copy", round_idx=self.round_idx,
+                         request_id=req.request_id)
+        held = [int(p) for p in alias_pages] + [int(p) for p in fresh]
+        table = self._tables[row]
+        table[:] = SINK_PAGE
+        table[:n_total] = held
+        self._row_pages[row] = held
+        self._row_slack[row] = n_total * PAGE - (req.prompt_len
+                                                + req.steps)
+
+    def _start_prefill(self, req: Request) -> bool:
+        """Claim a row and start a chunked admission. Returns False, with
+        nothing claimed, when the paged reservation cannot be placed."""
+        hit = 0
+        if self.paged:
+            placed = self._reserve_pages(req)
+            if placed is None:
+                return False
+            alias_pages, hit, fresh = placed
+            req.admit_start_time = time.perf_counter()
+            row = self.slots.acquire(req.request_id)
+            self._bind_row_pages(req, row, alias_pages, hit, fresh)
+            if self.prefix_index is not None:
+                self.prefix_index.record(hit)
+                self.stats.record_prefix_lookup(hit, req.prompt_len)
+                # A paged hit admits by writing a page table: 0 bytes.
+                self.stats.record_admission_copy(0, zero_copy=bool(hit))
+        else:
+            req.admit_start_time = time.perf_counter()
+            row = self.slots.acquire(req.request_id)
+            if self.prefix_cache is not None:
+                hit_row, hit = self.prefix_cache.lookup(req.prompt)
+                if hit:
+                    self._copy_prefix(req, row, hit_row, hit)
+                self.stats.record_prefix_lookup(hit, req.prompt_len)
+        self._arm_prefill_job(req, row, hit)
+        return True
+
+    def _copy_prefix(self, req: Request, row: int, hit_row: int,
+                     hit: int) -> None:
+        """A contiguous prefix hit: the donor's slots [0, hit) land in the
+        claimed row as one in-place copy."""
+        t0 = time.perf_counter()
+        faults.check("prefix_copy", round_idx=self.round_idx,
+                     request_id=req.request_id)
+        with self.tracer.span("serving.prefix_copy",
+                              request_id=req.request_id, row=row,
+                              hit_len=hit):
+            self.prefix_cache.load_into(self._cache, row, hit_row, hit)
+        req.prefix_copy_s = time.perf_counter() - t0
+        # The copy's bytes: the admission cost at tail 0 is exactly its
+        # read and write traffic.
+        copy_bytes = cm.admission_cost(
+            self.cfg, hit, hit_len=hit,
+            param_itemsize=self._cache[0]["k"].element_size())[1]
+        self.stats.calibration.record("copy", copy_bytes, req.prefix_copy_s)
+        self.stats.record_admission_copy(copy_bytes)
+
+    def _arm_prefill_job(self, req: Request, row: int, hit: int) -> None:
+        """Shared chunked arming: park the row's frozen feed and record
+        the job. A mid-prefill row rides through decode rounds frozen, and
+        its fixed-point rewrite lands at slot ``filled - 1``; the free-row
+        default (filled = 1) would put it at slot 0, which the chunks have
+        made live. The buffer's last slot is dead instead (decode writes
+        position max_len - 1 before the only step that can attend it)."""
+        self._filled[row] = self.cfg.max_len
+        self._prefilling[row] = _PrefillJob(
+            req=req, row=row,
+            prompt=torch.as_tensor(req.prompt, dtype=torch.long,
+                                   device=self.device),
+            pos=hit, hit_len=hit, gen=self._request_generator(req),
+            start_round=self.round_idx)
+        self.runlog.emit("prefill_start", request_id=req.request_id,
+                         row=row, round=self.round_idx,
+                         prompt_len=req.prompt_len, prefix_hit_len=hit)
+
+    def _advance_chunk(self, job: _PrefillJob) -> None:
+        """Prefill the job's next chunk (padded to its 16-bucket)."""
+        req = job.req
+        s = req.prompt_len
+        c0 = job.pos
+        c1 = min(c0 + self.prefill_chunk, s)
+        seg = pad_to_multiple(job.prompt[c0:c1], 0, ADMISSION_BUCKET)
+        final = c1 == s
+        t0 = time.perf_counter()
+        faults.check("prefill_chunk", round_idx=self.round_idx,
+                     request_id=req.request_id)
+        with self.tracer.span("serving.admit_chunk",
+                              request_id=req.request_id, row=job.row,
+                              start=c0, chunk_len=c1 - c0, final=final):
+            if self.paged:
+                table = torch.as_tensor(self._tables[job.row],
+                                        device=self.device)
+                prefill_chunk_into_row_paged(
+                    self._run_params, self.page_pool.pages, self._buf,
+                    job.row, table, seg, c0, c1 - c0, job.prompt, s,
+                    self.cfg, temperature=self.temperature,
+                    generator=job.gen, final=final)
+            else:
+                prefill_chunk_into_row(
+                    self._run_params, self._cache, self._buf, job.row, seg,
+                    c0, c1 - c0, job.prompt, s, self.cfg,
+                    temperature=self.temperature, generator=job.gen,
+                    final=final)
+        dt = time.perf_counter() - t0
+        req.prefill_s += dt
+        # The [c0, c1) wedge: the admission model at prompt c1, hit c0.
+        self.stats.calibration.record(
+            "prefill", cm.admission_cost(self.cfg, c1, hit_len=c0)[0], dt)
+        job.pos = c1
+        job.chunks += 1
+        job.done = final
+
+    def _finish_admission(self, job: _PrefillJob) -> None:
+        req, row = job.req, job.row
+        self._activate_row(req, row, job.gen)
+        if self.prefix_index is not None:
+            # Zero-copy store: pin the row's own prefix pages.
+            self.prefix_index.store(
+                req.prompt, self._tables[row][:req.prompt_len // PAGE])
+        elif self.prefix_cache is not None:
+            # The row holds the chunk path's K/V for the whole prompt:
+            # store its 16-aligned prefix for later admissions to copy.
+            self.prefix_cache.store_from(self._cache, row, req.prompt)
+        self.runlog.emit(
+            "admit", request_id=req.request_id, row=row,
+            round=self.round_idx, prompt_len=req.prompt_len,
+            wait_rounds=self.round_idx - req.submit_round,
+            prefill_rounds=self.round_idx - job.start_round + 1,
+            chunks=job.chunks, prefix_hit_len=job.hit_len,
+            queue_depth=len(self.queue))
 
     # -- the decode round ---------------------------------------------
 
@@ -282,13 +618,27 @@ class ServingEngine:
                                     self._gens[r])[0]
         return nxt
 
+    def _decode_fn(self):
+        """The round's C=1 decode step, ``(tokens (B, 1), pos (B,)) ->
+        logits (B, 1, vocab)``, over the cache or the page pool (tables
+        pushed once: pages are reserved at admission, so a round never
+        allocates)."""
+        if self.paged:
+            tables = torch.as_tensor(self._tables, device=self.device)
+            return lambda tok, pos: tr.decode_chunk_paged(
+                self._run_params, self.page_pool.pages, tables, tok, pos,
+                self.cfg)[0]
+        return lambda tok, pos: tr.decode_chunk(
+            self._run_params, self._cache, tok, pos, self.cfg)[0]
+
     def _round_loop(self, done0: np.ndarray):
         """One bounded decode round over the whole batch (the JAX
         package's ``_decode_round_impl``/``_round_loop``). Returns host
         copies ``(filled, done, iters, live)`` with ``live`` the per-row
-        count of live iterations. The cache and token buffer are updated
-        in place."""
+        count of live iterations. The cache (or pool) and token buffer
+        are updated in place."""
         dev = self.device
+        decode = self._decode_fn()
         rows = torch.arange(self.batch, device=dev)
         filled = torch.as_tensor(self._filled, device=dev)
         target = torch.as_tensor(self._target, device=dev)
@@ -304,8 +654,7 @@ class ServingEngine:
             done_host = done.cpu().numpy()  # the one host sync per step
             if done_host.all():
                 break
-            logits, _ = tr.decode_chunk(self._run_params, self._cache,
-                                        tok[:, None], filled - 1, self.cfg)
+            logits = decode(tok[:, None], filled - 1)
             nxt = self._sample_rows(logits[:, 0], done_host)
             nxt = torch.where(done, tok, nxt)
             # Frozen rows rewrite their last token in place (dead, fixed
@@ -350,6 +699,14 @@ class ServingEngine:
             self._target[row] = 0
             self._gens[row] = None
             self.slots.release(row)
+            if self.paged:
+                # Drop every reference the row held (aliased prefix pages
+                # and private ones); pages a store pinned stay live. The
+                # table goes back to the sink, so the free row's frozen
+                # feed stays dead.
+                self.page_pool.unref(self._row_pages.pop(row))
+                self._row_slack.pop(row, None)
+                self._tables[row] = SINK_PAGE
             self.stats.record_completion(req)
             self.runlog.emit(
                 "complete", request_id=req.request_id, row=row,
@@ -369,7 +726,8 @@ class ServingEngine:
         admitted0 = self.stats.n_admitted
         t_round0 = time.perf_counter()
         with self.tracer.span("serving.round", round=self.round_idx):
-            expired = self._admit_oneshot()
+            expired = self._admit()
+            # Free and mid-prefill rows are inactive: frozen all round.
             done0 = ~self._active | (self._filled >= self._target)
             t_dec0 = time.perf_counter()
             faults.check("decode_round", round_idx=self.round_idx)
@@ -408,13 +766,34 @@ class ServingEngine:
             live_iters=live_sum,
             admitted=self.stats.n_admitted - admitted0,
             retired=len(finished), expired=len(expired),
+            prefilling=len(self._prefilling),
             queue_depth=len(self.queue),
             wasted_row_iters=iters * self.batch - live_sum,
             round_s=round(time.perf_counter() - t_round0, 6),
             decode_s=round(decode_s, 6),
-            drift_decode=round(self.stats.calibration.drift("decode"), 4))
+            drift_decode=round(self.stats.calibration.drift("decode"), 4),
+            **self._page_fields())
         self.round_idx += 1
         return expired + finished
+
+    def _page_fields(self) -> dict:
+        """The round event's page ledger (paged engines): occupancy and
+        aliasing from the pool, and internal fragmentation, the slack
+        slots of each reservation's last page over the slots of the used
+        pages (mirrored as a gauge)."""
+        if not self.paged:
+            return {}
+        ps = self.page_pool.summary()
+        used = ps["kv_pages_used"]
+        frag = sum(self._row_slack.values()) / (PAGE * used) if used \
+            else 0.0
+        self.metrics.gauge(
+            "serving_kv_page_fragmentation",
+            help="unusable slack slots / slots in used KV pages").set(
+            round(frag, 4))
+        return dict(pages_used=used, pages_free=ps["kv_pages_free"],
+                    pages_aliased=ps["kv_pages_aliased"],
+                    page_fragmentation=round(frag, 4))
 
     def run(self, max_rounds: int = 10_000) -> List[Request]:
         """Step until the queue and every slot are empty; returns every

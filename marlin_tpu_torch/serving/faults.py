@@ -20,7 +20,8 @@ import numpy as np
 from ..obs import metrics as obs_metrics
 
 # The sites the ported engine carries (the JAX package names more).
-SITES = ("decode_round", "prefill_chunk", "admission_pop", "runlog_emit")
+SITES = ("decode_round", "prefill_chunk", "prefix_copy", "admission_pop",
+         "runlog_emit")
 ACTIONS = ("raise", "delay", "corrupt")
 
 

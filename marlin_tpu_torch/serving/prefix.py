@@ -1,0 +1,471 @@
+"""Shared-prefix KV reuse: a host-side radix trie over 16-token chunks,
+over either a bounded device pool of donor KV rows (:class:`PrefixCache`,
+the contiguous engine's copy-based surface) or the paged engine's page
+pool (:class:`PagedPrefixIndex`, zero copy) — port of
+``marlin_tpu/serving/prefix.py`` (the index's host-tier transitions are
+not ported yet: ROADMAP Queue A1).
+
+* The trie is keyed on GRAIN = 16-token chunks, so a hit length is always
+  a multiple of 16 and aligned with the engine's chunked admission.
+* :class:`PrefixCache` keeps stored prefixes in ``pool_rows`` rows of a
+  second KV cache on the device, evicted least recently used, with
+  per-row refcounts so a donor row cannot be evicted while a copy out of
+  it is in flight. :func:`copy_kv_rows` moves a row prefix in place.
+* :class:`PagedPrefixIndex` stores a prefix by pinning the admitted row's
+  own pages and answers a hit with a page list to alias: no device work
+  either way.
+
+Bit-exactness: the chunked admission path computes positions in tiles of
+one fixed shape (``models/transformer._tiles``), so a stored prefix holds
+exactly the bits a cold admission would compute for the same tokens, and a
+copied (or aliased) prefix plus a tail is bitwise a cold chunked admission:
+hits change the schedule, never the output.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..models import transformer as tr
+from ..obs import metrics as obs_metrics
+from ..utils.hw import resolve_device
+
+GRAIN = 16  # trie chunk and hit-length granularity: the admission bucket
+
+
+@torch.no_grad()
+def copy_kv_rows(dst, src, dst_row: int, src_row: int, length: int):
+    """Copy KV slots [0, length) of row ``src_row`` of cache ``src`` into
+    row ``dst_row`` of cache ``dst``, in place (the JAX package donated
+    ``dst``); returns ``dst``."""
+    for dl, sl in zip(dst, src):
+        for name, buf in dl.items():
+            buf[dst_row, :length] = sl[name][src_row, :length].to(buf.dtype)
+    return dst
+
+
+def _floor_grain(n: int) -> int:
+    return (n // GRAIN) * GRAIN
+
+
+class _TrieNode:
+    """One radix-trie node: children keyed by the next 16-token chunk's
+    bytes; ``rows`` = the members whose stored prefix passes through this
+    node (pool rows for :class:`PrefixCache`, entry ids for
+    :class:`PagedPrefixIndex`)."""
+
+    __slots__ = ("children", "rows")
+
+    def __init__(self):
+        self.children: Dict[bytes, "_TrieNode"] = {}
+        self.rows: set = set()
+
+
+# The one copy of the trie machinery, shared by both prefix surfaces.
+
+def _trie_chunks(tokens: np.ndarray, length: int):
+    for d in range(length // GRAIN):
+        yield tokens[d * GRAIN:(d + 1) * GRAIN].tobytes()
+
+
+def _trie_descend(root: _TrieNode, prompt: np.ndarray, limit: int):
+    """Walk ``root`` along ``prompt``'s 16-chunks up to ``limit`` tokens;
+    returns ``(node, depth)`` of the deepest node holding members
+    (``(None, 0)`` on a miss): the one walk lookup and store dedup share."""
+    node = root
+    best, best_depth = None, 0
+    for d in range(limit // GRAIN):
+        node = node.children.get(prompt[d * GRAIN:(d + 1) * GRAIN]
+                                 .tobytes())
+        if node is None:
+            break
+        if node.rows:
+            best, best_depth = node, (d + 1) * GRAIN
+    return best, best_depth
+
+
+def _trie_insert(root: _TrieNode, tokens: np.ndarray, length: int,
+                 member) -> None:
+    node = root
+    for key in _trie_chunks(tokens, length):
+        node = node.children.setdefault(key, _TrieNode())
+        node.rows.add(member)
+
+
+def _trie_remove(root: _TrieNode, tokens: np.ndarray, length: int,
+                 member) -> None:
+    """Remove ``member`` from its path, pruning emptied branches so the
+    trie stays O(stored tokens)."""
+    node = root
+    path = []
+    for key in _trie_chunks(tokens, length):
+        path.append((node, key))
+        node = node.children[key]
+        node.rows.discard(member)
+    for parent, key in reversed(path):
+        child = parent.children[key]
+        if not child.rows and not child.children:
+            del parent.children[key]
+
+
+def _as_tokens(prompt) -> np.ndarray:
+    # One dtype for the trie keys, whatever the caller passed.
+    return np.ascontiguousarray(np.asarray(prompt, np.int64))
+
+
+class PrefixCache:
+    """Host prefix trie plus a bounded device KV pool, LRU-evicted, with
+    refcounts.
+
+    Build it with the engine's :class:`TransformerConfig` (pool rows must
+    match the engine's cache rows) on the engine's ``device`` (default
+    ``"cuda"``), and attach it with ``ServingEngine(...,
+    prefix_cache=...)``. Device memory is exactly ``pool_rows`` cache
+    rows. The counters (``hits``, ``misses``, ``stores``,
+    ``store_skips``, ``evictions``, ``reclaimed_tokens``) feed the
+    engine's ledger; stores, evictions and pool occupancy also go to the
+    metrics registry: an explicit ``registry``, else the first attaching
+    engine's."""
+
+    def __init__(self, cfg, pool_rows: int = 8, registry=None,
+                 device="cuda"):
+        if pool_rows < 1:
+            raise ValueError(f"pool_rows must be >= 1, got {pool_rows}")
+        self.cfg = cfg
+        self.pool_rows = pool_rows
+        self.device = resolve_device(device)
+        self.pool = tr.init_kv_cache(cfg, pool_rows, dtype=cfg.compute_dtype,
+                                     device=self.device)
+        self._registry = registry
+        self._free: List[int] = list(range(pool_rows))[::-1]
+        self._root = _TrieNode()
+        self._len: Dict[int, int] = {}        # row -> stored prefix length
+        self._tokens: Dict[int, np.ndarray] = {}  # row -> stored tokens
+        self._refs: Dict[int, int] = {}       # row -> in-flight copies
+        self._used: Dict[int, int] = {}       # row -> LRU clock stamp
+        self._clock = 0
+        self.hits = 0
+        self.misses = 0
+        self.stores = 0
+        self.store_skips = 0
+        self.evictions = 0
+        self.reclaimed_tokens = 0
+
+    # -- bookkeeping --------------------------------------------------
+
+    @property
+    def registry(self):
+        return self._registry if self._registry is not None \
+            else obs_metrics.registry
+
+    @property
+    def rows_used(self) -> int:
+        return self.pool_rows - len(self._free)
+
+    def stored_len(self, row: int) -> int:
+        return self._len.get(row, 0)
+
+    def refcount(self, row: int) -> int:
+        return self._refs.get(row, 0)
+
+    def _touch(self, row: int) -> None:
+        self._clock += 1
+        self._used[row] = self._clock
+
+    # -- refcounts ----------------------------------------------------
+
+    def acquire(self, row: int) -> None:
+        """Pin ``row`` against eviction while a copy out of it is in
+        flight; pair with :meth:`release`."""
+        if row not in self._len:
+            raise KeyError(f"pool row {row} holds no prefix")
+        self._refs[row] = self._refs.get(row, 0) + 1
+
+    def release(self, row: int) -> None:
+        n = self._refs.get(row, 0)
+        if n <= 0:
+            raise RuntimeError(f"release of unacquired pool row {row}")
+        self._refs[row] = n - 1
+
+    # -- lookup / load ------------------------------------------------
+
+    def lookup(self, prompt) -> Tuple[Optional[int], int]:
+        """Longest stored prefix of ``prompt`` at 16-token granularity:
+        ``(pool_row, hit_len)`` or ``(None, 0)``. The hit is capped at
+        floor16(prompt_len - 1): the admission still computes the last
+        prompt position, whose logits give the first token. Counts the
+        hit or miss and touches the donor's LRU stamp."""
+        prompt = _as_tokens(prompt)
+        node, hit = _trie_descend(self._root, prompt,
+                                  _floor_grain(int(prompt.shape[0]) - 1))
+        row = None
+        if hit:
+            row = max(node.rows, key=lambda r: self._used.get(r, 0))
+            self.hits += 1
+            self.reclaimed_tokens += hit
+            self._touch(row)
+        else:
+            self.misses += 1
+        return row, hit
+
+    def load_into(self, cache, dst_row: int, row: int, length: int):
+        """Copy stored slots [0, length) of pool row ``row`` into row
+        ``dst_row`` of the engine ``cache``, in place; returns the cache.
+        The donor is pinned around the copy."""
+        if length % GRAIN or length < GRAIN:
+            raise ValueError(f"length must be a positive multiple of "
+                             f"{GRAIN}, got {length}")
+        if self._len.get(row, 0) < length:
+            raise ValueError(
+                f"pool row {row} holds {self._len.get(row, 0)} slots, "
+                f"asked for {length} (evicted under the caller?)")
+        self.acquire(row)
+        try:
+            copy_kv_rows(cache, self.pool, dst_row, row, length)
+        finally:
+            self.release(row)
+        return cache
+
+    # -- store / evict ------------------------------------------------
+
+    def _evictable(self) -> Optional[int]:
+        """LRU row with no in-flight copies, or None."""
+        rows = [r for r in self._len if self._refs.get(r, 0) == 0]
+        if not rows:
+            return None
+        return min(rows, key=lambda r: self._used.get(r, 0))
+
+    def _evict(self, row: int) -> None:
+        _trie_remove(self._root, self._tokens[row], self._len[row], row)
+        del self._tokens[row], self._len[row]
+        self._used.pop(row, None)
+        self._refs.pop(row, None)
+        self._free.append(row)
+        self.evictions += 1
+        self.registry.counter("serving_prefix_evictions_total").inc()
+
+    def store_from(self, cache, src_row: int, prompt) -> int:
+        """Store ``prompt``'s longest 16-aligned prefix from row
+        ``src_row`` of the engine ``cache`` into the pool; returns the
+        stored length (0 when skipped).
+
+        The engine calls it right after an admission's final chunk, when
+        the row holds the chunk path's K/V for the whole prompt. Skips a
+        prefix already covered at least as deep, and a store with every
+        pool row pinned; evicts the LRU row when the pool is full."""
+        prompt = _as_tokens(prompt)
+        length = _floor_grain(int(prompt.shape[0]))
+        if length == 0:
+            return 0
+        _, covered = _trie_descend(self._root, prompt, length)
+        if covered >= length:
+            self.store_skips += 1
+            return 0
+        if self._free:
+            row = self._free.pop()
+        else:
+            row = self._evictable()
+            if row is None:  # every row pinned by in-flight copies
+                self.store_skips += 1
+                return 0
+            self._evict(row)
+            row = self._free.pop()
+        copy_kv_rows(self.pool, cache, row, src_row, length)
+        tokens = prompt[:length].copy()
+        _trie_insert(self._root, tokens, length, row)
+        self._len[row] = length
+        self._tokens[row] = tokens
+        self._touch(row)
+        self.stores += 1
+        self.registry.counter("serving_prefix_stores_total").inc()
+        self.registry.gauge("serving_prefix_pool_rows_used").set(
+            self.rows_used)
+        return length
+
+    # -- observability ------------------------------------------------
+
+    def summary(self) -> dict:
+        """Hit traffic, pool state and reclaim."""
+        total = self.hits + self.misses
+        return {
+            "prefix_hits": self.hits,
+            "prefix_misses": self.misses,
+            "prefix_hit_rate": round(self.hits / total, 4) if total else 0.0,
+            "prefix_reclaimed_prefill_tokens": self.reclaimed_tokens,
+            "prefix_stores": self.stores,
+            "prefix_store_skips": self.store_skips,
+            "prefix_evictions": self.evictions,
+            "prefix_pool_rows_used": self.rows_used,
+            "prefix_pool_rows": self.pool_rows,
+        }
+
+
+class _PrefixEntry:
+    """One stored prefix of the paged index: its tokens, 16-aligned
+    length, and the pool pages holding its K/V (one index reference
+    each; per-page refcounts in ``PagePool`` arbitrate lifetime)."""
+
+    __slots__ = ("entry_id", "tokens", "length", "pages")
+
+    def __init__(self, entry_id: int, tokens: np.ndarray, length: int,
+                 pages: Tuple[int, ...]):
+        self.entry_id = entry_id
+        self.tokens = tokens
+        self.length = length
+        self.pages = pages
+
+
+class PagedPrefixIndex:
+    """The radix trie mapped to page lists: the paged engine's prefix
+    surface (serving/pages.py).
+
+    The trie, GRAIN and LRU of :class:`PrefixCache`, with no device side:
+    a store pins the admitted row's own prefix pages (one reference each),
+    a hit hands the admission a page list to alias into its table, so
+    ``admission_copy_bytes == 0`` by construction. Eviction drops the
+    index's references; pages that live rows still alias stay allocated
+    until those rows retire. Hit, miss and reclaim counters move in
+    :meth:`record`, once the engine has placed the admission (a lookup
+    whose reservation fails is retried later and must not count twice).
+
+    ``host_tier`` (the spill tier under the pool) is not ported yet."""
+
+    def __init__(self, pool, registry=None, host_tier=None):
+        if host_tier is not None:
+            raise NotImplementedError(
+                "PagedPrefixIndex(host_tier=...): the host KV tier is not "
+                "ported to marlin_tpu_torch yet (ROADMAP Queue A1)")
+        self.pool = pool
+        self._registry = registry
+        self._root = _TrieNode()   # rows-sets hold entry ids here
+        self._entries: Dict[int, _PrefixEntry] = {}
+        self._used: Dict[int, int] = {}   # entry id -> LRU clock stamp
+        self._clock = 0
+        self._next_id = 0
+        self.stored_tokens = 0
+        self.hits = 0
+        self.misses = 0
+        self.stores = 0
+        self.store_skips = 0
+        self.evictions = 0
+        self.reclaimed_tokens = 0
+
+    @property
+    def registry(self):
+        return self._registry if self._registry is not None \
+            else obs_metrics.registry
+
+    @property
+    def n_entries(self) -> int:
+        return len(self._entries)
+
+    def _touch(self, entry_id: int) -> None:
+        self._clock += 1
+        self._used[entry_id] = self._clock
+
+    # -- lookup / account ---------------------------------------------
+
+    def lookup(self, prompt):
+        """Longest stored prefix of ``prompt`` at GRAIN granularity:
+        ``(page_list, hit_len)`` or ``(None, 0)``, capped at
+        floor16(prompt_len - 1) as :meth:`PrefixCache.lookup` is. Touches
+        the entry's LRU stamp; counts nothing (:meth:`record` does)."""
+        prompt = _as_tokens(prompt)
+        node, hit = _trie_descend(self._root, prompt,
+                                  _floor_grain(int(prompt.shape[0]) - 1))
+        if not hit:
+            return None, 0
+        eid = max(node.rows, key=lambda e: self._used.get(e, 0))
+        self._touch(eid)
+        return self._entries[eid].pages[:hit // GRAIN], hit
+
+    def record(self, hit_len: int) -> None:
+        """Account one placed admission's lookup outcome."""
+        if hit_len:
+            self.hits += 1
+            self.reclaimed_tokens += hit_len
+        else:
+            self.misses += 1
+
+    # -- store / evict ------------------------------------------------
+
+    def store(self, prompt, pages) -> int:
+        """Pin ``prompt``'s 16-aligned prefix into the index by
+        referencing the admitted row's own pages (``pages`` covers chunks
+        [0, floor16(prompt_len) / GRAIN) of its table). No device work;
+        returns the stored length (0 when already covered)."""
+        prompt = _as_tokens(prompt)
+        length = _floor_grain(int(prompt.shape[0]))
+        if length == 0:
+            return 0
+        _, covered = _trie_descend(self._root, prompt, length)
+        if covered >= length:
+            self.store_skips += 1
+            return 0
+        page_list = tuple(int(p) for p in pages)[:length // GRAIN]
+        if len(page_list) != length // GRAIN:
+            raise ValueError(
+                f"store of {length} tokens needs {length // GRAIN} "
+                f"pages, got {len(page_list)}")
+        self.pool.ref(page_list)  # one index reference per page
+        eid = self._next_id
+        self._next_id += 1
+        tokens = prompt[:length].copy()
+        _trie_insert(self._root, tokens, length, eid)
+        self._entries[eid] = _PrefixEntry(eid, tokens, length, page_list)
+        self.stored_tokens += length
+        self._touch(eid)
+        self.stores += 1
+        self.registry.counter("serving_prefix_stores_total").inc()
+        self._mirror_entries()
+        return length
+
+    def _mirror_entries(self) -> None:
+        self.registry.gauge("serving_prefix_entries").set(
+            len(self._entries))
+
+    def _evict(self, eid: int) -> None:
+        """Forget ``eid``: its trie path, entry, LRU stamp and page
+        references (pages free when their last holder lets go)."""
+        entry = self._entries.pop(eid)
+        _trie_remove(self._root, entry.tokens, entry.length, eid)
+        self._used.pop(eid, None)
+        self.stored_tokens -= entry.length
+        self.pool.unref(entry.pages)
+        self.evictions += 1
+        self.registry.counter("serving_prefix_evictions_total").inc()
+        self._mirror_entries()
+
+    def evict_lru(self) -> bool:
+        """Evict the least recently used entry; False when empty."""
+        if not self._entries:
+            return False
+        self._evict(min(self._entries, key=lambda e: self._used.get(e, 0)))
+        return True
+
+    def evict_until_free(self, n_pages: int) -> None:
+        """Evict LRU entries until the pool has ``n_pages`` free pages or
+        no entry is left (evicting an entry that live rows still alias
+        frees nothing at once)."""
+        while self.pool.n_free < n_pages and self.evict_lru():
+            pass
+
+    # -- observability ------------------------------------------------
+
+    def summary(self) -> dict:
+        """Scalar-only ledger block."""
+        total = self.hits + self.misses
+        return {
+            "prefix_hits": self.hits,
+            "prefix_misses": self.misses,
+            "prefix_hit_rate": round(self.hits / total, 4) if total else 0.0,
+            "prefix_reclaimed_prefill_tokens": self.reclaimed_tokens,
+            "prefix_stores": self.stores,
+            "prefix_store_skips": self.store_skips,
+            "prefix_evictions": self.evictions,
+            "prefix_entries": len(self._entries),
+            "prefix_stored_tokens": self.stored_tokens,
+        }

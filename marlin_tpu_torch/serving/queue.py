@@ -51,6 +51,7 @@ class Request:
     finish_round: int = -1
     finish_time: float = 0.0
     prefill_s: float = 0.0  # admission dispatch wall-clock
+    prefix_copy_s: float = 0.0  # prefix-cache row copy wall-clock
     live_iters: int = 0  # decode iterations this request was live for
     emitted: int = 0  # tokens actually generated (< steps if eos fired)
     status: str = "pending"  # pending -> active -> done | timeout
@@ -63,7 +64,8 @@ class Request:
     def phases(self) -> dict:
         """Per-phase durations (seconds): ``queue_wait``, ``admit`` and
         ``decode`` are differences of consecutive stamps, so they sum
-        exactly to ``total``; ``prefill_dispatch`` rides alongside."""
+        exactly to ``total``; ``prefill_dispatch`` and ``prefix_copy``
+        ride alongside."""
         out = {}
         if not self.submit_time:
             return out
@@ -79,6 +81,8 @@ class Request:
             out["total"] = self.finish_time - self.submit_time
         if self.prefill_s:
             out["prefill_dispatch"] = self.prefill_s
+        if self.prefix_copy_s:
+            out["prefix_copy"] = self.prefix_copy_s
         return out
 
 
@@ -137,6 +141,14 @@ class AdmissionQueue:
                 req = cand
                 break
         return req, expired
+
+    def push_front(self, req: Request) -> None:
+        """Return a popped but unplaced request to the head of the queue
+        (the paged engine's page-pressure path: admission retries it once
+        retirements free pages). Bypasses ``max_pending``: the request
+        was accepted once already."""
+        with self._lock:
+            self._q.appendleft(req)
 
     def close(self) -> None:
         """Stop accepting new work; queued requests still drain."""

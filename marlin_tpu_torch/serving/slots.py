@@ -1,11 +1,15 @@
-"""Slot management and the one-shot admission prefill — port of the
-default-discipline half of ``marlin_tpu/serving/slots.py``.
+"""Slot management and the admission prefills — port of
+``marlin_tpu/serving/slots.py``.
 
-A slot is one row of the live batch: one row of every KV-cache layer, one
-row of the token buffer, one entry of the engine's fill/target state.
-:func:`prefill_into_row` admits a request into a free row: it prefills the
-prompt through the flash kernel and writes the row's K/V and tokens IN
-PLACE (the JAX package donated the cache and buffer for the same effect).
+A slot is one row of the live batch: one row of every KV-cache layer (or a
+page table, in paged mode), one row of the token buffer, one entry of the
+engine's fill/target state. :func:`prefill_into_row` admits a request into
+a free row in one shot: it prefills the prompt through the flash kernel and
+writes the row's K/V and tokens IN PLACE (the JAX package donated the
+cache and buffer for the same effect). :func:`prefill_chunk_into_row` and
+:func:`prefill_chunk_into_row_paged` admit one chunk at a time through the
+model's chunk path (plain cached attention, no flash kernel), the
+discipline the prefix cache and paged sharing are bitwise exact on.
 
 The prompt is padded to the 16-token bucket (:func:`pad_prompt_len`).
 Causality keeps the real rows independent of the pad: a real query never
@@ -69,6 +73,62 @@ def prefill_into_row(params, cache, buf, row: int, prompt, cfg,
     first = tr._sample(tr._readout(params, h), temperature, generator)[0]
     _write_row_tokens(buf, row, prompt, prompt_len, first)
     return prompt_len + 1, first
+
+
+@torch.no_grad()
+def prefill_chunk_into_row(params, cache, buf, row: int, chunk, start: int,
+                           chunk_len: int, prompt, prompt_len: int, cfg,
+                           temperature: float = 0.0,
+                           generator: Optional[torch.Generator] = None,
+                           final: bool = False):
+    """One admission-prefill CHUNK into batch row ``row``, in place: K/V of
+    prompt positions [start, start + chunk_len) through
+    :func:`..models.transformer.prefill_chunk`, against the row's own
+    cache, which must already hold [0, start) (earlier chunks, or a
+    prefix-cache copy). ``chunk`` may be padded past ``chunk_len`` (the
+    pad's K/V land in dead slots).
+
+    ``final=False``: K/V only; returns None. ``final=True`` (the chunk
+    reaching ``prompt_len``): also samples the first token from the logits
+    at ``prompt_len - 1`` and rewrites the row's whole token buffer (the
+    prompt, zeros past it, the first token at ``prompt_len``), as
+    :func:`prefill_into_row` does; returns that token (a 0-d tensor).
+
+    Any chunk split of a prompt, and any prefix copy plus tail, writes the
+    same cache bits and samples from the same logits (transformer._tiles).
+    """
+    row_cache = [{name: buf_[row:row + 1] for name, buf_ in layer.items()}
+                 for layer in cache]
+    logits, _ = tr.prefill_chunk(params, row_cache, chunk[None], start, cfg,
+                                 last=chunk_len - 1)
+    if not final:
+        return None
+    first = tr._sample(logits, temperature, generator)[0]
+    _write_row_tokens(buf, row, prompt, prompt_len, first)
+    return first
+
+
+@torch.no_grad()
+def prefill_chunk_into_row_paged(params, pool, buf, row: int, table, chunk,
+                                 start: int, chunk_len: int, prompt,
+                                 prompt_len: int, cfg,
+                                 temperature: float = 0.0,
+                                 generator: Optional[torch.Generator] = None,
+                                 final: bool = False):
+    """:func:`prefill_chunk_into_row` through the row's page ``table``
+    ((max_len // PAGE,) page ids) into the shared page pool (the per-layer
+    page buffers, written in place); ``row`` addresses only the token
+    buffer. The pages of [0, start) must already hold their K/V (earlier
+    chunks, or aliased prefix pages). Same ``final`` contract and return
+    value."""
+    logits, _ = tr.prefill_chunk_paged(params, pool, table[None],
+                                       chunk[None], start, cfg,
+                                       last=chunk_len - 1)
+    if not final:
+        return None
+    first = tr._sample(logits, temperature, generator)[0]
+    _write_row_tokens(buf, row, prompt, prompt_len, first)
+    return first
 
 
 class SlotManager:

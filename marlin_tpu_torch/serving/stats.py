@@ -1,6 +1,6 @@
-"""Serving observability: per-request latency stats and the slot
-occupancy ledger — port of ``marlin_tpu/serving/stats.py`` (the default
-engine's ledger).
+"""Serving observability: per-request latency stats, the slot occupancy
+ledger and the prefix-reuse and admission-byte ledgers — port of
+``marlin_tpu/serving/stats.py``.
 
 The decode round has a fixed batch, so every iteration costs the whole
 batch's work whether or not a row holds live work:
@@ -66,6 +66,19 @@ class EngineStats:
     tokens_out: int = 0
     total_iters: int = 0
     useful_row_iters: int = 0
+    # Prefix reuse (serving/prefix.py; zero without a prefix surface):
+    # lookups, and the prompt positions and cost-model FLOPs the
+    # admissions did not recompute.
+    n_prefix_hits: int = 0
+    n_prefix_misses: int = 0
+    reclaimed_prefill_tokens: int = 0
+    reclaimed_prefill_flops: float = 0.0
+    # KV bytes moved to satisfy prefix hits: the contiguous engine's row
+    # copies; the paged engine aliases pages and bills 0 per hit.
+    admission_copy_bytes: float = 0.0
+    n_zero_copy_hits: int = 0
+    # The engine's page pool (serving/pages.py; None when contiguous).
+    page_pool: object = None
     rounds: deque = field(default_factory=lambda: deque(maxlen=HISTORY))
     completed: deque = field(default_factory=lambda: deque(maxlen=HISTORY))
     # Guards deque iteration against appends from the stepping thread.
@@ -90,6 +103,53 @@ class EngineStats:
                          "seconds",
                 ).observe(max(0.0, req.admit_time - req.submit_time),
                           exemplar=str(req.request_id))
+
+    def record_prefix_lookup(self, hit_len: int, prompt_len: int) -> None:
+        """One admission's prefix outcome: ``hit_len`` prompt positions
+        (0 = miss) whose prefill was skipped, priced by the admission
+        cost model's hit-length term when ``cfg`` is set."""
+        if hit_len:
+            self.n_prefix_hits += 1
+            self.reclaimed_prefill_tokens += hit_len
+            if self.cfg is not None:
+                cold, _ = cm.admission_cost(self.cfg, prompt_len)
+                warm, _ = cm.admission_cost(self.cfg, prompt_len,
+                                            hit_len=hit_len)
+                self.reclaimed_prefill_flops += cold - warm
+        else:
+            self.n_prefix_misses += 1
+        if self.registry is not None:
+            name = "serving_prefix_hits_total" if hit_len \
+                else "serving_prefix_misses_total"
+            self.registry.counter(name).inc()
+            if hit_len:
+                self.registry.counter(
+                    "serving_prefix_reclaimed_prefill_tokens_total").inc(
+                        hit_len)
+
+    def record_admission_copy(self, n_bytes: float,
+                              zero_copy: bool = False) -> None:
+        """One prefix-hit admission's KV byte bill: the row copy on the
+        contiguous engine, 0 on the paged one (``zero_copy=True`` counts
+        the aliasing hit)."""
+        self.admission_copy_bytes += n_bytes
+        if self.registry is not None and n_bytes:
+            self.registry.counter(
+                "serving_admission_copy_bytes_total",
+                help="KV bytes copied to satisfy prefix-hit admissions "
+                     "(0 by construction on the paged engine)").inc(
+                n_bytes)
+        if zero_copy:
+            self.n_zero_copy_hits += 1
+            if self.registry is not None:
+                self.registry.counter(
+                    "serving_kv_zero_copy_hits_total",
+                    help="prefix hits admitted by page-table aliasing "
+                         "with zero KV bytes moved").inc()
+
+    def prefix_hit_rate(self) -> float:
+        total = self.n_prefix_hits + self.n_prefix_misses
+        return self.n_prefix_hits / total if total else 0.0
 
     def record_timeout(self, req) -> None:
         self.n_timeout += 1
@@ -125,7 +185,8 @@ class EngineStats:
                 "serving_token_latency_seconds").observe(
                     dt / max(req.emitted, 1))
             phases = req.phases()
-            for key in self.PHASE_KEYS + ("prefill_dispatch",):
+            for key in self.PHASE_KEYS + ("prefill_dispatch",
+                                          "prefix_copy"):
                 if key in phases:
                     self.registry.histogram(
                         "serving_phase_seconds", phase=key,
@@ -169,6 +230,20 @@ class EngineStats:
             "wasted_row_iters": self.wasted_row_iters,
             "utilization": round(self.utilization(), 4),
         }
+        if self.n_prefix_hits or self.n_prefix_misses:
+            out.update({
+                "prefix_hits": self.n_prefix_hits,
+                "prefix_misses": self.n_prefix_misses,
+                "prefix_hit_rate": round(self.prefix_hit_rate(), 4),
+                "prefix_reclaimed_prefill_tokens":
+                    self.reclaimed_prefill_tokens,
+                "prefix_reclaimed_prefill_gflops": round(
+                    self.reclaimed_prefill_flops / 1e9, 4),
+                "admission_copy_bytes": self.admission_copy_bytes,
+                "zero_copy_hits": self.n_zero_copy_hits,
+            })
+        if self.page_pool is not None:
+            out["kv_pages"] = self.page_pool.summary()
         done = [c for c in self.completed_snapshot()
                 if c["status"] == "done"]
         if done:

@@ -44,19 +44,38 @@ def decode_step_cost(cfg, batch: int, param_itemsize: int = 4,
     return flops, float(byts)
 
 
-def admission_cost(cfg, prompt_len: int,
+def admission_cost(cfg, prompt_len: int, hit_len: int = 0,
+                   chunk: Optional[int] = None,
                    param_itemsize: int = 4) -> Tuple[float, float]:
-    """(flops, bytes) of one one-shot admission prefill of
-    ``prompt_len`` positions: 2 * params per position plus the causal
-    attention triangle; the parameters stream once, and each position
-    writes its K/V to the cache."""
+    """(flops, bytes) of one serving admission prefill of ``prompt_len``
+    positions with a shared-prefix hit of ``hit_len`` (serving/prefix.py):
+    only the tail [hit_len, prompt_len) is computed, and the hit's K/V
+    are copied instead. ``hit_len == 0`` is a cold admission; the
+    reclaimed cost of a hit is ``cost(s) - cost(s, hit_len=h)``.
+
+    FLOPs: 2 * params per tail position plus the causal attention the
+    tail computes, sum over p in [hit_len, prompt_len) of (p + 1) keys per
+    head. Bytes: the parameters stream once per ``chunk`` of the tail
+    (chunked admission re-reads them every chunk; default one stream),
+    the tail writes its K/V, and the hit's copy reads and writes its
+    K/V once each."""
+    if not 0 <= hit_len <= prompt_len:
+        raise ValueError(
+            f"hit_len {hit_len} outside [0, {prompt_len}]")
     params = transformer_param_count(cfg)
     dh = cfg.d_model // cfg.n_heads
-    tri = prompt_len * (prompt_len + 1) / 2.0
-    attn_macs = 2.0 * cfg.n_layers * cfg.n_heads * dh * tri
-    flops = 2.0 * params * prompt_len + 2.0 * attn_macs
+    tail = prompt_len - hit_len
+
+    def tri(n):
+        return n * (n + 1) / 2.0
+
+    attn_macs = 2.0 * cfg.n_layers * cfg.n_heads * dh \
+        * (tri(prompt_len) - tri(hit_len))
+    flops = 2.0 * params * tail + 2.0 * attn_macs
     pos_bytes = float(2 * cfg.n_layers * cfg.kv_heads * dh * param_itemsize)
-    byts = params * float(param_itemsize) + prompt_len * pos_bytes
+    n_streams = -(-tail // chunk) if (chunk and tail) else (1 if tail else 0)
+    byts = n_streams * params * float(param_itemsize) + tail * pos_bytes \
+        + 2.0 * hit_len * pos_bytes
     return flops, float(byts)
 
 

@@ -314,17 +314,60 @@ class TestServingLedgerAndGuards:
 
 
 @pytest.mark.parametrize("option,value", [
-    ("prefill_chunk", 32), ("prefix_cache", object()), ("kv_pages", 64),
-    ("prefix_sharing", False), ("spec_draft_lens", (2, 4)),
+    ("spec_draft_lens", (2, 4)),
     ("host_kv_bytes", 1 << 20), ("host_kv_dir", "/tmp/kv"),
     ("restore_min_tokens", 32), ("scheduler", object()),
-    ("prefill_chunks_per_round", 3), ("spec_ngram", 3),
-    ("spec_adaptive", False), ("stats", object()),
+    ("spec_ngram", 3), ("spec_adaptive", False), ("stats", object()),
 ])
 def test_non_default_engine_options_raise(option, value):
     cfg = _cfg()
     with pytest.raises(NotImplementedError, match="ROADMAP Queue A1"):
         _engine(_params(cfg), cfg, **{option: value})
+
+
+@pytest.mark.parametrize("options,error,match", [
+    (dict(kv_pages=8, prefix_cache="cache"), ValueError,
+     "mutually exclusive"),
+    (dict(prefix_sharing=False), ValueError, "prefix_sharing"),
+    (dict(prefill_chunk=24), ValueError, "multiple of 16"),
+    (dict(prefill_chunk=8), ValueError, "multiple of 16"),
+    (dict(prefill_chunk=32, prefill_chunks_per_round=0), ValueError,
+     "prefill_chunks_per_round"),
+    (dict(kv_pages=8, host_kv_bytes=1 << 20), NotImplementedError,
+     "ROADMAP Queue A1"),
+    (dict(kv_pages=8, scheduler=object()), NotImplementedError,
+     "ROADMAP Queue A1"),
+    (dict(prefill_chunk=32, spec_draft_lens=(2, 4)), NotImplementedError,
+     "ROADMAP Queue A1"),
+], ids=["pages_with_cache", "sharing_paged_only", "chunk_24", "chunk_8",
+        "chunks_per_round_0", "pages_with_host_tier",
+        "pages_with_scheduler", "chunk_with_spec"])
+def test_discipline_guards(options, error, match):
+    # The reference's constructor guards on the ported disciplines, and
+    # the disciplines still to port refused beside them.
+    from marlin_tpu_torch.serving import PrefixCache
+
+    cfg = _cfg()
+    if options.get("prefix_cache") == "cache":
+        options = dict(options, prefix_cache=PrefixCache(cfg, pool_rows=1,
+                                                         device="cpu"))
+    with pytest.raises(error, match=match):
+        _engine(_params(cfg), cfg, **options)
+
+
+def test_reuse_options_default_the_chunked_discipline():
+    # A prefix cache or a page pool runs on chunked admission, at 32
+    # positions a chunk unless asked otherwise.
+    from marlin_tpu_torch.serving import PrefixCache
+
+    cfg = _cfg()
+    params = _params(cfg)
+    cache = PrefixCache(cfg, pool_rows=1, device="cpu")
+    assert _engine(params, cfg, prefix_cache=cache).prefill_chunk == 32
+    assert _engine(params, cfg, kv_pages=8).prefill_chunk == 32
+    assert _engine(params, cfg, kv_pages=8, prefill_chunk=64) \
+        .prefill_chunk == 64
+    assert _engine(params, cfg).prefill_chunk is None
 
 
 def test_stats_default_is_accepted():
