@@ -12,8 +12,9 @@ Phases, each of which exits non-zero on failure:
    source, started together) and print the build time and ptxas report.
 3. Forward kernel vs plain: hold the flash-attention forward kernel
    against its plain PyTorch version on the card at every shape the main
-   path gives it (the served prefill, the training step's B=8 S=2048,
-   the remat step's S=8192 MHA) and the edge cases (ragged, MHA, MQA,
+   path gives it (the served prefill, the speculative phase's 32- and
+   64-token prompt passes, the training step's B=8 S=2048, the remat
+   step's S=8192 MHA) and the edge cases (ragged, MHA, MQA,
    cross lengths with Dv != D, window, D=64, and head dims the wrapper
    zero-pads to the kernel's: D=32 with Dv=16 and D=96, bf16 and f32;
    f32), by max |err| of O and lse and by O's worst 64-row tile
@@ -53,7 +54,29 @@ Phases, each of which exits non-zero on failure:
    tokens/s, steady decode-iteration ms, TTFT median and max, prefill ms
    per chunk, rounds, hit rate, peak memory; and the split check's times
    at the fixed prefill tile, at 16-row tiles and with no tile (the
-   tile's cost).
+   tile's cost). Then speculative rounds and the int8 stack, batch 8,
+   round_steps 4: 16 requests of 48 steps, alternating cyclic 24-token
+   prompts (period 3 or 4: drafts land) and random 64-token ones (drafts
+   miss), in six arms: (a) plain, (b) spec_draft_lens=(4, 8) adaptive,
+   (c) as (b) paged, (c0) paged plain, (d) quantize_params_int8 and
+   kv_quant="int8", (e) as (d) with speculation. Held: a = b, c0 = c and
+   d = e token for token; c against a within 4 bf16 ulps of logit gap at
+   a first divergence (paged admission is chunked, plain attention; the
+   one-shot one is the flash prefill); the flash forward launched one-shot
+   admissions x layers in every arm (0 in the paged ones) and nothing
+   else; emitted == 1 + live_iters + spec_accepted for every request;
+   (d)'s logits, in bf16 and f32, against a run on dequantize_params
+   weights over the same int8 cache and over a float cache, each limit
+   (INT8_ORACLE_REL) above the sound reading and below the readings of
+   two faults planted in the same run (weight scales rolled one channel,
+   K/V scales rolled one head); an 8-position verify chunk
+   bitwise equal to 8 one-token steps at DECODE_TILE (untiled:
+   reported, with one step's ms either way); and generate_speculative (draft_len 8)
+   bitwise equal to generate at B = 1 over a 64-token cyclic prompt and
+   256 steps. Printed (speculative:) per arm: tokens/s, decode ms per
+   round and per iteration or verify chunk, accept rate, tokens per
+   verify chunk, the final draft length, weight and KV bytes, peak
+   memory; and (speculative_summary:) both generations' ms per token.
 6. Train: the same flagship, bf16 compute on f32 master params, B=8,
    S=2048, SGD at lr 0.1: one warm-up train_step, then 5 timed steps on
    one fixed batch. Every loss finite, the last below the first, and the
@@ -193,6 +216,7 @@ or whole backward with its backend.
 
 from __future__ import annotations
 
+import collections
 import json
 import math
 import re
@@ -217,12 +241,17 @@ FLAGSHIP = dict(vocab=32768, d_model=1024, n_heads=8, n_kv_heads=2,
 
 # Kernel-vs-plain shapes: (name, B, Sq, Skv, H, Hk, D, Dv, dtype, causal,
 # window). The main path's shapes: "flagship" is the served model's
-# full-length prefill, "train" the flagship training step's attention
-# (B=8, S=2048) and "remat" the long-context remat step's (B=1, S=8192,
-# MHA); the rest are edge cases ("d32_dv16" and "d96" take the wrapper's
-# zero-padding to the kernel head dims, 64 and 128).
+# full-length prefill, "spec_p32" and "spec_p64" the speculative phase's
+# prompt passes (its one-shot admissions' 24-token prompts padded to 32
+# and its 64-token ones, and both generations' 64-token prefill: one
+# partial kernel tile each), "train" the flagship training step's
+# attention (B=8, S=2048) and "remat" the long-context remat step's (B=1,
+# S=8192, MHA); the rest are edge cases ("d32_dv16" and "d96" take the
+# wrapper's zero-padding to the kernel head dims, 64 and 128).
 SHAPES = [
     ("flagship", 1, 2048, 2048, 8, 2, 128, 128, "bfloat16", True, 0),
+    ("spec_p32", 1, 32, 32, 8, 2, 128, 128, "bfloat16", True, 0),
+    ("spec_p64", 1, 64, 64, 8, 2, 128, 128, "bfloat16", True, 0),
     ("train", 8, 2048, 2048, 8, 2, 128, 128, "bfloat16", True, 0),
     ("remat", 1, 8192, 8192, 8, 8, 128, 128, "bfloat16", True, 0),
     ("ragged", 1, 1000, 1000, 8, 2, 128, 128, "bfloat16", True, 0),
@@ -296,8 +325,11 @@ LARGE_F32_SHAPES = ("train_f32", "d512_s2048_f32")
 
 SHAPE_BY_NAME = {s[0]: s for s in SHAPES}
 
+# The serving-only forward shapes: no backward runs there.
+SERVE_SHAPES = ("flagship", "spec_p32", "spec_p64")
+
 # Backward shapes: the training paths' two and the same edge cases.
-BWD_SHAPES = [s for s in SHAPES if s[0] != "flagship"]
+BWD_SHAPES = [s for s in SHAPES if s[0] not in SERVE_SHAPES]
 
 # Backward tolerance by dtype, on the worst 64-position tile's relative
 # Frobenius error ||kernel - plain||_F / ||plain||_F (tile_rel_err), for
@@ -637,8 +669,9 @@ def plan_summary(plan) -> dict:
 def planted_shape(name: str, check: str) -> bool:
     """Whether ``--planted-faults`` reads ``check`` ("forward" or
     "backward") at shape ``name``: every shape, bf16 and f32, narrow and
-    wide, but the LARGE_F32_SHAPES."""
-    return name not in LARGE_F32_SHAPES
+    wide, but the LARGE_F32_SHAPES and the speculative prompt passes (one
+    partial tile, where a fault of a later key tile cannot show)."""
+    return name not in LARGE_F32_SHAPES + ("spec_p32", "spec_p64")
 
 
 def flash_fault_shows(fault: str, shape: str, check: str) -> bool:
@@ -2610,12 +2643,40 @@ def _workload(cfg, seed: int):
     return [(rng.integers(0, cfg.vocab, int(s)), 32) for s in lens]
 
 
-def _against_generate(params, cfg, tr, ids, done, label):
-    """Every request's tokens against the port's own B=1 generate. A
-    divergence passes only where the chosen token's logit in generate's
-    own logits is within 4 bf16 ulps of generate's pick. Returns (tokens
-    agreeing, tokens, divergences)."""
+def _divergence(params, cfg, tr, rid, prompt, ref, got, label, what):
+    """``got`` against ``ref`` (one request's tokens). Returns (tokens
+    agreeing, None) when equal; else the first divergence, which passes
+    only where the chosen token's logit in ``params``' own logits after
+    the shared prefix is within 4 bf16 ulps of ``ref``'s pick."""
     import numpy as np
+    import torch
+
+    same = ref == got
+    if same.all():
+        return len(ref), None
+    j = int(np.argmin(same))
+    seq = np.concatenate([prompt, ref[:j]])[None]
+    logits, _ = tr.prefill(params, torch.as_tensor(seq, device="cuda"), cfg)
+    lg = logits[0].float()
+    top2 = torch.topk(lg, 2).values
+    margin = (top2[0] - top2[1]).item()
+    gap = (lg[int(ref[j])] - lg[int(got[j])]).item()
+    ulp = 2.0 ** (math.floor(math.log2(abs(top2[0].item()))) - 7)
+    # Four bf16 ulps: two runs whose matmuls accumulate in different
+    # orders (batch 8 vs 1, flash vs plain prompt attention) differ by a
+    # few ulps after 8 layers of bf16 rounding; a real fault moves logits
+    # by whole units.
+    if abs(gap) > 4 * ulp:
+        fail(f"{label}: request {rid} diverges from {what} at token {j} "
+             f"with a logit gap of {gap:.4f} ({gap / ulp:.1f} bf16 ulps) "
+             f"— beyond bf16 noise")
+    return j, dict(request=rid, prompt_len=len(prompt), index=j,
+                   top2_margin=margin, chosen_gap=gap, bf16_ulps=gap / ulp)
+
+
+def _against_generate(params, cfg, tr, ids, done, label):
+    """Every request's tokens against the port's own B=1 generate, by
+    :func:`_divergence`. Returns (tokens agreeing, tokens, divergences)."""
     import torch
 
     from marlin_tpu_torch.models import generate
@@ -2626,32 +2687,12 @@ def _against_generate(params, cfg, tr, ids, done, label):
     for rid, (prompt, steps) in ids.items():
         ref = generate(params, torch.as_tensor(prompt[None]), steps,
                        cfg).cpu().numpy()[0]
-        got = done[rid].tokens
-        same = ref == got
+        n, d = _divergence(params, cfg, tr, rid, prompt, ref,
+                           done[rid].tokens, label, "B=1 generate")
+        agree += n
         total += steps
-        if same.all():
-            agree += steps
-            continue
-        j = int(np.argmin(same))
-        agree += j
-        seq = np.concatenate([prompt, ref[:j]])[None]
-        logits, _ = tr.prefill(params, torch.as_tensor(seq, device="cuda"),
-                               cfg)
-        lg = logits[0].float()
-        top2 = torch.topk(lg, 2).values
-        margin = (top2[0] - top2[1]).item()
-        gap = (lg[int(ref[j])] - lg[int(got[j])]).item()
-        ulp = 2.0 ** (math.floor(math.log2(abs(top2[0].item()))) - 7)
-        divergences.append(dict(request=rid, prompt_len=len(prompt),
-                                index=j, top2_margin=margin,
-                                chosen_gap=gap, bf16_ulps=gap / ulp))
-        # Four bf16 ulps: two runs whose matmuls accumulate in different
-        # orders (batch 8 vs 1) differ by a few ulps after 8 layers of
-        # bf16 rounding; a real fault moves logits by whole units.
-        if abs(gap) > 4 * ulp:
-            fail(f"{label}: request {rid} diverges from B=1 generate at "
-                 f"token {j} with a logit gap of {gap:.4f} "
-                 f"({gap / ulp:.1f} bf16 ulps) — beyond bf16 noise")
+        if d is not None:
+            divergences.append(d)
     for d in divergences:
         print(f"{label}: divergence " + json.dumps(d))
     return agree, total, divergences
@@ -2789,11 +2830,13 @@ def _split_check(params, cfg, tr, prompt):
     n = prompt.shape[0]
 
     def chunk_body(width):
+        """The chunk body in tiles of ``width`` (None: each chunk in one
+        tile of its own length)."""
         def run(cache, toks, c0):
             tiles = tr._chunk_states(
                 params, cache, toks,
                 tr._chunk_pos(c0, 1, toks.shape[1], toks.device), cfg,
-                width=width)
+                width=width or toks.shape[1])
             return tr._logits_at(params, tiles, toks.shape[1] - 1)
         return run
 
@@ -2955,6 +2998,385 @@ def phase_serving_disciplines(card: str, seed: int = 0):
     split = _split_check(tr._cast_params(params, cfg), cfg, tr, prompt)
     print("serve_disciplines_split: " + json.dumps(dict(card=card, **split),
                                                    default=str), flush=True)
+
+
+SPEC_LENS = (4, 8)  # spec_draft_lens of the speculative arms
+SPEC_STEPS = 48  # steps a request
+SPEC_ROUND_STEPS = 4
+SPEC_GENERATE = dict(prompt=64, steps=256, draft_len=8)  # decode_spec's
+# The int8 stack's logits (the d arm's params and cache) against two
+# references, each as max |err| / max |logit| over 4 requests (the prompt
+# pass and 8 decode steps fed (d)'s own tokens): "weights", a run on
+# dequantize_params weights over the same int8 cache, which holds the
+# weight path alone; and "cache", those weights over a float cache
+# (kv_quant off), which holds the KV quantization too (kv_quantize,
+# _put_kv, the scales in _attend_cached). Two planted faults are read in
+# the same run (INT8_FAULTS), and each limit must sit between the sound
+# reading and the least reading of every fault its reference can see:
+# "weights" the weight fault (the KV fault hits both of its sides),
+# "cache" both. Sound, in bf16 ((d)'s own dtype) the two sides round each
+# weight to bf16 apart (q8 * s8 in bf16, against q8 * s8 in f32 then
+# bf16: half a bf16 ulp a weight), which 8 layers carry to the logits; in
+# f32 the weights are the same bits and only the readout's order differs
+# (its scale after the matmul). Against the float cache add each K/V
+# element's int8 rounding (half of amax / 127 at most). On the H100
+# (PERF.md) sound / least fault read: weights 5.6e-3 / 0.63 (bf16),
+# 1.1e-6 / 0.64 (f32); cache 1.1e-2 / 0.26 (bf16), 4.8e-3 / 0.26 (f32).
+INT8_ORACLE_REL = {("weights", "bfloat16"): 2e-2,
+                   ("weights", "float32"): 1e-5,
+                   ("cache", "bfloat16"): 5e-2,
+                   ("cache", "float32"): 2e-2}
+# The planted faults: every int8 weight dequantized with the scale of its
+# neighbouring output channel (s8 rolled by one), and every cached K/V
+# vector with the other KV head's scale (kv_quantize's scale rolled by one
+# head as _put_kv writes it). Which references can see each.
+INT8_FAULTS = {"weight_scale_roll": ("weights", "cache"),
+               "kv_scale_roll": ("cache",)}
+
+
+def _spec_workload(cfg, seed: int):
+    """16 requests of SPEC_STEPS steps, alternating: a cyclic prompt of
+    period 3 or 4 over 24 tokens (configs_trend.py's serving_spec traffic,
+    where drafts land) and a random 64-token one (where they miss)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed + 18)
+    out = []
+    for i in range(8):
+        period = 3 + i % 2
+        pattern = rng.integers(0, cfg.vocab, period)
+        out.append((np.tile(pattern, -(-24 // period))[:24], SPEC_STEPS))
+        out.append((rng.integers(0, cfg.vocab, 64), SPEC_STEPS))
+    return out
+
+
+def _tensor_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_tensor_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(_tensor_bytes(v) for v in tree)
+    return tree.numel() * tree.element_size()
+
+
+def _roll_weight_scales(params_q):
+    """``params_q`` with each int8 weight's s8 rolled by one output
+    channel (the INT8_FAULTS weight fault), sharing the q8 tensors."""
+    def roll(leaf):
+        if isinstance(leaf, dict) and "q8" in leaf:
+            s8 = leaf["s8"]
+            axis = max(range(s8.dim()), key=lambda d: s8.shape[d])
+            return dict(leaf, s8=s8.roll(1, dims=axis))
+        return leaf
+
+    out = dict(params_q, embed=roll(params_q["embed"]))
+    out["blocks"] = [{k: roll(v) for k, v in bp.items()}
+                     for bp in params_q["blocks"]]
+    return out
+
+
+def _int8_oracle(params_q, cfg_q, tr, quant, workload, tokens):
+    """The int8 stack's readings at ``cfg_q``'s dtype (see
+    INT8_ORACLE_REL): {"sound": {ref: x}, fault: {ref: x}} for ref in
+    "weights" and "cache" and each INT8_FAULTS fault."""
+    import torch
+
+    params_q = tr._cast_params(params_q, cfg_q)
+    deq = tr._cast_params(quant.dequantize_params(params_q), cfg_q)
+    cfg_f = cfg_q._replace(kv_quant="")
+    runs = list(zip(workload, tokens))[:4]
+
+    def logits(params, cfg):
+        outs = []
+        for (prompt, _), toks in runs:
+            pr = torch.as_tensor(prompt[None], device="cuda")
+            lg, cache = tr.prefill(params, pr, cfg)
+            seq = [lg]
+            for i, t in enumerate(toks[:8]):
+                lg, cache = tr.decode_step(
+                    params, cache, torch.tensor([int(t)], device="cuda"),
+                    len(prompt) + i, cfg)
+                seq.append(lg)
+            outs.append(torch.cat(seq).float())
+        return outs
+
+    def rel(got, ref):
+        return max(((g - r).abs().max() / r.abs().max()).item()
+                   for g, r in zip(got, ref))
+
+    refs = {"weights": logits(deq, cfg_q), "cache": logits(deq, cfg_f)}
+    out = {"sound": logits(params_q, cfg_q),
+           "weight_scale_roll": logits(_roll_weight_scales(params_q),
+                                       cfg_q)}
+    out = {name: {ref: rel(got, r) for ref, r in refs.items()}
+           for name, got in out.items()}
+
+    # The KV fault stands for one in kv_quantize or _put_kv, which the
+    # "weights" reference runs too: both of its sides run faulted.
+    def kv_scale_roll(x, axis=-1):
+        q, s = quant.kv_quantize(x, axis)
+        return q, s.roll(1, dims=-2)
+
+    sound_quantize = tr.kv_quantize
+    tr.kv_quantize = kv_scale_roll
+    try:
+        got = logits(params_q, cfg_q)
+        refs["weights"] = logits(deq, cfg_q)
+    finally:
+        tr.kv_quantize = sound_quantize
+    out["kv_scale_roll"] = {ref: rel(got, r) for ref, r in refs.items()}
+    return out
+
+
+def _decode_tile_check(params, cfg, tr, seed: int):
+    """One 8-position verify chunk against 8 one-token steps at batch 8
+    over the same cache (random K/V, positions 600-607): logits and cache
+    bytes bitwise equal at tr.DECODE_TILE (held), and the same pair with
+    each call untiled (its own row count: 8 rows a sequence against 1),
+    reported; and one (8, 1) step's ms tiled and untiled, what the tile
+    costs a decode iteration."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 20)
+    base = tr.init_kv_cache(cfg, 8, dtype=cfg.compute_dtype, device="cuda")
+    for layer in base:
+        for buf in layer.values():
+            buf.copy_(torch.randn(buf.shape, generator=gen, device="cuda"))
+    toks = torch.randint(0, cfg.vocab, (8, 8), generator=gen, device="cuda")
+    p0 = 600
+
+    def call(width):
+        """A chunk in tiles of ``width`` (None: one tile of its own
+        length)."""
+        def run(cache, t, pos):
+            tiles = tr._chunk_states(
+                params, cache, t, tr._chunk_pos(pos, 8, t.shape[1],
+                                                t.device), cfg,
+                width=width or t.shape[1])
+            return tr._tile_logits(params, tiles)
+        return run
+
+    def compare(width):
+        c1 = [{k: v.clone() for k, v in layer.items()} for layer in base]
+        c2 = [{k: v.clone() for k, v in layer.items()} for layer in base]
+        chunk = call(width)(c1, toks, p0)
+        steps = torch.cat([call(width)(c2, toks[:, i:i + 1], p0 + i)
+                           for i in range(8)], dim=1)
+        return bool(torch.equal(chunk, steps)) and all(
+            torch.equal(x[k], y[k]) for x, y in zip(c1, c2) for k in x)
+
+    out = {}
+    for name, width in (("tiled", tr.DECODE_TILE), ("untiled", None)):
+        cache = [{k: v.clone() for k, v in layer.items()} for layer in base]
+        out[name] = dict(equal=compare(width), step_ms=cuda_ms(
+            lambda: call(width)(cache, toks[:, :1], p0), warmup=2,
+            iters=10))
+    if not out["tiled"]["equal"]:
+        fail(f"speculative: a verify chunk and 8 one-token steps give "
+             f"different logits or cache bytes at DECODE_TILE: {out}")
+    return out
+
+
+def _prompt_shapes(lens, n_layers: int) -> dict:
+    """Flash launches by SHAPES row of prompt passes of padded lengths
+    ``lens`` (one launch a layer each): {"spec_pL": n}. Fails on a length
+    with no "spec_pL" row, which phase_kernels would not have held."""
+    out = {}
+    for n in lens:
+        name = f"spec_p{n}"
+        if name not in SHAPE_BY_NAME:
+            fail(f"speculative: a {n}-token prompt pass has no SHAPES row "
+                 f"{name!r}: the kernel is not held at that shape")
+        out[name] = out.get(name, 0) + n_layers
+    return out
+
+
+def phase_speculative(card: str, seed: int = 0):
+    """Speculative rounds and the int8 stack on the served flagship: see
+    the module docstring. Returns the flash forward's launches by the
+    SHAPES row of their prompt pass ({"spec_p32": n, "spec_p64": n}): the
+    counter's total of each run, split by the padded lengths of the
+    prompts that run admitted (held equal to the counter)."""
+    import numpy as np
+    import torch
+
+    from marlin_tpu_torch.models import TransformerConfig, quant
+    from marlin_tpu_torch.models import transformer as tr
+    from marlin_tpu_torch.ops import flash_attention as fa
+    from marlin_tpu_torch.serving import ServingEngine
+    from marlin_tpu_torch.serving.slots import pad_prompt_len
+
+    cfg = TransformerConfig(**FLAGSHIP)
+    cfg_q = cfg._replace(kv_quant="int8")
+    params = tr.init_params(cfg, seed=seed, device="cuda")
+    params_q = quant.quantize_params_int8(
+        tr.init_params(cfg, seed=seed, device="cuda"), donate=True)
+    workload = _spec_workload(cfg, seed)
+    pages = 8 * cfg.max_len // 16 + 64
+    spec = dict(spec_draft_lens=SPEC_LENS)
+    arms = {  # name: (params, cfg, options, one-shot admissions)
+        "a_plain": (params, cfg, {}, True),
+        "b_spec": (params, cfg, spec, True),
+        "c_spec_paged": (params, cfg, dict(spec, kv_pages=pages), False),
+        "c0_paged": (params, cfg, dict(kv_pages=pages), False),
+        "d_int8": (params_q, cfg_q, {}, True),
+        "e_int8_spec": (params_q, cfg_q, spec, True),
+    }
+    # Warm-up (the int8 casts, the drafter, the verify shapes), uncounted.
+    for p_, c_ in ((params, cfg), (params_q, cfg_q)):
+        warm = ServingEngine(p_, c_, batch=8, round_steps=SPEC_ROUND_STEPS,
+                             device="cuda", **spec)
+        warm.submit(workload[0][0], 12)
+        warm.run()
+    torch.cuda.synchronize()
+
+    launches = collections.Counter()
+    tokens = {}
+    for name, (p_, c_, options, oneshot) in arms.items():
+        eng = ServingEngine(p_, c_, batch=8, round_steps=SPEC_ROUND_STEPS,
+                            device="cuda", **options)
+        _zero_counters(fa)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        ids, done = {}, []
+        for prompt, steps in workload[:5]:  # as phase_slice
+            ids[eng.submit(prompt, steps)] = (prompt, steps)
+        done += eng.step()
+        for prompt, steps in workload[5:]:
+            ids[eng.submit(prompt, steps)] = (prompt, steps)
+        done += eng.drain()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        every = _counters(fa)
+        peak = torch.cuda.max_memory_allocated()
+        done = {r.request_id: r for r in done}
+        if len(done) != 16 or any(r.status != "done"
+                                  for r in done.values()):
+            fail(f"speculative {name}: answered {len(done)} of 16: "
+                 f"{[(r.request_id, r.status) for r in done.values()]}")
+        st = eng.stats
+        want = st.n_admitted * cfg.n_layers if oneshot else 0
+        if every != _want(want, 0, 0):
+            fail(f"speculative {name}: flash launches {every}, expected "
+                 f"the forward {want} times ({'one-shot' if oneshot else 'chunked'} "
+                 f"admissions x layers) and nothing else")
+        if oneshot:
+            by_shape = _prompt_shapes(
+                [pad_prompt_len(len(p)) for p, _ in workload], cfg.n_layers)
+            if sum(by_shape.values()) != every["fwd"]:
+                fail(f"speculative {name}: {every['fwd']} flash launches, "
+                     f"but its {len(workload)} prompts make {by_shape}")
+            launches.update(by_shape)
+        for r in done.values():
+            if r.emitted != 1 + r.live_iters + r.spec_accepted:
+                fail(f"speculative {name}: request {r.request_id} emitted "
+                     f"{r.emitted} != 1 + live_iters {r.live_iters} + "
+                     f"spec_accepted {r.spec_accepted}")
+        order = sorted(ids)
+        tokens[name] = [done[r].tokens for r in order]
+        rounds = eng.runlog.events("round")
+        steady = [e for e in rounds if e["iters"] and not e["admitted"]]
+        kv = eng.page_pool.pages if eng.paged else eng._cache
+        n_tok = sum(r.emitted for r in done.values())
+        print("speculative: " + json.dumps(dict(
+            card=card, arm=name, requests=len(done), tokens=n_tok,
+            wall_s=wall, tokens_per_s=n_tok / wall,
+            decode_ms_per_round=(1e3 * float(np.median(
+                [e["decode_s"] for e in steady])) if steady else None),
+            decode_ms_per_iter=(1e3 * float(np.median(
+                [e["decode_s"] / e["iters"] for e in steady]))
+                if steady else None),
+            rounds=st.n_rounds, iters=st.total_iters,
+            accept_rate=(st.n_spec_accepted / st.n_spec_drafted
+                         if st.n_spec_drafted else None),
+            tokens_per_verify_chunk=((st.n_spec_accepted
+                                      + st.useful_row_iters)
+                                     / st.useful_row_iters
+                                     if eng.spec else None),
+            final_draft_len=eng._draft_len,
+            draft_lens_run=sorted({e["draft_len"] for e in rounds
+                                   if e.get("draft_len")}),
+            weight_bytes=_tensor_bytes(eng._run_params),
+            kv_bytes=_tensor_bytes(kv), flash_launches=every["fwd"],
+            admissions=st.n_admitted, peak_mem_gb=peak / 1e9),
+            default=str), flush=True)
+
+    for a, b in (("a_plain", "b_spec"), ("c0_paged", "c_spec_paged"),
+                 ("d_int8", "e_int8_spec")):
+        bad = [i for i, (x, y) in enumerate(zip(tokens[a], tokens[b]))
+               if not np.array_equal(x, y)]
+        if bad:
+            fail(f"speculative: arm {b}'s tokens differ from {a}'s at "
+                 f"requests {bad}")
+    # Paged admission is chunked (plain cached attention), one-shot is the
+    # flash prefill: the paged arms hold to the one-shot arm within
+    # bf16 noise at their first divergence, not bitwise.
+    divergences = []
+    for i, ((prompt, _), x, y) in enumerate(zip(
+            workload, tokens["a_plain"], tokens["c_spec_paged"])):
+        _, d = _divergence(params, cfg, tr, i, prompt, x, y, "speculative",
+                           "arm a_plain")
+        if d is not None:
+            divergences.append(d)
+    oracle = {dt: _int8_oracle(params_q, cfg_q._replace(dtype=dt), tr,
+                               quant, workload, tokens["d_int8"])
+              for dt in ("bfloat16", "float32")}
+    print("speculative_int8_oracle: " + json.dumps(dict(
+        card=card, readings=oracle,
+        limits={f"{ref}/{dt}": x for (ref, dt), x in INT8_ORACLE_REL.items()},
+        faults_seen_by=INT8_FAULTS)), flush=True)
+    for (ref, dt), limit in INT8_ORACLE_REL.items():
+        sound = oracle[dt]["sound"][ref]
+        if not sound <= limit:
+            fail(f"speculative: int8 logits ({dt}) {sound:.3e} of max "
+                 f"|logit| from the {ref} reference's (limit {limit})")
+        for fault, seen in INT8_FAULTS.items():
+            if ref in seen and not oracle[dt][fault][ref] > limit:
+                fail(f"speculative: the {ref} limit {limit} ({dt}) misses "
+                     f"the planted fault {fault}: "
+                     f"{oracle[dt][fault][ref]:.3e}")
+
+    # generate_speculative against generate at B = 1 (decode_spec's shape).
+    rng = np.random.default_rng(seed + 19)
+    g = SPEC_GENERATE
+    prompt = torch.as_tensor(
+        np.tile(rng.integers(0, cfg.vocab, 4), g["prompt"] // 4)[None],
+        device="cuda")
+    _zero_counters(fa)
+    times = {}
+    outs = {}
+    for name, fn in (
+            ("generate", lambda: tr.generate(params, prompt, g["steps"],
+                                             cfg)),
+            ("generate_speculative", lambda: tr.generate_speculative(
+                params, prompt, g["steps"], cfg, draft_len=g["draft_len"],
+                return_stats=True))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs[name] = fn()
+        torch.cuda.synchronize()
+        times[name] = time.perf_counter() - t0
+    toks, gstats = outs["generate_speculative"]
+    if not torch.equal(outs["generate"], toks):
+        j = int((outs["generate"] != toks).nonzero()[0, 1])
+        fail(f"speculative: generate_speculative differs from generate at "
+             f"token {j}")
+    if fa.launches != 2 * cfg.n_layers:
+        fail(f"speculative: {fa.launches} flash launches in the two "
+             f"generations, expected 2 x {cfg.n_layers} (their prefills)")
+    launches.update(_prompt_shapes([g["prompt"]] * 2, cfg.n_layers))
+    tile = _decode_tile_check(tr._cast_params(params, cfg), cfg, tr, seed)
+    print("speculative_summary: " + json.dumps(dict(
+        card=card, decode_tile_check=tile,
+        paged_vs_oneshot_divergences=divergences,
+        int8_logit_rel_err={dt: r["sound"] for dt, r in oracle.items()},
+        generate_ms_per_token=1e3 * times["generate"] / g["steps"],
+        spec_ms_per_token=1e3 * times["generate_speculative"] / g["steps"],
+        spec_speedup=times["generate"] / times["generate_speculative"],
+        spec_iterations=gstats["iterations"],
+        spec_tokens_per_chunk=g["steps"] / gstats["iterations"],
+        decode_tile=tr.DECODE_TILE, flash_launches_by_shape=launches),
+        default=str), flush=True)
+    return launches
 
 
 def phase_profile(params, cfg, workload):
@@ -4382,7 +4804,8 @@ def kernels_line(rows, bwd, launches, small, spmm, spmm_launches,
     and ``spmm_f32_launches`` are spmm_kernel_entries' arguments."""
     bwd_src = "marlin_tpu_torch/csrc/flash_attention_bwd.cu"
     fwd_paths = {p: (launches[p]["fwd"], rows[s]) for p, s in
-                 (("serve", "flagship"), ("train", "train"),
+                 (("serve", "flagship"), ("speculative_p32", "spec_p32"),
+                  ("speculative_p64", "spec_p64"), ("train", "train"),
                   ("remat", "remat"))}
 
     fwd_entry = _fwd_entry
@@ -4477,8 +4900,12 @@ def main(argv=None) -> int:
     spmm = phase_spmm(card)
     serve_launches = phase_slice(card)
     phase_serving_disciplines(card)
+    spec_launches = phase_speculative(card)
     launches = phase_train(card)
     launches["serve"] = dict(fwd=serve_launches)
+    for shape in ("spec_p32", "spec_p64"):
+        launches["speculative_" + shape[5:]] = dict(
+            fwd=spec_launches.get(shape, 0))
     phase_grad_check()
     small = phase_small_models(card)
     spmm_launches = phase_spmm_path(card)

@@ -5,15 +5,18 @@ counterpart of ``marlin_tpu/examples/transformer_lm.py``.
 Usage:
   python -m marlin_tpu_torch.examples.transformer_lm [steps] [batch] [seq]
                                                      [d_model] [dtype]
+                                                     [--int8] [--spec]
                                                      [--device cuda|cpu]
 
 ``dtype`` (default float32) is the compute dtype; bfloat16 trains with
 f32 master params and bf16 activations and attention. It runs on one
 device (default ``cuda``; ``--device cpu`` runs the kernels' plain
-versions). The JAX example's data-parallel mesh waits for the dense
-path's mesh (ROADMAP Queue A2/A3), and its ``--int8`` and ``--spec``
-decoding modes for the int8 stack and speculative decoding (ROADMAP
-Queue A1).
+versions). With ``--int8`` the decode half serves the trained masters
+through the int8 stack (``quantize_params_int8`` and an int8 KV cache);
+with ``--spec`` it also decodes by prompt-lookup speculation
+(``generate_speculative``) and reports both rates. The JAX example's
+data-parallel mesh waits for the dense path's mesh (ROADMAP Queue
+A2/A3).
 """
 
 from __future__ import annotations
@@ -44,12 +47,9 @@ def model_config(d_model: int, seq: int, dtype: str):
 
 def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
-    for flag, what in (("--int8", "the int8 serving stack"),
-                       ("--spec", "speculative decoding")):
-        if flag in argv:
-            raise NotImplementedError(
-                f"{flag}: {what} is not ported to marlin_tpu_torch yet "
-                f"(ROADMAP Queue A1)")
+    int8 = "--int8" in argv
+    spec = "--spec" in argv
+    argv = [a for a in argv if a not in ("--int8", "--spec")]
     device = "cuda"
     if "--device" in argv:
         i = argv.index("--device")
@@ -90,12 +90,37 @@ def main(argv=None) -> int:
     if gen_steps <= 0:
         print("sequence too short for a decode demo; skipping generation")
         return 0 if finite else 1
+    prompt = tokens[:1, :prompt_len]
+    label = "KV cache"
+    if int8:  # serve the trained masters through the int8 stack
+        from marlin_tpu_torch.models import quantize_params_int8
+
+        params = quantize_params_int8(params)
+        cfg = cfg._replace(kv_quant="int8")
+        label = "int8 weights + int8 KV cache"
     t0 = time.perf_counter()
-    out = generate(params, tokens[:1, :prompt_len], gen_steps, cfg)
+    out = generate(params, prompt, gen_steps, cfg)
     _sync(dev)
     dt_gen = (time.perf_counter() - t0) / gen_steps
-    print(f"greedy decode {gen_steps} tokens (KV cache): "
+    print(f"greedy decode {gen_steps} tokens ({label}): "
           f"{dt_gen * 1e3:.2f} ms/token -> {out[0].tolist()}")
+    if spec:
+        from marlin_tpu_torch.models import generate_speculative
+
+        draft = min(4, cfg.max_len - prompt_len - gen_steps)
+        if draft >= 2 and prompt_len >= 2:  # spec needs prompt >= ngram
+            generate_speculative(params, prompt, gen_steps, cfg,
+                                 draft_len=draft)  # warm-up, untimed
+            _sync(dev)
+            t0 = time.perf_counter()
+            sp = generate_speculative(params, prompt, gen_steps, cfg,
+                                      draft_len=draft)
+            _sync(dev)
+            dt_sp = (time.perf_counter() - t0) / gen_steps
+            print(f"speculative decode (draft_len={draft}): "
+                  f"{dt_sp * 1e3:.2f} ms/token -> {sp[0].tolist()}")
+        else:
+            print("sequence too short for a speculative demo; skipping")
     return 0 if finite and tuple(out.shape) == (1, gen_steps) else 1
 
 

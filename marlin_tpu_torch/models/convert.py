@@ -2,9 +2,11 @@
 
 The JAX params pytree and the port's params dict share one layout (the
 same keys, the same shapes), so conversion is a leaf-by-leaf copy with a
-shape check against the config. Callers hand over the pytree as numpy
-arrays (``jax.tree.map(np.asarray, params)``): the port never imports
-JAX.
+shape check against the config. Int8 params (``quantize_params_int8``)
+carry ``{"q8", "s8"}`` leaves at the embed table and the blocks' dense
+weights; they are checked and copied the same way, dtypes kept. Callers
+hand over the pytree as numpy arrays (``jax.tree.map(np.asarray,
+params)``): the port never imports JAX.
 """
 
 from __future__ import annotations
@@ -30,14 +32,30 @@ def expected_shapes(cfg: TransformerConfig) -> dict:
     return out
 
 
+# The leaves quantize_params_int8 replaces (models/quant.py), by path.
+_INT8_LEAVES = ("['embed']", "['wqkv']", "['wo']", "['w1']", "['w2']")
+
+
+def _int8_shape(shape, axis: int) -> dict:
+    """The ``{"q8", "s8"}`` leaf of a weight quantized over ``axis``."""
+    s8 = list(shape)
+    s8[axis] = 1
+    return {"q8": tuple(shape), "s8": tuple(s8)}
+
+
 def params_from_jax(tree, cfg: TransformerConfig, device="cuda"):
     """The port's params from the JAX params pytree given as numpy arrays
-    (float dtypes kept as they are), placed on ``device``. Raises on a
-    missing or extra key or a shape that does not match ``cfg``."""
+    (float and int8 dtypes kept as they are), placed on ``device``.
+    Raises on a missing or extra key or a shape that does not match
+    ``cfg``."""
     _validate(cfg)
     dev = resolve_device(device)
 
     def conv(node, shape, path):
+        if isinstance(node, dict) and path.endswith(_INT8_LEAVES):
+            # An int8 leaf where the float layout has a weight: embed is
+            # quantized per row (axis 1), block weights per column.
+            shape = _int8_shape(shape, 1 if path == "['embed']" else 0)
         if isinstance(shape, dict):
             if not isinstance(node, dict) or set(node) != set(shape):
                 got = sorted(node) if isinstance(node, dict) else type(node)

@@ -9,18 +9,21 @@ in-place KV-cache writes where JAX donated the cache. Prompt attention
 (``_attend_local``) is the flash-attention kernel of
 :mod:`marlin_tpu_torch.ops.flash_attention`, differentiable through its
 backward kernels; the projections, the MLP, layer norm, RoPE, the
-chunked cross-entropy, the cached decode attention, the chunked prefill
-(:func:`prefill_chunk`, in tiles of one fixed shape), the paged reads and
-writes (:func:`gather_kv_pages`, :func:`decode_chunk_paged`,
-:func:`prefill_chunk_paged`) and sampling stay plain torch, as the JAX
-package left them to XLA. Training is autograd
-over the same functions: :func:`loss_fn`, :func:`train_step` (SGD, f32
-master params) and :func:`make_train_step` (a ``torch.optim``
-optimizer); ``cfg.remat`` checkpoints each block.
+chunked cross-entropy, the cached decode attention, the chunk paths
+(:func:`decode_step`, :func:`decode_chunk`, :func:`prefill_chunk`, in
+tiles of one fixed shape each), the paged reads and writes
+(:func:`gather_kv_pages`, :func:`decode_chunk_paged`,
+:func:`prefill_chunk_paged`), prompt-lookup speculation
+(:func:`generate_speculative`), the int8 weights and KV cache
+(:mod:`.quant`) and sampling stay plain torch, as the JAX package left
+them to XLA. Training is autograd over the same functions:
+:func:`loss_fn`, :func:`train_step` (SGD, f32 master params) and
+:func:`make_train_step` (a ``torch.optim`` optimizer); ``cfg.remat``
+checkpoints each block.
 
-Model options outside this slice (int8 KV, MoE, sequence parallelism,
-tensor parallelism) raise ``NotImplementedError`` naming the ROADMAP item
-that ports them.
+Model options outside the port so far (MoE, sequence parallelism, tensor
+parallelism) raise ``NotImplementedError`` naming the ROADMAP item that
+ports them.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ from torch.utils.checkpoint import checkpoint
 from ..obs.trace import tracer as _tracer
 from ..ops.flash_attention import flash_attention
 from ..utils.hw import resolve_device
+from .quant import is_quantized, kv_quantize
 
 
 class TransformerConfig(NamedTuple):
@@ -74,8 +78,6 @@ def check_ported(cfg: TransformerConfig) -> None:
     """Raise ``NotImplementedError`` for a model option this slice of the
     port does not carry, naming the ROADMAP item that will."""
     unported = {
-        "kv_quant": (cfg.kv_quant, "the int8 KV cache (models/quant.py), "
-                     "ROADMAP Queue A1"),
         "n_experts": (cfg.n_experts, "the MoE MLP (parallel/expert.py), "
                       "ROADMAP Queue A3"),
         "sequence_parallel": (cfg.sequence_parallel,
@@ -153,21 +155,49 @@ def _tree_map(fn, tree):
 def _cast_params(params, cfg: TransformerConfig):
     """Cast every float leaf (LN gains and biases included) to the
     compute dtype; a no-op when the params already are (the engine and
-    ``generate`` cast once, so later calls cost nothing)."""
+    ``generate`` cast once, so later calls cost nothing). Int8 leaves
+    (:mod:`.quant`'s ``{"q8", "s8"}``) keep their int8 ``q8``; their f32
+    scales are cast like any float leaf."""
     dt = cfg.compute_dtype
-    if params["embed"].dtype == dt:
+    emb = params["embed"]
+    if (emb["s8"] if isinstance(emb, dict) else emb).dtype == dt:
         return params
     return _tree_map(
         lambda p: p.to(dt) if p.is_floating_point() else p, params)
 
 
+def params_device(params) -> torch.device:
+    """The device the params (float or int8) live on."""
+    emb = params["embed"]
+    return (emb["q8"] if isinstance(emb, dict) else emb).device
+
+
+def _deq(w, dt):
+    """A possibly int8 weight (:mod:`.quant`) at ``dt`` for a matmul: the
+    plain version materialises ``q8 * s8`` (the JAX package fuses it into
+    the dot's operand load)."""
+    if isinstance(w, dict):
+        return w["q8"].to(dt) * w["s8"].to(dt)
+    return w
+
+
 def _embed_rows(params, tokens, dt):
-    return params["embed"][tokens].to(dt)
+    """Token rows of the (possibly int8) embed table at ``dt``: the int8
+    path gathers int8 rows and scales each by its row's s8."""
+    emb = params["embed"]
+    if isinstance(emb, dict):
+        return emb["q8"][tokens].to(dt) * emb["s8"][tokens].to(dt)
+    return emb[tokens].to(dt)
 
 
 def _readout(params, x):
-    """Tied readout: vocab logits x @ embed.T."""
-    return x @ params["embed"].T
+    """Tied readout: vocab logits x @ embed.T. The int8 path scales AFTER
+    the matmul (s8 is a per-vocab-column scale there), so no scaled float
+    table is formed."""
+    emb = params["embed"]
+    if isinstance(emb, dict):
+        return (x @ emb["q8"].T.to(x.dtype)) * emb["s8"][:, 0].to(x.dtype)
+    return x @ emb.T
 
 
 def _layer_norm(p, x, eps=1e-5):
@@ -190,8 +220,8 @@ def _mlp_residual(bp, x, cfg: TransformerConfig):
     """ln2 -> dense MLP (tanh-approximate gelu, jax.nn.gelu's default) ->
     residual."""
     y = _layer_norm(bp["ln2"], x)
-    y = F.gelu(y @ bp["w1"] + bp["b1"], approximate="tanh")
-    return x + (y @ bp["w2"] + bp["b2"])
+    y = F.gelu(y @ _deq(bp["w1"], y.dtype) + bp["b1"], approximate="tanh")
+    return x + (y @ _deq(bp["w2"], y.dtype) + bp["b2"])
 
 
 def _rope(x, positions, base: float = 10000.0):
@@ -217,7 +247,7 @@ def _split_qkv(bp, x, cfg: TransformerConfig, positions=None):
     b, t, d = x.shape
     h, hk = cfg.n_heads, cfg.kv_heads
     dh = d // h
-    qkv = _layer_norm(bp["ln1"], x) @ bp["wqkv"]
+    qkv = _layer_norm(bp["ln1"], x) @ _deq(bp["wqkv"], x.dtype)
     q, k, v = torch.split(qkv, [h * dh, hk * dh, hk * dh], dim=-1)
     q = q.reshape(b, t, h, dh)
     k = k.reshape(b, t, hk, dh)
@@ -237,7 +267,7 @@ def _block(bp, x, cfg: TransformerConfig, return_kv: bool = False):
                  if cfg.rope else None)
     q, k, v = _split_qkv(bp, x, cfg, positions=positions)
     att = _attend_local(q, k, v, cfg).reshape(b, s, -1)
-    x = _mlp_residual(bp, x + att @ bp["wo"], cfg)
+    x = _mlp_residual(bp, x + att @ _deq(bp["wo"], att.dtype), cfg)
     return (x, k, v) if return_kv else x
 
 
@@ -304,6 +334,10 @@ def loss_fn(params, tokens, targets, cfg: TransformerConfig):
     ever holds the (B*S, vocab) logits; a tail chunk is zero-padded and
     masked. With B*S <= ``_CE_CHUNK`` the readout runs in one piece."""
     _validate(cfg)
+    if is_quantized(params):
+        raise ValueError(
+            "int8-quantized params are inference-only (decode, prefill, "
+            "forward); train with the float masters (models/quant.py)")
     params = _cast_params(params, cfg)
     dev = params["embed"].device
     tokens = torch.as_tensor(tokens, dtype=torch.long, device=dev)
@@ -398,24 +432,42 @@ def init_kv_cache(cfg: TransformerConfig, batch: int,
                   dtype=torch.float32, device="cuda"):
     """Per-layer K/V buffers at the static (B, cache_len, Hk, Dh) extent;
     a sliding window makes the cache a ring of min(window, max_len)
-    slots (slot = position mod cache_len)."""
+    slots (slot = position mod cache_len). With ``cfg.kv_quant="int8"``
+    the slots are int8 and each layer also carries f32 scale buffers
+    ``ks``/``vs`` (B, cache_len, Hk, 1), one a stored vector
+    (:func:`.quant.kv_quantize`); ``dtype`` is then unused."""
     check_ported(cfg)
     dev = resolve_device(device)
     shape = (batch, _cache_len(cfg), cfg.kv_heads, cfg.d_model // cfg.n_heads)
+    if cfg.kv_quant:
+        if cfg.kv_quant != "int8":
+            raise ValueError(f"unknown kv_quant {cfg.kv_quant!r}; "
+                             "supported: 'int8'")
+        sshape = shape[:-1] + (1,)
+        return [{"k": torch.zeros(shape, dtype=torch.int8, device=dev),
+                 "v": torch.zeros(shape, dtype=torch.int8, device=dev),
+                 "ks": torch.ones(sshape, dtype=torch.float32, device=dev),
+                 "vs": torch.ones(sshape, dtype=torch.float32, device=dev)}
+                for _ in range(cfg.n_layers)]
     return [{"k": torch.zeros(shape, dtype=dtype, device=dev),
              "v": torch.zeros(shape, dtype=dtype, device=dev)}
             for _ in range(cfg.n_layers)]
 
 
-def _attend_cached(q, ck, cv, pos, window=0):
+def _attend_cached(q, ck, cv, pos, ks=None, vs=None, window=0):
     """Query positions against the cache: q (B, C, H, Dh), ck/cv (B, T,
-    Hk, Dh), ``pos`` (B, C) absolute positions. Without a window slot ==
-    position (slots > pos masked); with one the cache is a ring (slot s
-    holds position base + s for s <= pos mod T, else base - T + s, with
-    base = pos - pos mod T; unfilled slots are masked). f32 logits divided
-    by sqrt(Dh) after the product, -1e30 masks, f32 softmax."""
+    Hk, Dh), ``pos`` (B, C) absolute positions; ``ks``/``vs`` (B, T, Hk,
+    1) are an int8 cache's scales (dequantized here, in f32). Without a
+    window slot == position (slots > pos masked); with one the cache is a
+    ring (slot s holds position base + s for s <= pos mod T, else base -
+    T + s, with base = pos - pos mod T; unfilled slots are masked). f32
+    logits divided by sqrt(Dh) after the product, -1e30 masks, f32
+    softmax."""
     b, c, h, dh = q.shape
     t, hk = ck.shape[1], ck.shape[2]
+    if ks is not None:
+        ck = ck.to(torch.float32) * ks
+        cv = cv.to(torch.float32) * vs
     qg = q.reshape(b, c, hk, h // hk, dh).to(torch.float32)
     logits = torch.einsum("bckgd,btkd->bckgt", qg,
                           ck.to(torch.float32)) / math.sqrt(dh)
@@ -433,12 +485,37 @@ def _attend_cached(q, ck, cv, pos, window=0):
     return out.reshape(b, c, h * dh).to(q.dtype)
 
 
+def _check_quant(kv, cfg: TransformerConfig, what: str):
+    """An int8 cache read under a config without ``kv_quant`` (or the
+    reverse) would cast K/V into the wrong buffers silently."""
+    if ("ks" in kv[0]) != bool(cfg.kv_quant):
+        raise ValueError(
+            f"{what} {'is' if 'ks' in kv[0] else 'is not'} int8-quantized "
+            f"but cfg.kv_quant={cfg.kv_quant!r}; build it from the SAME "
+            "config")
+
+
 def _check_cache(cache, cfg: TransformerConfig):
     if cache[0]["k"].shape[1] != _cache_len(cfg):
         raise ValueError(
             f"cache length {cache[0]['k'].shape[1]} != {_cache_len(cfg)} "
             f"expected for window={cfg.window}, max_len={cfg.max_len}; "
             "build the cache with init_kv_cache(cfg, ...)")
+    _check_quant(cache, cfg, "cache")
+
+
+def _put_kv(layer, k, v, put, quant: bool):
+    """Write new K/V into a cache layer through ``put(buf, value)``,
+    quantizing each vector first when the cache is int8: the one write
+    path of the chunk paths, the prefills and the admissions."""
+    if quant:
+        kq, ks = kv_quantize(k)
+        vq, vs = kv_quantize(v)
+        writes = (("k", kq), ("v", vq), ("ks", ks), ("vs", vs))
+    else:
+        writes = (("k", k), ("v", v))
+    for name, val in writes:
+        put(layer[name], val)
 
 
 # Positions per prefill tile. A GEMM or a row reduction need not give a
@@ -448,6 +525,14 @@ def _check_cache(cache, cfg: TransformerConfig):
 # positions, each padded to exactly this many rows: every prefill GEMM,
 # reduction and attention call sees one shape, whatever the chunk width.
 PREFILL_TILE = 128
+
+# Positions per decode tile, the same idea for decode: a one-token step,
+# a verify chunk of any draft length and generate_speculative's chunks all
+# run in tiles of this many rows a sequence, so a position is computed by
+# calls of one shape (M = batch x DECODE_TILE) whatever the schedule, and
+# speculation changes no bit. 8 is generate_speculative's default
+# draft_len; a one-token step pays 8 rows a sequence for it.
+DECODE_TILE = 8
 
 
 def _chunk_guards(cache, cfg: TransformerConfig):
@@ -470,25 +555,26 @@ def _chunk_pos(pos, b: int, c: int, device):
 
 
 def _tiles(params, kv, tokens, pos, cfg: TransformerConfig, write_read,
-           width: Optional[int] = None):
+           width: int):
     """The chunk body shared by the contiguous and paged paths: (B, C)
-    tokens at positions ``pos`` (B, C) in tiles of ``width`` positions
-    (default: one tile of C), taken in order, each through every layer
-    before the next starts. A short last tile is padded to ``width`` rows
-    (token 0 at the tile's last position); pad rows write no K/V and are
-    never read back. Per layer ``write_read(layer, k, v, tile_pos)``
-    stores the real rows' K/V and returns the (B, T, Hk, Dh) keys and
-    values attention reads. Returns ``[(hidden states (B, width, D)
-    before the final LN, real rows), ...]``, one per tile. ``params``
-    must already be cast.
+    tokens at positions ``pos`` (B, C) in tiles of ``width`` positions,
+    taken in order, each through every layer before the next starts. A
+    short last tile is padded to ``width`` rows (token 0 at the tile's
+    last position); pad rows write no K/V and are never read back. Per
+    layer ``write_read(layer, k, v, tile_pos)`` stores the real rows'
+    K/V (quantized on an int8 cache) and returns the layer's buffers as
+    attention reads them: (B, T, Hk, Dh) ``k``/``v``, and ``ks``/``vs``
+    on an int8 cache. Returns ``[(hidden states (B, width, D) before the
+    final LN, real rows), ...]``, one per tile. ``params`` must already
+    be cast.
 
-    With a fixed ``width`` (:data:`PREFILL_TILE`) every position of a
-    prompt is computed by calls of one shape, so any split of a prompt
-    into chunks, a copied prefix plus its tail among them, writes the
-    same cache bits and gives the same logits: the property the prefix
-    cache and paged sharing rest on."""
+    With a fixed ``width`` (:data:`PREFILL_TILE`, :data:`DECODE_TILE`)
+    every position is computed by calls of one shape, so any split of a
+    prompt into chunks (a copied prefix plus its tail among them) and any
+    schedule of decode steps and verify chunks write the same cache bits
+    and give the same logits: the property the prefix cache, paged
+    sharing and speculation rest on."""
     b, c = tokens.shape
-    width = width or c
     out = []
     for t0 in range(0, c, width):
         tile = tokens[:, t0:t0 + width]
@@ -504,26 +590,32 @@ def _tiles(params, kv, tokens, pos, cfg: TransformerConfig, write_read,
         for bp, layer in zip(params["blocks"], kv):
             q, k, v = _split_qkv(bp, x, cfg,
                                  positions=tile_pos if cfg.rope else None)
-            ck, cv = write_read(layer, k[:, :n], v[:, :n], tile_pos[:, :n])
-            att = _attend_cached(q, ck, cv, tile_pos, window=cfg.window)
-            x = _mlp_residual(bp, x + att @ bp["wo"], cfg)
+            view = write_read(layer, k[:, :n], v[:, :n], tile_pos[:, :n])
+            att = _attend_cached(q, view["k"], view["v"], tile_pos,
+                                 view.get("ks"), view.get("vs"),
+                                 window=cfg.window)
+            x = _mlp_residual(bp, x + att @ _deq(bp["wo"], att.dtype), cfg)
         out.append((x, n))
     return out
 
 
 def _chunk_states(params, cache, tokens, pos, cfg: TransformerConfig,
-                  width: Optional[int] = None):
+                  width: int):
     """:func:`_tiles` over the contiguous cache: each layer writes its
     K/V into the cache IN PLACE (the JAX package donated the cache), at
     slot == position (``pos mod cache_len`` on a ring), then every
     position attends its own prefix."""
     rows = torch.arange(tokens.shape[0], device=tokens.device)[:, None]
+    quant = bool(cfg.kv_quant)
 
     def write_read(layer, k, v, tile_pos):
         slots = tile_pos % layer["k"].shape[1] if cfg.window else tile_pos
-        layer["k"][rows, slots] = k.to(layer["k"].dtype)
-        layer["v"][rows, slots] = v.to(layer["v"].dtype)
-        return layer["k"], layer["v"]
+
+        def put(buf, val):
+            buf[rows, slots] = val.to(buf.dtype)
+
+        _put_kv(layer, k, v, put, quant)
+        return layer
 
     return _tiles(params, cache, tokens, pos, cfg, write_read, width)
 
@@ -548,28 +640,35 @@ def _logits_at(params, tiles, last: int):
 def decode_step(params, cache, tokens, pos: int, cfg: TransformerConfig):
     """One decode step: tokens (B,) at position ``pos`` -> (logits (B,
     vocab), cache). The cache is updated in place (slot ``pos``, or
-    ``pos mod cache_len`` on a ring) and returned."""
+    ``pos mod cache_len`` on a ring) and returned. Runs as a one-row
+    chunk in a :data:`DECODE_TILE` tile."""
     check_ported(cfg)
     _check_cache(cache, cfg)
     params = _cast_params(params, cfg)
     b = tokens.shape[0]
     pos_t = torch.full((b, 1), int(pos), dtype=torch.long,
                        device=tokens.device)
-    ((x, _),) = _chunk_states(params, cache, tokens[:, None], pos_t, cfg)
-    return _readout(params, _layer_norm(params["ln_f"], x[:, 0])), cache
+    tiles = _chunk_states(params, cache, tokens[:, None], pos_t, cfg,
+                          width=DECODE_TILE)
+    return _tile_logits(params, tiles)[:, 0], cache
 
 
 @torch.no_grad()
 def decode_chunk(params, cache, tokens, pos, cfg: TransformerConfig):
-    """Multi-position decode: tokens (B, C) at positions pos..pos+C-1
-    (``pos`` a scalar or a per-row (B,) tensor) -> (logits (B, C, vocab),
-    cache updated in place). Needs the dense slot == position cache.
-    Caller contract: pos + C <= max_len for every row."""
+    """Multi-position decode, the speculative verify step: tokens (B, C)
+    at positions pos..pos+C-1 (``pos`` a scalar or a per-row (B,)
+    tensor) -> (logits (B, C, vocab), cache updated in place). Each
+    position attends the cache up to itself, the chunk's own K/V written
+    first. A partially rejected chunk needs no rollback: its stale slots
+    lie past the accepted position and are rewritten before any read.
+    Needs the dense slot == position cache. Runs in :data:`DECODE_TILE`
+    tiles. Caller contract: pos + C <= max_len for every row."""
     _chunk_guards(cache, cfg)
     params = _cast_params(params, cfg)
     b, c = tokens.shape
     tiles = _chunk_states(params, cache, tokens,
-                          _chunk_pos(pos, b, c, tokens.device), cfg)
+                          _chunk_pos(pos, b, c, tokens.device), cfg,
+                          width=DECODE_TILE)
     return _tile_logits(params, tiles), cache
 
 
@@ -603,7 +702,8 @@ def prefill_chunk(params, cache, tokens, pos, cfg: TransformerConfig,
 # ---------------------------------------------------------------------------
 #
 # serving/pages.py owns the pool (per layer, one (n_pages, PAGE, Hk, Dh)
-# buffer per K and V) and its allocator; these functions are the model
+# buffer per K and V, and (n_pages, PAGE, Hk, 1) scales beside an int8
+# pool) and its allocator; these functions are the model
 # half: the same _tiles as _chunk_states, with the row-major cache replaced
 # by page-gathered reads and page-scattered writes through (B, max_len //
 # PAGE) page tables. A gather of identical bytes hands _attend_cached an
@@ -615,9 +715,10 @@ def prefill_chunk(params, cache, tokens, pos, cfg: TransformerConfig,
 
 def gather_kv_pages(pool, tables):
     """Contiguous per-layer cache views of a page pool: ``pool`` is a list
-    of per-layer dicts of (P, page, Hk, Dh) buffers, ``tables`` (B,
-    n_chunks) page ids. Returns per-layer dicts of (B, n_chunks * page,
-    Hk, Dh) tensors with slot == absolute position."""
+    of per-layer dicts of (P, page, Hk, Dh) buffers (an int8 pool's
+    scales ride along), ``tables`` (B, n_chunks) page ids. Returns
+    per-layer dicts of (B, n_chunks * page, Hk, Dh) tensors with slot ==
+    absolute position."""
     b = tables.shape[0]
     return [{name: buf[tables].reshape((b, -1) + tuple(buf.shape[2:]))
              for name, buf in layer.items()}
@@ -638,10 +739,11 @@ def _paged_guards(pool, tables, cfg: TransformerConfig):
             f"page table covers {tables.shape[-1]} x {page} slots != "
             f"max_len {cfg.max_len}; build tables at max_len // page "
             "entries (serving/pages.py)")
+    _check_quant(pool, cfg, "pool")
 
 
 def _chunk_states_paged(params, pool, tables, tokens, pos,
-                        cfg: TransformerConfig, width: Optional[int] = None):
+                        cfg: TransformerConfig, width: int):
     """:func:`_tiles` over a page pool: each position's K/V is written IN
     PLACE into page ``tables[row, p // page]`` at slot ``p % page``, and
     each tile attends over its rows' page-gathered caches. Rows whose
@@ -650,14 +752,18 @@ def _chunk_states_paged(params, pool, tables, tokens, pos,
     nothing attends the sink through a live mask."""
     page = pool[0]["k"].shape[1]
     rows = torch.arange(tokens.shape[0], device=tokens.device)[:, None]
+    quant = bool(cfg.kv_quant)
 
     def write_read(layer, k, v, tile_pos):
         page_ids = tables[rows, tile_pos // page]
         slots = tile_pos % page
-        layer["k"][page_ids, slots] = k.to(layer["k"].dtype)
-        layer["v"][page_ids, slots] = v.to(layer["v"].dtype)
+
+        def put(buf, val):
+            buf[page_ids, slots] = val.to(buf.dtype)
+
+        _put_kv(layer, k, v, put, quant)
         (view,) = gather_kv_pages([layer], tables)
-        return view["k"], view["v"]
+        return view
 
     return _tiles(params, pool, tokens, pos, cfg, write_read, width)
 
@@ -667,12 +773,14 @@ def decode_chunk_paged(params, pool, tables, tokens, pos,
                        cfg: TransformerConfig):
     """:func:`decode_chunk` over a page pool: tokens (B, C) at per-row
     positions ``pos`` -> (logits (B, C, vocab), pool updated in place).
-    The serving engine's paged decode round runs it at C = 1."""
+    The serving engine's paged rounds run it: at C = 1, or at the draft
+    length. Runs in :data:`DECODE_TILE` tiles."""
     _paged_guards(pool, tables, cfg)
     params = _cast_params(params, cfg)
     b, c = tokens.shape
     tiles = _chunk_states_paged(params, pool, tables, tokens,
-                                _chunk_pos(pos, b, c, tokens.device), cfg)
+                                _chunk_pos(pos, b, c, tokens.device), cfg,
+                                width=DECODE_TILE)
     return _tile_logits(params, tiles), pool
 
 
@@ -698,8 +806,9 @@ def prefill(params, tokens, cfg: TransformerConfig):
     """Run the prompt (B, S) through the model once, filling a fresh cache
     for positions [0, S): returns (last-position logits (B, vocab),
     cache). Prompt attention is the flash kernel; the cache is primed
-    from the same per-block K/V (a ring keeps the last cache_len
-    positions, each in slot position mod cache_len)."""
+    from the same per-block K/V, quantized after the flash on an int8
+    cache (a ring keeps the last cache_len positions, each in slot
+    position mod cache_len)."""
     _validate(cfg)
     b, s = tokens.shape
     if s > cfg.max_len:
@@ -711,11 +820,14 @@ def prefill(params, tokens, cfg: TransformerConfig):
     idx = torch.arange(max(0, s - cache_len), s, device=x.device)
     for layer, bp in zip(cache, params["blocks"]):
         x, k, v = _block(bp, x, cfg, return_kv=True)
-        for name, arr in (("k", k), ("v", v)):
+
+        def put(buf, arr):
             if cfg.window:
-                layer[name][:, idx % cache_len] = arr[:, idx]
+                buf[:, idx % cache_len] = arr[:, idx].to(buf.dtype)
             else:
-                layer[name][:, :s] = arr
+                buf[:, :s] = arr.to(buf.dtype)
+
+        _put_kv(layer, k, v, put, bool(cfg.kv_quant))
     x = _layer_norm(params["ln_f"], x[:, -1])
     return _readout(params, x), cache
 
@@ -798,7 +910,7 @@ def generate(params, prompt, steps: int, cfg: TransformerConfig,
     nucleus). With ``eos_id`` a sequence that emits it is finished: its
     later positions are eos padding."""
     _validate(cfg)
-    device = params["embed"].device
+    device = params_device(params)
     prompt = torch.as_tensor(prompt, dtype=torch.long, device=device)
     b, s = prompt.shape
     if s + steps > cfg.max_len:
@@ -818,3 +930,193 @@ def generate(params, prompt, steps: int, cfg: TransformerConfig,
             return _decode_scan(params, cache, first, s, cfg, int(steps),
                                 float(temperature), gen, int(top_k),
                                 float(top_p), eos_id)
+
+
+# ---------------------------------------------------------------------------
+# Prompt-lookup speculative decoding
+# ---------------------------------------------------------------------------
+
+
+def _prompt_lookup_draft(buf, filled, fin, draft_len: int, ngram: int,
+                         mask_history: bool = False):
+    """The one copy of the prompt-lookup drafting rule, shared by
+    :func:`_speculative_loop` and the serving engine's speculative round:
+    for each row of ``buf`` (B, total), find the freshest prior
+    occurrence of its last ``ngram`` tokens inside its ``filled`` (B,)
+    region and propose the ``draft_len - 1`` tokens that followed it.
+    Rows without a match, and rows marked ``fin`` (frozen), draft the
+    repeat-last chunk. Returns the (B, draft_len) verify chunk: the row's
+    last token, then its draft. Slices clamp their start into the buffer
+    as ``jax.lax.dynamic_slice`` does.
+
+    ``mask_history=True`` also replaces draft positions at or past
+    ``filled`` by the last token, so the draft is a function of the row's
+    own committed tokens only: a serving row's buffer still holds a
+    previous occupant's tokens past ``filled``."""
+    bsz, total = buf.shape
+    dev = buf.device
+    rows = torch.arange(bsz, device=dev)[:, None]
+    g0 = (filled - ngram).clamp(0, total - ngram)
+    gram = buf[rows, g0[:, None] + torch.arange(ngram, device=dev)]
+    win = buf.unfold(1, ngram, 1)  # (B, total - ngram + 1, ngram)
+    match = (win == gram[:, None, :]).all(dim=2)
+    jidx = torch.arange(win.shape[1], device=dev)
+    valid = match & (jidx[None] < (filled - ngram)[:, None])
+    j_star = torch.where(valid, jidx[None], -1).amax(dim=1)
+    src = j_star.clamp_min(0) + ngram
+    didx = torch.arange(draft_len - 1, device=dev)
+    d0 = src.clamp(0, total - (draft_len - 1))
+    draft = buf[rows, d0[:, None] + didx]
+    last = buf[rows[:, 0], filled - 1][:, None]
+    draft = torch.where(((j_star >= 0) & ~fin)[:, None], draft, last)
+    if mask_history:
+        draft = torch.where(src[:, None] + didx < filled[:, None], draft,
+                            last)
+    return torch.cat([last, draft], dim=1)
+
+
+def _spec_emit(lp, drafts, generator):
+    """Delta-draft speculative sampling on one row: ``lp`` (C, V) target
+    log-probs at the chunk's positions, ``drafts`` (C - 1,) the
+    deterministic draft chain. Accept draft d with probability p(d); on a
+    rejection resample from p with d excluded; after C - 1 acceptances
+    draw a bonus token from the last position. Returns ``(emit (C,), m)``:
+    positions 0..m-1 emit accepted drafts, position m the resample or the
+    bonus, m + 1 tokens in all. Each emitted token's marginal is the plain
+    sampling distribution. Draws a fixed count from ``generator`` whatever
+    is accepted: C - 1 uniforms, C - 1 resample rows and one bonus row."""
+    c, v = lp.shape
+    idx = torch.arange(c - 1, device=lp.device)
+    p_draft = torch.exp(lp[idx, drafts])
+    u = torch.rand(c - 1, generator=generator, device=lp.device,
+                   dtype=torch.float32)
+    rejected = u >= p_draft
+    m = torch.where(rejected.any(), torch.argmax(rejected.to(torch.int8)),
+                    c - 1)
+    excl = lp[:-1].clone()
+    excl[idx, drafts] = float("-inf")
+    resamp = torch.argmax(excl + _gumbel((c - 1, v), generator, lp.device),
+                          dim=-1)
+    bonus = torch.argmax(lp[-1] + _gumbel((v,), generator, lp.device))
+    emit = torch.cat([torch.where(idx == m, resamp, drafts), bonus[None]])
+    return emit, m
+
+
+def _greedy_accept(logits, chunk):
+    """Greedy verification of (B, C) chunks: the argmax tokens (B, C) and
+    the accepted draft count m (B,): the longest prefix of drafts the
+    argmax agrees with."""
+    emit = torch.argmax(logits, dim=-1)
+    miss = emit[:, :-1] != chunk[:, 1:]
+    m = torch.where(miss.any(dim=1),
+                    torch.argmax(miss.to(torch.int8), dim=1),
+                    chunk.shape[1] - 1)
+    return emit, m
+
+
+def _speculative_loop(params, buf, filled0: int, cache, generator,
+                      cfg: TransformerConfig, steps: int, draft_len: int,
+                      ngram: int, temperature: float):
+    """The prompt-lookup speculation loop, on the host with one sync a
+    chunk (the frozen flags): ``buf`` (B, S + steps + draft_len) holds the
+    prompt and the first token; each iteration drafts ``draft_len - 1``
+    tokens a row (:func:`_prompt_lookup_draft`), verifies every row's
+    chunk in one :func:`decode_chunk`, accepts the longest agreeing
+    prefix plus the model's correction (or, sampling, runs
+    :func:`_spec_emit` on each live row in order) and writes the whole
+    chunk's emits into ``buf`` (positions past the accepted count are
+    rewritten before anything reads them). A row that reaches its target
+    freezes: it drafts the repeat-last chunk, draws nothing, and its
+    writes land in dead slots. Returns ``(buf, verify_chunks (B,) of live
+    chunks a row, iterations)``; ``buf`` and ``cache`` are updated in
+    place."""
+    bsz, total = buf.shape
+    dev = buf.device
+    rows = torch.arange(bsz, device=dev)
+    cols = torch.arange(draft_len, device=dev)
+    target = filled0 + steps - 1
+    filled = torch.full((bsz,), filled0, dtype=torch.long, device=dev)
+    vsteps = torch.zeros(bsz, dtype=torch.long, device=dev)
+    iters = 0
+    while True:
+        fin = filled >= target
+        fin_host = fin.cpu().numpy()  # the one host sync a chunk
+        if fin_host.all():
+            break
+        chunk = _prompt_lookup_draft(buf, filled, fin, draft_len, ngram)
+        logits, cache = decode_chunk(params, cache, chunk, filled - 1, cfg)
+        lf = logits.to(torch.float32)
+        emit, m = _greedy_accept(lf, chunk)
+        if temperature > 0.0:
+            lp = torch.log_softmax(lf / temperature, dim=-1)
+            for r in (~fin_host).nonzero()[0]:
+                emit[r], m[r] = _spec_emit(lp[r], chunk[r, 1:], generator)
+        start = filled.clamp(0, total - draft_len)
+        buf[rows[:, None], start[:, None] + cols] = emit
+        vsteps += (~fin).long()
+        filled = torch.minimum(filled + m + 1, torch.full_like(filled,
+                                                               target))
+        iters += 1
+    return buf, vsteps, iters
+
+
+@torch.no_grad()
+def generate_speculative(params, prompt, steps: int, cfg: TransformerConfig,
+                         draft_len: int = 8, ngram: int = 2,
+                         temperature: float = 0.0, seed: int = 0,
+                         return_stats: bool = False):
+    """Generation with prompt-lookup speculative decoding: drafts come
+    from each sequence's own history (the freshest prior occurrence of its
+    last ``ngram`` tokens proposes the ``draft_len - 1`` tokens that
+    followed it), verified in one :func:`decode_chunk` an iteration.
+    Greedy output equals :func:`generate`'s bit for bit: both compute
+    every position in :data:`DECODE_TILE` tiles, so speculation changes
+    the schedule, never a token. With ``temperature > 0`` the chain runs
+    delta-draft speculative sampling (:func:`_spec_emit`) from a
+    ``torch.Generator`` seeded with ``seed`` on the params' device: each
+    emitted token's marginal is plain sampling's, though the draws differ
+    from :func:`generate`'s.
+
+    Batched prompts advance at their own acceptance rates (per-row
+    positions); a sequence that finishes freezes. With
+    ``return_stats=True`` returns ``(tokens, {"verify_chunks": (B,) live
+    chunks a sequence, "iterations": loop trips})``.
+
+    Contract: temperature only (no top-k/top-p), the dense cache
+    (``cfg.window == 0``), ``prompt + steps + draft_len <= max_len``,
+    ``prompt >= ngram``."""
+    _validate(cfg)
+    if cfg.window:
+        raise NotImplementedError(
+            "speculative decoding needs the dense cache (cfg.window == 0)")
+    device = params_device(params)
+    prompt = torch.as_tensor(prompt, dtype=torch.long, device=device)
+    b, s = prompt.shape
+    if s < ngram:
+        raise ValueError(f"prompt length {s} < ngram {ngram}")
+    if draft_len < 2:
+        raise ValueError(f"draft_len must be >= 2, got {draft_len}")
+    if s + steps + draft_len > cfg.max_len:
+        raise ValueError(
+            f"prompt {s} + steps {steps} + draft_len {draft_len} exceeds "
+            f"max_len {cfg.max_len} (the last chunk writes draft_len "
+            "cache slots past the final emitted position)")
+    params = _cast_params(params, cfg)
+    gen = None
+    if temperature > 0.0:
+        gen = torch.Generator(device=device).manual_seed(int(seed))
+    with _tracer.span("transformer.generate_speculative", batch=b,
+                      steps=int(steps), draft_len=int(draft_len)):
+        logits, cache = prefill(params, prompt, cfg)
+        first = _sample(logits, float(temperature), gen)
+        buf = torch.zeros((b, s + steps + draft_len), dtype=torch.long,
+                          device=device)
+        buf[:, :s] = prompt
+        buf[:, s] = first
+        buf, vsteps, iters = _speculative_loop(
+            params, buf, s + 1, cache, gen, cfg, int(steps), int(draft_len),
+            int(ngram), float(temperature))
+        toks = buf[:, s:s + steps]
+    if return_stats:
+        return toks, {"verify_chunks": vsteps, "iterations": iters}
+    return toks

@@ -33,14 +33,28 @@ The loop's exit test is one device-to-host copy of the (B,) ``done``
 flags per iteration; JAX ran the same loop as a ``lax.while_loop`` on the
 device.
 
+``spec_draft_lens=(...)`` makes every round speculative
+(:meth:`ServingEngine._spec_round_loop`): each iteration drafts
+``draft_len - 1`` tokens a live row from its own history
+(prompt lookup), verifies every row's chunk in one ``decode_chunk`` and
+advances each row by its own accepted count. The draft length moves
+within the set between rounds by the measured acceptance
+(``cost_model.pick_draft_len``) unless ``spec_adaptive=False``. Decode
+steps and verify chunks run in tiles of one shape
+(``models/transformer.DECODE_TILE``), so greedy speculative output is
+bitwise the non-speculative engine's. int8 params
+(``models/quant.quantize_params_int8``) and the int8 KV cache
+(``cfg.kv_quant``) serve through every discipline.
+
 Sampling at ``temperature > 0`` draws each request's tokens from its own
 ``torch.Generator``, seeded from (engine seed, request id) and advanced
-only on the request's live iterations, so sampled outputs do not depend
-on batch composition or arrival pattern.
+only on the request's live iterations (live verify chunks under
+speculation), so sampled outputs do not depend on batch composition or
+arrival pattern.
 
-Options of the JAX engine outside these disciplines (speculative rounds,
-the host KV tier, the scheduler, an inherited ``stats``, tensor
-parallelism) raise ``NotImplementedError``.
+Options of the JAX engine outside these disciplines (the host KV tier,
+the scheduler, an inherited ``stats``, tensor parallelism) raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -73,9 +87,6 @@ from .stats import EngineStats
 # The JAX engine's other options, with their defaults: any other value
 # selects a discipline this port does not carry yet (ROADMAP Queue A1).
 _UNPORTED_OPTIONS = {
-    "spec_draft_lens": (None, "speculative rounds"),
-    "spec_ngram": (2, "speculative rounds"),
-    "spec_adaptive": (True, "speculative rounds"),
     "host_kv_bytes": (None, "the host KV tier"),
     "host_kv_dir": (None, "the host KV tier"),
     "restore_min_tokens": (None, "the host KV tier"),
@@ -126,7 +137,10 @@ class ServingEngine:
                  prefix_cache: Optional[PrefixCache] = None,
                  prefill_chunks_per_round: int = 2,
                  kv_pages: Optional[int] = None,
-                 prefix_sharing: bool = True, device="cuda", **options):
+                 prefix_sharing: bool = True,
+                 spec_draft_lens: Optional[tuple] = None,
+                 spec_ngram: int = 2, spec_adaptive: bool = True,
+                 device="cuda", **options):
         for name, value in options.items():
             if name not in _UNPORTED_OPTIONS:
                 raise TypeError(
@@ -179,15 +193,46 @@ class ServingEngine:
             raise ValueError(
                 f"prefill_chunks_per_round must be >= 1, got "
                 f"{prefill_chunks_per_round}")
+        # Speculative rounds: the set of draft lengths the adaptive policy
+        # moves within (the JAX engine compiles one executable a member).
+        self.spec = spec_draft_lens is not None
+        if self.spec:
+            lens = tuple(sorted({int(c) for c in spec_draft_lens}))
+            if not lens:
+                raise ValueError("spec_draft_lens must be non-empty")
+            if lens[0] < 2:
+                raise ValueError(
+                    f"every spec draft_len must be >= 2 (1 token of "
+                    f"draft + the verify correction), got {lens[0]}")
+            if spec_ngram < 1:
+                raise ValueError(
+                    f"spec_ngram must be >= 1, got {spec_ngram}")
+            if lens[-1] >= cfg.max_len:
+                raise ValueError(
+                    f"max spec draft_len {lens[-1]} must be < max_len "
+                    f"{cfg.max_len}")
+            self.spec_draft_lens = lens
+        else:
+            self.spec_draft_lens = ()
+        self.spec_ngram = int(spec_ngram)
+        self.spec_adaptive = bool(spec_adaptive)
+        # Verify-window overhang: a live row's chunk may write up to
+        # draft_len_max - 1 slots past its target, so submit tightens the
+        # extent check and paged admission reserves the extra slots.
+        self._spec_overhang = (self.spec_draft_lens[-1] - 1) if self.spec \
+            else 0
+        # The draft length the next round runs: the smallest until
+        # acceptance evidence accumulates.
+        self._draft_len = self.spec_draft_lens[0] if self.spec else None
         if prefix_cache is not None and prefix_cache.cfg != cfg:
             raise ValueError(
                 "prefix_cache was built for a different TransformerConfig; "
-                "its pool rows would not be shape-compatible with this "
-                "engine's cache")
+                "its pool rows would not be shape/quantization-compatible "
+                "with this engine's cache")
         self.device = resolve_device(device)
-        if params["embed"].device != self.device:
+        if tr.params_device(params) != self.device:
             raise ValueError(
-                f"params live on {params['embed'].device}, the engine on "
+                f"params live on {tr.params_device(params)}, the engine on "
                 f"{self.device}")
         if prefix_cache is not None and prefix_cache.device != self.device:
             raise ValueError(
@@ -227,6 +272,10 @@ class ServingEngine:
         self._next_id = 0
         self.round_idx = 0
         self._decode_flops, _ = cm.decode_step_cost(cfg, batch)
+        # Speculative rounds are priced per verify chunk, one constant a
+        # draft length.
+        self._spec_flops = {c: cm.spec_round_cost(cfg, batch, c)[0]
+                            for c in self.spec_draft_lens}
         # Pending + active requests only; finished ones are handed back
         # by step()/run() and dropped here.
         self.requests: Dict[int, Request] = {}
@@ -276,6 +325,9 @@ class ServingEngine:
                          prefix_cache=prefix_cache is not None,
                          kv_pages=kv_pages,
                          prefix_sharing=self.paged and self.prefix_sharing,
+                         spec_draft_lens=(list(self.spec_draft_lens)
+                                          if self.spec else None),
+                         spec_ngram=self.spec_ngram if self.spec else None,
                          device=str(self.device))
 
     # -- submission ---------------------------------------------------
@@ -292,21 +344,31 @@ class ServingEngine:
             raise ValueError(f"steps must be >= 1, got {steps}")
         if deadline_s is not None and deadline_s <= 0:
             raise ValueError(f"deadline_s must be > 0, got {deadline_s}")
-        if s + steps > self.cfg.max_len:
+        if s + steps + self._spec_overhang > self.cfg.max_len:
+            # A speculative row's last chunk may write draft_len_max - 1
+            # slots past its target; those slots must exist.
+            extra = (f" + draft overhang {self._spec_overhang}"
+                     if self._spec_overhang else "")
             raise ValueError(
-                f"prompt {s} + steps {steps} exceeds max_len "
+                f"prompt {s} + steps {steps}{extra} exceeds max_len "
                 f"{self.cfg.max_len}")
+        if self.spec and s < self.spec_ngram:
+            raise ValueError(
+                f"prompt length {s} < spec_ngram {self.spec_ngram}: "
+                f"the prompt-lookup drafter needs at least one full "
+                f"n-gram of committed history")
         if pad_prompt_len(s) > self.cfg.max_len:
             raise ValueError(
                 f"padded prompt {pad_prompt_len(s)} exceeds max_len "
                 f"{self.cfg.max_len}")
-        if self.paged and -(-(s + steps) // PAGE) > self.kv_pages:
+        n_pages = self._pages_needed(s, steps)
+        if self.paged and n_pages > self.kv_pages:
             # Hopeless even against an empty pool: fail now, not by
             # queueing forever.
             raise ValueError(
-                f"request needs {-(-(s + steps) // PAGE)} KV pages > pool "
-                f"size {self.kv_pages} (prompt {s} + steps {steps} at "
-                f"{PAGE} tokens/page)")
+                f"request needs {n_pages} KV pages > pool size "
+                f"{self.kv_pages} (prompt {s} + steps {steps} + overhang "
+                f"{self._spec_overhang} at {PAGE} tokens/page)")
         now = time.perf_counter()
         with self._submit_lock:
             rid = self._next_id
@@ -331,6 +393,13 @@ class ServingEngine:
     def close(self) -> None:
         """Graceful drain: no new submits; ``run`` finishes queued work."""
         self.queue.close()
+
+    def _pages_needed(self, prompt_len: int, steps: int) -> int:
+        """A paged request's whole page complement: its prompt, steps and
+        the speculative write overhang, so a placed request never runs
+        out mid-decode and a verify chunk never writes through a page it
+        does not own."""
+        return -(-(prompt_len + steps + self._spec_overhang) // PAGE)
 
     # -- admission ----------------------------------------------------
 
@@ -443,15 +512,14 @@ class ServingEngine:
 
     def _reserve_pages(self, req: Request):
         """Paged placement: resolve the prefix-index hit and reserve the
-        request's whole page complement, ``ceil((prompt + steps) /
-        PAGE)`` chunks, aliased prefix pages first and fresh pages for the
-        rest, so a placed request never runs out mid-decode. Returns
+        request's whole page complement (:meth:`_pages_needed`), aliased
+        prefix pages first and fresh pages for the rest. Returns
         ``(alias_pages, hit_len, fresh_pages)``, or None when the pool
         cannot fit it even after evicting stored prefixes."""
         entry_pages, hit = None, 0
         if self.prefix_index is not None:
             entry_pages, hit = self.prefix_index.lookup(req.prompt)
-        need = -(-(req.prompt_len + req.steps) // PAGE) - hit // PAGE
+        need = self._pages_needed(req.prompt_len, req.steps) - hit // PAGE
         if hit:
             # Pin the aliased pages first: the eviction below may drop the
             # very entry this hit resolved to.
@@ -470,7 +538,7 @@ class ServingEngine:
         """Write the claimed row's page table: the aliased prefix pages
         for chunks [0, hit / PAGE), fresh pages up to the reservation,
         the write sink beyond it. No KV byte moves."""
-        n_total = -(-(req.prompt_len + req.steps) // PAGE)
+        n_total = self._pages_needed(req.prompt_len, req.steps)
         if hit:
             # The contiguous copy's fault site, at the aliasing here.
             faults.check("prefix_copy", round_idx=self.round_idx,
@@ -619,10 +687,10 @@ class ServingEngine:
         return nxt
 
     def _decode_fn(self):
-        """The round's C=1 decode step, ``(tokens (B, 1), pos (B,)) ->
-        logits (B, 1, vocab)``, over the cache or the page pool (tables
-        pushed once: pages are reserved at admission, so a round never
-        allocates)."""
+        """The round's decode step, ``(tokens (B, C), pos (B,)) -> logits
+        (B, C, vocab)`` (C = 1, or the draft length), over the cache or
+        the page pool (tables pushed once: pages are reserved at
+        admission, so a round never allocates)."""
         if self.paged:
             tables = torch.as_tensor(self._tables, device=self.device)
             return lambda tok, pos: tr.decode_chunk_paged(
@@ -669,6 +737,86 @@ class ServingEngine:
             iters += 1
         return (filled.cpu().numpy(), done.cpu().numpy(), iters,
                 live.cpu().numpy())
+
+    def _spec_round_loop(self, done0: np.ndarray, draft_len: int):
+        """One bounded SPECULATIVE round (the JAX package's
+        ``_spec_round_loop``): each iteration drafts a (B, C) chunk a row
+        (``transformer._prompt_lookup_draft``, history-masked so a draft
+        reads only the row's own committed tokens), verifies the whole
+        batch in one decode call and advances each live row by its own
+        count. Returns host copies ``(filled, done, iters, live, drafted,
+        accepted)``; ``iters`` counts verify chunks.
+
+        * Frozen rows draft the repeat-last chunk at base ``min(filled -
+          1, total - C)`` (a row parked at ``filled == max_len`` mid
+          prefill writes in bounds); base's rewrite is a fixed point and
+          the rest lands past the row's output span or is rewritten
+          before it is read.
+        * A live row commits ``adv = min(m + 1, eos_cut, target -
+          filled)``: the accepted drafts plus the correction (or the
+          sampled bonus), cut after an emitted eos, clamped at target.
+        * Sampling runs ``transformer._spec_emit`` on each live row from
+          its request's generator; frozen rows draw nothing.
+        * The ledger: a live chunk adds C - 1 to ``drafted`` and ``adv -
+          1`` to ``accepted``, so ``emitted == 1 + live_iters +
+          spec_accepted`` a request."""
+        dev = self.device
+        decode = self._decode_fn()
+        buf = self._buf
+        total = buf.shape[1]
+        rows = torch.arange(self.batch, device=dev)
+        cols = torch.arange(draft_len, device=dev)
+        filled = torch.as_tensor(self._filled, device=dev)
+        target = torch.as_tensor(self._target, device=dev)
+        done = torch.as_tensor(done0, device=dev)
+        live = torch.zeros(self.batch, dtype=torch.long, device=dev)
+        drafted = torch.zeros_like(live)
+        accepted = torch.zeros_like(live)
+        iters = 0
+        while iters < self.round_steps:
+            tok = buf[rows, filled - 1]
+            # Freeze at entry, as the one-token round: at-target rows and
+            # rows whose last token is eos must not decode.
+            done = done | (filled >= target)
+            if self.eos_id is not None:
+                done = done | (tok == self.eos_id)
+            done_host = done.cpu().numpy()  # the one host sync a chunk
+            if done_host.all():
+                break
+            chunk = tr._prompt_lookup_draft(buf, filled, done, draft_len,
+                                            self.spec_ngram,
+                                            mask_history=True)
+            base = torch.clamp(filled - 1, max=total - draft_len)
+            logits = decode(chunk, base).to(torch.float32)
+            emit, m = tr._greedy_accept(logits, chunk)
+            if self.temperature > 0.0:
+                lp = torch.log_softmax(logits / self.temperature, dim=-1)
+                for r in np.flatnonzero(~done_host):
+                    emit[r], m[r] = tr._spec_emit(lp[r], chunk[r, 1:],
+                                                  self._gens[r])
+            adv = m + 1
+            if self.eos_id is not None:
+                is_eos = emit == self.eos_id
+                cut = torch.where(is_eos.any(dim=1),
+                                  torch.argmax(is_eos.to(torch.int8), dim=1)
+                                  + 1, draft_len)
+                adv = torch.minimum(adv, cut)
+            adv = torch.where(done, 0, torch.minimum(adv, target - filled))
+            emit = torch.where(done[:, None], tok[:, None], emit)
+            start = torch.where(done, base, filled)
+            buf[rows[:, None], start[:, None] + cols] = emit
+            live += (~done).long()
+            drafted += torch.where(done, 0, draft_len - 1)
+            accepted += torch.where(done, 0, adv - 1)
+            filled = filled + adv
+            done = done | (filled >= target)
+            iters += 1
+        if self.eos_id is not None:
+            # An eos committed on the round's last chunk retires now.
+            done = done | (buf[rows, filled - 1] == self.eos_id)
+        return (filled.cpu().numpy(), done.cpu().numpy(), iters,
+                live.cpu().numpy(), drafted.cpu().numpy(),
+                accepted.cpu().numpy())
 
     def _retire(self, filled: np.ndarray, done: np.ndarray) -> List[Request]:
         """Free finished rows and extract their outputs (eos-padded past
@@ -731,15 +879,24 @@ class ServingEngine:
             done0 = ~self._active | (self._filled >= self._target)
             t_dec0 = time.perf_counter()
             faults.check("decode_round", round_idx=self.round_idx)
+            # The draft length this round runs (the adaptive pick below
+            # sets the next round's).
+            c_used = self._draft_len
             with self.tracer.span("serving.decode_round",
                                   occupied=self.slots.n_occupied):
-                filled, done, iters, live = self._round_loop(done0)
+                if self.spec:
+                    filled, done, iters, live, drafted, accepted = \
+                        self._spec_round_loop(done0, c_used)
+                else:
+                    filled, done, iters, live = self._round_loop(done0)
             filled = faults.corrupt("decode_round", filled,
                                     round_idx=self.round_idx)
             decode_s = time.perf_counter() - t_dec0
             if iters:
-                self.stats.calibration.record(
-                    "decode", iters * self._decode_flops, decode_s)
+                flops = self._spec_flops[c_used] if self.spec \
+                    else self._decode_flops
+                self.stats.calibration.record("decode", iters * flops,
+                                              decode_s)
             self._filled = np.array(filled, np.int64)
             # Every legal row sits in [1, max_len]; anything else means
             # the device round-trip cannot be trusted.
@@ -753,10 +910,15 @@ class ServingEngine:
                 for row in self.slots.occupied_rows():
                     req = self.requests[self.slots.owner_of(row)]
                     req.live_iters += int(live[row])
+                    if self.spec:
+                        req.spec_drafted += int(drafted[row])
+                        req.spec_accepted += int(accepted[row])
             occupied = self.slots.n_occupied
             self.stats.record_round(self.round_idx, iters,
                                     occupied=occupied,
                                     live_iters=int(live.sum()))
+            spec_fields = self._spec_fields(drafted, accepted, c_used) \
+                if self.spec else {}
             finished = self._retire(self._filled, done)
         self.metrics.gauge("serving_queue_depth").set(len(self.queue))
         live_sum = int(live.sum())
@@ -772,9 +934,26 @@ class ServingEngine:
             round_s=round(time.perf_counter() - t_round0, 6),
             decode_s=round(decode_s, 6),
             drift_decode=round(self.stats.calibration.drift("decode"), 4),
-            **self._page_fields())
+            **self._page_fields(), **spec_fields)
         self.round_idx += 1
         return expired + finished
+
+    def _spec_fields(self, drafted: np.ndarray, accepted: np.ndarray,
+                     c_used: int) -> dict:
+        """Record a speculative round's acceptance, pick the next round's
+        draft length from the acceptance EWMA (``spec_adaptive``), and
+        return the round event's spec fields."""
+        d_sum = int(drafted.sum())
+        a_sum = int(accepted.sum())
+        if d_sum:
+            self.stats.record_spec_round(d_sum, a_sum, c_used)
+            if self.spec_adaptive:
+                self._draft_len = cm.pick_draft_len(
+                    self.stats.spec_accept_rate(), self.spec_draft_lens,
+                    self.cfg, self.batch)
+        return dict(draft_len=c_used, spec_drafted=d_sum,
+                    spec_accepted=a_sum,
+                    accept_rate=round(a_sum / d_sum, 4) if d_sum else 0.0)
 
     def _page_fields(self) -> dict:
         """The round event's page ledger (paged engines): occupancy and

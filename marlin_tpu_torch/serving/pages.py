@@ -5,7 +5,9 @@ yet: ROADMAP Queue A1).
 
 * The KV cache is one pool per layer, ``(n_pages + 1, PAGE, Hk, Dh)`` per
   K and V, at the 16-token page the prefix trie chunks by
-  (``serving/prefix.GRAIN``).
+  (``serving/prefix.GRAIN``); an int8 pool (``cfg.kv_quant``) adds
+  ``(n_pages + 1, PAGE, Hk, 1)`` scale buffers, which travel with their
+  pages (``models/quant.kv_layer_keys``).
 * A batch row holds a page table (``max_len // PAGE`` entries), not KV
   rows: attention reads gather pages into the dense layout
   (``models/transformer.gather_kv_pages``) and writes scatter through the
@@ -36,6 +38,7 @@ import threading
 from typing import Dict, Iterable, List, Optional
 
 from ..models import transformer as tr
+from ..models.quant import kv_layer_keys
 from ..obs import metrics as obs_metrics
 from ..utils.hw import resolve_device
 
@@ -96,9 +99,10 @@ class PagePool:
 
     @property
     def page_bytes(self) -> int:
-        """Device bytes of one page across every layer's K and V."""
-        return sum(buf[0].numel() * buf.element_size()
-                   for layer in self.pages for buf in layer.values())
+        """Device bytes of one page across every layer's K and V (and, on
+        an int8 pool, their scales)."""
+        return sum(layer[name][0].numel() * layer[name].element_size()
+                   for layer in self.pages for name in kv_layer_keys(layer))
 
     @property
     def pool_bytes(self) -> int:

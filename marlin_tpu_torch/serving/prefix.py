@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from ..models import transformer as tr
+from ..models.quant import kv_layer_keys
 from ..obs import metrics as obs_metrics
 from ..utils.hw import resolve_device
 
@@ -40,9 +41,11 @@ GRAIN = 16  # trie chunk and hit-length granularity: the admission bucket
 def copy_kv_rows(dst, src, dst_row: int, src_row: int, length: int):
     """Copy KV slots [0, length) of row ``src_row`` of cache ``src`` into
     row ``dst_row`` of cache ``dst``, in place (the JAX package donated
-    ``dst``); returns ``dst``."""
+    ``dst``); returns ``dst``. An int8 cache's scale buffers move with
+    their slots (``models/quant.kv_layer_keys``)."""
     for dl, sl in zip(dst, src):
-        for name, buf in dl.items():
+        for name in kv_layer_keys(dl):
+            buf = dl[name]
             buf[dst_row, :length] = sl[name][src_row, :length].to(buf.dtype)
     return dst
 

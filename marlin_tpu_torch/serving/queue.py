@@ -54,6 +54,12 @@ class Request:
     prefix_copy_s: float = 0.0  # prefix-cache row copy wall-clock
     live_iters: int = 0  # decode iterations this request was live for
     emitted: int = 0  # tokens actually generated (< steps if eos fired)
+    # Speculative rounds' acceptance ledger: draft positions this
+    # request's live verify chunks carried (draft_len - 1 each) and those
+    # that committed. The chunk's own token is billed to live_iters, so
+    # emitted == 1 + live_iters + spec_accepted exactly.
+    spec_drafted: int = 0
+    spec_accepted: int = 0
     status: str = "pending"  # pending -> active -> done | timeout
     tokens: Optional[np.ndarray] = None
 

@@ -9,7 +9,11 @@ writes the row's K/V and tokens IN PLACE (the JAX package donated the
 cache and buffer for the same effect). :func:`prefill_chunk_into_row` and
 :func:`prefill_chunk_into_row_paged` admit one chunk at a time through the
 model's chunk path (plain cached attention, no flash kernel), the
-discipline the prefix cache and paged sharing are bitwise exact on.
+discipline the prefix cache and paged sharing are bitwise exact on. On an
+int8 cache (``cfg.kv_quant``) every admission quantizes the prompt's K/V
+per vector as it writes them (after the flash kernel, in the one-shot
+path), and the scale buffers move with their slots
+(``models/quant.kv_layer_keys``).
 
 The prompt is padded to the 16-token bucket (:func:`pad_prompt_len`).
 Causality keeps the real rows independent of the pad: a real query never
@@ -25,6 +29,7 @@ from typing import List, Optional
 import torch
 
 from ..models import transformer as tr
+from ..models.quant import kv_layer_keys
 from ..utils.split import pad_to_multiple
 
 ADMISSION_BUCKET = 16
@@ -63,10 +68,13 @@ def prefill_into_row(params, cache, buf, row: int, prompt, cfg,
     padded = pad_to_multiple(prompt, 0, ADMISSION_BUCKET)
     p = padded.shape[0]
     x = tr._embed_prefix(params, padded[None], cfg)  # (1, P, D)
+
+    def put(buf, val):
+        buf[row, :p] = val[0].to(buf.dtype)
+
     for layer, bp in zip(cache, params["blocks"]):
         x, k, v = tr._block(bp, x, cfg, return_kv=True)
-        layer["k"][row, :p] = k[0]
-        layer["v"][row, :p] = v[0]
+        tr._put_kv(layer, k, v, put, bool(cfg.kv_quant))
     # Logits at the last REAL position; causality makes that hidden
     # state independent of the pad.
     h = tr._layer_norm(params["ln_f"], x[0, prompt_len - 1:prompt_len])
@@ -97,7 +105,8 @@ def prefill_chunk_into_row(params, cache, buf, row: int, chunk, start: int,
     Any chunk split of a prompt, and any prefix copy plus tail, writes the
     same cache bits and samples from the same logits (transformer._tiles).
     """
-    row_cache = [{name: buf_[row:row + 1] for name, buf_ in layer.items()}
+    row_cache = [{name: layer[name][row:row + 1]
+                  for name in kv_layer_keys(layer)}
                  for layer in cache]
     logits, _ = tr.prefill_chunk(params, row_cache, chunk[None], start, cfg,
                                  last=chunk_len - 1)

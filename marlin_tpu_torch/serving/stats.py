@@ -1,6 +1,6 @@
 """Serving observability: per-request latency stats, the slot occupancy
-ledger and the prefix-reuse and admission-byte ledgers — port of
-``marlin_tpu/serving/stats.py``.
+ledger, the prefix-reuse and admission-byte ledgers and the speculative
+acceptance ledger — port of ``marlin_tpu/serving/stats.py``.
 
 The decode round has a fixed batch, so every iteration costs the whole
 batch's work whether or not a row holds live work:
@@ -42,6 +42,10 @@ def request_stats(req) -> dict:
         "live_iters": req.live_iters,
         "phases": req.phases(),
     }
+    if req.spec_drafted:
+        # Speculative engines: emitted == 1 + live_iters + spec_accepted.
+        out["spec_drafted"] = req.spec_drafted
+        out["spec_accepted"] = req.spec_accepted
     if req.status == "done":
         dt = max(req.finish_time - req.admit_time, 1e-9)
         out["decode_rounds"] = req.finish_round - req.admit_round + 1
@@ -79,12 +83,20 @@ class EngineStats:
     n_zero_copy_hits: int = 0
     # The engine's page pool (serving/pages.py; None when contiguous).
     page_pool: object = None
+    # Speculative acceptance (zero without spec rounds): lifetime totals,
+    # and the per-round EWMA the adaptive draft-length policy reads.
+    n_spec_drafted: int = 0
+    n_spec_accepted: int = 0
+    spec_accept_ewma: Optional[float] = None
     rounds: deque = field(default_factory=lambda: deque(maxlen=HISTORY))
     completed: deque = field(default_factory=lambda: deque(maxlen=HISTORY))
     # Guards deque iteration against appends from the stepping thread.
     _lock: object = field(default_factory=threading.Lock, repr=False)
 
     PHASE_KEYS = ("queue_wait", "admit", "decode", "total")
+
+    # EWMA weight of the per-round acceptance rate (CostCalibration's).
+    SPEC_ACCEPT_ALPHA = 0.2
 
     def __post_init__(self):
         if self.calibration is None:
@@ -146,6 +158,50 @@ class EngineStats:
                     "serving_kv_zero_copy_hits_total",
                     help="prefix hits admitted by page-table aliasing "
                          "with zero KV bytes moved").inc()
+
+    def record_spec_round(self, drafted: int, accepted: int,
+                          draft_len: int) -> None:
+        """One speculative round: ``drafted`` draft positions carried by
+        live verify chunks, ``accepted`` of them committed, at
+        ``draft_len``. Feeds the totals, the EWMA and the mirrors
+        (``serving_spec_drafted_total``, ``serving_spec_accepted_total``,
+        ``serving_spec_accept_rate``, ``serving_spec_draft_len``)."""
+        self.n_spec_drafted += drafted
+        self.n_spec_accepted += accepted
+        rate = accepted / drafted if drafted else 0.0
+        if self.spec_accept_ewma is None:
+            self.spec_accept_ewma = rate
+        else:
+            a = self.SPEC_ACCEPT_ALPHA
+            self.spec_accept_ewma = a * rate \
+                + (1.0 - a) * self.spec_accept_ewma
+        if self.registry is not None:
+            self.registry.counter(
+                "serving_spec_drafted_total",
+                help="draft positions carried by live speculative "
+                     "verify chunks").inc(drafted)
+            self.registry.counter(
+                "serving_spec_accepted_total",
+                help="draft positions committed by speculative "
+                     "verification").inc(accepted)
+            self.registry.gauge(
+                "serving_spec_accept_rate",
+                help="EWMA draft-acceptance rate the adaptive "
+                     "draft-length policy reads").set(
+                round(self.spec_accept_rate(), 4))
+            self.registry.gauge(
+                "serving_spec_draft_len",
+                help="draft length the last speculative round ran "
+                     "with").set(draft_len)
+
+    def spec_accept_rate(self) -> float:
+        """The rate the draft-length policy reads: the round EWMA once a
+        speculative round ran, else the lifetime ratio, else 0.0."""
+        if self.spec_accept_ewma is not None:
+            return self.spec_accept_ewma
+        if self.n_spec_drafted:
+            return self.n_spec_accepted / self.n_spec_drafted
+        return 0.0
 
     def prefix_hit_rate(self) -> float:
         total = self.n_prefix_hits + self.n_prefix_misses
@@ -241,6 +297,14 @@ class EngineStats:
                     self.reclaimed_prefill_flops / 1e9, 4),
                 "admission_copy_bytes": self.admission_copy_bytes,
                 "zero_copy_hits": self.n_zero_copy_hits,
+            })
+        if self.n_spec_drafted:
+            out.update({
+                "spec_drafted": self.n_spec_drafted,
+                "spec_accepted": self.n_spec_accepted,
+                "spec_accept_rate": round(self.spec_accept_rate(), 4),
+                "spec_accept_lifetime": round(
+                    self.n_spec_accepted / self.n_spec_drafted, 4),
             })
         if self.page_pool is not None:
             out["kv_pages"] = self.page_pool.summary()

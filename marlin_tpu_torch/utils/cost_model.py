@@ -1,6 +1,8 @@
 """Analytic costs (the part of ``marlin_tpu/utils/cost_model.py`` on the
-ported paths): the decode-step and admission rooflines and the
-measured-vs-predicted drift ledger the serving engine reads, the
+ported paths): the decode-step, speculative-round and admission rooflines
+(with the int8 weights' and cache's bytes), the acceptance-adaptive
+draft-length policy and the measured-vs-predicted drift ledger the serving
+engine reads, the
 flash-attention tile accounting and training-step FLOPs that
 chip_smoke.py reads, and the dense GEMM's local and SUMMA costs."""
 
@@ -26,22 +28,99 @@ def transformer_param_count(cfg) -> int:
     return int(total)
 
 
-def decode_step_cost(cfg, batch: int, param_itemsize: int = 4,
-                     cache_itemsize: int = 4) -> Tuple[float, float]:
-    """(flops, bytes) of one decode step at batch ``batch``: the step
-    streams the parameters once and the KV cache once (read every slot,
-    write one). FLOPs: 2 * params * B for the matmuls plus the cache
-    attention."""
+def quantized_weight_counts(cfg) -> Tuple[int, int]:
+    """(int8 elements, f32 scales) of ``models/quant.quantize_params_int8``
+    on this config: the embed table (a scale a row) and each block's
+    dense 2-D weights (a scale an output channel)."""
+    d, ff = cfg.d_model, cfg.d_ff
+    kvd = cfg.kv_heads * (d // cfg.n_heads)
+    q = cfg.vocab * d
+    s = cfg.vocab
+    for qe, se in ((d * (d + 2 * kvd), d + 2 * kvd), (d * d, d),
+                   (d * ff, ff), (ff * d, d)):
+        q += cfg.n_layers * qe
+        s += cfg.n_layers * se
+    return q, s
+
+
+def _param_bytes(cfg, param_itemsize: int, quant_weights: bool) -> float:
+    """Bytes one pass streams of the parameters: int8 weights at 1 byte
+    an element, their scales and every float leaf at ``param_itemsize``
+    (the compute dtype the scales are cast to)."""
     params = transformer_param_count(cfg)
+    if not quant_weights:
+        return float(params * param_itemsize)
+    q_elems, n_scales = quantized_weight_counts(cfg)
+    return q_elems * 1.0 + (n_scales + params - q_elems) \
+        * float(param_itemsize)
+
+
+def _cache_bytes(cfg, batch: int, cache_itemsize: int) -> Tuple[float, int]:
+    """(bytes of the whole KV cache, its slots a sequence): int8 slots
+    plus one f32 scale a (Dh,) vector when ``cfg.kv_quant``."""
     dh = cfg.d_model // cfg.n_heads
     cache_len = min(cfg.window, cfg.max_len) if cfg.window else cfg.max_len
     cache_elems = 2 * cfg.n_layers * batch * cache_len * cfg.kv_heads * dh
+    if getattr(cfg, "kv_quant", ""):
+        return cache_elems * 1.0 + (cache_elems // dh) * 4.0, cache_len
+    return float(cache_elems * cache_itemsize), cache_len
+
+
+def decode_step_cost(cfg, batch: int, param_itemsize: int = 4,
+                     cache_itemsize: int = 4,
+                     quant_weights: bool = False) -> Tuple[float, float]:
+    """(flops, bytes) of one decode step at batch ``batch``: the step
+    streams the parameters once and the KV cache once (read every slot,
+    write one). FLOPs: 2 * params * B for the matmuls plus the cache
+    attention. ``cfg.kv_quant == "int8"`` prices the cache at 1 byte an
+    element plus an f32 scale a vector (``cache_itemsize`` unused);
+    ``quant_weights`` the int8 params (:func:`_param_bytes`)."""
+    params = transformer_param_count(cfg)
+    dh = cfg.d_model // cfg.n_heads
+    cache_bytes, cache_len = _cache_bytes(cfg, batch, cache_itemsize)
     flops = 2.0 * params * batch + 2.0 * 2.0 * cfg.n_layers * batch \
         * cache_len * cfg.kv_heads * dh * (cfg.n_heads // cfg.kv_heads)
-    cache_bytes = float(cache_elems * cache_itemsize)
-    byts = params * float(param_itemsize) + cache_bytes \
+    byts = _param_bytes(cfg, param_itemsize, quant_weights) + cache_bytes \
         + cache_bytes / cache_len
     return flops, float(byts)
+
+
+def spec_round_cost(cfg, batch: int, draft_len: int,
+                    param_itemsize: int = 4, cache_itemsize: int = 4,
+                    quant_weights: bool = False) -> Tuple[float, float]:
+    """(flops, bytes) of ONE speculative verify chunk at batch B and chunk
+    width C = ``draft_len``: FLOPs C times a decode step's, but the
+    parameters and the cache stream once a chunk; only the written slots
+    grow C-fold. Int8 pricing is :func:`decode_step_cost`'s."""
+    if draft_len < 1:
+        raise ValueError(f"draft_len must be >= 1, got {draft_len}")
+    flops1, _ = decode_step_cost(cfg, batch, param_itemsize=param_itemsize,
+                                 cache_itemsize=cache_itemsize,
+                                 quant_weights=quant_weights)
+    cache_bytes, cache_len = _cache_bytes(cfg, batch, cache_itemsize)
+    byts = _param_bytes(cfg, param_itemsize, quant_weights) + cache_bytes \
+        + draft_len * cache_bytes / cache_len
+    return float(flops1 * draft_len), float(byts)
+
+
+def pick_draft_len(accept_rate: float, draft_lens, cfg, batch: int,
+                   **cost_kwargs) -> int:
+    """The acceptance-adaptive draft-length policy: over the engine's set
+    of draft lengths, the C maximizing expected committed tokens per
+    streamed byte at acceptance rate alpha, E[tokens] = sum_{k<C}
+    alpha^k, bytes from :func:`spec_round_cost`. Ties go to the smallest
+    C."""
+    lens = sorted({int(c) for c in draft_lens})
+    if not lens:
+        raise ValueError("empty draft_lens")
+    a = min(max(float(accept_rate), 0.0), 0.999)
+    best, best_v = lens[0], -1.0
+    for c in lens:
+        _, byts = spec_round_cost(cfg, batch, c, **cost_kwargs)
+        v = (1.0 - a ** c) / (1.0 - a) / byts
+        if v > best_v * (1.0 + 1e-9):
+            best, best_v = c, v
+    return best
 
 
 def admission_cost(cfg, prompt_len: int, hit_len: int = 0,

@@ -529,7 +529,7 @@ class TestPagedNoRebuild:
         # The reference's donation and compile-count pins in the port's
         # terms: the pool and buffer keep their storage across admissions
         # and rounds, and every call runs at one of two shapes (a prefill
-        # tile, a decode step), hit or miss.
+        # tile, a decode tile), hit or miss.
         cfg = _cfg()
         params = _params(cfg, seed=8)
         rng = np.random.default_rng(3)
@@ -569,7 +569,7 @@ class TestPagedNoRebuild:
         assert eng.stats.n_zero_copy_hits >= 8
         assert pointers() == before
         assert shapes == {(1, pt.PREFILL_TILE, cfg.d_model),
-                          (3, 1, cfg.d_model)}
+                          (3, pt.DECODE_TILE, cfg.d_model)}
 
 
 class TestCapacity:

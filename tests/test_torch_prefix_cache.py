@@ -453,7 +453,8 @@ class TestPrefixReuseExactness:
         # The reference's donation and no-recompile pins in the port's
         # terms: copies, chunk prefills and rounds land in the SAME
         # buffers, and every prefill call runs at one tile shape whatever
-        # the chunk, the hit or the prompt length (decode at (B, 1)).
+        # the chunk, the hit or the prompt length (decode in (B,
+        # DECODE_TILE) tiles).
         cfg = _cfg()
         params = _params(cfg, seed=8)
         rng = np.random.default_rng(3)
@@ -495,7 +496,7 @@ class TestPrefixReuseExactness:
         assert pc.hits >= 8
         assert pointers() == before
         assert shapes == {(1, pt.PREFILL_TILE, cfg.d_model),
-                          (2, 1, cfg.d_model)}
+                          (2, pt.DECODE_TILE, cfg.d_model)}
 
     def test_prefix_cache_engine_matches_the_jax_engine(self):
         # Same weights, the same shared-prefix workload through both

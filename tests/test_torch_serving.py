@@ -314,15 +314,39 @@ class TestServingLedgerAndGuards:
 
 
 @pytest.mark.parametrize("option,value", [
-    ("spec_draft_lens", (2, 4)),
     ("host_kv_bytes", 1 << 20), ("host_kv_dir", "/tmp/kv"),
     ("restore_min_tokens", 32), ("scheduler", object()),
-    ("spec_ngram", 3), ("spec_adaptive", False), ("stats", object()),
+    ("stats", object()),
 ])
 def test_non_default_engine_options_raise(option, value):
     cfg = _cfg()
     with pytest.raises(NotImplementedError, match="ROADMAP Queue A1"):
         _engine(_params(cfg), cfg, **{option: value})
+
+
+@pytest.mark.parametrize("options", [
+    dict(spec_draft_lens=(2, 4)),
+    dict(spec_draft_lens=(2, 4), spec_ngram=3),
+    dict(spec_draft_lens=(2, 4), spec_adaptive=False),
+], ids=["spec_draft_lens", "spec_ngram", "spec_adaptive"])
+def test_spec_options_serve(options):
+    # The speculative options the engine once refused: each serves, and
+    # every request's tokens are its B=1 generate's.
+    cfg = _cfg()
+    params = _params(cfg, seed=6)
+    eng = _engine(params, cfg, batch=2, round_steps=3, **options)
+    rng = np.random.default_rng(8)
+    workload = [(np.tile(rng.integers(0, cfg.vocab, 3), 5), 14),
+                (rng.integers(0, cfg.vocab, 11), 9),
+                (np.tile(rng.integers(0, cfg.vocab, 4), 3), 12)]
+    ids, done = _run_workload(eng, workload, waves=2)
+    assert eng.spec and eng.stats.n_spec_drafted > 0
+    if not options.get("spec_adaptive", True):
+        assert eng._draft_len == 2
+    for rid, (prompt, steps) in ids.items():
+        np.testing.assert_array_equal(
+            done[rid].tokens, _generate(params, cfg, prompt, steps),
+            err_msg=f"request {rid}")
 
 
 @pytest.mark.parametrize("options,error,match", [
@@ -337,11 +361,9 @@ def test_non_default_engine_options_raise(option, value):
      "ROADMAP Queue A1"),
     (dict(kv_pages=8, scheduler=object()), NotImplementedError,
      "ROADMAP Queue A1"),
-    (dict(prefill_chunk=32, spec_draft_lens=(2, 4)), NotImplementedError,
-     "ROADMAP Queue A1"),
 ], ids=["pages_with_cache", "sharing_paged_only", "chunk_24", "chunk_8",
         "chunks_per_round_0", "pages_with_host_tier",
-        "pages_with_scheduler", "chunk_with_spec"])
+        "pages_with_scheduler"])
 def test_discipline_guards(options, error, match):
     # The reference's constructor guards on the ported disciplines, and
     # the disciplines still to port refused beside them.
@@ -381,7 +403,7 @@ def test_configs_outside_the_slice_raise():
     params = _params(_cfg())
     with pytest.raises(NotImplementedError, match="dense"):
         _engine(params, _cfg(window=8))
-    for kw in (dict(tp=2), dict(kv_quant="int8"), dict(n_experts=2)):
+    for kw in (dict(tp=2), dict(n_experts=2)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             _engine(params, _cfg(**kw))
     with pytest.raises(TypeError, match="unexpected option"):

@@ -248,13 +248,22 @@ class TestExample:
         out = capsys.readouterr().out
         assert "final loss" in out and "greedy decode 8 tokens" in out
 
-    @pytest.mark.parametrize("flag", ["--int8", "--spec"])
-    def test_unported_options_raise(self, flag):
+    @pytest.mark.parametrize("flag,line", [
+        ("--int8", "(int8 weights + int8 KV cache)"),
+        ("--spec", "speculative decode (draft_len=4)")])
+    def test_int8_and_spec_decode(self, capsys, flag, line):
+        # The JAX example's decoding modes: the int8 stack, and
+        # speculation, whose greedy tokens are plain greedy's.
         from marlin_tpu_torch.examples import transformer_lm
 
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue A1"):
-            transformer_lm.main(["1", "2", "16", "64", flag, "--device",
-                                 "cpu"])
+        assert transformer_lm.main(["1", "2", "16", "64", flag, "--device",
+                                    "cpu"]) == 0
+        out = capsys.readouterr().out
+        assert line in out
+        if flag == "--spec":
+            plain = out.split("(KV cache): ")[1].split("-> ")[1]
+            spec = out.split(line + ": ")[1].split("-> ")[1]
+            assert plain.splitlines()[0] == spec.splitlines()[0]
 
 
 @pytest.mark.parametrize("d_model, seq, dtype", [(64, 64, "float32"),

@@ -261,7 +261,6 @@ class TestSample:
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(kv_quant="int8"), "int8 KV"),
     (dict(n_experts=2), "MoE"),
     (dict(sequence_parallel=True), "sequence-parallel"),
     (dict(tp=2), "tensor parallelism"),
