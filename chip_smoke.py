@@ -77,6 +77,32 @@ Phases, each of which exits non-zero on failure:
    round and per iteration or verify chunk, accept rate, tokens per
    verify chunk, the final draft length, weight and KV bytes, peak
    memory; and (speculative_summary:) both generations' ms per token.
+   Then the host KV tier and SLO scheduling (phase_host_tier). First
+   cost_model.run_kv_restore_crossover_sweep at the flagship (64-512
+   tokens: the restore scatter from pinned host memory against the
+   chunked paged re-prefill), whose derived restore_min_tokens the tier
+   arms run with. (a) 24 requests, two in a row behind each of 6
+   distinct 512-token system prompts (0, 0, 1, 1, ..., 5, 5, 0, 0, ...),
+   tails of 1-15 tokens (so a stored prefix is exactly its system
+   prompt), 32 steps, batch 8, prefill_chunk 128, 256 KV pages: arms
+   bare, tier (host_kv_bytes 256 MiB) and tier_dir (the same, writing a
+   spill dir), then a fourth engine that adopts a system prompt from
+   that dir. Held: the tier arms' and the adopter's tokens equal the
+   bare arm's, request by request; spills and restores > 0 in each tier
+   arm, every restore >= 512 tokens; more reclaimed prefill tokens than
+   the bare arm; no pinned row left. (b) 8 batch-class requests (256-
+   token prompts, 128 steps) fill batch 8; after 3 rounds 4 interactive
+   ones (64 tokens, 16 steps) arrive; paged, host_kv_bytes 256 MiB,
+   round_steps 4; a FIFO engine against a Scheduler one, for bf16
+   greedy, the int8 stack, spec_draft_lens=(4, 8) and bf16 at
+   temperature 0.8. Held: each pair's tokens bitwise equal; preempts
+   >= 1 and resumes == preempts; no pinned row after the drain. Over the
+   whole phase the flash forward launches 0 times. Printed
+   (host_tier_crossover:, host_tier:, host_tier_adopt:, sched:): restore
+   and re-prefill ms, spill and restore ms and GB/s, admission ms cold,
+   hit and restored, TTFT median and max, tokens/s, pool and host bytes;
+   freeze and thaw ms and bytes, the interactive wait in rounds and ms,
+   batch-class tokens a round over FIFO's.
 6. Train: the same flagship, bf16 compute on f32 master params, B=8,
    S=2048, SGD at lr 0.1: one warm-up train_step, then 5 timed steps on
    one fixed batch. Every loss finite, the last below the first, and the
@@ -219,6 +245,7 @@ from __future__ import annotations
 import collections
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -3379,6 +3406,303 @@ def phase_speculative(card: str, seed: int = 0):
     return launches
 
 
+TIER_STEPS = 32  # steps of a request of the host-tier traffic
+TIER_PAGES = 256  # kv_pages of its arms (32 MiB of the flagship's pages)
+TIER_HOST_BYTES = 256 << 20  # host_kv_bytes of the tier and sched arms
+SCHED_BATCH_PROMPT, SCHED_BATCH_STEPS = 256, 128  # the batch class
+SCHED_CHAT_PROMPT, SCHED_CHAT_STEPS = 64, 16  # the interactive class
+
+
+def _tier_workload(cfg, seed: int):
+    """24 requests over 6 distinct SYSTEM_PROMPT-token system prompts,
+    two consecutive requests a prompt (0, 0, 1, 1, ..., 5, 5, 0, 0, ...),
+    each with its own tail of 1-15 tokens and TIER_STEPS steps. A stored
+    prefix is the prompt's 16-aligned floor, so a tail under 16 tokens
+    stores exactly the system prompt: the entry a later request with
+    another tail can restore whole."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed + 23)
+    systems = [rng.integers(0, cfg.vocab, SYSTEM_PROMPT) for _ in range(6)]
+    return [(np.concatenate([systems[(i // 2) % 6],
+                             rng.integers(0, cfg.vocab, int(t))]),
+             TIER_STEPS) for i, t in enumerate(rng.integers(1, 16, 24))]
+
+
+def _event_rates(events, time_key):
+    """Median ms, and GB/s of the summed bytes over the summed seconds,
+    of a runlog's spill, restore, preempt or resume events."""
+    import numpy as np
+
+    if not events:
+        return dict(n=0)
+    secs = [e[time_key] for e in events]
+    return dict(n=len(events), bytes_each=sorted({e["bytes"]
+                                                  for e in events}),
+                ms_median=1e3 * float(np.median(secs)),
+                ms_max=1e3 * max(secs),
+                gb_per_s=sum(e["bytes"] for e in events) / sum(secs) / 1e9)
+
+
+def _tier_arms(card, params, cfg, workload, restore_min, spill_dir):
+    """(a)'s arms over one workload: bare (no tier), tier (host memory)
+    and tier_dir (the same, also writing ``spill_dir``). Returns each
+    arm's tokens and stats by name."""
+    import numpy as np
+    import torch
+
+    from marlin_tpu_torch.serving import ServingEngine
+
+    arms = {"bare": {},
+            "tier": dict(host_kv_bytes=TIER_HOST_BYTES,
+                         restore_min_tokens=restore_min),
+            "tier_dir": dict(host_kv_bytes=TIER_HOST_BYTES,
+                             host_kv_dir=spill_dir,
+                             restore_min_tokens=restore_min)}
+    out = {}
+    for name, options in arms.items():
+        eng = ServingEngine(params, cfg, batch=8, round_steps=8,
+                            prefill_chunk=DISCIPLINE_CHUNK,
+                            prefill_chunks_per_round=2,
+                            kv_pages=TIER_PAGES, device="cuda", **options)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ids = [eng.submit(p, s) for p, s in workload]
+        done = {r.request_id: r for r in eng.drain()}
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if sorted(done) != sorted(ids) or any(r.status != "done"
+                                              for r in done.values()):
+            fail(f"host_tier {name}: answered {len(done)} of "
+                 f"{len(ids)}")
+        st = eng.stats
+        tier = eng.host_tier.summary() if eng.host_tier else {}
+        restores = eng.runlog.events("restore")
+        ttft = [r.admit_time - r.submit_time for r in done.values()]
+        # Admission ms (popped -> first token) by how it began: cold, a
+        # resident prefix hit, or a restore from the host.
+        restored = {e["request_id"] for e in restores}
+        kinds = {"cold": [], "hit": [], "restored": []}
+        for e in eng.runlog.events("admit"):
+            r = done[e["request_id"]]
+            kind = "restored" if r.request_id in restored else \
+                "hit" if e["prefix_hit_len"] else "cold"
+            kinds[kind].append(1e3 * (r.admit_time - r.admit_start_time))
+        n_tok = sum(r.emitted for r in done.values())
+        line = dict(
+            card=card, arm=name, requests=len(done), tokens=n_tok,
+            wall_s=wall, tokens_per_s=n_tok / wall, rounds=st.n_rounds,
+            ttft_s_median=float(np.median(ttft)), ttft_s_max=max(ttft),
+            admit_ms_median={k: (float(np.median(v)) if v else None)
+                             for k, v in kinds.items()},
+            admissions={k: len(v) for k, v in kinds.items()},
+            hits=st.n_prefix_hits,
+            reclaimed_tokens=st.reclaimed_prefill_tokens,
+            pool_bytes=eng.page_pool.pool_bytes,
+            spill=_event_rates(eng.runlog.events("spill"), "spill_s"),
+            restore=_event_rates(restores, "restore_s"),
+            restored_tokens=sorted({e["length"] for e in restores}),
+            tier=tier)
+        print("host_tier: " + json.dumps(line, default=str), flush=True)
+        out[name] = dict(tokens=[done[r].tokens for r in ids], line=line,
+                         tier=tier, restores=restores)
+    return out
+
+
+def _sched_pair(card, params, cfg, name, temperature=0.0, **options):
+    """(b)'s traffic through a FIFO engine and a scheduler engine of the
+    same settings: 8 batch-class requests fill every row, and after 3
+    rounds 4 interactive ones arrive. Holds the pair's tokens bitwise
+    equal, and in the scheduler arm preempts >= 1, resumes == preempts
+    and no pinned host row left."""
+    import numpy as np
+    import torch
+
+    from marlin_tpu_torch.serving import Scheduler, ServingEngine
+
+    rng = np.random.default_rng(31)
+    batch_prompts = [rng.integers(0, cfg.vocab, SCHED_BATCH_PROMPT)
+                     for _ in range(8)]
+    chat_prompts = [rng.integers(0, cfg.vocab, SCHED_CHAT_PROMPT)
+                    for _ in range(4)]
+    pages = 8 * cfg.max_len // 16 + 64
+    arms = {}
+    for arm in ("fifo", "sched"):
+        sched = arm == "sched"
+        eng = ServingEngine(params, cfg, batch=8, round_steps=4, seed=5,
+                            temperature=temperature, kv_pages=pages,
+                            host_kv_bytes=TIER_HOST_BYTES,
+                            scheduler=Scheduler() if sched else None,
+                            device="cuda", **options)
+        cls = (lambda c: {"sched_class": c}) if sched else (lambda c: {})
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i, p in enumerate(batch_prompts):
+            eng.submit(p, SCHED_BATCH_STEPS, request_id=i, **cls("batch"))
+        done = {}
+        for _ in range(3):
+            done.update({r.request_id: r for r in eng.step()})
+        for i, p in enumerate(chat_prompts):
+            eng.submit(p, SCHED_CHAT_STEPS, request_id=8 + i,
+                       **cls("interactive"))
+        done.update({r.request_id: r for r in eng.drain()})
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if sorted(done) != list(range(12)) or any(
+                r.status != "done" for r in done.values()):
+            fail(f"sched {name} {arm}: answered {len(done)} of 12")
+        chat = [done[8 + i] for i in range(4)]
+        batch_last = max(done[i].finish_round for i in range(8))
+        arms[arm] = dict(
+            tokens=[done[i].tokens for i in range(12)],
+            preempt=eng.runlog.events("preempt"),
+            resume=eng.runlog.events("resume"),
+            sched=eng.debug_sched(), tier=eng.host_tier.summary(),
+            line=dict(
+                card=card, pair=name, arm=arm, wall_s=wall,
+                tokens_per_s=sum(r.emitted for r in done.values()) / wall,
+                rounds=eng.stats.n_rounds,
+                chat_wait_rounds=[r.admit_round - r.submit_round
+                                  for r in chat],
+                chat_wait_ms=[1e3 * (r.admit_start_time - r.submit_time)
+                              for r in chat],
+                chat_ttft_ms=[1e3 * (r.admit_time - r.submit_time)
+                              for r in chat],
+                batch_tokens_per_round=(8 * SCHED_BATCH_STEPS
+                                        / (batch_last + 1))))
+    bad = [i for i, (x, y) in enumerate(zip(arms["fifo"]["tokens"],
+                                            arms["sched"]["tokens"]))
+           if not np.array_equal(x, y)]
+    if bad:
+        fail(f"sched {name}: the scheduler arm's tokens differ from the "
+             f"FIFO arm's at requests {bad}")
+    sa = arms["sched"]
+    preempts, resumes = sa["sched"]["preempts"], sa["sched"]["resumes"]
+    if preempts < 1 or resumes != preempts:
+        fail(f"sched {name}: {preempts} preempts and {resumes} resumes "
+             f"(want >= 1 and equal)")
+    if sa["tier"]["host_rows"] or sa["tier"]["host_row_bytes"]:
+        fail(f"sched {name}: pinned host rows left after the drain: "
+             f"{sa['tier']}")
+    for arm in ("fifo", "sched"):
+        line = dict(arms[arm]["line"])
+        if arm == "sched":
+            line.update(
+                preempts=preempts, resumes=resumes,
+                freeze=_event_rates(sa["preempt"], "spill_s"),
+                thaw=_event_rates(sa["resume"], "restore_s"),
+                frozen_rounds=[e["frozen_rounds"] for e in sa["resume"]],
+                freeze_filled=[e["filled"] for e in sa["preempt"]],
+                batch_tokens_per_round_over_fifo=(
+                    line["batch_tokens_per_round"]
+                    / arms["fifo"]["line"]["batch_tokens_per_round"]))
+        print("sched: " + json.dumps(line, default=str), flush=True)
+
+
+def phase_host_tier(card: str, seed: int = 0):
+    """The host KV tier and SLO scheduling on the served flagship: see
+    the module docstring. Every check exits non-zero when it fails."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from marlin_tpu_torch.models import TransformerConfig, quant
+    from marlin_tpu_torch.models import transformer as tr
+    from marlin_tpu_torch.ops import flash_attention as fa
+    from marlin_tpu_torch.serving import HostKVTier, ServingEngine
+    from marlin_tpu_torch.utils import cost_model as cm
+
+    t_phase = time.perf_counter()
+    cfg = TransformerConfig(**FLAGSHIP)
+    params = tr.init_params(cfg, seed=seed, device="cuda")
+    _zero_counters(fa)
+
+    # (a) The crossover sweep first: its restore_min_tokens runs the arms.
+    points = cm.run_kv_restore_crossover_sweep(cfg, device="cuda")
+    restore_min = cm.derive_kv_restore_min_tokens(points)
+    print("host_tier_crossover: " + json.dumps(dict(
+        card=card, restore_min_tokens=restore_min, points=[dict(
+            length=p["length"], restore_ms=1e3 * p["restore_s"],
+            reprefill_ms=1e3 * p["reprefill_s"],
+            restore_over_reprefill=p["restore_over_reprefill"])
+            for p in points])), flush=True)
+    workload = _tier_workload(cfg, seed)
+    with tempfile.TemporaryDirectory() as spill_dir:
+        arms = _tier_arms(card, params, cfg, workload, restore_min,
+                          spill_dir)
+        for name in ("tier", "tier_dir"):
+            bad = [i for i, (x, y) in enumerate(zip(
+                arms["bare"]["tokens"], arms[name]["tokens"]))
+                if not np.array_equal(x, y)]
+            if bad:
+                fail(f"host_tier {name}: tokens differ from the bare "
+                     f"arm's at requests {bad}")
+            a = arms[name]
+            if not a["tier"]["spills"] or not a["tier"]["restores"]:
+                fail(f"host_tier {name}: {a['tier']['spills']} spills and "
+                     f"{a['tier']['restores']} restores (want > 0 each)")
+            short = [e["length"] for e in a["restores"]
+                     if e["length"] < SYSTEM_PROMPT]
+            if short:
+                fail(f"host_tier {name}: restores of {short} tokens (want "
+                     f">= {SYSTEM_PROMPT} each)")
+            if a["line"]["reclaimed_tokens"] <= \
+                    arms["bare"]["line"]["reclaimed_tokens"]:
+                fail(f"host_tier {name}: reclaimed "
+                     f"{a['line']['reclaimed_tokens']} prefill tokens, the "
+                     f"bare arm {arms['bare']['line']['reclaimed_tokens']}")
+            if a["tier"]["host_rows"] or a["tier"]["host_row_bytes"]:
+                fail(f"host_tier {name}: pinned rows left: {a['tier']}")
+        # A third engine adopts, from the dir, a system prompt the
+        # tier_dir arm spilled there: the first request behind one.
+        i = next(i for i, (p, _) in enumerate(workload) if os.path.exists(
+            os.path.join(spill_dir, HostKVTier.key_for(p, SYSTEM_PROMPT)
+                         + ".npz")))
+        adopt = ServingEngine(params, cfg, batch=8, round_steps=8,
+                              prefill_chunk=DISCIPLINE_CHUNK,
+                              kv_pages=TIER_PAGES,
+                              host_kv_bytes=TIER_HOST_BYTES,
+                              host_kv_dir=spill_dir,
+                              restore_min_tokens=restore_min, device="cuda")
+        adopt.submit(workload[i][0], TIER_STEPS)
+        (got,) = adopt.drain()
+        if adopt.prefix_index.adoptions < 1 \
+                or adopt.host_tier.summary()["restores"] < 1:
+            fail(f"host_tier adopt: {adopt.prefix_index.adoptions} "
+                 f"adoptions, {adopt.host_tier.summary()['restores']} "
+                 "restores (want >= 1 each)")
+        if not np.array_equal(got.tokens, arms["bare"]["tokens"][i]):
+            fail(f"host_tier adopt: tokens differ from the bare arm's "
+                 f"request {i} (the same prompt)")
+        print("host_tier_adopt: " + json.dumps(dict(
+            card=card, request=i, adoptions=adopt.prefix_index.adoptions,
+            restore=_event_rates(adopt.runlog.events("restore"),
+                                 "restore_s"),
+            npz_files=len([f for f in os.listdir(spill_dir)
+                           if f.endswith(".npz")]))), flush=True)
+
+    # (b) Preemption, scheduler against FIFO: bf16 greedy, the int8 stack,
+    # speculation, and bf16 sampled.
+    _sched_pair(card, params, cfg, "bf16")
+    del params
+    params_q = quant.quantize_params_int8(
+        tr.init_params(cfg, seed=seed, device="cuda"), donate=True)
+    _sched_pair(card, params_q, cfg._replace(kv_quant="int8"), "int8")
+    del params_q
+    params = tr.init_params(cfg, seed=seed, device="cuda")
+    _sched_pair(card, params, cfg, "spec", spec_draft_lens=SPEC_LENS)
+    _sched_pair(card, params, cfg, "bf16_sampled", temperature=0.8)
+    every = _counters(fa)
+    if every != _want(0, 0, 0):
+        fail(f"host_tier: flash launches {every}, expected none (paged "
+             f"admission attends through the plain cached attention)")
+    torch.cuda.synchronize()
+    print("host_tier_summary: " + json.dumps(dict(
+        card=card, flash_launches=every,
+        phase_s=time.perf_counter() - t_phase)), flush=True)
+
+
 def phase_profile(params, cfg, workload):
     """Where a steady decode round's time goes: one round of 8 live rows
     (no admission) under torch.profiler, device-busy time against host
@@ -4901,6 +5225,7 @@ def main(argv=None) -> int:
     serve_launches = phase_slice(card)
     phase_serving_disciplines(card)
     spec_launches = phase_speculative(card)
+    phase_host_tier(card)
     launches = phase_train(card)
     launches["serve"] = dict(fwd=serve_launches)
     for shape in ("spec_p32", "spec_p64"):

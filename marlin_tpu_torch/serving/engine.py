@@ -52,9 +52,21 @@ only on the request's live iterations (live verify chunks under
 speculation), so sampled outputs do not depend on batch composition or
 arrival pattern.
 
-Options of the JAX engine outside these disciplines (the host KV tier,
-the scheduler, an inherited ``stats``, tensor parallelism) raise
-``NotImplementedError``.
+``host_kv_bytes`` / ``host_kv_dir`` put a host KV tier (serving/pages.
+HostKVTier) under a paged engine's prefix index: a stored prefix evicted
+under page pressure spills to host memory (and to the dir), and a later
+hit longer than the resident one by ``restore_min_tokens`` restores its
+bytes into fresh pages instead of re-prefilling them. ``scheduler=``
+(serving/sched.Scheduler) orders admission by priority class, deadline and
+quota; on a paged engine with a tier it also preempts: at a round boundary
+an urgent request may freeze a lower-class decoding row, spill its pages,
+tokens and sampling generator to the tier, and thaw it later, after which
+the row decodes as if it had never stopped. Tokens stay a function of
+(prompt, steps, seed, request id): tier on == off and preempted ==
+uninterrupted, bitwise.
+
+The JAX engine's other options (an inherited ``stats``, tensor
+parallelism) raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -76,21 +88,19 @@ from ..utils import cost_model as cm
 from ..utils.hw import resolve_device
 from ..utils.split import pad_to_multiple
 from . import faults
-from .pages import PAGE, SINK_PAGE, PagePool
+from .pages import PAGE, SINK_PAGE, HostKVTier, PagePool
 from .prefix import PagedPrefixIndex, PrefixCache
 from .queue import AdmissionQueue, Request
+from .sched import FrozenRow, Scheduler
 from .slots import (ADMISSION_BUCKET, SlotManager, pad_prompt_len,
                     prefill_chunk_into_row, prefill_chunk_into_row_paged,
-                    prefill_into_row)
+                    prefill_into_row, restore_pages_into_pool,
+                    restore_row_tokens)
 from .stats import EngineStats
 
 # The JAX engine's other options, with their defaults: any other value
 # selects a discipline this port does not carry yet (ROADMAP Queue A1).
 _UNPORTED_OPTIONS = {
-    "host_kv_bytes": (None, "the host KV tier"),
-    "host_kv_dir": (None, "the host KV tier"),
-    "restore_min_tokens": (None, "the host KV tier"),
-    "scheduler": (None, "SLO scheduling (serving/sched.py)"),
     "stats": (None, "the supervised restart surface"),
 }
 
@@ -140,6 +150,10 @@ class ServingEngine:
                  prefix_sharing: bool = True,
                  spec_draft_lens: Optional[tuple] = None,
                  spec_ngram: int = 2, spec_adaptive: bool = True,
+                 host_kv_bytes: Optional[int] = None,
+                 host_kv_dir: Optional[str] = None,
+                 restore_min_tokens: Optional[int] = None,
+                 scheduler: Optional[Scheduler] = None,
                  device="cuda", **options):
         for name, value in options.items():
             if name not in _UNPORTED_OPTIONS:
@@ -184,6 +198,25 @@ class ServingEngine:
                 "copy-based sharing by omitting prefix_cache instead")
         if prefix_cache is not None and prefill_chunk is None:
             prefill_chunk = 32
+        # The host KV tier spills and restores the paged prefix index's
+        # pages, so it needs kv_pages with prefix_sharing.
+        self.host_kv = host_kv_bytes is not None or host_kv_dir is not None
+        if self.host_kv and (kv_pages is None or not prefix_sharing):
+            raise ValueError(
+                "host_kv_bytes/host_kv_dir need the paged prefix index "
+                "(kv_pages=... with prefix_sharing=True): the host "
+                "tier spills/restores stored prefix pages")
+        if restore_min_tokens is not None and not self.host_kv:
+            raise ValueError(
+                "restore_min_tokens without host_kv_bytes/host_kv_dir "
+                "configures nothing")
+        self.host_kv_bytes = host_kv_bytes
+        self.host_kv_dir = host_kv_dir
+        # Restore a spilled hit only when it beats the resident hit by at
+        # least this many tokens (cost_model's crossover).
+        self.restore_min_tokens = (
+            int(restore_min_tokens) if restore_min_tokens is not None
+            else cm.KV_RESTORE_MIN_TOKENS_DEFAULT)
         if prefill_chunk is not None and (prefill_chunk < 16
                                           or prefill_chunk % 16):
             raise ValueError(
@@ -257,7 +290,13 @@ class ServingEngine:
         # make_train_step), and serving must build no graph from them.
         with torch.no_grad():
             self._run_params = tr._cast_params(params, cfg)
-        self.queue = AdmissionQueue(max_pending=max_pending)
+        # A scheduler orders the queue; without one every path below is
+        # the FIFO engine's. A request dropped for deadline while frozen
+        # still holds a pinned host row: _release_expired frees it.
+        self.scheduler = scheduler
+        self.queue = AdmissionQueue(max_pending=max_pending,
+                                    scheduler=scheduler)
+        self.queue.on_expire = self._release_expired
         self.slots = SlotManager(batch)
         self.tracer = tracer if tracer is not None else obs_trace.tracer
         self.runlog = runlog if runlog is not None else RunLog()
@@ -296,18 +335,26 @@ class ServingEngine:
             self._cache = None
             self.page_pool = PagePool(cfg, kv_pages, registry=self.metrics,
                                       device=self.device)
+            self.host_tier = HostKVTier(
+                self.page_pool, budget_bytes=host_kv_bytes,
+                registry=self.metrics, event_sink=self._host_tier_event,
+                spill_dir=host_kv_dir) if self.host_kv else None
             self.prefix_index = PagedPrefixIndex(
-                self.page_pool, registry=self.metrics) \
-                if self.prefix_sharing else None
+                self.page_pool, registry=self.metrics,
+                host_tier=self.host_tier) if self.prefix_sharing else None
             self._tables = np.full((batch, cfg.max_len // PAGE), SINK_PAGE,
                                    np.int64)
             self._row_pages: Dict[int, List[int]] = {}  # row -> held refs
             # Slack slots in each reservation's last page: the numerator
             # of the round's fragmentation gauge.
             self._row_slack: Dict[int, int] = {}
+            # The tier's totals at the last round event (its deltas).
+            self._host_spills0 = 0
+            self._host_restores0 = 0
         else:
             self.page_pool = None
             self.prefix_index = None
+            self.host_tier = None
             self._cache = tr.init_kv_cache(cfg, batch,
                                            dtype=cfg.compute_dtype,
                                            device=self.device)
@@ -318,26 +365,53 @@ class ServingEngine:
         self._target = np.zeros((batch,), np.int64)
         self._active = np.zeros((batch,), bool)
         self._gens: List[Optional[torch.Generator]] = [None] * batch
+        # Preemption needs the scheduler (who), paged KV (page-granular
+        # freeze) and the tier (where the frozen bytes wait). A scheduler
+        # on any other engine only orders admission.
+        self._can_preempt = (scheduler is not None and self.paged
+                             and self.host_tier is not None
+                             and scheduler.max_preempts_per_round > 0)
+        if scheduler is not None and scheduler.metrics is None:
+            scheduler.metrics = self.metrics
+        self._n_preempts = 0   # freezes, lifetime
+        self._n_resumes = 0    # thaws, lifetime
+        self._preempts0 = 0    # their totals at the last round event
+        self._resumes0 = 0
+        self._preempt_budget = 0  # freezes this round may still make
         self.runlog.emit("engine_start", batch=batch,
                          round_steps=round_steps,
                          prefill_chunk=prefill_chunk,
                          max_pending=max_pending, max_len=cfg.max_len,
                          prefix_cache=prefix_cache is not None,
                          kv_pages=kv_pages,
+                         host_kv_bytes=host_kv_bytes,
+                         host_kv_dir=host_kv_dir,
                          prefix_sharing=self.paged and self.prefix_sharing,
                          spec_draft_lens=(list(self.spec_draft_lens)
                                           if self.spec else None),
                          spec_ngram=self.spec_ngram if self.spec else None,
+                         sched=scheduler is not None,
+                         sched_classes=([c.name for c in scheduler.by_rank]
+                                        if scheduler is not None else None),
                          device=str(self.device))
 
     # -- submission ---------------------------------------------------
 
     def submit(self, prompt, steps: int,
                deadline_rounds: Optional[int] = None,
-               deadline_s: Optional[float] = None) -> int:
+               deadline_s: Optional[float] = None,
+               request_id: Optional[int] = None,
+               tenant: Optional[str] = None,
+               sched_class: Optional[str] = None) -> int:
         """Queue one generation request; returns its request id. Raises
         ``QueueFull`` (backpressure), ``QueueClosed`` (draining), or
-        ValueError for a request the cache cannot hold. Thread-safe."""
+        ValueError for a request the cache cannot hold. Thread-safe.
+
+        ``request_id`` replaces the engine's next id (it must not be in
+        use); the request's sampling stream derives from it. ``tenant`` is
+        an opaque label; ``sched_class`` names a class of the scheduler
+        (which it needs; an unknown name raises before anything is
+        queued). Neither moves a token."""
         prompt = np.asarray(prompt, np.int64).reshape(-1)
         s = int(prompt.shape[0])
         if steps < 1:
@@ -369,30 +443,59 @@ class ServingEngine:
                 f"request needs {n_pages} KV pages > pool size "
                 f"{self.kv_pages} (prompt {s} + steps {steps} + overhang "
                 f"{self._spec_overhang} at {PAGE} tokens/page)")
+        if sched_class is not None and self.scheduler is None:
+            raise ValueError(
+                f"sched_class {sched_class!r} needs a scheduler "
+                "(ServingEngine(scheduler=...)); this engine admits "
+                "FIFO")
+        cls_name = (self.scheduler.resolve(sched_class).name
+                    if self.scheduler is not None else "")
         now = time.perf_counter()
         with self._submit_lock:
-            rid = self._next_id
+            if request_id is None:
+                rid = self._next_id
+            else:
+                rid = int(request_id)
+                if rid < 0:
+                    raise ValueError(
+                        f"request_id must be >= 0, got {rid}")
+                if rid in self.requests:
+                    raise ValueError(f"request_id {rid} already in use")
             req = Request(
                 request_id=rid, prompt=prompt, steps=int(steps),
                 deadline_rounds=deadline_rounds,
                 deadline_time=(now + deadline_s
                                if deadline_s is not None else None),
-                submit_round=self.round_idx, submit_time=now)
+                submit_round=self.round_idx, submit_time=now,
+                tenant=str(tenant) if tenant else "default",
+                sched_class=cls_name)
             with self.tracer.span("serving.submit",
                                   request_id=req.request_id):
                 self.queue.submit(req)  # raises before anything registers
-            self._next_id = rid + 1
+            # max: an explicit id pulls the counter past itself.
+            self._next_id = max(self._next_id, rid + 1)
             self.requests[rid] = req
         self.metrics.counter("serving_submitted_total").inc()
         self.metrics.gauge("serving_queue_depth").set(len(self.queue))
         self.runlog.emit("submit", request_id=rid, prompt_len=s,
                          steps=int(steps), round=self.round_idx,
-                         queue_depth=len(self.queue))
+                         queue_depth=len(self.queue),
+                         **({"sched_class": cls_name} if cls_name else {}))
         return rid
 
     def close(self) -> None:
         """Graceful drain: no new submits; ``run`` finishes queued work."""
         self.queue.close()
+
+    def _host_tier_event(self, kind: str, **fields) -> None:
+        """The host tier's runlog sink: its events carry the round."""
+        self.runlog.emit(kind, round=self.round_idx, **fields)
+
+    def _sync_device(self) -> None:
+        """Wait for the device's queued work (a restore's copies) before
+        a clock is read."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     def _pages_needed(self, prompt_len: int, steps: int) -> int:
         """A paged request's whole page complement: its prompt, steps and
@@ -434,6 +537,18 @@ class ServingEngine:
         req.admit_time = time.perf_counter()
         req.status = "active"
         self.stats.record_admission(req)
+        if self.scheduler is not None:
+            # First admission only (a thaw does not come here).
+            self.scheduler.note_admitted(
+                req, req.admit_start_time - req.submit_time)
+
+    def _release_expired(self, req: Request) -> None:
+        """The queue's ``on_expire`` hook: a request dropped for deadline
+        while frozen releases its pinned host row."""
+        fz = req.frozen
+        if fz is not None and self.host_tier is not None:
+            self.host_tier.drop_row(fz.host_key)
+            req.frozen = None
 
     def _admit(self) -> List[Request]:
         """Fill free rows from the queue, FIFO; returns the requests
@@ -448,7 +563,7 @@ class ServingEngine:
         expired: List[Request] = []
         while self.slots.n_free:
             faults.check("admission_pop", round_idx=self.round_idx)
-            req, dropped = self.queue.pop_ready(self.round_idx)
+            req, dropped = self._pop_ready()
             expired.extend(dropped)
             if req is None:
                 break
@@ -480,24 +595,201 @@ class ServingEngine:
         self._drop_expired(expired)
         return expired
 
+    # -- preemption (serving/sched.py) --------------------------------
+
+    def _class_occupancy(self) -> Dict[str, int]:
+        """Active and mid-prefill rows a class: the quotas' count."""
+        occ: Dict[str, int] = {}
+        with self._submit_lock:
+            for row in self.slots.occupied_rows():
+                req = self.requests.get(self.slots.owner_of(row))
+                if req is not None and req.sched_class:
+                    occ[req.sched_class] = occ.get(req.sched_class, 0) + 1
+        return occ
+
+    def _pop_ready(self):
+        """The admission loops' pop, with the class occupancy when a
+        scheduler orders the queue."""
+        occ = self._class_occupancy() if self.scheduler is not None \
+            else None
+        return self.queue.pop_ready(self.round_idx, occupancy=occ)
+
+    def _pick_victim(self, requester_rank: int) -> Optional[Request]:
+        """The row to freeze for a requester of ``requester_rank``, or
+        None. Candidates are active decoding rows with work left (a
+        mid-prefill row's KV is incomplete); the scheduler orders them and
+        its cost gate prices each freeze against letting the row finish."""
+        cands = []
+        with self._submit_lock:
+            for row in self.slots.occupied_rows():
+                if row in self._prefilling:
+                    continue
+                req = self.requests.get(self.slots.owner_of(row))
+                if req is None or not self._active[row]:
+                    continue
+                remaining = int(self._target[row] - self._filled[row])
+                if remaining <= 0:
+                    continue  # retiring at this boundary anyway
+                cands.append((req, remaining))
+        ordered = self.scheduler.victim_order(cands, requester_rank)
+        for req, remaining in ordered:
+            if self.scheduler.preempt_gate(
+                    self.cfg, int(self._filled[req.row]), remaining):
+                return req
+        self.scheduler.note_preempt_abort(
+            "cost_gate" if ordered else "no_victim")
+        return None
+
+    def _preempt_one(self, requester_rank: int) -> bool:
+        """Pick and freeze one victim; spends one of the round's freezes
+        on success."""
+        victim = self._pick_victim(requester_rank)
+        if victim is None or not self._preempt_row(victim):
+            return False
+        self._preempt_budget -= 1
+        return True
+
+    def _preempt_for_urgent(self) -> None:
+        """Slot pressure: while the batch is full and a ``can_preempt``
+        class heads its queue, freeze victims (within the round's
+        budget). Page pressure is handled in ``_admit_chunked``."""
+        while self._preempt_budget > 0 and self.slots.n_free == 0:
+            cand = self.queue.peek_urgent()
+            if cand is None:
+                return
+            if not self._preempt_one(
+                    self.scheduler.classes[cand.sched_class].rank):
+                return
+
+    def _preempt_row(self, req: Request) -> bool:
+        """Freeze one active decoding row at this round boundary and spill
+        it to the host tier. The residue is what a bitwise resume needs:
+        the row's whole page complement (live KV [0, filled - 1) and dead
+        slots that come back byte for byte), its tokens [0, filled), its
+        sampling generator and its cursors (sched.FrozenRow). Returns
+        False, the row untouched, when the tier refuses the spill."""
+        row = req.row
+        f = int(self._filled[row])
+        host_key = f"row-{req.request_id}-{req.preempt_count}"
+        faults.check("preempt_spill", round_idx=self.round_idx,
+                     request_id=req.request_id)
+        with self.tracer.span("serving.preempt", request_id=req.request_id,
+                              row=row, filled=f):
+            tokens = self._buf[row, :f].cpu().numpy()
+            pages = list(self._row_pages[row])
+            spilled = self.host_tier.spill_row(host_key, tokens, pages)
+        if spilled is None:
+            self.scheduler.note_preempt_abort("host_budget")
+            return False
+        nbytes, spill_s = spilled
+        frozen = FrozenRow(host_key=host_key, filled=f,
+                           target=int(self._target[row]),
+                           gen=self._gens[row], n_pages=len(pages),
+                           nbytes=nbytes, preempt_round=self.round_idx)
+        self._release_row(row)
+        self._filled[row] = 1  # a free row's parked feed
+        req.frozen = frozen
+        req.row = -1
+        req.status = "preempted"
+        req.preempt_count += 1
+        self._n_preempts += 1
+        self.stats.record_preempt(req)
+        self.scheduler.note_preempt(req)
+        # Back into its class heap under its original sequence: it
+        # resumes ahead of later arrivals of its class.
+        self.queue.push_front(req)
+        self.runlog.emit("preempt", request_id=req.request_id, row=row,
+                         round=self.round_idx, filled=f,
+                         pages=len(pages), bytes=nbytes,
+                         spill_s=round(spill_s, 6))
+        return True
+
+    def _thaw_frozen(self, req: Request) -> bool:
+        """Resume a preempted request: reserve its page complement again,
+        scatter the pinned payload into it, restore the token row, the
+        cursors and the generator. Returns False, nothing claimed, under
+        page pressure (the caller requeues it)."""
+        fz: FrozenRow = req.frozen
+        need = fz.n_pages
+        if self.page_pool.n_free < need and self.prefix_index is not None:
+            self.prefix_index.evict_until_free(need)
+        fresh = self.page_pool.alloc(need)
+        if fresh is None:
+            return False
+        fetched = self.host_tier.fetch_row(fz.host_key)
+        if fetched is None:
+            self.page_pool.unref(fresh)
+            raise RuntimeError(
+                f"frozen-row payload {fz.host_key!r} missing for request "
+                f"{req.request_id} (pinned entries cannot be evicted — "
+                "refcount/drop discipline bug)")
+        payload, tokens, nbytes = fetched
+        # admit_start_time stays: the request was admitted once, and the
+        # frozen wait falls inside its decode phase.
+        row = self.slots.acquire(req.request_id)
+        faults.check("kv_restore", round_idx=self.round_idx,
+                     request_id=req.request_id)
+        t0 = time.perf_counter()
+        with self.tracer.span("serving.thaw", request_id=req.request_id,
+                              row=row, filled=fz.filled):
+            restore_pages_into_pool(self.page_pool.pages, payload, fresh)
+            restore_row_tokens(self._buf, row, tokens)
+            self._sync_device()
+        dt = time.perf_counter() - t0
+        table = self._tables[row]
+        table[:] = SINK_PAGE
+        table[:need] = fresh
+        self._row_pages[row] = [int(p) for p in fresh]
+        self._row_slack[row] = need * PAGE - (req.prompt_len + req.steps)
+        self._filled[row] = fz.filled
+        self._target[row] = fz.target
+        self._gens[row] = fz.gen
+        self._active[row] = True
+        req.row = row
+        req.status = "active"
+        req.frozen = None
+        self.host_tier.drop_row(fz.host_key)
+        self.host_tier.record_row_restore(nbytes, dt)
+        req.restores += 1
+        self._n_resumes += 1
+        self.stats.record_resume(req)
+        self.scheduler.note_resume(req)
+        self.runlog.emit("resume", request_id=req.request_id, row=row,
+                         round=self.round_idx, filled=fz.filled,
+                         pages=need, bytes=nbytes,
+                         frozen_rounds=self.round_idx - fz.preempt_round,
+                         restore_s=round(dt, 6))
+        return True
+
     # -- chunked admission --------------------------------------------
 
     def _admit_chunked(self) -> List[Request]:
         """Claim free rows for queued requests (taking any prefix hit as
-        a row copy or a page alias), then advance every in-flight prefill
-        by up to ``prefill_chunks_per_round`` chunks."""
+        a row copy, a page alias or a host-tier restore, and thawing
+        preempted ones), then advance every in-flight prefill by up to
+        ``prefill_chunks_per_round`` chunks. A preempting engine first
+        frees rows for urgent requests."""
         expired: List[Request] = []
+        if self._can_preempt:
+            self._preempt_budget = self.scheduler.max_preempts_per_round
+            self._preempt_for_urgent()
         while self.slots.n_free:
             faults.check("admission_pop", round_idx=self.round_idx)
-            req, dropped = self.queue.pop_ready(self.round_idx)
+            req, dropped = self._pop_ready()
             expired.extend(dropped)
             if req is None:
                 break
             if not self._start_prefill(req):
                 # Page pressure: the reservation does not fit even after
-                # evicting stored prefixes. Back to the queue's head;
-                # retirements free pages and the next round retries.
+                # evicting stored prefixes. Back to the queue's head; an
+                # urgent request may first free pages by a freeze and
+                # retry at once, else retirements free pages and the
+                # next round retries.
                 self.queue.push_front(req)
+                if self._can_preempt and self._preempt_budget > 0:
+                    spec = self.scheduler.classes[req.sched_class]
+                    if spec.can_preempt and self._preempt_one(spec.rank):
+                        continue
                 break
         for row, job in sorted(self._prefilling.items()):
             for _ in range(self.prefill_chunks_per_round):
@@ -511,16 +803,46 @@ class ServingEngine:
         return expired
 
     def _reserve_pages(self, req: Request):
-        """Paged placement: resolve the prefix-index hit and reserve the
+        """Paged placement: resolve the prefix hit and reserve the
         request's whole page complement (:meth:`_pages_needed`), aliased
-        prefix pages first and fresh pages for the rest. Returns
-        ``(alias_pages, hit_len, fresh_pages)``, or None when the pool
-        cannot fit it even after evicting stored prefixes."""
-        entry_pages, hit = None, 0
-        if self.prefix_index is not None:
+        prefix pages first and fresh pages for the rest. With a host tier
+        a spilled hit (found here, or adopted from a shared spill dir)
+        longer than the resident one by ``restore_min_tokens`` is fetched
+        instead: then nothing is aliased, every page is fresh and the
+        first hit / PAGE of them receive the payload in
+        :meth:`_bind_row_pages`. Returns ``(alias_pages, hit_len,
+        fresh_pages, restore)`` (``restore`` None on the resident path),
+        or None when the pool cannot fit it even after evicting stored
+        prefixes."""
+        entry_pages, hit, restore = None, 0, None
+        if self.prefix_index is not None and self.host_tier is not None:
+            entry_pages, hit, sp_eid, sp_hit = \
+                self.prefix_index.lookup_candidates(req.prompt)
+            if sp_eid is None and self.host_tier.spill_dir:
+                key, plen = self.host_tier.probe(req.prompt)
+                if plen and self.prefix_index.adopt(
+                        req.prompt, plen, key) is not None:
+                    sp_eid, sp_hit = \
+                        self.prefix_index.lookup_candidates(req.prompt)[2:]
+            if sp_eid is not None and sp_hit >= hit + self.restore_min_tokens:
+                fetched = self.host_tier.fetch(
+                    self.prefix_index.host_key_of(sp_eid))
+                if fetched is None:
+                    # The budget dropped the payload: the hit is not real.
+                    self.prefix_index.forget(sp_eid)
+                else:
+                    # Fetched before the eviction below, which cannot
+                    # drop it now.
+                    payload, nbytes = fetched
+                    entry_pages, hit = None, sp_hit
+                    restore = {"eid": sp_eid, "hit": sp_hit,
+                               "payload": payload, "nbytes": nbytes}
+        elif self.prefix_index is not None:
             entry_pages, hit = self.prefix_index.lookup(req.prompt)
-        need = self._pages_needed(req.prompt_len, req.steps) - hit // PAGE
-        if hit:
+        aliased = bool(hit) and restore is None
+        need = self._pages_needed(req.prompt_len, req.steps) \
+            - (hit // PAGE if aliased else 0)
+        if aliased:
             # Pin the aliased pages first: the eviction below may drop the
             # very entry this hit resolved to.
             self.page_pool.ref(entry_pages)
@@ -528,18 +850,40 @@ class ServingEngine:
             self.prefix_index.evict_until_free(need)
         fresh = self.page_pool.alloc(need)
         if fresh is None:
-            if hit:
+            if aliased:
                 self.page_pool.unref(entry_pages)
             return None
-        return (list(entry_pages) if hit else []), hit, fresh
+        return (list(entry_pages) if aliased else []), hit, fresh, restore
 
     def _bind_row_pages(self, req: Request, row: int, alias_pages,
-                        hit: int, fresh) -> None:
+                        hit: int, fresh, restore=None) -> None:
         """Write the claimed row's page table: the aliased prefix pages
         for chunks [0, hit / PAGE), fresh pages up to the reservation,
-        the write sink beyond it. No KV byte moves."""
+        the write sink beyond it. On the resident path no KV byte moves.
+        On a restore the first hit / PAGE fresh pages first receive the
+        spilled payload (one scatter; its bytes are the tier's to count,
+        not ``admission_copy_bytes``) and are pinned into the index."""
         n_total = self._pages_needed(req.prompt_len, req.steps)
-        if hit:
+        if restore is not None:
+            res_pages = [int(p) for p in fresh[:restore["hit"] // PAGE]]
+            faults.check("kv_restore", round_idx=self.round_idx,
+                         request_id=req.request_id)
+            t0 = time.perf_counter()
+            with self.tracer.span("serving.kv_restore",
+                                  request_id=req.request_id, row=row,
+                                  hit_len=restore["hit"]):
+                restore_pages_into_pool(self.page_pool.pages,
+                                        restore["payload"], res_pages)
+                self._sync_device()
+            dt = time.perf_counter() - t0
+            self.prefix_index.rebind(restore["eid"], res_pages)
+            self.host_tier.record_restore(restore["nbytes"], dt)
+            req.restores += 1
+            self._host_tier_event(
+                "restore", request_id=req.request_id,
+                length=restore["hit"], bytes=restore["nbytes"],
+                restore_s=round(dt, 6))
+        elif hit:
             # The contiguous copy's fault site, at the aliasing here.
             faults.check("prefix_copy", round_idx=self.round_idx,
                          request_id=req.request_id)
@@ -552,17 +896,21 @@ class ServingEngine:
                                                 + req.steps)
 
     def _start_prefill(self, req: Request) -> bool:
-        """Claim a row and start a chunked admission. Returns False, with
-        nothing claimed, when the paged reservation cannot be placed."""
+        """Claim a row and start a chunked admission, or thaw a preempted
+        request. Returns False, with nothing claimed, when the paged
+        reservation cannot be placed."""
+        if req.frozen is not None:
+            return self._thaw_frozen(req)
         hit = 0
         if self.paged:
             placed = self._reserve_pages(req)
             if placed is None:
                 return False
-            alias_pages, hit, fresh = placed
+            alias_pages, hit, fresh, restore = placed
             req.admit_start_time = time.perf_counter()
             row = self.slots.acquire(req.request_id)
-            self._bind_row_pages(req, row, alias_pages, hit, fresh)
+            self._bind_row_pages(req, row, alias_pages, hit, fresh,
+                                 restore=restore)
             if self.prefix_index is not None:
                 self.prefix_index.record(hit)
                 self.stats.record_prefix_lookup(hit, req.prompt_len)
@@ -843,18 +1191,7 @@ class ServingEngine:
             req.status = "done"
             req.finish_round = self.round_idx
             req.finish_time = time.perf_counter()
-            self._active[row] = False
-            self._target[row] = 0
-            self._gens[row] = None
-            self.slots.release(row)
-            if self.paged:
-                # Drop every reference the row held (aliased prefix pages
-                # and private ones); pages a store pinned stay live. The
-                # table goes back to the sink, so the free row's frozen
-                # feed stays dead.
-                self.page_pool.unref(self._row_pages.pop(row))
-                self._row_slack.pop(row, None)
-                self._tables[row] = SINK_PAGE
+            self._release_row(row)
             self.stats.record_completion(req)
             self.runlog.emit(
                 "complete", request_id=req.request_id, row=row,
@@ -865,6 +1202,20 @@ class ServingEngine:
                 del self.requests[req.request_id]
             finished.append(req)
         return finished
+
+    def _release_row(self, row: int) -> None:
+        """Free a retiring or frozen row: its slot, its decode state and,
+        paged, every page reference it held (aliased prefix pages and
+        private ones; pages a store pinned stay live). The table goes back
+        to the sink, so the free row's frozen feed stays dead."""
+        self._active[row] = False
+        self._target[row] = 0
+        self._gens[row] = None
+        self.slots.release(row)
+        if self.paged:
+            self.page_pool.unref(self._row_pages.pop(row))
+            self._row_slack.pop(row, None)
+            self._tables[row] = SINK_PAGE
 
     @torch.no_grad()
     def step(self) -> List[Request]:
@@ -922,6 +1273,8 @@ class ServingEngine:
             finished = self._retire(self._filled, done)
         self.metrics.gauge("serving_queue_depth").set(len(self.queue))
         live_sum = int(live.sum())
+        if self.scheduler is not None:
+            self.scheduler.mirror_queued()
         faults.check("runlog_emit", round_idx=self.round_idx)
         self.runlog.emit(
             "round", round=self.round_idx, iters=iters, occupied=occupied,
@@ -934,7 +1287,7 @@ class ServingEngine:
             round_s=round(time.perf_counter() - t_round0, 6),
             decode_s=round(decode_s, 6),
             drift_decode=round(self.stats.calibration.drift("decode"), 4),
-            **self._page_fields(), **spec_fields)
+            **self._page_fields(), **spec_fields, **self._sched_fields())
         self.round_idx += 1
         return expired + finished
 
@@ -970,9 +1323,33 @@ class ServingEngine:
             "serving_kv_page_fragmentation",
             help="unusable slack slots / slots in used KV pages").set(
             round(frag, 4))
-        return dict(pages_used=used, pages_free=ps["kv_pages_free"],
-                    pages_aliased=ps["kv_pages_aliased"],
-                    page_fragmentation=round(frag, 4))
+        out = dict(pages_used=used, pages_free=ps["kv_pages_free"],
+                   pages_aliased=ps["kv_pages_aliased"],
+                   page_fragmentation=round(frag, 4))
+        if self.host_tier is not None:
+            # The tier's spills and restores since the last round event.
+            ts = self.host_tier.summary()
+            out.update(spills=ts["spills"] - self._host_spills0,
+                       restores=ts["restores"] - self._host_restores0,
+                       host_bytes=ts["host_bytes"],
+                       host_entries=ts["host_entries"])
+            self._host_spills0 = ts["spills"]
+            self._host_restores0 = ts["restores"]
+        return out
+
+    def _sched_fields(self) -> dict:
+        """The round event's freezes and thaws since the last one, and
+        the bytes of pinned rows (scheduler engines)."""
+        if self.scheduler is None:
+            return {}
+        out = dict(preempts=self._n_preempts - self._preempts0,
+                   resumes=self._n_resumes - self._resumes0)
+        self._preempts0 = self._n_preempts
+        self._resumes0 = self._n_resumes
+        if self.host_tier is not None:
+            out["host_row_bytes"] = self.host_tier.summary()[
+                "host_row_bytes"]
+        return out
 
     def run(self, max_rounds: int = 10_000) -> List[Request]:
         """Step until the queue and every slot are empty; returns every
@@ -1005,3 +1382,35 @@ class ServingEngine:
         """Graceful drain in one call: ``close()`` then ``run()``."""
         self.close()
         return self.run(max_rounds=max_rounds)
+
+    def debug_sched(self) -> Optional[dict]:
+        """The scheduler's state: its class table, the rows a class
+        holds, lifetime freezes and thaws, every request frozen now and
+        the tier's pinned rows. None on a FIFO engine."""
+        if self.scheduler is None:
+            return None
+        out = self.scheduler.summary()
+        out["occupancy"] = self._class_occupancy()
+        out["can_preempt"] = self._can_preempt
+        out["preempts"] = self._n_preempts
+        out["resumes"] = self._n_resumes
+        frozen = []
+        with self._submit_lock:
+            for req in self.requests.values():
+                fz = req.frozen
+                if fz is None:
+                    continue
+                frozen.append({
+                    "request_id": req.request_id,
+                    "sched_class": req.sched_class,
+                    "tenant": req.tenant,
+                    "filled": fz.filled, "target": fz.target,
+                    "pages": fz.n_pages, "bytes": fz.nbytes,
+                    "preempt_round": fz.preempt_round,
+                    "preempt_count": req.preempt_count})
+        out["frozen"] = sorted(frozen, key=lambda d: d["request_id"])
+        if self.host_tier is not None:
+            ts = self.host_tier.summary()
+            out["host_rows"] = ts["host_rows"]
+            out["host_row_bytes"] = ts["host_row_bytes"]
+        return out

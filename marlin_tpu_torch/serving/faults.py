@@ -19,9 +19,12 @@ import numpy as np
 
 from ..obs import metrics as obs_metrics
 
-# The sites the ported engine carries (the JAX package names more).
+# The sites the ported engine carries (the JAX package names more):
+# ``kv_restore`` is the host tier's restore scatter (a prefix restore in
+# paged admission, and a thaw); ``preempt_spill`` the freeze of a
+# preemption, after the victim is chosen and before its pages move.
 SITES = ("decode_round", "prefill_chunk", "prefix_copy", "admission_pop",
-         "runlog_emit")
+         "runlog_emit", "kv_restore", "preempt_spill")
 ACTIONS = ("raise", "delay", "corrupt")
 
 

@@ -2,8 +2,7 @@
 over either a bounded device pool of donor KV rows (:class:`PrefixCache`,
 the contiguous engine's copy-based surface) or the paged engine's page
 pool (:class:`PagedPrefixIndex`, zero copy) — port of
-``marlin_tpu/serving/prefix.py`` (the index's host-tier transitions are
-not ported yet: ROADMAP Queue A1).
+``marlin_tpu/serving/prefix.py``.
 
 * The trie is keyed on GRAIN = 16-token chunks, so a hit length is always
   a multiple of 16 and aligned with the engine's chunked admission.
@@ -13,7 +12,9 @@ not ported yet: ROADMAP Queue A1).
   it is in flight. :func:`copy_kv_rows` moves a row prefix in place.
 * :class:`PagedPrefixIndex` stores a prefix by pinning the admitted row's
   own pages and answers a hit with a page list to alias: no device work
-  either way.
+  either way. With a host tier (serving/pages.HostKVTier) an evicted
+  entry the index alone holds spills to the host and stays in the trie,
+  to be restored by a later hit instead of re-prefilled.
 
 Bit-exactness: the chunked admission path computes positions in tiles of
 one fixed shape (``models/transformer._tiles``), so a stored prefix holds
@@ -74,10 +75,13 @@ def _trie_chunks(tokens: np.ndarray, length: int):
         yield tokens[d * GRAIN:(d + 1) * GRAIN].tobytes()
 
 
-def _trie_descend(root: _TrieNode, prompt: np.ndarray, limit: int):
+def _trie_descend(root: _TrieNode, prompt: np.ndarray, limit: int,
+                  member_ok=None):
     """Walk ``root`` along ``prompt``'s 16-chunks up to ``limit`` tokens;
     returns ``(node, depth)`` of the deepest node holding members
-    (``(None, 0)`` on a miss): the one walk lookup and store dedup share."""
+    (``(None, 0)`` on a miss): the one walk lookup and store dedup share.
+    ``member_ok`` filters the members that count (the paged index counts
+    its resident entries)."""
     node = root
     best, best_depth = None, 0
     for d in range(limit // GRAIN):
@@ -85,7 +89,9 @@ def _trie_descend(root: _TrieNode, prompt: np.ndarray, limit: int):
                                  .tobytes())
         if node is None:
             break
-        if node.rows:
+        live = node.rows if member_ok is None else \
+            any(member_ok(m) for m in node.rows)
+        if live:
             best, best_depth = node, (d + 1) * GRAIN
     return best, best_depth
 
@@ -309,16 +315,24 @@ class PrefixCache:
 class _PrefixEntry:
     """One stored prefix of the paged index: its tokens, 16-aligned
     length, and the pool pages holding its K/V (one index reference
-    each; per-page refcounts in ``PagePool`` arbitrate lifetime)."""
+    each; per-page refcounts in ``PagePool`` arbitrate lifetime).
 
-    __slots__ = ("entry_id", "tokens", "length", "pages")
+    ``state`` is ``"resident"`` (pages on the device) or ``"spilled"``
+    (``pages == ()``, the payload in the host tier under ``host_key``); a
+    restore makes it resident again (:meth:`PagedPrefixIndex.rebind`)."""
+
+    __slots__ = ("entry_id", "tokens", "length", "pages", "state",
+                 "host_key")
 
     def __init__(self, entry_id: int, tokens: np.ndarray, length: int,
-                 pages: Tuple[int, ...]):
+                 pages: Tuple[int, ...], state: str = "resident",
+                 host_key: Optional[str] = None):
         self.entry_id = entry_id
         self.tokens = tokens
         self.length = length
         self.pages = pages
+        self.state = state
+        self.host_key = host_key
 
 
 class PagedPrefixIndex:
@@ -334,15 +348,15 @@ class PagedPrefixIndex:
     :meth:`record`, once the engine has placed the admission (a lookup
     whose reservation fails is retried later and must not count twice).
 
-    ``host_tier`` (the spill tier under the pool) is not ported yet."""
+    ``host_tier`` (a :class:`~.pages.HostKVTier`): an evicted entry whose
+    pages only the index holds spills there and stays in the trie as
+    ``"spilled"``; :meth:`lookup_candidates` offers it to the engine,
+    which restores it into fresh pages and :meth:`rebind` s it."""
 
     def __init__(self, pool, registry=None, host_tier=None):
-        if host_tier is not None:
-            raise NotImplementedError(
-                "PagedPrefixIndex(host_tier=...): the host KV tier is not "
-                "ported to marlin_tpu_torch yet (ROADMAP Queue A1)")
         self.pool = pool
         self._registry = registry
+        self.host_tier = host_tier
         self._root = _TrieNode()   # rows-sets hold entry ids here
         self._entries: Dict[int, _PrefixEntry] = {}
         self._used: Dict[int, int] = {}   # entry id -> LRU clock stamp
@@ -355,6 +369,10 @@ class PagedPrefixIndex:
         self.store_skips = 0
         self.evictions = 0
         self.reclaimed_tokens = 0
+        self.spills = 0
+        self.restores = 0
+        self.adoptions = 0
+        self._n_spilled = 0
 
     @property
     def registry(self):
@@ -369,21 +387,44 @@ class PagedPrefixIndex:
         self._clock += 1
         self._used[entry_id] = self._clock
 
+    def _is_resident(self, eid: int) -> bool:
+        return self._entries[eid].state == "resident"
+
     # -- lookup / account ---------------------------------------------
 
     def lookup(self, prompt):
-        """Longest stored prefix of ``prompt`` at GRAIN granularity:
-        ``(page_list, hit_len)`` or ``(None, 0)``, capped at
+        """Longest RESIDENT stored prefix of ``prompt`` at GRAIN
+        granularity: ``(page_list, hit_len)`` or ``(None, 0)``, capped at
         floor16(prompt_len - 1) as :meth:`PrefixCache.lookup` is. Touches
         the entry's LRU stamp; counts nothing (:meth:`record` does)."""
         prompt = _as_tokens(prompt)
         node, hit = _trie_descend(self._root, prompt,
-                                  _floor_grain(int(prompt.shape[0]) - 1))
+                                  _floor_grain(int(prompt.shape[0]) - 1),
+                                  member_ok=self._is_resident)
         if not hit:
             return None, 0
-        eid = max(node.rows, key=lambda e: self._used.get(e, 0))
+        eid = max((e for e in node.rows if self._is_resident(e)),
+                  key=lambda e: self._used.get(e, 0))
         self._touch(eid)
         return self._entries[eid].pages[:hit // GRAIN], hit
+
+    def lookup_candidates(self, prompt):
+        """Both hit arms of one prompt: ``(res_pages, res_hit,
+        spilled_eid, spilled_hit)``. The resident arm is :meth:`lookup`;
+        the spilled arm is the longest spilled entry whose whole length
+        lies within the prompt's hit limit (a restore rebinds a whole
+        entry). Touches only the resident arm."""
+        res_pages, res_hit = self.lookup(prompt)
+        prompt = _as_tokens(prompt)
+        limit = _floor_grain(int(prompt.shape[0]) - 1)
+        eid, sp_hit = None, 0
+        for e, entry in self._entries.items():
+            if (entry.state == "spilled" and sp_hit < entry.length
+                    and entry.length <= limit
+                    and np.array_equal(prompt[:entry.length],
+                                       entry.tokens)):
+                eid, sp_hit = e, entry.length
+        return res_pages, res_hit, eid, sp_hit
 
     def record(self, hit_len: int) -> None:
         """Account one placed admission's lookup outcome."""
@@ -399,12 +440,14 @@ class PagedPrefixIndex:
         """Pin ``prompt``'s 16-aligned prefix into the index by
         referencing the admitted row's own pages (``pages`` covers chunks
         [0, floor16(prompt_len) / GRAIN) of its table). No device work;
-        returns the stored length (0 when already covered)."""
+        returns the stored length (0 when a resident entry already covers
+        it). Spilled entries the new one covers are forgotten."""
         prompt = _as_tokens(prompt)
         length = _floor_grain(int(prompt.shape[0]))
         if length == 0:
             return 0
-        _, covered = _trie_descend(self._root, prompt, length)
+        _, covered = _trie_descend(self._root, prompt, length,
+                                   member_ok=self._is_resident)
         if covered >= length:
             self.store_skips += 1
             return 0
@@ -424,23 +467,62 @@ class PagedPrefixIndex:
         self.stores += 1
         self.registry.counter("serving_prefix_stores_total").inc()
         self._mirror_entries()
+        stale = [e for e, ent in self._entries.items()
+                 if ent.state == "spilled" and ent.length <= length
+                 and np.array_equal(tokens[:ent.length], ent.tokens)]
+        for e in stale:
+            self._remove(e)
         return length
 
     def _mirror_entries(self) -> None:
         self.registry.gauge("serving_prefix_entries").set(
             len(self._entries))
+        self.registry.gauge(
+            "serving_prefix_spilled_entries",
+            help="stored prefixes parked in the host tier").set(
+            self._n_spilled)
 
-    def _evict(self, eid: int) -> None:
-        """Forget ``eid``: its trie path, entry, LRU stamp and page
-        references (pages free when their last holder lets go)."""
+    def _remove(self, eid: int) -> None:
+        """Forget ``eid``: its trie path, entry and LRU stamp, and what it
+        holds (page references, or its host payload if spilled)."""
         entry = self._entries.pop(eid)
         _trie_remove(self._root, entry.tokens, entry.length, eid)
         self._used.pop(eid, None)
         self.stored_tokens -= entry.length
-        self.pool.unref(entry.pages)
+        if entry.state == "spilled":
+            self._n_spilled -= 1
+            if self.host_tier is not None:
+                self.host_tier.drop(entry.host_key)
+        else:
+            self.pool.unref(entry.pages)
+        self._mirror_entries()
+
+    def _evict(self, eid: int) -> None:
+        """LRU eviction under device pressure. With a host tier, a
+        resident entry whose pages only the index holds (each at refcount
+        1) spills: its pages free and it stays in the trie, spilled. Any
+        other entry is forgotten."""
+        entry = self._entries[eid]
+        tier = self.host_tier
+        if (tier is not None and entry.state == "resident"
+                and all(self.pool.refcount(p) == 1 for p in entry.pages)):
+            spilled = tier.spill(entry.tokens, entry.length, entry.pages)
+            if spilled is not None:
+                self.pool.unref(entry.pages)
+                entry.pages = ()
+                entry.state = "spilled"
+                entry.host_key = spilled[0]
+                self.spills += 1
+                self._n_spilled += 1
+                self._count_eviction()
+                self._mirror_entries()
+                return
+        self._remove(eid)
+        self._count_eviction()
+
+    def _count_eviction(self) -> None:
         self.evictions += 1
         self.registry.counter("serving_prefix_evictions_total").inc()
-        self._mirror_entries()
 
     def evict_lru(self) -> bool:
         """Evict the least recently used entry; False when empty."""
@@ -450,11 +532,68 @@ class PagedPrefixIndex:
         return True
 
     def evict_until_free(self, n_pages: int) -> None:
-        """Evict LRU entries until the pool has ``n_pages`` free pages or
-        no entry is left (evicting an entry that live rows still alias
-        frees nothing at once)."""
-        while self.pool.n_free < n_pages and self.evict_lru():
-            pass
+        """Evict LRU resident entries until the pool has ``n_pages`` free
+        pages or none is left (evicting an entry that live rows still
+        alias frees nothing at once; spilled entries hold no pages)."""
+        while self.pool.n_free < n_pages:
+            resident = [e for e, ent in self._entries.items()
+                        if ent.state == "resident"]
+            if not resident:
+                break
+            self._evict(min(resident, key=lambda e: self._used.get(e, 0)))
+
+    # -- the host tier's transitions ----------------------------------
+
+    def rebind(self, eid: int, pages) -> None:
+        """Finish a restore: the engine scattered the spilled payload into
+        fresh ``pages`` (the row's); pin them for the index (one
+        reference each, as a store does) and mark the entry resident."""
+        entry = self._entries[eid]
+        if entry.state != "spilled":
+            raise RuntimeError(
+                f"rebind of entry {eid} in state {entry.state!r}")
+        page_list = tuple(int(p) for p in pages)
+        if len(page_list) != entry.length // GRAIN:
+            raise ValueError(
+                f"rebind of {entry.length} tokens needs "
+                f"{entry.length // GRAIN} pages, got {len(page_list)}")
+        self.pool.ref(page_list)
+        entry.pages = page_list
+        entry.state = "resident"
+        self.restores += 1
+        self._n_spilled -= 1
+        self._touch(eid)
+        self._mirror_entries()
+
+    def host_key_of(self, eid: int) -> Optional[str]:
+        """The host tier's key of a spilled entry's payload."""
+        return self._entries[eid].host_key
+
+    def forget(self, eid: int) -> None:
+        """Drop a spilled entry whose payload is gone (the host budget
+        dropped it): the hit was not real."""
+        if eid in self._entries:
+            self._remove(eid)
+
+    def adopt(self, tokens, length: int, host_key: str):
+        """Register a spilled entry for a payload this index did not
+        compute (another engine's, in a shared spill dir); returns its
+        id, or None when an entry already covers the prefix as deep."""
+        tokens = _as_tokens(tokens)[:length].copy()
+        _, covered = _trie_descend(self._root, tokens, length)
+        if covered >= length:
+            return None
+        eid = self._next_id
+        self._next_id += 1
+        _trie_insert(self._root, tokens, length, eid)
+        self._entries[eid] = _PrefixEntry(
+            eid, tokens, length, (), state="spilled", host_key=host_key)
+        self.stored_tokens += length
+        self._touch(eid)
+        self.adoptions += 1
+        self._n_spilled += 1
+        self._mirror_entries()
+        return eid
 
     # -- observability ------------------------------------------------
 
@@ -471,4 +610,8 @@ class PagedPrefixIndex:
             "prefix_evictions": self.evictions,
             "prefix_entries": len(self._entries),
             "prefix_stored_tokens": self.stored_tokens,
+            "prefix_spilled_entries": self._n_spilled,
+            "prefix_spills": self.spills,
+            "prefix_restores": self.restores,
+            "prefix_adoptions": self.adoptions,
         }

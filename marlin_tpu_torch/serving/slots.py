@@ -9,7 +9,9 @@ writes the row's K/V and tokens IN PLACE (the JAX package donated the
 cache and buffer for the same effect). :func:`prefill_chunk_into_row` and
 :func:`prefill_chunk_into_row_paged` admit one chunk at a time through the
 model's chunk path (plain cached attention, no flash kernel), the
-discipline the prefix cache and paged sharing are bitwise exact on. On an
+discipline the prefix cache and paged sharing are bitwise exact on.
+:func:`restore_pages_into_pool` and :func:`restore_row_tokens` put back
+what the host KV tier kept: a spilled prefix, or a preempted row. On an
 int8 cache (``cfg.kv_quant``) every admission quantizes the prompt's K/V
 per vector as it writes them (after the flash kernel, in the one-shot
 path), and the scale buffers move with their slots
@@ -138,6 +140,38 @@ def prefill_chunk_into_row_paged(params, pool, buf, row: int, table, chunk,
     first = tr._sample(logits, temperature, generator)[0]
     _write_row_tokens(buf, row, prompt, prompt_len, first)
     return first
+
+
+@torch.no_grad()
+def restore_pages_into_pool(pool, payload, pages):
+    """Scatter a host payload (``HostKVTier``'s gather: a list a layer of
+    ``{name: (n, PAGE, Hk, Dh)}`` CPU tensors) into ``pages`` of the
+    device ``pool``, in place; returns the pool. No arithmetic: the bytes
+    land as they were gathered, cast only back to the pool's dtype where
+    a file held them wider (a bfloat16 pool's payload read from the spill
+    dir). Int8 scales move with their pages. From pinned memory the copy
+    is asynchronous: the caller syncs before reading a clock or dropping
+    the payload."""
+    dev = pool[0]["k"].device
+    idx = torch.as_tensor([int(p) for p in pages], dtype=torch.long,
+                          device=dev)
+    for layer, part in zip(pool, payload):
+        for name in kv_layer_keys(layer):
+            buf = layer[name]
+            buf.index_copy_(0, idx, part[name].to(dev, non_blocking=True)
+                            .to(buf.dtype))
+    return pool
+
+
+@torch.no_grad()
+def restore_row_tokens(buf, row: int, tokens):
+    """Write a thawed request's saved tokens (its row's [0, filled)) back
+    into row ``row`` of the token buffer, zeros past them, in place;
+    returns the buffer."""
+    tokens = torch.as_tensor(tokens)
+    buf[row] = 0
+    buf[row, :tokens.shape[0]] = tokens.to(buf.device, buf.dtype)
+    return buf
 
 
 class SlotManager:

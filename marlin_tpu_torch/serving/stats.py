@@ -83,6 +83,11 @@ class EngineStats:
     n_zero_copy_hits: int = 0
     # The engine's page pool (serving/pages.py; None when contiguous).
     page_pool: object = None
+    # Preemption (scheduler engines, serving/sched.py): rows frozen to the
+    # host KV tier and rows thawed back; the difference is rows frozen
+    # now plus frozen requests dropped for deadline.
+    n_preempted: int = 0
+    n_resumed: int = 0
     # Speculative acceptance (zero without spec rounds): lifetime totals,
     # and the per-round EWMA the adaptive draft-length policy reads.
     n_spec_drafted: int = 0
@@ -212,6 +217,25 @@ class EngineStats:
         if self.registry is not None:
             self.registry.counter("serving_timeout_total").inc()
 
+    def record_preempt(self, req) -> None:
+        """One live row frozen to the host tier so a higher-class request
+        could take its slot or pages; the request is requeued, not done."""
+        self.n_preempted += 1
+        if self.registry is not None:
+            self.registry.counter(
+                "serving_preempted_total",
+                help="live rows frozen to the host KV tier by the "
+                     "scheduler (bit-exact preemption)").inc()
+
+    def record_resume(self, req) -> None:
+        """One frozen request thawed back onto a row."""
+        self.n_resumed += 1
+        if self.registry is not None:
+            self.registry.counter(
+                "serving_resumed_total",
+                help="frozen requests restored onto a device row and "
+                     "resumed bit-exactly").inc()
+
     def record_round(self, round_idx: int, iters: int, occupied: int,
                      live_iters: int) -> None:
         self.n_rounds += 1
@@ -286,6 +310,11 @@ class EngineStats:
             "wasted_row_iters": self.wasted_row_iters,
             "utilization": round(self.utilization(), 4),
         }
+        if self.n_preempted:
+            out.update({
+                "preempted": self.n_preempted,
+                "resumed": self.n_resumed,
+            })
         if self.n_prefix_hits or self.n_prefix_misses:
             out.update({
                 "prefix_hits": self.n_prefix_hits,

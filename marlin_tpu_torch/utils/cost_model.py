@@ -2,7 +2,8 @@
 ported paths): the decode-step, speculative-round and admission rooflines
 (with the int8 weights' and cache's bytes), the acceptance-adaptive
 draft-length policy and the measured-vs-predicted drift ledger the serving
-engine reads, the
+engine reads, the host KV tier's restore and preemption prices and its
+measured restore-or-re-prefill crossover, the
 flash-attention tile accounting and training-step FLOPs that
 chip_smoke.py reads, and the dense GEMM's local and SUMMA costs."""
 
@@ -123,6 +124,16 @@ def pick_draft_len(accept_rate: float, draft_lens, cfg, batch: int,
     return best
 
 
+def _pos_bytes(cfg, itemsize: int) -> float:
+    """Cache bytes of one position across every layer's K and V: int8
+    slots plus one f32 scale a (Dh,) vector when ``cfg.kv_quant``."""
+    dh = cfg.d_model // cfg.n_heads
+    pos_elems = 2 * cfg.n_layers * cfg.kv_heads * dh
+    if getattr(cfg, "kv_quant", ""):
+        return pos_elems * 1.0 + (pos_elems // dh) * 4.0
+    return float(pos_elems * itemsize)
+
+
 def admission_cost(cfg, prompt_len: int, hit_len: int = 0,
                    chunk: Optional[int] = None,
                    param_itemsize: int = 4) -> Tuple[float, float]:
@@ -137,7 +148,7 @@ def admission_cost(cfg, prompt_len: int, hit_len: int = 0,
     head. Bytes: the parameters stream once per ``chunk`` of the tail
     (chunked admission re-reads them every chunk; default one stream),
     the tail writes its K/V, and the hit's copy reads and writes its
-    K/V once each."""
+    K/V once each (an int8 cache at 1 byte a slot plus its scales)."""
     if not 0 <= hit_len <= prompt_len:
         raise ValueError(
             f"hit_len {hit_len} outside [0, {prompt_len}]")
@@ -151,11 +162,61 @@ def admission_cost(cfg, prompt_len: int, hit_len: int = 0,
     attn_macs = 2.0 * cfg.n_layers * cfg.n_heads * dh \
         * (tri(prompt_len) - tri(hit_len))
     flops = 2.0 * params * tail + 2.0 * attn_macs
-    pos_bytes = float(2 * cfg.n_layers * cfg.kv_heads * dh * param_itemsize)
+    pos_bytes = _pos_bytes(cfg, param_itemsize)
     n_streams = -(-tail // chunk) if (chunk and tail) else (1 if tail else 0)
     byts = n_streams * params * float(param_itemsize) + tail * pos_bytes \
         + 2.0 * hit_len * pos_bytes
     return flops, float(byts)
+
+
+# Floor of the host KV tier's restore-or-re-prefill decision when no
+# measured crossover is given (run_kv_restore_crossover_sweep derives
+# one): two pages, below which a restore's fixed overhead rivals the
+# prefill it would replace.
+KV_RESTORE_MIN_TOKENS_DEFAULT = 32
+
+
+def restore_cost(cfg, hit_len: int,
+                 param_itemsize: int = 4) -> Tuple[float, float]:
+    """(flops, bytes) of restoring ``hit_len`` spilled prefix positions
+    from the host KV tier (serving/pages.HostKVTier): no FLOPs, and the
+    host-to-device payload plus the scatter's write, ``2 * hit_len``
+    positions at :func:`admission_cost`'s per-position bytes. A spilled
+    hit either restores (this) or re-prefills (``admission_cost(cfg,
+    hit_len)``, quadratic in the hit), so restore wins above a crossover
+    length: the engine's ``restore_min_tokens``."""
+    if hit_len < 0:
+        raise ValueError(f"hit_len must be >= 0, got {hit_len}")
+    return 0.0, float(2.0 * hit_len * _pos_bytes(cfg, param_itemsize))
+
+
+def preempt_cost(cfg, row_len: int,
+                 param_itemsize: int = 4) -> Tuple[float, float]:
+    """(flops, bytes) of one preemption round trip of a live row of
+    ``row_len`` positions: the freeze's gather to the host tier and the
+    thaw's scatter back, each a :func:`restore_cost` of the row; no
+    FLOPs (nothing is recomputed)."""
+    _, one_way = restore_cost(cfg, row_len, param_itemsize=param_itemsize)
+    return 0.0, float(2.0 * one_way)
+
+
+def preempt_beneficial(cfg, row_len: int, victim_remaining_steps: int,
+                       margin: float = 1.0,
+                       param_itemsize: int = 4) -> bool:
+    """Freeze this victim, or let it run out? Waiting costs the victim's
+    remaining decode steps (:func:`decode_step_cost` at batch 1, the
+    marginal row's share); freezing costs the round trip
+    (:func:`preempt_cost`). Freeze when the first exceeds ``margin``
+    times the second. Both sides are priced in bytes, as if the cache's
+    memory and the host link ran at one speed."""
+    if victim_remaining_steps <= 0:
+        return False
+    quant_weights = bool(getattr(cfg, "quantize", False))
+    _, step_bytes = decode_step_cost(cfg, 1, param_itemsize=param_itemsize,
+                                     quant_weights=quant_weights)
+    _, move_bytes = preempt_cost(cfg, row_len,
+                                 param_itemsize=param_itemsize)
+    return victim_remaining_steps * step_bytes > margin * move_bytes
 
 
 class CostCalibration:
@@ -331,3 +392,134 @@ def summa_cost(m: int, k: int, n: int, pr: int, pc: int,
     flops = 2.0 * (m / pr) * k * (n / pc)
     byts = itemsize * ((m / pr) * k + k * (n / pc) + (m / pr) * (n / pc))
     return flops, float(byts)
+
+
+# -- the host KV tier's restore-or-re-prefill crossover ----------------------
+
+# Hit lengths of the sweep: page multiples (a restore rebinds whole pages).
+KV_RESTORE_LENGTHS = (64, 128, 256, 512)
+
+
+def _median_wallclock(fn, reps: int, device) -> float:
+    """Median host seconds of ``fn()`` over ``reps`` calls after one
+    untimed warm-up, each call ended by a device sync."""
+    import time
+
+    import torch
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    fn()
+    sync()
+    ts = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        ts.append(time.perf_counter() - t0)
+    ts.sort()
+    return ts[len(ts) // 2]
+
+
+def run_kv_restore_crossover_sweep(cfg=None, lengths=KV_RESTORE_LENGTHS,
+                                   reps: int = 3, chunk: int = 64,
+                                   seed: int = 7, device="cuda"):
+    """Time the host tier's restore against a paged re-prefill over a
+    grid of hit lengths, on ``device``; returns ``{length, restore_s,
+    reprefill_s, restore_over_reprefill}`` a point, for
+    :func:`derive_kv_restore_min_tokens`.
+
+    A length's pages are first filled by the chunked paged admission
+    (``chunk`` tokens a call; that prefill is the re-prefill arm), then
+    gathered to a host payload as ``HostKVTier.spill`` does, and the
+    restore arm times ``restore_pages_into_pool`` including each call's
+    host-to-device copy of that payload. Each arm: the median of ``reps``
+    synced calls after a warm-up."""
+    import numpy as np
+    import torch
+
+    from ..models import transformer as tr
+    from ..obs.metrics import MetricsRegistry
+    from ..serving.pages import PAGE, PagePool, gather_pages_to_host
+    from ..serving.slots import (prefill_chunk_into_row_paged,
+                                 restore_pages_into_pool)
+    from .hw import resolve_device
+
+    device = resolve_device(device)
+    cfg = cfg or tr.TransformerConfig(vocab=256, d_model=64, n_heads=4,
+                                      n_layers=2, d_ff=128,
+                                      max_len=max(lengths))
+    params = tr._cast_params(tr.init_params(cfg, seed=seed, device=device),
+                             cfg)
+    rng = np.random.default_rng(seed)
+    out = []
+    with torch.no_grad():
+        for length in lengths:
+            if length % PAGE or length % chunk or length > cfg.max_len:
+                raise ValueError(
+                    f"length {length} must be a multiple of PAGE={PAGE} "
+                    f"and chunk={chunk}, and <= max_len={cfg.max_len}")
+            n = length // PAGE
+            pool = PagePool(cfg, n, registry=MetricsRegistry(),
+                            device=device)
+            pages = pool.alloc(n)
+            table = torch.zeros(cfg.max_len // PAGE, dtype=torch.long,
+                                device=device)
+            table[:n] = torch.as_tensor(pages)
+            prompt = torch.as_tensor(rng.integers(1, cfg.vocab, length),
+                                     device=device)
+            buf = torch.zeros((1, cfg.max_len), dtype=torch.long,
+                              device=device)
+
+            def reprefill(pool=pool, table=table, prompt=prompt, buf=buf,
+                          length=length):
+                for c0 in range(0, length, chunk):
+                    prefill_chunk_into_row_paged(
+                        params, pool.pages, buf, 0, table,
+                        prompt[c0:c0 + chunk], c0, chunk, prompt, length,
+                        cfg)
+
+            reprefill_s = _median_wallclock(reprefill, reps, device)
+            payload, _ = gather_pages_to_host(pool.pages, pages)
+
+            def restore(pool=pool, payload=payload, pages=pages):
+                restore_pages_into_pool(pool.pages, payload, pages)
+
+            restore_s = _median_wallclock(restore, reps, device)
+            out.append({"length": length, "restore_s": restore_s,
+                        "reprefill_s": reprefill_s,
+                        "restore_over_reprefill":
+                            restore_s / max(reprefill_s, 1e-12)})
+    return out
+
+
+def derive_kv_restore_min_tokens(points) -> int:
+    """``restore_min_tokens`` from a crossover sweep: the hit length where
+    ``restore_over_reprefill`` crosses 1.0 (it falls with length: re-
+    prefill FLOPs grow quadratically, restore bytes linearly), log-log
+    interpolated between the last point re-prefill wins and the first
+    restore wins. Restore winning at the shortest length gives half that
+    length (at least one page); restore never winning gives twice the
+    longest. Points need not be sorted; ratios <= 0 raise."""
+    import math
+
+    pts = sorted(points, key=lambda p: p["length"])
+    if not pts:
+        raise ValueError("empty crossover sweep")
+    if any(p["restore_over_reprefill"] <= 0 for p in pts):
+        raise ValueError("restore_over_reprefill must be positive")
+    if pts[0]["restore_over_reprefill"] <= 1.0:
+        return max(16, int(pts[0]["length"] // 2))
+    last_lose = pts[0]
+    for p in pts[1:]:
+        if p["restore_over_reprefill"] > 1.0:
+            last_lose = p
+            continue
+        l0, r0 = last_lose["length"], last_lose["restore_over_reprefill"]
+        l1, r1 = p["length"], p["restore_over_reprefill"]
+        t = (0.0 - math.log(r0)) / (math.log(r1) - math.log(r0))
+        return int(round(math.exp(
+            math.log(l0) + t * (math.log(l1) - math.log(l0)))))
+    return int(2 * pts[-1]["length"])

@@ -1,7 +1,8 @@
 """The port's paged KV (marlin_tpu_torch/serving/pages.py, prefix.
 PagedPrefixIndex, slots.prefill_chunk_into_row_paged, transformer.
 gather_kv_pages / decode_chunk_paged / prefill_chunk_paged, the engine's
-paged mode), twins of tests/test_paged_kv.py without the host tier.
+paged mode), twins of tests/test_paged_kv.py (the host tier's are in
+tests/test_torch_host_kv.py).
 
 Inside the port, bitwise on the CPU: the page-gathered read is the
 contiguous read (``gather_kv_pages``, ``decode_chunk_paged`` ==
@@ -27,8 +28,8 @@ from marlin_tpu.models import transformer as jt
 from marlin_tpu_torch.models import convert
 from marlin_tpu_torch.models import transformer as pt
 from marlin_tpu_torch.obs.metrics import MetricsRegistry
-from marlin_tpu_torch.serving import (PAGE, PagedPrefixIndex, PagePool,
-                                      PrefixCache, ServingEngine,
+from marlin_tpu_torch.serving import (PAGE, HostKVTier, PagedPrefixIndex,
+                                      PagePool, PrefixCache, ServingEngine,
                                       prefill_chunk_into_row_paged)
 from marlin_tpu_torch.serving.pages import SINK_PAGE
 
@@ -147,8 +148,13 @@ class TestPagePoolConfig:
             PrefixCache(_cfg(), pool_rows=1)
 
     def test_host_tier_is_not_ported_yet(self):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue A1"):
-            PagedPrefixIndex(_pool(_cfg(), 4), host_tier=object())
+        # The index takes a host tier beneath it (test_torch_host_kv.py
+        # holds what the tier does).
+        pool = _pool(_cfg(), 4)
+        tier = HostKVTier(pool, registry=pool.registry)
+        idx = PagedPrefixIndex(pool, registry=pool.registry, host_tier=tier)
+        assert idx.host_tier is tier
+        assert idx.summary()["prefix_spilled_entries"] == 0
 
     def test_page_table_must_tile_max_len(self):
         cfg = _cfg()

@@ -313,15 +313,25 @@ class TestServingLedgerAndGuards:
         assert plan.total_fires() == 2
 
 
-@pytest.mark.parametrize("option,value", [
-    ("host_kv_bytes", 1 << 20), ("host_kv_dir", "/tmp/kv"),
-    ("restore_min_tokens", 32), ("scheduler", object()),
-    ("stats", object()),
-])
-def test_non_default_engine_options_raise(option, value):
+@pytest.mark.parametrize("option,value,error,match", [
+    ("host_kv_bytes", 1 << 20, ValueError, "kv_pages"),
+    ("host_kv_dir", "/tmp/kv", ValueError, "kv_pages"),
+    ("restore_min_tokens", 32, ValueError, "restore_min_tokens"),
+    ("sched_class", "batch", ValueError, "needs a scheduler"),
+    ("stats", object(), NotImplementedError, "ROADMAP Queue A1"),
+], ids=["host_kv_bytes-1048576", "host_kv_dir-/tmp/kv",
+        "restore_min_tokens-32", "scheduler-value3", "stats-value4"])
+def test_non_default_engine_options_raise(option, value, error, match):
+    # The reference's guards: the host tier needs the paged prefix index,
+    # restore_min_tokens a tier, a request's sched_class a scheduler; an
+    # inherited stats (the restart surface) is not ported.
     cfg = _cfg()
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A1"):
-        _engine(_params(cfg), cfg, **{option: value})
+    with pytest.raises(error, match=match):
+        if option == "sched_class":
+            _engine(_params(cfg), cfg).submit(np.arange(4), 2,
+                                              sched_class=value)
+        else:
+            _engine(_params(cfg), cfg, **{option: value})
 
 
 @pytest.mark.parametrize("options", [
@@ -357,22 +367,25 @@ def test_spec_options_serve(options):
     (dict(prefill_chunk=8), ValueError, "multiple of 16"),
     (dict(prefill_chunk=32, prefill_chunks_per_round=0), ValueError,
      "prefill_chunks_per_round"),
-    (dict(kv_pages=8, host_kv_bytes=1 << 20), NotImplementedError,
-     "ROADMAP Queue A1"),
-    (dict(kv_pages=8, scheduler=object()), NotImplementedError,
-     "ROADMAP Queue A1"),
+    (dict(kv_pages=8, prefix_sharing=False, host_kv_bytes=1 << 20),
+     ValueError, "prefix_sharing=True"),
+    (dict(kv_pages=8, scheduler="scheduler", restore_min_tokens=32),
+     ValueError, "restore_min_tokens"),
 ], ids=["pages_with_cache", "sharing_paged_only", "chunk_24", "chunk_8",
         "chunks_per_round_0", "pages_with_host_tier",
         "pages_with_scheduler"])
 def test_discipline_guards(options, error, match):
-    # The reference's constructor guards on the ported disciplines, and
-    # the disciplines still to port refused beside them.
-    from marlin_tpu_torch.serving import PrefixCache
+    # The reference's constructor guards: a host tier rides on the paged
+    # prefix index (sharing on), and restore_min_tokens needs a tier
+    # beside a scheduler too.
+    from marlin_tpu_torch.serving import PrefixCache, Scheduler
 
     cfg = _cfg()
     if options.get("prefix_cache") == "cache":
         options = dict(options, prefix_cache=PrefixCache(cfg, pool_rows=1,
                                                          device="cpu"))
+    if options.get("scheduler") == "scheduler":
+        options = dict(options, scheduler=Scheduler())
     with pytest.raises(error, match=match):
         _engine(_params(cfg), cfg, **options)
 
