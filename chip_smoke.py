@@ -13,7 +13,8 @@ Phases, each of which exits non-zero on failure:
 3. Forward kernel vs plain: hold the flash-attention forward kernel
    against its plain PyTorch version on the card at every shape the main
    path gives it (the served prefill, the speculative phase's 32- and
-   64-token prompt passes, the training step's B=8 S=2048, the remat
+   64-token prompt passes, the tensor-parallel phase's one-shot prefills
+   at one shard's heads, the training step's B=8 S=2048, the remat
    step's S=8192 MHA) and the edge cases (ragged, MHA, MQA,
    cross lengths with Dv != D, window, D=64, and head dims the wrapper
    zero-pads to the kernel's: D=32 with Dv=16 and D=96, bf16 and f32;
@@ -103,6 +104,31 @@ Phases, each of which exits non-zero on failure:
    hit and restored, TTFT median and max, tokens/s, pool and host bytes;
    freeze and thaw ms and bytes, the interactive wait in rounds and ms,
    batch-class tokens a round over FIFO's.
+   Then tensor parallelism (phase_tp), every shard on the one card
+   (device=("cuda:0",) * tp: the bits are checked, no speed-up is
+   expected). First the column probe: at the flagship's and the reference
+   TP shape's four projection GEMMs (bf16, 64-1024 rows), how many shard
+   column blocks differ in bits from the same columns of the full product
+   as one GEMM a shard, and in the column units the port runs; and
+   cost_model.tp_decode_flop_scaling at the reference shape, tp 2 and 4
+   (printed, not held). (a) The flagship at TP = 1 and 2 in five arms,
+   each with its phase's traffic: one-shot contiguous (the slice's 16
+   requests), paged chunked with sharing (the disciplines' 16 chat
+   requests), speculative paged (draft 4) and int8 paged (the
+   speculative phase's 16 requests), and paged with a 256 MiB host tier
+   and Scheduler() preemption (the scheduling pair's 12 requests). (b)
+   The JAX package's TP shape (benchlib/configs_tp.py:49-50: d_model
+   4096, 32 layers, 32 heads over 8 KV heads, d_ff 16384, vocab 32000,
+   RoPE, bf16, 5.9 B parameters) at full depth and TP = 1, 2 and 4: 8
+   greedy one-shot requests of 256-1024 prompt tokens, 16 steps, batch 8;
+   one degree's shards alive at a time, the f32 masters freed once cast.
+   Held: every TP > 1 arm's tokens equal TP = 1's, request by request;
+   the flash forward launched one-shot admissions x layers x tp times in
+   the one-shot arms and 0 in the others; the tier arm preempts and
+   resumes as many, leaving no pinned row. Printed (tp_column_probe:,
+   tp_cost_model:, tp: per arm and degree, tp_summary:): tokens/s,
+   steady decode-iteration ms, the device idle share of one profiled
+   steady round, peak memory.
 6. Train: the same flagship, bf16 compute on f32 master params, B=8,
    S=2048, SGD at lr 0.1: one warm-up train_step, then 5 timed steps on
    one fixed batch. Every loss finite, the last below the first, and the
@@ -279,6 +305,11 @@ SHAPES = [
     ("flagship", 1, 2048, 2048, 8, 2, 128, 128, "bfloat16", True, 0),
     ("spec_p32", 1, 32, 32, 8, 2, 128, 128, "bfloat16", True, 0),
     ("spec_p64", 1, 64, 64, 8, 2, 128, 128, "bfloat16", True, 0),
+    # phase_tp's one-shot prefills at one shard's heads: the flagship's
+    # 1536-token prompt at TP = 2 (4 heads over 1 KV head) and the
+    # reference TP shape's 1024-token one at TP = 4 (8 over 2).
+    ("tp2_flagship", 1, 1536, 1536, 4, 1, 128, 128, "bfloat16", True, 0),
+    ("tp4_ref", 1, 1024, 1024, 8, 2, 128, 128, "bfloat16", True, 0),
     ("train", 8, 2048, 2048, 8, 2, 128, 128, "bfloat16", True, 0),
     ("remat", 1, 8192, 8192, 8, 8, 128, 128, "bfloat16", True, 0),
     ("ragged", 1, 1000, 1000, 8, 2, 128, 128, "bfloat16", True, 0),
@@ -353,7 +384,8 @@ LARGE_F32_SHAPES = ("train_f32", "d512_s2048_f32")
 SHAPE_BY_NAME = {s[0]: s for s in SHAPES}
 
 # The serving-only forward shapes: no backward runs there.
-SERVE_SHAPES = ("flagship", "spec_p32", "spec_p64")
+SERVE_SHAPES = ("flagship", "spec_p32", "spec_p64", "tp2_flagship",
+                "tp4_ref")
 
 # Backward shapes: the training paths' two and the same edge cases.
 BWD_SHAPES = [s for s in SHAPES if s[0] not in SERVE_SHAPES]
@@ -3703,6 +3735,306 @@ def phase_host_tier(card: str, seed: int = 0):
         phase_s=time.perf_counter() - t_phase)), flush=True)
 
 
+# Tensor parallelism (phase_tp): every shard of the model axis on the one
+# card (device=("cuda:0",) * tp), which checks the bits, not the speed.
+# The flagship is served at these degrees (its 2 KV heads allow 1 and 2)
+# ...
+TP_FLAGSHIP_DEGREES = (1, 2)
+# ... and the JAX package's own TP shape (benchlib/configs_tp.py:49-50,
+# with d_ff = 4 x d_model as its bench builds it; 5.9 B parameters, 11.8
+# GB in bf16) at full depth, at these.
+TP_REF = dict(d_model=4096, n_layers=32, n_heads=32, n_kv_heads=8,
+              vocab=32000, max_len=2048, d_ff=16384, rope=True,
+              dtype="bfloat16")
+TP_REF_DEGREES = (1, 2, 4)
+TP_REF_PROMPTS = (256, 1024)  # prompt lengths of its 8 greedy requests
+TP_REF_STEPS = 16
+# The column probe's row counts: the decode tile at batch 8, the prefill
+# tile, and one-shot buckets.
+TP_PROBE_ROWS = (64, 128, 256, 512, 1024)
+
+
+def _tp_column_probe(cfg, tps):
+    """The GEMMs of the column-sharded projections on the card: how many
+    shard column blocks are NOT bitwise the same columns of the full
+    product (a) as one GEMM a shard, (x @ W[:, J]) against (x @ W)[:, J],
+    and (b) in the column units the port runs (transformer._proj), at
+    TP_PROBE_ROWS rows. Printed, not held: the arms' tokens are the
+    gate."""
+    import torch
+
+    from marlin_tpu_torch.models import transformer as tr
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    d = cfg.d_model
+    shapes = {"wqkv": (d, d + 2 * cfg.kv_heads * (d // cfg.n_heads)),
+              "wo": (d, d), "w1": (d, cfg.d_ff), "w2": (cfg.d_ff, d)}
+
+    def in_units(x, w, width):
+        return torch.cat([x @ w[:, j:j + width]
+                          for j in range(0, w.shape[1], width)], dim=-1)
+
+    out = {}
+    with torch.no_grad():
+        for wname, (k, n) in shapes.items():
+            w = (torch.randn((k, n), generator=gen, device="cuda")
+                 / math.sqrt(k)).to(torch.bfloat16)
+            width = n // tr.tp_units(cfg)
+            one = units = checks = 0
+            for m in TP_PROBE_ROWS:
+                x = torch.randn((m, k), generator=gen, device="cuda").to(
+                    torch.bfloat16)
+                full, full_u = x @ w, in_units(x, w, width)
+                for tp in tps:
+                    loc = n // tp
+                    for r in range(tp):
+                        cols = slice(r * loc, (r + 1) * loc)
+                        ws = w[:, cols].contiguous()
+                        checks += 1
+                        one += not torch.equal(x @ ws, full[:, cols])
+                        units += not torch.equal(in_units(x, ws, width),
+                                                 full_u[:, cols])
+            out[wname] = dict(k=k, n=n, unit_width=width, checks=checks,
+                              one_gemm_not_bitwise=one,
+                              units_not_bitwise=units)
+    return out
+
+
+def _tp_idle(params, cfg, tp, **options):
+    """One steady decode round (8 live rows, 2 iterations, no admission)
+    at degree ``tp`` under torch.profiler, as phase_profile: (wall ms an
+    iteration, device-busy ms an iteration, idle share, the seconds this
+    took)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from marlin_tpu_torch.serving import ServingEngine
+
+    t0 = time.perf_counter()
+    eng = ServingEngine(params, cfg._replace(tp=tp), batch=8, round_steps=2,
+                        device=("cuda:0",) * tp, **options)
+    rng_prompts = [[(7 * i + j) % cfg.vocab for j in range(64)]
+                   for i in range(8)]
+    for p in rng_prompts:
+        eng.submit(p, 40)
+    while eng._prefilling or eng.stats.n_admitted < 8:
+        eng.step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    iters = eng.runlog.events("round")[-1]["iters"]
+    busy_us = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA)
+    return dict(wall_ms_per_iter=wall * 1e3 / iters,
+                device_busy_ms_per_iter=busy_us / 1e3 / iters,
+                device_idle_share=1.0 - busy_us / 1e6 / wall,
+                idle_probe_s=time.perf_counter() - t0)
+
+
+def _tp_serve(card, params, cfg, tp, arm, workload, *, waves=None,
+              **options):
+    """Serve ``workload`` ([(prompt, steps, extra submit kwargs)]) at
+    degree ``tp`` with every shard on the card. ``waves`` = (n, rounds):
+    the first n requests, ``rounds`` steps, then the rest (else all at
+    once). Returns ({request id: tokens}, flash forward launches, the
+    printed line)."""
+    import numpy as np
+    import torch
+
+    from marlin_tpu_torch.ops import flash_attention as fa
+    from marlin_tpu_torch.serving import ServingEngine
+
+    eng = ServingEngine(params, cfg._replace(tp=tp),
+                        device=("cuda:0",) * tp, **options)
+    _zero_counters(fa)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    n0, rounds0 = waves if waves is not None else (len(workload), 0)
+    t0 = time.perf_counter()
+    for i, (prompt, steps, kw) in enumerate(workload[:n0]):
+        eng.submit(prompt, steps, request_id=i, **kw)
+    done = {}
+    for _ in range(rounds0):
+        done.update({r.request_id: r for r in eng.step()})
+    for i, (prompt, steps, kw) in enumerate(workload[n0:], n0):
+        eng.submit(prompt, steps, request_id=i, **kw)
+    done.update({r.request_id: r for r in eng.drain()})
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _counters(fa)
+    if sorted(done) != list(range(len(workload))) or any(
+            r.status != "done" for r in done.values()):
+        fail(f"tp {arm} tp={tp}: answered {len(done)} of {len(workload)}")
+    if any(n for name, n in counts.items() if name != "fwd"):
+        fail(f"tp {arm} tp={tp}: launches {counts}, expected the narrow "
+             f"forward only")
+    rounds = eng.runlog.events("round")
+    steady = [e["round_s"] / e["iters"] for e in rounds
+              if e["admitted"] == 0 and e["iters"]]
+    line = dict(card=card, arm=arm, tp=tp, shards_on_one_card=tp > 1,
+                requests=len(done), admissions=eng.stats.n_admitted,
+                flash_launches=counts["fwd"], wall_s=wall,
+                tokens_per_s=sum(r.emitted for r in done.values()) / wall,
+                decode_iter_ms=(1e3 * float(np.median(steady))
+                                if steady else None),
+                rounds=len(rounds),
+                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    if eng.scheduler is not None:
+        snap = eng.debug_sched()
+        line.update(preempts=snap["preempts"], resumes=snap["resumes"],
+                    host_rows_left=eng.host_tier.summary()["host_rows"])
+    tokens = {rid: r.tokens for rid, r in done.items()}
+    return tokens, counts["fwd"], line, eng.stats.n_admitted
+
+
+def _tp_equal(arm, ref, got, tp):
+    import numpy as np
+
+    bad = [rid for rid in sorted(ref) if not np.array_equal(ref[rid],
+                                                            got[rid])]
+    if bad:
+        fail(f"tp {arm}: tp={tp} tokens differ from tp=1's at requests "
+             f"{bad}")
+
+
+def phase_tp(card: str, seed: int = 0):
+    """Tensor parallelism on one card: see the module docstring. Returns
+    the flash forward's launches in the one-shot arms, {"flagship": n,
+    "ref": n}. Every check exits non-zero when it fails."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from marlin_tpu_torch.models import TransformerConfig, quant
+    from marlin_tpu_torch.models import transformer as tr
+    from marlin_tpu_torch.serving import Scheduler
+    from marlin_tpu_torch.utils import cost_model as cm
+
+    t_phase = time.perf_counter()
+    cfg = TransformerConfig(**FLAGSHIP)
+    ref_cfg = TransformerConfig(**TP_REF)
+    print("tp_column_probe: " + json.dumps(dict(
+        card=card, flagship=_tp_column_probe(cfg, (2,)),
+        ref=_tp_column_probe(ref_cfg, (2, 4)),
+        phase_s=time.perf_counter() - t_phase)), flush=True)
+    print("tp_cost_model: " + json.dumps(dict(
+        shape=TP_REF, batch=8, tp_decode_flop_scaling={
+            tp: cm.tp_decode_flop_scaling(ref_cfg, 8, tp)
+            for tp in (2, 4)})), flush=True)
+
+    # (a) The flagship at TP 1 and 2, five arms, each its phase's traffic.
+    params = tr.init_params(cfg, seed=seed, device="cuda")
+    pages = 8 * cfg.max_len // 16 + 64
+    rng = np.random.default_rng(31)
+    sched_traffic = (
+        [(rng.integers(0, cfg.vocab, SCHED_BATCH_PROMPT), SCHED_BATCH_STEPS,
+          {"sched_class": "batch"}) for _ in range(8)]
+        + [(rng.integers(0, cfg.vocab, SCHED_CHAT_PROMPT), SCHED_CHAT_STEPS,
+            {"sched_class": "interactive"}) for _ in range(4)])
+    spec_traffic = [(p, s, {}) for p, s in _spec_workload(cfg, seed)]
+    cfg_q = cfg._replace(kv_quant="int8")
+    params_q = quant.quantize_params_int8(params)
+    arms = {
+        "oneshot": (params, cfg, [(p, s, {}) for p, s in
+                                  _workload(cfg, seed)],
+                    dict(batch=8, round_steps=8), (5, 1)),
+        "paged": (params, cfg, [(p, s, {}) for p, s in
+                                _chat_workload(cfg, seed)],
+                  dict(batch=8, round_steps=8, kv_pages=pages,
+                       prefill_chunk=DISCIPLINE_CHUNK,
+                       prefill_chunks_per_round=2), None),
+        "spec_paged": (params, cfg, spec_traffic,
+                       dict(batch=8, round_steps=SPEC_ROUND_STEPS,
+                            kv_pages=pages, spec_draft_lens=(4,)), None),
+        "int8_paged": (params_q, cfg_q, spec_traffic,
+                       dict(batch=8, round_steps=SPEC_ROUND_STEPS,
+                            kv_pages=pages), None),
+        "tier_sched": (params, cfg, sched_traffic,
+                       dict(batch=8, round_steps=4, seed=5, kv_pages=pages,
+                            host_kv_bytes=TIER_HOST_BYTES), (8, 3)),
+    }
+    launches = {"flagship": 0, "ref": 0}
+    for arm, (p, c, traffic, options, waves) in arms.items():
+        ref = None
+        for tp in TP_FLAGSHIP_DEGREES:
+            if arm == "tier_sched":
+                options = dict(options, scheduler=Scheduler())
+            tokens, fwd, line, admissions = _tp_serve(
+                card, p, c, tp, arm, traffic, waves=waves, **options)
+            want = admissions * c.n_layers * tp if arm == "oneshot" else 0
+            if fwd != want:
+                fail(f"tp {arm} tp={tp}: flash forward launches {fwd} != "
+                     f"{want} (one-shot admissions x layers x tp)")
+            if arm == "oneshot":
+                launches["flagship"] += fwd
+            if arm == "tier_sched" and (
+                    line["preempts"] < 1
+                    or line["resumes"] != line["preempts"]
+                    or line["host_rows_left"]):
+                fail(f"tp {arm} tp={tp}: preempts {line['preempts']}, "
+                     f"resumes {line['resumes']}, pinned rows left "
+                     f"{line['host_rows_left']}")
+            line.update(_tp_idle(p, c, tp, **{
+                k: v for k, v in options.items()
+                if k in ("kv_pages", "spec_draft_lens")}))
+            if ref is None:
+                ref = tokens
+            else:
+                _tp_equal(arm, ref, tokens, tp)
+                line["tokens_equal_tp1"] = True
+            line["phase_s"] = time.perf_counter() - t_phase
+            print("tp: " + json.dumps(line, default=str), flush=True)
+    del params, params_q
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) The reference TP shape at full depth, one-shot admission.
+    rng = np.random.default_rng(seed + 20)
+    traffic = [(rng.integers(0, ref_cfg.vocab, int(n)), TP_REF_STEPS, {})
+               for n in rng.integers(TP_REF_PROMPTS[0],
+                                     TP_REF_PROMPTS[1] + 1, 8)]
+    t0 = time.perf_counter()
+    params = tr.init_params(ref_cfg, seed=seed, device="cuda")
+    with torch.no_grad():
+        params = tr._cast_params(params, ref_cfg)  # the f32 masters go
+    gc.collect()
+    torch.cuda.empty_cache()
+    init_s = time.perf_counter() - t0
+    ref = None
+    for tp in TP_REF_DEGREES:
+        tokens, fwd, line, admissions = _tp_serve(
+            card, params, ref_cfg, tp, "ref_oneshot", traffic,
+            batch=8, round_steps=8)
+        want = admissions * ref_cfg.n_layers * tp
+        if fwd != want:
+            fail(f"tp ref_oneshot tp={tp}: flash forward launches {fwd} != "
+                 f"{want} (admissions x layers x tp)")
+        launches["ref"] += fwd
+        line.update(_tp_idle(params, ref_cfg, tp))
+        if ref is None:
+            ref = tokens
+        else:
+            _tp_equal("ref_oneshot", ref, tokens, tp)
+            line["tokens_equal_tp1"] = True
+        line.update(params_b=cm.transformer_param_count(ref_cfg) / 1e9,
+                    init_s=init_s, phase_s=time.perf_counter() - t_phase)
+        print("tp: " + json.dumps(line, default=str), flush=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("tp_summary: " + json.dumps(dict(
+        card=card, phase_s=time.perf_counter() - t_phase,
+        flash_launches=launches)), flush=True)
+    return launches
+
+
 def phase_profile(params, cfg, workload):
     """Where a steady decode round's time goes: one round of 8 live rows
     (no admission) under torch.profiler, device-busy time against host
@@ -5130,7 +5462,8 @@ def kernels_line(rows, bwd, launches, small, spmm, spmm_launches,
     fwd_paths = {p: (launches[p]["fwd"], rows[s]) for p, s in
                  (("serve", "flagship"), ("speculative_p32", "spec_p32"),
                   ("speculative_p64", "spec_p64"), ("train", "train"),
-                  ("remat", "remat"))}
+                  ("remat", "remat"), ("tp", "tp2_flagship"),
+                  ("tp_ref", "tp4_ref"))}
 
     fwd_entry = _fwd_entry
 
@@ -5226,7 +5559,10 @@ def main(argv=None) -> int:
     phase_serving_disciplines(card)
     spec_launches = phase_speculative(card)
     phase_host_tier(card)
+    tp_launches = phase_tp(card)
     launches = phase_train(card)
+    launches["tp"] = dict(fwd=tp_launches["flagship"])
+    launches["tp_ref"] = dict(fwd=tp_launches["ref"])
     launches["serve"] = dict(fwd=serve_launches)
     for shape in ("spec_p32", "spec_p64"):
         launches["speculative_" + shape[5:]] = dict(

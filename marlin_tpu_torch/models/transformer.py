@@ -21,9 +21,17 @@ them to XLA. Training is autograd over the same functions:
 :func:`make_train_step` (a ``torch.optim`` optimizer); ``cfg.remat``
 checkpoints each block.
 
-Model options outside the port so far (MoE, sequence parallelism, tensor
-parallelism) raise ``NotImplementedError`` naming the ROADMAP item that
-ports them.
+Tensor parallelism (``cfg.tp > 1``, :mod:`.tp`): the block bodies run
+unchanged on each shard at the local extents (``cfg.tp_heads``,
+``tp_kv_heads``, ``tp_ff``), and :func:`_tp_out` is their only
+collective. Outside autograd every column-sharded projection runs one
+GEMM a column unit (:func:`tp_units`) and the cached attention one KV
+head a call, at every degree (tp 1 included): a cuBLAS GEMM does not
+give a column the same bits at another column count, so this is what
+makes TP = N bitwise TP = 1.
+
+Model options outside the port so far (MoE, sequence parallelism) raise
+``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -59,12 +67,26 @@ class TransformerConfig(NamedTuple):
     remat: bool = False  # checkpoint each block under autograd (training)
     dtype: str = "float32"  # compute dtype of params, activations, KV cache
     kv_quant: str = ""
-    tp: int = 1
-    tp_mode: str = "gather"
+    tp: int = 1  # tensor-parallel degree (models/tp.py)
+    tp_mode: str = "gather"  # "gather" (bitwise) or "psum" (allclose)
 
     @property
     def kv_heads(self) -> int:
         return self.n_kv_heads or self.n_heads
+
+    # Per-shard extents under tensor parallelism (the global ones at tp 1).
+
+    @property
+    def tp_heads(self) -> int:
+        return self.n_heads // self.tp
+
+    @property
+    def tp_kv_heads(self) -> int:
+        return self.kv_heads // self.tp
+
+    @property
+    def tp_ff(self) -> int:
+        return self.d_ff // self.tp
 
     @property
     def compute_dtype(self) -> torch.dtype:
@@ -83,8 +105,6 @@ def check_ported(cfg: TransformerConfig) -> None:
         "sequence_parallel": (cfg.sequence_parallel,
                               "sequence-parallel attention (parallel/"
                               "ulysses.py, ring.py), ROADMAP Queue A3"),
-        "tp": (cfg.tp > 1, "tensor parallelism (models/tp.py), ROADMAP "
-               "Queue A1"),
     }
     for name, (value, what) in unported.items():
         if value:
@@ -93,8 +113,48 @@ def check_ported(cfg: TransformerConfig) -> None:
                 f"is not ported to marlin_tpu_torch yet")
 
 
+def validate_tp(cfg: TransformerConfig) -> None:
+    """The tensor-parallel config contract, checked at param init and at
+    every TP surface (models/tp.py, the serving engine): the degree must
+    divide every sharded extent (attention heads, GQA KV heads: each
+    shard keeps WHOLE query groups, so grouped attention stays local; the
+    MLP hidden dim), and the reassembly mode must be known."""
+    if cfg.tp < 1:
+        raise ValueError(f"tp must be >= 1, got {cfg.tp}")
+    if cfg.tp_mode not in ("gather", "psum"):
+        raise ValueError(
+            f"unknown tp_mode {cfg.tp_mode!r}; supported: 'gather' "
+            "(bit-exact, two all_gathers per sub-layer) or 'psum' "
+            "(Megatron row-parallel, one psum, allclose-only)")
+    if cfg.tp == 1:
+        return
+    if cfg.n_heads % cfg.tp or cfg.kv_heads % cfg.tp or cfg.d_ff % cfg.tp:
+        raise ValueError(
+            f"tp {cfg.tp} must divide n_heads {cfg.n_heads}, kv_heads "
+            f"{cfg.kv_heads}, and d_ff {cfg.d_ff} (per-device extents "
+            "must be whole heads / whole hidden columns)")
+    if cfg.n_experts:
+        raise ValueError(
+            "tp > 1 does not compose with the MoE MLP (parallel.expert "
+            "owns the device axis there); use dense blocks")
+    if cfg.sequence_parallel:
+        raise ValueError(
+            "tp > 1 does not compose with sequence_parallel (the SP "
+            "engines place their own shardings)")
+
+
+def tp_units(cfg: TransformerConfig) -> int:
+    """Column units of a column-sharded projection: the largest degree
+    :func:`validate_tp` accepts for ``cfg`` (the gcd of the heads, the
+    KV heads and d_ff), so a shard at any degree holds whole units. A
+    degree-independent count: every degree, 1 included, runs the same
+    GEMM shapes (:func:`_proj`)."""
+    return math.gcd(math.gcd(cfg.n_heads, cfg.kv_heads), cfg.d_ff)
+
+
 def _validate(cfg: TransformerConfig) -> None:
     check_ported(cfg)
+    validate_tp(cfg)
     if cfg.n_heads % cfg.kv_heads:
         raise ValueError(
             f"n_kv_heads {cfg.kv_heads} must divide n_heads {cfg.n_heads}")
@@ -216,12 +276,66 @@ def _attend_local(q, k, v, cfg: TransformerConfig):
     return flash_attention(q, k, v, causal=True, window=cfg.window)
 
 
+def _proj(x, w, cfg: TransformerConfig):
+    """``x @ w`` for a column-sharded projection (``w``: this shard's
+    columns, already dequantized), one GEMM a column unit of width
+    (global columns) / :func:`tp_units`. A cuBLAS GEMM does not give a
+    column the same bits at another column count (on the H100 a
+    (64, 4096) @ (4096, 512) product differs from the 1024-column one in
+    most of its columns): with one shape a unit at every degree, each
+    output column is computed by the same call shape at tp 1 and tp N.
+    Under autograd (training, which never runs sharded) it stays one
+    GEMM."""
+    width = w.shape[-1] * cfg.tp // tp_units(cfg)
+    if torch.is_grad_enabled() or width >= w.shape[-1]:
+        return x @ w
+    return torch.cat([x @ w[:, j:j + width]
+                      for j in range(0, w.shape[-1], width)], dim=-1)
+
+
+def _tp_out(y, w, cfg: TransformerConfig, bias=None):
+    """A sub-layer's down projection: ``y`` is this shard's slice of the
+    up projection's output (its attention heads, or its MLP hidden
+    columns), ``w`` the down-projection weight (possibly int8). At tp 1
+    the plain product (in column units, :func:`_proj`).
+
+    ``"gather"`` (the default): ``w`` is column-sharded; ``y`` is
+    all-gathered on the feature axis, multiplied by the local column
+    block and the output all-gathered. Every output column is one
+    full-width dot on one shard, the same GEMM as at tp 1: bitwise.
+
+    ``"psum"``: ``w`` is row-sharded and the partial products are summed
+    in rank order. One collective, but the split contraction reassociates
+    the sum: allclose only.
+
+    ``bias`` (replicated) goes on after the collective, once, as its own
+    op (an addmm epilogue would round bf16 once where this rounds
+    twice)."""
+    w = _deq(w, y.dtype)
+    if cfg.tp == 1:
+        out = _proj(y, w, cfg)
+    else:
+        from .tp import current_shard
+
+        shard = current_shard()
+        if cfg.tp_mode == "gather":
+            out = shard.all_gather(_proj(shard.all_gather(y, -1), w, cfg),
+                                   -1)
+        else:
+            out = shard.all_reduce(y @ w)
+    if bias is not None:
+        out = out + bias
+    return out
+
+
 def _mlp_residual(bp, x, cfg: TransformerConfig):
     """ln2 -> dense MLP (tanh-approximate gelu, jax.nn.gelu's default) ->
-    residual."""
+    residual. Under TP the local w1 columns (b1 rides with them) feed
+    :func:`_tp_out`; b2 is replicated and added after the collective."""
     y = _layer_norm(bp["ln2"], x)
-    y = F.gelu(y @ _deq(bp["w1"], y.dtype) + bp["b1"], approximate="tanh")
-    return x + (y @ _deq(bp["w2"], y.dtype) + bp["b2"])
+    y = F.gelu(_proj(y, _deq(bp["w1"], y.dtype), cfg) + bp["b1"],
+               approximate="tanh")
+    return x + _tp_out(y, bp["w2"], cfg, bias=bp["b2"])
 
 
 def _rope(x, positions, base: float = 10000.0):
@@ -243,12 +357,26 @@ def _rope(x, positions, base: float = 10000.0):
 def _split_qkv(bp, x, cfg: TransformerConfig, positions=None):
     """ln1 -> fused projection -> q (B, T, H, Dh), k/v (B, T, Hk, Dh);
     with ``cfg.rope`` Q and K are rotated by ``positions`` (B, T), so
-    cached keys are stored rotated."""
+    cached keys are stored rotated. Under TP ``bp["wqkv"]`` is this
+    shard's permuted column block ``[q_local | k_local | v_local]``
+    (models/tp.py lays whole heads a shard), so the split points are the
+    LOCAL head counts, the global ones at tp 1. Outside autograd Q, K and
+    V each run in column units (:func:`_proj`)."""
+    if cfg.tp > 1:
+        from .tp import current_shard
+
+        current_shard()  # raises outside a shard run: unsharded weights
     b, t, d = x.shape
-    h, hk = cfg.n_heads, cfg.kv_heads
-    dh = d // h
-    qkv = _layer_norm(bp["ln1"], x) @ _deq(bp["wqkv"], x.dtype)
-    q, k, v = torch.split(qkv, [h * dh, hk * dh, hk * dh], dim=-1)
+    h, hk = cfg.tp_heads, cfg.tp_kv_heads
+    dh = d // cfg.n_heads
+    y = _layer_norm(bp["ln1"], x)
+    w = _deq(bp["wqkv"], x.dtype)
+    sizes = [h * dh, hk * dh, hk * dh]
+    if torch.is_grad_enabled():
+        q, k, v = torch.split(y @ w, sizes, dim=-1)
+    else:
+        q, k, v = (_proj(y, part, cfg)
+                   for part in torch.split(w, sizes, dim=1))
     q = q.reshape(b, t, h, dh)
     k = k.reshape(b, t, hk, dh)
     if cfg.rope:
@@ -266,8 +394,8 @@ def _block(bp, x, cfg: TransformerConfig, return_kv: bool = False):
     positions = (torch.arange(s, device=x.device).expand(b, s)
                  if cfg.rope else None)
     q, k, v = _split_qkv(bp, x, cfg, positions=positions)
-    att = _attend_local(q, k, v, cfg).reshape(b, s, -1)
-    x = _mlp_residual(bp, x + att @ _deq(bp["wo"], att.dtype), cfg)
+    att = _attend_local(q, k, v, cfg).reshape(b, s, -1)  # local heads
+    x = _mlp_residual(bp, x + _tp_out(att, bp["wo"], cfg), cfg)
     return (x, k, v) if return_kv else x
 
 
@@ -435,10 +563,14 @@ def init_kv_cache(cfg: TransformerConfig, batch: int,
     slots (slot = position mod cache_len). With ``cfg.kv_quant="int8"``
     the slots are int8 and each layer also carries f32 scale buffers
     ``ks``/``vs`` (B, cache_len, Hk, 1), one a stored vector
-    (:func:`.quant.kv_quantize`); ``dtype`` is then unused."""
+    (:func:`.quant.kv_quantize`); ``dtype`` is then unused. Under tensor
+    parallelism the buffers hold one shard's heads (Hk = ``cfg.
+    tp_kv_heads``): models/tp.py places one such cache a shard."""
     check_ported(cfg)
+    validate_tp(cfg)
     dev = resolve_device(device)
-    shape = (batch, _cache_len(cfg), cfg.kv_heads, cfg.d_model // cfg.n_heads)
+    shape = (batch, _cache_len(cfg), cfg.tp_kv_heads,
+             cfg.d_model // cfg.n_heads)
     if cfg.kv_quant:
         if cfg.kv_quant != "int8":
             raise ValueError(f"unknown kv_quant {cfg.kv_quant!r}; "
@@ -462,15 +594,15 @@ def _attend_cached(q, ck, cv, pos, ks=None, vs=None, window=0):
     ring (slot s holds position base + s for s <= pos mod T, else base -
     T + s, with base = pos - pos mod T; unfilled slots are masked). f32
     logits divided by sqrt(Dh) after the product, -1e30 masks, f32
-    softmax."""
+    softmax.
+
+    One KV head a call, on contiguous operands: a batched GEMM over B x
+    Hk heads need not give a head the same bits at another head count
+    (on the H100 it does not at B = 1), so this makes a head's result
+    independent of how many heads a tensor-parallel shard holds."""
     b, c, h, dh = q.shape
     t, hk = ck.shape[1], ck.shape[2]
-    if ks is not None:
-        ck = ck.to(torch.float32) * ks
-        cv = cv.to(torch.float32) * vs
-    qg = q.reshape(b, c, hk, h // hk, dh).to(torch.float32)
-    logits = torch.einsum("bckgd,btkd->bckgt", qg,
-                          ck.to(torch.float32)) / math.sqrt(dh)
+    g = h // hk
     slots = torch.arange(t, device=q.device)
     p = pos[..., None]  # (B, C, 1)
     if window:
@@ -479,10 +611,20 @@ def _attend_cached(q, ck, cv, pos, ks=None, vs=None, window=0):
         mask = abs_pos >= 0
     else:
         mask = slots <= p
-    logits = logits.masked_fill(~mask[:, :, None, None, :], -1e30)
-    probs = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bckgt,btkd->bckgd", probs, cv.to(torch.float32))
-    return out.reshape(b, c, h * dh).to(q.dtype)
+    outs = []
+    for j in range(hk):
+        kj = ck[:, :, j].to(torch.float32)
+        vj = cv[:, :, j].to(torch.float32)
+        if ks is not None:
+            kj = kj * ks[:, :, j]
+            vj = vj * vs[:, :, j]
+        qj = q[:, :, j * g:(j + 1) * g].to(torch.float32).contiguous()
+        logits = torch.einsum("bcgd,btd->bcgt", qj,
+                              kj.contiguous()) / math.sqrt(dh)
+        logits = logits.masked_fill(~mask[:, :, None, :], -1e30)
+        probs = torch.softmax(logits, dim=-1)
+        outs.append(torch.einsum("bcgt,btd->bcgd", probs, vj.contiguous()))
+    return torch.cat(outs, dim=2).reshape(b, c, h * dh).to(q.dtype)
 
 
 def _check_quant(kv, cfg: TransformerConfig, what: str):
@@ -594,7 +736,7 @@ def _tiles(params, kv, tokens, pos, cfg: TransformerConfig, write_read,
             att = _attend_cached(q, view["k"], view["v"], tile_pos,
                                  view.get("ks"), view.get("vs"),
                                  window=cfg.window)
-            x = _mlp_residual(bp, x + att @ _deq(bp["wo"], att.dtype), cfg)
+            x = _mlp_residual(bp, x + _tp_out(att, bp["wo"], cfg), cfg)
         out.append((x, n))
     return out
 

@@ -22,6 +22,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from pathlib import Path
 from typing import Dict, Iterable, Optional
@@ -41,6 +42,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+_load_lock = threading.Lock()
 
 
 def find_nvcc() -> str:
@@ -120,9 +122,12 @@ def build(names: Optional[Iterable[str]] = None,
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for kernel source ``name``, built first if
-    needed."""
-    lib = _loaded.get(name)
-    if lib is None:
-        path = build([name])[name]["path"]
-        lib = _loaded[name] = ctypes.CDLL(path)
+    needed. Thread-safe: tensor-parallel shards (models/tp.py) launch
+    from threads of their own, and one build serves them all."""
+    with _load_lock:
+        lib = _loaded.get(name)
+        if lib is None:
+            # One build serves every shard's thread: the others wait.
+            path = build([name])[name]["path"]  # marlint: allow-blocking=once
+            lib = _loaded[name] = ctypes.CDLL(path)
     return lib

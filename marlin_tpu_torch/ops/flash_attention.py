@@ -63,6 +63,7 @@ import ctypes
 import functools
 import heapq
 import math
+import threading
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -113,7 +114,10 @@ KERNEL_TILES = {"fwd": (128, 128), "dq": (64, 64), "dkv": (64, 64)}
 # Kernel launches since the last reset, one counter per kernel
 # (chip_smoke.py zeroes and reads them to prove that a path ran through
 # the kernels): the forward, the dQ backward and the dK/dV backward, and
-# the same three of the wide kernels (head dims above 256).
+# the same three of the wide kernels (head dims above 256). Tensor-parallel
+# shards launch from threads of their own (models/tp.py), so every count
+# is taken under _count_lock.
+_count_lock = threading.Lock()
 launches = 0
 bwd_dq_launches = 0
 bwd_dkv_launches = 0
@@ -617,7 +621,8 @@ def _launch(q_hat, k, v, causal: bool, window: int,
             None if ws is None else ws.data_ptr(), b, h, hk, sq, skv, d, dv,
             int(causal), int(window), p, stream)
     _check_err(err, "flash_attention_fwd", b, sq, skv, h, hk, d, dv)
-    launches += 1
+    with _count_lock:
+        launches += 1
     return o, lse
 
 
@@ -672,7 +677,8 @@ def _launch_wide(q_hat, k, v, causal: bool, window: int,
             None if ws is None else ws.data_ptr(), b, h, hk, sq, skv, d, dv,
             int(causal), int(window), p, stream)
     _check_err(err, "flash_attention_fwd_wide", b, sq, skv, h, hk, d, dv)
-    wide_launches += 1
+    with _count_lock:
+        wide_launches += 1
     return o, lse, chunks
 
 
@@ -724,10 +730,11 @@ def _launch_bwd_dq(q_hat, k, v, do, lse, delta, causal: bool, window: int,
                  float(scale), stream)
     _check_err(err, "flash_attention_bwd_dq" + "_wide" * wide, b, sq, skv,
                h, hk, d, dv)
-    if wide:
-        wide_dq_launches += 1
-    else:
-        bwd_dq_launches += 1
+    with _count_lock:
+        if wide:
+            wide_dq_launches += 1
+        else:
+            bwd_dq_launches += 1
     return dq
 
 
@@ -774,10 +781,11 @@ def _launch_bwd_dkv(q_hat, k, v, do, lse, delta, causal: bool,
                  dv, int(causal), int(window), parts, stream)
     _check_err(err, "flash_attention_bwd_dkv" + "_wide" * wide, b, sq, skv,
                h, hk, d, dv)
-    if wide:
-        wide_dkv_launches += 1
-    else:
-        bwd_dkv_launches += 1
+    with _count_lock:
+        if wide:
+            wide_dkv_launches += 1
+        else:
+            bwd_dkv_launches += 1
     return dk, dvv
 
 

@@ -65,8 +65,17 @@ the row decodes as if it had never stopped. Tokens stay a function of
 (prompt, steps, seed, request id): tier on == off and preempted ==
 uninterrupted, bitwise.
 
-The JAX engine's other options (an inherited ``stats``, tensor
-parallelism) raise ``NotImplementedError``.
+``cfg.tp > 1`` serves every discipline above tensor-parallel (serving/
+tp.py): the params are permuted and column-sharded over the ``model``
+axis that ``device`` names (models/tp.tp_devices: ``"cuda"`` is the first
+``tp`` cards, ``"cpu"`` ``tp`` CPU shards, ``("cuda:0",) * tp`` every
+shard on one card), the cache or page pool holds one shard's heads a
+shard, and every model call runs on all shards while sampling and the
+host state run once. Tokens are bitwise those of tp 1 (gather mode).
+The contiguous ``prefix_cache`` stays tp 1 only.
+
+The JAX engine's inherited ``stats`` option raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -80,22 +89,21 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from ..models import tp as mtp
 from ..models import transformer as tr
 from ..obs import metrics as obs_metrics
 from ..obs import trace as obs_trace
 from ..obs.runlog import RunLog
 from ..utils import cost_model as cm
-from ..utils.hw import resolve_device
 from ..utils.split import pad_to_multiple
 from . import faults
+from . import tp as stp
 from .pages import PAGE, SINK_PAGE, HostKVTier, PagePool
 from .prefix import PagedPrefixIndex, PrefixCache
 from .queue import AdmissionQueue, Request
 from .sched import FrozenRow, Scheduler
 from .slots import (ADMISSION_BUCKET, SlotManager, pad_prompt_len,
-                    prefill_chunk_into_row, prefill_chunk_into_row_paged,
-                    prefill_into_row, restore_pages_into_pool,
-                    restore_row_tokens)
+                    restore_pages_into_pool, restore_row_tokens)
 from .stats import EngineStats
 
 # The JAX engine's other options, with their defaults: any other value
@@ -136,7 +144,9 @@ class ServingEngine:
     scheduling state (queue, slots, per-request records). ``batch`` is
     the static row count; the queue absorbs everything beyond it.
     ``params`` (and a ``prefix_cache``) must live on ``device`` (default
-    ``"cuda"``); the cache, or the page pool, is allocated there."""
+    ``"cuda"``; with ``cfg.tp > 1`` on its first shard's device); the
+    cache, or the page pool, is allocated there (a shard's on each shard's
+    device)."""
 
     def __init__(self, params, cfg, batch: int = 8, round_steps: int = 8,
                  max_pending: int = 64, temperature: float = 0.0,
@@ -164,11 +174,14 @@ class ServingEngine:
                 raise NotImplementedError(
                     f"ServingEngine({name}={value!r}): {what} is not "
                     f"ported to marlin_tpu_torch yet (ROADMAP Queue A1)")
-        if cfg.tp > 1:
-            raise NotImplementedError(
-                "tensor-parallel serving (serving/tp.py) is not ported to "
-                "marlin_tpu_torch yet (ROADMAP Queue A1)")
         tr.check_ported(cfg)
+        tr.validate_tp(cfg)
+        self.tp = int(cfg.tp)
+        if self.tp > 1 and prefix_cache is not None:
+            raise NotImplementedError(
+                "tp > 1 composes with the PAGED prefix surface "
+                "(kv_pages + prefix_sharing); the contiguous PrefixCache "
+                "pool is not sharded")
         if cfg.window:
             raise NotImplementedError(
                 "serving needs the dense slot==position cache "
@@ -262,7 +275,10 @@ class ServingEngine:
                 "prefix_cache was built for a different TransformerConfig; "
                 "its pool rows would not be shape/quantization-compatible "
                 "with this engine's cache")
-        self.device = resolve_device(device)
+        # The model axis (one device at tp 1); driver state lives on the
+        # first shard's device.
+        self.devices = mtp.tp_devices(self.tp, device)
+        self.device = self.devices[0]
         if tr.params_device(params) != self.device:
             raise ValueError(
                 f"params live on {tr.params_device(params)}, the engine on "
@@ -288,8 +304,17 @@ class ServingEngine:
         # no-op (the JAX entry points re-cast inside each compile). No
         # grad, here and in step(): params may require grad (after
         # make_train_step), and serving must build no graph from them.
+        # Under TP the run params are the permuted, sharded copy;
+        # self.params keeps the original tree (the permutation is not
+        # idempotent).
         with torch.no_grad():
             self._run_params = tr._cast_params(params, cfg)
+            if self.tp > 1:
+                self._run_params = mtp.tp_shard_params(
+                    self._run_params, cfg, self.devices)
+        # The model calls of every discipline (serving/tp.py): tp 1's
+        # functions, or their sharded counterparts.
+        self._fns = stp.SHARDED if self.tp > 1 else stp.SINGLE
         # A scheduler orders the queue; without one every path below is
         # the FIFO engine's. A request dropped for deadline while frozen
         # still holds a pinned host row: _release_expired frees it.
@@ -334,7 +359,7 @@ class ServingEngine:
         if self.paged:
             self._cache = None
             self.page_pool = PagePool(cfg, kv_pages, registry=self.metrics,
-                                      device=self.device)
+                                      device=self.devices)
             self.host_tier = HostKVTier(
                 self.page_pool, budget_bytes=host_kv_bytes,
                 registry=self.metrics, event_sink=self._host_tier_event,
@@ -355,9 +380,11 @@ class ServingEngine:
             self.page_pool = None
             self.prefix_index = None
             self.host_tier = None
-            self._cache = tr.init_kv_cache(cfg, batch,
-                                           dtype=cfg.compute_dtype,
-                                           device=self.device)
+            # One shard's heads a shard under TP.
+            self._cache = mtp.per_shard(
+                lambda dev: tr.init_kv_cache(cfg, batch,
+                                             dtype=cfg.compute_dtype,
+                                             device=dev), self.devices)
         self.stats.page_pool = self.page_pool
         self._buf = torch.zeros((batch, cfg.max_len), dtype=torch.long,
                                 device=self.device)
@@ -393,6 +420,8 @@ class ServingEngine:
                          sched=scheduler is not None,
                          sched_classes=([c.name for c in scheduler.by_rank]
                                         if scheduler is not None else None),
+                         tp_degree=self.tp,
+                         tp_mode=cfg.tp_mode if self.tp > 1 else None,
                          device=str(self.device))
 
     # -- submission ---------------------------------------------------
@@ -492,10 +521,11 @@ class ServingEngine:
         self.runlog.emit(kind, round=self.round_idx, **fields)
 
     def _sync_device(self) -> None:
-        """Wait for the device's queued work (a restore's copies) before
-        a clock is read."""
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        """Wait for the devices' queued work (a restore's copies, into
+        every shard's pages under TP) before a clock is read."""
+        for dev in dict.fromkeys(self.devices):
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
 
     def _pages_needed(self, prompt_len: int, steps: int) -> int:
         """A paged request's whole page complement: its prompt, steps and
@@ -578,10 +608,10 @@ class ServingEngine:
             with self.tracer.span("serving.admit",
                                   request_id=req.request_id, row=row,
                                   prompt_len=req.prompt_len):
-                prefill_into_row(self._run_params, self._cache, self._buf,
-                                 row, prompt, self.cfg,
-                                 temperature=self.temperature,
-                                 generator=gen)
+                self._fns.prefill(self._run_params, self._cache,
+                                  self._buf, row, prompt, self.cfg,
+                                  temperature=self.temperature,
+                                  generator=gen)
             req.prefill_s += time.perf_counter() - t0
             self.stats.calibration.record(
                 "prefill", cm.admission_cost(self.cfg, req.prompt_len)[0],
@@ -982,13 +1012,13 @@ class ServingEngine:
             if self.paged:
                 table = torch.as_tensor(self._tables[job.row],
                                         device=self.device)
-                prefill_chunk_into_row_paged(
+                self._fns.chunk_paged(
                     self._run_params, self.page_pool.pages, self._buf,
                     job.row, table, seg, c0, c1 - c0, job.prompt, s,
                     self.cfg, temperature=self.temperature,
                     generator=job.gen, final=final)
             else:
-                prefill_chunk_into_row(
+                self._fns.chunk(
                     self._run_params, self._cache, self._buf, job.row, seg,
                     c0, c1 - c0, job.prompt, s, self.cfg,
                     temperature=self.temperature, generator=job.gen,
@@ -1041,10 +1071,10 @@ class ServingEngine:
         admission, so a round never allocates)."""
         if self.paged:
             tables = torch.as_tensor(self._tables, device=self.device)
-            return lambda tok, pos: tr.decode_chunk_paged(
+            return lambda tok, pos: self._fns.decode_paged(
                 self._run_params, self.page_pool.pages, tables, tok, pos,
                 self.cfg)[0]
-        return lambda tok, pos: tr.decode_chunk(
+        return lambda tok, pos: self._fns.decode(
             self._run_params, self._cache, tok, pos, self.cfg)[0]
 
     def _round_loop(self, done0: np.ndarray):

@@ -49,8 +49,8 @@ import torch
 
 from ..models import transformer as tr
 from ..models.quant import kv_layer_keys
+from ..models.tp import Sharded, gather_heads, per_shard, tp_devices
 from ..obs import metrics as obs_metrics
-from ..utils.hw import resolve_device
 
 PAGE = 16  # tokens a page: the admission bucket and the trie's GRAIN
 
@@ -63,7 +63,10 @@ class PagePool:
 
     Build it with the engine's :class:`TransformerConfig` and ``n_pages``
     usable pages; the device holds ``n_pages + 1`` (the write sink at
-    index 0), on ``device`` (default ``"cuda"``)."""
+    index 0), on ``device`` (default ``"cuda"``). With ``cfg.tp > 1``
+    ``device`` names the ``model`` axis (:func:`..models.tp.tp_devices`)
+    and ``pages`` is one page tree a shard, each holding its shard's
+    heads, under the one host allocator."""
 
     def __init__(self, cfg, n_pages: int, registry=None, device="cuda"):
         if not isinstance(n_pages, int) or isinstance(n_pages, bool) \
@@ -81,11 +84,15 @@ class PagePool:
                 "fixed position-aligned chunks")
         self.cfg = cfg
         self.n_pages = n_pages
-        self.device = resolve_device(device)
+        self.devices = tp_devices(cfg.tp, device)
+        self.device = self.devices[0]
+
         # init_kv_cache at max_len = PAGE is exactly the page shape.
-        self.pages = tr.init_kv_cache(cfg._replace(max_len=PAGE),
-                                      n_pages + 1, dtype=cfg.compute_dtype,
-                                      device=self.device)
+        self.pages = per_shard(
+            lambda dev: tr.init_kv_cache(cfg._replace(max_len=PAGE),
+                                         n_pages + 1,
+                                         dtype=cfg.compute_dtype, device=dev),
+            self.devices)
         self._registry = registry
         self._free: List[int] = list(range(1, n_pages + 1))[::-1]
         self._refs: Dict[int, int] = {}
@@ -110,9 +117,12 @@ class PagePool:
     @property
     def page_bytes(self) -> int:
         """Device bytes of one page across every layer's K and V (and, on
-        an int8 pool, their scales)."""
+        an int8 pool, their scales), every shard's together."""
+        trees = self.pages if isinstance(self.pages, Sharded) \
+            else (self.pages,)
         return sum(layer[name][0].numel() * layer[name].element_size()
-                   for layer in self.pages for name in kv_layer_keys(layer))
+                   for pages in trees for layer in pages
+                   for name in kv_layer_keys(layer))
 
     @property
     def pool_bytes(self) -> int:
@@ -217,7 +227,14 @@ def gather_pages_to_host(pool_pages, pages) -> Tuple[list, int]:
     into host memory: a list a layer of ``{name: (n, PAGE, Hk, Dh)}`` CPU
     tensors in the pool's dtype, and their bytes. On a CUDA pool the
     copies land in pinned memory and the device is synced before this
-    returns, so the host may read them and the pages may be reused."""
+    returns, so the host may read them and the pages may be reused. A
+    tensor-parallel pool (:class:`..models.tp.Sharded`) gathers each
+    shard and concatenates their heads (axis 2) in rank order: the
+    payload is the global head layout, the same bytes at every degree."""
+    if isinstance(pool_pages, Sharded):
+        parts = [gather_pages_to_host(shard, pages) for shard in pool_pages]
+        return (gather_heads([p for p, _ in parts], device="cpu"),
+                sum(n for _, n in parts))
     dev = pool_pages[0]["k"].device
     idx = torch.as_tensor([int(p) for p in pages], dtype=torch.long,
                           device=dev)
@@ -532,8 +549,10 @@ class HostKVTier:
         if not os.path.exists(path):
             return None
         payload, nbytes = [], 0
+        layers = self.pool.pages[0] if isinstance(self.pool.pages, Sharded) \
+            else self.pool.pages
         with np.load(path) as data:
-            for li, pool_layer in enumerate(self.pool.pages):
+            for li, pool_layer in enumerate(layers):
                 nl = {}
                 for name in kv_layer_keys(pool_layer):
                     arr = data[f"l{li}_{name}"]

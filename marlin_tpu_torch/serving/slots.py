@@ -32,6 +32,7 @@ import torch
 
 from ..models import transformer as tr
 from ..models.quant import kv_layer_keys
+from ..models.tp import Sharded
 from ..utils.split import pad_to_multiple
 
 ADMISSION_BUCKET = 16
@@ -66,8 +67,17 @@ def prefill_into_row(params, cache, buf, row: int, prompt, cfg,
     count (prompt_len + 1, the first token already in the buffer) and
     that token (a 0-d tensor)."""
     params = tr._cast_params(params, cfg)  # no-op once the engine cast
-    prompt_len = int(prompt.shape[0])
     padded = pad_to_multiple(prompt, 0, ADMISSION_BUCKET)
+    x = _prefill_blocks(params, cache, row, padded, cfg)
+    return _admit_first(params, x, buf, row, prompt, temperature, generator)
+
+
+def _prefill_blocks(params, cache, row: int, padded, cfg):
+    """The one-shot admission's model half: the padded prompt (P,) through
+    every block (the flash prefill), each layer's K/V written into row
+    ``row`` of ``cache`` in place. Returns the hidden states (1, P, D).
+    Under tensor parallelism this is the part each shard runs
+    (serving/tp.py)."""
     p = padded.shape[0]
     x = tr._embed_prefix(params, padded[None], cfg)  # (1, P, D)
 
@@ -77,12 +87,39 @@ def prefill_into_row(params, cache, buf, row: int, prompt, cfg,
     for layer, bp in zip(cache, params["blocks"]):
         x, k, v = tr._block(bp, x, cfg, return_kv=True)
         tr._put_kv(layer, k, v, put, bool(cfg.kv_quant))
-    # Logits at the last REAL position; causality makes that hidden
-    # state independent of the pad.
+    return x
+
+
+def _admit_first(params, x, buf, row: int, prompt, temperature: float,
+                 generator):
+    """The one-shot admission's epilogue, run once: the first token from
+    the logits at the last REAL position (causality makes that hidden
+    state independent of the pad), then the row's token buffer. Returns
+    ``(filled_row, first)``."""
+    prompt_len = int(prompt.shape[0])
     h = tr._layer_norm(params["ln_f"], x[0, prompt_len - 1:prompt_len])
     first = tr._sample(tr._readout(params, h), temperature, generator)[0]
     _write_row_tokens(buf, row, prompt, prompt_len, first)
     return prompt_len + 1, first
+
+
+def _row_cache(cache, row: int):
+    """Row ``row`` of every layer of a contiguous cache, as (1, T, Hk, Dh)
+    views (writes land in the cache)."""
+    return [{name: layer[name][row:row + 1] for name in kv_layer_keys(layer)}
+            for layer in cache]
+
+
+def _chunk_first(logits, buf, row: int, prompt, prompt_len: int,
+                 temperature: float, generator, final: bool):
+    """A chunked admission's epilogue, run once: on the final chunk the
+    first token from ``logits`` and the row's token buffer; None before
+    it."""
+    if not final:
+        return None
+    first = tr._sample(logits, temperature, generator)[0]
+    _write_row_tokens(buf, row, prompt, prompt_len, first)
+    return first
 
 
 @torch.no_grad()
@@ -107,16 +144,10 @@ def prefill_chunk_into_row(params, cache, buf, row: int, chunk, start: int,
     Any chunk split of a prompt, and any prefix copy plus tail, writes the
     same cache bits and samples from the same logits (transformer._tiles).
     """
-    row_cache = [{name: layer[name][row:row + 1]
-                  for name in kv_layer_keys(layer)}
-                 for layer in cache]
-    logits, _ = tr.prefill_chunk(params, row_cache, chunk[None], start, cfg,
-                                 last=chunk_len - 1)
-    if not final:
-        return None
-    first = tr._sample(logits, temperature, generator)[0]
-    _write_row_tokens(buf, row, prompt, prompt_len, first)
-    return first
+    logits, _ = tr.prefill_chunk(params, _row_cache(cache, row), chunk[None],
+                                 start, cfg, last=chunk_len - 1)
+    return _chunk_first(logits, buf, row, prompt, prompt_len, temperature,
+                        generator, final)
 
 
 @torch.no_grad()
@@ -135,11 +166,8 @@ def prefill_chunk_into_row_paged(params, pool, buf, row: int, table, chunk,
     logits, _ = tr.prefill_chunk_paged(params, pool, table[None],
                                        chunk[None], start, cfg,
                                        last=chunk_len - 1)
-    if not final:
-        return None
-    first = tr._sample(logits, temperature, generator)[0]
-    _write_row_tokens(buf, row, prompt, prompt_len, first)
-    return first
+    return _chunk_first(logits, buf, row, prompt, prompt_len, temperature,
+                        generator, final)
 
 
 @torch.no_grad()
@@ -151,7 +179,16 @@ def restore_pages_into_pool(pool, payload, pages):
     a file held them wider (a bfloat16 pool's payload read from the spill
     dir). Int8 scales move with their pages. From pinned memory the copy
     is asynchronous: the caller syncs before reading a clock or dropping
-    the payload."""
+    the payload. A tensor-parallel pool (:class:`..models.tp.Sharded`,
+    one page tree a shard) takes the payload in the global head layout
+    (axis 2) and scatters each shard its heads."""
+    if isinstance(pool, Sharded):
+        tp = len(pool)
+        for r, shard in enumerate(pool):
+            restore_pages_into_pool(shard, [
+                {name: t.narrow(2, r * (t.shape[2] // tp), t.shape[2] // tp)
+                 for name, t in part.items()} for part in payload], pages)
+        return pool
     dev = pool[0]["k"].device
     idx = torch.as_tensor([int(p) for p in pages], dtype=torch.long,
                           device=dev)

@@ -1,5 +1,6 @@
 """Analytic costs (the part of ``marlin_tpu/utils/cost_model.py`` on the
-ported paths): the decode-step, speculative-round and admission rooflines
+ported paths): the decode-step (and its tensor-parallel split),
+speculative-round and admission rooflines
 (with the int8 weights' and cache's bytes), the acceptance-adaptive
 draft-length policy and the measured-vs-predicted drift ledger the serving
 engine reads, the host KV tier's restore and preemption prices and its
@@ -84,6 +85,67 @@ def decode_step_cost(cfg, batch: int, param_itemsize: int = 4,
     byts = _param_bytes(cfg, param_itemsize, quant_weights) + cache_bytes \
         + cache_bytes / cache_len
     return flops, float(byts)
+
+
+def _tp_replicated_params(cfg) -> int:
+    """Leaves the gather-mode TP layout REPLICATES (models/tp.py
+    param_specs): the embed/readout table, the final LN, and the learned
+    position table; everything else (per-block matmuls and their
+    biases) is split over the ``model`` axis."""
+    d = cfg.d_model
+    rep = cfg.vocab * d + 2 * d
+    if not cfg.rope:
+        rep += cfg.max_len * d
+    return int(rep)
+
+
+def tp_decode_step_cost(cfg, batch: int, tp: Optional[int] = None,
+                        param_itemsize: int = 4,
+                        cache_itemsize: int = 4,
+                        quant_weights: bool = False
+                        ) -> Tuple[float, float]:
+    """Per-SHARD (flops, bytes) of one decode step under gather-mode
+    tensor parallelism at degree ``tp`` (default ``cfg.tp``).
+
+    Amdahl split of :func:`decode_step_cost`: the per-block matmuls and
+    the cache attention shard over the ``model`` axis (heads, KV-head
+    groups, MLP columns) and divide by ``tp``; the readout against the
+    replicated embed table (and the replicated bias/LN/pos leaves bundled
+    into the same ``2 * params * B`` pricing) runs in full on every
+    shard. Bytes split the same way: replicated leaves stream on every
+    shard, sharded weights and the head-sharded KV cache divide. At the
+    typical serving shape the replicated share is the vocab readout, so
+    the modeled scaling at TP=4 lands below 4.0 by that fraction."""
+    flops1, bytes1 = decode_step_cost(
+        cfg, batch, param_itemsize=param_itemsize,
+        cache_itemsize=cache_itemsize, quant_weights=quant_weights)
+    tp = int(getattr(cfg, "tp", 1) if tp is None else tp)
+    if tp <= 1:
+        return flops1, bytes1
+    rep = _tp_replicated_params(cfg)
+    rep_flops = 2.0 * rep * batch
+    flops = rep_flops + (flops1 - rep_flops) / tp
+    if quant_weights:
+        # The embed table is quantized (one f32 scale a vocab row); the
+        # other replicated leaves stay float.
+        v, d = cfg.vocab, cfg.d_model
+        rep_bytes = v * d * 1.0 + v * float(param_itemsize) \
+            + (rep - v * d) * float(param_itemsize)
+    else:
+        rep_bytes = float(rep * param_itemsize)
+    byts = rep_bytes + (bytes1 - rep_bytes) / tp
+    return flops, float(byts)
+
+
+def tp_decode_flop_scaling(cfg, batch: int, tp: int,
+                           quant_weights: bool = False) -> float:
+    """Modeled per-shard FLOP scaling of one decode step, TP=1 over
+    TP=``tp``: set by the layout alone (what the replicated readout
+    keeps), not by a measurement."""
+    flops1, _ = decode_step_cost(cfg, batch, quant_weights=quant_weights)
+    flops_tp, _ = tp_decode_step_cost(cfg, batch, tp=tp,
+                                      quant_weights=quant_weights)
+    return float(flops1 / flops_tp)
 
 
 def spec_round_cost(cfg, batch: int, draft_len: int,

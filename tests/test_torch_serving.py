@@ -416,8 +416,11 @@ def test_configs_outside_the_slice_raise():
     params = _params(_cfg())
     with pytest.raises(NotImplementedError, match="dense"):
         _engine(params, _cfg(window=8))
-    for kw in (dict(tp=2), dict(n_experts=2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            _engine(params, _cfg(**kw))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        _engine(params, _cfg(n_experts=2))
+    # tp is served (test_torch_tp_serving.py); a degree that splits no
+    # head evenly is validate_tp's refusal.
+    with pytest.raises(ValueError, match="must divide"):
+        _engine(params, _cfg(tp=3))
     with pytest.raises(TypeError, match="unexpected option"):
         _engine(params, _cfg(), no_such_option=1)

@@ -260,14 +260,16 @@ class TestSample:
         assert pt._sample(logits, 0.0).tolist() == [1]
 
 
-@pytest.mark.parametrize("kw,match", [
-    (dict(n_experts=2), "MoE"),
-    (dict(sequence_parallel=True), "sequence-parallel"),
-    (dict(tp=2), "tensor parallelism"),
+@pytest.mark.parametrize("kw,exc,match,forward_match", [
+    (dict(n_experts=2), NotImplementedError, "MoE", "ROADMAP"),
+    (dict(sequence_parallel=True), NotImplementedError, "sequence-parallel",
+     "ROADMAP"),
+    # A degree that splits no head evenly: validate_tp's refusal.
+    (dict(tp=3), ValueError, "must divide", "must divide"),
 ])
-def test_options_outside_the_slice_raise(kw, match):
+def test_options_outside_the_slice_raise(kw, exc, match, forward_match):
     _, pcfg = _cfgs(**kw)
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(exc, match=match):
         pt.init_params(pcfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(exc, match=forward_match):
         pt.forward({}, torch.zeros((1, 4), dtype=torch.long), pcfg)
