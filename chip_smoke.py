@@ -129,6 +129,33 @@ Phases, each of which exits non-zero on failure:
    tp_cost_model:, tp: per arm and degree, tp_summary:): tokens/s,
    steady decode-iteration ms, the device idle share of one profiled
    steady round, peak memory.
+   Then the supervised restart (phase_restart): the flagship driven
+   through EngineFrontend (the slice's 16 requests, 32 steps, batch 8) in
+   five arms: one-shot; chunked and paged with sharing; speculative paged
+   (draft 4); paged with a 256 MiB host tier, a spill dir and Scheduler()
+   preemption (8 batch-class requests, the 8 interactive ones submitted
+   by the driver after round 3); TP = 2 with both shards on the card. The
+   paged arms prefill in chunks of 128.
+   Each arm runs clean, then under RESTART_PLAN: a decode-round crash at
+   round 2, request 9's admission crashing twice (quarantined at
+   poison_after=2), and a corrupted fetch of the round after that
+   quarantine; the tier arm also runs RESTART_THAW_PLAN, a crash in its
+   first thaw's restore, after which the successor adopts a spilled
+   prefix from the dir. Then one run crashing every round fails closed
+   at max_restarts=2. Held: every done request's tokens equal the clean
+   run's; done + poisoned == submitted, only request 9 poisoned; restarts
+   == planted crashes, each fault fired as planted; the flash forward
+   launched one-shot admissions (replays included) x layers x tp times,
+   0 in the paged arms; the bytes live tensors requested after each
+   incarnation's first round within RESTART_MIB of the others (and
+   torch.cuda.memory_allocated(), which counts the allocator's blocks,
+   printed beside them); the run's peak of requested bytes below the
+   clean run's plus half of one KV cache (a recovery frees the crashed
+   engine's cache before the successor allocates its own); the tier
+   arm freezes rows and its thaw run adopts; the capped run fails every
+   handle with EngineFailed and stops its driver. Printed (restart: per
+   arm and run, restart_summary:): crash-to-first-successor-round ms,
+   replayed prefill tokens, tokens/s against the clean run's, the peaks.
 6. Train: the same flagship, bf16 compute on f32 master params, B=8,
    S=2048, SGD at lr 0.1: one warm-up train_step, then 5 timed steps on
    one fixed batch. Every loss finite, the last below the first, and the
@@ -4035,6 +4062,365 @@ def phase_tp(card: str, seed: int = 0):
     return launches
 
 
+# Restart phase (phase_restart): the supervised frontend under planted
+# faults, at the flagship's width, in five arms.
+RESTART_MAX = 8  # max_restarts of the faulted runs (within 60 s)
+RESTART_POISONED = 9  # the request whose admission crashes twice
+RESTART_DECODE_ROUND = 2  # the round whose decode crashes
+RESTART_TIER_PAGES = 384  # kv_pages of the tier arm: prefixes must spill
+RESTART_TIER_WAVE = (8, 3)  # batch-class requests, rounds before the rest
+RESTART_MIB = 1 << 20  # memory level across incarnations, held within
+# Every arm's plan: a decode-round crash, two crashes in one request's
+# admission (quarantined at poison_after=2) and, armed once that request
+# is quarantined, a corrupted fetch of the next round. The blamed crashes
+# clear the streak of every other request in flight, so no request is
+# implicated in two batch-wide crashes in a row (which would quarantine
+# it too). The tier arm's second faulted run crashes in its first thaw.
+RESTART_PLAN = [dict(site="decode_round", round=RESTART_DECODE_ROUND),
+                dict(site="prefill_chunk", request_id=RESTART_POISONED,
+                     max_fires=2)]
+RESTART_LATE = dict(site="decode_round", action="corrupt")
+RESTART_THAW_PLAN = [dict(site="kv_restore")]
+
+
+def _restart_run(params, cfg, options, workload, specs=(), late=None,
+                 wave=None, **fe_kw):
+    """Serve ``workload`` ([(prompt, steps, submit kwargs)]) through an
+    EngineFrontend under the fault plan ``specs`` (none: a clean run);
+    ``late``, a spec without its round, is armed for the round after the
+    first quarantine. ``wave`` = (n, k): the first n requests are
+    submitted before the driver starts, the rest by the driver itself
+    after round k. The frontend's ``on_round`` hook does both on the
+    driver thread after each round's fanout, so the schedule does not
+    depend on timing. Returns the tokens by request id, the poisoned ids,
+    the frontend (its last engine released), the flash launches, the wall
+    time, the memory allocated after each incarnation's first round, the
+    run's peak of requested bytes, one KV cache's bytes, the prefix
+    adoptions and the plan."""
+    import threading
+
+    import torch
+
+    from marlin_tpu_torch.ops import flash_attention as fa
+    from marlin_tpu_torch.serving import (EngineFrontend, PoisonedRequest,
+                                          ServingEngine, faults)
+
+    eng = ServingEngine(params, cfg, **options)
+    n0, after = wave if wave is not None else (len(workload), None)
+    handles, mem, adoptions = {}, {}, {}
+    all_in = threading.Event()
+    plan = faults.FaultPlan()
+    for s in specs:
+        plan.add(**s)
+    armed = []
+
+    def submit(lo, hi):
+        for i in range(lo, hi):
+            prompt, steps, kw = workload[i]
+            handles[i] = fe.submit(prompt, steps, request_id=i, **kw)
+
+    kv_bytes = []
+
+    def observed(e, round_idx, finished):
+        if fe.restarts not in mem:  # this incarnation's first round
+            torch.cuda.synchronize()
+            mem[fe.restarts] = (
+                torch.cuda.memory_stats()["requested_bytes.all.current"],
+                torch.cuda.memory_allocated())
+        if not kv_bytes:
+            kv_bytes.append(_tensor_bytes(
+                [e._cache, e.page_pool.pages if e.page_pool else None]))
+        if e.prefix_index is not None:
+            adoptions[fe.restarts] = e.prefix_index.adoptions
+        if late is not None and not armed and e.stats.n_quarantined:
+            armed.append(plan.add(round=round_idx + 1, **late))
+        if after is not None and not all_in.is_set() \
+                and round_idx >= after:
+            submit(n0, len(workload))
+            all_in.set()
+
+    fe = EngineFrontend(eng, on_round=observed, **fe_kw)
+    submit(0, n0)
+    if after is None:
+        all_in.set()
+    _zero_counters(fa)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tokens, poisoned = {}, []
+    faults.install(plan)
+    try:
+        fe.start()
+        if not all_in.wait(600):
+            fail("restart: the second wave was never submitted")
+        for rid in sorted(handles):
+            try:
+                tokens[rid] = handles[rid].result(600).tokens
+            except PoisonedRequest:
+                poisoned.append(rid)
+        if not fe.drain(600):
+            fail("restart: the frontend did not drain")
+    finally:
+        faults.reset()
+        fe.stop(60)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.memory_stats()["requested_bytes.all.peak"]
+    fe.engine.release()  # no run's cache outlives it
+    return dict(tokens=tokens, poisoned=poisoned, fe=fe, wall=wall,
+                counts=_counters(fa), mem=mem, peak=peak,
+                kv_bytes=kv_bytes[0] if kv_bytes else 0,
+                adoptions=sum(adoptions.values()), plan=plan)
+
+
+def _tensor_bytes(obj, seen=None) -> int:
+    """The bytes of the distinct tensors in a nest of lists, tuples and
+    dicts."""
+    import torch
+
+    seen = set() if seen is None else seen
+    if isinstance(obj, torch.Tensor):
+        if obj.data_ptr() in seen:
+            return 0
+        seen.add(obj.data_ptr())
+        return obj.numel() * obj.element_size()
+    if isinstance(obj, dict):
+        obj = list(obj.values())
+    if isinstance(obj, (list, tuple)):
+        return sum(_tensor_bytes(o, seen) for o in obj)
+    return 0
+
+
+def _restart_cap(params, cfg, workload):
+    """Crash every round past max_restarts=2: every handle must fail with
+    EngineFailed, none hanging, and the driver must stop. Returns the
+    line's fields."""
+    from marlin_tpu_torch.serving import (EngineFailed, EngineFrontend,
+                                          ServingEngine, faults)
+
+    eng = ServingEngine(params, cfg, batch=8, round_steps=8, device="cuda")
+    fe = EngineFrontend(eng, max_restarts=2, poison_after=10)
+    handles = [fe.submit(p, s, request_id=i, **kw)
+               for i, (p, s, kw) in enumerate(workload)]
+    plan = faults.install(faults.FaultPlan())
+    plan.add(site="decode_round", round_every=1, max_fires=50)
+    t0 = time.perf_counter()
+    failed = 0
+    try:
+        fe.start()
+        for h in handles:
+            try:
+                h.result(120)
+            except EngineFailed:
+                failed += 1
+        stopped = fe.stop(120)  # the driver dies of EngineFailed
+    finally:
+        faults.reset()
+    if failed != len(handles) or not stopped \
+            or not isinstance(fe.failure, EngineFailed):
+        fail(f"restart cap: {failed} of {len(handles)} handles failed "
+             f"with EngineFailed, driver stopped {stopped}, failure "
+             f"{fe.failure!r}")
+    return dict(handles_failed=failed, restarts=fe.restarts,
+                fired=plan.total_fires(),
+                fail_closed_s=time.perf_counter() - t0)
+
+
+def _restart_checks(label, traffic, clean, hit, want_fired, want_poisoned,
+                    cfg, one_shot):
+    """The holds of one faulted run against its arm's clean run; returns
+    its printed fields."""
+    import numpy as np
+
+    fe = hit["fe"]
+    if hit["poisoned"] != want_poisoned or \
+            len(hit["tokens"]) + len(hit["poisoned"]) != len(traffic):
+        fail(f"{label}: done {len(hit['tokens'])} + poisoned "
+             f"{hit['poisoned']} != submitted {len(traffic)} (want "
+             f"poisoned {want_poisoned})")
+    bad = [rid for rid, t in hit["tokens"].items()
+           if not np.array_equal(t, clean["tokens"][rid])]
+    if bad:
+        fail(f"{label}: recovered tokens differ from the clean run's at "
+             f"requests {bad}")
+    fired = [(s.site, s.action, s.fires) for s in hit["plan"].specs]
+    if [f for _, _, f in fired] != want_fired \
+            or fe.restarts != sum(want_fired):
+        fail(f"{label}: restarts {fe.restarts}, faults fired {fired}, "
+             f"planted {want_fired}")
+    admitted = fe.engine.stats.n_admitted
+    expect = admitted * cfg.n_layers * cfg.tp if one_shot else 0
+    if hit["counts"] != _want(expect, 0, 0):
+        fail(f"{label}: launches {hit['counts']}, expected the forward "
+             f"{expect} times (one-shot admissions {admitted}, replays "
+             f"included, x layers x tp)")
+    # The bytes the live tensors asked for, held equal across the
+    # incarnations (a crashed engine whose cache stayed alive would add
+    # it to every later level). memory_allocated() is printed beside them:
+    # it counts the allocator's blocks, and a successor's tensors of the
+    # same sizes land in blocks of other sizes (3 MiB requests in 4 MiB
+    # blocks), as the allocator's history allows.
+    levels = [r for _, (r, _) in sorted(hit["mem"].items())]
+    allocated = [a for _, (_, a) in sorted(hit["mem"].items())]
+    spread = max(levels) - min(levels)
+    if len(levels) < 2 or spread > RESTART_MIB:
+        fail(f"{label}: memory requested by live tensors after each "
+             f"incarnation's first round {levels}: spread {spread} bytes")
+    # A recovery frees the crashed engine's cache or pool before the
+    # successor allocates its own: the run's peak stays below the clean
+    # run's plus half of one cache (two live at once would add a whole).
+    if hit["peak"] - clean["peak"] >= hit["kv_bytes"] // 2:
+        fail(f"{label}: peak memory requested {hit['peak']} bytes against "
+             f"the clean run's {clean['peak']}, one KV cache being "
+             f"{hit['kv_bytes']}: a recovery held two caches")
+    events = fe.engine.runlog.events()
+    lens = {i: len(p) for i, (p, _, _) in enumerate(traffic)}
+    recover_ms, replayed = [], 0
+    for j, ev in enumerate(events):
+        if ev["kind"] != "engine_crash":
+            continue
+        nxt = next((e for e in events[j + 1:] if e["kind"] == "round"),
+                   None)
+        if nxt is not None:
+            recover_ms.append(1e3 * (nxt["t"] - ev["t"]))
+        replayed += sum(lens[r] for r in ev["inflight"])
+    return dict(
+        restarts=fe.restarts, fired=fired, poisoned=hit["poisoned"],
+        recovered=fe.engine.stats.n_recovered,
+        requests_equal_clean=len(hit["tokens"]),
+        flash_launches=hit["counts"]["fwd"], admissions=admitted,
+        crash_to_first_round_ms=recover_ms,
+        replayed_prefill_tokens=replayed,
+        tokens_per_s=sum(len(t) for t in hit["tokens"].values())
+        / hit["wall"], wall_s=hit["wall"],
+        memory_requested_after_first_round=levels,
+        memory_requested_spread_bytes=spread,
+        memory_allocated_after_first_round=allocated,
+        peak_requested_bytes=hit["peak"],
+        clean_peak_requested_bytes=clean["peak"], kv_bytes=hit["kv_bytes"],
+        preempts=fe.engine.stats.n_preempted, adoptions=hit["adoptions"])
+
+
+def phase_restart(card: str, seed: int = 0):
+    """The supervised restart: see the module docstring. Returns the
+    flash forward's launches in the one-shot arms' faulted runs,
+    {"restart": n, "restart_tp": n}. Every check exits non-zero when it
+    fails."""
+    import gc
+    import tempfile
+
+    import torch
+
+    from marlin_tpu_torch.models import TransformerConfig
+    from marlin_tpu_torch.models import transformer as tr
+    from marlin_tpu_torch.serving import Scheduler, ServingEngine
+    from marlin_tpu_torch.utils import cost_model as cm
+
+    t_phase = time.perf_counter()
+    cfg = TransformerConfig(**FLAGSHIP)
+    params = tr.init_params(cfg, seed=seed, device="cuda")
+    pages = 8 * cfg.max_len // 16 + 64
+    slice_traffic = [(p, s, {}) for p, s in _workload(cfg, seed)]
+    tier_traffic = [(p, s, {"sched_class": "batch" if i < 8
+                            else "interactive"})
+                    for i, (p, s, _) in enumerate(slice_traffic)]
+    arms = {
+        "oneshot": (cfg, dict(batch=8, round_steps=8), slice_traffic, None),
+        "chunked_paged": (cfg, dict(batch=8, round_steps=8, kv_pages=pages,
+                                    prefill_chunk=DISCIPLINE_CHUNK),
+                          slice_traffic, None),
+        "spec_paged": (cfg, dict(batch=8, round_steps=SPEC_ROUND_STEPS,
+                                 kv_pages=pages,
+                                 prefill_chunk=DISCIPLINE_CHUNK,
+                                 spec_draft_lens=(4,)),
+                       slice_traffic, None),
+        "tier_sched": (cfg, dict(batch=8, round_steps=4,
+                                 kv_pages=RESTART_TIER_PAGES,
+                                 prefill_chunk=DISCIPLINE_CHUNK,
+                                 host_kv_bytes=TIER_HOST_BYTES),
+                       tier_traffic, RESTART_TIER_WAVE),
+        "tp2": (cfg._replace(tp=2), dict(batch=8, round_steps=8),
+                slice_traffic, None),
+    }
+    # Warm-up (cuBLAS handles, the allocator, the shard threads) on
+    # throwaway engines, so that no arm's clean run pays for it.
+    for tp in (1, 2):
+        warm = ServingEngine(params, cfg._replace(tp=tp),
+                             device=("cuda:0",) * tp if tp > 1 else "cuda")
+        warm.submit(slice_traffic[1][0], 4)
+        warm.run()
+        warm.release()
+    torch.cuda.synchronize()
+    launches = {"restart": 0, "restart_tp": 0}
+    summary = {}
+    for arm, (c, options, traffic, wave) in arms.items():
+        tier = arm == "tier_sched"
+        one_shot = "kv_pages" not in options
+        kinds = {"clean": ((), None), "faulted": (RESTART_PLAN, RESTART_LATE)}
+        if tier:
+            kinds["thaw"] = (RESTART_THAW_PLAN, None)
+        runs = {}
+        for kind, (specs, late) in kinds.items():
+            opts = dict(options, device=(("cuda:0",) * c.tp if c.tp > 1
+                                         else "cuda"))
+            with tempfile.TemporaryDirectory() as spill_dir:
+                if tier:
+                    opts.update(host_kv_dir=spill_dir, scheduler=Scheduler())
+                runs[kind] = _restart_run(
+                    params, c, opts, traffic, specs=specs, late=late,
+                    wave=wave, max_restarts=RESTART_MAX, poison_after=2)
+            gc.collect()
+        clean = runs.pop("clean")
+        if clean["poisoned"] or len(clean["tokens"]) != len(traffic) \
+                or clean["fe"].restarts:
+            fail(f"restart {arm}: the clean run answered "
+                 f"{len(clean['tokens'])} of {len(traffic)}")
+        expect = clean["fe"].engine.stats.n_admitted * c.n_layers * c.tp \
+            if one_shot else 0
+        if clean["counts"] != _want(expect, 0, 0):
+            fail(f"restart {arm} clean: launches {clean['counts']}, "
+                 f"expected the forward {expect} times")
+        clean_tps = sum(len(t) for t in clean["tokens"].values()) \
+            / clean["wall"]
+        for kind, run in runs.items():
+            thaw = kind == "thaw"
+            line = _restart_checks(
+                f"restart {arm} {kind}", traffic, clean, run,
+                [1] if thaw else [1, 2, 1],
+                [] if thaw else [RESTART_POISONED], c, one_shot)
+            if tier and (line["preempts"] < 1 if not thaw else
+                         line["preempts"] < 1 or line["adoptions"] < 1):
+                fail(f"restart {arm} {kind}: preempts {line['preempts']}, "
+                     f"adoptions {line['adoptions']}: the arm must freeze "
+                     f"rows, and the thaw run adopt from the spill dir "
+                     f"after its restore crashed")
+            if one_shot and not thaw:
+                launches["restart_tp" if c.tp > 1 else "restart"] += \
+                    line["flash_launches"]
+            line.update(card=card, arm=arm, run=kind, tp=c.tp,
+                        requests=len(traffic),
+                        clean_tokens_per_s=clean_tps,
+                        clean_wall_s=clean["wall"],
+                        phase_s=time.perf_counter() - t_phase)
+            print("restart: " + json.dumps(line, default=str), flush=True)
+            summary[f"{arm}_{kind}"] = dict(
+                restarts=line["restarts"],
+                tokens_per_s=line["tokens_per_s"],
+                clean_tokens_per_s=clean_tps,
+                crash_to_first_round_ms=line["crash_to_first_round_ms"])
+        del runs, clean
+        gc.collect()
+    cap = _restart_cap(params, cfg, slice_traffic)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("restart_summary: " + json.dumps(dict(
+        card=card, params_m=cm.transformer_param_count(cfg) / 1e6,
+        runs=summary, cap=cap, flash_launches=launches,
+        phase_s=time.perf_counter() - t_phase)), flush=True)
+    return launches
+
+
 def phase_profile(params, cfg, workload):
     """Where a steady decode round's time goes: one round of 8 live rows
     (no admission) under torch.profiler, device-busy time against host
@@ -5463,7 +5849,8 @@ def kernels_line(rows, bwd, launches, small, spmm, spmm_launches,
                  (("serve", "flagship"), ("speculative_p32", "spec_p32"),
                   ("speculative_p64", "spec_p64"), ("train", "train"),
                   ("remat", "remat"), ("tp", "tp2_flagship"),
-                  ("tp_ref", "tp4_ref"))}
+                  ("tp_ref", "tp4_ref"), ("restart", "flagship"),
+                  ("restart_tp", "tp2_flagship"))}
 
     fwd_entry = _fwd_entry
 
@@ -5560,9 +5947,12 @@ def main(argv=None) -> int:
     spec_launches = phase_speculative(card)
     phase_host_tier(card)
     tp_launches = phase_tp(card)
+    restart_launches = phase_restart(card)
     launches = phase_train(card)
     launches["tp"] = dict(fwd=tp_launches["flagship"])
     launches["tp_ref"] = dict(fwd=tp_launches["ref"])
+    for path, n in restart_launches.items():
+        launches[path] = dict(fwd=n)
     launches["serve"] = dict(fwd=serve_launches)
     for shape in ("spec_p32", "spec_p64"):
         launches["speculative_" + shape[5:]] = dict(

@@ -23,6 +23,7 @@ class RunLog:
             raise ValueError(f"maxlen must be >= 1, got {maxlen}")
         self._clock = clock
         self._events: deque = deque(maxlen=maxlen)
+        self._n_emitted = 0  # exact, unlike len() past the cap
         self._lock = threading.Lock()
         self.path = str(path) if path is not None else None
         self._sink = open(self.path, "a") if self.path else None
@@ -31,6 +32,7 @@ class RunLog:
         ev = {"kind": kind, "t": self._clock(), **fields}
         with self._lock:
             self._events.append(ev)
+            self._n_emitted += 1
             if self._sink is not None:
                 self._sink.write(json.dumps(ev, default=str) + "\n")
         return ev
@@ -47,6 +49,17 @@ class RunLog:
                 self._sink.flush()
                 self._sink.close()
                 self._sink = None
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._events)
+
+    @property
+    def n_emitted(self) -> int:
+        """Events emitted over the log's life (the deque keeps the last
+        ``maxlen``)."""
+        with self._lock:
+            return self._n_emitted
 
     def events(self, kind: Optional[str] = None) -> List[dict]:
         with self._lock:

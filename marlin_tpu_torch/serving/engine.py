@@ -74,8 +74,14 @@ shard, and every model call runs on all shards while sampling and the
 host state run once. Tokens are bitwise those of tp 1 (gather mode).
 The contiguous ``prefix_cache`` stays tp 1 only.
 
-The JAX engine's inherited ``stats`` option raises
-``NotImplementedError``.
+Supervised restart (serving/frontend.py): :meth:`ServingEngine.
+spawn_successor` builds a fresh engine that continues this one's serving
+lifetime after a crash (the same params, knobs, seed and ``stats``
+ledger, fresh device state), and :meth:`ServingEngine.requeue` takes the
+crashed engine's requests back in request-id order. ``_retired_pending``
+holds the requests a step resolved until it returns them, and
+``_admitting_rid`` names the request whose own admission work is running,
+so a crash there blames that request alone.
 """
 
 from __future__ import annotations
@@ -105,13 +111,6 @@ from .sched import FrozenRow, Scheduler
 from .slots import (ADMISSION_BUCKET, SlotManager, pad_prompt_len,
                     restore_pages_into_pool, restore_row_tokens)
 from .stats import EngineStats
-
-# The JAX engine's other options, with their defaults: any other value
-# selects a discipline this port does not carry yet (ROADMAP Queue A1).
-_UNPORTED_OPTIONS = {
-    "stats": (None, "the supervised restart surface"),
-}
-
 
 @dataclasses.dataclass
 class _PrefillJob:
@@ -153,6 +152,7 @@ class ServingEngine:
                  eos_id: Optional[int] = None, seed: int = 0,
                  tracer=None, runlog: Optional[RunLog] = None,
                  metrics_registry=None,
+                 stats: Optional[EngineStats] = None,
                  prefill_chunk: Optional[int] = None,
                  prefix_cache: Optional[PrefixCache] = None,
                  prefill_chunks_per_round: int = 2,
@@ -164,16 +164,7 @@ class ServingEngine:
                  host_kv_dir: Optional[str] = None,
                  restore_min_tokens: Optional[int] = None,
                  scheduler: Optional[Scheduler] = None,
-                 device="cuda", **options):
-        for name, value in options.items():
-            if name not in _UNPORTED_OPTIONS:
-                raise TypeError(
-                    f"ServingEngine got an unexpected option {name!r}")
-            default, what = _UNPORTED_OPTIONS[name]
-            if value != default:
-                raise NotImplementedError(
-                    f"ServingEngine({name}={value!r}): {what} is not "
-                    f"ported to marlin_tpu_torch yet (ROADMAP Queue A1)")
+                 device="cuda"):
         tr.check_ported(cfg)
         tr.validate_tp(cfg)
         self.tp = int(cfg.tp)
@@ -327,8 +318,11 @@ class ServingEngine:
         self.runlog = runlog if runlog is not None else RunLog()
         self.metrics = metrics_registry if metrics_registry is not None \
             else obs_metrics.registry
-        self.stats = EngineStats(batch=batch, cfg=cfg,
-                                 registry=self.metrics)
+        # A successor inherits its crashed predecessor's ledger
+        # (spawn_successor): one serving lifetime's totals span every
+        # engine incarnation.
+        self.stats = stats if stats is not None else EngineStats(
+            batch=batch, cfg=cfg, registry=self.metrics)
         if prefix_cache is not None and prefix_cache._registry is None:
             # The cache's store/evict series land beside this engine's
             # hit/miss mirrors (first attaching engine wins).
@@ -347,6 +341,15 @@ class ServingEngine:
         # concurrent submitters; everything else runs on the stepping thread.
         self._submit_lock = threading.Lock()
         self._drain_reported = False
+        # The supervisor's crash ledger (serving/frontend.py): requests this
+        # step resolved (retired or expired) that it has not returned yet,
+        # delivered by the supervisor if the step dies first.
+        self._retired_pending: List[Request] = []
+        # Crash blame: the request whose own admission work (prefill, prefix
+        # copy or alias, restore, thaw, freeze) runs now; None during
+        # batch-wide work. Set before a fault site and cleared only on
+        # success, so a crash leaves it readable.
+        self._admitting_rid: Optional[int] = None
         # In-flight chunked admissions (row -> job); empty in the one-shot
         # discipline.
         self._prefilling: Dict[int, _PrefillJob] = {}
@@ -552,6 +555,7 @@ class ServingEngine:
                              wait_s=req.finish_time - req.submit_time)
             with self._submit_lock:
                 self.requests.pop(req.request_id, None)
+            self._retired_pending.append(req)  # crash-safe until returned
 
     def _activate_row(self, req: Request, row: int,
                       gen: Optional[torch.Generator]) -> None:
@@ -603,6 +607,7 @@ class ServingEngine:
             prompt = torch.as_tensor(req.prompt, dtype=torch.long,
                                      device=self.device)
             t0 = time.perf_counter()
+            self._admitting_rid = req.request_id
             faults.check("prefill_chunk", round_idx=self.round_idx,
                          request_id=req.request_id)
             with self.tracer.span("serving.admit",
@@ -612,6 +617,7 @@ class ServingEngine:
                                   self._buf, row, prompt, self.cfg,
                                   temperature=self.temperature,
                                   generator=gen)
+            self._admitting_rid = None
             req.prefill_s += time.perf_counter() - t0
             self.stats.calibration.record(
                 "prefill", cm.admission_cost(self.cfg, req.prompt_len)[0],
@@ -701,6 +707,9 @@ class ServingEngine:
         row = req.row
         f = int(self._filled[row])
         host_key = f"row-{req.request_id}-{req.preempt_count}"
+        # Blamed before the fault site: a crash here leaves the row whole
+        # and the victim replays from scratch.
+        self._admitting_rid = req.request_id
         faults.check("preempt_spill", round_idx=self.round_idx,
                      request_id=req.request_id)
         with self.tracer.span("serving.preempt", request_id=req.request_id,
@@ -708,6 +717,7 @@ class ServingEngine:
             tokens = self._buf[row, :f].cpu().numpy()
             pages = list(self._row_pages[row])
             spilled = self.host_tier.spill_row(host_key, tokens, pages)
+        self._admitting_rid = None
         if spilled is None:
             self.scheduler.note_preempt_abort("host_budget")
             return False
@@ -757,6 +767,7 @@ class ServingEngine:
         # admit_start_time stays: the request was admitted once, and the
         # frozen wait falls inside its decode phase.
         row = self.slots.acquire(req.request_id)
+        self._admitting_rid = req.request_id
         faults.check("kv_restore", round_idx=self.round_idx,
                      request_id=req.request_id)
         t0 = time.perf_counter()
@@ -766,6 +777,7 @@ class ServingEngine:
             restore_row_tokens(self._buf, row, tokens)
             self._sync_device()
         dt = time.perf_counter() - t0
+        self._admitting_rid = None
         table = self._tables[row]
         table[:] = SINK_PAGE
         table[:need] = fresh
@@ -827,7 +839,8 @@ class ServingEngine:
                 if job.done:
                     break
             if job.done:
-                del self._prefilling[row]
+                with self._submit_lock:  # debug_snapshot reads it
+                    del self._prefilling[row]
                 self._finish_admission(job)
         self._drop_expired(expired)
         return expired
@@ -896,6 +909,9 @@ class ServingEngine:
         n_total = self._pages_needed(req.prompt_len, req.steps)
         if restore is not None:
             res_pages = [int(p) for p in fresh[:restore["hit"] // PAGE]]
+            # A crash mid-restore leaves torn pool and index state that
+            # the successor's fresh pool and tier discard wholesale.
+            self._admitting_rid = req.request_id
             faults.check("kv_restore", round_idx=self.round_idx,
                          request_id=req.request_id)
             t0 = time.perf_counter()
@@ -913,10 +929,14 @@ class ServingEngine:
                 "restore", request_id=req.request_id,
                 length=restore["hit"], bytes=restore["nbytes"],
                 restore_s=round(dt, 6))
+            self._admitting_rid = None
         elif hit:
-            # The contiguous copy's fault site, at the aliasing here.
+            # The contiguous copy's fault site, at the aliasing here: a
+            # crash leaves the aliased pages pinned with no owning row.
+            self._admitting_rid = req.request_id
             faults.check("prefix_copy", round_idx=self.round_idx,
                          request_id=req.request_id)
+            self._admitting_rid = None
         held = [int(p) for p in alias_pages] + [int(p) for p in fresh]
         table = self._tables[row]
         table[:] = SINK_PAGE
@@ -962,12 +982,14 @@ class ServingEngine:
         """A contiguous prefix hit: the donor's slots [0, hit) land in the
         claimed row as one in-place copy."""
         t0 = time.perf_counter()
+        self._admitting_rid = req.request_id
         faults.check("prefix_copy", round_idx=self.round_idx,
                      request_id=req.request_id)
         with self.tracer.span("serving.prefix_copy",
                               request_id=req.request_id, row=row,
                               hit_len=hit):
             self.prefix_cache.load_into(self._cache, row, hit_row, hit)
+        self._admitting_rid = None
         req.prefix_copy_s = time.perf_counter() - t0
         # The copy's bytes: the admission cost at tail 0 is exactly its
         # read and write traffic.
@@ -985,12 +1007,14 @@ class ServingEngine:
         made live. The buffer's last slot is dead instead (decode writes
         position max_len - 1 before the only step that can attend it)."""
         self._filled[row] = self.cfg.max_len
-        self._prefilling[row] = _PrefillJob(
+        job = _PrefillJob(
             req=req, row=row,
             prompt=torch.as_tensor(req.prompt, dtype=torch.long,
                                    device=self.device),
             pos=hit, hit_len=hit, gen=self._request_generator(req),
             start_round=self.round_idx)
+        with self._submit_lock:  # debug_snapshot reads it
+            self._prefilling[row] = job
         self.runlog.emit("prefill_start", request_id=req.request_id,
                          row=row, round=self.round_idx,
                          prompt_len=req.prompt_len, prefix_hit_len=hit)
@@ -1004,6 +1028,7 @@ class ServingEngine:
         seg = pad_to_multiple(job.prompt[c0:c1], 0, ADMISSION_BUCKET)
         final = c1 == s
         t0 = time.perf_counter()
+        self._admitting_rid = req.request_id
         faults.check("prefill_chunk", round_idx=self.round_idx,
                      request_id=req.request_id)
         with self.tracer.span("serving.admit_chunk",
@@ -1023,6 +1048,7 @@ class ServingEngine:
                     c0, c1 - c0, job.prompt, s, self.cfg,
                     temperature=self.temperature, generator=job.gen,
                     final=final)
+        self._admitting_rid = None
         dt = time.perf_counter() - t0
         req.prefill_s += dt
         # The [c0, c1) wedge: the admission model at prompt c1, hit c0.
@@ -1230,6 +1256,7 @@ class ServingEngine:
                 phases={k: round(v, 6) for k, v in req.phases().items()})
             with self._submit_lock:
                 del self.requests[req.request_id]
+            self._retired_pending.append(req)  # crash-safe until returned
             finished.append(req)
         return finished
 
@@ -1319,6 +1346,9 @@ class ServingEngine:
             drift_decode=round(self.stats.calibration.drift("decode"), 4),
             **self._page_fields(), **spec_fields, **self._sched_fields())
         self.round_idx += 1
+        # Ownership passes out through the return: nothing is left for a
+        # crash to strand.
+        self._retired_pending = []
         return expired + finished
 
     def _spec_fields(self, drafted: np.ndarray, accepted: np.ndarray,
@@ -1401,17 +1431,193 @@ class ServingEngine:
                 raise err
             out.extend(self.step())
             rounds += 1
-        if self.queue.closed and not self._drain_reported:
-            self._drain_reported = True
-            self.runlog.emit("drain_complete", round=self.round_idx,
-                             ledger=self.stats.summary())
-            self.runlog.flush()
+        self._seal_drain()
         return out
+
+    def _seal_drain(self) -> None:
+        """Once the queue is closed and it and the slots are empty, emit
+        the terminal ``drain_complete`` event (the final ledger attached)
+        and flush the run log, exactly once. Shared by :meth:`run` and the
+        frontend's driver loop, which steps the engine itself; a no-op
+        while work remains or the queue is open."""
+        if (not self.queue.closed or self._drain_reported
+                or len(self.queue) or self.slots.n_occupied):
+            return
+        self._drain_reported = True
+        self.runlog.emit("drain_complete", round=self.round_idx,
+                         ledger=self.stats.summary())
+        self.runlog.flush()
 
     def drain(self, max_rounds: int = 10_000) -> List[Request]:
         """Graceful drain in one call: ``close()`` then ``run()``."""
         self.close()
         return self.run(max_rounds=max_rounds)
+
+    # -- supervised restart (serving/frontend.py) ----------------------
+
+    def spawn_successor(self) -> "ServingEngine":
+        """A fresh engine that continues this one's serving lifetime after
+        a crash: the same params, config, knobs and seed (so every
+        request's sampling stream, seeded from its id, replays), the same
+        tracer, run log, registry and ``stats`` ledger, and device state
+        built from scratch: a fresh cache or page pool and prefix index, a
+        fresh host tier (a ``host_kv_dir``'s files survive and are adopted
+        again), a fresh ``PrefixCache`` of the same size, a scheduler with
+        the same policy and empty heaps. A TP engine's successor derives
+        its sharded run params from ``self.params`` again. Id allocation,
+        the round index (one past the crashed round) and the adaptive
+        draft length carry over; a closed queue stays closed. It reads
+        only host values of this engine, so it may follow
+        :meth:`release` (the supervisor's order: one incarnation's device
+        state at a time)."""
+        pc = self.prefix_cache
+        new_pc = None if pc is None else PrefixCache(
+            self.cfg, pool_rows=pc.pool_rows, registry=pc._registry,
+            device=self.device)
+        eng = ServingEngine(
+            self.params, self.cfg, batch=self.batch,
+            round_steps=self.round_steps,
+            max_pending=self.queue.max_pending,
+            temperature=self.temperature, eos_id=self.eos_id,
+            seed=self._seed, tracer=self.tracer, runlog=self.runlog,
+            metrics_registry=self.metrics, stats=self.stats,
+            prefill_chunk=self.prefill_chunk, prefix_cache=new_pc,
+            prefill_chunks_per_round=self.prefill_chunks_per_round,
+            kv_pages=self.kv_pages, prefix_sharing=self.prefix_sharing,
+            spec_draft_lens=self.spec_draft_lens if self.spec else None,
+            spec_ngram=self.spec_ngram, spec_adaptive=self.spec_adaptive,
+            host_kv_bytes=self.host_kv_bytes, host_kv_dir=self.host_kv_dir,
+            restore_min_tokens=(self.restore_min_tokens if self.host_kv
+                                else None),
+            scheduler=(self.scheduler.spawn_successor()
+                       if self.scheduler is not None else None),
+            device=self.devices if self.tp > 1 else self.device)
+        eng._next_id = self._next_id
+        eng.round_idx = self.round_idx + 1
+        if self.spec:
+            # The shared ledger holds the acceptance EWMA it was picked by.
+            eng._draft_len = self._draft_len
+        if self.queue.closed:
+            eng.queue.close()
+        return eng
+
+    def release(self) -> None:
+        """Drop this engine's device state and its storage layers: the
+        cache or page pool, the token buffer, the run params, the prefix
+        index, host tier, the prefix cache's pool, the generators and the
+        in-flight prefill jobs. The supervisor calls it on a crashed
+        engine before it builds the successor, so a recovery never holds
+        two caches (the crash's traceback still refers to the engine).
+        The engine cannot step afterwards, nor can its ``PrefixCache``;
+        :meth:`spawn_successor` still works."""
+        with self._submit_lock:
+            self._prefilling = {}
+        self._cache = None
+        self._buf = None
+        self._run_params = None
+        self._gens = [None] * self.batch
+        if self.stats.page_pool is self.page_pool:  # the shared ledger's
+            self.stats.page_pool = None
+        self.page_pool = None
+        self.prefix_index = None
+        self.host_tier = None
+        if self.prefix_cache is not None:
+            self.prefix_cache.pool = None
+
+    def requeue(self, reqs: List[Request],
+                crash_time: Optional[float] = None) -> int:
+        """Take back a crashed predecessor's requests in request-id
+        order, each reset to pristine ``pending`` (``Request.
+        reset_for_requeue``) with its id, deadlines and submit stamp, past
+        the backpressure cap (``AdmissionQueue.restore``). Returns the
+        count."""
+        now = crash_time if crash_time is not None else time.perf_counter()
+        ordered = sorted(reqs, key=lambda r: r.request_id)
+        with self._submit_lock:
+            for req in ordered:
+                req.reset_for_requeue(now)
+                self.queue.restore(req)
+                self.requests[req.request_id] = req
+        for req in ordered:
+            self.stats.record_recovery(req)
+            self.runlog.emit("recover", request_id=req.request_id,
+                             round=self.round_idx,
+                             crash_count=req.crash_count,
+                             requeues=req.requeues,
+                             recovery_s=round(req.recovery_s, 6))
+        self.metrics.gauge("serving_queue_depth").set(len(self.queue))
+        return len(ordered)
+
+    # -- debug introspection (any thread) -------------------------------
+
+    def debug_snapshot(self) -> dict:
+        """The engine's state now: occupancy, queue depth, requests,
+        in-flight prefills, the stats and calibration ledgers and the
+        storage summaries. Any thread: the shared dicts are read under
+        ``_submit_lock``; the scalars may lag by a round."""
+        with self._submit_lock:
+            requests = {
+                int(rid): {"status": req.status, "row": req.row,
+                           "prompt_len": req.prompt_len,
+                           "steps": req.steps}
+                for rid, req in self.requests.items()}
+            prefilling = [
+                {"request_id": job.req.request_id, "row": row,
+                 "pos": job.pos, "prompt_len": job.req.prompt_len,
+                 "hit_len": job.hit_len, "chunks": job.chunks,
+                 "start_round": job.start_round}
+                for row, job in self._prefilling.items()]
+        out = {
+            "round": self.round_idx,
+            "batch": self.batch,
+            "round_steps": self.round_steps,
+            "tp_degree": self.tp,
+            "tp_mode": self.cfg.tp_mode if self.tp > 1 else None,
+            "occupied": self.slots.n_occupied,
+            "queue_depth": len(self.queue),
+            "queue_closed": self.queue.closed,
+            "requests": requests,
+            "prefilling": prefilling,
+            "stats": self.stats.summary(),
+            "cost_model_drift": self.stats.calibration.summary(),
+        }
+        if self.spec:
+            out["spec"] = {
+                "draft_lens": list(self.spec_draft_lens),
+                "draft_len": self._draft_len,
+                "ngram": self.spec_ngram,
+                "adaptive": self.spec_adaptive,
+                "accept_rate": round(self.stats.spec_accept_rate(), 4),
+            }
+        if self.prefix_cache is not None:
+            out["prefix_pool"] = self.prefix_cache.summary()
+        if self.page_pool is not None:
+            out["kv_pages"] = self.page_pool.summary()
+            if self.prefix_index is not None:
+                out["prefix_index"] = self.prefix_index.summary()
+            if self.host_tier is not None:
+                out["host_tier"] = dict(
+                    self.host_tier.summary(),
+                    restore_min_tokens=self.restore_min_tokens)
+        return out
+
+    def debug_request(self, request_id: int) -> Optional[dict]:
+        """One request's timeline: a live one's phases so far, or a
+        finished one's record from the stats ledger's completion window;
+        None for an unknown id (or one fallen out of the window)."""
+        with self._submit_lock:
+            req = self.requests.get(request_id)
+            if req is not None:
+                return {"request_id": req.request_id,
+                        "status": req.status, "row": req.row,
+                        "prompt_len": req.prompt_len, "steps": req.steps,
+                        "live_iters": req.live_iters,
+                        "phases": req.phases(),
+                        "age_s": time.perf_counter() - req.submit_time}
+        for rec in reversed(self.stats.completed_snapshot()):
+            if rec["request_id"] == request_id:
+                return dict(rec)
+        return None
 
     def debug_sched(self) -> Optional[dict]:
         """The scheduler's state: its class table, the rows a class

@@ -1,16 +1,25 @@
-"""Deterministic fault injection for the serving engine — the part of
-``marlin_tpu/serving/faults.py`` the default engine path reads.
+"""Deterministic fault injection for the serving engine and its
+supervisor — port of ``marlin_tpu/serving/faults.py``.
 
 Injection sites call :func:`check` (raise or sleep) or :func:`corrupt`
 (scribble a sentinel into a fetched host array); each is keyed on the
 engine's own deterministic coordinates (round index, request id), so a
-fault scenario replays. With no plan installed a site costs one ``None``
-test.
+fault scenario replays and a recovered run can be held to an
+uninterrupted one token for token (serving/frontend.py). With no plan
+installed a site costs one ``None`` test.
+
+A plan installs process-wide (:func:`install`) or from the
+``MARLIN_FAULT_PLAN`` environment variable as JSON
+(:func:`install_from_env`), e.g.::
+
+    MARLIN_FAULT_PLAN='{"specs": [{"site": "decode_round", "round": 4}]}'
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 import threading
 import time
 from typing import List, Optional
@@ -19,22 +28,27 @@ import numpy as np
 
 from ..obs import metrics as obs_metrics
 
-# The sites the ported engine carries (the JAX package names more):
-# ``kv_restore`` is the host tier's restore scatter (a prefix restore in
-# paged admission, and a thaw); ``preempt_spill`` the freeze of a
-# preemption, after the victim is chosen and before its pages move.
+# The sites the port carries (the JAX package also names the matrix
+# service's ``matrix_quantum``): ``kv_restore`` is the host tier's restore
+# scatter (a prefix restore in paged admission, and a thaw);
+# ``preempt_spill`` the freeze of a preemption, after the victim is chosen
+# and before its pages move; ``stream_fanout`` the frontend driver's
+# post-round delivery.
 SITES = ("decode_round", "prefill_chunk", "prefix_copy", "admission_pop",
-         "runlog_emit", "kv_restore", "preempt_spill")
+         "stream_fanout", "runlog_emit", "kv_restore", "preempt_spill")
 ACTIONS = ("raise", "delay", "corrupt")
+ENV_VAR = "MARLIN_FAULT_PLAN"
 
 
 class FaultInjected(RuntimeError):
-    """The exception an ``action="raise"`` spec throws."""
+    """The exception an ``action="raise"`` spec throws: the crash the
+    supervisor (serving/frontend.py) recovers from."""
 
 
 class EngineStateCorrupt(RuntimeError):
     """A device fetch failed the engine's sanity bounds; the engine
-    raises instead of scheduling on garbage."""
+    raises instead of scheduling on garbage, and the supervisor rebuilds
+    from the last round boundary."""
 
 
 @dataclasses.dataclass
@@ -133,9 +147,25 @@ class FaultPlan:
         out.flat[:1] = -1
         return out
 
+    def summary(self) -> List[dict]:
+        with self._lock:
+            return [dataclasses.asdict(s) for s in self.specs]
+
     def total_fires(self) -> int:
         with self._lock:
             return sum(s.fires for s in self.specs)
+
+    def to_json(self) -> str:
+        return json.dumps({"specs": self.summary()})
+
+    @classmethod
+    def from_json(cls, text: str) -> "FaultPlan":
+        """A plan from ``{"specs": [...]}`` or a bare spec list; the
+        firing counts start at 0."""
+        doc = json.loads(text)
+        specs = doc if isinstance(doc, list) else doc.get("specs", [])
+        return cls([FaultSpec(**{k: v for k, v in s.items()
+                                 if k != "fires"}) for s in specs])
 
 
 _plan: Optional[FaultPlan] = None
@@ -151,6 +181,19 @@ def install(plan: FaultPlan) -> FaultPlan:
 def reset() -> None:
     global _plan
     _plan = None
+
+
+def active() -> Optional[FaultPlan]:
+    return _plan
+
+
+def install_from_env(environ=None) -> Optional[FaultPlan]:
+    """Install the plan ``MARLIN_FAULT_PLAN`` (JSON) holds in ``environ``
+    (default ``os.environ``); returns it, or None when unset."""
+    text = (environ if environ is not None else os.environ).get(ENV_VAR)
+    if not text:
+        return None
+    return install(FaultPlan.from_json(text))
 
 
 def check(site: str, round_idx: Optional[int] = None,

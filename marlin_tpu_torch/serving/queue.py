@@ -9,6 +9,8 @@ deadlines and graceful drain, or the order of a scheduler — port of
 * Drain: after ``close`` no submit is accepted; queued work still runs.
 * Order: FIFO, or with ``scheduler=`` (serving/sched.Scheduler) its
   classes, quotas and EDF; backpressure, deadlines and locking stay here.
+* Recovery: ``restore`` takes back a request a crashed engine had
+  accepted (serving/frontend.py), past the cap and the closed check.
 
 Every public method takes the queue's lock, so concurrent submitters
 compose with the single stepping thread that pops at round boundaries.
@@ -67,6 +69,7 @@ class Request:
     finish_time: float = 0.0
     prefill_s: float = 0.0  # admission dispatch wall-clock
     prefix_copy_s: float = 0.0  # prefix-cache row copy wall-clock
+    delivered_time: float = 0.0  # handed to a frontend handle (0: none)
     live_iters: int = 0  # decode iterations this request was live for
     emitted: int = 0  # tokens actually generated (< steps if eos fired)
     # Speculative rounds' acceptance ledger: draft positions this
@@ -76,9 +79,19 @@ class Request:
     spec_drafted: int = 0
     spec_accepted: int = 0
     # pending -> active -> done | timeout; a preemption detours
-    # active -> preempted -> active.
+    # active -> preempted -> active; "poisoned" is the supervisor's
+    # quarantine verdict (serving/frontend.py).
     status: str = "pending"
     tokens: Optional[np.ndarray] = None
+    # Crash recovery (serving/frontend.py): the engine crashes this
+    # request was implicated in (consecutive, within the restart window),
+    # when the last one was, its requeues, and the wall-clock sunk into
+    # attempts that died with a crashed engine (outside the contiguous
+    # phase sum: the last attempt's queue_wait absorbs the dead ones).
+    crash_count: int = 0
+    last_crash_time: float = 0.0
+    requeues: int = 0
+    recovery_s: float = 0.0
 
     @property
     def prompt_len(self) -> int:
@@ -87,8 +100,9 @@ class Request:
     def phases(self) -> dict:
         """Per-phase durations (seconds): ``queue_wait``, ``admit`` and
         ``decode`` are differences of consecutive stamps, so they sum
-        exactly to ``total``; ``prefill_dispatch`` and ``prefix_copy``
-        ride alongside."""
+        exactly to ``total``; ``prefill_dispatch``, ``prefix_copy``, the
+        frontend's ``stream_delivery`` and the crashed attempts'
+        ``recovery`` ride alongside."""
         out = {}
         if not self.submit_time:
             return out
@@ -106,7 +120,40 @@ class Request:
             out["prefill_dispatch"] = self.prefill_s
         if self.prefix_copy_s:
             out["prefix_copy"] = self.prefix_copy_s
+        if self.delivered_time and self.finish_time:
+            out["stream_delivery"] = self.delivered_time - self.finish_time
+        if self.recovery_s:
+            out["recovery"] = self.recovery_s
         return out
+
+    def reset_for_requeue(self, now: float) -> None:
+        """Back to pristine ``pending`` for re-execution after an engine
+        crash. Identity and arrival survive (the id, which seeds the
+        sampling stream, the prompt, steps, both deadlines, the submit
+        stamp, the class and its arrival sequence, the crash ledger);
+        everything the crashed engine wrote goes, a frozen residue too
+        (its pinned host row died with the engine: the successor replays
+        the request from scratch). Time sunk into the dead attempt goes
+        to ``recovery_s``."""
+        if self.admit_start_time:  # popped: the attempt died
+            self.recovery_s += max(0.0, now - self.admit_start_time)
+        self.requeues += 1
+        self.row = -1
+        self.admit_round = -1
+        self.admit_start_time = 0.0
+        self.admit_time = 0.0
+        self.finish_round = -1
+        self.finish_time = 0.0
+        self.prefill_s = 0.0
+        self.prefix_copy_s = 0.0
+        self.delivered_time = 0.0
+        self.live_iters = 0
+        self.emitted = 0
+        self.spec_drafted = 0
+        self.spec_accepted = 0
+        self.status = "pending"
+        self.tokens = None
+        self.frozen = None
 
 
 @dataclass
@@ -214,6 +261,19 @@ class AdmissionQueue:
                 self.scheduler.push(req)
             else:
                 self._q.appendleft(req)
+
+    def restore(self, req: Request) -> None:
+        """Take back a request a crashed engine had accepted (the
+        supervisor's requeue), past both ``max_pending`` and the closed
+        check: recovered work was accepted once, and a draining engine
+        still owes it. Callers restore in request-id order; a scheduler
+        keeps the request's original arrival sequence, so its EDF
+        tie-break survives the restart."""
+        with self._lock:
+            if self.scheduler is not None:
+                self.scheduler.push(req)
+            else:
+                self._q.append(req)
 
     def close(self) -> None:
         """Stop accepting new work; queued requests still drain."""

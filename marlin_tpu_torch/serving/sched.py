@@ -317,12 +317,17 @@ class Scheduler:
 
     def spawn_successor(self) -> "Scheduler":
         """A fresh scheduler with this one's policy (classes, default,
-        margins) and none of its queued requests."""
-        return Scheduler(
+        margins) and none of its queued requests. The arrival sequence
+        carries over: requeued requests keep theirs, so a later arrival
+        must draw a larger one, or two requests of a class with no
+        deadline would tie on the heap key."""
+        succ = Scheduler(
             classes=self.by_rank, default_class=self.default_class,
             preempt_margin=self.preempt_margin,
             max_preempts_per_round=self.max_preempts_per_round,
             registry=self.metrics)
+        succ._seq = self._seq
+        return succ
 
     def summary(self) -> dict:
         """The class table, for ``ServingEngine.debug_sched``."""

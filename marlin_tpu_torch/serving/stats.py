@@ -1,6 +1,9 @@
 """Serving observability: per-request latency stats, the slot occupancy
-ledger, the prefix-reuse and admission-byte ledgers and the speculative
-acceptance ledger — port of ``marlin_tpu/serving/stats.py``.
+ledger, the prefix-reuse and admission-byte ledgers, the speculative
+acceptance ledger and the crash-recovery ledger — port of
+``marlin_tpu/serving/stats.py``. One :class:`EngineStats` spans every
+engine incarnation of a supervised serving lifetime
+(``ServingEngine.spawn_successor`` hands it on).
 
 The decode round has a fixed batch, so every iteration costs the whole
 batch's work whether or not a row holds live work:
@@ -8,6 +11,10 @@ batch's work whether or not a row holds live work:
 * ``total_row_iters``  = sum over rounds of iters x batch (executed);
 * ``useful_row_iters`` = sum of per-row LIVE iterations (consumed);
 * utilization = useful / total.
+
+:func:`static_schedule_iters` and :func:`static_completed_at_budget`
+price the same workload under a static batcher, and
+:meth:`EngineStats.reclaimed_flops` the difference.
 """
 
 from __future__ import annotations
@@ -53,6 +60,29 @@ def request_stats(req) -> dict:
     return out
 
 
+def static_schedule_iters(steps_list: List[int], batch: int) -> int:
+    """Decode iterations a STATIC batcher spends on this workload: FIFO
+    groups of ``batch``, each running until its slowest member is done."""
+    total = 0
+    for i in range(0, len(steps_list), batch):
+        total += max(steps_list[i:i + batch])
+    return total
+
+
+def static_completed_at_budget(steps_list: List[int], batch: int,
+                               budget: int) -> int:
+    """Requests a STATIC batcher completes within ``budget`` decode
+    iterations of this FIFO workload: group i starts after group i - 1's
+    slowest member, and a request completes when its own steps elapse
+    inside its group's window."""
+    t0, completed = 0, 0
+    for i in range(0, len(steps_list), batch):
+        group = steps_list[i:i + batch]
+        completed += sum(1 for s in group if t0 + s <= budget)
+        t0 += max(group)
+    return completed
+
+
 @dataclass
 class EngineStats:
     """Engine-level ledger fed by ``ServingEngine`` callbacks, mirrored
@@ -81,8 +111,13 @@ class EngineStats:
     # copies; the paged engine aliases pages and bills 0 per hit.
     admission_copy_bytes: float = 0.0
     n_zero_copy_hits: int = 0
-    # The engine's page pool (serving/pages.py; None when contiguous).
+    # The current engine incarnation's page pool (serving/pages.py; None
+    # when contiguous): every engine rebinds it, the ledger outlives them.
     page_pool: object = None
+    # Crash recovery (serving/frontend.py): requests requeued into a
+    # successor engine, and requests failed closed as poisoned.
+    n_recovered: int = 0
+    n_quarantined: int = 0
     # Preemption (scheduler engines, serving/sched.py): rows frozen to the
     # host KV tier and rows thawed back; the difference is rows frozen
     # now plus frozen requests dropped for deadline.
@@ -95,6 +130,7 @@ class EngineStats:
     spec_accept_ewma: Optional[float] = None
     rounds: deque = field(default_factory=lambda: deque(maxlen=HISTORY))
     completed: deque = field(default_factory=lambda: deque(maxlen=HISTORY))
+    quarantined: deque = field(default_factory=lambda: deque(maxlen=HISTORY))
     # Guards deque iteration against appends from the stepping thread.
     _lock: object = field(default_factory=threading.Lock, repr=False)
 
@@ -217,6 +253,38 @@ class EngineStats:
         if self.registry is not None:
             self.registry.counter("serving_timeout_total").inc()
 
+    def record_recovery(self, req) -> None:
+        """One request requeued into a successor engine after a crash:
+        recovered work, not new work."""
+        self.n_recovered += 1
+        if self.registry is not None:
+            self.registry.counter(
+                "serving_requests_recovered_total",
+                help="requests requeued bit-exactly after an engine "
+                     "crash (supervised restart)").inc()
+
+    def record_quarantine(self, req, error) -> None:
+        """One request failed closed as poisoned: implicated in
+        ``poison_after`` consecutive engine crashes, never requeued
+        again."""
+        self.n_quarantined += 1
+        with self._lock:
+            self.quarantined.append({
+                "request_id": req.request_id,
+                "crash_count": req.crash_count,
+                "prompt_len": req.prompt_len,
+                "steps": req.steps,
+                "error": repr(error)})
+        if self.registry is not None:
+            self.registry.counter(
+                "serving_requests_quarantined_total",
+                help="poison requests excluded from crash recovery "
+                     "after repeated implication").inc()
+
+    def quarantine_snapshot(self) -> List[dict]:
+        with self._lock:
+            return list(self.quarantined)
+
     def record_preempt(self, req) -> None:
         """One live row frozen to the host tier so a higher-class request
         could take its slot or pages; the request is requeued, not done."""
@@ -292,6 +360,28 @@ class EngineStats:
             return 0.0
         return self.useful_row_iters / self.total_row_iters
 
+    def flops_per_row_iter(self) -> float:
+        """One row's share of one decode iteration's FLOPs (needs
+        ``cfg``)."""
+        if self.cfg is None:
+            raise ValueError("EngineStats needs cfg to price FLOPs")
+        flops, _ = cm.decode_step_cost(self.cfg, self.batch)
+        return flops / self.batch
+
+    def reclaimed_flops(self, static_row_iters: Optional[int] = None,
+                        static_iters: Optional[int] = None) -> float:
+        """FLOPs of frozen-row work this engine saved against a static
+        batcher on the same workload: (the static waste - this waste)
+        priced a row-iteration. Pass the static schedule's row-iterations
+        or its iterations (:func:`static_schedule_iters`)."""
+        if static_row_iters is None:
+            if static_iters is None:
+                raise ValueError("pass static_row_iters or static_iters")
+            static_row_iters = static_iters * self.batch
+        static_waste = static_row_iters - self.useful_row_iters
+        return (static_waste - self.wasted_row_iters) \
+            * self.flops_per_row_iter()
+
     def completed_snapshot(self) -> List[dict]:
         with self._lock:
             return list(self.completed)
@@ -310,6 +400,12 @@ class EngineStats:
             "wasted_row_iters": self.wasted_row_iters,
             "utilization": round(self.utilization(), 4),
         }
+        if self.n_recovered or self.n_quarantined:
+            out.update({
+                "recovered": self.n_recovered,
+                "quarantined": self.n_quarantined,
+                "quarantine": self.quarantine_snapshot(),
+            })
         if self.n_preempted:
             out.update({
                 "preempted": self.n_preempted,

@@ -318,13 +318,11 @@ class TestServingLedgerAndGuards:
     ("host_kv_dir", "/tmp/kv", ValueError, "kv_pages"),
     ("restore_min_tokens", 32, ValueError, "restore_min_tokens"),
     ("sched_class", "batch", ValueError, "needs a scheduler"),
-    ("stats", object(), NotImplementedError, "ROADMAP Queue A1"),
 ], ids=["host_kv_bytes-1048576", "host_kv_dir-/tmp/kv",
-        "restore_min_tokens-32", "scheduler-value3", "stats-value4"])
+        "restore_min_tokens-32", "scheduler-value3"])
 def test_non_default_engine_options_raise(option, value, error, match):
     # The reference's guards: the host tier needs the paged prefix index,
-    # restore_min_tokens a tier, a request's sched_class a scheduler; an
-    # inherited stats (the restart surface) is not ported.
+    # restore_min_tokens a tier, a request's sched_class a scheduler.
     cfg = _cfg()
     with pytest.raises(error, match=match):
         if option == "sched_class":
@@ -412,6 +410,29 @@ def test_stats_default_is_accepted():
     assert eng.stats.n_admitted == 0
 
 
+def test_successor_stats_is_the_predecessor_ledger():
+    # stats= is served: a successor (spawn_successor, the supervised
+    # restart) keeps counting into its predecessor's ledger, so one serving
+    # lifetime's totals span its engine incarnations.
+    cfg = _cfg()
+    params = _params(cfg)
+    eng = _engine(params, cfg, batch=2, round_steps=4)
+    rng = np.random.default_rng(4)
+    for _ in range(3):
+        eng.submit(rng.integers(0, cfg.vocab, 6), 3)
+    eng.run()
+    succ = eng.spawn_successor()
+    assert succ.stats is eng.stats
+    succ.submit(rng.integers(0, cfg.vocab, 6), 3)
+    succ.run()
+    assert eng.stats.n_completed == 4 and eng.stats.tokens_out == 12
+    # An engine built on another's ledger adds to it too.
+    other = _engine(params, cfg, stats=eng.stats)
+    other.submit(rng.integers(0, cfg.vocab, 6), 2)
+    other.run()
+    assert eng.stats.n_completed == 5
+
+
 def test_configs_outside_the_slice_raise():
     params = _params(_cfg())
     with pytest.raises(NotImplementedError, match="dense"):
@@ -422,5 +443,5 @@ def test_configs_outside_the_slice_raise():
     # head evenly is validate_tp's refusal.
     with pytest.raises(ValueError, match="must divide"):
         _engine(params, _cfg(tp=3))
-    with pytest.raises(TypeError, match="unexpected option"):
+    with pytest.raises(TypeError, match="unexpected keyword argument"):
         _engine(params, _cfg(), no_such_option=1)
