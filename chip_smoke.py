@@ -156,6 +156,45 @@ Phases, each of which exits non-zero on failure:
    handle with EngineFailed and stops its driver. Printed (restart: per
    arm and run, restart_summary:): crash-to-first-successor-round ms,
    replayed prefill tokens, tokens/s against the clean run's, the peaks.
+   Then the HTTP server, the npz wire and the matrix-ops job service
+   (phase_http): serve(..., port=0, matrix=True) on the card (the
+   flagship, batch 8, round_steps 8, one-shot admission, a contiguous
+   cache), every call through tools/serving_client.py loaded by path. (a)
+   The slice's 16 requests from 16 client threads, 8 blocking and 8 SSE.
+   Held: each request's tokens equal an in-process EngineFrontend run of
+   the same prompts (so each SSE concatenation equals its blocking
+   array); the timing block's phases sum to its total; the flash forward
+   launched one-shot admissions x layers times over (a) and (c). (b)
+   TestHTTPRoundtrips' nine bodies at the service's bound of 2^22
+   elements an operand (gemm 2048^3 in f32, f64, bf16 and int8; lu 2048
+   f32; cholesky 2048 f64; spmm [2048, 2048, 512] f32; svd [4096, 1024]
+   k = 4; inverse 2048 f32), blocking and streamed. Held: the HTTP arrays
+   equal the in-process matrix_compute(body) on the card in dtype, shape
+   and bytes, the streamed ones the blocking ones; the values against
+   float64 on the card within HTTP_LIMITS (GEMM and SpMM 6e-3 of max |C|;
+   LU and Cholesky reconstruction 1e-3 of max |A|; max |A inv - I| 1e-2;
+   the singular values 1e-4 relative to an f64 eigh of the Gramian). (c)
+   An LU [2048] job submitted while 8 of the requests decode. Held: a
+   round event with live rows carries matrix_quanta > 0; the 8 requests'
+   tokens and the job's bytes unchanged. (d) Faults, in-process
+   (faults.install), each run on its own frontend with its traffic queued
+   before the driver starts and one matrix quantum a round: a
+   matrix_quantum crash after round 2 (mid-LU), and a decode_round crash
+   at round 2, each recover to the clean tokens and bytes; a job crashed
+   twice answers 500 "poisoned" and /readyz stays 200; past max_restarts
+   a request answers 503 and /readyz 503; with the one pending slot filled
+   before the driver starts, the next request gets 429 with Retry-After.
+   (e) begin_drain: the in-flight stream completes, a new request gets
+   503 (or a refused connect late in the drain), and
+   tools/runlog_report.py reports the server's sealed run log ok. (f) One
+   child, python -m marlin_tpu_torch.serving.server on the card armed
+   with MARLIN_FAULT_PLAN (a decode_round crash at round 4), streams
+   across the crash, gets SIGTERM and exits 0 after printing DRAINED.
+   Printed (http:, http_job: per job, http_faults:): HTTP tokens/s against
+   the in-process run's, SSE TTFT p50/p99 as the client measures it, HTTP
+   overhead ms a request (client wall minus the engine's total), each
+   job's wall ms, quanta, measured and calibrated-prediction ms, the
+   phase's seconds.
 6. Train: the same flagship, bf16 compute on f32 master params, B=8,
    S=2048, SGD at lr 0.1: one warm-up train_step, then 5 timed steps on
    one fixed batch. Every loss finite, the last below the first, and the
@@ -4421,6 +4460,605 @@ def phase_restart(card: str, seed: int = 0):
     return launches
 
 
+# -- the HTTP server, the npz wire and the matrix-ops job service -----------
+
+# TestHTTPRoundtrips' nine bodies at the service's own bound of 2^22
+# elements an operand (serving/jobs.py MAX_ELEMENTS).
+HTTP_JOBS = [
+    {"op": "gemm", "shapes": [2048, 2048, 2048], "dtype": "float32",
+     "seed": 7},
+    {"op": "gemm", "shapes": [2048, 2048, 2048], "dtype": "float64",
+     "seed": 7},
+    {"op": "gemm", "shapes": [2048, 2048, 2048], "dtype": "bfloat16",
+     "seed": 7},
+    {"op": "gemm", "shapes": [2048, 2048, 2048], "dtype": "int8", "seed": 7},
+    {"op": "lu", "shapes": [2048], "dtype": "float32", "seed": 8},
+    {"op": "cholesky", "shapes": [2048], "dtype": "float64", "seed": 9},
+    {"op": "spmm", "shapes": [2048, 2048, 512], "dtype": "float32",
+     "seed": 10},
+    {"op": "svd", "shapes": [4096, 1024], "dtype": "float32", "seed": 11,
+     "k": 4},
+    {"op": "inverse", "shapes": [2048], "dtype": "float32", "seed": 12},
+]
+# The mixed-traffic and mid-job-crash job.
+HTTP_LU = {"op": "lu", "shapes": [2048], "dtype": "float32", "seed": 21}
+# Value limits against float64 (PERF.md section 2): the product's (GEMM
+# and SpMM, over max |C|), the factorizations' reconstruction (over max
+# |A|), max |A inv - I|, the singular values (relative).
+HTTP_LIMITS = {"gemm": 6e-3, "spmm": 6e-3, "lu": 1e-3, "cholesky": 1e-3,
+               "inverse": 1e-2, "svd": 1e-4}
+HTTP_TIMEOUT_S = 600.0  # a client call's timeout
+
+
+def _load_tool(name):
+    """tools/<name>.py of this checkout, loaded by path, unchanged."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "tools", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _wire_bytes(x):
+    """(dtype name, shape, bytes) of a result array (numpy, or a torch
+    tensor: bfloat16's)."""
+    import numpy as np
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu()
+        if x.dtype == torch.bfloat16:
+            return "bfloat16", tuple(x.shape), \
+                x.view(torch.int16).numpy().tobytes()
+        x = x.numpy()
+    x = np.asarray(x)
+    return x.dtype.name, tuple(x.shape), x.tobytes()
+
+
+def _same_arrays(label, got, want):
+    if sorted(got) != sorted(want):
+        fail(f"{label}: arrays {sorted(got)}, expected {sorted(want)}")
+    for k in want:
+        g, w = _wire_bytes(got[k]), _wire_bytes(want[k])
+        if g[:2] != w[:2] or g[2] != w[2]:
+            fail(f"{label}: array {k!r} differs from the in-process "
+                 f"call's (dtype/shape {g[:2]} against {w[:2]})")
+
+
+def _job_error(body, arrays, inputs) -> float:
+    """The job's result against float64 on the card: HTTP_LIMITS' reading
+    for its op."""
+    import numpy as np
+    import torch
+
+    def t(x):
+        x = x if isinstance(x, torch.Tensor) else torch.from_numpy(
+            np.ascontiguousarray(x))
+        return x.to("cuda", torch.float64)
+
+    op = body["op"]
+    if op in ("gemm", "spmm"):
+        if op == "spmm":
+            m, k, _ = body["shapes"]
+            a = torch.zeros((m, k), dtype=torch.float64, device="cuda")
+            a.index_put_((t(inputs["a_rows"]).long(),
+                          t(inputs["a_cols"]).long()), t(inputs["a_vals"]),
+                         accumulate=True)
+            b, c = t(inputs["b"]), t(arrays["c"])
+        elif body["dtype"] == "int8":
+            a = t(inputs["a"]) * t(inputs["a_scale"])[:, None]
+            b = t(inputs["b"]) * t(inputs["b_scale"])[None, :]
+            c = t(arrays["c"]) * t(arrays["c_scale"])[:, None]
+        else:
+            a, b, c = t(inputs["a"]), t(inputs["b"]), t(arrays["c"])
+        ref = a @ b
+        return ((c - ref).abs().max() / ref.abs().max()).item()
+    a = t(inputs["a"])
+    if op == "lu":
+        lu = t(arrays["lu"])
+        eye = torch.eye(lu.shape[0], dtype=torch.float64, device="cuda")
+        rec = (torch.tril(lu, -1) + eye) @ torch.triu(lu)
+        perm = torch.as_tensor(np.asarray(arrays["perm"]), device="cuda")
+        return ((rec - a[perm]).abs().max() / a.abs().max()).item()
+    if op == "cholesky":
+        l = t(arrays["l"])
+        return ((l @ l.T - a).abs().max() / a.abs().max()).item()
+    if op == "inverse":
+        eye = torch.eye(a.shape[0], dtype=torch.float64, device="cuda")
+        return (a @ t(arrays["inv"]) - eye).abs().max().item()
+    # svd: the values against an f64 eigh of the Gramian.
+    ev = torch.linalg.eigvalsh(a.T @ a).flip(0)[:body["k"]]
+    sv = ev.clamp_min(0).sqrt()
+    return ((t(arrays["s"]) - sv).abs() / sv).max().item()
+
+
+def _http_frontend(params, cfg, runlog=None, start=True, registry=None,
+                   **options):
+    """Engine, matrix service and frontend on the card, the server over
+    them on 127.0.0.1 port 0. With ``start`` False the driver waits, so a
+    test can queue its whole traffic first."""
+    from marlin_tpu_torch.obs.metrics import MetricsRegistry
+    from marlin_tpu_torch.serving import (EngineFrontend, MatrixService,
+                                          ServingEngine, ServingHTTPServer)
+
+    fe_kw = {k: options.pop(k) for k in ("max_restarts", "poison_after")
+             if k in options}
+    mx_kw = {k: options.pop(k) for k in ("round_budget_s",)
+             if k in options}
+    reg = registry if registry is not None else MetricsRegistry()
+    eng = ServingEngine(params, cfg, device="cuda", metrics_registry=reg,
+                        **({"runlog": runlog} if runlog is not None
+                           else {}), **options)
+    mx = MatrixService(metrics=reg, runlog=eng.runlog, device=eng.device,
+                       poison_after=fe_kw.get("poison_after", 2), **mx_kw)
+    fe = EngineFrontend(eng, matrix=mx, **fe_kw)
+    srv = ServingHTTPServer(("127.0.0.1", 0), fe).start_background()
+    if start:
+        fe.start()
+    return fe, srv
+
+
+def _wait(pred, what, timeout=120.0):
+    deadline = time.perf_counter() + timeout
+    while not pred():
+        if time.perf_counter() > deadline:
+            fail(f"http: timed out waiting for {what}")
+        time.sleep(0.005)
+
+
+def _in_threads(fns):
+    """Run each no-argument function on its own thread; return their
+    results in order."""
+    import threading
+
+    out = [None] * len(fns)
+
+    def run(i):
+        out[i] = fns[i]()
+
+    threads = [threading.Thread(target=run, args=(i,))
+               for i in range(len(fns))]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(HTTP_TIMEOUT_S)
+    if any(th.is_alive() for th in threads):
+        fail("http: a client thread did not return")
+    return out
+
+
+def _http_faults(card, params, cfg, sc, workload, ref_tokens, lu_ref):
+    """The crash boundary through the server, each run its own frontend,
+    the plan installed in this process (faults.install). Returns the
+    printed fields."""
+    import torch
+
+    from marlin_tpu_torch.serving import faults
+    from marlin_tpu_torch.serving.jobs import decode_result
+
+    out = {}
+    traffic = workload[:8]
+
+    def client(srv):
+        return sc.ServingClient(port=srv.port, timeout=HTTP_TIMEOUT_S)
+
+    def queued_run(specs, with_lu):
+        """8 LLM requests (and the LU job) queued before the driver
+        starts, one matrix quantum a round (a budget below any
+        quantum's), ``specs`` armed."""
+        fe, srv = _http_frontend(params, cfg, start=False, batch=8,
+                                 round_steps=8, max_restarts=8,
+                                 poison_after=2, round_budget_s=1e-9)
+        plan = faults.install(faults.FaultPlan())
+        fired = [plan.add(**s) for s in specs]
+        calls = [lambda p=p, s=s: client(srv).generate(p, s)
+                 for p, s in traffic]
+        if with_lu:
+            calls.append(lambda: client(srv).matrix(**dict(HTTP_LU)))
+        try:
+            import threading
+
+            res = {}
+            th = threading.Thread(target=lambda: res.update(
+                r=_in_threads(calls)))
+            th.start()
+            _wait(lambda: len(fe.engine.queue) == len(traffic)
+                  and (fe.matrix.has_work() or not with_lu),
+                  "the queued traffic")
+            t0 = time.perf_counter()
+            fe.start()
+            th.join(HTTP_TIMEOUT_S)
+            wall = time.perf_counter() - t0
+        finally:
+            faults.reset()
+        results = res["r"]
+        for i, r in enumerate(results[:len(traffic)]):
+            if r["code"] != 200 or r["tokens"] != ref_tokens[i]:
+                fail(f"http faults: request {i} answered {r['code']}, "
+                     f"tokens equal to the clean run's: "
+                     f"{r.get('tokens') == ref_tokens[i]}")
+        if any(s.fires != 1 for s in fired) or fe.restarts != len(specs):
+            fail(f"http faults: fires {[s.fires for s in fired]}, "
+                 f"restarts {fe.restarts}, expected one each")
+        line = dict(restarts=fe.restarts, wall_s=wall)
+        if with_lu:
+            r = results[-1]
+            if r["code"] != 200:
+                fail(f"http faults: the LU job answered {r['code']}")
+            arrays, meta = decode_result(r["payload_bytes"])
+            _same_arrays("http faults: the replayed LU job", arrays, lu_ref)
+            if meta["crash_count"] != 1:
+                fail(f"http faults: the LU job's crash_count "
+                     f"{meta['crash_count']}, expected 1")
+            replay = fe.engine.runlog.events("job_replay")
+            line.update(lu_quanta=meta["quanta"], lu_replays=len(replay))
+        fe.stop(60)
+        srv.close_now()
+        fe.engine.release()
+        return line
+
+    # A matrix_quantum crash mid-LU (the slice after round 2: two of its
+    # 128 quanta done) and, in another run, a decode_round crash: both
+    # recover to the clean tokens and bytes.
+    out["matrix_quantum"] = queued_run(
+        [dict(site="matrix_quantum", round=2)], True)
+    out["decode_round"] = queued_run([dict(site="decode_round", round=2)],
+                                     False)
+    # A job crashed twice: 500, poisoned; the service stays ready.
+    fe, srv = _http_frontend(params, cfg, batch=8, round_steps=8,
+                             max_restarts=8, poison_after=2)
+    plan = faults.install(faults.FaultPlan())
+    plan.add(site="matrix_quantum", max_fires=5)
+    try:
+        r = client(srv).matrix("gemm", [256, 256, 256], seed=15)
+    finally:
+        faults.reset()
+    rz = client(srv).readyz()
+    if r["code"] != 500 or r.get("status") != "poisoned" \
+            or r.get("crash_count") != 2 or rz["code"] != 200:
+        fail(f"http faults: a twice-crashed job answered {r['code']} "
+             f"{r.get('status')} crash_count {r.get('crash_count')}, "
+             f"/readyz {rz['code']}")
+    after = client(srv).generate(*traffic[0])
+    if after["code"] != 200 or after["tokens"] != ref_tokens[0]:
+        fail("http faults: the server did not serve after a quarantine")
+    out["poisoned"] = dict(code=r["code"], crash_count=r["crash_count"],
+                           readyz=rz["code"])
+    fe.stop(60)
+    srv.close_now()
+    fe.engine.release()
+    # Past max_restarts: 503, and /readyz 503.
+    fe, srv = _http_frontend(params, cfg, batch=8, round_steps=8,
+                             max_restarts=1)
+    plan = faults.install(faults.FaultPlan())
+    plan.add(site="decode_round", round_every=1, max_fires=10)
+    try:
+        r = client(srv).generate(*traffic[0])
+    finally:
+        faults.reset()
+    rz = client(srv).readyz()
+    if r["code"] != 503 or rz["code"] != 503 or rz["ready"]:
+        fail(f"http faults: past max_restarts the request answered "
+             f"{r['code']} and /readyz {rz['code']}, expected 503 both")
+    out["fail_closed"] = dict(code=r["code"], readyz=rz["code"])
+    srv.close_now()
+    fe.engine.release()
+    # 429 with Retry-After: the one pending slot filled before the driver
+    # starts.
+    fe, srv = _http_frontend(params, cfg, start=False, batch=1,
+                             round_steps=8, max_pending=1)
+    import threading
+
+    first = {}
+    th = threading.Thread(target=lambda: first.update(
+        client(srv).generate(*traffic[0])))
+    th.start()
+    _wait(lambda: len(fe.engine.queue) == 1, "the queued request")
+    shed = client(srv).generate(*traffic[1])
+    fe.start()
+    th.join(HTTP_TIMEOUT_S)
+    if shed["code"] != 429 or shed["retry_after"] is None \
+            or first.get("code") != 200:
+        fail(f"http: the shed request answered {shed['code']} "
+             f"(Retry-After {shed['retry_after']}), the queued one "
+             f"{first.get('code')}")
+    out["backpressure"] = dict(code=shed["code"],
+                               retry_after=shed["retry_after"])
+    fe.stop(60)
+    srv.close_now()
+    fe.engine.release()
+    torch.cuda.synchronize()
+    return out
+
+
+def _http_sigterm(card):
+    """One server child on the card (python -m marlin_tpu_torch.serving.
+    server, the demo model), armed with MARLIN_FAULT_PLAN: a request
+    streams across the planted crash, SIGTERM drains, exit 0 after
+    DRAINED."""
+    import signal
+    import threading
+
+    sc = _load_tool("serving_client")
+    plan = {"specs": [{"site": "decode_round", "round": 4}]}
+    env = dict(os.environ, MARLIN_FAULT_PLAN=json.dumps(plan))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "marlin_tpu_torch.serving.server",
+         "--port", "0", "--batch", "2", "--round-steps", "2"],
+        cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        start_new_session=True)
+    try:
+        line = []
+        th = threading.Thread(target=lambda: line.append(
+            proc.stdout.readline()), daemon=True)
+        th.start()
+        th.join(120)
+        if not line or not line[0].startswith("SERVING "):
+            fail(f"http sigterm: the child printed {line!r}, exit "
+                 f"{proc.poll()}")
+        c = sc.ServingClient(port=int(line[0].strip().split("port=")[1]),
+                             timeout=120)
+        warm = c.generate(list(range(8)), 2)
+        res = {}
+        st = threading.Thread(target=lambda: res.update(
+            c.stream(list(range(8)), 48)))
+        st.start()
+        _wait(lambda: json.loads(c._get("/debug/engine")[1])["stats"][
+            "admitted"] >= 2 or not st.is_alive(), "the child's stream")
+        proc.send_signal(signal.SIGTERM)
+        st.join(120)
+        out, err = proc.communicate(timeout=120)
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait(10)
+    if warm["code"] != 200 or res.get("code") != 200 \
+            or res.get("emitted") != 48:
+        fail(f"http sigterm: warm {warm['code']}, stream {res.get('code')} "
+             f"with {res.get('emitted')} of 48 tokens")
+    if proc.returncode != 0 or "DRAINED" not in out:
+        fail(f"http sigterm: exit {proc.returncode}, DRAINED printed: "
+             f"{'DRAINED' in out}; stderr {err[-800:]}")
+    return dict(exit=proc.returncode, child_s=time.perf_counter() - t0)
+
+
+def phase_http(card: str, seed: int = 0):
+    """The HTTP server, the npz wire and the matrix-ops job service on the
+    supervised frontend: see the module docstring. Returns the flash
+    forward's launches over the served LLM traffic. Every check exits
+    non-zero when it fails."""
+    import statistics
+    import tempfile
+    import threading
+
+    import numpy as np
+    import torch
+
+    from marlin_tpu_torch.models import TransformerConfig
+    from marlin_tpu_torch.models import transformer as tr
+    from marlin_tpu_torch.obs.metrics import MetricsRegistry
+    from marlin_tpu_torch.obs.runlog import RunLog
+    from marlin_tpu_torch.ops import flash_attention as fa
+    from marlin_tpu_torch.serving import (EngineFrontend, ServingEngine,
+                                          serve)
+    from marlin_tpu_torch.serving.jobs import (decode_result,
+                                               generate_inputs,
+                                               matrix_compute, validate_job)
+
+    t_phase = time.perf_counter()
+    sc = _load_tool("serving_client")
+    rr = _load_tool("runlog_report")
+    cfg = TransformerConfig(**FLAGSHIP)
+    params = tr.init_params(cfg, seed=seed, device="cuda")
+    workload = [(p, s) for p, s in _workload(cfg, seed)]
+
+    # Warm-up (cuBLAS handles, the allocator) on a throwaway engine, so
+    # that neither timed run pays for it.
+    warm = ServingEngine(params, cfg, batch=8, round_steps=8,
+                         metrics_registry=MetricsRegistry(), device="cuda")
+    warm.submit(workload[1][0], 4)
+    warm.run()
+    warm.release()
+    # The in-process run of the same prompts: the tokens every HTTP
+    # answer is held to.
+    eng = ServingEngine(params, cfg, batch=8, round_steps=8,
+                        metrics_registry=MetricsRegistry(), device="cuda")
+    fe0 = EngineFrontend(eng)
+    handles = [fe0.submit(p, s) for p, s in workload]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fe0.start()
+    ref_tokens = [list(map(int, h.result(HTTP_TIMEOUT_S).tokens))
+                  for h in handles]
+    inproc_s = time.perf_counter() - t0
+    if not fe0.drain(HTTP_TIMEOUT_S):
+        fail("http: the in-process frontend did not drain")
+    eng.release()
+    n_tokens = sum(len(t) for t in ref_tokens)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        log_path = os.path.join(tmp, "http_runlog.jsonl")
+        srv = serve(params, cfg, port=0, batch=8, round_steps=8, seed=0,
+                    matrix=True, device="cuda",
+                    metrics_registry=MetricsRegistry(),
+                    runlog=RunLog(path=log_path)).start_background()
+        fe = srv.frontend
+
+        def client():
+            return sc.ServingClient(port=srv.port, timeout=HTTP_TIMEOUT_S)
+
+        # -- LLM traffic: 16 client threads, 8 blocking and 8 SSE.
+        admitted0 = fe.engine.stats.n_admitted
+        _zero_counters(fa)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results = _in_threads([
+            (lambda p=p, s=s, i=i: client().stream(p, s) if i % 2
+             else client().generate(p, s))
+            for i, (p, s) in enumerate(workload)])
+        http_s = time.perf_counter() - t0
+        overhead, ttft = [], []
+        for i, r in enumerate(results):
+            kind = "sse" if i % 2 else "blocking"
+            if r["code"] != 200 or r.get("status") != "done":
+                fail(f"http: {kind} request {i} answered {r['code']}")
+            if r["tokens"] != ref_tokens[i]:
+                fail(f"http: {kind} request {i}'s tokens differ from the "
+                     f"in-process run's")
+            t = r["timing"]
+            if abs(t["queue_wait_s"] + t["admit_s"] + t["decode_s"]
+                   - t["total_s"]) > 5e-6:
+                fail(f"http: request {i}'s timing phases do not sum to "
+                     f"its total: {t}")
+            overhead.append(r["dt_s"] - t["total_s"])
+            if i % 2:
+                ttft.append(r["ttft_s"])
+
+        # -- The matrix jobs: HTTP blocking and streamed against the
+        # in-process call on the card, and the values against float64.
+        jobs = {}
+        for body in HTTP_JOBS:
+            label = f"http job {body['op']} {body['dtype']}"
+            r = client().matrix(**dict(body))
+            if r["code"] != 200:
+                fail(f"{label}: answered {r['code']}: {r.get('error')}")
+            arrays, meta = decode_result(r["payload_bytes"])
+            if meta != r["meta"]:
+                fail(f"{label}: the npz meta differs from X-Matrix-Meta")
+            s = client().matrix_stream(**dict(body))
+            if s["code"] != 200 or "payload_bytes" not in s:
+                fail(f"{label}: the stream answered {s['code']}")
+            _same_arrays(f"{label} (streamed)",
+                         decode_result(s["payload_bytes"])[0], arrays)
+            want = matrix_compute(dict(body), device="cuda")
+            _same_arrays(label, arrays, want)
+            err = _job_error(body, arrays,
+                             generate_inputs(validate_job(dict(body))))
+            if not err <= HTTP_LIMITS[body["op"]]:
+                fail(f"{label}: error {err:.3e} against float64 (limit "
+                     f"{HTTP_LIMITS[body['op']]})")
+            # The streamed run is the op's second: the ledger has
+            # calibrated its seconds a unit on the first, so it carries a
+            # prediction.
+            pred = s["meta"]["predicted_s"]
+            jobs[f"{body['op']}_{body['dtype']}"] = dict(
+                wall_ms=r["dt_s"] * 1e3, quanta=meta["quanta"],
+                measured_ms=meta["measured_s"] * 1e3,
+                stream_wall_ms=s["dt_s"] * 1e3,
+                stream_measured_ms=s["meta"]["measured_s"] * 1e3,
+                stream_predicted_ms=(pred * 1e3 if pred is not None
+                                     else None),
+                stream_events=len(s["events"]), err=err)
+            del arrays, want, s, r
+        lu_ref = matrix_compute(dict(HTTP_LU), device="cuda")
+
+        # -- Mixed traffic: an LU job while 8 requests decode.
+        round0 = fe.engine.round_idx
+        lu_res = {}
+        lu_thread = threading.Thread(target=lambda: lu_res.update(
+            client().matrix(**dict(HTTP_LU))))
+        calls = [lambda p=p, s=s: client().generate(p, s)
+                 for p, s in workload[:8]]
+        mixed = {}
+        llm_thread = threading.Thread(target=lambda: mixed.update(
+            r=_in_threads(calls)))
+        llm_thread.start()
+        _wait(lambda: fe.engine.slots.n_occupied > 0
+              or not llm_thread.is_alive(), "the mixed traffic's rows")
+        lu_thread.start()
+        llm_thread.join(HTTP_TIMEOUT_S)
+        lu_thread.join(HTTP_TIMEOUT_S)
+        for i, r in enumerate(mixed["r"]):
+            if r["code"] != 200 or r["tokens"] != ref_tokens[i]:
+                fail(f"http mixed: request {i}'s tokens changed beside the "
+                     f"LU job")
+        if lu_res.get("code") != 200:
+            fail(f"http mixed: the LU job answered {lu_res.get('code')}")
+        _same_arrays("http mixed: the LU job",
+                     decode_result(lu_res["payload_bytes"])[0], lu_ref)
+        # The window's first round event also carries the quanta the idle
+        # engine ran for the jobs before it: the later ones carry only
+        # quanta run between two decode rounds.
+        rounds = [r for r in fe.engine.runlog.events("round")
+                  if r["round"] > round0]
+        shared = [r for r in rounds
+                  if r["occupied"] > 0 and r.get("matrix_quanta", 0) > 0]
+        if not shared:
+            fail("http mixed: no round with live rows carries "
+                 "matrix_quanta")
+        torch.cuda.synchronize()
+        launches = fa.launches
+        admissions = fe.engine.stats.n_admitted - admitted0
+        counts = _counters(fa)
+        if counts != _want(admissions * cfg.n_layers, 0, 0):
+            fail(f"http: flash launches {counts}, expected the forward "
+                 f"one-shot admissions x layers = {admissions} x "
+                 f"{cfg.n_layers}")
+
+        # -- Drain: the in-flight stream completes, a new request 503s.
+        stream_res, drained = {}, {}
+        st = threading.Thread(target=lambda: stream_res.update(
+            client().stream(*workload[2])))
+        st.start()
+        _wait(lambda: fe.engine.slots.n_occupied > 0 or not st.is_alive(),
+              "the draining stream's row")
+        dt = threading.Thread(target=lambda: drained.update(
+            ok=srv.begin_drain(HTTP_TIMEOUT_S)))
+        dt.start()
+        _wait(lambda: fe.draining, "the drain")
+        try:
+            shed = client().generate(*workload[3])["code"]
+        except OSError:
+            shed = "refused"  # late in the drain the listener is down
+        st.join(HTTP_TIMEOUT_S)
+        dt.join(HTTP_TIMEOUT_S)
+        if not drained.get("ok") or stream_res.get("code") != 200 \
+                or stream_res.get("tokens") != ref_tokens[2] \
+                or shed not in (503, "refused"):
+            fail(f"http drain: drained {drained.get('ok')}, in-flight "
+                 f"stream {stream_res.get('code')}, new request {shed}")
+        report = rr.build_report(rr.load_runlog(log_path))
+        if not report["ok"] or not report["sealed"]:
+            fail(f"http: runlog_report on the sealed run log: ok "
+                 f"{report['ok']}, sealed {report['sealed']}, anomalies "
+                 f"{report['anomalies'][:5]}")
+        fe.engine.release()
+
+    fault_lines = _http_faults(card, params, cfg, sc, workload, ref_tokens,
+                               lu_ref)
+    del params
+    torch.cuda.empty_cache()
+    child = _http_sigterm(card)
+    print("http: " + json.dumps(dict(
+        card=card, requests=len(workload),
+        http_tokens_per_s=n_tokens / http_s,
+        inprocess_tokens_per_s=n_tokens / inproc_s,
+        sse_ttft_p50_ms=statistics.median(ttft) * 1e3,
+        sse_ttft_p99_ms=float(np.percentile(ttft, 99)) * 1e3,
+        http_overhead_ms_median=statistics.median(overhead) * 1e3,
+        http_overhead_ms_max=max(overhead) * 1e3,
+        flash_launches=launches, admissions=admissions,
+        mixed_rounds_with_quanta=len(shared),
+        mixed_quanta_in_live_rounds=sum(r["matrix_quanta"]
+                                        for r in shared),
+        drain_new_request=shed, runlog_report_ok=report["ok"],
+        phase_s=time.perf_counter() - t_phase), default=str), flush=True)
+    for name, line in jobs.items():
+        print("http_job: " + json.dumps(dict(card=card, job=name, **line)),
+              flush=True)
+    print("http_faults: " + json.dumps(dict(card=card, **fault_lines,
+                                            sigterm=child,
+                                            phase_s=time.perf_counter()
+                                            - t_phase)), flush=True)
+    return launches
+
+
 def phase_profile(params, cfg, workload):
     """Where a steady decode round's time goes: one round of 8 live rows
     (no admission) under torch.profiler, device-busy time against host
@@ -5850,7 +6488,7 @@ def kernels_line(rows, bwd, launches, small, spmm, spmm_launches,
                   ("speculative_p64", "spec_p64"), ("train", "train"),
                   ("remat", "remat"), ("tp", "tp2_flagship"),
                   ("tp_ref", "tp4_ref"), ("restart", "flagship"),
-                  ("restart_tp", "tp2_flagship"))}
+                  ("restart_tp", "tp2_flagship"), ("http", "flagship"))}
 
     fwd_entry = _fwd_entry
 
@@ -5948,7 +6586,9 @@ def main(argv=None) -> int:
     phase_host_tier(card)
     tp_launches = phase_tp(card)
     restart_launches = phase_restart(card)
+    http_launches = phase_http(card)
     launches = phase_train(card)
+    launches["http"] = dict(fwd=http_launches)
     launches["tp"] = dict(fwd=tp_launches["flagship"])
     launches["tp_ref"] = dict(fwd=tp_launches["ref"])
     for path, n in restart_launches.items():

@@ -305,47 +305,58 @@ def _getrf(a: torch.Tensor) -> Tuple[torch.Tensor, np.ndarray]:
     return lu, piv.cpu().numpy().astype(np.int64) - 1
 
 
+def _lu_panel_step(st: _Stripes, perm: np.ndarray, j0: int,
+                   base: int) -> None:
+    """One panel of the blocked right-looking LU of the striped square
+    ``st``, in place: factor columns [j0, j0 + base), apply its row swaps
+    to every row and to ``perm``, solve U12 and update the Schur
+    complement. :func:`_lu_stripes` runs the steps in order; the matrix
+    service (serving/jobs.py) runs the same steps one a quantum.
+    Collective over the mesh."""
+    n = st.n
+    j1 = min(j0 + base, n)
+    b = j1 - j0
+    # --- The (n - j0) x b panel, factored on the root.
+    panel = _assemble(st, j0, n, slice(j0, j1), to_root=True)
+    lu, piv = _getrf(panel) if st.is_root else (None, None)
+    lu = _from_root(st, lu, (n - j0, b), st.local.dtype)
+    if st.distributed:
+        pv = torch.as_tensor(piv if st.is_root else np.zeros(b, np.int64),
+                             device=st.local.device)
+        piv = _from_root(st, pv, (b,), torch.int64).cpu().numpy()
+    # --- Its row swaps on every rank's rows (LAPACK's dlaswp), then the
+    # factored panel in place of the panel's columns.
+    seg = _swaps_to_perm(piv, n - j0)
+    _permute_rows(st, j0, seg)
+    perm[j0:] = perm[j0:][seg]
+    a, e = st.own(j0, n)
+    if e > a:
+        st.local[a:e, j0:j1] = lu[st.r0 + a - j0:st.r0 + e - j0]
+    if j1 == n:
+        return
+    # --- U12 = unit_lower(L11)^-1 A12 on the base-row stripe.
+    a12 = _assemble(st, j0, j1, slice(j1, n), to_root=True)
+    u12 = None
+    if st.is_root:
+        u12 = torch.linalg.solve_triangular(
+            lu[:b], a12, upper=False, unitriangular=True)
+    u12 = _from_root(st, u12, (b, n - j1), st.local.dtype)
+    a, e = st.own(j0, j1)
+    if e > a:
+        st.local[a:e, j1:] = u12[st.r0 + a - j0:st.r0 + e - j0]
+    # --- Schur complement on this rank's trailing rows: A22 -= L21 U12.
+    a, e = st.own(j1, n)
+    if e > a:
+        st.local[a:e, j1:] -= torch.matmul(st.local[a:e, j0:j1], u12)
+
+
 def _lu_stripes(st: _Stripes, base: int) -> np.ndarray:
     """Blocked right-looking LU of the striped square ``st`` in place (see
-    the module docstring); returns perm with A[perm] = L U. Collective over
-    the mesh."""
-    n = st.n
-    perm = np.arange(n)
-    for j0 in range(0, n, base):
-        j1 = min(j0 + base, n)
-        b = j1 - j0
-        # --- The (n - j0) x b panel, factored on the root.
-        panel = _assemble(st, j0, n, slice(j0, j1), to_root=True)
-        lu, piv = _getrf(panel) if st.is_root else (None, None)
-        lu = _from_root(st, lu, (n - j0, b), st.local.dtype)
-        if st.distributed:
-            pv = torch.as_tensor(piv if st.is_root else np.zeros(b, np.int64),
-                                 device=st.local.device)
-            piv = _from_root(st, pv, (b,), torch.int64).cpu().numpy()
-        # --- Its row swaps on every rank's rows (LAPACK's dlaswp), then the
-        # factored panel in place of the panel's columns.
-        seg = _swaps_to_perm(piv, n - j0)
-        _permute_rows(st, j0, seg)
-        perm[j0:] = perm[j0:][seg]
-        a, e = st.own(j0, n)
-        if e > a:
-            st.local[a:e, j0:j1] = lu[st.r0 + a - j0:st.r0 + e - j0]
-        if j1 == n:
-            break
-        # --- U12 = unit_lower(L11)^-1 A12 on the base-row stripe.
-        a12 = _assemble(st, j0, j1, slice(j1, n), to_root=True)
-        u12 = None
-        if st.is_root:
-            u12 = torch.linalg.solve_triangular(
-                lu[:b], a12, upper=False, unitriangular=True)
-        u12 = _from_root(st, u12, (b, n - j1), st.local.dtype)
-        a, e = st.own(j0, j1)
-        if e > a:
-            st.local[a:e, j1:] = u12[st.r0 + a - j0:st.r0 + e - j0]
-        # --- Schur complement on this rank's trailing rows: A22 -= L21 U12.
-        a, e = st.own(j1, n)
-        if e > a:
-            st.local[a:e, j1:] -= torch.matmul(st.local[a:e, j0:j1], u12)
+    the module docstring), one :func:`_lu_panel_step` a panel; returns
+    perm with A[perm] = L U. Collective over the mesh."""
+    perm = np.arange(st.n)
+    for j0 in range(0, st.n, base):
+        _lu_panel_step(st, perm, j0, base)
     return perm
 
 

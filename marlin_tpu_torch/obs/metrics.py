@@ -1,13 +1,18 @@
 """Labeled metrics: counters, gauges and fixed-bucket histograms — the
-part of ``marlin_tpu/obs/metrics.py`` the serving engine and its ledger
-call, with the same series names (``registry.counter("x", route="a")`` is
-the ``route="a"`` child of counter family ``x``) and the same JSON
-:meth:`MetricsRegistry.snapshot` view."""
+part of ``marlin_tpu/obs/metrics.py`` the serving engine, its ledger and
+the HTTP server call, with the same series names
+(``registry.counter("x", route="a")`` is the ``route="a"`` child of
+counter family ``x``) and the same two exports: the JSON
+:meth:`MetricsRegistry.snapshot` view and the Prometheus text exposition
+(:meth:`MetricsRegistry.prometheus`, version 0.0.4, byte for byte the
+reference's for the same series), which ``GET /metrics`` serves."""
 
 from __future__ import annotations
 
 import bisect
+import json
 import math
+import re
 import threading
 from typing import Dict, Optional, Sequence, Tuple
 
@@ -19,6 +24,9 @@ DEFAULT_BUCKETS: Tuple[float, ...] = (
     0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0)
 
 
+_NAME_RE = re.compile(r"[^a-zA-Z0-9_:]")
+
+
 def _label_key(labels: Dict[str, object]) -> LabelKey:
     return tuple(sorted((str(k), str(v)) for k, v in labels.items()))
 
@@ -28,6 +36,12 @@ def _series(name: str, key: LabelKey) -> str:
         return name
     inner = ",".join(f'{k}="{v}"' for k, v in key)
     return f"{name}{{{inner}}}"
+
+
+def _prom_name(name: str) -> str:
+    """Sanitize to the Prometheus metric-name charset (op-timing labels
+    like ``DenseVecMatrix.multiply`` carry dots)."""
+    return _NAME_RE.sub("_", name)
 
 
 class Counter:
@@ -58,6 +72,14 @@ class Gauge:
     def set(self, value: float) -> None:
         with self._lock:
             self.value = float(value)
+
+    def inc(self, by: float = 1.0) -> None:
+        with self._lock:
+            self.value += by
+
+    def dec(self, by: float = 1.0) -> None:
+        with self._lock:
+            self.value -= by
 
 
 class Histogram:
@@ -95,9 +117,12 @@ class Histogram:
             if exemplar is not None:
                 self.exemplars[i] = str(exemplar)
 
+    def _bucket_repr(self, i: int) -> str:
+        return repr(self.buckets[i]) if i < len(self.buckets) else "+Inf"
+
     def summary(self) -> Dict[str, object]:
         with self._lock:
-            return {
+            out: Dict[str, object] = {
                 "count": self.count,
                 "sum": self.sum,
                 "mean": self.sum / self.count if self.count else 0.0,
@@ -109,22 +134,30 @@ class Histogram:
                     "+Inf": self.bucket_counts[-1],
                 },
             }
+            if self.exemplars:
+                out["exemplars"] = {self._bucket_repr(i): x
+                                    for i, x in self.exemplars.items()}
+        return out
 
 
 class MetricsRegistry:
     """Named metric families, created on first use; thread-safe. Reusing
-    a name with another kind raises."""
+    a name with another kind raises; a histogram family keeps the bucket
+    layout of its first call."""
 
     def __init__(self):
         self._lock = threading.RLock()
-        # name -> (kind, help, {label key: child})
+        # name -> [kind, help, {label key: child}, buckets]
         self._families: Dict[str, list] = {}
 
-    def _child(self, kind: str, name: str, labels, help: str, make):
+    def _child(self, kind: str, name: str, labels, help: str,
+               buckets=None):
         with self._lock:
             fam = self._families.get(name)
             if fam is None:
-                fam = self._families[name] = [kind, str(help), {}]
+                fam = self._families[name] = [
+                    kind, str(help), {},
+                    tuple(buckets) if buckets else None]
             elif fam[0] != kind:
                 raise ValueError(
                     f"metric {name!r} is a {fam[0]}, not a {kind}")
@@ -133,27 +166,32 @@ class MetricsRegistry:
             key = _label_key(labels)
             child = fam[2].get(key)
             if child is None:
-                child = fam[2][key] = make()
+                child = fam[2][key] = (
+                    Counter(self._lock) if kind == "counter"
+                    else Gauge(self._lock) if kind == "gauge"
+                    else Histogram(fam[3], self._lock))
             return child
 
     def counter(self, name: str, help: str = "", **labels) -> Counter:
-        return self._child("counter", name, labels, help,
-                           lambda: Counter(self._lock))
+        return self._child("counter", name, labels, help)
 
     def gauge(self, name: str, help: str = "", **labels) -> Gauge:
-        return self._child("gauge", name, labels, help,
-                           lambda: Gauge(self._lock))
+        return self._child("gauge", name, labels, help)
 
     def histogram(self, name: str,
                   buckets: Sequence[float] = DEFAULT_BUCKETS,
                   help: str = "", **labels) -> Histogram:
-        return self._child("histogram", name, labels, help,
-                           lambda: Histogram(buckets, self._lock))
+        return self._child("histogram", name, labels, help, buckets)
 
     def remove(self, name: str) -> None:
         """Forget the metric family ``name`` (all its series)."""
         with self._lock:
             self._families.pop(name, None)
+
+    def reset(self) -> None:
+        """Forget every family."""
+        with self._lock:
+            self._families.clear()
 
     def snapshot(self) -> Dict[str, object]:
         """JSON-able view: counters/gauges as {series: value}, histograms
@@ -161,7 +199,7 @@ class MetricsRegistry:
         out: Dict[str, Dict[str, object]] = {
             "counters": {}, "gauges": {}, "histograms": {}}
         with self._lock:
-            for name, (kind, _, children) in self._families.items():
+            for name, (kind, _, children, _) in self._families.items():
                 dest = out[kind + "s"]
                 for key, child in children.items():
                     dest[_series(name, key)] = (
@@ -169,6 +207,53 @@ class MetricsRegistry:
                         else child.value)
         return out
 
+    def dump(self) -> str:
+        return json.dumps(self.snapshot(), indent=2, sort_keys=True)
+
+    def prometheus(self) -> str:
+        """Prometheus text exposition (version 0.0.4): ``# HELP`` (when
+        the family has one) and ``# TYPE`` a family, cumulative
+        ``_bucket{le=...}`` lines and ``_sum``/``_count`` for histograms.
+        Names are sanitized to the Prometheus charset; help text escapes
+        backslash and newline."""
+        lines = []
+        with self._lock:
+            for name in sorted(self._families):
+                kind, help_, children, _ = self._families[name]
+                pname = _prom_name(name)
+                if help_:
+                    esc = help_.replace("\\", "\\\\").replace("\n", "\\n")
+                    lines.append(f"# HELP {pname} {esc}")
+                lines.append(f"# TYPE {pname} {kind}")
+                for key in sorted(children):
+                    child = children[key]
+                    if kind != "histogram":
+                        lines.append(
+                            f"{_series(pname, key)} {child.value:g}")
+                        continue
+                    cum = 0
+                    for b, c in zip(child.buckets, child.bucket_counts):
+                        cum += c
+                        lk = key + (("le", f"{b:g}"),)
+                        lines.append(
+                            f"{_series(pname + '_bucket', lk)} {cum}")
+                    lk = key + (("le", "+Inf"),)
+                    lines.append(
+                        f"{_series(pname + '_bucket', lk)} {child.count}")
+                    lines.append(
+                        f"{_series(pname + '_sum', key)} {child.sum:g}")
+                    lines.append(
+                        f"{_series(pname + '_count', key)} {child.count}")
+        return "\n".join(lines) + "\n"
+
 
 # The process-default registry (the engine's unless a caller wires one).
 registry = MetricsRegistry()
+
+
+def snapshot() -> Dict[str, object]:
+    return registry.snapshot()
+
+
+def prometheus() -> str:
+    return registry.prometheus()

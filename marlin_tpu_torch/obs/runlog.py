@@ -2,7 +2,9 @@
 counterpart of ``marlin_tpu/obs/runlog.py``, with the same event shape:
 one flat dict per event with a ``kind``, a monotonic timestamp ``t`` and
 the caller's fields. With ``path`` set every event also streams to that
-file; :meth:`RunLog.flush` is the drain path's durability point."""
+file; :meth:`RunLog.flush` is the drain path's durability point.
+:meth:`RunLog.dumps` and :meth:`RunLog.dump` export the retained window
+as JSON Lines, the input of ``tools/runlog_report.py``."""
 
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ class RunLog:
                  path=None):
         if maxlen < 1:
             raise ValueError(f"maxlen must be >= 1, got {maxlen}")
+        self.maxlen = maxlen
         self._clock = clock
         self._events: deque = deque(maxlen=maxlen)
         self._n_emitted = 0  # exact, unlike len() past the cap
@@ -66,3 +69,19 @@ class RunLog:
             evs = list(self._events)
         return evs if kind is None else [e for e in evs
                                          if e["kind"] == kind]
+
+    def clear(self) -> None:
+        with self._lock:
+            self._events.clear()
+
+    def dumps(self) -> str:
+        """JSON Lines: one event per line."""
+        return "\n".join(json.dumps(e, default=str) for e in self.events())
+
+    def dump(self, path) -> str:
+        path = str(path)
+        with open(path, "w") as f:
+            text = self.dumps()
+            if text:
+                f.write(text + "\n")
+        return path

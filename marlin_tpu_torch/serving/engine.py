@@ -329,6 +329,10 @@ class ServingEngine:
             prefix_cache._registry = self.metrics
         self._next_id = 0
         self.round_idx = 0
+        # Matrix-service quanta the frontend driver ran since the last
+        # round event (serving/jobs.py): stamped on the next one, so a
+        # round whose slice went to a matrix job is no stall in the log.
+        self._matrix_quanta = 0
         self._decode_flops, _ = cm.decode_step_cost(cfg, batch)
         # Speculative rounds are priced per verify chunk, one constant a
         # draft length.
@@ -1252,6 +1256,8 @@ class ServingEngine:
             self.runlog.emit(
                 "complete", request_id=req.request_id, row=row,
                 emitted=req.emitted, live_iters=req.live_iters,
+                submit_t=req.submit_time, admit_t=req.admit_time,
+                finish_t=req.finish_time,
                 rounds=req.finish_round - req.admit_round + 1,
                 phases={k: round(v, 6) for k, v in req.phases().items()})
             with self._submit_lock:
@@ -1344,12 +1350,22 @@ class ServingEngine:
             round_s=round(time.perf_counter() - t_round0, 6),
             decode_s=round(decode_s, 6),
             drift_decode=round(self.stats.calibration.drift("decode"), 4),
-            **self._page_fields(), **spec_fields, **self._sched_fields())
+            **self._page_fields(), **spec_fields, **self._sched_fields(),
+            **self._take_matrix_quanta())
         self.round_idx += 1
         # Ownership passes out through the return: nothing is left for a
         # crash to strand.
         self._retired_pending = []
         return expired + finished
+
+    def note_matrix_quanta(self, n: int) -> None:
+        """Driver-thread hook (``EngineFrontend``): credit ``n`` matrix
+        quanta to the next round event."""
+        self._matrix_quanta += int(n)
+
+    def _take_matrix_quanta(self) -> dict:
+        mq, self._matrix_quanta = self._matrix_quanta, 0
+        return {"matrix_quanta": mq} if mq else {}
 
     def _spec_fields(self, drafted: np.ndarray, accepted: np.ndarray,
                      c_used: int) -> dict:

@@ -28,14 +28,16 @@ import numpy as np
 
 from ..obs import metrics as obs_metrics
 
-# The sites the port carries (the JAX package also names the matrix
-# service's ``matrix_quantum``): ``kv_restore`` is the host tier's restore
-# scatter (a prefix restore in paged admission, and a thaw);
-# ``preempt_spill`` the freeze of a preemption, after the victim is chosen
-# and before its pages move; ``stream_fanout`` the frontend driver's
-# post-round delivery.
+# The reference's sites: ``kv_restore`` is the host tier's restore scatter
+# (a prefix restore in paged admission, and a thaw); ``preempt_spill`` the
+# freeze of a preemption, after the victim is chosen and before its pages
+# move; ``stream_fanout`` the frontend driver's post-round delivery;
+# ``matrix_quantum`` the matrix service's quantum on the driver thread
+# (``MatrixService.run_quanta``: a crash there replays the job from its
+# seed).
 SITES = ("decode_round", "prefill_chunk", "prefix_copy", "admission_pop",
-         "stream_fanout", "runlog_emit", "kv_restore", "preempt_spill")
+         "stream_fanout", "runlog_emit", "kv_restore", "preempt_spill",
+         "matrix_quantum")
 ACTIONS = ("raise", "delay", "corrupt")
 ENV_VAR = "MARLIN_FAULT_PLAN"
 

@@ -1,7 +1,6 @@
 """The engine's supervised driver: many submitting threads, one engine
-thread — port of ``marlin_tpu/serving/frontend.py`` without the wire (the
-HTTP server and the matrix service come with ROADMAP Queue A1's next
-part).
+thread — port of ``marlin_tpu/serving/frontend.py``. The HTTP server
+(serving/server.py) goes through it and never touches the engine.
 
 ``ServingEngine`` is single-threaded by contract: only ``submit`` and
 ``close`` are thread-safe. :class:`EngineFrontend` is the one place the
@@ -20,9 +19,15 @@ two threading models meet:
   their handle. Tokens come straight from the engine's buffer, so a
   stream is the blocking result chunked.
 
-Drain (:meth:`EngineFrontend.drain`): close admissions, finish the
-accepted work, seal the run log (``drain_complete`` and a flush), join
-the driver.
+A :class:`~marlin_tpu_torch.serving.jobs.MatrixService` attached as
+``matrix`` runs on the same driver thread: one bounded slice of matrix
+quanta between decode rounds under LLM load, a larger one when the engine
+is idle, each slice credited to the next round event
+(``ServingEngine.note_matrix_quanta``).
+
+Drain (:meth:`EngineFrontend.drain`): close admissions (the matrix
+service's too), finish the accepted work, seal the run log
+(``drain_complete`` and a flush), join the driver.
 
 Supervision: the driver loop runs inside a crash boundary. When the
 engine raises, the supervisor delivers what resolved before the crash,
@@ -38,9 +43,11 @@ decode tile shapes. At most
 that, or when recovery itself raises, the frontend FAILS CLOSED: every
 handle gets :class:`EngineFailed`, submits are refused, ``ready`` goes
 false. A request implicated in ``poison_after`` consecutive crashes is
-QUARANTINED with :class:`PoisonedRequest` instead of requeued. Only
-Python-level faults (planted ones included) are recovered; the supervisor
-does not retry a kernel that failed to build.
+QUARANTINED with :class:`PoisonedRequest` instead of requeued. A matrix
+job in flight at a crash replays from its seed, or is quarantined after
+``poison_after`` consecutive crashes. Only Python-level faults (planted
+ones included) are recovered; the supervisor does not retry a kernel that
+failed to build.
 
 The reference's trace calls at the crash boundary (replay link spans,
 incidents, tail-kept exemplars) need the tracer of ROADMAP Queue A5: a
@@ -202,16 +209,19 @@ class EngineFrontend:
     a request in flight across ``poison_after`` consecutive crashes is
     quarantined. ``on_round(engine, round_idx, finished)``, when given,
     runs on the driver thread after each round's fanout (an exception it
-    raises is a crash like the engine's). ``matrix`` (the reference's
-    matrix service) is not ported."""
+    raises is a crash like the engine's). ``matrix``, a
+    :class:`~marlin_tpu_torch.serving.jobs.MatrixService` on the engine's
+    device, runs its quanta on the driver thread between rounds, inside
+    the crash boundary."""
 
     def __init__(self, engine, idle_wait: float = 0.05,
                  max_restarts: int = 3, restart_window_s: float = 60.0,
                  poison_after: int = 2, on_round=None, matrix=None):
-        if matrix is not None:
-            raise NotImplementedError(
-                "EngineFrontend(matrix=...): the matrix service (jobs.py) "
-                "is not ported to marlin_tpu_torch yet (ROADMAP Queue A1)")
+        if matrix is not None and matrix.device != engine.device:
+            raise ValueError(
+                f"the matrix service runs on {matrix.device}, the engine "
+                f"on {engine.device}: the driver thread runs both on one "
+                f"device")
         if max_restarts < 0:
             raise ValueError(f"max_restarts must be >= 0, got "
                              f"{max_restarts}")
@@ -220,6 +230,9 @@ class EngineFrontend:
                              f"{poison_after}")
         self._check_tracer(engine)
         self.engine = engine
+        # Its own lock guards its job state; the frontend calls it from
+        # the driver thread or through its thread-safe entry points.
+        self.matrix = matrix
         self.idle_wait = float(idle_wait)
         self.max_restarts = int(max_restarts)
         self.restart_window_s = float(restart_window_s)
@@ -286,6 +299,8 @@ class EngineFrontend:
         # lost (a successor inherits a closed queue).
         with self._lock:
             self.engine.close()
+        if self.matrix is not None:
+            self.matrix.close()
         self._draining.set()
         self._wake.set()
         if self._thread is None:
@@ -337,6 +352,19 @@ class EngineFrontend:
         self._wake.set()
         return handle
 
+    def submit_matrix(self, spec, stream: bool = False):
+        """Queue one validated matrix job on the attached service and wake
+        the driver; returns its ``MatrixJobHandle``. ``QueueFull`` and
+        ``QueueClosed`` propagate; ``ValueError`` when no service is
+        attached (the server's 404)."""
+        self._raise_if_fatal()
+        if self.matrix is None:
+            raise ValueError(
+                "matrix service not enabled (start with --matrix)")
+        handle = self.matrix.submit(spec, stream=stream)
+        self._wake.set()
+        return handle
+
     def abandon_stream(self, handle: FrontendRequest) -> None:
         """The stream's consumer went away: stop feeding its chunk queue.
         The request still runs to completion. Idempotent."""
@@ -363,6 +391,8 @@ class EngineFrontend:
                                "crashes_in_window": len(self._crash_times),
                                "max_restarts": self.max_restarts,
                                "failed": self._fatal is not None}
+        if self.matrix is not None:
+            out["matrix"] = self.matrix.summary()
         return out
 
     def debug_request(self, request_id: int):
@@ -416,12 +446,24 @@ class EngineFrontend:
     def _drive_loop(self) -> None:
         while not self._stopped.is_set():
             eng = self.engine  # re-read: _recover swaps it
-            if not self._has_work():
+            mx = self.matrix
+            llm_work = self._has_work()
+            mx_work = mx is not None and mx.has_work()
+            if not llm_work and not mx_work:
                 if self._draining.is_set():
                     eng._seal_drain()
                     return
                 self._wake.wait(self.idle_wait)
                 self._wake.clear()
+                continue
+            if not llm_work:
+                # Engine idle: the matrix job gets the larger slice; the
+                # wake checks between slices keep an LLM arrival's wait
+                # at one slice.
+                n = mx.run_quanta(mx.quanta_budget(idle=True),
+                                  round_idx=eng.round_idx)
+                if n:
+                    eng.note_matrix_quanta(n)
                 continue
             round_idx = eng.round_idx  # step() increments it
             finished = eng.step()
@@ -430,6 +472,13 @@ class EngineFrontend:
             self._undelivered = list(finished)
             self._fanout(eng, finished, round_idx)
             self._undelivered = []
+            if mx_work:
+                # Mixed traffic: one bounded slice of quanta between decode
+                # rounds, so a decode round waits at most one slice.
+                n = mx.run_quanta(mx.quanta_budget(idle=False),
+                                  round_idx=round_idx)
+                if n:
+                    eng.note_matrix_quanta(n)
             if self.on_round is not None:
                 self.on_round(eng, round_idx, finished)
         self._abandon(FrontendError("frontend stopped mid-flight"))
@@ -544,6 +593,10 @@ class EngineFrontend:
             if h is not None:
                 h._fail(PoisonedRequest(req.request_id, req.crash_count,
                                         exc))
+        # The matrix job in flight replays from its seed, or is
+        # quarantined, as the LLM requests are.
+        if self.matrix is not None:
+            self.matrix.reset_inflight(exc, now)
         self._wake.set()
         return True
 
@@ -553,6 +606,8 @@ class EngineFrontend:
             self._handles.clear()
         for h in orphans:
             h._fail(err)
+        if self.matrix is not None:
+            self.matrix.abandon(err)
 
     def _fanout(self, eng, finished: List, round_idx: int) -> None:
         """After a round: push new tokens to live streams, complete the

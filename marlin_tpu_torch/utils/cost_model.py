@@ -6,7 +6,9 @@ draft-length policy and the measured-vs-predicted drift ledger the serving
 engine reads, the host KV tier's restore and preemption prices and its
 measured restore-or-re-prefill crossover, the
 flash-attention tile accounting and training-step FLOPs that
-chip_smoke.py reads, and the dense GEMM's local and SUMMA costs."""
+chip_smoke.py reads, the dense GEMM's local and SUMMA costs, and the
+matrix service's job prices (``matrix_job_cost``, ``matrix_round_budget``,
+with ``ell_product_cost``)."""
 
 from __future__ import annotations
 
@@ -340,6 +342,13 @@ class CostCalibration:
                 return 1.0
             return st["ewma"] / st["baseline"]
 
+    def sec_per_unit(self, op: str) -> Optional[float]:
+        """The current EWMA seconds per model unit (None before the op's
+        first sample): what the matrix service prices a job's units by."""
+        with self._lock:
+            st = self._ops.get(op)
+            return None if st is None else st["ewma"]
+
     def summary(self) -> dict:
         with self._lock:
             return {
@@ -454,6 +463,93 @@ def summa_cost(m: int, k: int, n: int, pr: int, pc: int,
     flops = 2.0 * (m / pr) * k * (n / pc)
     byts = itemsize * ((m / pr) * k + k * (n / pc) + (m / pr) * (n / pc))
     return flops, float(byts)
+
+
+def ell_product_cost(m: int, k: int, n: int, r_slots: int, n_devices: int,
+                     itemsize: int = 4) -> Tuple[float, float]:
+    """Per-device (flops, bytes) of the ELL row-gather sparse product: each
+    of the m/nd local output rows gathers its ``r_slots`` B rows and
+    reduces them, so traffic goes as nnz(A) * n words, not m * k * n.
+    Bytes: B read once (k * n), the gathered rows, the output stripe and
+    the ELL tables; FLOPs: a multiply and an add a gathered element."""
+    ms = m / n_devices
+    flops = 2.0 * ms * r_slots * n
+    byts = itemsize * (k * n + ms * r_slots * n + ms * n) \
+        + ms * r_slots * (4 + itemsize)
+    return flops, float(byts)
+
+
+# -- matrix-service job pricing (serving/jobs.py) ----------------------------
+#
+# The service prices every job before it reaches the driver thread: total
+# model units from the rooflines above, sliced into the executor's quantum
+# count, times the CostCalibration ledger's measured sec/unit for the op
+# class into a round-budget prediction the run log holds against the
+# measured wall clock.
+
+MATRIX_JOB_OPS = ("gemm", "lu", "cholesky", "svd", "spmm", "inverse")
+
+
+def matrix_job_cost(op: str, shapes, *, itemsize: int = 4,
+                    density: float = 0.05, k_singular: int = 6,
+                    n_devices: int = 1) -> Tuple[float, float]:
+    """(flops, bytes) one matrix-service job costs end to end. ``shapes``
+    is the job's validated shape list (``[m, k, n]`` for gemm/spmm,
+    ``[n]`` for the square factorizations, ``[m, n]`` for svd): gemm
+    prices with :func:`gemm_cost`, spmm with :func:`ell_product_cost` at
+    the job's density, the factorizations with their classic flop counts
+    (2/3 n^3 LU, 1/3 n^3 Cholesky, 2 n^3 inverse, ~8 m n k for the
+    truncated SVD) over a one-pass byte model. An unknown op raises
+    ValueError: pricing is the admission gate."""
+    if op == "gemm":
+        m, k, n = shapes
+        return gemm_cost(m, k, n, itemsize=itemsize)
+    if op == "spmm":
+        m, k, n = shapes
+        r_slots = max(1, int(density * k))
+        return ell_product_cost(m, k, n, r_slots, n_devices,
+                                itemsize=itemsize)
+    if op == "lu":
+        (n,) = shapes
+        return (2.0 / 3.0) * n ** 3, float(itemsize) * 2 * n * n
+    if op == "cholesky":
+        (n,) = shapes
+        return (1.0 / 3.0) * n ** 3, float(itemsize) * 2 * n * n
+    if op == "inverse":
+        (n,) = shapes
+        return 2.0 * n ** 3, float(itemsize) * 2 * n * n
+    if op == "svd":
+        m, n = shapes
+        return 8.0 * m * n * k_singular, \
+            float(itemsize) * (m * n + (m + n) * k_singular)
+    raise ValueError(f"unknown matrix job op {op!r}; "
+                     f"ops: {MATRIX_JOB_OPS}")
+
+
+def matrix_round_budget(units: float, n_quanta: int,
+                        sec_per_unit: Optional[float],
+                        round_budget_s: float) -> dict:
+    """Price a job's ``units`` (:func:`matrix_job_cost`), sliced into
+    ``n_quanta`` executor quanta, into round budgets. With a calibrated
+    ``sec_per_unit`` the prediction is absolute: seconds a quantum, the
+    quanta one ``round_budget_s`` slice holds, and the rounds the job
+    needs. Uncalibrated (None), one quantum a round and no wall-clock
+    claim."""
+    n_quanta = max(1, int(n_quanta))
+    out = {"units": float(units), "n_quanta": n_quanta,
+           "unit_per_quantum": float(units) / n_quanta,
+           "predicted_s": None, "quantum_s": None,
+           "quanta_per_round": 1, "predicted_rounds": n_quanta}
+    if sec_per_unit is not None and sec_per_unit > 0 and units > 0:
+        quantum_s = (units / n_quanta) * sec_per_unit
+        per_round = max(1, int(round_budget_s / quantum_s)) \
+            if quantum_s > 0 else n_quanta
+        out.update(
+            predicted_s=units * sec_per_unit,
+            quantum_s=quantum_s,
+            quanta_per_round=per_round,
+            predicted_rounds=-(-n_quanta // per_round))
+    return out
 
 
 # -- the host KV tier's restore-or-re-prefill crossover ----------------------

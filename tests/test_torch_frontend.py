@@ -2,8 +2,9 @@
 EngineFrontend and FrontendRequest, the admission queue under concurrent
 submitters, the drain's sealed run log), twins of tests/test_frontend.py's
 TestQueueConcurrency, TestEngineConcurrentSubmitters, TestDrainRunlog and
-TestEngineFrontend. The HTTP server, the wire and the matrix service are
-not ported yet, and neither are their tests.
+TestEngineFrontend, and the frontend's matrix slice. The HTTP server's and
+the matrix service's own twins are tests/test_torch_server.py and
+tests/test_torch_matrix_service.py.
 
 Inside the port, on the CPU: eight producer threads racing the driver
 lose, duplicate and double-retire nothing, and every metric mirror agrees
@@ -20,6 +21,7 @@ import time
 
 import numpy as np
 import pytest
+import torch
 
 import jax.numpy as jnp
 
@@ -32,8 +34,11 @@ from marlin_tpu_torch.obs.metrics import MetricsRegistry
 from marlin_tpu_torch.obs.runlog import RunLog
 from marlin_tpu_torch.obs.trace import Tracer
 from marlin_tpu_torch.serving import (AdmissionQueue, EngineFrontend,
-                                      FrontendError, QueueClosed, QueueFull,
-                                      Request, Scheduler, ServingEngine)
+                                      FrontendError, MatrixService,
+                                      QueueClosed, QueueFull, Request,
+                                      Scheduler, ServingEngine)
+from marlin_tpu_torch.serving.jobs import (decode_result, matrix_compute,
+                                           validate_job)
 # The shared fixtures (the model on both frameworks, one torch thread, the
 # plans reset, every frontend stopped) and helpers.
 from test_torch_faults import (JOIN_S, _clean_plan,  # noqa: F401
@@ -355,10 +360,8 @@ class TestEngineFrontend:
         assert any(h.error is not None for h in handles)
         assert not fe.alive
 
-    def test_matrix_and_enabled_tracer_are_refused(self, model):
+    def test_enabled_tracer_and_bad_arguments_are_refused(self, model):
         params, cfg, _, _ = model
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue A1"):
-            EngineFrontend(_engine(params, cfg), matrix=object())
         traced = _engine(params, cfg, tracer=Tracer(enabled=True))
         with pytest.raises(NotImplementedError, match="ROADMAP Queue A5"):
             EngineFrontend(traced)
@@ -367,11 +370,55 @@ class TestEngineFrontend:
         with pytest.raises(ValueError, match="poison_after"):
             EngineFrontend(_engine(params, cfg), poison_after=0)
 
+    def test_matrix_service_is_served(self, model, frontends):
+        """``matrix=`` attaches the job service: a job queued beside an
+        LLM request runs on the driver thread, both results the
+        standalone ones; a service on another device is refused."""
+        params, cfg, _, _ = model
+        eng = _engine(params, cfg, batch=2, round_steps=2)
+        mx = MatrixService(metrics=eng.metrics, runlog=eng.runlog,
+                           device="cpu")
+        fe = frontends(EngineFrontend, eng, matrix=mx)
+        body = {"op": "lu", "shapes": [24], "dtype": "float64", "seed": 3,
+                "base": 8}
+        prompt = _prompts(cfg, 1)[0]
+        lh = fe.submit(prompt, 6)
+        mh = fe.submit_matrix(validate_job(dict(body)))
+        assert fe.debug_engine()["matrix"]["pending"] == 1
+        fe.start()
+        payload, meta = mh.result(JOIN_S)
+        assert meta["status"] == "done" and meta["quanta"] == 3
+        got, _ = decode_result(payload)
+        want = matrix_compute(dict(body), device="cpu")
+        assert got["lu"].tobytes() == want["lu"].tobytes()
+        assert got["perm"].tolist() == want["perm"].tolist()
+        assert list(map(int, lh.result(JOIN_S).tokens)) \
+            == _golden(params, cfg, [prompt], 6, batch=2, round_steps=2)[0]
+        assert sum(e.get("matrix_quanta", 0)
+                   for e in eng.runlog.events("round")) <= 3
+        assert fe.drain(JOIN_S)
+        assert fe.debug_engine()["matrix"]["closed"]
+        with pytest.raises(QueueClosed):
+            fe.submit_matrix(validate_job(dict(body)))
+        plain = frontends(EngineFrontend, _engine(params, cfg))
+        with pytest.raises(ValueError, match="--matrix"):
+            plain.submit_matrix(validate_job(dict(body)))
+
+        class _Elsewhere:
+            device = torch.device("meta")
+
+        with pytest.raises(ValueError, match="one device"):
+            EngineFrontend(_engine(params, cfg), matrix=_Elsewhere())
+
     def test_serving_exports_the_reference_names(self):
         for name in ("EngineFrontend", "EngineFailed", "FrontendError",
                      "PoisonedRequest", "FaultPlan", "FaultSpec",
                      "FaultInjected", "EngineStateCorrupt",
-                     "static_schedule_iters", "static_completed_at_budget"):
+                     "static_schedule_iters", "static_completed_at_budget",
+                     "MatrixJobError", "MatrixJobHandle", "MatrixJobSpec",
+                     "MatrixService", "matrix_compute",
+                     "ServingHTTPServer", "install_signal_handlers",
+                     "serve"):
             assert name in serving.__all__, name
             assert getattr(serving, name) is not None
         # The static batcher's pricing agrees with the reference's.
