@@ -206,6 +206,24 @@ Phases, each of which exits non-zero on failure:
    training model (d_model 64, 4 heads: D=16) and the example's default
    model at the reference's head count (d_model 64, 2 heads: D=32), each
    loss finite and falling and each flash kernel launched layers x steps.
+   Then parallel training (phase_parallel_train), every shard on cuda:0:
+   the trained flagship (8 heads MHA, learned positions) 3 steps under
+   sequence parallelism over 2 shards (all-to-all: the flash kernels per
+   shard at 4 heads, launched B x layers x P a step each), step 1's loss
+   held to P = 1's and one layer's attention to the local flash
+   kernel's; as a GPipe of its 8 blocks on 8 shards, the forward
+   bitwise a per-sequence loop over the same blocks and one backward's
+   stage gradients against the loop's; with 4 experts over 4 shards, 3
+   steps, and block 0's routing on f32 activations against the dense
+   top-1 oracle with the dropped tokens bitwise; the long-context
+   config at 2 KV heads over a 4-shard ring (no flash launch), with and
+   without a 1024 window, its loss and one layer's attention held to the
+   local path's; the long_context example at its defaults and with a
+   window. Phases 3 and 4 hold and time the kernels at each path's own
+   shape: sp2_flagship (one shard's attention under SP), pt_mha_flagship
+   (all 8 heads, one sequence a call: the MoE and GPipe paths), and
+   lc4_f32 and lc4_window512_f32 (the example's f32 forward, one shard's
+   heads; no backward runs there).
 7. Card against CPU: full width, 2 layers, B=1, S=512, f32: loss_fn and
    every gradient leaf on the card (the f32 kernels) against the same
    call on the CPU (the plain versions), TF32 off.
@@ -335,6 +353,7 @@ or whole backward with its backend.
 from __future__ import annotations
 
 import collections
+import contextlib
 import json
 import math
 import os
@@ -431,6 +450,19 @@ SHAPES = [
     # wide kernels). Kernel measurement shapes, not model configurations.
     ("train_f32", 8, 2048, 2048, 8, 2, 128, 128, "float32", True, 0),
     ("d512_s2048_f32", 1, 2048, 2048, 8, 2, 512, 512, "float32", True, 0),
+    # phase_parallel_train's sequence-parallel step at one shard's heads:
+    # the trained flagship (8 heads MHA, S = 2048) over 2 shards, one
+    # sequence a call.
+    ("sp2_flagship", 1, 2048, 2048, 4, 4, 128, 128, "bfloat16", True, 0),
+    # The same model's attention at all 8 heads, one sequence a call: the
+    # moe path (sequences unrolled through the expert engine) and the gpipe
+    # path (one microbatch a stage).
+    ("pt_mha_flagship", 1, 2048, 2048, 8, 8, 128, 128, "bfloat16", True, 0),
+    # The long_context example's all-to-all engine at one shard's heads
+    # (S = 4096, 8 heads over 4 shards, D = 64, f32), without and with its
+    # window (LONG_CONTEXT_SHAPES: forward only).
+    ("lc4_f32", 1, 4096, 4096, 2, 2, 64, 64, "float32", True, 0),
+    ("lc4_window512_f32", 1, 4096, 4096, 2, 2, 64, 64, "float32", True, 512),
 ]
 
 # The shapes whose kernels are the D = Dv = 256 instantiations.
@@ -453,8 +485,14 @@ SHAPE_BY_NAME = {s[0]: s for s in SHAPES}
 SERVE_SHAPES = ("flagship", "spec_p32", "spec_p64", "tp2_flagship",
                 "tp4_ref")
 
+# The long_context example's forward shapes by its path (the example at
+# its defaults, and with a 512 window): no backward runs there either.
+LONG_CONTEXT_SHAPES = {"long_context": "lc4_f32",
+                       "long_context_window512": "lc4_window512_f32"}
+
 # Backward shapes: the training paths' two and the same edge cases.
-BWD_SHAPES = [s for s in SHAPES if s[0] not in SERVE_SHAPES]
+BWD_SHAPES = [s for s in SHAPES if s[0] not in SERVE_SHAPES
+              and s[0] not in LONG_CONTEXT_SHAPES.values()]
 
 # Backward tolerance by dtype, on the worst 64-position tile's relative
 # Frobenius error ||kernel - plain||_F / ||plain||_F (tile_rel_err), for
@@ -2558,6 +2596,542 @@ def phase_train(card: str, seed: int = 0):
         fail(f"train_remat: launches {long_launches}, expected the forward "
              f"twice per layer and each backward kernel once")
     return {"train": launches, "remat": long_launches}
+
+
+# Parallel training (phase_parallel_train): the trained flagship
+# (benchlib/configs_ml.py:74-95: 8 heads MHA, learned positions, bf16 on
+# f32 masters, B=8, S=2048) over sequence-parallel (all-to-all) and
+# expert-parallel shards, and as a GPipe of its 8 blocks; the long-context
+# config (LONG) with its BENCH_LS_KV knob at 2 KV heads over the ring.
+# Every shard is on cuda:0.
+PT_FLAGSHIP = dict(vocab=32768, d_model=1024, n_heads=8, n_layers=8,
+                   d_ff=4096, max_len=2048, dtype="bfloat16")
+SP_SHARDS, SP_STEPS = 2, 3
+RING_SHARDS, RING_STEPS, RING_KV, RING_WINDOW = 4, 2, 2, 1024
+MOE_EXPERTS, MOE_STEPS = 4, 3
+MOE_ORACLE_FACTORS = (2.0, 0.5)  # the model's capacity, and one that drops
+LONG_CONTEXT_SHARDS = 4
+# Step 1's loss under SP against the same step at P = 1 without SP,
+# relative. A CPU rehearsal of this phase (d_model 64, 4 layers, S 128
+# and 256) gave equal losses in f32 and 1.3e-5 apart in bf16 (the ring);
+# on an H100 the all-to-all engine's loss equalled P = 1's and the ring's
+# were 2.1e-6 and 2.6e-6 apart. The bound is the bf16 rehearsal's with
+# room for the card's bf16 noise (batched GEMMs at P = 1 against one
+# sequence a call under SP), and no looser: the loss at random init sits
+# near ln V and moves little with the attention output, so the engines
+# are held besides by one layer's output (_sp_attention_check).
+SP_LOSS_RTOL = 1e-4
+MOE_ORACLE_RTOL = 1e-5  # f32, TF32 off: summation order only
+# The SHAPES row of one flash call on each path of this phase but the
+# long_context example's (LONG_CONTEXT_SHAPES); the ring launches none.
+PARALLEL_PATH_SHAPES = {"sp_ulysses": "sp2_flagship",
+                        "moe": "pt_mha_flagship",
+                        "gpipe": "pt_mha_flagship"}
+GPIPE_HIDDEN_RTOL = 2e-2  # batched against per-sequence calls, bf16
+GPIPE_GRAD_RTOL = 1e-5  # f32 master gradients, relative of max abs
+
+
+def _step_profile(fn):
+    """One call of ``fn`` under torch.profiler: (wall ms, device-busy ms,
+    idle share)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy_us = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA)
+    return dict(wall_ms=wall * 1e3, device_busy_ms=busy_us / 1e3,
+                device_idle_share=1.0 - busy_us / 1e6 / wall)
+
+
+def _timed_steps(params, tokens, targets, cfg, steps):
+    """``steps`` SGD train_steps from ``params``: (losses, step seconds,
+    the last params)."""
+    import torch
+
+    from marlin_tpu_torch.models import train_step
+
+    losses, step_s = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        loss, params = train_step(params, tokens, targets, cfg)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(loss.item())
+    return losses, step_s, params
+
+
+def _rel(a, b) -> float:
+    return abs(a - b) / abs(b)
+
+
+def _sp_attention_check(fa, cfg, strategy, shards, window=0, seed=0):
+    """One layer's sequence_parallel_attention at ``cfg``'s attention shape
+    (one sequence: S = max_len, its heads and KV heads, bf16, causal) over
+    ``shards`` shards of cuda:0, against the local flash attention on the
+    same q, k, v: O's max |err| and worst 64-row tile at the bf16 forward
+    rows' limits (TOLERANCE, FWD_TILE_TOLERANCE). Run outside the
+    counted runs."""
+    import torch
+
+    from marlin_tpu_torch.parallel.ulysses import \
+        sequence_parallel_attention
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    d = cfg.d_model // cfg.n_heads
+    q, k, v = (torch.randn((cfg.max_len, n, d), generator=gen,
+                           device="cuda").to(torch.bfloat16)
+               for n in (cfg.n_heads, cfg.kv_heads, cfg.kv_heads))
+    with torch.no_grad():
+        got = sequence_parallel_attention(
+            q, k, v, devices=("cuda:0",) * shards, causal=True,
+            strategy=strategy, window=window)
+        ref = fa.flash_attention(q, k, v, causal=True, window=window)
+    err = (got.float() - ref.float()).abs().max().item()
+    tile = tile_rel_err(got[None], ref[None])
+    out = dict(strategy=strategy, shards=shards, window=window,
+               seq=cfg.max_len, heads=cfg.n_heads, kv_heads=cfg.kv_heads,
+               head_dim=d, max_abs_err=err, o_tile_rel_err=tile,
+               tolerance=TOLERANCE["bfloat16"][0],
+               tile_tolerance=FWD_TILE_TOLERANCE["bfloat16"])
+    if not (err <= out["tolerance"] and tile <= out["tile_tolerance"]):
+        fail(f"{strategy} attention over {shards} shards (window {window}) "
+             f"against the local flash attention: {out}")
+    return out
+
+
+def _sp_arm(card, fa, params, tokens, targets, cfg):
+    """sp_ulysses: SP_STEPS steps of the flagship at sequence_parallel
+    over SP_SHARDS shards (auto takes all-to-all: 8 heads, 8 KV heads),
+    step 1 held against P = 1; the flash kernels run per shard at 4
+    heads."""
+    import torch
+
+    from marlin_tpu_torch.models import train_step
+    from marlin_tpu_torch.parallel import set_default_shards
+
+    b, s = tokens.shape
+    torch.cuda.reset_peak_memory_stats()
+    ref_loss = train_step(params, tokens, targets, cfg)[0].item()
+    p1_losses, p1_s, _ = _timed_steps(params, tokens, targets, cfg, 1)
+    p1_peak = torch.cuda.max_memory_allocated()
+    p1_profile = _step_profile(lambda: train_step(params, tokens, targets,
+                                                  cfg))
+    sp_cfg = cfg._replace(sequence_parallel=True)
+    set_default_shards(("cuda:0",) * SP_SHARDS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counters(fa)
+    losses, step_s, _ = _timed_steps(params, tokens, targets, sp_cfg,
+                                     SP_STEPS)
+    launches = _counters(fa)
+    peak = torch.cuda.max_memory_allocated()
+    profile_ = _step_profile(lambda: train_step(params, tokens, targets,
+                                                sp_cfg))
+    set_default_shards(None)
+    attention = _sp_attention_check(fa, cfg, "all_to_all", SP_SHARDS)
+    # Sequences run one at a time, each layer's attention once a shard:
+    # B x layers x P forward launches a step, as many of dQ and dK/dV.
+    want = b * cfg.n_layers * SP_SHARDS * SP_STEPS
+    step = sorted(step_s)[len(step_s) // 2]
+    line = dict(card=card, shards=SP_SHARDS, strategy="all_to_all",
+                batch=b, seq=s, losses=losses, p1_loss=ref_loss,
+                loss_rel_err=_rel(losses[0], ref_loss),
+                loss_rtol=SP_LOSS_RTOL, step_ms=[x * 1e3 for x in step_s],
+                step_ms_median=step * 1e3, tokens_per_s=b * s / step,
+                peak_mem_gb=peak / 1e9, profile=profile_,
+                p1_step_ms=p1_s[0] * 1e3, p1_tokens_per_s=b * s / p1_s[0],
+                p1_peak_mem_gb=p1_peak / 1e9, p1_profile=p1_profile,
+                attention_check=attention, launches=launches,
+                launches_formula="B x layers x P x steps = "
+                                 f"{b} x {cfg.n_layers} x {SP_SHARDS} x "
+                                 f"{SP_STEPS}")
+    print("parallel_train: " + json.dumps(dict(arm="sp_ulysses", **line)),
+          flush=True)
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"sp_ulysses: non-finite loss {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"sp_ulysses: the loss did not fall: {losses}")
+    if _rel(losses[0], ref_loss) > SP_LOSS_RTOL:
+        fail(f"sp_ulysses: step 1's loss {losses[0]} against P = 1's "
+             f"{ref_loss}: relative {_rel(losses[0], ref_loss):.3e} > "
+             f"{SP_LOSS_RTOL}")
+    if launches != _want(want, want, want):
+        fail(f"sp_ulysses: launches {launches}, expected {want} of each "
+             f"narrow kernel (B x layers x P x steps)")
+    return launches
+
+
+def _ring_arm(card, fa, seed):
+    """sp_ring: the long-context config at RING_KV KV heads over
+    RING_SHARDS shards (2 KV heads do not divide 4: auto takes the ring),
+    RING_STEPS steps held against the local flash path at P = 1, no flash
+    launch from attention; then one windowed step (the hop-bounded ring)
+    against the local windowed step."""
+    import torch
+
+    from marlin_tpu_torch.models import TransformerConfig, train_step
+    from marlin_tpu_torch.models import transformer as tr
+    from marlin_tpu_torch.parallel import set_default_shards
+    from marlin_tpu_torch.parallel.ring import ring_hops
+
+    cfg = TransformerConfig(**LONG)._replace(n_kv_heads=RING_KV)
+    params = tr.init_params(cfg, seed=seed, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    tok = torch.randint(0, cfg.vocab, (1, cfg.max_len), generator=gen,
+                        device="cuda")
+    tgt = torch.roll(tok, -1, dims=1)
+    out = {}
+    for window in (0, RING_WINDOW):
+        wcfg = cfg._replace(window=window)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        local, local_s, _ = _timed_steps(params, tok, tgt, wcfg, 1)
+        local_peak = torch.cuda.max_memory_allocated()
+        set_default_shards(("cuda:0",) * RING_SHARDS)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counters(fa)
+        losses, step_s, _ = _timed_steps(
+            params, tok, tgt, wcfg._replace(sequence_parallel=True),
+            1 if window else RING_STEPS)
+        launches = _counters(fa)
+        peak = torch.cuda.max_memory_allocated()
+        set_default_shards(None)
+        hops = ring_hops(RING_SHARDS, cfg.max_len // RING_SHARDS, window)
+        attention = _sp_attention_check(fa, cfg, "ring", RING_SHARDS,
+                                        window)
+        line = dict(arm="sp_ring", card=card, shards=RING_SHARDS,
+                    strategy="ring", seq=cfg.max_len, kv_heads=RING_KV,
+                    window=window, hops=hops, losses=losses,
+                    p1_loss=local[0], loss_rel_err=_rel(losses[0], local[0]),
+                    loss_rtol=SP_LOSS_RTOL,
+                    step_ms=[x * 1e3 for x in step_s],
+                    p1_step_ms=local_s[0] * 1e3, peak_mem_gb=peak / 1e9,
+                    p1_peak_mem_gb=local_peak / 1e9,
+                    attention_check=attention, launches=launches)
+        print("parallel_train: " + json.dumps(line), flush=True)
+        if not all(math.isfinite(x) for x in losses):
+            fail(f"sp_ring (window {window}): non-finite loss {losses}")
+        if _rel(losses[0], local[0]) > SP_LOSS_RTOL:
+            fail(f"sp_ring (window {window}): step 1's loss {losses[0]} "
+                 f"against P = 1's {local[0]}: relative "
+                 f"{_rel(losses[0], local[0]):.3e} > {SP_LOSS_RTOL}")
+        if launches != _want(0, 0, 0):
+            fail(f"sp_ring (window {window}): launches {launches}: the "
+                 f"ring is torch ops, no flash kernel may launch")
+        out[window] = launches
+    return out[0]
+
+
+@contextlib.contextmanager
+def _counting_drops(expert, drops):
+    """For the length of the block, the expert engine's routing
+    (expert._route) appends each source shard's count of tokens dropped
+    over capacity to ``drops``; the engine's own routing is restored on
+    the way out, whatever happens in the block."""
+    route = expert._route
+
+    def counted(gates, n_exp, cap):
+        out = route(gates, n_exp, cap)
+        drops.append((~out[2]).sum())
+        return out
+
+    expert._route = counted
+    try:
+        yield
+    finally:
+        expert._route = route
+
+
+def _moe_oracle(tr, bp, y, gates, factor):
+    """The dense top-1 oracle (as __graft_entry__.py builds it, each token
+    its top expert's MLP scaled by its gate probability), with the
+    engine's per-(source shard, expert) buckets: a token past its
+    bucket's capacity, in local order, keeps its input. Returns (output,
+    the kept mask)."""
+    import torch
+
+    t, e = gates.shape
+    t_loc = t // e
+    cap = max(1, int(math.ceil(t_loc * factor / e)))
+    probs = torch.softmax(gates, dim=-1)
+    top = gates.argmax(dim=-1).tolist()
+    keep = torch.zeros(t, dtype=torch.bool)
+    for shard in range(e):
+        counts = [0] * e
+        for tk in range(shard * t_loc, (shard + 1) * t_loc):
+            keep[tk] = counts[top[tk]] < cap
+            counts[top[tk]] += 1
+    keep = keep.to(y.device)
+    out = y.clone()
+    top_t = torch.as_tensor(top, device=y.device)
+    for x in range(e):
+        idx = torch.nonzero(keep & (top_t == x))[:, 0]
+        p = tuple(bp[k][x] for k in ("w1", "b1", "w2", "b2"))
+        out[idx] = tr._moe_expert(p, y[idx]) * probs[idx, x][:, None]
+    return out, keep
+
+
+def _moe_arm(card, fa, tokens, targets, seed):
+    """moe: the flagship with MOE_EXPERTS experts over as many shards,
+    MOE_STEPS steps (finite, falling, masters f32, dropped tokens counted);
+    then block 0's expert_parallel_apply on f32 activations against the
+    dense top-1 oracle, at the model's capacity and at one that drops."""
+    import torch
+
+    from marlin_tpu_torch.models import TransformerConfig
+    from marlin_tpu_torch.models import transformer as tr
+    from marlin_tpu_torch.parallel import expert, set_default_shards
+
+    cfg = TransformerConfig(**PT_FLAGSHIP, n_experts=MOE_EXPERTS)
+    params = tr.init_params(cfg, seed=seed, device="cuda")
+    b, s = tokens.shape
+    set_default_shards(("cuda:0",) * MOE_EXPERTS)
+    drops = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with _counting_drops(expert, drops):
+        _zero_counters(fa)
+        losses, step_s, new = _timed_steps(params, tokens, targets, cfg,
+                                           MOE_STEPS)
+        launches = _counters(fa)
+    peak = torch.cuda.max_memory_allocated()
+    dropped = int(torch.stack(drops).sum()) if drops else 0
+    masters_f32 = all(p.dtype == torch.float32 for p in tr._leaves(new))
+    del new
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    f32 = cfg._replace(dtype="float32")
+    bp = params["blocks"][0]
+    with torch.no_grad():
+        y = tr._layer_norm(bp["ln2"], tr._embed_prefix(params, tokens[:1],
+                                                       f32)[0])
+        gates = y @ bp["router"]
+        oracle = {}
+        for factor in MOE_ORACLE_FACTORS:
+            got = expert.expert_parallel_apply(
+                tr._moe_expert, (bp["w1"], bp["b1"], bp["w2"], bp["b2"]), y,
+                gates, capacity_factor=factor)
+            ref, keep = _moe_oracle(tr, bp, y, gates, factor)
+            err = float((got - ref)[keep].abs().max()
+                        / ref[keep].abs().max())
+            passthrough = bool(torch.equal(got[~keep], y[~keep]))
+            oracle[str(factor)] = dict(rel_err=err, dropped=int((~keep).sum()),
+                                       dropped_bitwise=passthrough)
+    set_default_shards(None)
+    want = b * cfg.n_layers * MOE_STEPS
+    line = dict(arm="moe", card=card, experts=MOE_EXPERTS,
+                capacity=cfg.moe_capacity, losses=losses,
+                step_ms=[x * 1e3 for x in step_s],
+                tokens_per_s=b * s / sorted(step_s)[len(step_s) // 2],
+                peak_mem_gb=peak / 1e9,
+                dropped_tokens_per_step=dropped / MOE_STEPS,
+                routed_tokens_per_step=b * s * cfg.n_layers,
+                oracle=oracle, oracle_rtol=MOE_ORACLE_RTOL,
+                launches=launches,
+                launches_formula=f"B x layers x steps = {b} x "
+                                 f"{cfg.n_layers} x {MOE_STEPS}")
+    print("parallel_train: " + json.dumps(line), flush=True)
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        fail(f"moe: losses {losses} not finite and falling")
+    if not masters_f32:
+        fail("moe: master params left f32")
+    for factor, o in oracle.items():
+        if o["rel_err"] > MOE_ORACLE_RTOL or not o["dropped_bitwise"]:
+            fail(f"moe: expert_parallel_apply at capacity factor {factor} "
+                 f"against the dense oracle: {o}")
+    if not oracle[str(MOE_ORACLE_FACTORS[-1])]["dropped"]:
+        fail("moe: the oracle check dropped no token")
+    if launches != _want(want, want, want):
+        fail(f"moe: launches {launches}, expected {want} of each narrow "
+             f"kernel (B x layers x steps)")
+    return launches
+
+
+def _gpipe_arm(card, fa, params, tokens, cfg):
+    """gpipe: the flagship's blocks as one stage a shard, every
+    microbatch one sequence; the output bitwise a per-sequence sequential
+    loop over the same blocks, within the bf16 bound of the batched
+    forward, and one backward's stage gradients against the loop's."""
+    import torch
+
+    from marlin_tpu_torch.models import transformer as tr
+    from marlin_tpu_torch.parallel import set_default_shards
+    from marlin_tpu_torch.parallel.pipeline import gpipe
+
+    b, s = tokens.shape
+    n = cfg.n_layers
+    blocks = params["blocks"]
+    stage_params = {k: ({kk: torch.stack([bp[k][kk] for bp in blocks])
+                         for kk in blocks[0][k]}
+                        if isinstance(blocks[0][k], dict)
+                        else torch.stack([bp[k] for bp in blocks]))
+                    for k in blocks[0]}
+    dt = cfg.compute_dtype
+
+    def apply_fn(bp, xm):  # one block on one (S, D) sequence, f32 masters
+        return tr._block(tr._tree_map(lambda p: p.to(dt), bp), xm[None],
+                         cfg)[0]
+
+    with torch.no_grad():
+        x0 = tr._embed_prefix(tr._cast_params(params, cfg), tokens, cfg)
+    x = x0.reshape(b * s, -1)
+    set_default_shards(("cuda:0",) * n)
+
+    def sequential(sp):
+        stages = [tr._tree_map(lambda p, i=i: p[i], sp) for i in range(n)]
+        outs = []
+        for m in range(b):
+            xm = x[m * s:(m + 1) * s]
+            for i in range(n):
+                xm = apply_fn(stages[i], xm)
+            outs.append(xm)
+        return torch.cat(outs)
+
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        _zero_counters(fa)
+        t0 = time.perf_counter()
+        y = gpipe(apply_fn, stage_params, x, n_microbatches=b)
+        torch.cuda.synchronize()
+        fwd_s = time.perf_counter() - t0
+        fwd_launches = _counters(fa)
+        y_seq = sequential(stage_params)
+        h = x0
+        for bp in tr._cast_params(params, cfg)["blocks"]:
+            h = tr._block(bp, h, cfg)
+        bitwise = bool(torch.equal(y, y_seq))
+        hidden_err = float((y.reshape(b, s, -1) - h).abs().max()
+                           / h.abs().max())
+    del h, y_seq
+
+    leaves = tr._leaves(stage_params)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    r = torch.randn(x.shape, generator=gen, device="cuda").to(dt)
+    grads = {}
+    for name in ("gpipe", "sequential"):
+        lv = [p.detach().requires_grad_(True) for p in leaves]
+        sp = tr._unflatten(stage_params, iter(lv))
+        torch.cuda.synchronize()
+        _zero_counters(fa)
+        t0 = time.perf_counter()
+        out = (gpipe(apply_fn, sp, x, n_microbatches=b) if name == "gpipe"
+               else sequential(sp))
+        loss = (out.float() * r.float()).sum()
+        grads[name] = torch.autograd.grad(loss, lv)
+        torch.cuda.synchronize()
+        grads[name + "_s"] = time.perf_counter() - t0
+        if name == "gpipe":
+            bwd_launches = _counters(fa)
+        del out, loss
+    set_default_shards(None)
+    grad_err = max(float((g - w).abs().max() / w.abs().max())
+                   for g, w in zip(grads["gpipe"], grads["sequential"]))
+    grad_bitwise = all(torch.equal(g, w) for g, w in
+                       zip(grads["gpipe"], grads["sequential"]))
+    launches = {k: fwd_launches[k] + bwd_launches[k] for k in fwd_launches}
+    want_fwd, want_bwd = _want(b * n, 0, 0), _want(b * n, b * n, b * n)
+    line = dict(arm="gpipe", card=card, stages=n, microbatches=b,
+                microbatch_rows=s, forward_ms=fwd_s * 1e3,
+                backward_step_ms=grads["gpipe_s"] * 1e3,
+                sequential_backward_step_ms=grads["sequential_s"] * 1e3,
+                forward_bitwise=bitwise, hidden_rel_err=hidden_err,
+                hidden_rtol=GPIPE_HIDDEN_RTOL, grad_rel_err=grad_err,
+                grad_rtol=GPIPE_GRAD_RTOL, grad_bitwise=grad_bitwise,
+                forward_launches=fwd_launches, backward_launches=bwd_launches,
+                launches_formula=f"forward M x P = {b} x {n}; the backward "
+                                 f"run M x P of each kernel")
+    print("parallel_train: " + json.dumps(line), flush=True)
+    if not bitwise:
+        fail("gpipe: the pipelined forward differs from the sequential "
+             "loop over the same blocks")
+    if hidden_err > GPIPE_HIDDEN_RTOL:
+        fail(f"gpipe: against the batched hidden states {hidden_err:.3e} > "
+             f"{GPIPE_HIDDEN_RTOL}")
+    if grad_err > GPIPE_GRAD_RTOL:
+        fail(f"gpipe: stage gradients against the loop's {grad_err:.3e} > "
+             f"{GPIPE_GRAD_RTOL}")
+    if fwd_launches != want_fwd or bwd_launches != want_bwd:
+        fail(f"gpipe: launches {fwd_launches} / {bwd_launches}, expected "
+             f"M x P = {b * n} forward, and of each kernel in the backward")
+    return launches
+
+
+def _long_context_arm(card, fa):
+    """long_context: the example at its defaults (S 4096, 8 heads, D 64,
+    f32) and with window 512, on LONG_CONTEXT_SHARDS shards of cuda:0;
+    each must return 0. Its all-to-all engine runs the f32 forward kernel
+    once a shard a call, and the example calls each engine twice."""
+    from marlin_tpu_torch.examples import long_context
+    from marlin_tpu_torch.parallel import set_default_shards
+
+    set_default_shards(("cuda:0",) * LONG_CONTEXT_SHARDS)
+    runs = {}
+    for path, shape in LONG_CONTEXT_SHAPES.items():
+        window = SHAPE_BY_NAME[shape][10]
+        argv = ["4096", "8", "64", str(window)] if window else []
+        _zero_counters(fa)
+        t0 = time.perf_counter()
+        rc = long_context.main(argv)
+        runs[path] = dict(argv=argv, rc=rc,
+                          seconds=time.perf_counter() - t0,
+                          launches=_counters(fa))
+    set_default_shards(None)
+    want = 2 * LONG_CONTEXT_SHARDS
+    print("parallel_train: " + json.dumps(dict(
+        arm="long_context", card=card, shards=LONG_CONTEXT_SHARDS,
+        runs=runs, launches_formula=f"f32 forward, each run: 2 calls x P "
+                                    f"= 2 x {LONG_CONTEXT_SHARDS}")),
+        flush=True)
+    if any(r["rc"] for r in runs.values()):
+        fail(f"long_context: the engines disagree: {runs}")
+    if any(r["launches"] != _want(want, 0, 0) for r in runs.values()):
+        fail(f"long_context: launches {runs}, expected {want} forward a "
+             f"run (2 calls x P shards)")
+    return {path: r["launches"] for path, r in runs.items()}
+
+
+def phase_parallel_train(card: str, seed: int = 0):
+    """Sequence-, expert- and pipeline-parallel training on one card, every
+    shard on cuda:0 (the arms above; each drives its path with the flash
+    counters zeroed just before and read just after). Returns the launches
+    by path: {"sp_ulysses", "sp_ring", "moe", "gpipe", "long_context",
+    "long_context_window512"}."""
+    import torch
+
+    from marlin_tpu_torch.models import TransformerConfig
+    from marlin_tpu_torch.models import transformer as tr
+    from marlin_tpu_torch.ops import flash_attention as fa
+
+    t0 = time.perf_counter()
+    cfg = TransformerConfig(**PT_FLAGSHIP)
+    params = tr.init_params(cfg, seed=seed, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    tokens = torch.randint(0, cfg.vocab, (TRAIN_BATCH, TRAIN_SEQ),
+                           generator=gen, device="cuda")
+    targets = torch.roll(tokens, -1, dims=1)
+    launches = {"sp_ulysses": _sp_arm(card, fa, params, tokens, targets,
+                                      cfg)}
+    launches["gpipe"] = _gpipe_arm(card, fa, params, tokens, cfg)
+    del params
+    torch.cuda.empty_cache()
+    launches["moe"] = _moe_arm(card, fa, tokens, targets, seed)
+    torch.cuda.empty_cache()
+    launches["sp_ring"] = _ring_arm(card, fa, seed)
+    torch.cuda.empty_cache()
+    launches.update(_long_context_arm(card, fa))
+    print("parallel_train_summary: " + json.dumps(dict(
+        card=card, seconds=time.perf_counter() - t0,
+        launches=launches)), flush=True)
+    return launches
 
 
 # Models of small head dim, trained on the card through the wrapper's
@@ -6488,7 +7062,8 @@ def kernels_line(rows, bwd, launches, small, spmm, spmm_launches,
                   ("speculative_p64", "spec_p64"), ("train", "train"),
                   ("remat", "remat"), ("tp", "tp2_flagship"),
                   ("tp_ref", "tp4_ref"), ("restart", "flagship"),
-                  ("restart_tp", "tp2_flagship"), ("http", "flagship"))}
+                  ("restart_tp", "tp2_flagship"), ("http", "flagship"),
+                  *PARALLEL_PATH_SHAPES.items())}
 
     fwd_entry = _fwd_entry
 
@@ -6496,16 +7071,28 @@ def kernels_line(rows, bwd, launches, small, spmm, spmm_launches,
         return {run: dict(shape=run, launches=n[kernel])
                 for run, n in small.items()}
 
+    def ring_path(kernel):
+        """The sp_ring path: the ring is torch ops, so its launches (0)
+        stand at no shape."""
+        return {"sp_ring": dict(shape="none: the ring is torch ops",
+                                launches=launches["sp_ring"][kernel])}
+
     def f32(kernel, make, table):
         """The f32 kernel at the "f32" shape (D = 128), with the launches
-        of the small models' f32 runs at D <= 128, and at the
-        LARGE_F32_SHAPES of the narrow kernels (no launches there)."""
+        of the small models' f32 runs at D <= 128, at the
+        LARGE_F32_SHAPES of the narrow kernels (no launches there), and
+        (the forward) at the long_context example's shapes with its
+        runs' launches."""
         runs = [r for r in small if r.endswith("_float32")
                 and r.startswith(("test_train_d16", "example_d32"))]
+        lc = ({shape: {**make(launches[path][kernel], table[shape]),
+                       "launches_of_runs": [path]}
+               for path, shape in LONG_CONTEXT_SHAPES.items()}
+              if kernel == "fwd" else {})
         return {"f32": {**make(sum(small[r][kernel] for r in runs),
                                table["f32"]), "launches_of_runs": runs},
                 **{s: make(0, table[s]) for s in LARGE_F32_SHAPES
-                   if s not in WIDE_KERNEL_SHAPES}}
+                   if s not in WIDE_KERNEL_SHAPES}, **lc}
 
     def wide(kernel, make, table):
         """The D = Dv = 256 instantiation's entries: each WIDE_SHAPES
@@ -6516,14 +7103,16 @@ def kernels_line(rows, bwd, launches, small, spmm, spmm_launches,
                 for shape, run in WIDE_RUNS.items()}
 
     def bwd_kernel(kernel, replaces, labels):
-        paths = {p: (launches[p][kernel], bwd[p]) for p in ("train", "remat")}
+        paths = {p: (launches[p][kernel], bwd[s]) for p, s in
+                 (("train", "train"), ("remat", "remat"),
+                  *PARALLEL_PATH_SHAPES.items())}
 
         def entry(n, r):
             return _bwd_entry(kernel, labels, n, r)
 
         top = entry(*paths["train"])
         all_paths = {**{p: entry(*v) for p, v in paths.items()},
-                     **small_paths(kernel)}
+                     **small_paths(kernel), **ring_path(kernel)}
         return {"name": f"flash_attention_bwd_{kernel}", "route": "cuda",
                 "source": bwd_src, "replaces": replaces,
                 **top, "launches": sum(e["launches"]
@@ -6536,12 +7125,16 @@ def kernels_line(rows, bwd, launches, small, spmm, spmm_launches,
 
     fwd_top = fwd_entry(*fwd_paths["serve"])
     fwd_all = {**{p: fwd_entry(*v) for p, v in fwd_paths.items()},
-               **small_paths("fwd")}
+               **small_paths("fwd"), **ring_path("fwd")}
+    # The long_context runs' f32 launches stand under f32_shapes, at their
+    # own shapes, and count in the total as the small f32 runs' do.
+    lc_launches = sum(launches[p]["fwd"] for p in LONG_CONTEXT_SHAPES)
     return {"kernels": [
         {"name": "flash_attention_fwd", "route": "cuda",
          "source": "marlin_tpu_torch/csrc/flash_attention_fwd.cu",
          "replaces": "marlin_tpu/ops/flash_attention.py:134",
-         **fwd_top, "launches": sum(e["launches"] for e in fwd_all.values()),
+         **fwd_top, "launches": sum(e["launches"] for e in fwd_all.values())
+         + lc_launches,
          "library_ms_covers": "scaled_dot_product_attention's forward",
          "paths": fwd_all, "head_dim_256": wide("fwd", fwd_entry, rows),
          "f32_shapes": f32("fwd", fwd_entry, rows)},
@@ -6588,6 +7181,7 @@ def main(argv=None) -> int:
     restart_launches = phase_restart(card)
     http_launches = phase_http(card)
     launches = phase_train(card)
+    launches.update(phase_parallel_train(card))
     launches["http"] = dict(fwd=http_launches)
     launches["tp"] = dict(fwd=tp_launches["flagship"])
     launches["tp_ref"] = dict(fwd=tp_launches["ref"])

@@ -15,8 +15,7 @@ versions). With ``--int8`` the decode half serves the trained masters
 through the int8 stack (``quantize_params_int8`` and an int8 KV cache);
 with ``--spec`` it also decodes by prompt-lookup speculation
 (``generate_speculative``) and reports both rates. The JAX example's
-data-parallel mesh waits for the dense path's mesh (ROADMAP Queue
-A2/A3).
+data-parallel mesh waits for the next part of ROADMAP Queue A3.
 """
 
 from __future__ import annotations

@@ -19,13 +19,20 @@ from .transformer import TransformerConfig, _validate
 
 
 def expected_shapes(cfg: TransformerConfig) -> dict:
-    """The params layout of ``init_params(cfg)``, as shapes."""
-    d, f = cfg.d_model, cfg.d_ff
+    """The params layout of ``init_params(cfg)``, as shapes: a MoE block
+    (``cfg.n_experts``) carries the router and the expert banks in place
+    of the dense MLP."""
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
     kv_d = cfg.kv_heads * (d // cfg.n_heads)
     ln = {"g": (d,), "b": (d,)}
+    if e:
+        mlp = {"router": (d, e), "w1": (e, d, f), "b1": (e, f),
+               "w2": (e, f, d), "b2": (e, d)}
+    else:
+        mlp = {"w1": (d, f), "b1": (f,), "w2": (f, d), "b2": (d,)}
     out = {"embed": (cfg.vocab, d), "ln_f": dict(ln), "blocks": [
         {"ln1": dict(ln), "ln2": dict(ln), "wqkv": (d, d + 2 * kv_d),
-         "wo": (d, d), "w1": (d, f), "b1": (f,), "w2": (f, d), "b2": (d,)}
+         "wo": (d, d), **mlp}
         for _ in range(cfg.n_layers)]}
     if not cfg.rope:
         out["pos"] = (cfg.max_len, d)
@@ -54,7 +61,8 @@ def params_from_jax(tree, cfg: TransformerConfig, device="cuda"):
     def conv(node, shape, path):
         if isinstance(node, dict) and path.endswith(_INT8_LEAVES):
             # An int8 leaf where the float layout has a weight: embed is
-            # quantized per row (axis 1), block weights per column.
+            # quantized per row (axis 1), block weights per column (the
+            # 3-D expert banks stay float, and so never arrive here).
             shape = _int8_shape(shape, 1 if path == "['embed']" else 0)
         if isinstance(shape, dict):
             if not isinstance(node, dict) or set(node) != set(shape):

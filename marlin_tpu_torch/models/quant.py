@@ -91,7 +91,7 @@ def quantize_params_int8(params, donate: bool = False) -> dict:
         nb = dict(bp)
         for name in _BLOCK_WEIGHTS:
             w = bp.get(name)
-            if w is not None and w.dim() == 2:
+            if w is not None and w.dim() == 2:  # MoE banks (3-D) stay float
                 nb[name] = quant_leaf(w, axis=0)
         blocks.append(nb)
     out["blocks"] = blocks

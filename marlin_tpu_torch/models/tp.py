@@ -54,7 +54,7 @@ from typing import Callable, List, Sequence
 import numpy as np
 import torch
 
-from ..utils.hw import resolve_device
+from ..parallel.shards import shard_devices
 from . import transformer as tr
 from .quant import is_quantized
 
@@ -81,39 +81,11 @@ class Sharded(tuple):
 
 def tp_devices(tp: int, device="cuda") -> tuple:
     """The ``model`` axis's devices for degree ``tp``, the counterpart of
-    the JAX package's ``tp_mesh``:
-
-    * a single ``"cuda"`` (or ``"cuda:i"``) is ``tp`` cards from the first
-      (from card ``i``); ``ValueError`` when fewer are visible;
-    * a single ``"cpu"`` is ``tp`` shards on the CPU (the counterpart of
-      the forced host device count);
-    * a sequence of ``tp`` devices is taken as given. It is the only way
-      to put several shards on one card: ``("cuda:0",) * tp``.
-
-    At ``tp == 1`` a single device is resolved as everywhere in the port
-    (``"cuda"`` raises without CUDA)."""
-    if isinstance(device, (list, tuple)):
-        devs = tuple(resolve_device(d) for d in device)
-        if len(devs) != tp:
-            raise ValueError(
-                f"device lists {len(devs)} devices for tp {tp}")
-        return devs
-    if tp == 1:
-        return (resolve_device(device),)
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cpu":
-        return (dev,) * tp
-    if dev.type != "cuda":
-        raise ValueError(f"tensor parallelism on {dev} is not supported")
-    resolve_device(dev)  # raises without CUDA
-    first = dev.index or 0
-    visible = torch.cuda.device_count()
-    if first + tp > visible:
-        raise ValueError(
-            f"tp {tp} needs {tp} CUDA devices from cuda:{first}, "
-            f"{visible} visible; to put several shards on one card pass "
-            f"device=('cuda:{first}',) * {tp} explicitly")
-    return tuple(torch.device("cuda", first + r) for r in range(tp))
+    the JAX package's ``tp_mesh``: :func:`..parallel.shards.shard_devices`
+    (a single ``"cuda"`` is ``tp`` cards, a single ``"cpu"`` ``tp`` CPU
+    shards, a sequence is taken as given: ``("cuda:0",) * tp`` puts every
+    shard on one card)."""
+    return shard_devices(tp, device, what="tp")
 
 
 def qkv_permutation(cfg: tr.TransformerConfig) -> np.ndarray:

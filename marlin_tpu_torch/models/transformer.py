@@ -30,8 +30,14 @@ head a call, at every degree (tp 1 included): a cuBLAS GEMM does not
 give a column the same bits at another column count, so this is what
 makes TP = N bitwise TP = 1.
 
-Model options outside the port so far (MoE, sequence parallelism) raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+Sequence parallelism (``cfg.sequence_parallel``) routes attention through
+:func:`..parallel.ulysses.sequence_parallel_attention` and the MoE MLP
+(``cfg.n_experts`` = the shard count) through
+:func:`..parallel.expert.expert_parallel_apply`, both over the default
+shard axis (:mod:`..parallel.shards`); under either the batch runs one
+sequence at a time (:func:`_map_seqs`), as the JAX package unrolls it.
+The refusals that remain are the JAX package's, in its words: prefill
+under SP, the chunk, paged and speculative paths and serving under MoE.
 """
 
 from __future__ import annotations
@@ -45,6 +51,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ..obs.trace import tracer as _tracer
 from ..ops.flash_attention import flash_attention
+from ..parallel.shards import tree_leaves as _leaves
+from ..parallel.shards import tree_map as _tree_map
 from ..utils.hw import resolve_device
 from .quant import is_quantized, kv_quantize
 
@@ -96,23 +104,6 @@ class TransformerConfig(NamedTuple):
         return dt
 
 
-def check_ported(cfg: TransformerConfig) -> None:
-    """Raise ``NotImplementedError`` for a model option this slice of the
-    port does not carry, naming the ROADMAP item that will."""
-    unported = {
-        "n_experts": (cfg.n_experts, "the MoE MLP (parallel/expert.py), "
-                      "ROADMAP Queue A3"),
-        "sequence_parallel": (cfg.sequence_parallel,
-                              "sequence-parallel attention (parallel/"
-                              "ulysses.py, ring.py), ROADMAP Queue A3"),
-    }
-    for name, (value, what) in unported.items():
-        if value:
-            raise NotImplementedError(
-                f"TransformerConfig.{name}={getattr(cfg, name)!r}: {what} "
-                f"is not ported to marlin_tpu_torch yet")
-
-
 def validate_tp(cfg: TransformerConfig) -> None:
     """The tensor-parallel config contract, checked at param init and at
     every TP surface (models/tp.py, the serving engine): the degree must
@@ -143,6 +134,17 @@ def validate_tp(cfg: TransformerConfig) -> None:
             "engines place their own shardings)")
 
 
+def _sp_conflict(cfg: TransformerConfig) -> Optional[str]:
+    """Why this config cannot route through the SP engines (None if it
+    can), checked at param init and again at attention dispatch
+    (``sequence_parallel`` is a runtime flag: params are shape-identical
+    across it). GQA composes with both engines (the ring streams the
+    reduced K/V stripes; all-to-all shards KV heads when divisible, else
+    the dispatcher falls back to the ring), so nothing conflicts; the
+    hook is where a future engine contract lands."""
+    return None
+
+
 def tp_units(cfg: TransformerConfig) -> int:
     """Column units of a column-sharded projection: the largest degree
     :func:`validate_tp` accepts for ``cfg`` (the gcd of the heads, the
@@ -153,8 +155,9 @@ def tp_units(cfg: TransformerConfig) -> int:
 
 
 def _validate(cfg: TransformerConfig) -> None:
-    check_ported(cfg)
     validate_tp(cfg)
+    if cfg.sequence_parallel and _sp_conflict(cfg):
+        raise ValueError(_sp_conflict(cfg))
     if cfg.n_heads % cfg.kv_heads:
         raise ValueError(
             f"n_kv_heads {cfg.kv_heads} must divide n_heads {cfg.n_heads}")
@@ -172,7 +175,10 @@ def init_params(cfg: TransformerConfig, seed: int = 0, device="cuda"):
     from a ``torch.Generator`` seeded with ``seed`` (the numbers differ
     from JAX's threefry draws; :func:`..models.convert.params_from_jax`
     carries JAX weights across). ``wqkv`` packs Q (D columns) then K and
-    V (kv_heads * Dh columns each), head-major. Master params are f32."""
+    V (kv_heads * Dh columns each), head-major. With ``cfg.n_experts`` a
+    block's MLP is a bank of experts: ``router`` (d, E), ``w1`` (E, d, f),
+    ``b1`` (E, f), ``w2`` (E, f, d), ``b2`` (E, d). Master params are
+    f32."""
     _validate(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(int(seed))
@@ -192,24 +198,22 @@ def init_params(cfg: TransformerConfig, seed: int = 0, device="cuda"):
     if not cfg.rope:
         params["pos"] = norm(cfg.max_len, d, scale=0.02)
     for _ in range(cfg.n_layers):
-        params["blocks"].append({
-            "ln1": ln(), "ln2": ln(),
-            "wqkv": norm(d, d + 2 * kv_d),
-            "wo": norm(d, d),
-            "w1": norm(d, f),
-            "b1": torch.zeros(f, device=dev),
-            "w2": norm(f, d),
-            "b2": torch.zeros(d, device=dev),
-        })
+        blk = {"ln1": ln(), "ln2": ln(), "wqkv": norm(d, d + 2 * kv_d),
+               "wo": norm(d, d)}
+        if cfg.n_experts:
+            e = cfg.n_experts
+            blk.update({
+                "router": norm(d, e, scale=0.02),
+                "w1": norm(e, d, f, scale=1.0 / math.sqrt(d)),
+                "b1": torch.zeros((e, f), device=dev),
+                "w2": norm(e, f, d, scale=1.0 / math.sqrt(f)),
+                "b2": torch.zeros((e, d), device=dev),
+            })
+        else:
+            blk.update({"w1": norm(d, f), "b1": torch.zeros(f, device=dev),
+                        "w2": norm(f, d), "b2": torch.zeros(d, device=dev)})
+        params["blocks"].append(blk)
     return params
-
-
-def _tree_map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_tree_map(fn, v) for v in tree)
-    return fn(tree)
 
 
 def _cast_params(params, cfg: TransformerConfig):
@@ -276,6 +280,48 @@ def _attend_local(q, k, v, cfg: TransformerConfig):
     return flash_attention(q, k, v, causal=True, window=cfg.window)
 
 
+def _attend_sp(q, k, v, cfg: TransformerConfig):
+    """(B, S, H, Dh) causal attention through the sequence-parallel
+    engines over the default shard axis, one sequence a call."""
+    from ..parallel.ulysses import sequence_parallel_attention
+
+    conflict = _sp_conflict(cfg)  # see _sp_conflict on why re-checked here
+    if conflict:
+        raise ValueError(conflict)
+    return torch.stack([
+        sequence_parallel_attention(q[i], k[i], v[i], causal=True,
+                                    window=cfg.window)
+        for i in range(q.shape[0])])
+
+
+def _moe_expert(p, tok):
+    """One expert's MLP on a (tokens, d) batch."""
+    w1, b1, w2, b2 = p
+    return F.gelu(tok @ w1 + b1, approximate="tanh") @ w2 + b2
+
+
+def _moe_apply(bp, y, cfg: TransformerConfig):
+    """Route (T, D) activations through the expert engine, padding T up to
+    a multiple of the expert count. Pad tokens get one-hot round-robin
+    gates, so no single expert's capacity bucket absorbs them all; their
+    outputs are sliced off."""
+    from ..parallel.expert import expert_parallel_apply
+
+    t = y.shape[0]
+    n = cfg.n_experts
+    gates = y @ bp["router"]  # (T, E)
+    pad = (-t) % n
+    if pad:
+        y = torch.cat([y, y.new_zeros((pad, y.shape[1]))])
+        rr = F.one_hot(torch.arange(pad, device=y.device) % n, n).to(
+            gates.dtype) * 1e9
+        gates = torch.cat([gates, rr])
+    out = expert_parallel_apply(
+        _moe_expert, (bp["w1"], bp["b1"], bp["w2"], bp["b2"]), y, gates,
+        capacity_factor=cfg.moe_capacity)
+    return out[:t]
+
+
 def _proj(x, w, cfg: TransformerConfig):
     """``x @ w`` for a column-sharded projection (``w``: this shard's
     columns, already dequantized), one GEMM a column unit of width
@@ -328,11 +374,19 @@ def _tp_out(y, w, cfg: TransformerConfig, bias=None):
     return out
 
 
-def _mlp_residual(bp, x, cfg: TransformerConfig):
-    """ln2 -> dense MLP (tanh-approximate gelu, jax.nn.gelu's default) ->
-    residual. Under TP the local w1 columns (b1 rides with them) feed
-    :func:`_tp_out`; b2 is replicated and added after the collective."""
+def _mlp_residual(bp, x, cfg: TransformerConfig, rows: Optional[int] = None):
+    """ln2 -> (dense MLP (tanh-approximate gelu, jax.nn.gelu's default) |
+    MoE routing) -> residual on (B, T, D) activations. Under TP the local
+    w1 columns (b1 rides with them) feed :func:`_tp_out`; b2 is replicated
+    and added after the collective. The MoE routes the B x ``rows`` real
+    positions (default all T) as one (tokens, D) batch, row-major, and
+    leaves a tile's pad rows without an MLP update."""
     y = _layer_norm(bp["ln2"], x)
+    if cfg.n_experts:
+        b, t, d = y.shape
+        n = t if rows is None else rows
+        out = _moe_apply(bp, y[:, :n].reshape(b * n, d), cfg)
+        return x + F.pad(out.reshape(b, n, d), (0, 0, 0, t - n))
     y = F.gelu(_proj(y, _deq(bp["w1"], y.dtype), cfg) + bp["b1"],
                approximate="tanh")
     return x + _tp_out(y, bp["w2"], cfg, bias=bp["b2"])
@@ -394,7 +448,8 @@ def _block(bp, x, cfg: TransformerConfig, return_kv: bool = False):
     positions = (torch.arange(s, device=x.device).expand(b, s)
                  if cfg.rope else None)
     q, k, v = _split_qkv(bp, x, cfg, positions=positions)
-    att = _attend_local(q, k, v, cfg).reshape(b, s, -1)  # local heads
+    attend = _attend_sp if cfg.sequence_parallel else _attend_local
+    att = attend(q, k, v, cfg).reshape(b, s, -1)  # local heads under TP
     x = _mlp_residual(bp, x + _tp_out(att, bp["wo"], cfg), cfg)
     return (x, k, v) if return_kv else x
 
@@ -408,22 +463,42 @@ def _embed_prefix(params, tokens, cfg: TransformerConfig):
     return x
 
 
+def _map_seqs(fn, x, cfg: TransformerConfig):
+    """``fn`` over the batch: the whole (B, S, D) batch at once normally;
+    one (1, S, D) sequence at a time under SP or EP, as the JAX package
+    unrolls them (an SP call attends one sequence; MoE capacity is per
+    sequence's token count, so batching sequences through the router
+    would change which tokens drop). ``fn`` may return a tuple (prefill's
+    (x, k, v)); the sequences' results are concatenated in order."""
+    if not (cfg.sequence_parallel or cfg.n_experts):
+        return fn(x)
+    outs = [fn(x[i:i + 1]) for i in range(x.shape[0])]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.cat(parts) for parts in zip(*outs))
+    return torch.cat(outs)
+
+
 def hidden_states(params, tokens, cfg: TransformerConfig):
     """tokens (B, S) -> final-LN hidden states (B, S, D). With
     ``cfg.remat`` under autograd each block runs under
     ``torch.utils.checkpoint``: it saves only its input and the backward
     re-runs its forward (one more flash forward launch per block; the
-    flash backward's recompute is tile-local either way)."""
+    flash backward's recompute is tile-local either way). Under SP or EP
+    the sequences run one at a time (:func:`_map_seqs`)."""
     _validate(cfg)
     params = _cast_params(params, cfg)
     x = _embed_prefix(params, tokens, cfg)
     remat = cfg.remat and torch.is_grad_enabled()
-    for bp in params["blocks"]:
-        if remat:
-            x = checkpoint(_block, bp, x, cfg, use_reentrant=False)
-        else:
-            x = _block(bp, x, cfg)
-    return _layer_norm(params["ln_f"], x)
+
+    def blocks(xs):
+        for bp in params["blocks"]:
+            if remat:
+                xs = checkpoint(_block, bp, xs, cfg, use_reentrant=False)
+            else:
+                xs = _block(bp, xs, cfg)
+        return xs
+
+    return _layer_norm(params["ln_f"], _map_seqs(blocks, x, cfg))
 
 
 def forward(params, tokens, cfg: TransformerConfig):
@@ -485,12 +560,6 @@ def loss_fn(params, tokens, targets, cfg: TransformerConfig):
         nll = nll + checkpoint(_chunk_nll, hf[sl], params["embed"], tf[sl],
                                valid[sl], use_reentrant=False)
     return nll / total
-
-
-def _leaves(tree):
-    out = []
-    _tree_map(out.append, tree)
-    return out
 
 
 def _unflatten(tree, it):
@@ -566,7 +635,6 @@ def init_kv_cache(cfg: TransformerConfig, batch: int,
     (:func:`.quant.kv_quantize`); ``dtype`` is then unused. Under tensor
     parallelism the buffers hold one shard's heads (Hk = ``cfg.
     tp_kv_heads``): models/tp.py places one such cache a shard."""
-    check_ported(cfg)
     validate_tp(cfg)
     dev = resolve_device(device)
     shape = (batch, _cache_len(cfg), cfg.tp_kv_heads,
@@ -679,13 +747,18 @@ DECODE_TILE = 8
 
 def _chunk_guards(cache, cfg: TransformerConfig):
     """Contract checks of the chunk paths (:func:`decode_chunk`,
-    :func:`prefill_chunk`): the dense slot == position cache only."""
-    check_ported(cfg)
+    :func:`prefill_chunk`): the dense slot == position cache only, no MoE
+    routing."""
     if cfg.window:
         raise NotImplementedError(
             "decode_chunk needs the dense slot==position cache: a ring "
             "cache can't absorb a partially rejected chunk (overwritten "
             "slots held live positions)")
+    if cfg.n_experts:
+        raise NotImplementedError(
+            "decode_chunk's (B, C, D) activations don't fit the MoE "
+            "router's (T, D) batch contract; use decode_step/generate "
+            "for MoE configs")
     _check_cache(cache, cfg)
 
 
@@ -736,7 +809,8 @@ def _tiles(params, kv, tokens, pos, cfg: TransformerConfig, write_read,
             att = _attend_cached(q, view["k"], view["v"], tile_pos,
                                  view.get("ks"), view.get("vs"),
                                  window=cfg.window)
-            x = _mlp_residual(bp, x + _tp_out(att, bp["wo"], cfg), cfg)
+            x = _mlp_residual(bp, x + _tp_out(att, bp["wo"], cfg), cfg,
+                              rows=n)
         out.append((x, n))
     return out
 
@@ -783,8 +857,8 @@ def decode_step(params, cache, tokens, pos: int, cfg: TransformerConfig):
     """One decode step: tokens (B,) at position ``pos`` -> (logits (B,
     vocab), cache). The cache is updated in place (slot ``pos``, or
     ``pos mod cache_len`` on a ring) and returned. Runs as a one-row
-    chunk in a :data:`DECODE_TILE` tile."""
-    check_ported(cfg)
+    chunk in a :data:`DECODE_TILE` tile. Under MoE the B real rows route
+    as one (B, D) token batch, as the JAX package's step routes them."""
     _check_cache(cache, cfg)
     params = _cast_params(params, cfg)
     b = tokens.shape[0]
@@ -869,12 +943,16 @@ def gather_kv_pages(pool, tables):
 
 def _paged_guards(pool, tables, cfg: TransformerConfig):
     """Contract checks of the paged chunk paths: the dense slot ==
-    position layout, and a table extent that tiles max_len exactly."""
-    check_ported(cfg)
+    position layout, no MoE routing, and a table extent that tiles
+    max_len exactly."""
     if cfg.window:
         raise NotImplementedError(
             "paged decode needs the dense slot==position layout: a ring "
             "cache cannot be paged at fixed position-aligned chunks")
+    if cfg.n_experts:
+        raise NotImplementedError(
+            "paged decode shares decode_chunk's (B, C, D) activation "
+            "shape, which does not fit the MoE router's (T, D) contract")
     page = pool[0]["k"].shape[1]
     if tables.shape[-1] * page != cfg.max_len:
         raise ValueError(
@@ -950,8 +1028,14 @@ def prefill(params, tokens, cfg: TransformerConfig):
     cache). Prompt attention is the flash kernel; the cache is primed
     from the same per-block K/V, quantized after the flash on an int8
     cache (a ring keeps the last cache_len positions, each in slot
-    position mod cache_len)."""
+    position mod cache_len). Under MoE the sequences run one at a time
+    (:func:`_map_seqs`). Refuses sequence parallelism, as the JAX package
+    does."""
     _validate(cfg)
+    if cfg.sequence_parallel:
+        raise NotImplementedError(
+            "sequence-parallel decode is not meaningful: decode steps are "
+            "single positions; shard the batch instead")
     b, s = tokens.shape
     if s > cfg.max_len:
         raise ValueError(f"prompt length {s} > max_len {cfg.max_len}")
@@ -961,7 +1045,8 @@ def prefill(params, tokens, cfg: TransformerConfig):
     cache_len = cache[0]["k"].shape[1]
     idx = torch.arange(max(0, s - cache_len), s, device=x.device)
     for layer, bp in zip(cache, params["blocks"]):
-        x, k, v = _block(bp, x, cfg, return_kv=True)
+        x, k, v = _map_seqs(
+            lambda xi, bp=bp: _block(bp, xi, cfg, return_kv=True), x, cfg)
 
         def put(buf, arr):
             if cfg.window:
@@ -1231,6 +1316,10 @@ def generate_speculative(params, prompt, steps: int, cfg: TransformerConfig,
     if cfg.window:
         raise NotImplementedError(
             "speculative decoding needs the dense cache (cfg.window == 0)")
+    if cfg.n_experts:
+        raise NotImplementedError(
+            "speculative decoding uses decode_chunk, which doesn't fit "
+            "the MoE router's (T, D) batch contract; use generate()")
     device = params_device(params)
     prompt = torch.as_tensor(prompt, dtype=torch.long, device=device)
     b, s = prompt.shape

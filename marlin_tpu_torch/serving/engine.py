@@ -165,7 +165,6 @@ class ServingEngine:
                  restore_min_tokens: Optional[int] = None,
                  scheduler: Optional[Scheduler] = None,
                  device="cuda"):
-        tr.check_ported(cfg)
         tr.validate_tp(cfg)
         self.tp = int(cfg.tp)
         if self.tp > 1 and prefix_cache is not None:
@@ -178,6 +177,14 @@ class ServingEngine:
                 "serving needs the dense slot==position cache "
                 "(cfg.window == 0): a ring cache cannot host per-row "
                 "admission overwrites (see decode_chunk)")
+        if cfg.n_experts:
+            raise NotImplementedError(
+                "serving decodes through decode_chunk, which does not "
+                "fit the MoE router's (T, D) batch contract")
+        if cfg.sequence_parallel:
+            raise NotImplementedError(
+                "sequence-parallel decode is not meaningful; shard the "
+                "batch instead")
         if round_steps < 1:
             raise ValueError(f"round_steps must be >= 1, got {round_steps}")
         # Admission discipline. Paged KV and the prefix cache run on the

@@ -37,8 +37,9 @@ A, B = INPUTS["a"], INPUTS["b"]
 
 @pytest.fixture(scope="module")
 def port(tmp_path_factory):
-    return torch_dist_worker.launch("gemm", 8, INPUTS,
-                                    tmp_path_factory.mktemp("gemm"))
+    # Shared with test_torch_ring.py, whose ring_matmul cases run here.
+    return torch_dist_worker.shared_launch("gemm", 8, INPUTS,
+                                           tmp_path_factory)
 
 
 def close(got, want):

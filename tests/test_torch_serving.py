@@ -437,8 +437,13 @@ def test_configs_outside_the_slice_raise():
     params = _params(_cfg())
     with pytest.raises(NotImplementedError, match="dense"):
         _engine(params, _cfg(window=8))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # The JAX engine's refusals (marlin_tpu/serving/engine.py), in its
+    # words.
+    with pytest.raises(NotImplementedError, match="MoE router's"):
         _engine(params, _cfg(n_experts=2))
+    with pytest.raises(NotImplementedError,
+                       match="sequence-parallel decode is not meaningful"):
+        _engine(params, _cfg(sequence_parallel=True))
     # tp is served (test_torch_tp_serving.py); a degree that splits no
     # head evenly is validate_tp's refusal.
     with pytest.raises(ValueError, match="must divide"):

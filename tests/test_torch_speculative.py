@@ -264,5 +264,7 @@ class TestSpeculativeGeneration:
             pt.generate_speculative(p, pr, 4, cfg, draft_len=1)
         with pytest.raises(ValueError, match="max_len"):
             pt.generate_speculative(p, pr, cfg.max_len, cfg)
-        with pytest.raises(NotImplementedError, match="MoE"):
+        # The JAX package's refusal, in its words.
+        with pytest.raises(NotImplementedError,
+                           match="doesn't fit the MoE router's"):
             pt.generate_speculative(p, pr, 4, _cfg(n_experts=2))

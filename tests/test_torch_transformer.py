@@ -261,9 +261,6 @@ class TestSample:
 
 
 @pytest.mark.parametrize("kw,exc,match,forward_match", [
-    (dict(n_experts=2), NotImplementedError, "MoE", "ROADMAP"),
-    (dict(sequence_parallel=True), NotImplementedError, "sequence-parallel",
-     "ROADMAP"),
     # A degree that splits no head evenly: validate_tp's refusal.
     (dict(tp=3), ValueError, "must divide", "must divide"),
 ])
@@ -273,3 +270,26 @@ def test_options_outside_the_slice_raise(kw, exc, match, forward_match):
         pt.init_params(pcfg, device="cpu")
     with pytest.raises(exc, match=forward_match):
         pt.forward({}, torch.zeros((1, 4), dtype=torch.long), pcfg)
+
+
+@pytest.mark.parametrize("kw", [dict(n_experts=8),
+                                dict(sequence_parallel=True)])
+def test_parallel_options_are_accepted(kw):
+    # The JAX package accepts both at init: the port's params take the
+    # JAX layout (expected_shapes, the MoE banks included), and the
+    # forward runs on the default shard axis, 8 CPU shards here
+    # (tests/test_torch_parallel_model.py holds its values).
+    from marlin_tpu_torch.parallel import set_default_shards
+
+    cfg, pcfg = _cfgs(n_heads=8, **kw)
+    params = pt.init_params(pcfg, device="cpu")
+    shapes = jax.tree.map(lambda t: tuple(t.shape), params)
+    assert shapes == convert.expected_shapes(pcfg)
+    assert jax.tree.map(lambda a: a.shape, jt.init_params(cfg)) == shapes
+    set_default_shards(("cpu",) * 8)
+    try:
+        out = pt.forward(params, torch.zeros((1, 16), dtype=torch.long),
+                         pcfg)
+    finally:
+        set_default_shards(None)
+    assert out.shape == (1, 16, 256) and bool(torch.isfinite(out).all())

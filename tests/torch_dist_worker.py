@@ -94,6 +94,10 @@ def make_inputs() -> dict:
         # The linalg suite's (and the whole-operand check's) square
         # systems; drawn last, so the arrays above keep their values.
         **_linalg_inputs(normal),
+        # ring_matmul's (tests/test_torch_ring.py); drawn after the rest.
+        "ring_a": normal(24, 40), "ring_b": normal(40, 12),
+        "ring_ua": normal(13, 21), "ring_ub": normal(21, 7),
+        "ring_ma": normal(4, 5), "ring_mb": normal(6, 3),
     }
 
 
@@ -1019,6 +1023,23 @@ def rmm_compare(c):
         timings = ex.main(["32", "32", "32", "--device", "cpu"])
     return {"line": json.loads(text.getvalue().strip().splitlines()[-1]),
             "arms": sorted(timings)}
+
+
+@case("gemm")
+def ring_matmul(c):
+    """parallel/ring.py's ring_matmul over the 8 ranks (one ring), the
+    twin of tests/test_ring.py's TestRingMatmul."""
+    import torch
+
+    from marlin_tpu_torch.parallel import ring_matmul as rm
+
+    def run(a, b):
+        return _np(rm(torch.as_tensor(c.inp(a)), torch.as_tensor(c.inp(b))))
+
+    return {"matches": run("ring_a", "ring_b"),
+            "uneven": run("ring_ua", "ring_ub"),
+            "mismatch": _raises(lambda: run("ring_ma", "ring_mb"),
+                                ValueError)}
 
 
 # -- linalg (twin of tests/test_linalg.py's distributed cases; 8 ranks) -----
